@@ -1,0 +1,158 @@
+"""Self-kNN selection and curvature: CUDA kernel wrappers, plain versions.
+
+Replaces three kernels of geoa3_tpu/ops/pallas/kappa_kernel.py (exact
+selection; the packed mode is a TPU layout option left for later):
+
+  * `kappa_selmask`  <- `_kappa_selmask_kernel` (`kappa_selmask_call`)
+  * `kappa_fwd`      <- `_kappa_fwd_kernel` (`_kappa_fwd_call`), forward only
+  * `curv_term`      <- `_curv_term_frommask_kernel`
+                        (`curv_term_frommask_pallas`)
+
+Source: csrc/kappa.cu. Bound on the H100: bytes, the [b, n, n] int8 mask
+written by the selection or read by the curvature term (32 MB at the main
+path's [32, 1024, 1024]). One warp owns a row; the selection is one device
+function shared by the first two kernels, and the curvature term visits only
+the k+1 columns set in each mask row. Selection distances are rounded step by
+step like `pairwise_sqdist`, so masks are bitwise the plain version's.
+
+The curvature term follows the composed path of geoa3_tpu/ops/knn.py
+(`knn_kappa_from_mask`): 1 / max(sqrt(d), 1e-12) with the square root (and
+its gradient) gated off where d == 0, not the TPU kernel's clamp-free rsqrt.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from geoa3_tpu_torch.ops.distance import pairwise_sqdist, sqnorm3
+from geoa3_tpu_torch.ops.kernels import _build
+
+EPS = 1e-12  # the reference normalisation clamp (Lib/loss_utils.py:79)
+MAX_N = 4096  # the selection keeps 12 rows of n floats in shared memory
+
+
+def select_idx_plain(cloud, k):
+    """[b, n, k+1] int64: self first, then the k nearest other points in
+    ascending distance, lowest index on ties (stable sort)."""
+    d = pairwise_sqdist(cloud, cloud)
+    d.diagonal(dim1=1, dim2=2).fill_(-1.0)
+    return torch.sort(d, dim=-1, stable=True).indices[..., : k + 1]
+
+
+def _mask_from_idx(idx, n):
+    mask = torch.zeros(idx.shape[0], n, n, dtype=torch.int8, device=idx.device)
+    return mask.scatter_(2, idx, 1)
+
+
+def kappa_selmask_plain(cloud, k):
+    """Plain PyTorch version of `kappa_selmask`."""
+    return _mask_from_idx(select_idx_plain(cloud, k), cloud.shape[1])
+
+
+def kappa_fwd_plain(cloud, normal, k):
+    """Plain PyTorch version of `kappa_fwd`: the composed
+    knn -> normalise -> |dot| -> mean of ops.knn_kappa."""
+    idx = select_idx_plain(cloud, k)
+    b, n, _ = cloud.shape
+    nbr = torch.gather(
+        cloud[:, None].expand(b, n, n, 3), 2,
+        idx[..., 1:, None].expand(-1, -1, -1, 3),
+    )  # [b, n, k, 3]
+    v = nbr - cloud[:, :, None, :]
+    v = v / sqnorm3(v).sqrt().clamp_min(EPS)[..., None]
+    nrm = normal[:, :, None, :]
+    dot = v[..., 0] * nrm[..., 0] + v[..., 1] * nrm[..., 1] + v[..., 2] * nrm[..., 2]
+    return dot.abs().sum(-1) / k, _mask_from_idx(idx, n)
+
+
+def kappa_from_mask_plain(cloud, normal, mask, k):
+    """kappa_i = sum_j mask_ij |n_i.p_j - n_i.p_i| / max(r_ij, eps) / k with
+    r_ij = sqrt(d_ij) gated to 0 where d_ij == 0 (differentiable in cloud)."""
+    pn = (
+        normal[:, :, None, 0] * cloud[:, None, :, 0]
+        + normal[:, :, None, 1] * cloud[:, None, :, 1]
+        + normal[:, :, None, 2] * cloud[:, None, :, 2]
+    )  # [b, i, j] = n_i . p_j
+    sdiag = pn.diagonal(dim1=1, dim2=2)
+    d = pairwise_sqdist(cloud, cloud)
+    safe = d > 0
+    r = torch.where(safe, torch.where(safe, d, torch.ones_like(d)).sqrt(),
+                    torch.zeros_like(d))
+    a = (pn - sdiag[..., None]).abs() / r.clamp_min(EPS)
+    return (mask.to(cloud.dtype) * a).sum(-1) / k
+
+
+def curv_term_plain(cloud, normal, ref, mask, k):
+    """Plain PyTorch version of `curv_term`: the composed term and its
+    gradient by autograd."""
+    with torch.enable_grad():
+        c = cloud.detach().requires_grad_(True)
+        kappa = kappa_from_mask_plain(c, normal, mask, k)
+        curv = ((kappa - ref) ** 2).mean(-1)
+        (grad,) = torch.autograd.grad(curv.sum(), c)
+    return curv.detach(), grad
+
+
+def _check_k(n, k):
+    if not 0 <= k < n:
+        raise ValueError(f"need 0 <= k < n, got k={k}, n={n}")
+    if n > MAX_N:
+        raise ValueError(f"the kappa kernels take n <= {MAX_N}, got {n}")
+
+
+def kappa_selmask(cloud, k):
+    """cloud [b, n, 3] -> [b, n, n] int8 membership mask: each row holds
+    itself plus its k nearest other points (lowest index on ties). CPU
+    tensors take the plain version; CUDA tensors launch the kernel."""
+    if not cloud.is_cuda:
+        return kappa_selmask_plain(cloud, k)
+    b, n, _ = cloud.shape
+    _check_k(n, k)
+    _build.check_cuda(cloud, "cloud", torch.float32, (b, n, 3))
+    mask = torch.empty(b, n, n, dtype=torch.int8, device=cloud.device)
+    _build.launch("geoa3_kappa_selmask", cloud, b, n, k, mask)
+    kappa_selmask.launches += 1
+    return mask
+
+
+def kappa_fwd(cloud, normal, k):
+    """cloud, normal [b, n, 3] -> (kappa [b, n], mask [b, n, n] int8) with
+    kappa_i = mean over the k nearest other points j of
+    |unit(p_j - p_i) . n_i|. Forward only. CPU tensors take the plain
+    version; CUDA tensors launch the kernel."""
+    if not cloud.is_cuda:
+        return kappa_fwd_plain(cloud, normal, k)
+    b, n, _ = cloud.shape
+    _check_k(n, k)
+    _build.check_cuda(cloud, "cloud", torch.float32, (b, n, 3))
+    _build.check_cuda(normal, "normal", torch.float32, (b, n, 3))
+    kappa = torch.empty(b, n, dtype=torch.float32, device=cloud.device)
+    mask = torch.empty(b, n, n, dtype=torch.int8, device=cloud.device)
+    _build.launch("geoa3_kappa_fwd", cloud, normal, b, n, k, kappa, mask)
+    kappa_fwd.launches += 1
+    return kappa, mask
+
+
+def curv_term(cloud, normal, ref, mask, k):
+    """cloud, normal [b, n, 3], ref [b, n], mask [b, n, n] int8 ->
+    (curv [b] = mean_i (kappa_i - ref_i)^2, d curv / d cloud [b, n, 3]).
+    CPU tensors take the plain version; CUDA tensors launch the kernel."""
+    if not cloud.is_cuda:
+        return curv_term_plain(cloud, normal, ref, mask, k)
+    b, n, _ = cloud.shape
+    _check_k(n, k)
+    _build.check_cuda(cloud, "cloud", torch.float32, (b, n, 3))
+    _build.check_cuda(normal, "normal", torch.float32, (b, n, 3))
+    _build.check_cuda(ref, "ref", torch.float32, (b, n))
+    _build.check_cuda(mask, "mask", torch.int8, (b, n, n))
+    curv = torch.zeros(b, dtype=torch.float32, device=cloud.device)
+    grad = torch.zeros(b, n, 3, dtype=torch.float32, device=cloud.device)
+    _build.launch("geoa3_curv_term", cloud, normal, ref, mask, b, n, k, curv,
+                  grad)
+    curv_term.launches += 1
+    return curv, grad
+
+
+kappa_selmask.launches = 0
+kappa_fwd.launches = 0
+curv_term.launches = 0

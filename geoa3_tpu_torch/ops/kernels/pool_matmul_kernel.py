@@ -1,0 +1,123 @@
+"""Folded-BN affine + global max-pool: CUDA kernel wrappers, plain version.
+
+Replaces geoa3_tpu/ops/pallas/pool_matmul_kernel.py:_fwd_kernel and
+_bwd_kernel (`pool_affine_max` with one global segment), which PointNet's
+three global pools run in eval mode. Source: csrc/pool_matmul.cu.
+
+Bound on the H100: operations (25.8 GFLOP of float32 for the kernel-3 conv5
+pool at [32, 1024, 128] -> 1024, 8.6 for each 1x1 T-Net pool). The kernel
+is a tiled shared-memory float32 product (no tensor cores, no TF32) whose
+epilogue takes the max over points, so the [b, n, 1024] activation never
+reaches device memory. While it scans, it records each column's tie count
+and first `MAX_TIES` tied rows; the backward adds g/cnt * w3[t, :, c] at
+those rows (shifted by tap) and needs no second product. The TPU kernel runs
+single-pass bf16 on the TPU; this one stays float32 like the victim.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from geoa3_tpu_torch.ops.kernels import _build
+
+MAX_TIES = 4  # kMaxTies in csrc/pool_matmul.cu
+BLOCK_COUT = 64  # BN in csrc/pool_matmul.cu
+BLOCK_CIN = 16  # BK in csrc/pool_matmul.cu
+
+
+def affine_plain(x, w3, bias):
+    """The pre-pool activations [B, n, cout]: sum_t x[p + t - taps//2] @ w3[t]
+    + bias, with zero rows outside the cloud."""
+    if w3.shape[0] == 1:
+        return x @ w3[0] + bias
+    zero = x.new_zeros(x.shape[0], 1, x.shape[2])
+    xm1 = torch.cat([zero, x[:, :-1]], dim=1)
+    xp1 = torch.cat([x[:, 1:], zero], dim=1)
+    return xm1 @ w3[0] + x @ w3[1] + xp1 @ w3[2] + bias
+
+
+def pool_affine_max_plain(x, w3, bias):
+    """Plain PyTorch version: the max over points of `affine_plain`.
+    Differentiable in x; torch.amax splits the gradient evenly among tied
+    maxima, as the kernel does."""
+    return torch.amax(affine_plain(x, w3, bias), dim=1)
+
+
+def _check(x, w3, bias):
+    B, n, cin = x.shape
+    taps, _, cout = w3.shape
+    if taps not in (1, 3):
+        raise ValueError(f"taps must be 1 or 3, got {taps}")
+    if cin % BLOCK_CIN or cout % BLOCK_COUT:
+        raise ValueError(
+            f"the pool kernel takes cin % {BLOCK_CIN} == 0 and "
+            f"cout % {BLOCK_COUT} == 0, got cin={cin}, cout={cout}"
+        )
+    _build.check_cuda(x, "x", torch.float32, (B, n, cin))
+    _build.check_cuda(w3, "w3", torch.float32, (taps, cin, cout))
+    _build.check_cuda(bias, "bias", torch.float32, (cout,))
+    return B, n, cin, cout, taps
+
+
+def pool_fwd(x, w3, bias):
+    """CUDA kernel: x [B, n, cin], w3 [taps, cin, cout], bias [cout] ->
+    (pooled [B, cout], tie count [B, cout] int32, first tied rows
+    [B, cout, MAX_TIES] int32)."""
+    B, n, cin, cout, taps = _check(x, w3, bias)
+    dev = x.device
+    pooled = torch.empty(B, cout, dtype=torch.float32, device=dev)
+    cnt = torch.empty(B, cout, dtype=torch.int32, device=dev)
+    rows = torch.empty(B, cout, MAX_TIES, dtype=torch.int32, device=dev)
+    _build.launch("geoa3_pool_fwd", x, w3, bias, B, n, cin, cout, taps,
+                  pooled, cnt, rows)
+    pool_fwd.launches += 1
+    return pooled, cnt, rows
+
+
+def pool_bwd(g, x, w3, w3t, bias, pooled, cnt, rows):
+    """CUDA kernel: the input cotangent of `pool_fwd` for the pooled
+    cotangent g [B, cout] -> dx [B, n, cin]. w3t is w3 laid out as
+    [taps, cout, cin], so that a column's weights are one row."""
+    B, n, cin, cout, taps = _check(x, w3, bias)
+    _build.check_cuda(w3t, "w3t", torch.float32, (taps, cout, cin))
+    _build.check_cuda(g, "g", torch.float32, (B, cout))
+    _build.check_cuda(pooled, "pooled", torch.float32, (B, cout))
+    _build.check_cuda(cnt, "cnt", torch.int32, (B, cout))
+    _build.check_cuda(rows, "rows", torch.int32, (B, cout, MAX_TIES))
+    dx = torch.zeros(B, n, cin, dtype=torch.float32, device=x.device)
+    _build.launch("geoa3_pool_bwd", w3t, g, cnt, rows, x, bias, pooled, w3,
+                  B, n, cin, cout, taps, dx)
+    pool_bwd.launches += 1
+    return dx
+
+
+class _PoolAffineMax(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, w3, w3t, bias):
+        pooled, cnt, rows = pool_fwd(x, w3, bias)
+        ctx.save_for_backward(x, w3, w3t, bias, pooled, cnt, rows)
+        return pooled
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w3, w3t, bias, pooled, cnt, rows = ctx.saved_tensors
+        dx = pool_bwd(g.contiguous(), x, w3, w3t, bias, pooled, cnt, rows)
+        return dx, None, None, None
+
+
+def pool_affine_max(x, w3, bias, w3t=None):
+    """x [B, n, cin], w3 [taps, cin, cout] (taps 1 or 3; tap t sees row
+    p + t - taps//2, zero outside), bias [cout] -> max over points [B, cout].
+    Differentiable in x only (w3 and bias are frozen victim weights). w3t,
+    w3 as [taps, cout, cin] for the backward, is made here unless the caller
+    keeps one. CPU tensors take the plain version; CUDA tensors launch the
+    kernels."""
+    if not x.is_cuda:
+        return pool_affine_max_plain(x, w3, bias)
+    if w3t is None:
+        w3t = w3.transpose(1, 2).contiguous()
+    return _PoolAffineMax.apply(x, w3, w3t, bias)
+
+
+pool_fwd.launches = 0
+pool_bwd.launches = 0

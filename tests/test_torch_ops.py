@@ -1,0 +1,383 @@
+"""The port's kernel families and ops against the JAX package, on the CPU.
+
+Each kernel's plain PyTorch version (what the port runs on CPU tensors, and
+what chip_smoke.py holds each CUDA kernel against on the card) is compared
+with the JAX Pallas kernel it replaces, run as tests/test_pallas_kernels.py
+runs it (TPU interpret mode, or CPU interpret mode for the pool kernel), and
+each op with its geoa3_tpu.ops counterpart (the composed CPU path). Inputs
+come from numpy seeds; b=2, n=128, k=8.
+"""
+
+import re
+import subprocess
+import sys
+from pathlib import Path
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+from jax.experimental.pallas import tpu as pltpu
+
+from geoa3_tpu import losses as jlosses
+from geoa3_tpu import ops as jops
+from geoa3_tpu_torch import losses as tlosses
+from geoa3_tpu_torch import ops as tops
+from geoa3_tpu_torch.ops import kernels as tk
+from geoa3_tpu_torch.ops.kernels import kappa_kernel as kk
+from geoa3_tpu_torch.ops.kernels import nn1_kernel as nk
+from geoa3_tpu_torch.ops.kernels import pool_matmul_kernel as pk
+from geoa3_tpu_torch.ops.kernels import scatter_kernel as sk
+
+torch.set_num_threads(1)
+REPO = Path(__file__).resolve().parents[1]
+B, N, K = 2, 128, 8
+# the TPU kernels' hi/lo split-bf16 products: ~2^-16 relative per term
+HILO = 2.0**-15
+
+
+def _t(x):
+    return torch.from_numpy(np.array(x))
+
+
+def _cloud(seed, b=B, n=N):
+    rng = np.random.RandomState(seed)
+    c = rng.randn(b, n, 3).astype(np.float32)
+    c /= np.linalg.norm(c, axis=-1, keepdims=True).max()
+    nrm = rng.randn(b, n, 3).astype(np.float32)
+    nrm /= np.linalg.norm(nrm, axis=-1, keepdims=True)
+    return c, nrm, rng
+
+
+def _with_ties(c):
+    """Exact duplicates: every distance to them ties exactly."""
+    c = c.copy()
+    c[0, 64] = c[0, 10]
+    c[0, 65] = c[0, 10]
+    c[1, 100] = c[1, 7]
+    return c
+
+
+# ---------------------------------------------------------------- nn1 ----
+
+
+class TestNN1Payload:
+    def _inputs(self, seed, ties=False):
+        ori, _, rng = _cloud(seed)
+        adv = (ori + 0.02 * rng.randn(*ori.shape)).astype(np.float32)
+        if ties:
+            ori = _with_ties(ori)
+            adv[0, 3] = adv[0, 90]  # two adv rows tie for every ori column
+            adv[1, 20] = ori[1, 7]  # an adv point on a duplicated ori point
+        pay = rng.randn(B, 8, N).astype(np.float32)
+        return adv, ori, pay
+
+    @pytest.mark.parametrize("ties", [False, True])
+    def test_plain_matches_pallas_kernel(self, ties):
+        from geoa3_tpu.ops.pallas.nn1_kernel import nn1_dual_payload_pallas
+
+        adv, ori, pay = self._inputs(0, ties)
+        with pltpu.force_tpu_interpret_mode():
+            want = nn1_dual_payload_pallas(
+                jnp.asarray(adv), jnp.asarray(ori), jnp.asarray(pay),
+                row_block=32, select="exact",
+            )
+        got = nk.nn1_dual_payload_plain(_t(adv), _t(ori), _t(pay))
+        # indices exact; payload and coordinate copies bit-equal
+        for g, w in zip(got, want):
+            np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+
+    @pytest.mark.parametrize("ties", [False, True])
+    def test_op_matches_composed(self, ties):
+        adv, ori, pay = self._inputs(1, ties)
+        want = jops.nn1_dual_payload(
+            jnp.asarray(adv), jnp.asarray(ori), jnp.asarray(pay)
+        )
+        got = tops.nn1_dual_payload(_t(adv), _t(ori), _t(pay))
+        for g, w in zip(got, want):
+            np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+
+    def test_lowest_index_tie_break(self):
+        adv, ori, pay = self._inputs(2, ties=True)
+        a2o, o2a, _, _ = nk.nn1_dual_payload_plain(_t(adv), _t(ori), _t(pay))
+        # adv row 20 sits on ori 7 == ori 100 of instance 1: lowest wins
+        assert a2o[1, 20].item() == 7
+        assert o2a[1, 7].item() == 20
+
+
+# ------------------------------------------------------------ scatter ----
+
+
+class TestScatter:
+    def test_plain_matches_pallas_kernel(self):
+        from geoa3_tpu.ops.pallas.scatter_kernel import scatter_add_3t_pallas
+
+        rng = np.random.RandomState(3)
+        idx = rng.randint(0, N, (B, N)).astype(np.int32)
+        ct = rng.randn(B, N, 3).astype(np.float32)
+        with pltpu.force_tpu_interpret_mode():
+            want = scatter_add_3t_pallas(jnp.asarray(idx), jnp.asarray(ct), N)
+        got = sk.scatter_add_3t_plain(_t(idx), _t(ct), N)
+        # split-bf16 one-hot products: 2^-16 of each summed term
+        np.testing.assert_allclose(
+            got.numpy(), np.asarray(want), rtol=HILO, atol=HILO * np.abs(ct).max()
+        )
+
+    def test_o2a_coord_planes_grad_matches_composed(self):
+        ori, _, rng = _cloud(4)
+        adv = (ori + 0.02 * rng.randn(*ori.shape)).astype(np.float32)
+        pay = np.zeros((B, 8, N), np.float32)
+        w = rng.randn(B, 3, N).astype(np.float32)
+
+        def jloss(p):
+            _, o2a, _, op = jops.nn1_dual_payload(p, jnp.asarray(ori), jnp.asarray(pay))
+            return jnp.sum(jops.o2a_coord_planes(p, o2a, op)[:, :3] ** 2 * w)
+
+        want = jax.grad(jloss)(jnp.asarray(adv))
+        p = _t(adv).requires_grad_(True)
+        _, o2a, _, op = tops.nn1_dual_payload(p, _t(ori), _t(pay))
+        (tops.o2a_coord_planes(p, o2a, op)[:, :3] ** 2 * _t(w)).sum().backward()
+        # both sum the same few colliding cotangents in f32
+        np.testing.assert_allclose(p.grad.numpy(), np.asarray(want), rtol=1e-6, atol=1e-7)
+
+
+# -------------------------------------------------------------- kappa ----
+
+
+class TestKappaSelection:
+    @pytest.mark.parametrize("ties", [False, True])
+    def test_plain_matches_pallas_kernel(self, ties):
+        from geoa3_tpu.ops.pallas.kappa_kernel import kappa_selmask_call
+
+        c, _, _ = _cloud(5)
+        if ties:
+            c = _with_ties(c)
+        with pltpu.force_tpu_interpret_mode():
+            want = kappa_selmask_call(jnp.asarray(c), K, 64, "exact")
+        got = kk.kappa_selmask_plain(_t(c), K)
+        np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+        assert (got.sum(-1) == K + 1).all()
+
+    @pytest.mark.parametrize("ties", [False, True])
+    def test_op_matches_composed(self, ties):
+        c, _, _ = _cloud(6)
+        if ties:
+            c = _with_ties(c)
+        want = jops.kappa_select_mask(jnp.asarray(c), K)
+        got = tops.kappa_select_mask(_t(c), K)
+        np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+    def test_duplicates_select_lowest_index(self):
+        c = _with_ties(_cloud(7)[0])
+        mask = kk.kappa_selmask_plain(_t(c), 1)
+        # row 10's nearest other point is its duplicate 64 (d = 0; 64 < 65)
+        assert mask[0, 10, 64] == 1 and mask[0, 10, 65] == 0
+        assert mask[0, 65, 10] == 1 and mask[0, 65, 64] == 0
+
+
+class TestKappaFwd:
+    def test_plain_matches_pallas_kernel(self):
+        from geoa3_tpu.ops.pallas.kappa_kernel import _kappa_fwd_call
+
+        c, nrm, _ = _cloud(8)
+        with pltpu.force_tpu_interpret_mode():
+            wk, wm = _kappa_fwd_call(jnp.asarray(c), jnp.asarray(nrm), K, 64, "exact")
+        gk, gm = kk.kappa_fwd_plain(_t(c), _t(nrm), K)
+        np.testing.assert_array_equal(gm.numpy(), np.asarray(wm))
+        # the TPU kernel's unit vectors come from the distance expansion
+        # (documented ~1e-3 relative vs the direct difference used here)
+        np.testing.assert_allclose(gk.numpy(), np.asarray(wk), rtol=1e-3, atol=1e-5)
+
+    @pytest.mark.parametrize("ties", [False, True])
+    def test_get_kappa_ori_matches_composed(self, ties):
+        c, nrm, _ = _cloud(9)
+        if ties:
+            c = _with_ties(c)
+        want = jlosses.get_kappa_ori(jnp.asarray(c), jnp.asarray(nrm), K)
+        got = tlosses.get_kappa_ori(_t(c), _t(nrm), K)
+        # same neighbours and per-pair terms; the mean sums in another order
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5, atol=1e-7)
+
+    def test_knn_kappa_is_forward_only(self):
+        c, nrm, _ = _cloud(10)
+        with pytest.raises(NotImplementedError):
+            tops.knn_kappa(_t(c).requires_grad_(True), _t(nrm), K)
+
+
+class TestCurvTerm:
+    def _inputs(self, seed):
+        c, nrm, rng = _cloud(seed)
+        ref = np.abs(rng.randn(B, N)).astype(np.float32)
+        mask = np.asarray(jops.kappa_select_mask(jnp.asarray(c), K))
+        moved = (c + 1e-3 * rng.randn(*c.shape)).astype(np.float32)  # stale mask
+        return moved, nrm, ref, mask
+
+    def test_plain_matches_pallas_kernel(self):
+        from geoa3_tpu.ops.pallas.kappa_kernel import curv_term_frommask_pallas
+
+        c, nrm, ref, mask = self._inputs(11)
+        cw = np.array([0.7, 1.3], np.float32)
+        args = (jnp.asarray(nrm), jnp.asarray(ref), jnp.asarray(mask))
+        with pltpu.force_tpu_interpret_mode():
+            want = curv_term_frommask_pallas(jnp.asarray(c), *args, K, 64)
+            wgrad = jax.grad(
+                lambda x: jnp.sum(cw * curv_term_frommask_pallas(x, *args, K, 64))
+            )(jnp.asarray(c))
+        p = _t(c).requires_grad_(True)
+        got = tops.curv_term_from_mask(p, _t(nrm), _t(ref), _t(mask), K)
+        (got * _t(cw)).sum().backward()
+        # the tolerances the JAX tests hold this kernel to against the
+        # composed path (direct-difference rsqrt, hi/lo products):
+        # tests/test_pallas_kernels.py:1271 (value), :1221 (gradient)
+        np.testing.assert_allclose(got.detach().numpy(), np.asarray(want),
+                                   rtol=1e-4, atol=1e-7)
+        np.testing.assert_allclose(p.grad.numpy(), np.asarray(wgrad),
+                                   rtol=5e-3, atol=2e-5)
+
+    @staticmethod
+    def _without_self(mask):
+        """The mask with its self column cleared. The self term is exactly
+        zero in value, but jax.grad of the composed path takes |x|'(0) = 1,
+        so the self column adds +-w/1e-12 * n_i pairs to the gradient that
+        cancel only in exact arithmetic (a fault of the reference's composed
+        CPU path, ROADMAP.md section 3). The port takes |x|'(0) = 0; its
+        gradient is held against the composed one without that column."""
+        out = np.array(mask, copy=True)
+        idx = np.arange(out.shape[1])
+        out[:, idx, idx] = 0
+        return out
+
+    def test_value_and_grad_match_composed(self):
+        c, nrm, ref, mask = self._inputs(12)
+        cw = np.array([0.7, 1.3], np.float32)
+        args = (jnp.asarray(nrm), jnp.asarray(ref), jnp.asarray(mask))
+        want = jops.curv_term_from_mask(jnp.asarray(c), *args, K)
+        args_ns = args[:2] + (jnp.asarray(self._without_self(mask)),)
+        wgrad = jax.grad(
+            lambda x: jnp.sum(cw * jops.curv_term_from_mask(x, *args_ns, K))
+        )(jnp.asarray(c))
+        p = _t(c).requires_grad_(True)
+        got = tops.curv_term_from_mask(p, _t(nrm), _t(ref), _t(mask), K)
+        (got * _t(cw)).sum().backward()
+        # same composition on both sides; XLA and PyTorch sum in other orders
+        np.testing.assert_allclose(got.detach().numpy(), np.asarray(want),
+                                   rtol=1e-5, atol=1e-9)
+        np.testing.assert_allclose(p.grad.numpy(), np.asarray(wgrad),
+                                   rtol=1e-4, atol=1e-6)
+
+    def test_near_origin_ulp_pair_stays_finite(self):
+        """Two points one ulp apart near the origin: d > 0 can round to a
+        tiny value or to 0. The port follows the composed path's
+        1/max(sqrt(d), 1e-12) with the sqrt gated at d == 0, and stays finite
+        and equal to it (the TPU kernel's clamp-free rsqrt is not the
+        reference here)."""
+        c, nrm, rng = _cloud(13)
+        c[0, 5] = np.array([1e-7, -2e-7, 3e-7], np.float32)
+        c[0, 6] = c[0, 5]
+        c[0, 6, 0] = np.nextafter(c[0, 5, 0], np.float32(1.0))
+        ref = np.abs(rng.randn(B, N)).astype(np.float32)
+        mask = kk.kappa_selmask_plain(_t(c), K)
+        assert mask[0, 5, 6] == 1
+        p = _t(c).requires_grad_(True)
+        val = tops.curv_term_from_mask(p, _t(nrm), _t(ref), mask, K)
+        val.sum().backward()
+        assert torch.isfinite(val).all() and torch.isfinite(p.grad).all()
+        args = (jnp.asarray(nrm), jnp.asarray(ref), jnp.asarray(mask.numpy()))
+        want = jops.curv_term_from_mask(jnp.asarray(c), *args, K)
+        args_ns = args[:2] + (jnp.asarray(self._without_self(mask.numpy())),)
+        wgrad = jax.grad(
+            lambda x: jnp.sum(jops.curv_term_from_mask(x, *args_ns, K))
+        )(jnp.asarray(c))
+        np.testing.assert_allclose(val.detach().numpy(), np.asarray(want), rtol=1e-5)
+        # the pair's own rows carry 1/max(r, 1e-12) with r made of rounding
+        # noise (d ~ 1e-28 against an expansion error ~1e-20): finite is the
+        # contract there; every other row matches the composed gradient
+        rest = np.ones(c.shape[:2], bool)
+        rest[0, 5:7] = False
+        np.testing.assert_allclose(p.grad.numpy()[rest], np.asarray(wgrad)[rest],
+                                   rtol=1e-4, atol=1e-6)
+
+
+# --------------------------------------------------------------- pool ----
+
+
+class TestPoolAffineMax:
+    def _inputs(self, seed, taps, ties=False):
+        rng = np.random.RandomState(seed)
+        x = rng.randn(B, 64, 128).astype(np.float32)
+        if ties:
+            x[:, 1::2] = x[:, ::2]  # every row duplicated: exact ties (taps=1)
+        w = (rng.randn(taps, 128, 256) * 0.2).astype(np.float32)
+        bias = (rng.randn(256) * 0.1).astype(np.float32)
+        return x, w, bias
+
+    @pytest.mark.parametrize("taps,ties", [(1, False), (3, False), (1, True)])
+    def test_plain_matches_pallas_kernel(self, taps, ties):
+        from geoa3_tpu.ops.pallas.pool_matmul_kernel import pool_affine_max
+
+        x, w, bias = self._inputs(14 + taps, taps, ties)
+        jw, jb = jnp.asarray(w), jnp.asarray(bias)
+        want = pool_affine_max(jnp.asarray(x), jw, jb, 0, True)[:, 0]
+        wgrad = jax.grad(
+            lambda v: jnp.sum(pool_affine_max(v, jw, jb, 0, True) ** 2)
+        )(jnp.asarray(x))
+        xt = _t(x).requires_grad_(True)
+        got = pk.pool_affine_max(xt, _t(w), _t(bias))
+        (got**2).sum().backward()
+        # float32 products of 128*taps terms summed in other orders (the
+        # interpret-mode kernel runs its 3-pass split, ~2^-21 relative); the
+        # input gradient sums 256 such columns, bounded against its largest
+        # entry (tests/test_pallas_kernels.py holds the kernel to 2e-3)
+        np.testing.assert_allclose(got.detach().numpy(), np.asarray(want),
+                                   rtol=1e-5, atol=1e-5)
+        wg = np.asarray(wgrad)
+        np.testing.assert_allclose(xt.grad.numpy(), wg,
+                                   rtol=1e-4, atol=1e-4 * np.abs(wg).max())
+
+
+# ----------------------------------------------- boundaries and counts ----
+
+
+def test_import_leaves_jax_out():
+    code = (
+        "import sys, geoa3_tpu_torch, geoa3_tpu_torch.ops.kernels; "
+        "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
+        "or m == 'geoa3_tpu' or m.startswith('geoa3_tpu.')]; "
+        "assert not bad, bad"
+    )
+    subprocess.run([sys.executable, "-c", code], cwd=REPO, check=True,
+                   timeout=300)
+
+
+def test_no_source_names_jax_or_the_jax_package():
+    bad = re.compile(r"^\s*(import jax|from jax)|\bgeoa3_tpu\.|"
+                     r"(from|import)\s+geoa3_tpu(\s|$)", re.M)
+    files = sorted((REPO / "geoa3_tpu_torch").rglob("*.py"))
+    files.append(REPO / "chip_smoke.py")
+    assert len(files) > 10
+    offenders = [str(f) for f in files if bad.search(f.read_text())]
+    assert not offenders, offenders
+
+
+def test_cpu_tensors_never_launch_kernels():
+    tk.reset_launch_counts()
+    c, nrm, rng = _cloud(16)
+    ct, nt = _t(c), _t(nrm)
+    pay = torch.zeros(B, 8, N)
+    _, o2a, gp, _ = nk.nn1_dual_payload(ct, ct, pay)
+    sk.scatter_add_3t(o2a, torch.ones(B, N, 3), N)
+    mask = kk.kappa_selmask(ct, K)
+    kk.kappa_fwd(ct, nt, K)
+    kk.curv_term(ct, nt, gp[:, 6], mask, K)
+    x = torch.randn(B, 16, 64, requires_grad=True)
+    pk.pool_affine_max(x, torch.randn(1, 64, 64), torch.zeros(64)).sum().backward()
+    assert tk.launch_counts() == {name: 0 for name in tk.KERNELS}
+
+
+def test_cuda_entry_point_refuses_cpu_only_tensors():
+    """The CUDA kernels validate what they take: a CPU tensor handed to a
+    kernel entry raises instead of running anywhere else."""
+    x = torch.randn(B, 16, 64)
+    with pytest.raises(ValueError, match="CUDA"):
+        pk.pool_fwd(x, torch.randn(1, 64, 64), torch.zeros(64))
