@@ -6,20 +6,33 @@
 Needs one CUDA card, nvcc and this repository around the script. Phases:
 
   1. print the card's name and power limit; build the CUDA kernels (timed);
-  2. hold every kernel of the main path against its plain PyTorch version at
-     the main path's shapes (b=32, n=m=1024, k=16; PointNet's pools at
-     [32, 1024, 128] -> 1024), with the tolerance stated, and time both (CUDA
-     events, warm, median of 20), plus one PyTorch library call where one
-     computes the same function;
+  2. hold every kernel against its plain PyTorch version at the paths'
+     shapes (b=32, n=m=1024, k=16; PointNet's pools at [32, 1024, 128] ->
+     1024; kNN also at m != n and at one query row), with the tolerance
+     stated, and time both (CUDA events, warm, median of 20), plus one
+     PyTorch library call where one computes the same function;
   3. run the default untargeted GeoA3 attack on PointNet (40 classes, 1024
      points, random weights with non-trivial BatchNorm statistics, 32
      synthetic clouds; CE + Chamfer + 0.1 Hausdorff + curvature k=16, Adam
-     lr 0.01) for 2 binary steps x 50 Adam steps with the mask rebuilt every
-     10 steps, count every kernel's launches, check the result, and time it;
-     then 20 steps of exact mode (mask rebuilt every step), counted the same
-     way, with one selection and one curvature launch per step; and hold a short
-     attack on the card against the same attack on the CPU (plain versions);
-  4. print one JSON line listing the kernels, then the result line.
+     lr 0.01) for 1 x 50 Adam steps with the mask rebuilt every 10 steps,
+     then 20 steps of exact mode (mask rebuilt every step, one selection and
+     one curvature launch per step); and hold a short attack on the card
+     against the same attack on the CPU (plain versions);
+  4. the engine's side modes at the same width, 1 x 100 steps each: tangent
+     jitter + projection + per-point clip (one kNN launch per jitter
+     refresh; every successful cloud's offset rows within the clip), and
+     partial-variable mode with SGD (one kappa forward and backward launch
+     per step, one kNN launch per phase);
+  5. the attack CLI in process on 40 synthetic clouds with a torch.save'd
+     victim, into build/chip_smoke/: Mat/, PC/, attack_result.txt,
+     attack_metrics.json, batches_done.txt, and a second run that must
+     clear a planted stale file;
+  6. print one JSON line listing the kernels, then the result line.
+
+Every path runs with the kernels' launch counts set to 0 just before and
+read just after, and fails if a kernel it names was not launched; together
+the paths (and phase 2, for the two kernels that only public ops reach) must
+cover every kernel. `--kernels-only` stops after phase 2.
 
 Any failed check raises, and the script exits non-zero. It never falls back
 to the CPU: without a CUDA device it exits non-zero before printing results.
@@ -101,6 +114,7 @@ def kernel_checks(torch) -> list[dict]:
 
     from geoa3_tpu_torch.ops.kernels import (
         kappa_kernel as kk,
+        knn_kernel as qk,
         nn1_kernel as nk,
         pool_matmul_kernel as pk,
         scatter_kernel as sk,
@@ -222,6 +236,107 @@ def kernel_checks(torch) -> list[dict]:
           bound_ms(nbytes(pc, nrm, kp, km), 11.0 * pairs + 20.0 * B * N * K),
           None, "[32,1024,3] -> [32,1024], [32,1024,1024] int8")
 
+    # --- kappa from a cached mask ------------------------------------------
+    kf = kk.kappa_frommask(adv, normal_b, mask, K)
+    kf_p = kk.kappa_from_mask_plain(adv, normal_b, mask, K)
+    # per-pair terms bitwise the plain version's; the k+1-term sum runs in
+    # another order
+    check("kappa_frommask", (kf - kf_p).abs().max().item(),
+          1e-5 * kf_p.abs().max().item(), "kappa")
+    entry("kappa_frommask", "geoa3_tpu_torch/csrc/kappa.cu",
+          "geoa3_tpu/ops/pallas/kappa_kernel.py:230",
+          (kf - kf_p).abs().max().item(),
+          time_ms(lambda: kk.kappa_frommask(adv, normal_b, mask, K)),
+          time_ms(lambda: kk.kappa_from_mask_plain(adv, normal_b, mask, K)),
+          bound_ms(nbytes(adv, normal_b, mask, kf), 30.0 * pairs_sel),
+          None, "[32,1024,3], mask [32,1024,1024] -> [32,1024]")
+
+    # --- kappa backward, both radii ----------------------------------------
+    gk = torch.from_numpy(rng.randn(B, N).astype(np.float32)).cuda()
+    bwd_err = {}
+    for radius, msk, nrm_r in (("direct", km, nrm), ("expansion", mask, normal_b)):
+        cloud_r = pc if radius == "direct" else adv
+        gb = kk.kappa_bwd(cloud_r, nrm_r, msk, gk, K, radius)
+        gb_p = kk.kappa_bwd_plain(cloud_r, nrm_r, msk, gk, K, radius)
+        # autograd of this radius's own plain forward, mask fixed. Same
+        # per-pair terms; neighbour-side sums in atomic order, and (expansion)
+        # the plain gradient's 2 p_j and -2 p_i terms cancel in float32:
+        # bounded against the largest entry, as curv_term's gradient is
+        bwd_err[radius] = (gb - gb_p).abs().max().item()
+        bwd_max = gb_p.abs().max().item() if radius == "expansion" else None
+        check(f"kappa_bwd[{radius}]", bwd_err[radius],
+              2e-4 * gb_p.abs().max().item(), "grad")
+    # the curvature term's gradient is this backward at g = 2 (kappa - ref) / n
+    gb = kk.kappa_bwd(adv, normal_b, mask, (2.0 / N) * (kf - ref), K, "expansion")
+    # the same per-pair arithmetic summed in another atomic order
+    check("kappa_bwd[expansion]", (gb - gr).abs().max().item(),
+          1e-5 * gr.abs().max().item(), "grad vs curv_term's own")
+    entry("kappa_bwd", "geoa3_tpu_torch/csrc/kappa.cu",
+          "geoa3_tpu/ops/pallas/kappa_kernel.py:258", max(bwd_err.values()),
+          time_ms(lambda: kk.kappa_bwd(pc, nrm, km, gk, K, "direct")),
+          time_ms(lambda: kk.kappa_bwd_plain(pc, nrm, km, gk, K, "direct")),
+          bound_ms(nbytes(pc, nrm, km, gk, gb), 60.0 * pairs_sel), None,
+          "direct radius [32,1024,3], mask [32,1024,1024], g [32,1024] -> "
+          f"[32,1024,3]; max_abs_err is the expansion radius's, against a "
+          f"largest entry of {bwd_max:.1f}; expansion radius: ms="
+          f"{time_ms(lambda: kk.kappa_bwd(adv, normal_b, mask, gk, K, 'expansion')):.4f}")
+
+    # --- bare dual 1-NN ----------------------------------------------------
+    d_a2o, d_o2a = nk.nn1_dual(adv, pc)
+    p_a2o, p_o2a = nk.nn1_dual_plain(adv, pc)
+    for g_, w_, what in ((d_a2o, p_a2o, "a2o vs plain"), (d_o2a, p_o2a, "o2a vs plain"),
+                         (d_a2o, got[0], "a2o vs nn1_payload"),
+                         (d_o2a, got[1], "o2a vs nn1_payload")):
+        if not torch.equal(g_, w_):
+            _fail(f"nn1_dual {what}: {(g_ != w_).sum().item()} entries differ")
+    print("  nn1_dual: a2o, o2a bit-equal to plain and to nn1_payload's (required)")
+    entry("nn1_dual", "geoa3_tpu_torch/csrc/nn1.cu",
+          "geoa3_tpu/ops/pallas/nn1_kernel.py:73", 0.0,
+          time_ms(lambda: nk.nn1_dual(adv, pc)),
+          time_ms(lambda: nk.nn1_dual_plain(adv, pc)),
+          bound_ms(nbytes(adv, pc, d_a2o, d_o2a), 10.0 * pairs), None,
+          "[32,1024,3]x[32,1024,3] -> int32 [32,1024] x2")
+
+    # --- kNN ---------------------------------------------------------------
+    dup = adv.clone()
+    dup[:, 5] = dup[:, 900]  # a duplicated point in every cloud
+    dup[0, 7:10] = dup[0, 7]  # and a triple
+    cases = {
+        "self k=17, duplicates": (dup, dup, K + 1),
+        "query != points, m=768, k=16": (adv, pc[:, :768].contiguous(), K),
+        "n=1, k=4": (pc[:, 5:6].contiguous(), pc, 4),
+    }
+    for label, (q_, p_, k_) in cases.items():
+        kg = qk.knn(q_, p_, k_)
+        kw = qk.knn_plain(q_, p_, k_)
+        for g_, w_, what in zip(kg, kw, ("dists", "idx", "nbrs")):
+            if not torch.equal(g_, w_):
+                _fail(f"knn[{label}] {what} is not bit-equal to the plain "
+                      f"version ({(g_ != w_).sum().item()} entries differ)")
+    print(f"  knn: dists, idx, nbrs bit-equal to plain (required) at {list(cases)}")
+    # the scatter as the backward of the neighbour gather: s = n * k sources
+    # into n rows, every row hit ~k times and the duplicated ones more
+    idx_dup = qk.knn(dup, dup, K + 1)[1].reshape(B, N * (K + 1)).contiguous()
+    ct_big = torch.from_numpy(
+        rng.randn(B, N * (K + 1), 3).astype(np.float32)).cuda()
+    sg = sk.scatter_add_3t(idx_dup, ct_big, N)
+    sw = sk.scatter_add_3t_plain(idx_dup, ct_big, N)
+    # float32 sums of a few dozen colliding terms in atomic order
+    check("scatter_add_3t[s=n*k]", (sg - sw).abs().max().item(),
+          1e-5 * sw.abs().max().item(), "out")
+    kq = K + 1  # the tangent jitter's self-kNN: jitter_k + 1 columns
+    dmat = kk.pairwise_sqdist(adv, adv)
+    kres = qk.knn(adv, adv, kq)
+    entry("knn", "geoa3_tpu_torch/csrc/knn.cu",
+          "geoa3_tpu/ops/pallas/knn_kernel.py:54", 0.0,
+          time_ms(lambda: qk.knn(adv, adv, kq)),
+          time_ms(lambda: qk.knn_plain(adv, adv, kq)),
+          bound_ms(nbytes(adv, adv, *kres), 11.0 * pairs),
+          time_ms(lambda: torch.topk(dmat, kq, largest=False)),
+          "self-kNN [32,1024,3], k=17 -> [32,1024,17] x2, [32,1024,17,3] "
+          "(library: torch.topk on the precomputed distance matrix)")
+    del dmat
+
     # --- pool forward / backward -------------------------------------------
     gen = torch.Generator(device="cuda").manual_seed(1)
     pool_rows = {}
@@ -308,10 +423,72 @@ def kernel_checks(torch) -> list[dict]:
     return out
 
 
-def attack_phase(torch) -> dict:
+MAIN_PATH = ("nn1_payload", "scatter_add_3t", "kappa_selmask", "curv_term",
+             "kappa_fwd", "pool_fwd", "pool_bwd")
+# kernels that no engine path launches (public ops only, as in the JAX
+# package): phase 2 launches and checks them
+PHASE2_ONLY = ("nn1_dual", "kappa_frommask")
+
+
+class Paths:
+    """Drives each path with the launch counts set to 0 just before and read
+    just after, and fails if a kernel the path names was not launched."""
+
+    def __init__(self):
+        self.counts = {}  # path label -> {kernel: launches}
+        self.required = {}
+
+    def run(self, label, required, fn):
+        from geoa3_tpu_torch.ops.kernels import launch_counts, reset_launch_counts
+
+        reset_launch_counts()
+        out = fn()
+        counts = launch_counts()
+        print(f"  {label} launches: {counts}")
+        missing = [k for k in required if counts[k] == 0]
+        if missing:
+            _fail(f"kernels not launched in the {label} run: {missing}")
+        self.counts[label] = counts
+        self.required[label] = tuple(required)
+        return out, counts
+
+    def check_union(self):
+        from geoa3_tpu_torch.ops.kernels import KERNELS
+
+        covered = set(PHASE2_ONLY).union(*self.required.values())
+        if covered != set(KERNELS):
+            _fail(f"no path launches {sorted(set(KERNELS) - covered)}")
+
+    def launches(self, kernel):
+        """The count of the first path that names the kernel (0 for the
+        kernels only phase 2 launches), and the counts of every path."""
+        by_path = {label: c[kernel] for label, c in self.counts.items()}
+        first = next((label for label, req in self.required.items()
+                      if kernel in req), None)
+        return (by_path[first] if first else 0), by_path
+
+
+def timed_attack(torch, fn, args, steps):
+    s = torch.cuda.Event(enable_timing=True)
+    e = torch.cuda.Event(enable_timing=True)
+    s.record()
+    res = fn(*args)
+    e.record()
+    e.synchronize()
+    return res, s.elapsed_time(e) / steps
+
+
+def check_result(torch, res, steps, label):
+    for name, t in res._asdict().items():
+        if t.is_floating_point() and name != "best_loss" and not torch.isfinite(t).all():
+            _fail(f"{label}: attack result {name} is not finite")
+    if res.best_attack.shape != (B, N, 3) or res.all_loss.shape != (steps, B):
+        _fail(f"{label}: attack result has the wrong shape")
+
+
+def attack_phase(torch, paths) -> dict:
     """Phase 3: the default attack end to end on the card."""
     from geoa3_tpu_torch import make_attack_fn
-    from geoa3_tpu_torch.ops.kernels import launch_counts, reset_launch_counts
     from geoa3_tpu_torch.workload import main_path_config, random_pointnet
 
     model, logits_fn = random_pointnet(seed=0)
@@ -322,50 +499,171 @@ def attack_phase(torch) -> dict:
     def run(cfg, seed):
         fn = make_attack_fn(logits_fn, cfg)
         gen = torch.Generator(device="cuda").manual_seed(seed)
-        s = torch.cuda.Event(enable_timing=True)
-        e = torch.cuda.Event(enable_timing=True)
-        s.record()
-        res = fn(pc, nrm, gt, gt, gen)
-        e.record()
-        e.synchronize()
-        steps = cfg.binary_max_steps * cfg.iter_max_steps
-        return res, s.elapsed_time(e) / steps
+        return timed_attack(torch, fn, (pc, nrm, gt, gt, gen),
+                            cfg.binary_max_steps * cfg.iter_max_steps)
 
     run(main_path_config(1, 10), 99)  # warm-up
 
-    def counted_run(cfg, seed, label):
-        reset_launch_counts()
-        res, ms = run(cfg, seed)
-        counts = launch_counts()
-        print(f"  {label} launches: {counts}")
-        missing = [k for k, v in counts.items() if v == 0]
-        if missing:
-            _fail(f"kernels not launched in the {label} run: {missing}")
-        return res, ms, counts
-
-    cfg = main_path_config(2, 50)
-    res, ms_step, counts = counted_run(cfg, 0, "K=10")
-    for name, t in res._asdict().items():
-        if t.is_floating_point() and name != "best_loss" and not torch.isfinite(t).all():
-            _fail(f"attack result {name} is not finite")
-    if res.best_attack.shape != (B, N, 3) or res.all_loss.shape != (50, B):
-        _fail("attack result has the wrong shape")
+    cfg = main_path_config(1, 50)
+    (res, ms_step), counts = paths.run("K=10", MAIN_PATH, lambda: run(cfg, 0))
+    check_result(torch, res, 50, "K=10")
     n_succ = int(res.success.sum())
     print(f"  K=10 attack: {cfg.binary_max_steps}x{cfg.iter_max_steps} steps, "
           f"{ms_step:.4f} ms/step (CUDA events), success {n_succ}/{B}")
 
     cfg1 = main_path_config(1, 20, refresh=1)
-    res1, ms_step1, counts1 = counted_run(cfg1, 1, "K=1")
+    (res1, ms_step1), counts1 = paths.run("K=1", MAIN_PATH, lambda: run(cfg1, 1))
     # exact mode: a fresh mask on every step, and the term read from it
     if not counts1["kappa_selmask"] == counts1["curv_term"] == 20:
         _fail("exact mode did not rebuild the mask and read it on each of its "
               f"20 steps: {counts1}")
-    if not torch.isfinite(res1.all_loss).all():
-        _fail("exact-mode losses are not finite")
+    check_result(torch, res1, 20, "K=1")
     print(f"  K=1 (exact) attack: 1x20 steps, {ms_step1:.4f} ms/step "
           f"(CUDA events), success {int(res1.success.sum())}/{B}")
     return dict(counts=counts, counts_exact=counts1, ms_step=ms_step,
                 ms_step_exact=ms_step1, success=n_succ)
+
+
+def synthetic_labels(torch):
+    """The ModelNet40 ids of workload.synthetic_batch's shape classes. A
+    random victim does not predict them, so an untargeted attack against
+    them succeeds at once for most instances."""
+    from geoa3_tpu_torch.data.synthetic import TEN_LABEL_INDEXES
+
+    return torch.tensor([TEN_LABEL_INDEXES[i % 10] for i in range(B)],
+                        device="cuda")
+
+
+def side_modes_phase(torch, paths) -> dict:
+    """Phase 4: the engine's side modes through make_attack_fn at full width."""
+    import dataclasses
+
+    from geoa3_tpu_torch import make_attack_fn
+    from geoa3_tpu_torch.attack import project
+    from geoa3_tpu_torch.workload import main_path_config, random_pointnet
+
+    _, logits_fn = random_pointnet(seed=0)
+    pc, nrm, _ = make_batch(torch, B, N, seed=1)
+    gt = synthetic_labels(torch)
+    steps = 100
+    base = main_path_config(1, steps)
+
+    def run(cfg, seed):
+        fn = make_attack_fn(logits_fn, cfg)
+        gen = torch.Generator(device="cuda").manual_seed(seed)
+        return timed_attack(torch, fn, (pc, nrm, gt, gt, gen), steps)
+
+    # the batched 3x3 eigendecomposition of the tangent jitter, on its own
+    _, _, centered = project._local_covariance_eig(pc, K)
+    covm = torch.einsum("bnkc,bnkd->bncd", centered, centered) / (K - 1)
+    eigh_ms = time_ms(lambda: project._eigh_batched(covm), iters=5, warm=1)
+    perp_ms = time_ms(lambda: project.estimate_perpendicular(
+        None, pc, K, gauss=(torch.zeros(B, N, 1, device="cuda"),) * 2),
+        iters=5, warm=1)
+    print(f"  torch.linalg.eigh on [{B * N}, 3, 3] in chunks of "
+          f"{project._EIGH_CHUNK}: {eigh_ms:.4f} ms; "
+          f"estimate_perpendicular (kNN k={K + 1} + covariance + eigh): "
+          f"{perp_ms:.4f} ms")
+
+    cc = 0.1
+    jcfg = dataclasses.replace(base, is_pre_jitter_input=True, is_pro_grad=True,
+                               cc_linf=cc)
+    (res, jit_ms), counts = paths.run("jitter+proj+clip", MAIN_PATH + ("knn",),
+                                      lambda: run(jcfg, 2))
+    check_result(torch, res, steps, "jitter+proj+clip")
+    refreshes = steps // jcfg.calculate_project_jitter_noise_iter
+    if counts["knn"] != refreshes:
+        _fail(f"the jitter run launched knn {counts['knn']} times, expected one "
+              f"per refresh ({refreshes})")
+    n_succ = int(res.success.sum())
+    if n_succ == 0:
+        _fail("no instance of the jitter run succeeded: the clip is unchecked")
+    norms = (res.best_attack - pc).norm(dim=-1)[res.success]
+    if not norms.max().item() <= cc * (1 + 1e-5):
+        _fail(f"a successful cloud's offset row has norm {norms.max().item()} "
+              f"> cc_linf {cc}")
+    print(f"  jitter+proj+clip: 1x{steps} steps, {jit_ms:.4f} ms/step, success "
+          f"{n_succ}/{B}, largest offset row {norms.max().item():.3e} <= {cc}")
+
+    pcfg = dataclasses.replace(base, is_partial_var=True, knn_range=3,
+                               optim="sgd", curv_knn_refresh_every=1)
+    need = ("nn1_payload", "scatter_add_3t", "kappa_fwd", "kappa_bwd", "knn",
+            "pool_fwd", "pool_bwd")
+    (res, part_ms), counts = paths.run("partial-var", need, lambda: run(pcfg, 3))
+    check_result(torch, res, steps, "partial-var")
+    phases = steps // pcfg.partial_reinit_every
+    want = {"kappa_fwd": steps + 1, "kappa_bwd": steps, "knn": phases,
+            "kappa_selmask": 0, "curv_term": 0}
+    got = {k: counts[k] for k in want}
+    if got != want:
+        _fail(f"partial-var launches {got}, expected {want} (one kappa forward "
+              "and backward per step, the prologue, one kNN per phase)")
+    print(f"  partial-var: 1x{steps} steps = {phases} phases, {part_ms:.4f} "
+          f"ms/step, success {int(res.success.sum())}/{B}")
+    return dict(eigh_ms=eigh_ms, estimate_perpendicular_ms=perp_ms,
+                ms_per_step_jitter=jit_ms, ms_per_step_partial=part_ms)
+
+
+def cli_phase(torch, paths) -> dict:
+    """Phase 5: the attack CLI in process, into a directory under build/."""
+    import shutil
+
+    import scipy.io as sio
+
+    from geoa3_tpu_torch.cli.main_attack import build_parser, main as cli_main
+    from geoa3_tpu_torch.workload import random_pointnet
+
+    root = REPO / "build" / "chip_smoke"
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    model, _ = random_pointnet(seed=0)
+    torch.save(model.state_dict(), root / "victim.pt")
+    per_class, steps = 4, 20
+    argv = ["--attack", "GeoA3", "--attack_label", "Untarget",
+            "--data_dir_file", f"synthetic:{per_class}:{N}", "-b", str(B),
+            "--binary_max_steps", "1", "--iter_max_steps", str(steps),
+            "--checkpoint", str(root / "victim.pt"),
+            "--exps_root", str(root / "Exps")]
+    t0 = time.time()
+    saved, _ = paths.run("CLI", MAIN_PATH,
+                         lambda: cli_main(build_parser().parse_args(argv)))
+    torch.cuda.synchronize()
+    secs = time.time() - t0
+    saved = Path(saved)
+    total = 10 * per_class
+    mats = sorted(p.name for p in (saved / "Mat").iterdir())
+    objs = sorted(p.name for p in (saved / "PC").iterdir())
+    if not mats or [m[:-4] for m in mats] != [o[:-4] for o in objs]:
+        _fail(f"CLI: Mat/ and PC/ do not hold the same instances ({len(mats)}, "
+              f"{len(objs)})")
+    m = sio.loadmat(saved / "Mat" / mats[0])
+    cloud = m["adversary_point_clouds"]
+    if cloud.shape != (3, N) or not np.isfinite(cloud).all():
+        _fail(f"CLI: saved cloud has shape {cloud.shape} or is not finite")
+    rate = float((saved / "attack_result.txt").read_text().strip()
+                 .splitlines()[-1].split(":")[1])
+    if abs(rate - 100.0 * len(mats) / total) > 0.01:
+        _fail(f"CLI: attack_result.txt says {rate}% but {len(mats)} of {total} "
+              "instances were saved")
+    metrics = json.loads((saved / "attack_metrics.json").read_text())
+    if metrics["num_successful"] != len(mats) or not (
+            np.isfinite(metrics["mean_chamfer"])
+            and np.isfinite(metrics["mean_hausdorff"])):
+        _fail(f"CLI: attack_metrics.json is off: {metrics}")
+    done = int((saved / "batches_done.txt").read_text())
+    if done != -(-total // B):
+        _fail(f"CLI: batches_done.txt says {done}")
+    # a second run into the same directory leaves no stale file
+    stale = saved / "Mat" / "adv_999_gt0_attack1_expect0.mat"
+    stale.touch()
+    cli_main(build_parser().parse_args(argv))
+    again = sorted(p.name for p in (saved / "Mat").iterdir())
+    if stale.exists() or again != mats:
+        _fail("CLI: the second run left stale files or other outputs")
+    print(f"  CLI: {total} clouds in {done} batches, 1x{steps} steps, "
+          f"{len(mats)} saved ({rate:.2f}%), {secs:.1f} s; outputs and the "
+          "stale-file clearing check out")
+    return dict(saved=len(mats), total=total, seconds=secs)
 
 
 def cpu_agreement(torch) -> None:
@@ -401,7 +699,14 @@ def cpu_agreement(torch) -> None:
 
 
 def main() -> int:
+    import argparse
+
     import torch
+
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--kernels-only", action="store_true",
+                    help="stop after phase 2 (a short check of a new kernel)")
+    args = ap.parse_args()
 
     if not torch.cuda.is_available():
         _fail("torch.cuda.is_available() is false: this script needs a CUDA card")
@@ -424,18 +729,31 @@ def main() -> int:
 
     print("phase 2: kernels against their plain versions")
     kernels = kernel_checks(torch)
+    if args.kernels_only:
+        print(json.dumps({"kernels": kernels}))
+        return 0
 
+    paths = Paths()
     print("phase 3: default attack on the card")
-    run = attack_phase(torch)
-    for k in kernels:
-        k["launches"] = run["counts"][k["name"]]
+    run = attack_phase(torch, paths)
     cpu_agreement(torch)
+
+    print("phase 4: the engine's side modes at full width")
+    side = side_modes_phase(torch, paths)
+
+    print("phase 5: the attack CLI in process")
+    cli = cli_phase(torch, paths)
+
+    paths.check_union()
+    for k in kernels:
+        k["launches"], k["launches_by_path"] = paths.launches(k["name"])
 
     print(json.dumps({
         "attack": {"ms_per_step_k10": run["ms_step"],
                    "ms_per_step_exact": run["ms_step_exact"],
                    "launches_exact": run["counts_exact"],
                    "success": run["success"], "batch": B, "card": smi},
+        "side_modes": side, "cli": cli,
     }))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -10,9 +10,11 @@ Layout:
   ops/       point-cloud ops; ops/kernels/ holds the kernel wrappers, each
              with its plain PyTorch version (taken for CPU tensors)
   models/    the PointNet victim and weight converters
-  losses.py  geometric losses of the main path
-  attack/    the GeoA3 attack engine
-  data/      synthetic point clouds (numpy)
+  losses.py  geometric losses
+  attack/    the GeoA3 attack engine, projection and tangent jitter
+  data/      synthetic point clouds, .mat datasets, file writers (numpy)
+  utils/     experiment naming, meters, records, victim checkpoints
+  cli/       the attack command line (python -m geoa3_tpu_torch.cli.main_attack)
 
 Entry points run on the card (device="cuda") unless the caller passes
 device="cpu".

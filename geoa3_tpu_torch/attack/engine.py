@@ -18,15 +18,21 @@ JAX engine's semantics, including its documented deviations
      exact mode.
 
 The loop runs eagerly on the device: best-tracking is torch.where and nothing
-inside the loop reads a value back to the host. Adam is written in optax's
-form (bias-corrected, eps outside the square root) so that trajectories track
+inside the loop reads a value back to the host. The optimisers are written in
+optax's form (Adam bias-corrected with eps outside the square root, SGD with
+a trace, the exponential schedule counted from 0) so that trajectories track
 the JAX engine's.
 
-Modes outside the ported main path raise NotImplementedError (see
-ROADMAP.md): projection (is_pro_grad), L-inf clipping (cc_linf), tangent
-jitter, subsampling, partial-variable mode, the uniform loss, SGD, the LR
-schedule, and the JAX engine's host_binary_loop / debug_callback
-arguments.
+Side modes (reference geoA3_attack.py:239-352), all on the same loop:
+projection onto the original normals and per-point clipping after the update;
+the tangent jitter, refreshed every `calculate_project_jitter_noise_iter`
+steps and added without gradient, with a second clean forward for the success
+test; `eval_logits_fn`; partial-variable mode (`run_partial`); the
+debug callback after each search step.
+
+Still refused with NotImplementedError (they need farthest-point sampling,
+ROADMAP.md): `is_subsample_opt` with its ensemble vote, and
+`uniform_loss_weight != 0`.
 """
 
 from __future__ import annotations
@@ -39,9 +45,16 @@ import torch
 from geoa3_tpu_torch import losses as L
 from geoa3_tpu_torch import ops
 from geoa3_tpu_torch.attack.config import AttackConfig
+from geoa3_tpu_torch.attack.project import (
+    estimate_perpendicular,
+    find_offset,
+    lp_clip,
+    offset_proj,
+)
 
 _INF = 1e10
 _B1, _B2, _EPS = 0.9, 0.999, 1e-8  # optax.adam defaults (JAX engine :281)
+_MOMENTUM = 0.9  # SGD in partial-variable mode (reference :252-253)
 
 
 class AttackResult(NamedTuple):
@@ -103,12 +116,17 @@ def forward_losses(
     """One loss evaluation (reference `_forward_step`, geoA3_attack.py:100-180).
 
     One dual 1-NN pass feeds Chamfer, Hausdorff and the curvature term's
-    borrowed normals and ori kappa (payload copies). The curvature term reads
-    the self-kNN selection `kappa_mask`; without one it is selected here from
-    the current cloud (exact semantics).
+    borrowed normals and ori kappa (payload copies). With a self-kNN
+    selection `kappa_mask` the curvature term and its gradient come from the
+    mask in one kernel; without one, kappa is selected and computed from the
+    current cloud by the differentiable `ops.knn_kappa` (the JAX engine's
+    no-mask branch, :251-258).
     """
     if cfg.uniform_loss_weight != 0:
-        raise NotImplementedError("uniform loss is not ported yet (ROADMAP.md)")
+        raise NotImplementedError(
+            "uniform loss is not ported yet (it needs farthest-point "
+            "sampling, see ROADMAP.md)"
+        )
     b = input_curr.shape[0]
     logits = logits_fn(input_curr)
     cls_loss = _cls_loss(logits, target, cfg)
@@ -164,10 +182,14 @@ def forward_losses(
 
     if cfg.curv_loss_weight != 0:
         k = cfg.curv_loss_knn
-        if kappa_mask is None:
-            kappa_mask = ops.kappa_select_mask(input_curr, k)
         normal = gp[:, 3:6].transpose(1, 2)  # borrowed from the nearest ori point
-        curv_loss = ops.curv_term_from_mask(input_curr, normal, gp[:, 6], kappa_mask, k)
+        if kappa_mask is not None:
+            curv_loss = ops.curv_term_from_mask(
+                input_curr, normal, gp[:, 6], kappa_mask, k
+            )
+        else:
+            adv_kappa = ops.knn_kappa(input_curr, normal, k)
+            curv_loss = ((adv_kappa - gp[:, 6]) ** 2).mean(dim=-1)
         constrain = constrain + cfg.curv_loss_weight * curv_loss
     else:
         curv_loss = zeros
@@ -179,20 +201,108 @@ def forward_losses(
 
 def _check_supported(cfg: AttackConfig) -> None:
     unsupported = {
-        "is_pro_grad": cfg.is_pro_grad,
-        "cc_linf": cfg.cc_linf != 0,
-        "is_pre_jitter_input": cfg.is_pre_jitter_input,
         "is_subsample_opt": cfg.is_subsample_opt,
-        "is_partial_var": cfg.is_partial_var,
         "uniform_loss_weight": cfg.uniform_loss_weight != 0,
-        "is_use_lr_scheduler": cfg.is_use_lr_scheduler,
-        "optim=sgd": cfg.optim != "adam",
     }
     on = [name for name, flag in unsupported.items() if flag]
     if on:
         raise NotImplementedError(
-            f"attack modes not ported yet: {', '.join(on)} (see ROADMAP.md)"
+            f"attack modes not ported yet: {', '.join(on)} (they need "
+            "farthest-point sampling, see ROADMAP.md)"
         )
+
+
+class _Optimizer:
+    """Adam or SGD with an optional exponential LR decay (reference
+    :264-277), in optax's form: the schedule lr * gamma^count counts from 0,
+    Adam is bias-corrected with eps outside the root, SGD keeps a trace
+    (momentum 0.9) only in partial-variable mode."""
+
+    def __init__(self, cfg: AttackConfig):
+        self.cfg = cfg
+        self.momentum = _MOMENTUM if cfg.is_partial_var else None
+
+    def init(self, x: torch.Tensor) -> dict:
+        state = {"count": 0}
+        if self.cfg.optim == "adam":
+            state["mu"] = torch.zeros_like(x)
+            state["nu"] = torch.zeros_like(x)
+        elif self.momentum is not None:
+            state["trace"] = torch.zeros_like(x)
+        return state
+
+    def update(self, grad: torch.Tensor, state: dict) -> torch.Tensor:
+        """The update to add to the variable; advances `state` in place."""
+        cfg = self.cfg
+        count = state["count"]
+        lr = cfg.lr
+        if cfg.is_use_lr_scheduler:
+            lr = float(np.float32(cfg.lr)
+                       * np.float32(cfg.lr_gamma) ** np.float32(count))
+        if cfg.optim == "adam":
+            state["mu"] = (1 - _B1) * grad + _B1 * state["mu"]
+            state["nu"] = (1 - _B2) * (grad * grad) + _B2 * state["nu"]
+            bc1 = float(1 - np.float32(_B1) ** np.float32(count + 1))
+            bc2 = float(1 - np.float32(_B2) ** np.float32(count + 1))
+            direction = (state["mu"] / bc1) / ((state["nu"] / bc2).sqrt() + _EPS)
+        elif self.momentum is not None:
+            state["trace"] = grad + self.momentum * state["trace"]
+            direction = state["trace"]
+        else:
+            direction = grad
+        state["count"] = count + 1
+        return (-lr) * direction
+
+
+class _Best:
+    """Best-tracking state across the whole attack (reference :288-310,
+    deviation #1) and, per search step, the "succeeded at least once"
+    record that drives the C&W constant (deviation #2)."""
+
+    def __init__(self, pc_ori: torch.Tensor):
+        b, dev = pc_ori.shape[0], pc_ori.device
+        self.loss = pc_ori.new_full((b,), _INF)
+        self.attack = torch.ones_like(pc_ori)  # reference :226
+        self.step = torch.full((b,), -1, dtype=torch.int32, device=dev)
+        self.bs_idx = torch.full((b,), -1, dtype=torch.int32, device=dev)
+        self.start_search_step()
+
+    def start_search_step(self) -> None:
+        self.it_loss = torch.full_like(self.loss, _INF)
+        self.it_score = torch.full_like(self.step, -1)
+
+    def track(self, success, metric, output_label, input_all, step, bs_idx):
+        better = success & (metric < self.loss)
+        self.loss = torch.where(better, metric, self.loss)
+        self.attack = torch.where(better[:, None, None], input_all, self.attack)
+        self.step = torch.where(better, step, self.step)
+        self.bs_idx = torch.where(better, bs_idx, self.bs_idx)
+        it_better = success & (metric < self.it_loss)
+        self.it_loss = torch.where(it_better, metric, self.it_loss)
+        self.it_score = torch.where(
+            it_better, output_label.to(torch.int32), self.it_score
+        )
+
+
+class _Search:
+    """The C&W binary search over the loss constant (reference :374-384)."""
+
+    def __init__(self, pc_ori: torch.Tensor, cfg: AttackConfig):
+        b = pc_ori.shape[0]
+        self.lower = pc_ori.new_zeros(b)
+        self.upper = pc_ori.new_full((b,), _INF)
+        self.const = pc_ori.new_full((b,), cfg.initial_const)
+
+    def update(self, it_score: torch.Tensor) -> None:
+        success = it_score != -1
+        const = self.const
+        lower = torch.where(success, torch.maximum(self.lower, const), self.lower)
+        upper = torch.where(success, self.upper, torch.minimum(self.upper, const))
+        mid = (lower + upper) * 0.5
+        const_success = torch.where(upper < 1e9, mid, const * 2)
+        const_fail = torch.where(upper < 1e9, mid, const)
+        self.const = torch.where(success, const_success, const_fail)
+        self.lower, self.upper = lower, upper
 
 
 def make_attack_fn(
@@ -200,7 +310,9 @@ def make_attack_fn(
     cfg: AttackConfig,
     init_offset: Optional[Callable[[int], torch.Tensor]] = None,
     host_binary_loop: bool = False,
+    eval_logits_fn: Optional[Callable[[torch.Tensor], torch.Tensor]] = None,
     debug_callback: Optional[Callable] = None,
+    draws=None,
 ) -> Callable[..., AttackResult]:
     """Build the whole attack for a fixed config.
 
@@ -210,71 +322,162 @@ def make_attack_fn(
         attack_fn(pc_ori [b,n,3], normal_ori [b,n,3], gt_target [b],
                   target [b], generator) -> AttackResult
 
-    and draws each binary step's initial offset 1e-3 * N(0, 1) from
-    `generator` (a torch.Generator on the cloud's device), unless
-    `init_offset(bs_idx) -> [b, n, 3]` is given, which then supplies them.
+    and draws its random numbers from `generator` (a torch.Generator on the
+    cloud's device): each search step's initial offset 1e-3 * N(0, 1), the
+    tangent jitter's gaussians, and in partial-variable mode each phase's
+    seed point and initial patch offset.
+
+    `init_offset(bs_idx) -> [b, n, 3]` supplies the initial offsets instead.
+    `draws` supplies the side modes' numbers instead (tests replay another
+    engine's): an object with `jitter_gauss(bs_idx, step, cloud) -> two
+    [b, n, 1] standard normal draws` (the cloud is the one whose tangent
+    planes they will scale), `patch_seed(bs_idx, phase) -> int` and
+    `patch_offset(bs_idx, phase) -> [b, knn_range, 3]`.
+
+    `eval_logits_fn` replaces `logits_fn` for the success test and
+    best-tracking only; the gradient pass keeps `logits_fn`.
+
+    The binary search is always driven from the host here, so
+    `host_binary_loop=True` changes nothing; `debug_callback(bs_idx,
+    best_attack, loss_ys)` is called after each search step and, as in the
+    JAX engine, needs `host_binary_loop=True` and is refused in
+    partial-variable mode.
     """
     cfg = cfg.validate()
     _check_supported(cfg)
-    if host_binary_loop or debug_callback is not None:
-        raise NotImplementedError(
-            "host_binary_loop and debug_callback are not ported yet "
-            "(see ROADMAP.md)"
+    if debug_callback is not None and (not host_binary_loop or cfg.is_partial_var):
+        raise ValueError(
+            "debug_callback (--is_debug) requires host_binary_loop=True "
+            "and is not supported in partial-var mode"
+        )
+    if cfg.is_partial_var and cfg.iter_max_steps % cfg.partial_reinit_every:
+        raise ValueError(
+            "iter_max_steps must be a multiple of partial_reinit_every in "
+            "partial-var mode"
         )
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     targeted = cfg.targeted
-    lr = cfg.lr
     curv = cfg.curv_loss_weight != 0
     K = cfg.curv_knn_refresh_every
+    # the jitter belongs to the main loop; partial-variable mode has none
+    jitter_on = cfg.is_pre_jitter_input and not cfg.is_partial_var
+    separate_eval = eval_logits_fn is not None
+    tx = _Optimizer(cfg)
+
+    def judge(aux, input_all):
+        """The predicted label [b] for best-tracking: from the gradient
+        pass's logits, or from a clean forward through the eval victim where
+        that pass saw jitter or another victim."""
+        if jitter_on or separate_eval:
+            with torch.no_grad():
+                logits = (eval_logits_fn or logits_fn)(input_all)
+        else:
+            logits = aux.logits.detach()
+        return logits.argmax(dim=-1)
 
     def run_inner(pc_ori, normal_ori, gt_target, target, kappa_ori, const,
-                  bs_idx, offset, best):
-        b = pc_ori.shape[0]
-        best_loss, best_attack, best_step, best_bs = best
-        mu = torch.zeros_like(offset)
-        nu = torch.zeros_like(offset)
-        it_loss = pc_ori.new_full((b,), _INF)
-        it_score = torch.full((b,), -1, dtype=torch.int32, device=pc_ori.device)
+                  bs_idx, offset, best, generator):
+        b, n, _ = pc_ori.shape
+        opt_state = tx.init(offset)
         loss_ys = pc_ori.new_empty(cfg.iter_max_steps, b)
         mask = None
+        jitter = None
         for step in range(cfg.iter_max_steps):
+            if jitter_on and step % cfg.calculate_project_jitter_noise_iter == 0:
+                # from the current cloud, held until the next refresh
+                # (reference :312-317)
+                cloud = pc_ori + offset
+                jitter = estimate_perpendicular(
+                    generator, cloud, cfg.jitter_k, cfg.jitter_sigma,
+                    cfg.jitter_clip,
+                    gauss=draws.jitter_gauss(bs_idx, step, cloud) if draws else None,
+                )
             if curv and step % K == 0:
-                # deviation #7: rebuilt from the stop-gradient cloud per block
-                mask = ops.kappa_select_mask(pc_ori + offset, cfg.curv_loss_knn)
+                # deviation #7: rebuilt from the stop-gradient cloud per
+                # block; in exact mode (K = 1) from the cloud the loss sees
+                seen = pc_ori + offset
+                if jitter_on and K == 1:
+                    seen = seen + jitter
+                mask = ops.kappa_select_mask(seen, cfg.curv_loss_knn)
             off = offset.requires_grad_(True)
             input_all = pc_ori + off
+            input_curr = input_all + jitter if jitter_on else input_all
             loss, aux = forward_losses(
-                logits_fn, pc_ori, input_all, normal_ori, kappa_ori, target,
+                logits_fn, pc_ori, input_curr, normal_ori, kappa_ori, target,
                 const, cfg, kappa_mask=mask,
             )
             (grad,) = torch.autograd.grad(loss, off)
             input_all = input_all.detach()
             offset = off.detach()
 
-            # best tracking (reference :288-310, deviation #1)
-            output_label = aux.logits.detach().argmax(dim=-1)
+            output_label = judge(aux, input_all)
             success = _compare(output_label, target, gt_target, targeted)
-            metric = aux.constrain_loss.detach()
-            better = success & (metric < best_loss)
-            best_loss = torch.where(better, metric, best_loss)
-            best_attack = torch.where(better[:, None, None], input_all, best_attack)
-            best_step = torch.where(better, step, best_step)
-            best_bs = torch.where(better, bs_idx, best_bs)
-            it_better = success & (metric < it_loss)
-            it_loss = torch.where(it_better, metric, it_loss)
-            it_score = torch.where(it_better, output_label.to(torch.int32), it_score)
+            best.track(success, aux.constrain_loss.detach(), output_label,
+                       input_all, step, bs_idx)
 
-            # Adam, optax form
-            count = step + 1
-            mu = (1 - _B1) * grad + _B1 * mu
-            nu = (1 - _B2) * (grad * grad) + _B2 * nu
-            bc1 = float(1 - np.float32(_B1) ** np.float32(count))
-            bc2 = float(1 - np.float32(_B2) ** np.float32(count))
-            upd = (mu / bc1) / ((nu / bc2).sqrt() + _EPS)
-            offset = offset + (-lr) * upd
+            offset = offset + tx.update(grad, opt_state)
+            # projections (reference :341-352)
+            if cfg.is_pro_grad:
+                if cfg.is_real_offset:
+                    offset = find_offset(pc_ori, pc_ori + offset)
+                offset = offset_proj(offset, pc_ori, normal_ori)
+            if cfg.cc_linf != 0:
+                offset = lp_clip(offset, cfg.cc_linf)
             loss_ys[step] = aux.loss_n.detach()
-        return (best_loss, best_attack, best_step, best_bs), it_score, loss_ys
+        return loss_ys
+
+    def run_partial(pc_ori, normal_ori, gt_target, target, kappa_ori, const,
+                    bs_idx, best, generator):
+        """One search step of partial-variable mode (reference :239-262,
+        :279-281): the variables are the offsets of a kNN patch around one
+        random seed point (the same index for the whole batch, :243), re-picked
+        every `partial_reinit_every` steps; each phase starts from the last
+        pre-update cloud of the one before (:259-262). The reference's
+        projection and clip writes are dead in this mode, so they are not
+        applied."""
+        b, n, _ = pc_ori.shape
+        dev = pc_ori.device
+        kr, reinit = cfg.knn_range, cfg.partial_reinit_every
+        loss_ys = pc_ori.new_empty(cfg.iter_max_steps, b)
+        periodical_pc = pc_ori
+        for phase in range(cfg.iter_max_steps // reinit):
+            if draws is not None:
+                seed_idx = torch.tensor([int(draws.patch_seed(bs_idx, phase))],
+                                        device=dev)
+            else:
+                seed_idx = torch.randint(n, (1,), generator=generator,
+                                         device=dev)
+            q = pc_ori.index_select(1, seed_idx)  # [b, 1, 3]
+            nbr_idx = ops.knn_points(q, pc_ori, kr + 1).idx[:, 0, 1:]  # [b, kr]
+            rows = nbr_idx.long()[..., None].expand(-1, -1, 3)
+            if draws is not None:
+                part = draws.patch_offset(bs_idx, phase).to(
+                    device=dev, dtype=pc_ori.dtype).detach().clone()
+            else:
+                part = 1e-3 * torch.randn(b, kr, 3, generator=generator,
+                                          device=dev, dtype=pc_ori.dtype)
+            opt_state = tx.init(part)
+            for i in range(reinit):
+                step = phase * reinit + i
+                part = part.requires_grad_(True)
+                input_all = periodical_pc + torch.zeros_like(pc_ori).scatter(
+                    1, rows, part)
+                loss, aux = forward_losses(
+                    logits_fn, pc_ori, input_all, normal_ori, kappa_ori,
+                    target, const, cfg,
+                )
+                (grad,) = torch.autograd.grad(loss, part)
+                input_all = input_all.detach()
+                part = part.detach()
+                output_label = judge(aux, input_all)
+                success = _compare(output_label, target, gt_target, targeted)
+                best.track(success, aux.constrain_loss.detach(), output_label,
+                           input_all, step, bs_idx)
+                part = part + tx.update(grad, opt_state)
+                loss_ys[step] = aux.loss_n.detach()
+            periodical_pc = input_all
+        return loss_ys
 
     def attack_fn(pc_ori, normal_ori, gt_target, target, generator=None):
         b, n, _ = pc_ori.shape
@@ -284,45 +487,39 @@ def make_attack_fn(
                 L.get_kappa_ori(pc_ori, normal_ori, cfg.curv_loss_knn)
                 if curv else pc_ori.new_zeros(b, n)
             )
-        lower = pc_ori.new_zeros(b)
-        upper = pc_ori.new_full((b,), _INF)
-        const = pc_ori.new_full((b,), cfg.initial_const)
-        best = (
-            pc_ori.new_full((b,), _INF),
-            torch.ones_like(pc_ori),  # reference :226
-            torch.full((b,), -1, dtype=torch.int32, device=dev),
-            torch.full((b,), -1, dtype=torch.int32, device=dev),
-        )
+        search = _Search(pc_ori, cfg)
+        best = _Best(pc_ori)
         loss_ys = None
         for bs_idx in range(cfg.binary_max_steps):
-            if init_offset is not None:
-                offset0 = init_offset(bs_idx).to(device=dev, dtype=pc_ori.dtype)
-                offset0 = offset0.detach().clone()
-            else:
-                offset0 = 1e-3 * torch.randn(
-                    b, n, 3, generator=generator, device=dev, dtype=pc_ori.dtype
+            best.start_search_step()
+            if cfg.is_partial_var:
+                loss_ys = run_partial(
+                    pc_ori, normal_ori, gt_target, target, kappa_ori,
+                    search.const, bs_idx, best, generator,
                 )
-            best, it_score, loss_ys = run_inner(
-                pc_ori, normal_ori, gt_target, target, kappa_ori, const,
-                bs_idx, offset0, best,
-            )
-            # C&W constant update (reference :374-384; deviation #2)
-            success = it_score != -1
-            new_lower = torch.where(success, torch.maximum(lower, const), lower)
-            new_upper = torch.where(success, upper, torch.minimum(upper, const))
-            mid = (new_lower + new_upper) * 0.5
-            const_success = torch.where(new_upper < 1e9, mid, const * 2)
-            const_fail = torch.where(new_upper < 1e9, mid, const)
-            const = torch.where(success, const_success, const_fail)
-            lower, upper = new_lower, new_upper
-        best_loss, best_attack, best_step, best_bs = best
+            else:
+                if init_offset is not None:
+                    offset0 = init_offset(bs_idx).to(device=dev, dtype=pc_ori.dtype)
+                    offset0 = offset0.detach().clone()
+                else:
+                    offset0 = 1e-3 * torch.randn(
+                        b, n, 3, generator=generator, device=dev,
+                        dtype=pc_ori.dtype,
+                    )
+                loss_ys = run_inner(
+                    pc_ori, normal_ori, gt_target, target, kappa_ori,
+                    search.const, bs_idx, offset0, best, generator,
+                )
+            search.update(best.it_score)
+            if debug_callback is not None:
+                debug_callback(bs_idx, best.attack, loss_ys)
         return AttackResult(
-            best_attack=best_attack,
+            best_attack=best.attack,
             target=target,
-            success=best_loss < _INF,
-            best_attack_step=best_step,
-            best_attack_bs_idx=best_bs,
-            best_loss=best_loss,
+            success=best.loss < _INF,
+            best_attack_step=best.step,
+            best_attack_bs_idx=best.bs_idx,
+            best_loss=best.loss,
             all_loss=loss_ys,
         )
 

@@ -1,7 +1,9 @@
-// Dual 1-NN with payload copies, both Chamfer directions.
+// Dual 1-NN, with or without payload copies, both Chamfer directions.
 //
-// Replaces geoa3_tpu/ops/pallas/nn1_kernel.py:_nn1_payload_kernel (exact
-// selection). For adv [b,n,3] and ori [b,m,3], with
+// Replaces geoa3_tpu/ops/pallas/nn1_kernel.py:_nn1_payload_kernel and
+// :_nn1_dual_kernel (exact selection): the same two passes, with the payload
+// and coordinate copies compiled out for the bare variant, so both select
+// the same indices. For adv [b,n,3] and ori [b,m,3], with
 // d_ij = max((|a_i|^2 + |o_j|^2) - 2 a_i.o_j, 0):
 //   a2o[b,i]   = argmin_j d_ij   gp[b,p,i] = pay[b,p,a2o[b,i]]   (p < 8)
 //   o2a[b,j]   = argmin_i d_ij   op[b,c,j] = adv[b,o2a[b,j],c]   (c < 3; rows 3..7 zero)
@@ -26,6 +28,7 @@ constexpr int kWarps = 16;      // warps per a2o block
 constexpr int kRowsPerWarp = 4; // adv rows per warp
 constexpr int kO2aThreads = 256;
 
+template <bool kPayload>
 __global__ void nn1_a2o_kernel(const float* __restrict__ adv,
                                const float* __restrict__ ori,
                                const float* __restrict__ pay, int n, int m,
@@ -78,12 +81,13 @@ __global__ void nn1_a2o_kernel(const float* __restrict__ adv,
     if (i < n) {
       const int jb = (int)((w - 1ull) & 0xffffffffull);
       if (lane == 0) a2o[(size_t)b * n + i] = jb;
-      if (lane < 8)
+      if (kPayload && lane < 8)
         gp[((size_t)b * 8 + lane) * n + i] = pay[((size_t)b * 8 + lane) * m + jb];
     }
   }
 }
 
+template <bool kPayload>
 __global__ void nn1_o2a_kernel(const float* __restrict__ adv,
                                const float* __restrict__ ori, int n, int m,
                                int* __restrict__ o2a, float* __restrict__ op) {
@@ -118,11 +122,27 @@ __global__ void nn1_o2a_kernel(const float* __restrict__ adv,
   if (j >= m) return;
   const int ib = (int)((best - 1ull) & 0xffffffffull);
   o2a[(size_t)b * m + j] = ib;
+  if (!kPayload) return;
   float* P = op + (size_t)b * 8 * m;
 #pragma unroll
   for (int c = 0; c < 3; ++c) P[(size_t)c * m + j] = A[ib * 3 + c];
 #pragma unroll
   for (int c = 3; c < 8; ++c) P[(size_t)c * m + j] = 0.0f;
+}
+
+template <bool kPayload>
+int launch_nn1(const float* adv, const float* ori, const float* pay, int b,
+               int n, int m, int* a2o, int* o2a, float* gp, float* op,
+               cudaStream_t s) {
+  const int rows_per_block = kWarps * kRowsPerWarp;
+  dim3 g1((n + rows_per_block - 1) / rows_per_block, b);
+  nn1_a2o_kernel<kPayload><<<g1, kWarps * 32, 0, s>>>(adv, ori, pay, n, m, a2o,
+                                                      gp);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  dim3 g2((m + kO2aThreads - 1) / kO2aThreads, b);
+  nn1_o2a_kernel<kPayload><<<g2, kO2aThreads, 0, s>>>(adv, ori, n, m, o2a, op);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -131,13 +151,12 @@ extern "C" int geoa3_nn1_payload(const float* adv, const float* ori,
                                  const float* pay, int b, int n, int m,
                                  int* a2o, int* o2a, float* gp, float* op,
                                  void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int rows_per_block = kWarps * kRowsPerWarp;
-  dim3 g1((n + rows_per_block - 1) / rows_per_block, b);
-  nn1_a2o_kernel<<<g1, kWarps * 32, 0, s>>>(adv, ori, pay, n, m, a2o, gp);
-  cudaError_t e = cudaGetLastError();
-  if (e != cudaSuccess) return (int)e;
-  dim3 g2((m + kO2aThreads - 1) / kO2aThreads, b);
-  nn1_o2a_kernel<<<g2, kO2aThreads, 0, s>>>(adv, ori, n, m, o2a, op);
-  return (int)cudaGetLastError();
+  return launch_nn1<true>(adv, ori, pay, b, n, m, a2o, o2a, gp, op,
+                          static_cast<cudaStream_t>(stream));
+}
+
+extern "C" int geoa3_nn1_dual(const float* adv, const float* ori, int b, int n,
+                              int m, int* a2o, int* o2a, void* stream) {
+  return launch_nn1<false>(adv, ori, nullptr, b, n, m, a2o, o2a, nullptr,
+                           nullptr, static_cast<cudaStream_t>(stream));
 }

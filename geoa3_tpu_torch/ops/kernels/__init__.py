@@ -10,6 +10,7 @@ from __future__ import annotations
 
 from geoa3_tpu_torch.ops.kernels import (
     kappa_kernel,
+    knn_kernel,
     nn1_kernel,
     pool_matmul_kernel,
     scatter_kernel,
@@ -24,6 +25,10 @@ KERNELS = {
     "kappa_fwd": kappa_kernel.kappa_fwd,
     "pool_fwd": pool_matmul_kernel.pool_fwd,
     "pool_bwd": pool_matmul_kernel.pool_bwd,
+    "kappa_bwd": kappa_kernel.kappa_bwd,
+    "kappa_frommask": kappa_kernel.kappa_frommask,
+    "nn1_dual": nn1_kernel.nn1_dual,
+    "knn": knn_kernel.knn,
 }
 
 

@@ -36,6 +36,10 @@ _I = ctypes.c_int
 SIGNATURES = {
     # adv, ori, pay, b, n, m, a2o, o2a, gp, op, stream
     "geoa3_nn1_payload": [_VP, _VP, _VP, _I, _I, _I, _VP, _VP, _VP, _VP, _VP],
+    # adv, ori, b, n, m, a2o, o2a, stream
+    "geoa3_nn1_dual": [_VP, _VP, _I, _I, _I, _VP, _VP, _VP],
+    # query, points, b, n, m, k, dists, idx, nbrs, stream
+    "geoa3_knn": [_VP, _VP, _I, _I, _I, _I, _VP, _VP, _VP, _VP],
     # idx, ct, b, S, n, out, stream
     "geoa3_scatter_add_3t": [_VP, _VP, _I, _I, _I, _VP, _VP],
     # cloud, b, n, k, mask, stream
@@ -44,6 +48,10 @@ SIGNATURES = {
     "geoa3_kappa_fwd": [_VP, _VP, _I, _I, _I, _VP, _VP, _VP],
     # cloud, normal, ref, mask, b, n, k, curv, grad, stream
     "geoa3_curv_term": [_VP, _VP, _VP, _VP, _I, _I, _I, _VP, _VP, _VP],
+    # cloud, normal, mask, b, n, k, kappa, stream
+    "geoa3_kappa_frommask": [_VP, _VP, _VP, _I, _I, _I, _VP, _VP],
+    # cloud, normal, mask, g, b, n, k, direct, grad, stream
+    "geoa3_kappa_bwd": [_VP, _VP, _VP, _VP, _I, _I, _I, _I, _VP, _VP],
     # x, w3, bias, B, n, cin, cout, taps, pooled, cnt, rows, stream
     "geoa3_pool_fwd": [_VP, _VP, _VP, _I, _I, _I, _I, _I, _VP, _VP, _VP, _VP],
     # w3t, pooled_g, cnt, rows, x, bias, pooled, w3, B, n, cin, cout, taps,

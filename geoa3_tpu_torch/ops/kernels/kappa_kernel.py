@@ -1,12 +1,14 @@
 """Self-kNN selection and curvature: CUDA kernel wrappers, plain versions.
 
-Replaces three kernels of geoa3_tpu/ops/pallas/kappa_kernel.py (exact
+Replaces five kernels of geoa3_tpu/ops/pallas/kappa_kernel.py (exact
 selection; the packed mode is a TPU layout option left for later):
 
   * `kappa_selmask`  <- `_kappa_selmask_kernel` (`kappa_selmask_call`)
-  * `kappa_fwd`      <- `_kappa_fwd_kernel` (`_kappa_fwd_call`), forward only
+  * `kappa_fwd`      <- `_kappa_fwd_kernel` (`_kappa_fwd_call`)
   * `curv_term`      <- `_curv_term_frommask_kernel`
                         (`curv_term_frommask_pallas`)
+  * `kappa_frommask` <- `_kappa_frommask_kernel` (`_kappa_frommask_call`)
+  * `kappa_bwd`      <- `_kappa_bwd_kernel` (`_kappa_bwd_call`)
 
 Source: csrc/kappa.cu. Bound on the H100: bytes, the [b, n, n] int8 mask
 written by the selection or read by the curvature term (32 MB at the main
@@ -18,6 +20,9 @@ step like `pairwise_sqdist`, so masks are bitwise the plain version's.
 The curvature term follows the composed path of geoa3_tpu/ops/knn.py
 (`knn_kappa_from_mask`): 1 / max(sqrt(d), 1e-12) with the square root (and
 its gradient) gated off where d == 0, not the TPU kernel's clamp-free rsqrt.
+`kappa_frommask` is that term's kappa; `kappa_fwd` takes the radius from the
+direct difference |p_j - p_i| instead, as the composed `knn_kappa` does.
+`kappa_bwd` is the gradient of either forward: see its docstring.
 """
 
 from __future__ import annotations
@@ -58,11 +63,41 @@ def kappa_fwd_plain(cloud, normal, k):
         cloud[:, None].expand(b, n, n, 3), 2,
         idx[..., 1:, None].expand(-1, -1, -1, 3),
     )  # [b, n, k, 3]
+    return _kappa_direct(cloud, normal, nbr, k), _mask_from_idx(idx, n)
+
+
+def _gated_sqrt(d):
+    """sqrt(d) with the square root (and its infinite slope) gated off where
+    d == 0: the value is 0 there and no gradient passes."""
+    safe = d > 0
+    return torch.where(safe, torch.where(safe, d, torch.ones_like(d)).sqrt(),
+                       torch.zeros_like(d))
+
+
+def _kappa_direct(cloud, normal, nbr, k):
+    """sum over the neighbours nbr [b, n, *, 3] of |unit(p_j - p_i) . n_i| / k
+    with the direct difference (differentiable in cloud and nbr; a neighbour
+    on its centre adds 0 and passes no gradient)."""
     v = nbr - cloud[:, :, None, :]
-    v = v / sqnorm3(v).sqrt().clamp_min(EPS)[..., None]
+    v = v / _gated_sqrt(sqnorm3(v)).clamp_min(EPS)[..., None]
     nrm = normal[:, :, None, :]
     dot = v[..., 0] * nrm[..., 0] + v[..., 1] * nrm[..., 1] + v[..., 2] * nrm[..., 2]
-    return dot.abs().sum(-1) / k, _mask_from_idx(idx, n)
+    return dot.abs().sum(-1) / k
+
+
+def kappa_direct_from_mask_plain(cloud, normal, mask, k):
+    """kappa_fwd's kappa with the selection read from `mask` (k+1 ones per
+    row, self included; the self term is 0). Differentiable in cloud."""
+    b, n, _ = cloud.shape
+    cols = mask.nonzero()[:, 2]
+    if cols.numel() != b * n * (k + 1):
+        raise ValueError(f"mask rows must hold k+1 = {k + 1} members each")
+    idx = cols.view(b, n, k + 1)
+    nbr = torch.gather(
+        cloud[:, None].expand(b, n, n, 3), 2,
+        idx[..., None].expand(-1, -1, -1, 3),
+    )
+    return _kappa_direct(cloud, normal, nbr, k)
 
 
 def kappa_from_mask_plain(cloud, normal, mask, k):
@@ -74,10 +109,7 @@ def kappa_from_mask_plain(cloud, normal, mask, k):
         + normal[:, :, None, 2] * cloud[:, None, :, 2]
     )  # [b, i, j] = n_i . p_j
     sdiag = pn.diagonal(dim1=1, dim2=2)
-    d = pairwise_sqdist(cloud, cloud)
-    safe = d > 0
-    r = torch.where(safe, torch.where(safe, d, torch.ones_like(d)).sqrt(),
-                    torch.zeros_like(d))
+    r = _gated_sqrt(pairwise_sqdist(cloud, cloud))
     a = (pn - sdiag[..., None]).abs() / r.clamp_min(EPS)
     return (mask.to(cloud.dtype) * a).sum(-1) / k
 
@@ -91,6 +123,20 @@ def curv_term_plain(cloud, normal, ref, mask, k):
         curv = ((kappa - ref) ** 2).mean(-1)
         (grad,) = torch.autograd.grad(curv.sum(), c)
     return curv.detach(), grad
+
+
+RADII = ("direct", "expansion")
+
+
+def kappa_bwd_plain(cloud, normal, mask, g, k, radius):
+    """Plain PyTorch version of `kappa_bwd`: autograd through the plain
+    forward that `radius` names, with the mask held fixed."""
+    fwd = {"direct": kappa_direct_from_mask_plain,
+           "expansion": kappa_from_mask_plain}[radius]
+    with torch.enable_grad():
+        c = cloud.detach().requires_grad_(True)
+        (grad,) = torch.autograd.grad(fwd(c, normal, mask, k), c, g)
+    return grad
 
 
 def _check_k(n, k):
@@ -118,8 +164,8 @@ def kappa_selmask(cloud, k):
 def kappa_fwd(cloud, normal, k):
     """cloud, normal [b, n, 3] -> (kappa [b, n], mask [b, n, n] int8) with
     kappa_i = mean over the k nearest other points j of
-    |unit(p_j - p_i) . n_i|. Forward only. CPU tensors take the plain
-    version; CUDA tensors launch the kernel."""
+    |unit(p_j - p_i) . n_i|. Its gradient is `kappa_bwd(..., "direct")`.
+    CPU tensors take the plain version; CUDA tensors launch the kernel."""
     if not cloud.is_cuda:
         return kappa_fwd_plain(cloud, normal, k)
     b, n, _ = cloud.shape
@@ -153,6 +199,62 @@ def curv_term(cloud, normal, ref, mask, k):
     return curv, grad
 
 
+def kappa_frommask(cloud, normal, mask, k):
+    """cloud, normal [b, n, 3], mask [b, n, n] int8 -> kappa [b, n] =
+    sum_j mask_ij |n_i.p_j - n_i.p_i| / max(r_ij, 1e-12) / k with r_ij the
+    square root of the expansion distance (the curvature term's kappa). Its
+    gradient is `kappa_bwd(..., "expansion")`. CPU tensors take the plain
+    version; CUDA tensors launch the kernel."""
+    if not cloud.is_cuda:
+        return kappa_from_mask_plain(cloud, normal, mask, k)
+    b, n, _ = cloud.shape
+    _check_k(n, k)
+    _build.check_cuda(cloud, "cloud", torch.float32, (b, n, 3))
+    _build.check_cuda(normal, "normal", torch.float32, (b, n, 3))
+    _build.check_cuda(mask, "mask", torch.int8, (b, n, n))
+    kappa = torch.empty(b, n, dtype=torch.float32, device=cloud.device)
+    _build.launch("geoa3_kappa_frommask", cloud, normal, mask, b, n, k, kappa)
+    kappa_frommask.launches += 1
+    return kappa
+
+
+def kappa_bwd(cloud, normal, mask, g, k, radius):
+    """cloud, normal [b, n, 3], mask [b, n, n] int8, g [b, n] ->
+    [b, n, 3] = sum_i g_i d kappa_i / d cloud, with the selection held fixed.
+
+    The port has two kappa forwards with different radii, and the backward
+    must be the gradient of the forward it belongs to:
+
+      * radius="direct": `kappa_fwd`, r_ij = |p_j - p_i| from the direct
+        difference;
+      * radius="expansion": `kappa_frommask` (and `curv_term`), r_ij = the
+        square root of the expansion distance, gated at 0.
+
+    (The TPU package shares one backward because both its forwards use the
+    expansion.) One device function, templated on the radius, serves both.
+    |x|'(0) = 0 on the self column and on coincident points, and the radius
+    passes no gradient at or below the 1e-12 clamp. Neighbour-side terms are
+    added with atomics, so sums vary in the last bits from run to run. CPU
+    tensors take the plain version; CUDA tensors launch the kernel."""
+    if radius not in RADII:
+        raise ValueError(f"radius must be one of {RADII}, got {radius!r}")
+    if not cloud.is_cuda:
+        return kappa_bwd_plain(cloud, normal, mask, g, k, radius)
+    b, n, _ = cloud.shape
+    _check_k(n, k)
+    _build.check_cuda(cloud, "cloud", torch.float32, (b, n, 3))
+    _build.check_cuda(normal, "normal", torch.float32, (b, n, 3))
+    _build.check_cuda(mask, "mask", torch.int8, (b, n, n))
+    _build.check_cuda(g, "g", torch.float32, (b, n))
+    grad = torch.zeros(b, n, 3, dtype=torch.float32, device=cloud.device)
+    _build.launch("geoa3_kappa_bwd", cloud, normal, mask, g, b, n, k,
+                  int(radius == "direct"), grad)
+    kappa_bwd.launches += 1
+    return grad
+
+
 kappa_selmask.launches = 0
+kappa_frommask.launches = 0
+kappa_bwd.launches = 0
 kappa_fwd.launches = 0
 curv_term.launches = 0

@@ -1,7 +1,10 @@
-"""Dual 1-NN with payload copies: CUDA kernel wrapper and its plain version.
+"""Dual 1-NN, with and without payload copies: CUDA kernel wrappers and
+their plain versions.
 
 Replaces geoa3_tpu/ops/pallas/nn1_kernel.py:_nn1_payload_kernel
-(`nn1_dual_payload_pallas`), exact selection. Source: csrc/nn1.cu.
+(`nn1_dual_payload_pallas`) and :_nn1_dual_kernel (`nn1_dual_pallas`), exact
+selection. Source: csrc/nn1.cu; the bare variant is the same two passes with
+the copies compiled out, so both select the same indices.
 
 Bound on the H100: operations (b*n*m distance evaluations against a few MB
 of inputs and outputs). The TPU kernel folds the ori->adv minima across row
@@ -36,6 +39,29 @@ def nn1_dual_payload_plain(adv, ori, payload):
     return a2o, o2a, gp, op
 
 
+def nn1_dual_plain(adv, ori):
+    """Plain PyTorch version of `nn1_dual`."""
+    d = pairwise_sqdist(adv, ori)
+    return d.argmin(dim=-1).to(torch.int32), d.argmin(dim=-2).to(torch.int32)
+
+
+def nn1_dual(adv, ori):
+    """adv [b, n, 3], ori [b, m, 3] -> (a2o [b, n] int32, o2a [b, m] int32),
+    the argmins of `nn1_dual_payload` without its copies. Not differentiable.
+    CPU tensors take the plain version; CUDA tensors launch the kernel."""
+    if not adv.is_cuda:
+        return nn1_dual_plain(adv, ori)
+    b, n, _ = adv.shape
+    m = ori.shape[1]
+    _build.check_cuda(adv, "adv", torch.float32, (b, n, 3))
+    _build.check_cuda(ori, "ori", torch.float32, (b, m, 3))
+    a2o = torch.empty(b, n, dtype=torch.int32, device=adv.device)
+    o2a = torch.empty(b, m, dtype=torch.int32, device=adv.device)
+    _build.launch("geoa3_nn1_dual", adv, ori, b, n, m, a2o, o2a)
+    nn1_dual.launches += 1
+    return a2o, o2a
+
+
 def nn1_dual_payload(adv, ori, payload):
     """adv [b, n, 3], ori [b, m, 3], payload [b, 8, m] ->
     (a2o [b, n] int32, o2a [b, m] int32, gp [b, 8, n], op [b, 8, m]).
@@ -64,4 +90,5 @@ def nn1_dual_payload(adv, ori, payload):
     return a2o, o2a, gp, op
 
 
+nn1_dual.launches = 0
 nn1_dual_payload.launches = 0

@@ -1,28 +1,178 @@
-"""Nearest-neighbour ops of the attack's main path (port of
-geoa3_tpu/ops/knn.py).
+"""Nearest-neighbour ops (port of geoa3_tpu/ops/knn.py).
 
 Distances are squared Euclidean (pytorch3d semantics, reference
 Lib/loss_utils.py:28-50). Selected indices and masks carry no gradient;
-gradients flow through coordinates. Each op goes through its kernel wrapper
-in ops/kernels/, which takes the plain PyTorch version for CPU tensors and
-the CUDA kernel for CUDA tensors.
+gradients flow through coordinates: `knn_points` recomputes its distances
+from the gathered neighbours, and every gather's backward is the scatter-add
+kernel. Each op goes through its kernel wrapper in ops/kernels/, which takes
+the plain PyTorch version for CPU tensors and the CUDA kernel for CUDA
+tensors.
+
+Not ported (they need kernels queued in ROADMAP.md): farthest-point
+sampling, ball query and grouping, and with them `set_topk_backend`'s
+approximate mode, a TPU option.
 """
 
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import torch
 
 from geoa3_tpu_torch.ops.distance import pairwise_sqdist
-from geoa3_tpu_torch.ops.kernels import kappa_kernel, nn1_kernel, scatter_kernel
+from geoa3_tpu_torch.ops.kernels import (
+    kappa_kernel,
+    knn_kernel,
+    nn1_kernel,
+    scatter_kernel,
+)
 
 __all__ = [
+    "KNNResult",
+    "KNNPlanes",
     "pairwise_sqdist",
+    "knn_points",
+    "knn_points_planes",
+    "knn_gather",
+    "gather_rows3",
+    "nn1_dual",
     "nn1_dual_payload",
     "o2a_coord_planes",
     "kappa_select_mask",
     "curv_term_from_mask",
     "knn_kappa",
+    "knn_kappa_from_mask",
 ]
+
+
+class KNNResult(NamedTuple):
+    """pytorch3d-style kNN return plus the gathered neighbour coordinates:
+    dists, idx [b, n, k]; nbrs [b, n, k, 3]."""
+
+    dists: torch.Tensor
+    idx: torch.Tensor
+    nbrs: torch.Tensor
+
+
+class KNNPlanes(NamedTuple):
+    """kNN result as coordinate planes: idx, x, y, z are [b, n, k]; the
+    planes are differentiable in `points`."""
+
+    idx: torch.Tensor
+    x: torch.Tensor
+    y: torch.Tensor
+    z: torch.Tensor
+
+
+def _scatter_rows(idx, ct, m):
+    """The backward of a row gather: idx [b, ...] into m rows, ct [b, ..., c]
+    -> [b, m, c]. Three-channel cotangents go through the scatter kernel."""
+    b, c = ct.shape[0], ct.shape[-1]
+    flat = idx.reshape(b, -1)
+    ct = ct.reshape(b, -1, c)
+    if c == 3:
+        return scatter_kernel.scatter_add_3t(
+            flat.to(torch.int32).contiguous(), ct.contiguous(), m
+        )
+    out = ct.new_zeros(b, m, c)
+    return out.scatter_add_(1, flat.long()[..., None].expand(-1, -1, c), ct)
+
+
+class _CoordsGather(torch.autograd.Function):
+    """Neighbour gather whose forward is the coordinate block the kNN kernel
+    already wrote and whose backward is the scatter-add a gather would have
+    (geoa3_tpu/ops/knn.py:_coords_gather)."""
+
+    @staticmethod
+    def forward(ctx, points, idx, precomputed):
+        ctx.save_for_backward(idx)
+        ctx.m = points.shape[1]
+        return precomputed.clone()
+
+    @staticmethod
+    def backward(ctx, ct):
+        (idx,) = ctx.saved_tensors
+        return _scatter_rows(idx, ct, ctx.m), None, None
+
+
+class _KNNGather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, points, idx):
+        ctx.save_for_backward(idx)
+        ctx.m = points.shape[1]
+        return knn_kernel.gather_nbrs(points, idx)
+
+    @staticmethod
+    def backward(ctx, ct):
+        (idx,) = ctx.saved_tensors
+        return _scatter_rows(idx, ct, ctx.m), None
+
+
+def knn_gather(points, idx):
+    """Gather neighbour features: points [b, m, c], idx [b, n, k] ->
+    [b, n, k, c] (pytorch3d's `knn_gather`, reference Lib/loss_utils.py:58).
+    The backward of a 3-channel gather is the scatter-add kernel."""
+    return _KNNGather.apply(points, idx)
+
+
+def _knn_search(query, points, k: int):
+    """(idx [b, n, k] int32, neighbour coordinates [b, n, k, 3] or None)."""
+    if k == 1:
+        d = pairwise_sqdist(query, points)
+        return d.argmin(dim=-1, keepdim=True).to(torch.int32), None
+    _, idx, nbrs = knn_kernel.knn(query.contiguous(), points.contiguous(), k)
+    return idx, nbrs
+
+
+def knn_points(query, points, k: int) -> KNNResult:
+    """k nearest neighbours of `query` in `points`: query [b, n, 3], points
+    [b, m, 3] -> KNNResult, ascending by squared distance, lowest index on
+    ties (reference Lib/loss_utils.py:32-34).
+
+    k == 1 is a distance matrix and an argmin, as in the JAX package; k > 1
+    is the kNN kernel. The returned distances are recomputed from the
+    gathered coordinates, so they are differentiable in both clouds; the
+    kernel's own (expansion) distances are not returned."""
+    idx, kernel_nbrs = _knn_search(query.detach(), points.detach(), k)
+    if kernel_nbrs is not None:
+        nbrs = _CoordsGather.apply(points, idx, kernel_nbrs)
+    else:
+        nbrs = knn_gather(points, idx)
+    diff = query[:, :, None, :] - nbrs
+    return KNNResult(dists=(diff * diff).sum(-1), idx=idx, nbrs=nbrs)
+
+
+def knn_points_planes(query, points, k: int) -> KNNPlanes:
+    """`knn_points` with the neighbours as three [b, n, k] coordinate planes
+    (the TPU package's layout for elementwise math; here views of the same
+    block)."""
+    res = knn_points(query, points, k)
+    return KNNPlanes(res.idx, res.nbrs[..., 0], res.nbrs[..., 1], res.nbrs[..., 2])
+
+
+class _GatherRows3(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, points, idx):
+        ctx.save_for_backward(idx)
+        ctx.n = points.shape[1]
+        return torch.gather(points, 1, idx.long()[..., None].expand(-1, -1, 3))
+
+    @staticmethod
+    def backward(ctx, ct):
+        (idx,) = ctx.saved_tensors
+        return _scatter_rows(idx, ct, ctx.n), None
+
+
+def gather_rows3(points, idx):
+    """Row gather points [b, n, 3], idx [b, s] -> [b, s, 3] whose backward is
+    the scatter-add kernel."""
+    return _GatherRows3.apply(points, idx)
+
+
+def nn1_dual(adv, ori):
+    """Both 1-NN directions at once: (a2o [b, n], o2a [b, m]) int32, lowest
+    index on ties. Not differentiable."""
+    return nn1_kernel.nn1_dual(adv.detach().contiguous(), ori.detach().contiguous())
 
 
 def nn1_dual_payload(adv, ori, payload):
@@ -91,17 +241,56 @@ def curv_term_from_mask(cloud, normal, ref, mask, k: int):
     )
 
 
+class _KnnKappa(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, cloud, normal, k):
+        kappa, mask = kappa_kernel.kappa_fwd(cloud, normal, k)
+        ctx.save_for_backward(cloud, normal, mask)
+        ctx.k = k
+        return kappa
+
+    @staticmethod
+    def backward(ctx, g):
+        cloud, normal, mask = ctx.saved_tensors
+        grad = kappa_kernel.kappa_bwd(
+            cloud, normal, mask, g.contiguous(), ctx.k, "direct"
+        )
+        return grad, None, None
+
+
 def knn_kappa(cloud, normal, k: int):
     """Curvature proxy over the self-kNN neighbourhood: cloud, normal
     [b, n, 3] -> kappa [b, n], kappa_i = mean over the k nearest other
     points j of |unit(p_j - p_i) . n_i| (reference Lib/loss_utils.py:52-62).
-    Forward only: the attack needs it for the constant `kappa_ori`."""
-    if torch.is_grad_enabled() and cloud.requires_grad:
-        raise NotImplementedError(
-            "knn_kappa is forward-only in the port (kappa_bwd is queued in "
-            "ROADMAP.md); call it on a detached cloud"
-        )
-    kappa, _ = kappa_kernel.kappa_fwd(
+    Differentiable in `cloud`: the forward kernel emits its selection mask
+    and the backward kernel reads it. `normal` gets no gradient."""
+    return _KnnKappa.apply(
         cloud.contiguous(), normal.detach().contiguous(), k
     )
-    return kappa
+
+
+class _KnnKappaFromMask(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, cloud, normal, mask, k):
+        ctx.save_for_backward(cloud, normal, mask)
+        ctx.k = k
+        return kappa_kernel.kappa_frommask(cloud, normal, mask, k)
+
+    @staticmethod
+    def backward(ctx, g):
+        cloud, normal, mask = ctx.saved_tensors
+        grad = kappa_kernel.kappa_bwd(
+            cloud, normal, mask, g.contiguous(), ctx.k, "expansion"
+        )
+        return grad, None, None, None
+
+
+def knn_kappa_from_mask(cloud, normal, mask, k: int):
+    """Curvature proxy with a cached membership mask: cloud, normal
+    [b, n, 3], mask [b, n, n] int8 (from `kappa_select_mask`) -> kappa
+    [b, n] = sum_j mask_ij |unit(p_j - p_i) . n_i| / k, the self column adding
+    exactly zero, radii from the distance expansion. Differentiable in
+    `cloud`; `normal` and `mask` get no gradient."""
+    return _KnnKappaFromMask.apply(
+        cloud.contiguous(), normal.detach().contiguous(), mask, k
+    )

@@ -26,6 +26,7 @@ from geoa3_tpu_torch import losses as tlosses
 from geoa3_tpu_torch import ops as tops
 from geoa3_tpu_torch.ops import kernels as tk
 from geoa3_tpu_torch.ops.kernels import kappa_kernel as kk
+from geoa3_tpu_torch.ops.kernels import knn_kernel as qk
 from geoa3_tpu_torch.ops.kernels import nn1_kernel as nk
 from geoa3_tpu_torch.ops.kernels import pool_matmul_kernel as pk
 from geoa3_tpu_torch.ops.kernels import scatter_kernel as sk
@@ -200,9 +201,15 @@ class TestKappaFwd:
         np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5, atol=1e-7)
 
     def test_knn_kappa_is_forward_only(self):
+        """Forward-only no longer: knn_kappa carries a gradient to the cloud
+        (the kappa backward kernel's plain version here) and none to the
+        normal."""
         c, nrm, _ = _cloud(10)
-        with pytest.raises(NotImplementedError):
-            tops.knn_kappa(_t(c).requires_grad_(True), _t(nrm), K)
+        p = _t(c).requires_grad_(True)
+        q = _t(nrm).requires_grad_(True)
+        tops.knn_kappa(p, q, K).sum().backward()
+        assert q.grad is None
+        assert torch.isfinite(p.grad).all() and p.grad.abs().max() > 0
 
 
 class TestCurvTerm:
@@ -370,6 +377,11 @@ def test_cpu_tensors_never_launch_kernels():
     mask = kk.kappa_selmask(ct, K)
     kk.kappa_fwd(ct, nt, K)
     kk.curv_term(ct, nt, gp[:, 6], mask, K)
+    kk.kappa_frommask(ct, nt, mask, K)
+    for radius in kk.RADII:
+        kk.kappa_bwd(ct, nt, mask, torch.ones(B, N), K, radius)
+    nk.nn1_dual(ct, ct)
+    qk.knn(ct, ct, K)
     x = torch.randn(B, 16, 64, requires_grad=True)
     pk.pool_affine_max(x, torch.randn(1, 64, 64), torch.zeros(64)).sum().backward()
     assert tk.launch_counts() == {name: 0 for name in tk.KERNELS}
