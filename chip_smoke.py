@@ -8,9 +8,13 @@ Needs one CUDA card, nvcc and this repository around the script. Phases:
   1. print the card's name and power limit; build the CUDA kernels (timed);
   2. hold every kernel against its plain PyTorch version at the paths'
      shapes (b=32, n=m=1024, k=16; PointNet's pools at [32, 1024, 128] ->
-     1024; kNN also at m != n and at one query row), with the tolerance
-     stated, and time both (CUDA events, warm, median of 20), plus one
-     PyTorch library call where one computes the same function;
+     1024; kNN also at m != n and at one query row; the dual 1-NN also at
+     2048 original against 1024 moved points; PointNet++ SSG's sampling,
+     grouping and grouped MLPs at its three set-abstraction shapes, with
+     empty, over-full and larger-than-the-cloud balls and duplicated rows),
+     with the tolerance stated, and time both (CUDA events, warm, median of
+     20), plus one PyTorch library call where one computes the same
+     function;
   3. run the default untargeted GeoA3 attack on PointNet (40 classes, 1024
      points, random weights with non-trivial BatchNorm statistics, 32
      synthetic clouds; CE + Chamfer + 0.1 Hausdorff + curvature k=16, Adam
@@ -27,12 +31,22 @@ Needs one CUDA card, nvcc and this repository around the script. Phases:
      victim, into build/chip_smoke/: Mat/, PC/, attack_result.txt,
      attack_metrics.json, batches_done.txt, and a second run that must
      clear a planted stale file;
-  6. print one JSON line listing the kernels, then the result line.
+  6. the same attack on the PointNet++ SSG victim at its published width
+     (b=32, n=1024; two FPS, two ball-query+group and three grouped-MLP
+     launches per forward, and as many backward launches per step), a
+     short SSG attack on the card against the same attack on the CPU, and
+     the victim with normals as features ([b, n, 6]) against the CPU;
+  7. subsample mode with the uniform loss on PointNet: clouds of 2048
+     points resampled to 1024 every step, a three-fold resampling vote; and
+     the public ops whose kernels no engine path launches (`ops.nn1_dual`,
+     `ops.knn_kappa_from_mask`, `ops.group_points` with its C-channel
+     scatter backward); then the CLI once with --arch PointNetPP and once
+     with --is_subsample_opt on clouds of 2048 points;
+  8. print one JSON line listing the kernels, then the result line.
 
 Every path runs with the kernels' launch counts set to 0 just before and
 read just after, and fails if a kernel it names was not launched; together
-the paths (and phase 2, for the two kernels that only public ops reach) must
-cover every kernel. `--kernels-only` stops after phase 2.
+the paths must cover every kernel. `--kernels-only` stops after phase 2.
 
 Any failed check raises, and the script exits non-zero. It never falls back
 to the CPU: without a CUDA device it exits non-zero before printing results.
@@ -108,6 +122,35 @@ def make_batch(torch, b: int, n: int, seed: int):
     return pc, nrm, np.random.RandomState(seed + 1000)
 
 
+def entry_into(out: list):
+    def entry(name, source, replaces, err, ms, plain_ms, bound, library_ms,
+              shape):
+        out.append({
+            "name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": 0, "max_abs_err": err,
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound[0],
+            "bound_by": bound[1], "library_ms": library_ms, "shape": shape,
+        })
+    return entry
+
+
+def fma_chain(torch, a, w):
+    """a [r, k] @ w [k, c] in float32 as the grouped-MLP kernel sums it: from
+    0, one fused multiply-add a term, k ascending. The product of two float32
+    values is exact in float64, so each step rounds once, as `fmaf` does."""
+    acc = torch.zeros(a.shape[0], w.shape[1], device=a.device)
+    a64, w64 = a.double(), w.double()
+    for k in range(w.shape[0]):
+        acc = (acc.double() + a64[:, k:k + 1] * w64[k]).float()
+    return acc
+
+
+def require_equal(torch, name, got, want, what) -> None:
+    if not torch.equal(got, want):
+        _fail(f"{name} {what} is not bit-equal to the plain version "
+              f"({(got != want).sum().item()} entries differ)")
+
+
 def kernel_checks(torch) -> list[dict]:
     """Phase 2: every kernel against its plain version at main-path shapes."""
     import torch.nn.functional as F
@@ -125,14 +168,7 @@ def kernel_checks(torch) -> list[dict]:
     adv = (pc + 0.01 * torch.from_numpy(
         rng.randn(B, N, 3).astype(np.float32)).cuda()).contiguous()
 
-    def entry(name, source, replaces, err, ms, plain_ms, bound, library_ms,
-              shape):
-        out.append({
-            "name": name, "route": "cuda", "source": source,
-            "replaces": replaces, "launches": 0, "max_abs_err": err,
-            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound[0],
-            "bound_by": bound[1], "library_ms": library_ms, "shape": shape,
-        })
+    entry = entry_into(out)
 
     # --- nn1 payload -------------------------------------------------------
     with torch.no_grad():
@@ -155,6 +191,20 @@ def kernel_checks(torch) -> list[dict]:
           bound_ms(nbytes(adv, pc, pay, *got), 10.0 * pairs), None,
           "[32,1024,3]x[32,1024,3], payload [32,8,1024]")
     o2a = got[1]
+    # subsample mode: 2048 original points against 1024 moved ones
+    pc2, nrm2, _ = make_batch(torch, B, 2 * N, seed=5)
+    pay2 = torch.cat([pc2.transpose(1, 2), nrm2.transpose(1, 2),
+                      torch.zeros(B, 2, 2 * N, device="cuda")], 1).contiguous()
+    for g, w, what in zip(nk.nn1_dual_payload(adv, pc2, pay2),
+                          nk.nn1_dual_payload_plain(adv, pc2, pay2),
+                          ("a2o", "o2a", "gp", "op")):
+        require_equal(torch, "nn1_payload[n_adv=1024, n_ori=2048]", g, w, what)
+    kp2, km2 = kk.kappa_fwd(pc2, nrm2, K)
+    kp2_p, km2_p = kk.kappa_fwd_plain(pc2, nrm2, K)
+    require_equal(torch, "kappa_fwd[n=2048]", km2, km2_p, "mask")
+    check("kappa_fwd[n=2048]", (kp2 - kp2_p).abs().max().item(),
+          1e-5 * kp2_p.abs().max().item(), "kappa")
+    del pc2, nrm2, pay2, kp2, km2, kp2_p, km2_p
 
     # --- scatter -----------------------------------------------------------
     ct = torch.from_numpy(rng.randn(B, N, 3).astype(np.float32)).cuda()
@@ -423,11 +473,317 @@ def kernel_checks(torch) -> list[dict]:
     return out
 
 
+def random_mlp(torch, gen, cf, widths):
+    """A random folded three-layer MLP at He-like scale."""
+    from geoa3_tpu_torch.ops.kernels.group_mlp_kernel import fold_mlp
+
+    parts, cin = [], 3 + cf
+    for w in widths:
+        parts.append(torch.randn(cin, w, device="cuda", generator=gen)
+                     * (2.0 / cin) ** 0.5)
+        parts.append(0.1 * torch.randn(w, device="cuda", generator=gen))
+        cin = w
+    return fold_mlp(*parts)
+
+
+def ssg_kernel_checks(torch) -> list[dict]:
+    """Phase 2, second half: the PointNet++ kernels at the SSG victim's three
+    set-abstraction shapes (b=32: 1024 -> 512 centres x 64 samples, 512 -> 128
+    x 64 with 128 features, GroupAll of 128 points with 256 features)."""
+    from geoa3_tpu_torch.ops.kernels import (
+        ballquery_group_kernel as bk,
+        fps_kernel as fk,
+        group_mlp_kernel as gk,
+        scatter_kernel as sk,
+    )
+
+    out = []
+    entry = entry_into(out)
+    pc, nrm, rng = make_batch(torch, B, N, seed=3)
+    gen = torch.Generator(device="cuda").manual_seed(7)
+
+    def randn(*shape):
+        return torch.randn(*shape, device="cuda", generator=gen)
+
+    # --- farthest-point sampling -------------------------------------------
+    near = pc.clone()
+    near[:, 3:40] *= 0.01  # points the skip rule drops
+    near[1] *= 1e-3  # a cloud with every point dropped: all picks are 0
+    big, _, _ = make_batch(torch, B, 2 * N, seed=4)
+    start = torch.from_numpy(rng.randint(0, 2 * N, B).astype(np.int32)).cuda()
+    fps_idx = fk.fps(pc, 512)
+    cases = {
+        "SA1 1024->512, skip": (pc, 512, None, True, fps_idx),
+        "512->128, skip": (pc[:, :512].contiguous(), 128, None, True, None),
+        "uniform loss 1024->51": (pc, 51, None, True, None),
+        "skipped points and a fully skipped cloud": (near, 512, None, True, None),
+        "no skip": (near, 512, None, False, None),
+        "subsample 2048->1024 from a start, no skip": (big, N, start, False, None),
+    }
+    for label, (x_, m_, st_, skip_, got_) in cases.items():
+        got_ = fk.fps(x_, m_, st_, skip_) if got_ is None else got_
+        require_equal(torch, f"fps[{label}]", got_,
+                      fk.fps_plain(x_, m_, st_, skip_), "idx")
+    if fk.fps(near, 512)[1].any() or not fk.fps(big, N, start, False)[:, 0].equal(start):
+        _fail("fps: the fully skipped cloud is not all index 0, or a start "
+              "index is not the first pick")
+    print(f"  fps: idx bit-equal to plain (required) at {list(cases)}")
+    entry("fps", "geoa3_tpu_torch/csrc/fps.cu",
+          "geoa3_tpu/ops/pallas/fps_kernel.py:29", 0.0,
+          time_ms(lambda: fk.fps(pc, 512)),
+          time_ms(lambda: fk.fps_plain(pc, 512), iters=3, warm=1),
+          bound_ms(nbytes(pc, fps_idx), 9.0 * B * N * 511), None,
+          "[32,1024,3] -> [32,512]; sequential depth 511 rounds of a "
+          "block-wide argmax on 32 of 132 SMs; subsample [32,2048,3] -> "
+          f"[32,1024]: ms={time_ms(lambda: fk.fps(big, N, start, False)):.4f}")
+
+    # --- ball query + group, forward and backward --------------------------
+    c1 = torch.gather(pc, 1, fps_idx.long()[..., None].expand(-1, -1, 3)).contiguous()
+    c2 = torch.gather(c1, 1, fk.fps(c1, 128).long()[..., None].expand(-1, -1, 3)).contiguous()
+    f1 = randn(B, 512, 128)
+    far = c2.clone()
+    far[:, ::2] += 100.0  # every other ball is empty
+    bq_cases = {
+        "SA1 cf=0 r=0.2": (pc, c1, None, 0.2, 64),
+        "SA2 cf=128 r=0.4": (c1, c2, f1, 0.4, 64),
+        "cf=3 (normals)": (pc, c1, nrm, 0.2, 64),
+        "empty balls": (c1, far, f1, 0.4, 64),
+        "over-full balls r=2": (c1, c2, None, 2.0, 64),
+        "nsample 64 > n 48": (c1[:, :48].contiguous(), c2, None, 0.4, 64),
+    }
+    kept = {}
+    for label, (x_, c_, f_, r_, ns_) in bq_cases.items():
+        got = bk.ballquery_group_fwd(x_, c_, f_, r_, ns_)
+        want = bk.ballquery_group_plain(x_, c_, f_, r_, ns_)
+        for g_, w_, what in zip(got, want, ("idx", "gx", "gf")):
+            if w_ is not None:
+                require_equal(torch, f"ballquery_group_fwd[{label}]", g_, w_, what)
+        require_equal(torch, f"ball_query[{label}]",
+                      bk.ballquery_group_fwd(x_, c_, None, r_, ns_, gather=False)[0],
+                      want[0], "idx (gathers compiled out)")
+        kept[label] = got
+    if kept["empty balls"][0][:, ::2].any():
+        _fail("ballquery_group_fwd: an empty ball does not hold index 0")
+    print("  ballquery_group_fwd: idx, gx, gf bit-equal to plain, with and "
+          f"without the gathers (required) at {list(bq_cases)}")
+
+    def scanned(idx_, x_, c_, r_, ns_):
+        """Distance tests this data needs: a full ball stops at its last
+        slot's point, an under-full one reads the whole cloud."""
+        hits = (bk.pairwise_sqdist(c_, x_) < bk._r2(r_)).sum(-1)
+        n_ = x_.shape[1]
+        return torch.where(hits >= ns_, idx_[..., -1].long() + 1,
+                           torch.full_like(hits, n_)).sum().item()
+
+    idx1, gx1, _ = kept["SA1 cf=0 r=0.2"]
+    idx2, gx2, gf2 = kept["SA2 cf=128 r=0.4"]
+    sa1_ms = time_ms(lambda: bk.ballquery_group_fwd(pc, c1, None, 0.2, 64))
+    entry("ballquery_group_fwd", "geoa3_tpu_torch/csrc/ballquery_group.cu",
+          "geoa3_tpu/ops/pallas/ballquery_group_kernel.py:177", 0.0,
+          time_ms(lambda: bk.ballquery_group_fwd(c1, c2, f1, 0.4, 64)),
+          time_ms(lambda: bk.ballquery_group_plain(c1, c2, f1, 0.4, 64)),
+          bound_ms(nbytes(c1, c2, f1, idx2, gx2, gf2),
+                   10.0 * scanned(idx2, c1, c2, 0.4, 64)), None,
+          "SA2 xyz [32,512,3], centres [32,128,3], feats [32,512,128], ns=64 "
+          "-> idx [32,128,64], gx [32,128,64,3], gf [32,128,64,128]; SA1 "
+          f"[32,1024,3] x [32,512,3], cf=0: ms={sa1_ms:.4f} bound_ms="
+          f"{bound_ms(nbytes(pc, c1, idx1, gx1), 10.0 * scanned(idx1, pc, c1, 0.2, 64))[0]:.4f}")
+
+    bwd_err = 0.0
+    for label, n_ in (("SA1 cf=0 r=0.2", N), ("SA2 cf=128 r=0.4", 512),
+                      ("empty balls", 512)):
+        idx_, gx_, gf_ = kept[label]
+        dgx = randn(*gx_.shape)
+        dgf = randn(*gf_.shape) if gf_ is not None else None
+        got = bk.ballquery_group_bwd(idx_, dgx, dgf, n_)
+        want = bk.ballquery_group_bwd_plain(idx_, dgx, dgf, n_)
+        for g_, w_, what in zip(got, want, ("dxyz", "dcentre", "dfeats")):
+            if w_ is None:
+                continue
+            # float32 sums of up to a few thousand colliding rows (an empty
+            # ball sends all its slots to point 0) in atomic order
+            err = (g_ - w_).abs().max().item()
+            check(f"ballquery_group_bwd[{label}]", err,
+                  2e-5 * w_.abs().max().item(), what)
+            bwd_err = max(bwd_err, err)
+    dgx2, dgf2 = randn(*gx2.shape), randn(*gf2.shape)
+    dgx1 = randn(*gx1.shape)
+    sa1_bwd_ms = time_ms(lambda: bk.ballquery_group_bwd(idx1, dgx1, None, N))
+    bout = bk.ballquery_group_bwd(idx2, dgx2, dgf2, 512)
+    entry("ballquery_group_bwd", "geoa3_tpu_torch/csrc/ballquery_group.cu",
+          "geoa3_tpu/ops/pallas/ballquery_group_kernel.py:224", bwd_err,
+          time_ms(lambda: bk.ballquery_group_bwd(idx2, dgx2, dgf2, 512)),
+          time_ms(lambda: bk.ballquery_group_bwd_plain(idx2, dgx2, dgf2, 512)),
+          bound_ms(nbytes(idx2, dgx2, dgf2, *bout), 131.0 * idx2.numel()), None,
+          "SA2 idx [32,128,64], dgx [32,128,64,3], dgf [32,128,64,128] -> "
+          "dxyz [32,512,3], dcentre [32,128,3], dfeats [32,512,128]; SA1 "
+          f"(cf=0): ms={sa1_bwd_ms:.4f}")
+
+    # --- C-channel scatter -------------------------------------------------
+    flat2 = idx2.reshape(B, -1).contiguous()  # S = 8192 into 512 rows
+    ct2 = dgf2.reshape(B, -1, 128)
+    flat1 = idx1.reshape(B, -1).contiguous()  # S = 32768 into 1024 rows
+    ct1 = randn(B, flat1.shape[1], 128)
+    sc_err = 0.0
+    for label, (i_, c_, n_) in {"S=8192 n=512 C=128": (flat2, ct2, 512),
+                                "S=32768 n=1024 C=128": (flat1, ct1, N),
+                                "C=5": (flat2, ct2[..., :5].contiguous(), 512)}.items():
+        g_ = sk.scatter_add_nc(i_, c_, n_)
+        w_ = sk.scatter_add_nc_plain(i_, c_, n_)
+        # float32 sums of the rows that collide (tens to hundreds: ball
+        # neighbourhoods overlap), in atomic order
+        err = (g_ - w_).abs().max().item()
+        check(f"scatter_add_nc[{label}]", err, 2e-5 * w_.abs().max().item(), "out")
+        sc_err = max(sc_err, err)
+    lib_idx = (flat1.long() + N * torch.arange(B, device="cuda")[:, None]).reshape(-1)
+    lib_ct = ct1.reshape(-1, 128)
+    lib_out = torch.zeros(B * N, 128, device="cuda")
+    sc_out = sk.scatter_add_nc(flat1, ct1, N)
+    entry("scatter_add_nc", "geoa3_tpu_torch/csrc/scatter.cu",
+          "geoa3_tpu/ops/pallas/scatter_kernel.py:94", sc_err,
+          time_ms(lambda: sk.scatter_add_nc(flat1, ct1, N)),
+          time_ms(lambda: sk.scatter_add_nc_plain(flat1, ct1, N)),
+          bound_ms(nbytes(flat1, ct1, sc_out), 1.0 * ct1.numel()),
+          time_ms(lambda: lib_out.index_add_(0, lib_idx, lib_ct)),
+          "idx [32,32768], ct [32,32768,128] -> [32,1024,128] (library: "
+          "index_add_ on the flattened batch); S=8192 into 512 rows: ms="
+          f"{time_ms(lambda: sk.scatter_add_nc(flat2, ct2, 512)):.4f}")
+    del ct1, lib_ct, lib_out, sc_out
+
+    # --- grouped MLP + max-pool, forward and backward ----------------------
+    gx3 = c2[:, None].contiguous()  # GroupAll: [32, 1, 128, 3]
+    gf3 = torch.relu(randn(B, 1, 128, 256))
+    gx3[:, :, 1::8] = gx3[:, :, 0::8]  # duplicated rows: exact ties
+    gf3[:, :, 1::8] = gf3[:, :, 0::8]
+    shapes = {
+        "SA1": (gx1, None, random_mlp(torch, gen, 0, (64, 64, 128))),
+        "SA2": (gx2, torch.relu(gf2), random_mlp(torch, gen, 128, (128, 128, 256))),
+        "SA3": (gx3, gf3, random_mlp(torch, gen, 256, (256, 512, 1024))),
+    }
+    rows = {}
+    for label, (gx_, gf_, p_) in shapes.items():
+        b_, m_, ns_, _ = gx_.shape
+        pooled, cnt = gk.group_mlp_fwd(gx_, gf_, p_)
+        want = gk.group_mlp_maxpool_plain(gx_, gf_, p_)
+        scale = want.abs().max().item()
+        # three layers of float32 products summed in another order than cuBLAS
+        fwd_err = (pooled - want).abs().max().item()
+        check(f"group_mlp_fwd[{label}]", fwd_err, 2e-5 * scale, "pooled")
+        # the backward is held against autograd in float64, where repeated
+        # rows stay exactly tied, through the same three layers with every
+        # ReLU's on/off pattern given: float64's own, except on the rows that
+        # hold a hidden pre-activation within rounding of 0, where the pattern
+        # is the float32 one that the kernel's summation order gives
+        # (`fma_chain`), so that every row is held to the one tolerance. The
+        # pooled cotangent is kept off the (group, channel)s whose two largest
+        # values lie within rounding of each other without being an exact
+        # tie, or whose maximum lies within rounding of 0: there the versions
+        # may rightly pick different rows.
+        p64 = gk.FoldedMLP(*(t.double() for t in p_))
+        x0 = gx_ if gf_ is None else torch.cat([gx_, gf_], dim=-1)
+        with torch.no_grad():
+            z1 = x0.double() @ p64.w1 + p64.b1
+            z2 = torch.relu(z1) @ p64.w2 + p64.b2
+            on1, on2 = z1 > 0, z2 > 0
+            fragile = torch.zeros(b_, m_, ns_, dtype=torch.bool, device="cuda")
+            for z in (z1, z2):
+                fragile |= (z.abs() < 2e-5 * z.abs().max()).any(-1)
+            a1 = torch.relu(fma_chain(torch, x0[fragile], p_.w1) + p_.b1)
+            f1 = a1 > 0
+            f2 = fma_chain(torch, a1, p_.w2) + p_.b2 > 0
+            switched = int((f1 != on1[fragile]).sum() + (f2 != on2[fragile]).sum())
+            on1[fragile], on2[fragile] = f1, f2
+            del z1, z2, z, a1, f1, f2
+        xg = gx_.double().requires_grad_(True)
+        fg = gf_.double().requires_grad_(True) if gf_ is not None else None
+        z1 = xg @ p64.w1[:3] + p64.b1
+        if fg is not None:
+            z1 = z1 + fg @ p64.w1[3:]
+        z2 = (z1 * on1) @ p64.w2 + p64.b2
+        a3 = torch.relu((z2 * on2) @ p64.w3 + p64.b3)
+        top2 = torch.topk(a3.detach(), 2, dim=2).values
+        gap = top2[:, :, 0] - top2[:, :, 1]
+        gap_ok = ((gap > 1e-4 * scale) | (gap == 0)) & (top2[:, :, 0] > 1e-4 * scale)
+        gcot = (randn(b_, m_, p_.w3.shape[1]) * gap_ok).contiguous()
+        grads = torch.autograd.grad(
+            (torch.amax(a3, dim=2) * gcot.double()).sum(),
+            [xg] + ([fg] if fg is not None else []))
+        del a3, z1, z2, top2, gap, on1, on2
+        got = gk.group_mlp_bwd(gcot, gx_, gf_, p_, pooled, cnt)
+        tied = int((cnt > 1).sum())
+        bwd_errs = []
+        for g_, w_, what in zip(got, grads, ("dgx", "dgf")):
+            w_ = w_.float()
+            err = (g_ - w_).abs().max().item()
+            # float32 sums of up to 512 products a layer in another order
+            check(f"group_mlp_bwd[{label}]", err, 2e-5 * w_.abs().max().item(),
+                  f"{what}, every row")
+            bwd_errs.append(err)
+        print(f"  group_mlp_bwd[{label}]: {int(fragile.sum())} of {fragile.numel()} "
+              f"rows hold a pre-activation within rounding of 0, and {switched} "
+              f"of their hidden units are on in float32 and off in float64 or "
+              f"the reverse; {int(gap_ok.sum())}/{gap_ok.numel()} maxima carry "
+              f"a cotangent")
+        del grads, xg, fg
+        c0, c1_, c2_, c3_ = p_.w1.shape[0], p_.w1.shape[1], p_.w2.shape[1], p_.w3.shape[1]
+        flops = 2.0 * b_ * m_ * ns_ * (c0 * c1_ + c1_ * c2_ + c2_ * c3_)
+        g_all = randn(b_, m_, c3_)
+        xr = gx_.clone().requires_grad_(True)
+        fr = gf_.clone().requires_grad_(True) if gf_ is not None else None
+        ins = [xr] + ([fr] if fr is not None else [])
+        wbytes = nbytes(*p_[:6])
+        rows[label] = dict(
+            fwd_err=fwd_err, bwd_err=max(bwd_errs), flops=flops, tied=tied,
+            fwd_ms=time_ms(lambda: gk.group_mlp_fwd(gx_, gf_, p_)),
+            fwd_plain=time_ms(lambda: gk.group_mlp_maxpool_plain(gx_, gf_, p_), iters=5),
+            fwd_bound=bound_ms(nbytes(gx_, pooled, cnt) + wbytes
+                               + (nbytes(gf_) if gf_ is not None else 0), flops),
+            bwd_ms=time_ms(lambda: gk.group_mlp_bwd(g_all, gx_, gf_, p_, pooled, cnt)),
+            bwd_plain=time_ms(lambda: torch.autograd.grad(
+                (gk.group_mlp_maxpool_plain(xr, fr, p_) * g_all).sum(), ins), iters=5),
+            # the recompute and one dz @ w^T product a layer (no weight
+            # gradients): twice the forward
+            bwd_bound=bound_ms(2 * nbytes(gx_) + nbytes(g_all, pooled, cnt) + 2 * wbytes
+                               + (2 * nbytes(gf_) if gf_ is not None else 0), 2.0 * flops),
+        )
+        r_ = rows[label]
+        print(f"  group_mlp[{label}]: {tied} (group, channel)s with tied maxima; "
+              f"fwd ms={r_['fwd_ms']:.4f} plain={r_['fwd_plain']:.4f} bound="
+              f"{r_['fwd_bound'][0]:.4f}; bwd ms={r_['bwd_ms']:.4f} plain="
+              f"{r_['bwd_plain']:.4f} bound={r_['bwd_bound'][0]:.4f}")
+    if rows["SA3"]["tied"] == 0 or rows["SA1"]["tied"] == 0:
+        _fail("group_mlp: the inputs held no tied maxima, the tie split is unchecked")
+    r2_ = rows["SA2"]
+    others = lambda k1, k2: "; ".join(  # noqa: E731
+        f"{lab}: ms={rows[lab][k1]:.4f} bound_ms={rows[lab][k2][0]:.4f}"
+        for lab in ("SA1", "SA3"))
+    entry("group_mlp_fwd", "geoa3_tpu_torch/csrc/group_mlp.cu",
+          "geoa3_tpu/ops/pallas/group_mlp_kernel.py:158",
+          max(r["fwd_err"] for r in rows.values()), r2_["fwd_ms"],
+          r2_["fwd_plain"], r2_["fwd_bound"], None,
+          "SA2 rows 32*128*64 x (131->128->128->256) -> [32,128,256]; SA1 rows "
+          "32*512*64 x (3->64->64->128), SA3 rows 32*1*128 x "
+          f"(259->256->512->1024): {others('fwd_ms', 'fwd_bound')}")
+    entry("group_mlp_bwd", "geoa3_tpu_torch/csrc/group_mlp.cu",
+          "geoa3_tpu/ops/pallas/group_mlp_kernel.py:177",
+          max(r["bwd_err"] for r in rows.values()), r2_["bwd_ms"],
+          r2_["bwd_plain"], r2_["bwd_bound"], None,
+          "SA2 -> dgx [32,128,64,3], dgf [32,128,64,128] (plain: autograd "
+          "through the plain forward, forward included; max_abs_err against "
+          "float64 autograd over every row, with the float32 ReLU pattern on "
+          "the rows that hold a pre-activation within rounding of 0); "
+          f"{others('bwd_ms', 'bwd_bound')}")
+    return out
+
+
 MAIN_PATH = ("nn1_payload", "scatter_add_3t", "kappa_selmask", "curv_term",
              "kappa_fwd", "pool_fwd", "pool_bwd")
-# kernels that no engine path launches (public ops only, as in the JAX
-# package): phase 2 launches and checks them
-PHASE2_ONLY = ("nn1_dual", "kappa_frommask")
+# kernels that no engine path launches (as in the JAX package): the public
+# ops that reach them are a path of their own
+PUBLIC_OPS = ("nn1_dual", "kappa_frommask", "scatter_add_nc")
+SSG_PATH = ("nn1_payload", "scatter_add_3t", "kappa_selmask", "curv_term",
+            "kappa_fwd", "fps", "ballquery_group_fwd", "ballquery_group_bwd",
+            "group_mlp_fwd", "group_mlp_bwd")
 
 
 class Paths:
@@ -455,17 +811,17 @@ class Paths:
     def check_union(self):
         from geoa3_tpu_torch.ops.kernels import KERNELS
 
-        covered = set(PHASE2_ONLY).union(*self.required.values())
+        covered = set().union(*self.required.values())
         if covered != set(KERNELS):
             _fail(f"no path launches {sorted(set(KERNELS) - covered)}")
 
     def launches(self, kernel):
-        """The count of the first path that names the kernel (0 for the
-        kernels only phase 2 launches), and the counts of every path."""
+        """The count of the first path that names the kernel, and the counts
+        of every path."""
         by_path = {label: c[kernel] for label, c in self.counts.items()}
-        first = next((label for label, req in self.required.items()
-                      if kernel in req), None)
-        return (by_path[first] if first else 0), by_path
+        first = next(label for label, req in self.required.items()
+                     if kernel in req)
+        return by_path[first], by_path
 
 
 def timed_attack(torch, fn, args, steps):
@@ -478,20 +834,20 @@ def timed_attack(torch, fn, args, steps):
     return res, s.elapsed_time(e) / steps
 
 
-def check_result(torch, res, steps, label):
+def check_result(torch, res, steps, label, n=N):
     for name, t in res._asdict().items():
         if t.is_floating_point() and name != "best_loss" and not torch.isfinite(t).all():
             _fail(f"{label}: attack result {name} is not finite")
-    if res.best_attack.shape != (B, N, 3) or res.all_loss.shape != (steps, B):
+    if res.best_attack.shape != (B, n, 3) or res.all_loss.shape != (steps, B):
         _fail(f"{label}: attack result has the wrong shape")
 
 
 def attack_phase(torch, paths) -> dict:
     """Phase 3: the default attack end to end on the card."""
     from geoa3_tpu_torch import make_attack_fn
-    from geoa3_tpu_torch.workload import main_path_config, random_pointnet
+    from geoa3_tpu_torch.workload import main_path_config, random_victim
 
-    model, logits_fn = random_pointnet(seed=0)
+    model, logits_fn = random_victim("PointNet", seed=0)
     pc, nrm, _ = make_batch(torch, B, N, seed=1)
     with torch.no_grad():
         gt = logits_fn(pc).argmax(-1)
@@ -540,9 +896,9 @@ def side_modes_phase(torch, paths) -> dict:
 
     from geoa3_tpu_torch import make_attack_fn
     from geoa3_tpu_torch.attack import project
-    from geoa3_tpu_torch.workload import main_path_config, random_pointnet
+    from geoa3_tpu_torch.workload import main_path_config, random_victim
 
-    _, logits_fn = random_pointnet(seed=0)
+    _, logits_fn = random_victim("PointNet", seed=0)
     pc, nrm, _ = make_batch(torch, B, N, seed=1)
     gt = synthetic_labels(torch)
     steps = 100
@@ -611,12 +967,12 @@ def cli_phase(torch, paths) -> dict:
     import scipy.io as sio
 
     from geoa3_tpu_torch.cli.main_attack import build_parser, main as cli_main
-    from geoa3_tpu_torch.workload import random_pointnet
+    from geoa3_tpu_torch.workload import random_victim
 
     root = REPO / "build" / "chip_smoke"
     shutil.rmtree(root, ignore_errors=True)
     root.mkdir(parents=True)
-    model, _ = random_pointnet(seed=0)
+    model, _ = random_victim("PointNet", seed=0)
     torch.save(model.state_dict(), root / "victim.pt")
     per_class, steps = 4, 20
     argv = ["--attack", "GeoA3", "--attack_label", "Untarget",
@@ -666,14 +1022,240 @@ def cli_phase(torch, paths) -> dict:
     return dict(saved=len(mats), total=total, seconds=secs)
 
 
+def cli_more_runs(torch, paths) -> dict:
+    """Phase 7, last part: the CLI on the PointNet++ SSG victim, and in
+    subsample mode on clouds of 2048 points (into phase 5's directory)."""
+    import scipy.io as sio
+
+    from geoa3_tpu_torch.cli.main_attack import build_parser, main as cli_main
+    from geoa3_tpu_torch.workload import random_victim
+
+    root = REPO / "build" / "chip_smoke"
+    model, _ = random_victim("PointNetPP", seed=0)
+    torch.save(model.state_dict(), root / "victim_ssg.pt")
+    per_class = 4
+    runs = {
+        "CLI PointNetPP": (
+            ["--arch", "PointNetPP", "--checkpoint", str(root / "victim_ssg.pt"),
+             "--data_dir_file", f"synthetic:{per_class}:{N}",
+             "--iter_max_steps", "10"], SSG_PATH, N),
+        "CLI subsample": (
+            ["--checkpoint", str(root / "victim.pt"), "--is_subsample_opt",
+             "--eval_num", "3", "--npoint", str(N),
+             "--data_dir_file", f"synthetic:{per_class}:{2 * N}",
+             "--iter_max_steps", "10"],
+            ("nn1_payload", "scatter_add_3t", "kappa_fwd", "kappa_bwd", "fps",
+             "pool_fwd", "pool_bwd"), 2 * N),
+    }
+    out = {}
+    for label, (extra, need, n_saved) in runs.items():
+        argv = ["--attack", "GeoA3", "--attack_label", "Untarget", "-b", str(B),
+                "--binary_max_steps", "1",
+                "--exps_root", str(root / "Exps")] + extra
+        t0 = time.time()
+        saved, _ = paths.run(label, need,
+                             lambda: cli_main(build_parser().parse_args(argv)))
+        torch.cuda.synchronize()
+        secs = time.time() - t0
+        saved = Path(saved)
+        mats = sorted(p.name for p in (saved / "Mat").iterdir())
+        total = 10 * per_class
+        rate = float((saved / "attack_result.txt").read_text().strip()
+                     .splitlines()[-1].split(":")[1])
+        if not mats or abs(rate - 100.0 * len(mats) / total) > 0.01:
+            _fail(f"{label}: attack_result.txt says {rate}% and {len(mats)} of "
+                  f"{total} instances were saved")
+        cloud = sio.loadmat(saved / "Mat" / mats[0])["adversary_point_clouds"]
+        if cloud.shape != (3, n_saved) or not np.isfinite(cloud).all():
+            _fail(f"{label}: saved cloud has shape {cloud.shape} or is not finite")
+        metrics = json.loads((saved / "attack_metrics.json").read_text())
+        if metrics["num_successful"] != len(mats) or not np.isfinite(
+                metrics["mean_chamfer"]):
+            _fail(f"{label}: attack_metrics.json is off: {metrics}")
+        print(f"  {label}: {total} clouds, 1x10 steps, {len(mats)} saved "
+              f"({rate:.2f}%), {secs:.1f} s")
+        out[label] = dict(saved=len(mats), total=total, seconds=secs)
+    return out
+
+
+def public_ops_phase(torch, paths) -> None:
+    """The public ops whose kernels no engine path launches, through their
+    differentiable entry points at the paths' shapes: `ops.nn1_dual`,
+    `ops.knn_kappa_from_mask`, and `ops.group_points` on 128 feature channels
+    (its backward is the C-channel scatter)."""
+    from geoa3_tpu_torch import ops
+    from geoa3_tpu_torch.ops.kernels import scatter_kernel as sk
+
+    pc, nrm, rng = make_batch(torch, B, N, seed=8)
+    adv = (pc + 0.01 * torch.from_numpy(
+        rng.randn(B, N, 3).astype(np.float32)).cuda()).contiguous()
+
+    def run():
+        a2o, o2a = ops.nn1_dual(adv, pc)
+        x = adv.clone().requires_grad_(True)
+        kappa = ops.knn_kappa_from_mask(x, nrm, ops.kappa_select_mask(adv, K), K)
+        kappa.sum().backward()
+        centres = ops.gather_points(pc, ops.furthest_point_sampling(pc, 128))
+        idx = ops.ball_query(0.4, 64, pc, centres)
+        feats = torch.from_numpy(
+            rng.randn(B, N, 128).astype(np.float32)).cuda().requires_grad_(True)
+        w = torch.from_numpy(rng.randn(B, 128, 64, 128).astype(np.float32)).cuda()
+        (ops.group_points(feats, idx) * w).sum().backward()
+        return a2o, o2a, kappa, x.grad, idx, w, feats.grad
+
+    (a2o, o2a, kappa, dx, idx, w, dfeats), _ = paths.run(
+        "public ops", PUBLIC_OPS + ("kappa_bwd",), run)
+    for name, t in (("kappa", kappa), ("dcloud", dx), ("dfeats", dfeats)):
+        if not torch.isfinite(t).all():
+            _fail(f"public ops: {name} is not finite")
+    if a2o.shape != (B, N) or o2a.shape != (B, N) or dfeats.shape != (B, N, 128):
+        _fail("public ops: an output has the wrong shape")
+    want = sk.scatter_add_nc_plain(idx.reshape(B, -1), w.reshape(B, -1, 128), N)
+    # float32 sums of the rows that collide, in atomic order
+    check("group_points backward", (dfeats - want).abs().max().item(),
+          2e-5 * want.abs().max().item(), "dfeats vs the plain scatter")
+
+
+def ssg_phase(torch, paths) -> dict:
+    """Phase 6: the default attack on the PointNet++ SSG victim, full width."""
+    from geoa3_tpu_torch import make_attack_fn
+    from geoa3_tpu_torch.workload import main_path_config, random_victim
+
+    _, logits_fn = random_victim("PointNetPP", seed=0)
+    pc, nrm, _ = make_batch(torch, B, N, seed=1)
+    with torch.no_grad():
+        logits = logits_fn(pc)
+    if logits.shape != (B, 40) or not torch.isfinite(logits).all():
+        _fail("SSG: the victim's logits are not finite [32, 40]")
+    gt = logits.argmax(-1)
+
+    def run(cfg, seed):
+        fn = make_attack_fn(logits_fn, cfg)
+        gen = torch.Generator(device="cuda").manual_seed(seed)
+        return timed_attack(torch, fn, (pc, nrm, gt, gt, gen),
+                            cfg.binary_max_steps * cfg.iter_max_steps)
+
+    run(main_path_config(1, 10, arch="PointNetPP"), 99)  # warm-up
+    steps = 30
+    cfg = main_path_config(1, steps, arch="PointNetPP")
+    (res, ms_step), counts = paths.run("SSG K=10", SSG_PATH, lambda: run(cfg, 0))
+    check_result(torch, res, steps, "SSG K=10")
+    # per forward: FPS and the fused query+group at two levels, the grouped
+    # MLP at three; per step one forward and one backward
+    want = {"fps": 2 * steps, "ballquery_group_fwd": 2 * steps,
+            "ballquery_group_bwd": 2 * steps, "group_mlp_fwd": 3 * steps,
+            "group_mlp_bwd": 3 * steps, "pool_fwd": 0, "pool_bwd": 0}
+    got = {k: counts[k] for k in want}
+    if got != want:
+        _fail(f"SSG launches {got}, expected {want}")
+    per_step = {k: v / steps for k, v in counts.items() if v}
+    print(f"  SSG K=10 attack: 1x{steps} steps, {ms_step:.4f} ms/step (CUDA "
+          f"events), success {int(res.success.sum())}/{B}; launches per step "
+          f"{per_step}")
+    return dict(ms_per_step=ms_step, launches_per_step=per_step,
+                success=int(res.success.sum()))
+
+
+def ssg_cpu_agreement(torch) -> None:
+    """A short SSG attack on the card against the same attack on the CPU (the
+    kernels' plain versions), from the same weights and initial offsets."""
+    from geoa3_tpu_torch import make_attack_fn
+    from geoa3_tpu_torch.workload import main_path_config, random_victim
+
+    b, steps = 2, 4
+    model, _ = random_victim("PointNetPP", seed=2, device="cpu")
+    pc, nrm, rng = make_batch(torch, b, N, seed=2)
+    off = torch.from_numpy(1e-3 * rng.randn(b, N, 3).astype(np.float32))
+    cfg = main_path_config(1, steps, refresh=2, arch="PointNetPP")
+    results = {}
+    for dev in ("cuda", "cpu"):
+        m = model.to(dev)
+        m.requires_grad_(False)
+        x, nx = pc.to(dev), nrm.to(dev)
+        with torch.no_grad():
+            gt = m(x).argmax(-1)
+        fn = make_attack_fn(m, cfg, init_offset=lambda i: off)
+        results[dev] = fn(x, nx, gt, gt)
+    g, c = results["cuda"], results["cpu"]
+    a, b_ = g.all_loss.cpu(), c.all_loss
+    rel = ((a - b_).abs().mean() / b_.abs().mean()).item()
+    # float32 sums in other orders feed 4 Adam steps
+    print(f"  card vs CPU SSG attack ([2,1024], 1x{steps} steps): mean rel "
+          f"all_loss diff {rel:.3e} (tol 1e-3), success {g.success.tolist()} "
+          f"vs {c.success.tolist()}")
+    if not rel <= 1e-3:
+        _fail("the SSG attack on the card disagrees with the CPU run")
+
+    # normals as features ([b, n, 6]: three feature channels at the first
+    # level, where the layer-1 input is 6 wide): logits and input gradient
+    from geoa3_tpu_torch.models.pointnetpp import PointNet2ClassificationSSG
+
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(3)
+        vn = PointNet2ClassificationSSG(use_normal=True).eval().requires_grad_(False)
+    out = {}
+    for dev in ("cuda", "cpu"):
+        x = torch.cat([pc, nrm], -1).to(dev).requires_grad_(True)
+        logits = vn.to(dev)(x)
+        (grad,) = torch.autograd.grad((logits ** 2).sum(), x)
+        out[dev] = (logits.detach().cpu(), grad.cpu())
+    for (g_, c_), what, tol in zip(zip(*out.values()), ("logits", "input gradient"),
+                                   (5e-4, 5e-3)):
+        # float32 layers in other summation orders; in the gradient a ReLU or
+        # a maximum within rounding of a tie may switch, which moves single
+        # entries (the bounds of the JAX package's own fused-against-unfused
+        # model test)
+        check("SSG with normals, card vs CPU", (g_ - c_).abs().max().item(),
+              tol * c_.abs().max().item(), what)
+
+
+def subsample_phase(torch, paths) -> dict:
+    """Phase 7: subsample mode with the uniform loss on PointNet: clouds of
+    2048 points resampled to 1024 each step, a three-fold resampling vote."""
+    import dataclasses
+
+    from geoa3_tpu_torch import make_attack_fn
+    from geoa3_tpu_torch.workload import main_path_config, random_victim
+
+    _, logits_fn = random_victim("PointNet", seed=0)
+    pc, nrm, _ = make_batch(torch, B, 2 * N, seed=6)
+    gt = synthetic_labels(torch)
+    steps, votes = 20, 3
+    cfg = dataclasses.replace(main_path_config(1, steps), is_subsample_opt=True,
+                              eval_num=votes, uniform_loss_weight=1.0)
+
+    def run(seed):
+        fn = make_attack_fn(logits_fn, cfg)
+        gen = torch.Generator(device="cuda").manual_seed(seed)
+        return timed_attack(torch, fn, (pc, nrm, gt, gt, gen), steps)
+
+    need = ("nn1_payload", "scatter_add_3t", "kappa_fwd", "kappa_bwd", "fps",
+            "ballquery_group_fwd", "knn", "pool_fwd", "pool_bwd")
+    (res, ms_step), counts = paths.run("subsample+uniform", need, lambda: run(4))
+    check_result(torch, res, steps, "subsample+uniform", n=2 * N)
+    # per step: FPS for the loss, for the vote (one launch for all draws) and
+    # for the uniform loss's seeds; five ball queries and five kNN launches
+    # (the uniform loss's scales); no mask is held, so kappa runs fused
+    want = {"fps": 3 * steps, "ballquery_group_fwd": 5 * steps, "knn": 5 * steps,
+            "kappa_fwd": steps + 1, "kappa_bwd": steps, "kappa_selmask": 0,
+            "curv_term": 0, "ballquery_group_bwd": 0}
+    got = {k: counts[k] for k in want}
+    if got != want:
+        _fail(f"subsample+uniform launches {got}, expected {want}")
+    print(f"  subsample+uniform: 1x{steps} steps on [32,2048,3] -> 1024, "
+          f"{votes} votes, {ms_step:.4f} ms/step, success "
+          f"{int(res.success.sum())}/{B}")
+    return dict(ms_per_step=ms_step, success=int(res.success.sum()))
+
+
 def cpu_agreement(torch) -> None:
     """A short attack on the card against the same attack on the CPU (the
     kernels' plain versions), from the same weights and initial offsets."""
     from geoa3_tpu_torch import make_attack_fn
-    from geoa3_tpu_torch.workload import main_path_config, random_pointnet
+    from geoa3_tpu_torch.workload import main_path_config, random_victim
 
     b, n = 4, 256
-    model, _ = random_pointnet(40, n, seed=2, device="cpu")
+    model, _ = random_victim("PointNet", 40, n, seed=2, device="cpu")
     pc, nrm, rng = make_batch(torch, b, n, seed=2)
     offs = [torch.from_numpy(1e-3 * rng.randn(b, n, 3).astype(np.float32))
             for _ in range(2)]
@@ -727,23 +1309,37 @@ def main() -> int:
     so = _build.lib()
     print(f"phase 1: built {so} in {time.time() - t0:.1f} s")
 
-    print("phase 2: kernels against their plain versions")
-    kernels = kernel_checks(torch)
+    def phase(title):
+        print(f"{title} (at {time.time() - t0:.1f} s)")
+
+    phase("phase 2: kernels against their plain versions")
+    kernels = kernel_checks(torch) + ssg_kernel_checks(torch)
     if args.kernels_only:
         print(json.dumps({"kernels": kernels}))
         return 0
 
     paths = Paths()
-    print("phase 3: default attack on the card")
+    phase("phase 3: default attack on the card")
     run = attack_phase(torch, paths)
     cpu_agreement(torch)
 
-    print("phase 4: the engine's side modes at full width")
+    phase("phase 4: the engine's side modes at full width")
     side = side_modes_phase(torch, paths)
 
-    print("phase 5: the attack CLI in process")
+    phase("phase 5: the attack CLI in process")
     cli = cli_phase(torch, paths)
 
+    phase("phase 6: the attack on the PointNet++ SSG victim at full width")
+    ssg = ssg_phase(torch, paths)
+    ssg_cpu_agreement(torch)
+
+    phase("phase 7: subsample mode with the uniform loss; the public ops; "
+          "the CLI on both")
+    sub = subsample_phase(torch, paths)
+    public_ops_phase(torch, paths)
+    cli.update(cli_more_runs(torch, paths))
+
+    phase("phase 8: the result")
     paths.check_union()
     for k in kernels:
         k["launches"], k["launches_by_path"] = paths.launches(k["name"])
@@ -753,7 +1349,7 @@ def main() -> int:
                    "ms_per_step_exact": run["ms_step_exact"],
                    "launches_exact": run["counts_exact"],
                    "success": run["success"], "batch": B, "card": smi},
-        "side_modes": side, "cli": cli,
+        "side_modes": side, "cli": cli, "ssg": ssg, "subsample_uniform": sub,
     }))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

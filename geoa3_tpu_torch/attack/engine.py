@@ -28,11 +28,16 @@ projection onto the original normals and per-point clipping after the update;
 the tangent jitter, refreshed every `calculate_project_jitter_noise_iter`
 steps and added without gradient, with a second clean forward for the success
 test; `eval_logits_fn`; partial-variable mode (`run_partial`); the
-debug callback after each search step.
+debug callback after each search step; the uniform loss.
 
-Still refused with NotImplementedError (they need farthest-point sampling,
-ROADMAP.md): `is_subsample_opt` with its ensemble vote, and
-`uniform_loss_weight != 0`.
+Subsample mode (`is_subsample_opt`, for clouds of more than `npoint` points;
+reference :283-295): every step the moved cloud is resampled to `npoint`
+points by random-start farthest-point sampling, the loss sees the resampled
+cloud (the gradient reaches the whole cloud through the gather), the tangent
+jitter is estimated from the same resampling, and success is an
+`eval_num`-fold resampling vote (`_ensemble_eval`). The point set changes
+every step, so no selection mask is held: the curvature term selects on the
+step's own cloud (`ops.knn_kappa`), whatever `curv_knn_refresh_every` says.
 """
 
 from __future__ import annotations
@@ -51,6 +56,7 @@ from geoa3_tpu_torch.attack.project import (
     lp_clip,
     offset_proj,
 )
+from geoa3_tpu_torch.ops.sampling import random_start
 
 _INF = 1e10
 _B1, _B2, _EPS = 0.9, 0.999, 1e-8  # optax.adam defaults (JAX engine :281)
@@ -122,11 +128,6 @@ def forward_losses(
     current cloud by the differentiable `ops.knn_kappa` (the JAX engine's
     no-mask branch, :251-258).
     """
-    if cfg.uniform_loss_weight != 0:
-        raise NotImplementedError(
-            "uniform loss is not ported yet (it needs farthest-point "
-            "sampling, see ROADMAP.md)"
-        )
     b = input_curr.shape[0]
     logits = logits_fn(input_curr)
     cls_loss = _cls_loss(logits, target, cfg)
@@ -194,22 +195,31 @@ def forward_losses(
     else:
         curv_loss = zeros
 
+    if cfg.uniform_loss_weight != 0:
+        constrain = constrain + cfg.uniform_loss_weight * L.uniform_loss(input_curr)
+
     loss_n = cls_loss + scale_const * constrain
     aux = Aux(logits, loss_n, cls_loss, dis_loss, hd_loss, curv_loss, constrain)
     return loss_n.mean(), aux
 
 
-def _check_supported(cfg: AttackConfig) -> None:
-    unsupported = {
-        "is_subsample_opt": cfg.is_subsample_opt,
-        "uniform_loss_weight": cfg.uniform_loss_weight != 0,
-    }
-    on = [name for name, flag in unsupported.items() if flag]
-    if on:
-        raise NotImplementedError(
-            f"attack modes not ported yet: {', '.join(on)} (they need "
-            "farthest-point sampling, see ROADMAP.md)"
-        )
+def _ensemble_eval(logits_fn, input_all, target, gt_target, cfg: AttackConfig,
+                   starts: torch.Tensor):
+    """Resampling vote for oversized clouds (reference :290-295): `eval_num`
+    random-start FPS resamplings of each cloud, from `starts` [eval_num, b],
+    go through the victim in one batch -> (success [b]: more than half of the
+    votes succeed; output_label [b]: the modal prediction, lowest class on
+    ties)."""
+    e, b = starts.shape
+    with torch.no_grad():
+        pcs = ops.farthest_points_sample(
+            input_all.repeat(e, 1, 1), cfg.npoint, start=starts.reshape(-1)
+        )  # [e * b, npoint, 3]
+        preds = logits_fn(pcs).reshape(e, b, -1).argmax(dim=-1)  # [e, b]
+    succ = _compare(preds, target[None], gt_target[None], cfg.targeted)
+    success = succ.sum(dim=0) > 0.5 * e
+    counts = torch.nn.functional.one_hot(preds, cfg.classes).sum(dim=0)
+    return success, counts.argmax(dim=-1)
 
 
 class _Optimizer:
@@ -325,14 +335,18 @@ def make_attack_fn(
     and draws its random numbers from `generator` (a torch.Generator on the
     cloud's device): each search step's initial offset 1e-3 * N(0, 1), the
     tangent jitter's gaussians, and in partial-variable mode each phase's
-    seed point and initial patch offset.
+    seed point and initial patch offset, and in subsample mode each step's
+    FPS start indices (one set for the loss and the jitter, `eval_num` sets
+    for the vote).
 
     `init_offset(bs_idx) -> [b, n, 3]` supplies the initial offsets instead.
     `draws` supplies the side modes' numbers instead (tests replay another
     engine's): an object with `jitter_gauss(bs_idx, step, cloud) -> two
     [b, n, 1] standard normal draws` (the cloud is the one whose tangent
     planes they will scale), `patch_seed(bs_idx, phase) -> int` and
-    `patch_offset(bs_idx, phase) -> [b, knn_range, 3]`.
+    `patch_offset(bs_idx, phase) -> [b, knn_range, 3]`; in subsample mode
+    also `fps_start(bs_idx, step) -> [b]` and `eval_starts(bs_idx, step) ->
+    [eval_num, b]` start indices.
 
     `eval_logits_fn` replaces `logits_fn` for the success test and
     best-tracking only; the gradient pass keeps `logits_fn`.
@@ -344,7 +358,6 @@ def make_attack_fn(
     partial-variable mode.
     """
     cfg = cfg.validate()
-    _check_supported(cfg)
     if debug_callback is not None and (not host_binary_loop or cfg.is_partial_var):
         raise ValueError(
             "debug_callback (--is_debug) requires host_binary_loop=True "
@@ -365,35 +378,59 @@ def make_attack_fn(
     separate_eval = eval_logits_fn is not None
     tx = _Optimizer(cfg)
 
-    def judge(aux, input_all):
-        """The predicted label [b] for best-tracking: from the gradient
-        pass's logits, or from a clean forward through the eval victim where
-        that pass saw jitter or another victim."""
+    def judge(aux, input_all, gt_target, target, eval_starts=None):
+        """(success [b], predicted label [b]) for best-tracking: from the
+        gradient pass's logits; from a clean forward through the eval victim
+        where that pass saw jitter or another victim; from the resampling
+        vote in subsample mode (`eval_starts` given)."""
+        if eval_starts is not None:
+            return _ensemble_eval(eval_logits_fn or logits_fn, input_all,
+                                  target, gt_target, cfg, eval_starts)
         if jitter_on or separate_eval:
             with torch.no_grad():
                 logits = (eval_logits_fn or logits_fn)(input_all)
         else:
             logits = aux.logits.detach()
-        return logits.argmax(dim=-1)
+        label = logits.argmax(dim=-1)
+        return _compare(label, target, gt_target, targeted), label
 
     def run_inner(pc_ori, normal_ori, gt_target, target, kappa_ori, const,
                   bs_idx, offset, best, generator):
         b, n, _ = pc_ori.shape
+        dev = pc_ori.device
+        subsample = cfg.is_subsample_opt and n > cfg.npoint
         opt_state = tx.init(offset)
         loss_ys = pc_ori.new_empty(cfg.iter_max_steps, b)
         mask = None
         jitter = None
+        fps_start = eval_starts = None
         for step in range(cfg.iter_max_steps):
+            if subsample:
+                # one draw for the jitter's source and the loss, so that both
+                # see the same point set (JAX engine :424-429)
+                if draws is not None:
+                    fps_start = torch.as_tensor(
+                        draws.fps_start(bs_idx, step)).to(dev, torch.int32)
+                    eval_starts = torch.as_tensor(
+                        draws.eval_starts(bs_idx, step)).to(dev, torch.int32)
+                else:
+                    fps_start = random_start(b, n, generator, dev)
+                    eval_starts = random_start(
+                        cfg.eval_num * b, n, generator, dev
+                    ).reshape(cfg.eval_num, b)
             if jitter_on and step % cfg.calculate_project_jitter_noise_iter == 0:
                 # from the current cloud, held until the next refresh
                 # (reference :312-317)
                 cloud = pc_ori + offset
+                if subsample:
+                    cloud = ops.farthest_points_sample(
+                        cloud, cfg.npoint, start=fps_start)
                 jitter = estimate_perpendicular(
                     generator, cloud, cfg.jitter_k, cfg.jitter_sigma,
                     cfg.jitter_clip,
                     gauss=draws.jitter_gauss(bs_idx, step, cloud) if draws else None,
                 )
-            if curv and step % K == 0:
+            if curv and not subsample and step % K == 0:
                 # deviation #7: rebuilt from the stop-gradient cloud per
                 # block; in exact mode (K = 1) from the cloud the loss sees
                 seen = pc_ori + offset
@@ -402,7 +439,12 @@ def make_attack_fn(
                 mask = ops.kappa_select_mask(seen, cfg.curv_loss_knn)
             off = offset.requires_grad_(True)
             input_all = pc_ori + off
-            input_curr = input_all + jitter if jitter_on else input_all
+            input_curr = input_all
+            if subsample:
+                input_curr = ops.farthest_points_sample(
+                    input_all, cfg.npoint, start=fps_start)
+            if jitter_on:
+                input_curr = input_curr + jitter
             loss, aux = forward_losses(
                 logits_fn, pc_ori, input_curr, normal_ori, kappa_ori, target,
                 const, cfg, kappa_mask=mask,
@@ -411,8 +453,8 @@ def make_attack_fn(
             input_all = input_all.detach()
             offset = off.detach()
 
-            output_label = judge(aux, input_all)
-            success = _compare(output_label, target, gt_target, targeted)
+            success, output_label = judge(aux, input_all, gt_target, target,
+                                          eval_starts)
             best.track(success, aux.constrain_loss.detach(), output_label,
                        input_all, step, bs_idx)
 
@@ -470,8 +512,7 @@ def make_attack_fn(
                 (grad,) = torch.autograd.grad(loss, part)
                 input_all = input_all.detach()
                 part = part.detach()
-                output_label = judge(aux, input_all)
-                success = _compare(output_label, target, gt_target, targeted)
+                success, output_label = judge(aux, input_all, gt_target, target)
                 best.track(success, aux.constrain_loss.detach(), output_label,
                            input_all, step, bs_idx)
                 part = part + tx.update(grad, opt_state)

@@ -1,4 +1,5 @@
-// 3-channel scatter-add: out[b, idx[b,s], c] += ct[b, s, c].
+// Scatter-adds: out[b, idx[b,s], c] += ct[b, s, c], for 3 channels
+// (geoa3_scatter_add_3t) and for C channels (geoa3_scatter_add_nc).
 //
 // Replaces geoa3_tpu/ops/pallas/scatter_kernel.py:_scatter3t_kernel, the
 // backward of ops.o2a_coord_planes. The TPU builds a one-hot block and runs
@@ -8,7 +9,14 @@
 // (under 1 MB at the main path's shapes); the launch itself dominates. The
 // order of the additions varies from run to run, so sums of colliding rows
 // differ in the last bits between runs. Indices outside [0, n) are dropped.
+//
+// geoa3_scatter_add_nc replaces scatter_kernel.py:_scatter_nc_kernel, the
+// backward of ops.group_points at C channels (the TPU tiles a one-hot product
+// over source chunks). Its device kernel lives in scatter.cuh, one thread per
+// (source row, channel). Bound on the H100: bytes (the cotangents read once,
+// the output zeroed and written once); the atomics resolve in L2.
 #include "common.cuh"
+#include "scatter.cuh"
 
 namespace {
 
@@ -37,4 +45,11 @@ extern "C" int geoa3_scatter_add_3t(const int* idx, const float* ct, int b,
     scatter3_kernel<<<blocks, threads, 0, static_cast<cudaStream_t>(stream)>>>(
         idx, ct, b, S, n, out);
   return (int)cudaGetLastError();
+}
+
+extern "C" int geoa3_scatter_add_nc(const int* idx, const float* ct, int b,
+                                    int S, int n, int C, float* out,
+                                    void* stream) {
+  return (int)geoa3_launch_scatter_nc(idx, ct, b, S, n, C, out,
+                                      static_cast<cudaStream_t>(stream));
 }

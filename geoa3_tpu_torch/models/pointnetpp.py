@@ -1,0 +1,180 @@
+"""PointNet++ SSG victim classifier (port of geoa3_tpu/models/pointnetpp.py).
+
+Module and parameter names are those of the reference
+Model/PointNetPP_ssg.py and pointnet2_ops/pointnet2_modules.py
+(`SA_modules.{i}.mlps.{j}.{3k}` Conv2d / `{3k+1}` BatchNorm2d,
+`fc_layer.{0,1,3,4,7}`), so a reference state_dict loads as it is
+(models/convert.py). The public layout is channel-last like the JAX package:
+the model takes [b, n, 3] clouds ([b, n, 6] with normals as features).
+
+Parity notes (reference PointNetPP_ssg.py:64-98, pointnet2_modules.py):
+  * SA(512, r=0.2, ns=64, mlp 64/64/128) -> SA(128, r=0.4, ns=64, mlp
+    128/128/256) -> GroupAll mlp 256/512/1024 -> FC head 512/256/classes with
+    dropout 0.5;
+  * with use_xyz the grouped relative coordinates come before the features in
+    the first layer's input (pointnet2_utils.py:322-324);
+  * the shared-MLP convs and the head's first two Linears carry no bias; every
+    BatchNorm has eps 1e-5.
+
+Only eval mode is ported. Each set-abstraction level is farthest-point
+sampling, the fused ball query + grouping, and the grouped three-layer MLP
+with its max over nsample (ops/kernels/{fps,ballquery_group,group_mlp}_kernel),
+with the eval BatchNorms folded into the layers' weights; GroupAll feeds the
+whole cloud to the same MLP kernel as one group. The multi-scale victim and
+the feature-propagation module are queued in ROADMAP.md, as is train mode.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Sequence
+
+import torch
+from torch import nn
+
+from geoa3_tpu_torch import ops
+from geoa3_tpu_torch.models.pointnet import _check_eval
+from geoa3_tpu_torch.ops.kernels.group_mlp_kernel import FoldedMLP
+
+BN_EPS = 1e-5
+
+
+class SharedMLP(nn.Sequential):
+    """Conv2d-1x1 + BatchNorm2d + ReLU stack (reference build_shared_mlp,
+    pointnet2_modules.py:9-19), applied to grouped rows and max-pooled over
+    nsample by the fused kernel: gx [b, m, ns, 3], gf [b, m, ns, cf] or None
+    -> [b, m, widths[-1]]. The kernel takes three layers."""
+
+    def __init__(self, cin: int, widths: Sequence[int]):
+        layers = []
+        for w in widths:
+            layers += [nn.Conv2d(cin, w, 1, bias=False),
+                       nn.BatchNorm2d(w, eps=BN_EPS), nn.ReLU(inplace=True)]
+            cin = w
+        super().__init__(*layers)
+        self.widths = tuple(widths)
+
+    def folded(self) -> FoldedMLP:
+        """The eval BatchNorms folded into the convs (w_i * s_i, beta_i -
+        mean_i * s_i with s_i = gamma_i / sqrt(var_i + eps)). The victim is
+        frozen, so the fold is kept and made again only when one of its
+        sources was moved or changed in place."""
+        srcs = [t for i in range(0, len(self), 3)
+                for t in (self[i].weight, self[i + 1].weight, self[i + 1].bias,
+                          self[i + 1].running_mean, self[i + 1].running_var)]
+        key = (srcs[0].device,) + tuple((t.data_ptr(), t._version) for t in srcs)
+        cached = getattr(self, "_fold", None)
+        if cached is None or cached[0] != key:
+            parts = []
+            with torch.no_grad():
+                for i in range(0, len(self), 3):
+                    conv, bn = self[i], self[i + 1]
+                    s = bn.weight / torch.sqrt(bn.running_var + bn.eps)
+                    parts.append(conv.weight[:, :, 0, 0].t() * s[None, :])
+                    parts.append(bn.bias - bn.running_mean * s)
+                cached = (key, ops.fold_mlp(*parts))
+            self._fold = cached
+        return cached[1]
+
+    def forward(self, gx: torch.Tensor, gf: Optional[torch.Tensor]) -> torch.Tensor:
+        _check_eval(self)
+        if len(self.widths) != 3:
+            raise NotImplementedError(
+                f"the grouped-MLP kernel takes three layers, got {self.widths}")
+        return ops.group_mlp_maxpool(gx, gf, self.folded())
+
+
+class PointnetSAModuleMSG(nn.Module):
+    """Set abstraction with one or more grouping scales (reference
+    pointnet2_modules.py:77-115): xyz [b, n, 3], features [b, n, c] or None
+    -> (new_xyz [b, npoint, 3] or None, features [b, npoint, sum of the last
+    widths]). `npoint=None` is GroupAll: the whole cloud is one group."""
+
+    def __init__(self, npoint: Optional[int], radii: Sequence[Optional[float]],
+                 nsamples: Sequence[Optional[int]],
+                 mlps: Sequence[Sequence[int]], in_features: int = 0,
+                 use_xyz: bool = True):
+        super().__init__()
+        if not len(radii) == len(nsamples) == len(mlps):
+            raise ValueError("radii, nsamples and mlps must have one entry a scale")
+        if not use_xyz:
+            raise NotImplementedError(
+                "use_xyz=False is not ported: the grouping and MLP kernels "
+                "take the relative coordinates as the first three inputs")
+        self.npoint = npoint
+        self.radii = tuple(radii)
+        self.nsamples = tuple(nsamples)
+        self.mlps = nn.ModuleList(
+            SharedMLP(3 + in_features, widths) for widths in mlps)
+
+    def forward(self, xyz: torch.Tensor, features: Optional[torch.Tensor]):
+        _check_eval(self)
+        outs = []
+        if self.npoint is not None:
+            fps_idx = ops.furthest_point_sampling(xyz, self.npoint)
+            new_xyz = ops.gather_points(xyz, fps_idx)
+            for radius, ns, mlp in zip(self.radii, self.nsamples, self.mlps):
+                _, gx, gf = ops.ball_query_group(xyz, new_xyz, features, radius, ns)
+                outs.append(mlp(gx, gf))
+        else:
+            new_xyz = None
+            gf = features[:, None] if features is not None else None
+            outs.append(self.mlps[0](xyz[:, None], gf))
+        return new_xyz, outs[0] if len(outs) == 1 else torch.cat(outs, dim=-1)
+
+
+class PointnetSAModule(PointnetSAModuleMSG):
+    """Single-scale set abstraction (reference pointnet2_modules.py:118-146)."""
+
+    def __init__(self, mlp: Sequence[int], npoint: Optional[int] = None,
+                 radius: Optional[float] = None, nsample: Optional[int] = None,
+                 in_features: int = 0, use_xyz: bool = True):
+        super().__init__(npoint, [radius], [nsample], [mlp],
+                         in_features=in_features, use_xyz=use_xyz)
+
+
+def _ClsHead(classes: int) -> nn.Sequential:
+    """FC head 1024 -> 512 -> 256 -> classes (reference
+    PointNetPP_ssg.py:89-98), with the reference's `fc_layer` indices."""
+    return nn.Sequential(
+        nn.Linear(1024, 512, bias=False), nn.BatchNorm1d(512, eps=BN_EPS),
+        nn.ReLU(True),
+        nn.Linear(512, 256, bias=False), nn.BatchNorm1d(256, eps=BN_EPS),
+        nn.ReLU(True),
+        nn.Dropout(0.5), nn.Linear(256, classes),
+    )
+
+
+class PointNet2ClassificationSSG(nn.Module):
+    """PointNet++ SSG classifier: [b, n, 3] (or [b, n, 6] with use_normal)
+    -> logits [b, classes]."""
+
+    SA_CONFIGS = (
+        dict(npoint=512, radius=0.2, nsample=64, mlp=[64, 64, 128]),
+        dict(npoint=128, radius=0.4, nsample=64, mlp=[128, 128, 256]),
+        dict(mlp=[256, 512, 1024]),  # GroupAll
+    )
+
+    def __init__(self, use_xyz: bool = True, use_normal: bool = False,
+                 classes: int = 40):
+        super().__init__()
+        self.use_normal = use_normal
+        self.classes = classes
+        cin = 3 if use_normal else 0
+        mods = []
+        for cfg in self.SA_CONFIGS:
+            mods.append(PointnetSAModule(in_features=cin, use_xyz=use_xyz, **cfg))
+            cin = cfg["mlp"][-1]
+        self.SA_modules = nn.ModuleList(mods)
+        self.fc_layer = _ClsHead(classes)
+
+    def forward(self, pc: torch.Tensor) -> torch.Tensor:
+        _check_eval(self)
+        want = 6 if self.use_normal else 3
+        if pc.shape[-1] != want:
+            raise ValueError(
+                f"expected channel-last [b, n, {want}], got {tuple(pc.shape)}")
+        xyz = pc[..., :3].contiguous()
+        features = pc[..., 3:].contiguous() if self.use_normal else None
+        for sa in self.SA_modules:
+            xyz, features = sa(xyz, features)
+        return self.fc_layer(features[:, 0, :])

@@ -8,6 +8,7 @@ from typing import Callable
 import torch
 
 from geoa3_tpu_torch.models.pointnet import PointNet
+from geoa3_tpu_torch.models.pointnetpp import PointNet2ClassificationSSG
 
 ARCHS = ("PointNet", "PointNetPP", "PointNetPP_MSG")
 
@@ -19,9 +20,14 @@ def build_model(
     in eval mode, on `device`."""
     if arch == "PointNet":
         return PointNet(classes=classes, npoint=npoint).to(device).eval()
+    if arch == "PointNetPP":
+        return PointNet2ClassificationSSG(
+            use_xyz=True, use_normal=False, classes=classes
+        ).to(device).eval()
     if arch in ARCHS:
         raise NotImplementedError(
-            f"{arch} is not ported yet (PointNet++ is queued in ROADMAP.md)"
+            f"{arch} is not ported yet (the multi-scale PointNet++ victim is "
+            "queued in ROADMAP.md)"
         )
     raise ValueError(f"Not support such arch: {arch}")
 

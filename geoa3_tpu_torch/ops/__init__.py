@@ -1,10 +1,17 @@
 """Point-cloud ops of the port (counterpart of geoa3_tpu/ops)."""
 
+from geoa3_tpu_torch.ops.ball_query import ball_query
+from geoa3_tpu_torch.ops.grouping import group_points
+from geoa3_tpu_torch.ops.kernels.ballquery_group_kernel import ball_query_group
+from geoa3_tpu_torch.ops.kernels.group_mlp_kernel import (
+    fold_mlp,
+    group_mlp_maxpool,
+)
 from geoa3_tpu_torch.ops.knn import (
     KNNPlanes,
     KNNResult,
     curv_term_from_mask,
-    gather_rows3,
+    gather_rows,
     kappa_select_mask,
     knn_gather,
     knn_kappa,
@@ -16,6 +23,12 @@ from geoa3_tpu_torch.ops.knn import (
     o2a_coord_planes,
     pairwise_sqdist,
 )
+from geoa3_tpu_torch.ops.sampling import (
+    farthest_points_sample,
+    farthest_points_sample_with_normal,
+    furthest_point_sampling,
+    gather_points,
+)
 
 __all__ = [
     "KNNPlanes",
@@ -24,7 +37,7 @@ __all__ = [
     "knn_points",
     "knn_points_planes",
     "knn_gather",
-    "gather_rows3",
+    "gather_rows",
     "nn1_dual",
     "nn1_dual_payload",
     "o2a_coord_planes",
@@ -32,4 +45,13 @@ __all__ = [
     "curv_term_from_mask",
     "knn_kappa",
     "knn_kappa_from_mask",
+    "furthest_point_sampling",
+    "gather_points",
+    "farthest_points_sample",
+    "farthest_points_sample_with_normal",
+    "ball_query",
+    "ball_query_group",
+    "group_points",
+    "fold_mlp",
+    "group_mlp_maxpool",
 ]

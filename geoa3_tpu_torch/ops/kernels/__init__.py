@@ -9,6 +9,9 @@ _build.py).
 from __future__ import annotations
 
 from geoa3_tpu_torch.ops.kernels import (
+    ballquery_group_kernel,
+    fps_kernel,
+    group_mlp_kernel,
     kappa_kernel,
     knn_kernel,
     nn1_kernel,
@@ -29,6 +32,12 @@ KERNELS = {
     "kappa_frommask": kappa_kernel.kappa_frommask,
     "nn1_dual": nn1_kernel.nn1_dual,
     "knn": knn_kernel.knn,
+    "fps": fps_kernel.fps,
+    "scatter_add_nc": scatter_kernel.scatter_add_nc,
+    "ballquery_group_fwd": ballquery_group_kernel.ballquery_group_fwd,
+    "ballquery_group_bwd": ballquery_group_kernel.ballquery_group_bwd,
+    "group_mlp_fwd": group_mlp_kernel.group_mlp_fwd,
+    "group_mlp_bwd": group_mlp_kernel.group_mlp_bwd,
 }
 
 

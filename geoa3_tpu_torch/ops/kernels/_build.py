@@ -32,6 +32,7 @@ NVCC_FLAGS = ARCH_FLAGS + ["-std=c++17", "-O3", "-Xcompiler", "-fPIC"]
 
 _VP = ctypes.c_void_p
 _I = ctypes.c_int
+_F = ctypes.c_float
 # C entry points: name -> argument types (every entry returns cudaError_t)
 SIGNATURES = {
     # adv, ori, pay, b, n, m, a2o, o2a, gp, op, stream
@@ -42,6 +43,32 @@ SIGNATURES = {
     "geoa3_knn": [_VP, _VP, _I, _I, _I, _I, _VP, _VP, _VP, _VP],
     # idx, ct, b, S, n, out, stream
     "geoa3_scatter_add_3t": [_VP, _VP, _I, _I, _I, _VP, _VP],
+    # idx, ct, b, S, n, C, out, stream
+    "geoa3_scatter_add_nc": [_VP, _VP, _I, _I, _I, _I, _VP, _VP],
+    # xyz, start (or null), b, n, m, skip, idx, stream
+    "geoa3_fps": [_VP, _VP, _I, _I, _I, _I, _VP, _VP],
+    # xyz, centres, feats (or null), b, n, m, ns, cf, r2, idx, gx, gf, stream
+    "geoa3_ballquery_group_fwd": [
+        _VP, _VP, _VP, _I, _I, _I, _I, _I, _F, _VP, _VP, _VP, _VP,
+    ],
+    # xyz, centres, b, n, m, ns, r2, idx, stream
+    "geoa3_ball_query": [_VP, _VP, _I, _I, _I, _I, _F, _VP, _VP],
+    # idx, dgx, dgf (or null), b, n, m, ns, cf, dxyz, dcentre, dfeats, stream
+    "geoa3_ballquery_group_bwd": [
+        _VP, _VP, _VP, _I, _I, _I, _I, _I, _VP, _VP, _VP, _VP,
+    ],
+    # gx, gf (or null), w1, b1, w2, b2, w3, b3, groups, ns, cf, c1, c2, c3,
+    # pooled, cnt, stream
+    "geoa3_group_mlp_fwd": [
+        _VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _I, _I, _I, _I, _I, _I, _VP,
+        _VP, _VP,
+    ],
+    # gx, gf (or null), w1, b1, w2, b2, w3, b3, w1t, w2t, w3t, pooled, cnt,
+    # gout, groups, ns, cf, c1, c2, c3, dgx, dgf (or null), stream
+    "geoa3_group_mlp_bwd": [
+        _VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP,
+        _I, _I, _I, _I, _I, _I, _VP, _VP, _VP,
+    ],
     # cloud, b, n, k, mask, stream
     "geoa3_kappa_selmask": [_VP, _I, _I, _I, _VP, _VP],
     # cloud, normal, b, n, k, kappa, mask, stream
@@ -143,12 +170,17 @@ def lib() -> ctypes.CDLL:
 
 
 def launch(name: str, *args) -> None:
-    """Call C entry `name` with tensors (passed by data pointer) and ints, on
-    the current CUDA stream; raise if the launch was refused."""
+    """Call C entry `name` with tensors (passed by data pointer; None is a
+    null pointer), ints and floats, on the current CUDA stream; raise if the
+    launch was refused."""
     conv = []
     for a in args:
         if isinstance(a, torch.Tensor):
             conv.append(_VP(a.data_ptr()))
+        elif a is None:
+            conv.append(_VP(None))
+        elif isinstance(a, float):
+            conv.append(a)
         else:
             conv.append(int(a))
     conv.append(_VP(torch.cuda.current_stream().cuda_stream))

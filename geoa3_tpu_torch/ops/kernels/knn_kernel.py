@@ -15,7 +15,8 @@ other (the self-first rule belongs to the kappa kernels).
 
 Limits: 1 <= k <= min(m, 64) (ops.knn_points takes k == 1 as an argmin, as
 the JAX package does); m <= 4096 (the block keeps 12 rows of m floats in shared
-memory).
+memory); b <= 65535 (the batch is the grid's second axis; the uniform loss
+calls with b * npoint / 20 groups as the batch).
 """
 
 from __future__ import annotations
@@ -27,6 +28,7 @@ from geoa3_tpu_torch.ops.kernels import _build
 
 MAX_K = 64
 MAX_M = 4096  # (4 + 8 warps) * m floats of shared memory
+MAX_B = 65535  # gridDim.y
 
 
 def gather_nbrs(points, idx):
@@ -63,6 +65,8 @@ def knn(query, points, k):
     _check(m, k)
     if not query.is_cuda:
         return knn_plain(query, points, k)
+    if b > MAX_B:
+        raise ValueError(f"the knn kernel takes a batch <= {MAX_B}, got {b}")
     _build.check_cuda(query, "query", torch.float32, (b, n, 3))
     _build.check_cuda(points, "points", torch.float32, (b, m, 3))
     dev = query.device

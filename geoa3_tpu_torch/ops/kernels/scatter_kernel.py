@@ -1,4 +1,5 @@
-"""3-channel scatter-add: CUDA kernel wrapper and its plain version.
+"""Scatter-adds, 3-channel and C-channel: CUDA kernel wrappers and their
+plain versions.
 
 Replaces geoa3_tpu/ops/pallas/scatter_kernel.py:_scatter3t_kernel
 (`scatter_add_3t_pallas`), the backward of ops.o2a_coord_planes. Source:
@@ -9,6 +10,13 @@ overhead dominates. The TPU's one-hot matrix product exists because the TPU
 has no scattered stores; here one thread per source row adds its three values
 with atomicAdd. The addition order varies from run to run, so colliding rows
 agree with the plain version to float32 rounding, not bitwise.
+
+`scatter_add_nc` replaces :_scatter_nc_kernel (`scatter_add_nc_pallas`), the
+backward of ops.group_points at C channels: one thread per (source row,
+channel), so a warp reads 32 neighbouring cotangents and adds them to 32
+neighbouring addresses of one output row. Bound: bytes (the cotangents read
+once, the output zeroed and written once). The fused ball query's backward
+(csrc/ballquery_group.cu) runs the same device kernel.
 """
 
 from __future__ import annotations
@@ -39,4 +47,38 @@ def scatter_add_3t(idx, ct, n):
     return out
 
 
+def scatter_add_nc_plain(idx, ct, n):
+    """Plain PyTorch version of `scatter_add_nc`."""
+    c = ct.shape[-1]
+    out = ct.new_zeros(ct.shape[0], n, c)
+    return out.scatter_add_(1, idx.long()[..., None].expand(-1, -1, c), ct)
+
+
+def scatter_add_nc(idx, ct, n):
+    """idx [b, S] int32, ct [b, S, C] -> [b, n, C] with
+    out[b, idx[b, s]] += ct[b, s]. CPU tensors take the plain version; CUDA
+    tensors launch the kernel."""
+    if not ct.is_cuda:
+        return scatter_add_nc_plain(idx, ct, n)
+    b, S = idx.shape
+    c = ct.shape[-1]
+    _build.check_cuda(idx, "idx", torch.int32, (b, S))
+    _build.check_cuda(ct, "ct", torch.float32, (b, S, c))
+    out = torch.zeros(b, n, c, dtype=torch.float32, device=ct.device)
+    _build.launch("geoa3_scatter_add_nc", idx, ct, b, S, n, c, out)
+    scatter_add_nc.launches += 1
+    return out
+
+
+def scatter_rows(idx, ct, m):
+    """The backward of a row gather: idx [b, ...] into m rows, ct [b, ..., c]
+    -> [b, m, c]. Coordinates (c == 3) take the 3-channel kernel, as the JAX
+    package's backward chooses (geoa3_tpu/ops/grouping.py:56-77)."""
+    b, c = ct.shape[0], ct.shape[-1]
+    flat = idx.reshape(b, -1).to(torch.int32).contiguous()
+    ct = ct.reshape(b, -1, c).contiguous()
+    return (scatter_add_3t if c == 3 else scatter_add_nc)(flat, ct, m)
+
+
 scatter_add_3t.launches = 0
+scatter_add_nc.launches = 0

@@ -8,9 +8,9 @@ kernel. Each op goes through its kernel wrapper in ops/kernels/, which takes
 the plain PyTorch version for CPU tensors and the CUDA kernel for CUDA
 tensors.
 
-Not ported (they need kernels queued in ROADMAP.md): farthest-point
-sampling, ball query and grouping, and with them `set_topk_backend`'s
-approximate mode, a TPU option.
+Farthest-point sampling, the ball query and grouping live in ops/sampling.py,
+ops/ball_query.py and ops/grouping.py. `set_topk_backend`'s approximate mode
+is a TPU option and has no counterpart.
 """
 
 from __future__ import annotations
@@ -34,7 +34,7 @@ __all__ = [
     "knn_points",
     "knn_points_planes",
     "knn_gather",
-    "gather_rows3",
+    "gather_rows",
     "nn1_dual",
     "nn1_dual_payload",
     "o2a_coord_planes",
@@ -64,20 +64,6 @@ class KNNPlanes(NamedTuple):
     z: torch.Tensor
 
 
-def _scatter_rows(idx, ct, m):
-    """The backward of a row gather: idx [b, ...] into m rows, ct [b, ..., c]
-    -> [b, m, c]. Three-channel cotangents go through the scatter kernel."""
-    b, c = ct.shape[0], ct.shape[-1]
-    flat = idx.reshape(b, -1)
-    ct = ct.reshape(b, -1, c)
-    if c == 3:
-        return scatter_kernel.scatter_add_3t(
-            flat.to(torch.int32).contiguous(), ct.contiguous(), m
-        )
-    out = ct.new_zeros(b, m, c)
-    return out.scatter_add_(1, flat.long()[..., None].expand(-1, -1, c), ct)
-
-
 class _CoordsGather(torch.autograd.Function):
     """Neighbour gather whose forward is the coordinate block the kNN kernel
     already wrote and whose backward is the scatter-add a gather would have
@@ -92,7 +78,7 @@ class _CoordsGather(torch.autograd.Function):
     @staticmethod
     def backward(ctx, ct):
         (idx,) = ctx.saved_tensors
-        return _scatter_rows(idx, ct, ctx.m), None, None
+        return scatter_kernel.scatter_rows(idx, ct, ctx.m), None, None
 
 
 class _KNNGather(torch.autograd.Function):
@@ -105,13 +91,13 @@ class _KNNGather(torch.autograd.Function):
     @staticmethod
     def backward(ctx, ct):
         (idx,) = ctx.saved_tensors
-        return _scatter_rows(idx, ct, ctx.m), None
+        return scatter_kernel.scatter_rows(idx, ct, ctx.m), None
 
 
 def knn_gather(points, idx):
     """Gather neighbour features: points [b, m, c], idx [b, n, k] ->
     [b, n, k, c] (pytorch3d's `knn_gather`, reference Lib/loss_utils.py:58).
-    The backward of a 3-channel gather is the scatter-add kernel."""
+    The backward is the scatter-add kernel (3-channel or C-channel)."""
     return _KNNGather.apply(points, idx)
 
 
@@ -150,23 +136,25 @@ def knn_points_planes(query, points, k: int) -> KNNPlanes:
     return KNNPlanes(res.idx, res.nbrs[..., 0], res.nbrs[..., 1], res.nbrs[..., 2])
 
 
-class _GatherRows3(torch.autograd.Function):
+class _GatherRows(torch.autograd.Function):
     @staticmethod
     def forward(ctx, points, idx):
         ctx.save_for_backward(idx)
         ctx.n = points.shape[1]
-        return torch.gather(points, 1, idx.long()[..., None].expand(-1, -1, 3))
+        c = points.shape[-1]
+        return torch.gather(points, 1, idx.long()[..., None].expand(-1, -1, c))
 
     @staticmethod
     def backward(ctx, ct):
         (idx,) = ctx.saved_tensors
-        return _scatter_rows(idx, ct, ctx.n), None
+        return scatter_kernel.scatter_rows(idx, ct, ctx.n), None
 
 
-def gather_rows3(points, idx):
-    """Row gather points [b, n, 3], idx [b, s] -> [b, s, 3] whose backward is
+def gather_rows(points, idx):
+    """Row gather points [b, n, c], idx [b, s] -> [b, s, c] whose backward is
     the scatter-add kernel."""
-    return _GatherRows3.apply(points, idx)
+    return _GatherRows.apply(points, idx)
+
 
 
 def nn1_dual(adv, ori):

@@ -1,8 +1,10 @@
-"""Where the main path's attack step spends its time on the card.
+"""Where an attack step spends its time on the card.
 
     python -m geoa3_tpu_torch.profile_step [--steps 20] [--refresh 10]
+        [--arch PointNet|PointNetPP]
 
-Runs the default attack (geoa3_tpu_torch/workload.py, b=32, n=1024) for one
+Runs the default attack (geoa3_tpu_torch/workload.py, b=32, n=1024) on the
+victim `--arch` for one
 binary step of `--steps` Adam steps under torch.profiler, after a warm-up,
 and prints the step time (CUDA events), the device's busy and idle shares,
 the time by group (the port's kernels, matrix products, the rest), the top
@@ -24,7 +26,7 @@ from geoa3_tpu_torch import make_attack_fn
 from geoa3_tpu_torch.workload import (
     BATCH,
     main_path_config,
-    random_pointnet,
+    random_victim,
     synthetic_batch,
 )
 
@@ -36,6 +38,13 @@ _GROUPS = [
     (re.compile(r"curv_term_kernel"), "curv_term (port)"),
     (re.compile(r"kappa_select_kernel"), "kappa select (port)"),
     (re.compile(r"scatter3_kernel"), "scatter_add_3t (port)"),
+    (re.compile(r"fps_kernel"), "fps (port)"),
+    (re.compile(r"ballquery_kernel"), "ballquery_group fwd (port)"),
+    (re.compile(r"scatter_nc_kernel|centre_grad_kernel"),
+     "ballquery_group bwd / scatter_add_nc (port)"),
+    (re.compile(r"group_mlp_fwd_kernel"), "group_mlp_fwd (port)"),
+    (re.compile(r"group_mlp_bwd_kernel"), "group_mlp_bwd (port)"),
+    (re.compile(r"kappa_bwd_kernel"), "kappa_bwd (port)"),
     (re.compile(r"gemm|sgemm|xmma|cutlass|cublas", re.I), "matrix products"),
     (re.compile(r"reduce|Reduce"), "reductions"),
     (re.compile(r"elementwise|vectorized|unrolled", re.I), "elementwise"),
@@ -61,17 +70,21 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--steps", type=int, default=20)
     ap.add_argument("--refresh", type=int, default=10)
+    ap.add_argument("--arch", default="PointNet",
+                    choices=("PointNet", "PointNetPP"))
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("profile_step: needs a CUDA card")
 
-    _, logits_fn = random_pointnet(seed=0)
+    _, logits_fn = random_victim(args.arch, seed=0)
     pc, nrm = synthetic_batch(seed=1)
     with torch.no_grad():
         gt = logits_fn(pc).argmax(-1)
-    warm = make_attack_fn(logits_fn, main_path_config(1, args.refresh, args.refresh))
+    warm = make_attack_fn(logits_fn, main_path_config(
+        1, args.refresh, args.refresh, arch=args.arch))
     warm(pc, nrm, gt, gt, torch.Generator(device="cuda").manual_seed(9))
-    fn = make_attack_fn(logits_fn, main_path_config(1, args.steps, args.refresh))
+    fn = make_attack_fn(logits_fn, main_path_config(
+        1, args.steps, args.refresh, arch=args.arch))
     gen = torch.Generator(device="cuda").manual_seed(0)
 
     torch.cuda.synchronize()
@@ -97,7 +110,7 @@ def main() -> int:
         groups[_group(name)] += us / 1e3 / args.steps
 
     print(f"ms/step {per_step:.4f} (CUDA events, {args.steps} steps, "
-          f"K={args.refresh}, b={BATCH}); device busy "
+          f"K={args.refresh}, b={BATCH}, {args.arch}); device busy "
           f"{busy_ms / args.steps:.4f} ms/step = {busy_ms / wall_ms:.3f} of "
           f"the wall time (idle {1 - busy_ms / wall_ms:.3f})")
     print("by group (ms/step):")
@@ -121,7 +134,7 @@ def main() -> int:
         "ms_per_step": per_step, "device_busy_ms_per_step": busy_ms / args.steps,
         "idle_share": 1 - busy_ms / wall_ms, "host_self_cpu_ms_per_step": host_ms,
         "groups_ms_per_step": dict(groups), "steps": args.steps,
-        "refresh": args.refresh, "batch": BATCH,
+        "refresh": args.refresh, "batch": BATCH, "arch": args.arch,
         "card": torch.cuda.get_device_name(0),
     }))
     return 0

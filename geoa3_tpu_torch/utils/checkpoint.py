@@ -32,9 +32,10 @@ def load_victim_state(path_or_dir: str, arch: str = "PointNet") -> Dict[str, tor
     checkpoint.pth.tar, model_best.pt, checkpoint.pt in a directory
     (reference main_attack.py:133-147). Load it into a model with
     models.convert.load_reference_state_dict."""
-    if arch != "PointNet":
+    if arch not in ("PointNet", "PointNetPP"):
         raise NotImplementedError(
-            f"{arch} is not ported yet (PointNet++ is queued in ROADMAP.md)"
+            f"{arch} is not ported yet (the multi-scale PointNet++ victim is "
+            "queued in ROADMAP.md)"
         )
     path = path_or_dir
     if os.path.isdir(path):

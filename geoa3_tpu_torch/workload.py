@@ -1,10 +1,13 @@
-"""The main path's workload, made from seeds: the victim, the batch, the config.
+"""The paths' workload, made from seeds: the victim, the batch, the config.
 
 The untargeted GeoA3 attack on the 1024-point, 40-class PointNet that
 bench.py measures for the JAX package (bench.py:101-151): CE + two-sided
 Chamfer 1.0 + Hausdorff 0.1 + curvature 1.0 with k=16, Adam at lr 0.01, the
-curvature mask rebuilt every 10 steps. chip_smoke.py and profile_step.py
-drive it; weights are random (no checkpoint ships with the repo).
+curvature mask rebuilt every 10 steps; and the same attack on the PointNet++
+SSG victim at its published width (`random_victim("PointNetPP")`: SA
+512/0.2/64 -> SA 128/0.4/64 -> GroupAll -> head). chip_smoke.py and
+profile_step.py drive both; weights are random (no checkpoint ships with the
+repo).
 """
 
 from __future__ import annotations
@@ -22,18 +25,17 @@ CLASSES = 40  # ModelNet40
 KNN = 16  # curvature neighbours
 
 
-def random_pointnet(classes: int = CLASSES, npoint: int = NPOINT, seed: int = 0,
-                    device="cuda"):
-    """(model, logits_fn): PointNet with its default random weights and
-    non-trivial BatchNorm statistics, all drawn from `seed`."""
+def random_victim(arch: str, classes: int = CLASSES, npoint: int = NPOINT,
+                  seed: int = 0, device="cuda"):
+    """(model, logits_fn): the victim `arch` with its default random weights
+    and non-trivial BatchNorm statistics, all drawn from `seed`."""
     with torch.random.fork_rng(devices=[]):
         torch.manual_seed(seed)
-        model = build_model("PointNet", classes=classes, npoint=npoint,
-                            device="cpu")
+        model = build_model(arch, classes=classes, npoint=npoint, device="cpu")
     g = torch.Generator().manual_seed(seed)
     with torch.no_grad():
         for mod in model.modules():
-            if isinstance(mod, torch.nn.BatchNorm1d):
+            if isinstance(mod, torch.nn.modules.batchnorm._BatchNorm):
                 c = mod.num_features
                 mod.weight.copy_(1.0 + 0.1 * torch.randn(c, generator=g))
                 mod.bias.copy_(0.1 * torch.randn(c, generator=g))
@@ -53,10 +55,12 @@ def synthetic_batch(b: int = BATCH, n: int = NPOINT, seed: int = 0, device="cuda
 
 
 def main_path_config(binary_max_steps: int = 2, iter_max_steps: int = 50,
-                     refresh: int = 10, npoint: int = NPOINT) -> AttackConfig:
-    """The default attack, cut to `binary_max_steps` x `iter_max_steps`."""
+                     refresh: int = 10, npoint: int = NPOINT,
+                     arch: str = "PointNet") -> AttackConfig:
+    """The default attack, cut to `binary_max_steps` x `iter_max_steps`; the
+    loss is the same for every victim."""
     return AttackConfig(
-        attack_label="Untarget", classes=CLASSES, npoint=npoint,
+        arch=arch, attack_label="Untarget", classes=CLASSES, npoint=npoint,
         binary_max_steps=binary_max_steps, iter_max_steps=iter_max_steps,
         cls_loss_type="CE", dis_loss_type="CD", dis_loss_weight=1.0,
         hd_loss_weight=0.1, curv_loss_weight=1.0, curv_loss_knn=KNN,

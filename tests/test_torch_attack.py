@@ -160,7 +160,7 @@ def test_generator_draws_are_reproducible(setup):
     assert torch.equal(runs[0].all_loss, runs[1].all_loss)
 
 
-STILL_REFUSED = ("is_subsample_opt", "uniform_loss_weight")
+STILL_REFUSED = ()
 
 
 @pytest.mark.parametrize("field,value", [
@@ -169,8 +169,8 @@ STILL_REFUSED = ("is_subsample_opt", "uniform_loss_weight")
     ("uniform_loss_weight", 1.0), ("is_use_lr_scheduler", True),
 ])
 def test_unported_modes_raise(field, value):
-    """The modes that still wait for farthest-point sampling raise with
-    their ROADMAP message; every other switch builds an attack."""
+    """A mode that is still refused raises with its ROADMAP message (none is
+    left: farthest-point sampling is ported); every switch builds an attack."""
     cfg = AttackConfig(**{field: value})
     if field in STILL_REFUSED:
         with pytest.raises(NotImplementedError, match="ROADMAP"):

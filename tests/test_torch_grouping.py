@@ -1,0 +1,307 @@
+"""The port's ball query, grouping, C-channel scatter and grouped-MLP kernels
+against the JAX package, on the CPU.
+
+Each kernel's plain PyTorch version (what the port runs on CPU tensors and
+what chip_smoke.py holds the CUDA kernel against on the card) is compared with
+the Pallas kernel it replaces, run as tests/test_pallas_kernels.py runs it (in
+interpret mode, float32-exact products), and each op with its geoa3_tpu.ops
+counterpart (the composed CPU path). Inputs come from numpy seeds. Indices
+and gathered rows are equal; sums agree to float32 rounding.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+from jax.experimental.pallas import tpu as pltpu
+
+from geoa3_tpu import ops as jops
+from geoa3_tpu_torch import ops as tops
+from geoa3_tpu_torch.ops.kernels import ballquery_group_kernel as bk
+from geoa3_tpu_torch.ops.kernels import group_mlp_kernel as gk
+from geoa3_tpu_torch.ops.kernels import scatter_kernel as sk
+from tests.test_torch_ops import HILO, _t
+
+torch.set_num_threads(1)
+B = 2
+
+
+def _scene(seed, n=256, m=64, cf=0, scale=0.5):
+    """A cloud, centres that are members of it (what FPS hands the query) and
+    features."""
+    rng = np.random.RandomState(seed)
+    xyz = (rng.randn(B, n, 3) * scale).astype(np.float32)
+    feats = rng.randn(B, n, cf).astype(np.float32) if cf else None
+    return xyz, xyz[:, :m].copy(), feats, rng
+
+
+def _line_scene(rng, n=256):
+    """Over-full balls (a dense cluster) and empty ones (far centres), as
+    tests/test_pallas_kernels.py builds them."""
+    xyz = np.zeros((1, n, 3), np.float32)
+    xyz[0, :, 0] = np.linspace(0.0, 10.0, n)
+    xyz[0, :64] = rng.randn(64, 3) * 0.01
+    centres = np.concatenate(
+        [xyz[:, :16], np.full((1, 16, 3), 100.0, np.float32)], axis=1)
+    return xyz, centres
+
+
+# ------------------------------------------------------------ ball query ----
+
+
+@pytest.mark.parametrize("n,m,ns,radius", [
+    (256, 64, 32, 0.4),  # most balls under-full: padded with the first hit
+    (256, 64, 16, 2.0),  # every ball over-full: the first 16 in index order
+    (48, 16, 64, 0.5),  # nsample larger than the cloud
+])
+def test_ball_query_matches_jax(n, m, ns, radius):
+    xyz, centres, _, _ = _scene(60, n, m)
+    want = np.asarray(jops.ball_query(radius, ns, jnp.asarray(xyz), jnp.asarray(centres)))
+    got = tops.ball_query(radius, ns, _t(xyz), _t(centres))
+    assert got.dtype == torch.int32 and got.shape == (B, m, ns)
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+def test_ball_query_empty_and_overfull_balls():
+    xyz, centres = _line_scene(np.random.RandomState(61))
+    want = np.asarray(jops.ball_query(0.3, 16, jnp.asarray(xyz), jnp.asarray(centres)))
+    got = tops.ball_query(0.3, 16, _t(xyz), _t(centres)).numpy()
+    np.testing.assert_array_equal(got, want)
+    assert not got[0, 16:].any()  # an empty ball holds index 0 in every slot
+    assert (got[0, :16] == np.arange(16)).all()  # the cluster's first 16 points
+
+
+def test_a_centre_hits_itself_at_any_radius():
+    """The expansion gives exactly 0 for a member of the cloud, so a centre's
+    own index is always in its ball."""
+    xyz, centres, _, _ = _scene(62, 256, 256, scale=5.0)
+    got = tops.ball_query(1e-6, 4, _t(xyz), _t(centres))
+    assert torch.equal(got[..., 0], torch.arange(256, dtype=torch.int32).expand(B, -1))
+
+
+# ---------------------------------------------------------- group_points ----
+
+
+@pytest.mark.parametrize("c", [3, 16])
+def test_group_points_value_and_grad_match_jax(c):
+    rng = np.random.RandomState(63)
+    n, m, ns = 128, 32, 8
+    feats = rng.randn(B, n, c).astype(np.float32)
+    idx = rng.randint(0, n, (B, m, ns)).astype(np.int32)
+    idx[:, :, 1] = idx[:, :, 0]  # the padding's repeats
+    w = rng.randn(B, m, ns, c).astype(np.float32)
+    want = np.asarray(jops.group_points(jnp.asarray(feats), jnp.asarray(idx)))
+    wgrad = np.asarray(jax.grad(lambda f: jnp.sum(
+        jops.group_points(f, jnp.asarray(idx)) * w))(jnp.asarray(feats)))
+    f = _t(feats).requires_grad_(True)
+    got = tops.group_points(f, _t(idx))
+    (got * _t(w)).sum().backward()
+    np.testing.assert_array_equal(got.detach().numpy(), want)
+    # float32 sums of the cotangents that meet on one source row
+    np.testing.assert_allclose(f.grad.numpy(), wgrad, rtol=1e-6, atol=1e-6)
+
+
+def test_scatter_add_nc_plain_matches_pallas_kernel():
+    from geoa3_tpu.ops.pallas.scatter_kernel import scatter_add_nc_pallas
+
+    rng = np.random.RandomState(64)
+    S, C, n = 512, 16, 256
+    idx = rng.randint(0, 40, (B, S)).astype(np.int32)  # duplicate-heavy
+    ct = rng.randn(B, S, C).astype(np.float32)
+    with pltpu.force_tpu_interpret_mode():
+        want = np.asarray(scatter_add_nc_pallas(jnp.asarray(idx), jnp.asarray(ct), n))
+    got = sk.scatter_add_nc(_t(idx), _t(ct), n)
+    exact = np.zeros((B, n, C))
+    np.add.at(exact, (np.arange(B)[:, None], idx), ct.astype(np.float64))
+    np.testing.assert_allclose(got.numpy(), exact, rtol=1e-5, atol=1e-5)
+    # the TPU kernel's split-bf16 one-hot products: 2^-16 of each summed term,
+    # and a row here sums ~13 of them
+    np.testing.assert_allclose(got.numpy(), want, rtol=HILO,
+                               atol=16 * HILO * np.abs(ct).max())
+    assert sk.scatter_add_nc.launches == 0  # CPU tensors never launch
+
+
+# ------------------------------------------------- ball query + grouping ----
+
+
+def _planes_to_4d(gxp, m, ns):
+    gxp = np.asarray(gxp)
+    return gxp[:, :3].reshape(gxp.shape[0], 3, m, ns).transpose(0, 2, 3, 1)
+
+
+@pytest.mark.parametrize("n,m,ns,cf,radius", [
+    (256, 64, 32, 0, 0.4), (256, 32, 16, 128, 0.5)])
+def test_ball_query_group_matches_pallas_kernel(n, m, ns, cf, radius):
+    from geoa3_tpu.ops.pallas.ballquery_group_kernel import ball_query_group_planes
+
+    xyz, centres, feats, _ = _scene(65, n, m, cf)
+    gxp, wgf = ball_query_group_planes(
+        radius, ns, True, jnp.asarray(xyz), jnp.asarray(centres),
+        None if feats is None else jnp.asarray(feats))
+    idx, gx, gf = tops.ball_query_group(
+        _t(xyz), _t(centres), None if feats is None else _t(feats), radius, ns)
+    np.testing.assert_array_equal(gx.numpy(), _planes_to_4d(gxp, m, ns))
+    np.testing.assert_array_equal(
+        idx.numpy(),
+        np.asarray(jops.ball_query(radius, ns, jnp.asarray(xyz), jnp.asarray(centres))))
+    if cf:
+        np.testing.assert_array_equal(gf.numpy(), np.asarray(wgf))
+    else:
+        assert gf is None
+
+
+def test_ball_query_group_empty_and_overfull_balls():
+    from geoa3_tpu.ops.pallas.ballquery_group_kernel import ball_query_group_planes
+
+    xyz, centres = _line_scene(np.random.RandomState(66))
+    gxp, _ = ball_query_group_planes(0.3, 16, True, jnp.asarray(xyz),
+                                     jnp.asarray(centres), None)
+    _, gx, _ = tops.ball_query_group(_t(xyz), _t(centres), None, 0.3, 16)
+    np.testing.assert_array_equal(gx.numpy(), _planes_to_4d(gxp, 32, 16))
+
+
+def test_ball_query_group_grad_matches_pallas_kernel():
+    from geoa3_tpu.ops.pallas.ballquery_group_kernel import ball_query_group_planes
+
+    n, m, ns, cf = 256, 32, 16, 128
+    xyz, centres, feats, rng = _scene(67, n, m, cf)
+    wx = rng.randn(B, m, ns, 3).astype(np.float32)
+    wf = rng.randn(B, m, ns, cf).astype(np.float32)
+    wxp = np.zeros((B, 8, m * ns), np.float32)
+    wxp[:, :3] = wx.transpose(0, 3, 1, 2).reshape(B, 3, m * ns)
+
+    def jloss(x, c, f):
+        gxp, gf = ball_query_group_planes(0.5, ns, True, x, c, f)
+        return jnp.sum(gxp * wxp) + jnp.sum(gf * wf)
+
+    want = jax.grad(jloss, argnums=(0, 1, 2))(
+        jnp.asarray(xyz), jnp.asarray(centres), jnp.asarray(feats))
+    args = [_t(a).requires_grad_(True) for a in (xyz, centres, feats)]
+    _, gx, gf = tops.ball_query_group(*args, 0.5, ns)
+    ((gx * _t(wx)).sum() + (gf * _t(wf)).sum()).backward()
+    for a, w, tag in zip(args, want, ("xyz", "centres", "feats")):
+        # the TPU backward scatters in split-bf16 passes (the tolerance of
+        # tests/test_pallas_kernels.py's own gradient test)
+        np.testing.assert_allclose(a.grad.numpy(), np.asarray(w), rtol=1e-4,
+                                   atol=1e-4, err_msg=tag)
+
+
+def test_ballquery_group_bwd_plain_is_the_forwards_gradient():
+    """The backward the CUDA kernel is held against on the card equals
+    autograd through the plain forward."""
+    n, m, ns, cf = 128, 16, 8, 5
+    xyz, centres, feats, rng = _scene(68, n, m, cf)
+    args = [_t(a).requires_grad_(True) for a in (xyz, centres, feats)]
+    idx, gx, gf = bk.ballquery_group_plain(*args, 0.4, ns)
+    dgx, dgf = _t(rng.randn(*gx.shape).astype(np.float32)), _t(
+        rng.randn(*gf.shape).astype(np.float32))
+    ((gx * dgx).sum() + (gf * dgf).sum()).backward()
+    got = bk.ballquery_group_bwd_plain(idx, dgx, dgf, n)
+    for a, g in zip(args, got):
+        torch.testing.assert_close(g, a.grad, rtol=1e-6, atol=1e-6)
+    assert bk.ballquery_group_bwd_plain(idx, dgx, None, n)[2] is None
+
+
+def test_repeated_rows_return_the_whole_cotangent_to_their_source():
+    """An under-full ball repeats its first hit; the grouped MLP splits a
+    pooled cotangent evenly among those tied rows, and the grouping's scatter
+    adds the shares up again on the one source point."""
+    rng = np.random.RandomState(69)
+    xyz = np.zeros((1, 8, 3), np.float32)
+    xyz[0, 1:] = 10.0 + rng.randn(7, 3)  # only point 0 lies in the ball
+    p = _random_mlp(rng, 0, (8, 8, 16))
+    x = _t(xyz).requires_grad_(True)
+    centre = _t(xyz[:, :1])
+    idx, gx, _ = tops.ball_query_group(x, centre, None, 0.5, 4)
+    assert not idx.any()  # four copies of point 0
+    pooled = tops.group_mlp_maxpool(gx, None, p)
+    w = _t(rng.randn(*pooled.shape).astype(np.float32))
+    (pooled * w).sum().backward()
+    single = _t(xyz).requires_grad_(True)
+    one = tops.group_mlp_maxpool(single[:, None, :1] - centre[:, :, None], None, p)
+    # (a 1-row and a 4-row product may round differently in the last bit)
+    torch.testing.assert_close(one, pooled, rtol=1e-6, atol=1e-7)
+    (one * w).sum().backward()
+    torch.testing.assert_close(x.grad[0, 0], single.grad[0, 0], rtol=1e-5, atol=1e-7)
+    assert not x.grad[0, 1:].any()
+
+
+# ----------------------------------------------------------- grouped MLP ----
+
+
+def _random_mlp(rng, cf, widths):
+    parts, cin = [], 3 + cf
+    for w in widths:
+        parts.append(_t((rng.randn(cin, w) * 0.3).astype(np.float32)))
+        parts.append(_t((rng.randn(w) * 0.1).astype(np.float32)))
+        cin = w
+    return tops.fold_mlp(*parts)
+
+
+def _jax_ws(p):
+    return tuple(jnp.asarray(t.numpy()) if i % 2 == 0 else jnp.asarray(t.numpy())[None]
+                 for i, t in enumerate(p[:6]))
+
+
+def _planes(gx4):
+    b, m, ns, _ = gx4.shape
+    gxp = gx4.transpose(0, 3, 1, 2).reshape(b, 3, m * ns)
+    return jnp.concatenate([gxp, jnp.zeros((b, 5, m * ns), gxp.dtype)], axis=1)
+
+
+GROUP_MLP_CASES = {
+    "SA1-like": (16, 8, 0, (16, 16, 32), False),
+    "SA2-like": (8, 8, 128, (32, 32, 64), False),
+    "GroupAll-like": (1, 16, 128, (32, 64, 128), False),
+    "ties": (8, 8, 0, (16, 16, 32), True),  # every row duplicated
+}
+
+
+@pytest.mark.parametrize("case", sorted(GROUP_MLP_CASES))
+def test_group_mlp_value_and_grad_match_pallas_kernel(case):
+    from geoa3_tpu.ops.pallas.group_mlp_kernel import group_mlp_maxpool
+
+    m, ns, cf, widths, ties = GROUP_MLP_CASES[case]
+    rng = np.random.RandomState(70)
+    gx = rng.randn(B, m, ns, 3).astype(np.float32)
+    gf = rng.randn(B, m, ns, cf).astype(np.float32) if cf else None
+    if ties:
+        gx[:, :, 1::2] = gx[:, :, ::2]
+    p = _random_mlp(rng, cf, widths)
+    ws = _jax_ws(p)
+    tgt = rng.randn(B, m, widths[-1]).astype(np.float32)
+
+    def jloss(x, f):
+        out = group_mlp_maxpool(_planes(x), f, ns, True, ws)
+        return jnp.sum((out - tgt) ** 2), out
+
+    jargs = (jnp.asarray(gx), None if gf is None else jnp.asarray(gf))
+    (_, want), wgrads = jax.value_and_grad(
+        jloss, argnums=(0, 1) if cf else (0,), has_aux=True)(*jargs)
+
+    x = _t(gx).requires_grad_(True)
+    f = _t(gf).requires_grad_(True) if cf else None
+    got = tops.group_mlp_maxpool(x, f, p)
+    ((got - _t(tgt)) ** 2).sum().backward()
+    # three layers of float32 products in other summation orders (the TPU
+    # kernel: three bf16 passes a product)
+    np.testing.assert_allclose(got.detach().numpy(), np.asarray(want),
+                               rtol=1e-4, atol=1e-4)
+    for a, w in zip((x, f) if cf else (x,), wgrads):
+        w = np.asarray(w)
+        np.testing.assert_allclose(a.grad.numpy(), w, rtol=1e-4,
+                                   atol=1e-4 * np.abs(w).max())
+    if ties:
+        # tied rows share a maximum's cotangent evenly
+        np.testing.assert_array_equal(x.grad[:, :, 1::2].numpy(),
+                                      x.grad[:, :, ::2].numpy())
+
+
+def test_group_mlp_checks_its_weights():
+    rng = np.random.RandomState(71)
+    p = _random_mlp(rng, 0, (8, 8, 16))
+    gx = torch.zeros(1, 2, 4, 3)
+    assert tops.group_mlp_maxpool(gx, None, p).shape == (1, 2, 16)
+    assert p.w1t.shape == (8, 4) and not p.w1t[:, 3].any()  # padded to 4 columns
+    assert gk.group_mlp_fwd.launches == gk.group_mlp_bwd.launches == 0

@@ -107,4 +107,34 @@ def test_l2normalize_clamps_and_stays_finite_at_zero():
 
 
 def test_uniform_loss_is_not_ported():
-    assert not hasattr(tl, "uniform_loss")
+    """The name dates from when the port refused this loss; it is ported now,
+    with the JAX package's signature."""
+    import inspect
+
+    assert inspect.signature(tl.uniform_loss).parameters.keys() == (
+        inspect.signature(jl.uniform_loss).parameters.keys())
+    for name, p in inspect.signature(jl.uniform_loss).parameters.items():
+        assert inspect.signature(tl.uniform_loss).parameters[name].default == p.default
+
+
+@pytest.mark.parametrize("n", [256, 1024])
+def test_uniform_loss_value_and_grad_match_jax(n):
+    """FPS seeds, five ball queries, grouping and a 3-NN inside every group:
+    all indices agree, so value and gradient differ by summation order only.
+    At n=256 the balls hold 4 to 12 samples and most are under-full (repeated
+    first hits: zero distances under the square root's 1e-12)."""
+    adv = _cloud(43, 2, n)[0]
+    want, wgrad = jax.jit(jax.value_and_grad(jl.uniform_loss))(jnp.asarray(adv))
+    a = _t(adv).requires_grad_(True)
+    got = tl.uniform_loss(a)
+    got.backward()
+    assert got.shape == () and float(want) > 0
+    np.testing.assert_allclose(got.item(), float(want), rtol=1e-5)
+    wgrad = np.asarray(wgrad)
+    np.testing.assert_allclose(a.grad.numpy(), wgrad, rtol=1e-4,
+                               atol=1e-4 * np.abs(wgrad).max())
+
+
+def test_uniform_loss_needs_three_points_a_ball():
+    with pytest.raises(ValueError, match="knn takes"):
+        tl.uniform_loss(_t(_cloud(44, 2, 128)[0]))  # int(128 * 0.016) = 2 < k + 1

@@ -182,8 +182,9 @@ def test_structure_mirrors_reference():
 
 
 def test_unported_modes_raise():
-    with pytest.raises(NotImplementedError):
-        build_model("PointNetPP", device="cpu")
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        build_model("PointNetPP_MSG", device="cpu")
+    assert build_model("PointNetPP", device="cpu").SA_modules[0].npoint == 512
     model = PointNet(classes=CLASSES)  # a fresh module is in train mode
     with pytest.raises(NotImplementedError, match="train mode"):
         model(torch.zeros(1, N, 3))
