@@ -11,10 +11,13 @@ Needs one CUDA card, nvcc and this repository around the script. Phases:
      1024; kNN also at m != n and at one query row; the dual 1-NN also at
      2048 original against 1024 moved points; PointNet++ SSG's sampling,
      grouping and grouped MLPs at its three set-abstraction shapes, with
-     empty, over-full and larger-than-the-cloud balls and duplicated rows),
+     empty, over-full and larger-than-the-cloud balls and duplicated rows;
+     the MSG victim's whole-scale kernel at SA2's three scales, at cf=0 and
+     cf=3, with empty and over-full balls, its grouped MLPs at SA1's three
+     scales and at GroupAll with 640 features, and the k-neighbour scatter),
      with the tolerance stated, and time both (CUDA events, warm, median of
      20), plus one PyTorch library call where one computes the same
-     function;
+     function, and for the whole-scale kernel the split pair it stands in for;
   3. run the default untargeted GeoA3 attack on PointNet (40 classes, 1024
      points, random weights with non-trivial BatchNorm statistics, 32
      synthetic clouds; CE + Chamfer + 0.1 Hausdorff + curvature k=16, Adam
@@ -40,9 +43,15 @@ Needs one CUDA card, nvcc and this repository around the script. Phases:
      points resampled to 1024 every step, a three-fold resampling vote; and
      the public ops whose kernels no engine path launches (`ops.nn1_dual`,
      `ops.knn_kappa_from_mask`, `ops.group_points` with its C-channel
-     scatter backward); then the CLI once with --arch PointNetPP and once
-     with --is_subsample_opt on clouds of 2048 points;
-  8. print one JSON line listing the kernels, then the result line.
+     scatter backward, `ops.scatter_add_3`, and the feature-propagation
+     module with `ops.three_nn` and `ops.three_interpolate` against the CPU);
+  8. the attack on the PointNet++ MSG victim at its published width (b=32,
+     n=1024, 1 x 30 steps; every kernel's launch count checked against the
+     count read from the code), a short MSG attack on the card against the
+     CPU, the MSG victim with normals against the CPU; then the CLI once
+     with --arch PointNetPP, once with --arch PointNetPP_MSG and once with
+     --is_subsample_opt on clouds of 2048 points;
+  9. print one JSON line listing the kernels, then the result line.
 
 Every path runs with the kernels' launch counts set to 0 just before and
 read just after, and fails if a kernel it names was not launched; together
@@ -486,14 +495,112 @@ def random_mlp(torch, gen, cf, widths):
     return fold_mlp(*parts)
 
 
+def group_mlp_case(torch, label, gx_, gf_, p_, randn) -> dict:
+    """The grouped-MLP kernels against their plain version at one shape:
+    the forward against the float32 plain version, the backward against
+    float64 autograd over every row (see the comment below), and the times.
+    Returns the row of numbers the kernels line takes."""
+    from geoa3_tpu_torch.ops.kernels import group_mlp_kernel as gk
+
+    b_, m_, ns_, _ = gx_.shape
+    pooled, cnt = gk.group_mlp_fwd(gx_, gf_, p_)
+    want = gk.group_mlp_maxpool_plain(gx_, gf_, p_)
+    scale = want.abs().max().item()
+    # three layers of float32 products summed in another order than cuBLAS
+    fwd_err = (pooled - want).abs().max().item()
+    check(f"group_mlp_fwd[{label}]", fwd_err, 2e-5 * scale, "pooled")
+    # the backward is held against autograd in float64, where repeated
+    # rows stay exactly tied, through the same three layers with every
+    # ReLU's on/off pattern given: float64's own, except on the rows that
+    # hold a hidden pre-activation within rounding of 0, where the pattern
+    # is the float32 one that the kernel's summation order gives
+    # (`fma_chain`), so that every row is held to the one tolerance. The
+    # pooled cotangent is kept off the (group, channel)s whose two largest
+    # values lie within rounding of each other without being an exact
+    # tie, or whose maximum lies within rounding of 0: there the versions
+    # may rightly pick different rows.
+    p64 = gk.FoldedMLP(*(t.double() for t in p_))
+    x0 = gx_ if gf_ is None else torch.cat([gx_, gf_], dim=-1)
+    with torch.no_grad():
+        z1 = x0.double() @ p64.w1 + p64.b1
+        z2 = torch.relu(z1) @ p64.w2 + p64.b2
+        on1, on2 = z1 > 0, z2 > 0
+        fragile = torch.zeros(b_, m_, ns_, dtype=torch.bool, device="cuda")
+        for z in (z1, z2):
+            fragile |= (z.abs() < 2e-5 * z.abs().max()).any(-1)
+        a1 = torch.relu(fma_chain(torch, x0[fragile], p_.w1) + p_.b1)
+        f1 = a1 > 0
+        f2 = fma_chain(torch, a1, p_.w2) + p_.b2 > 0
+        switched = int((f1 != on1[fragile]).sum() + (f2 != on2[fragile]).sum())
+        on1[fragile], on2[fragile] = f1, f2
+        del z1, z2, z, a1, f1, f2
+    xg = gx_.double().requires_grad_(True)
+    fg = gf_.double().requires_grad_(True) if gf_ is not None else None
+    z1 = xg @ p64.w1[:3] + p64.b1
+    if fg is not None:
+        z1 = z1 + fg @ p64.w1[3:]
+    z2 = (z1 * on1) @ p64.w2 + p64.b2
+    a3 = torch.relu((z2 * on2) @ p64.w3 + p64.b3)
+    top2 = torch.topk(a3.detach(), 2, dim=2).values
+    gap = top2[:, :, 0] - top2[:, :, 1]
+    gap_ok = ((gap > 1e-4 * scale) | (gap == 0)) & (top2[:, :, 0] > 1e-4 * scale)
+    gcot = (randn(b_, m_, p_.w3.shape[1]) * gap_ok).contiguous()
+    grads = torch.autograd.grad(
+        (torch.amax(a3, dim=2) * gcot.double()).sum(),
+        [xg] + ([fg] if fg is not None else []))
+    del a3, z1, z2, top2, gap, on1, on2
+    got = gk.group_mlp_bwd(gcot, gx_, gf_, p_, pooled, cnt)
+    tied = int((cnt > 1).sum())
+    bwd_errs = []
+    for g_, w_, what in zip(got, grads, ("dgx", "dgf")):
+        w_ = w_.float()
+        err = (g_ - w_).abs().max().item()
+        # float32 sums of up to 512 products a layer in another order
+        check(f"group_mlp_bwd[{label}]", err, 2e-5 * w_.abs().max().item(),
+              f"{what}, every row")
+        bwd_errs.append(err)
+    print(f"  group_mlp_bwd[{label}]: {int(fragile.sum())} of {fragile.numel()} "
+          f"rows hold a pre-activation within rounding of 0, and {switched} "
+          f"of their hidden units are on in float32 and off in float64 or "
+          f"the reverse; {int(gap_ok.sum())}/{gap_ok.numel()} maxima carry "
+          f"a cotangent")
+    del grads, xg, fg
+    c0, c1_, c2_, c3_ = p_.w1.shape[0], p_.w1.shape[1], p_.w2.shape[1], p_.w3.shape[1]
+    flops = 2.0 * b_ * m_ * ns_ * (c0 * c1_ + c1_ * c2_ + c2_ * c3_)
+    g_all = randn(b_, m_, c3_)
+    xr = gx_.clone().requires_grad_(True)
+    fr = gf_.clone().requires_grad_(True) if gf_ is not None else None
+    ins = [xr] + ([fr] if fr is not None else [])
+    wbytes = nbytes(*p_[:6])
+    r_ = dict(
+        fwd_err=fwd_err, bwd_err=max(bwd_errs), flops=flops, tied=tied,
+        fwd_ms=time_ms(lambda: gk.group_mlp_fwd(gx_, gf_, p_)),
+        fwd_plain=time_ms(lambda: gk.group_mlp_maxpool_plain(gx_, gf_, p_), iters=5),
+        fwd_bound=bound_ms(nbytes(gx_, pooled, cnt) + wbytes
+                           + (nbytes(gf_) if gf_ is not None else 0), flops),
+        bwd_ms=time_ms(lambda: gk.group_mlp_bwd(g_all, gx_, gf_, p_, pooled, cnt)),
+        bwd_plain=time_ms(lambda: torch.autograd.grad(
+            (gk.group_mlp_maxpool_plain(xr, fr, p_) * g_all).sum(), ins), iters=5),
+        # the recompute and one dz @ w^T product a layer (no weight
+        # gradients): twice the forward
+        bwd_bound=bound_ms(2 * nbytes(gx_) + nbytes(g_all, pooled, cnt) + 2 * wbytes
+                           + (2 * nbytes(gf_) if gf_ is not None else 0), 2.0 * flops),
+    )
+    print(f"  group_mlp[{label}]: {tied} (group, channel)s with tied maxima; "
+          f"fwd ms={r_['fwd_ms']:.4f} plain={r_['fwd_plain']:.4f} bound="
+          f"{r_['fwd_bound'][0]:.4f}; bwd ms={r_['bwd_ms']:.4f} plain="
+          f"{r_['bwd_plain']:.4f} bound={r_['bwd_bound'][0]:.4f}")
+    return r_
+
+
 def ssg_kernel_checks(torch) -> list[dict]:
     """Phase 2, second half: the PointNet++ kernels at the SSG victim's three
     set-abstraction shapes (b=32: 1024 -> 512 centres x 64 samples, 512 -> 128
     x 64 with 128 features, GroupAll of 128 points with 256 features)."""
+    from geoa3_tpu_torch import ops
     from geoa3_tpu_torch.ops.kernels import (
         ballquery_group_kernel as bk,
         fps_kernel as fk,
-        group_mlp_kernel as gk,
         scatter_kernel as sk,
     )
 
@@ -538,8 +645,8 @@ def ssg_kernel_checks(torch) -> list[dict]:
           f"[32,1024]: ms={time_ms(lambda: fk.fps(big, N, start, False)):.4f}")
 
     # --- ball query + group, forward and backward --------------------------
-    c1 = torch.gather(pc, 1, fps_idx.long()[..., None].expand(-1, -1, 3)).contiguous()
-    c2 = torch.gather(c1, 1, fk.fps(c1, 128).long()[..., None].expand(-1, -1, 3)).contiguous()
+    c1 = ops.gather_points(pc, fps_idx)
+    c2 = ops.gather_points(c1, fk.fps(c1, 128))
     f1 = randn(B, 512, 128)
     far = c2.clone()
     far[:, ::2] += 100.0  # every other ball is empty
@@ -660,97 +767,8 @@ def ssg_kernel_checks(torch) -> list[dict]:
         "SA2": (gx2, torch.relu(gf2), random_mlp(torch, gen, 128, (128, 128, 256))),
         "SA3": (gx3, gf3, random_mlp(torch, gen, 256, (256, 512, 1024))),
     }
-    rows = {}
-    for label, (gx_, gf_, p_) in shapes.items():
-        b_, m_, ns_, _ = gx_.shape
-        pooled, cnt = gk.group_mlp_fwd(gx_, gf_, p_)
-        want = gk.group_mlp_maxpool_plain(gx_, gf_, p_)
-        scale = want.abs().max().item()
-        # three layers of float32 products summed in another order than cuBLAS
-        fwd_err = (pooled - want).abs().max().item()
-        check(f"group_mlp_fwd[{label}]", fwd_err, 2e-5 * scale, "pooled")
-        # the backward is held against autograd in float64, where repeated
-        # rows stay exactly tied, through the same three layers with every
-        # ReLU's on/off pattern given: float64's own, except on the rows that
-        # hold a hidden pre-activation within rounding of 0, where the pattern
-        # is the float32 one that the kernel's summation order gives
-        # (`fma_chain`), so that every row is held to the one tolerance. The
-        # pooled cotangent is kept off the (group, channel)s whose two largest
-        # values lie within rounding of each other without being an exact
-        # tie, or whose maximum lies within rounding of 0: there the versions
-        # may rightly pick different rows.
-        p64 = gk.FoldedMLP(*(t.double() for t in p_))
-        x0 = gx_ if gf_ is None else torch.cat([gx_, gf_], dim=-1)
-        with torch.no_grad():
-            z1 = x0.double() @ p64.w1 + p64.b1
-            z2 = torch.relu(z1) @ p64.w2 + p64.b2
-            on1, on2 = z1 > 0, z2 > 0
-            fragile = torch.zeros(b_, m_, ns_, dtype=torch.bool, device="cuda")
-            for z in (z1, z2):
-                fragile |= (z.abs() < 2e-5 * z.abs().max()).any(-1)
-            a1 = torch.relu(fma_chain(torch, x0[fragile], p_.w1) + p_.b1)
-            f1 = a1 > 0
-            f2 = fma_chain(torch, a1, p_.w2) + p_.b2 > 0
-            switched = int((f1 != on1[fragile]).sum() + (f2 != on2[fragile]).sum())
-            on1[fragile], on2[fragile] = f1, f2
-            del z1, z2, z, a1, f1, f2
-        xg = gx_.double().requires_grad_(True)
-        fg = gf_.double().requires_grad_(True) if gf_ is not None else None
-        z1 = xg @ p64.w1[:3] + p64.b1
-        if fg is not None:
-            z1 = z1 + fg @ p64.w1[3:]
-        z2 = (z1 * on1) @ p64.w2 + p64.b2
-        a3 = torch.relu((z2 * on2) @ p64.w3 + p64.b3)
-        top2 = torch.topk(a3.detach(), 2, dim=2).values
-        gap = top2[:, :, 0] - top2[:, :, 1]
-        gap_ok = ((gap > 1e-4 * scale) | (gap == 0)) & (top2[:, :, 0] > 1e-4 * scale)
-        gcot = (randn(b_, m_, p_.w3.shape[1]) * gap_ok).contiguous()
-        grads = torch.autograd.grad(
-            (torch.amax(a3, dim=2) * gcot.double()).sum(),
-            [xg] + ([fg] if fg is not None else []))
-        del a3, z1, z2, top2, gap, on1, on2
-        got = gk.group_mlp_bwd(gcot, gx_, gf_, p_, pooled, cnt)
-        tied = int((cnt > 1).sum())
-        bwd_errs = []
-        for g_, w_, what in zip(got, grads, ("dgx", "dgf")):
-            w_ = w_.float()
-            err = (g_ - w_).abs().max().item()
-            # float32 sums of up to 512 products a layer in another order
-            check(f"group_mlp_bwd[{label}]", err, 2e-5 * w_.abs().max().item(),
-                  f"{what}, every row")
-            bwd_errs.append(err)
-        print(f"  group_mlp_bwd[{label}]: {int(fragile.sum())} of {fragile.numel()} "
-              f"rows hold a pre-activation within rounding of 0, and {switched} "
-              f"of their hidden units are on in float32 and off in float64 or "
-              f"the reverse; {int(gap_ok.sum())}/{gap_ok.numel()} maxima carry "
-              f"a cotangent")
-        del grads, xg, fg
-        c0, c1_, c2_, c3_ = p_.w1.shape[0], p_.w1.shape[1], p_.w2.shape[1], p_.w3.shape[1]
-        flops = 2.0 * b_ * m_ * ns_ * (c0 * c1_ + c1_ * c2_ + c2_ * c3_)
-        g_all = randn(b_, m_, c3_)
-        xr = gx_.clone().requires_grad_(True)
-        fr = gf_.clone().requires_grad_(True) if gf_ is not None else None
-        ins = [xr] + ([fr] if fr is not None else [])
-        wbytes = nbytes(*p_[:6])
-        rows[label] = dict(
-            fwd_err=fwd_err, bwd_err=max(bwd_errs), flops=flops, tied=tied,
-            fwd_ms=time_ms(lambda: gk.group_mlp_fwd(gx_, gf_, p_)),
-            fwd_plain=time_ms(lambda: gk.group_mlp_maxpool_plain(gx_, gf_, p_), iters=5),
-            fwd_bound=bound_ms(nbytes(gx_, pooled, cnt) + wbytes
-                               + (nbytes(gf_) if gf_ is not None else 0), flops),
-            bwd_ms=time_ms(lambda: gk.group_mlp_bwd(g_all, gx_, gf_, p_, pooled, cnt)),
-            bwd_plain=time_ms(lambda: torch.autograd.grad(
-                (gk.group_mlp_maxpool_plain(xr, fr, p_) * g_all).sum(), ins), iters=5),
-            # the recompute and one dz @ w^T product a layer (no weight
-            # gradients): twice the forward
-            bwd_bound=bound_ms(2 * nbytes(gx_) + nbytes(g_all, pooled, cnt) + 2 * wbytes
-                               + (2 * nbytes(gf_) if gf_ is not None else 0), 2.0 * flops),
-        )
-        r_ = rows[label]
-        print(f"  group_mlp[{label}]: {tied} (group, channel)s with tied maxima; "
-              f"fwd ms={r_['fwd_ms']:.4f} plain={r_['fwd_plain']:.4f} bound="
-              f"{r_['fwd_bound'][0]:.4f}; bwd ms={r_['bwd_ms']:.4f} plain="
-              f"{r_['bwd_plain']:.4f} bound={r_['bwd_bound'][0]:.4f}")
+    rows = {label: group_mlp_case(torch, label, gx_, gf_, p_, randn)
+            for label, (gx_, gf_, p_) in shapes.items()}
     if rows["SA3"]["tied"] == 0 or rows["SA1"]["tied"] == 0:
         _fail("group_mlp: the inputs held no tied maxima, the tie split is unchecked")
     r2_ = rows["SA2"]
@@ -776,14 +794,294 @@ def ssg_kernel_checks(torch) -> list[dict]:
     return out
 
 
+def sa_fused_case(torch, label, xyz, cen, feats, radius, ns, p_, randn,
+                  timed=False) -> dict:
+    """sa_fused_fwd/_bwd against the plain version at one shape: the ball
+    query's indices bit-equal to `ball_query_plain`, pooled against the
+    float32 plain version, the backward against float64 autograd over every
+    row as in `group_mlp_case` (the kernel's float32 ReLU pattern on rows
+    with a hidden pre-activation within rounding of 0, read from the
+    kernel's own projections P and Yc; the pooled cotangent kept off maxima
+    within rounding of a runner-up or of 0). With `timed`, the kernels', the
+    plain version's and the split pair's times and the bounds."""
+    from geoa3_tpu_torch.ops.kernels import (
+        ballquery_group_kernel as bk,
+        group_mlp_kernel as gk,
+        sa_fused_kernel as sf,
+    )
+    from geoa3_tpu_torch.ops.kernels.knn_kernel import gather_nbrs
+
+    b_, n_ = xyz.shape[:2]
+    m_ = cen.shape[1]
+    cf = 0 if feats is None else feats.shape[-1]
+    pooled, cnt, idx, proj, yc = sf.sa_fused_fwd(xyz, cen, feats, radius, ns, p_)
+    require_equal(torch, f"sa_fused_fwd[{label}]", idx,
+                  bk.ball_query_plain(xyz, cen, radius, ns), "idx")
+    want = sf.sa_query_group_mlp_plain(xyz, cen, feats, radius, ns, p_)
+    scale = want.abs().max().item()
+    # layer 1 from projections summed in another order than cuBLAS's, two
+    # more layers of float32 products
+    fwd_err = (pooled - want).abs().max().item()
+    check(f"sa_fused_fwd[{label}]", fwd_err, 2e-5 * scale, "pooled")
+
+    p64 = gk.FoldedMLP(*(t.double() for t in p_))
+
+    def layer1(x, c, f, w1):
+        prj = x @ w1[:3] + (f @ w1[3:] if f is not None else 0.0)
+        return (gather_nbrs(prj, idx) - (c @ w1[:3])[:, :, None]) + p64.b1
+
+    with torch.no_grad():
+        z1 = layer1(xyz.double(), cen.double(),
+                    feats.double() if feats is not None else None, p64.w1)
+        z2 = torch.relu(z1) @ p64.w2 + p64.b2
+        on1, on2 = z1 > 0, z2 > 0
+        fragile = torch.zeros(b_, m_, ns, dtype=torch.bool, device="cuda")
+        for z in (z1, z2):
+            fragile |= (z.abs() < 2e-5 * z.abs().max()).any(-1)
+        z1k = ((gather_nbrs(proj, idx) - yc[:, :, None]) + p_.b1)[fragile]
+        a1 = torch.relu(z1k)
+        f1 = a1 > 0
+        f2 = fma_chain(torch, a1, p_.w2) + p_.b2 > 0
+        switched = int((f1 != on1[fragile]).sum() + (f2 != on2[fragile]).sum())
+        on1[fragile], on2[fragile] = f1, f2
+        del z1, z2, z, z1k, a1, f1, f2
+    xg = xyz.double().requires_grad_(True)
+    cg = cen.double().requires_grad_(True)
+    fg = feats.double().requires_grad_(True) if feats is not None else None
+    z2 = (layer1(xg, cg, fg, p64.w1) * on1) @ p64.w2 + p64.b2
+    a3 = torch.relu((z2 * on2) @ p64.w3 + p64.b3)
+    top2 = torch.topk(a3.detach(), 2, dim=2).values
+    gap = top2[:, :, 0] - top2[:, :, 1]
+    gap_ok = ((gap > 1e-4 * scale) | (gap == 0)) & (top2[:, :, 0] > 1e-4 * scale)
+    gcot = (randn(b_, m_, p_.w3.shape[1]) * gap_ok).contiguous()
+    ins = [xg, cg] + ([fg] if fg is not None else [])
+    grads = torch.autograd.grad((torch.amax(a3, dim=2) * gcot.double()).sum(), ins)
+    del a3, z2, top2, gap, on1, on2
+    got = sf.sa_fused_bwd(gcot, p_, cf, pooled, cnt, idx, proj, yc)
+    bwd_errs = []
+    for g_, w_, what in zip(got, grads, ("dxyz", "dnew_xyz", "dfeats")):
+        w_ = w_.float()
+        err = (g_ - w_).abs().max().item()
+        # float32 products in another order, and the scatter's atomics
+        check(f"sa_fused_bwd[{label}]", err, 2e-5 * w_.abs().max().item(),
+              f"{what}, every row")
+        bwd_errs.append(err)
+    print(f"  sa_fused[{label}]: {int(fragile.sum())} of {fragile.numel()} rows "
+          f"hold a pre-activation within rounding of 0 ({switched} hidden units "
+          f"switched), {int(gap_ok.sum())}/{gap_ok.numel()} maxima carry a "
+          f"cotangent, {int((cnt > 1).sum())} tied maxima")
+    del grads, xg, cg, fg
+    r_ = dict(fwd_err=fwd_err, bwd_err=max(bwd_errs), idx=idx)
+    if not timed:
+        return r_
+    c1, c2, c3 = p_.w1.shape[1], p_.w2.shape[1], p_.w3.shape[1]
+    rows_ = b_ * m_ * ns
+    proj_flops = 2.0 * (b_ * n_ * (3 + cf) * c1 + b_ * m_ * 3 * c1)
+    mlp_flops = 2.0 * rows_ * (c1 * c2 + c2 * c3)
+    wbytes = nbytes(*p_)
+    fbytes = nbytes(feats) if feats is not None else 0
+    g_all = randn(b_, m_, c3)
+    xr = xyz.clone().requires_grad_(True)
+    cr = cen.clone().requires_grad_(True)
+    fr = feats.clone().requires_grad_(True) if feats is not None else None
+    ins = [xr, cr] + ([fr] if fr is not None else [])
+    r_.update(
+        fwd_ms=time_ms(lambda: sf.sa_fused_fwd(xyz, cen, feats, radius, ns, p_)),
+        fwd_plain=time_ms(lambda: sf.sa_query_group_mlp_plain(
+            xyz, cen, feats, radius, ns, p_), iters=5),
+        fwd_bound=bound_ms(nbytes(xyz, cen, proj, yc, idx, pooled, cnt) + fbytes
+                           + wbytes, proj_flops + mlp_flops),
+        bwd_ms=time_ms(lambda: sf.sa_fused_bwd(g_all, p_, cf, pooled, cnt, idx,
+                                               proj, yc)),
+        bwd_plain=time_ms(lambda: torch.autograd.grad(
+            (sf.sa_query_group_mlp_plain(xr, cr, fr, radius, ns, p_) * g_all).sum(),
+            ins), iters=5),
+        # the recompute and the backward of layers 2-3 (twice the layers'
+        # forward), the back-projection, one addition a scattered entry
+        bwd_bound=bound_ms(nbytes(proj, yc, idx, pooled, cnt, g_all, xyz, cen)
+                           + fbytes + wbytes,
+                           2.0 * mlp_flops + proj_flops + rows_ * c1),
+    )
+    # the alternative route a later PR weighs: the split pair (the fused
+    # ball query + grouping, then the grouped MLP), forward and backward
+    _, sgx, sgf = bk.ballquery_group_fwd(xyz, cen, feats, radius, ns)
+    spooled, scnt = gk.group_mlp_fwd(sgx, sgf, p_)
+
+    def split_fwd():
+        i_, gx_, gf_ = bk.ballquery_group_fwd(xyz, cen, feats, radius, ns)
+        return gk.group_mlp_fwd(gx_, gf_, p_)
+
+    def split_bwd():
+        dgx, dgf = gk.group_mlp_bwd(g_all, sgx, sgf, p_, spooled, scnt)
+        return bk.ballquery_group_bwd(idx, dgx, dgf, n_)
+
+    r_.update(split_fwd=time_ms(split_fwd), split_bwd=time_ms(split_bwd))
+    del sgx, sgf
+    print(f"  sa_fused[{label}]: fwd ms={r_['fwd_ms']:.4f} plain={r_['fwd_plain']:.4f} "
+          f"bound={r_['fwd_bound'][0]:.4f} split pair={r_['split_fwd']:.4f}; bwd "
+          f"ms={r_['bwd_ms']:.4f} plain={r_['bwd_plain']:.4f} bound="
+          f"{r_['bwd_bound'][0]:.4f} split pair={r_['split_bwd']:.4f}")
+    return r_
+
+
+def msg_kernel_checks(torch, kernels: list) -> list[dict]:
+    """Phase 2, third part: the PointNet++ MSG victim's kernels at its shapes
+    (b=32): the whole-scale kernel at SA2's three scales (512 -> 128 centres,
+    ns 32/64/128, 320 features), at cf=0 and cf=3 and with empty and
+    over-full balls; the grouped MLP at SA1's three scales and at GroupAll
+    (128 points, 640 features: the 16-row backward tile), whose numbers join
+    the group_mlp entries of `kernels`; and the k-neighbour 3-channel
+    scatter at [32,1024,17,3] -> 1024."""
+    from geoa3_tpu_torch import ops
+    from geoa3_tpu_torch.ops.kernels import (
+        ballquery_group_kernel as bk,
+        fps_kernel as fk,
+        knn_kernel as qk,
+        scatter_kernel as sk,
+    )
+
+    out = []
+    entry = entry_into(out)
+    pc, nrm, rng = make_batch(torch, B, N, seed=11)
+    gen = torch.Generator(device="cuda").manual_seed(13)
+
+    def randn(*shape):
+        return torch.randn(*shape, device="cuda", generator=gen)
+
+    x1 = ops.gather_points(pc, fk.fps(pc, 512))  # SA1's centres
+    x2 = ops.gather_points(x1, fk.fps(x1, 128))  # SA2's centres
+    f1 = torch.relu(randn(B, 512, 320))  # SA1's 64 + 128 + 128 features
+
+    # --- the whole set-abstraction scale ------------------------------------
+    sa2 = {"SA2 r=0.2 ns=32": (0.2, 32, (64, 64, 128)),
+           "SA2 r=0.4 ns=64": (0.4, 64, (128, 128, 256)),
+           "SA2 r=0.8 ns=128": (0.8, 128, (128, 128, 256))}
+    rows = {label: sa_fused_case(torch, label, x1, x2, f1, r_, ns_,
+                                 random_mlp(torch, gen, 320, w_), randn, timed=True)
+            for label, (r_, ns_, w_) in sa2.items()}
+    far = x2.clone()
+    far[:, ::2] += 100.0  # every other ball is empty
+    others = {
+        "cf=0 r=0.1 ns=16": (pc, x1, None, 0.1, 16),
+        "cf=3 (normals) r=0.1 ns=16": (pc, x1, nrm, 0.1, 16),
+        "empty balls": (x1, far, f1, 0.2, 32),
+        "over-full balls r=2": (x1, x2, f1, 2.0, 32),
+    }
+    for label, (x_, c_, f_, r_, ns_) in others.items():
+        cf_ = 0 if f_ is None else f_.shape[-1]
+        rows[label] = sa_fused_case(torch, label, x_, c_, f_, r_, ns_,
+                                    random_mlp(torch, gen, cf_, (32, 32, 64)), randn)
+    if rows["empty balls"]["idx"][:, ::2].any():
+        _fail("sa_fused_fwd: an empty ball does not hold index 0")
+    head = rows["SA2 r=0.8 ns=128"]
+    rest = lambda k1, k2, ks: "; ".join(  # noqa: E731
+        f"{lab}: ms={rows[lab][k1]:.4f} bound_ms={rows[lab][k2][0]:.4f} "
+        f"split pair ms={rows[lab][ks]:.4f}"
+        for lab in ("SA2 r=0.2 ns=32", "SA2 r=0.4 ns=64"))
+    entry("sa_fused_fwd", "geoa3_tpu_torch/csrc/sa_fused.cu",
+          "geoa3_tpu/ops/pallas/sa_fused_kernel.py:108",
+          max(r["fwd_err"] for r in rows.values()), head["fwd_ms"],
+          head["fwd_plain"], head["fwd_bound"], None,
+          "MSG SA2 r=0.8 ns=128: xyz [32,512,3], centres [32,128,3], feats "
+          "[32,512,320], (323->128->128->256) -> [32,128,256] (projections, "
+          "query, gather, MLP, pool; three device kernels); split pair "
+          f"(ballquery_group + group_mlp) ms={head['split_fwd']:.4f}; "
+          + rest("fwd_ms", "fwd_bound", "split_fwd"))
+    entry("sa_fused_bwd", "geoa3_tpu_torch/csrc/sa_fused.cu",
+          "geoa3_tpu/ops/pallas/sa_fused_kernel.py:140",
+          max(r["bwd_err"] for r in rows.values()), head["bwd_ms"],
+          head["bwd_plain"], head["bwd_bound"], None,
+          "MSG SA2 r=0.8 ns=128 -> dxyz [32,512,3], dnew_xyz [32,128,3], "
+          "dfeats [32,512,320] (recompute + scatter, two back-projections; "
+          "plain: autograd through the plain forward, forward included; "
+          "max_abs_err against float64 autograd over every row, with the "
+          "kernel's float32 ReLU pattern where a pre-activation is within "
+          f"rounding of 0); split pair ms={head['split_bwd']:.4f}; "
+          + rest("bwd_ms", "bwd_bound", "split_bwd"))
+
+    # --- the grouped MLP at MSG's shapes -------------------------------------
+    mshapes = {}
+    for r_, ns_, w_ in ((0.1, 16, (32, 32, 64)), (0.2, 32, (64, 64, 128)),
+                        (0.4, 128, (64, 96, 128))):
+        _, gx_, _ = bk.ballquery_group_fwd(pc, x1, None, r_, ns_)
+        mshapes[f"MSG SA1 ns={ns_}"] = (gx_, None, random_mlp(torch, gen, 0, w_))
+    gx3 = x2[:, None].contiguous()  # GroupAll: [32, 1, 128, 3]
+    gf3 = torch.relu(randn(B, 1, 128, 640))
+    gx3[:, :, 1::8] = gx3[:, :, 0::8]  # duplicated rows: exact ties
+    gf3[:, :, 1::8] = gf3[:, :, 0::8]
+    mshapes["MSG GroupAll cf=640"] = (gx3, gf3,
+                                      random_mlp(torch, gen, 640, (256, 512, 1024)))
+    mrows = {label: group_mlp_case(torch, label, gx_, gf_, p_, randn)
+             for label, (gx_, gf_, p_) in mshapes.items()}
+    if mrows["MSG GroupAll cf=640"]["tied"] == 0:
+        _fail("group_mlp: GroupAll's inputs held no tied maxima")
+    for k in kernels:
+        if k["name"] in ("group_mlp_fwd", "group_mlp_bwd"):
+            which = "fwd" if k["name"].endswith("fwd") else "bwd"
+            k["max_abs_err"] = max([k["max_abs_err"]] + [
+                r[f"{which}_err"] for r in mrows.values()])
+            k["shape"] += "; MSG (GroupAll's backward on 16-row tiles): " + "; ".join(
+                f"{lab}: ms={r[which + '_ms']:.4f} plain_ms="
+                f"{r[which + '_plain']:.4f} bound_ms={r[which + '_bound'][0]:.4f}"
+                for lab, r in mrows.items())
+
+    # --- the k-neighbour 3-channel scatter ----------------------------------
+    kidx = qk.knn(pc, pc, K + 1)[1]  # [32, 1024, 17]: every row hit ~17 times
+    kct = randn(B, N, K + 1, 3)
+    sg = sk.scatter_add_3(kidx, kct, N)
+    sw = sk.scatter_add_3_plain(kidx, kct, N)
+    # float32 sums of a few dozen colliding terms in atomic order
+    s3_err = (sg - sw).abs().max().item()
+    check("scatter_add_3", s3_err, 1e-5 * sw.abs().max().item(), "out")
+    bad = kidx.clone()
+    bad[:, :, 0] = N  # out of range: dropped
+    check("scatter_add_3[out-of-range rows dropped]",
+          (sk.scatter_add_3(bad, kct, N) - sk.scatter_add_3_plain(bad, kct, N)).abs().max().item(),
+          1e-5 * sw.abs().max().item(), "out")
+    lib_idx = (kidx.long() + N * torch.arange(B, device="cuda")[:, None, None]).reshape(-1)
+    lib_ct = kct.reshape(-1, 3)
+    lib_out = torch.zeros(B * N, 3, device="cuda")
+    entry("scatter_add_3", "geoa3_tpu_torch/csrc/scatter.cu",
+          "geoa3_tpu/ops/pallas/scatter_kernel.py:31", s3_err,
+          time_ms(lambda: sk.scatter_add_3(kidx, kct, N)),
+          time_ms(lambda: sk.scatter_add_3_plain(kidx, kct, N)),
+          bound_ms(nbytes(kidx, kct, sg), 1.0 * kct.numel()),
+          time_ms(lambda: lib_out.index_add_(0, lib_idx, lib_ct)),
+          "idx [32,1024,17], ct [32,1024,17,3] -> [32,1024,3] (row 2's device "
+          "kernel at S = 17408; library: index_add_ on the flattened batch)")
+    return out
+
+
 MAIN_PATH = ("nn1_payload", "scatter_add_3t", "kappa_selmask", "curv_term",
              "kappa_fwd", "pool_fwd", "pool_bwd")
 # kernels that no engine path launches (as in the JAX package): the public
 # ops that reach them are a path of their own
-PUBLIC_OPS = ("nn1_dual", "kappa_frommask", "scatter_add_nc")
+PUBLIC_OPS = ("nn1_dual", "kappa_frommask", "scatter_add_nc", "scatter_add_3")
 SSG_PATH = ("nn1_payload", "scatter_add_3t", "kappa_selmask", "curv_term",
             "kappa_fwd", "fps", "ballquery_group_fwd", "ballquery_group_bwd",
             "group_mlp_fwd", "group_mlp_bwd")
+MSG_PATH = SSG_PATH + ("sa_fused_fwd", "sa_fused_bwd")
+
+
+def msg_launches(steps: int, refresh: int) -> dict:
+    """Every kernel's launches in `steps` steps of the default attack on the
+    MSG victim (one binary step), read from the code: per step one victim
+    forward and backward (FPS at SA1 and SA2; the split pair at SA1's three
+    scales, cf=0; the whole-scale kernel at SA2's three, cf=320; the grouped
+    MLP at SA1's scales and GroupAll; the 3-channel scatter for the
+    backward of the two FPS gathers and of the o2a Chamfer term), the 1-NN
+    payload and the curvature term; a selection mask every `refresh` steps;
+    the kappa prologue once."""
+    from geoa3_tpu_torch.ops.kernels import KERNELS
+
+    want = dict.fromkeys(KERNELS, 0)
+    want.update(nn1_payload=steps, scatter_add_3t=3 * steps,
+                kappa_selmask=steps // refresh, curv_term=steps, kappa_fwd=1,
+                fps=2 * steps, ballquery_group_fwd=3 * steps,
+                ballquery_group_bwd=3 * steps, group_mlp_fwd=4 * steps,
+                group_mlp_bwd=4 * steps, sa_fused_fwd=3 * steps,
+                sa_fused_bwd=3 * steps)
+    return want
 
 
 class Paths:
@@ -1023,22 +1321,29 @@ def cli_phase(torch, paths) -> dict:
 
 
 def cli_more_runs(torch, paths) -> dict:
-    """Phase 7, last part: the CLI on the PointNet++ SSG victim, and in
-    subsample mode on clouds of 2048 points (into phase 5's directory)."""
+    """Phase 7, last part: the CLI on the PointNet++ SSG and MSG victims, and
+    in subsample mode on clouds of 2048 points (into phase 5's directory)."""
     import scipy.io as sio
 
     from geoa3_tpu_torch.cli.main_attack import build_parser, main as cli_main
     from geoa3_tpu_torch.workload import random_victim
 
     root = REPO / "build" / "chip_smoke"
-    model, _ = random_victim("PointNetPP", seed=0)
-    torch.save(model.state_dict(), root / "victim_ssg.pt")
+    for arch, name in (("PointNetPP", "victim_ssg.pt"),
+                       ("PointNetPP_MSG", "victim_msg.pt")):
+        model, _ = random_victim(arch, seed=0)
+        torch.save(model.state_dict(), root / name)
     per_class = 4
     runs = {
         "CLI PointNetPP": (
             ["--arch", "PointNetPP", "--checkpoint", str(root / "victim_ssg.pt"),
              "--data_dir_file", f"synthetic:{per_class}:{N}",
              "--iter_max_steps", "10"], SSG_PATH, N),
+        "CLI PointNetPP_MSG": (
+            ["--arch", "PointNetPP_MSG", "--checkpoint",
+             str(root / "victim_msg.pt"),
+             "--data_dir_file", f"synthetic:{per_class}:{N}",
+             "--iter_max_steps", "10"], MSG_PATH, N),
         "CLI subsample": (
             ["--checkpoint", str(root / "victim.pt"), "--is_subsample_opt",
              "--eval_num", "3", "--npoint", str(N),
@@ -1081,14 +1386,37 @@ def cli_more_runs(torch, paths) -> dict:
 def public_ops_phase(torch, paths) -> None:
     """The public ops whose kernels no engine path launches, through their
     differentiable entry points at the paths' shapes: `ops.nn1_dual`,
-    `ops.knn_kappa_from_mask`, and `ops.group_points` on 128 feature channels
-    (its backward is the C-channel scatter)."""
+    `ops.knn_kappa_from_mask`, `ops.group_points` on 128 feature channels
+    (its backward is the C-channel scatter), `ops.scatter_add_3` at
+    [32,1024,17,3], and the feature-propagation module (`ops.three_nn`,
+    `ops.three_interpolate`, 512 points from 128) forward and backward
+    against the same module on the CPU."""
     from geoa3_tpu_torch import ops
+    from geoa3_tpu_torch.models.pointnetpp import PointnetFPModule
     from geoa3_tpu_torch.ops.kernels import scatter_kernel as sk
 
     pc, nrm, rng = make_batch(torch, B, N, seed=8)
     adv = (pc + 0.01 * torch.from_numpy(
         rng.randn(B, N, 3).astype(np.float32)).cuda()).contiguous()
+    unknown, known = pc[:, :512].contiguous(), pc[:, 512:640].contiguous()
+    ufeats = torch.from_numpy(rng.randn(B, 512, 128).astype(np.float32))
+    kfeats = torch.from_numpy(rng.randn(B, 128, 256).astype(np.float32))
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(4)
+        fp = PointnetFPModule([256 + 128, 256, 256]).eval()
+    with torch.no_grad():  # non-trivial BatchNorm statistics
+        for bn in (fp.mlp[1], fp.mlp[4]):
+            bn.running_mean.uniform_(-0.1, 0.1)
+            bn.running_var.uniform_(0.5, 1.5)
+
+    def fp_run(dev):
+        """FP forward and the gradients of both feature inputs."""
+        uf = ufeats.to(dev).requires_grad_(True)
+        kf = kfeats.to(dev).requires_grad_(True)
+        _, nn_idx = ops.three_nn(unknown.to(dev), known.to(dev))
+        y = fp.to(dev)(unknown.to(dev), known.to(dev), uf, kf)
+        duf, dkf = torch.autograd.grad((y * y).sum(), [uf, kf])
+        return [t.detach().cpu() for t in (nn_idx, y, duf, dkf)]
 
     def run():
         a2o, o2a = ops.nn1_dual(adv, pc)
@@ -1101,11 +1429,16 @@ def public_ops_phase(torch, paths) -> None:
             rng.randn(B, N, 128).astype(np.float32)).cuda().requires_grad_(True)
         w = torch.from_numpy(rng.randn(B, 128, 64, 128).astype(np.float32)).cuda()
         (ops.group_points(feats, idx) * w).sum().backward()
-        return a2o, o2a, kappa, x.grad, idx, w, feats.grad
+        kidx = ops.knn_points(pc, pc, K + 1).idx
+        kct = torch.from_numpy(rng.randn(B, N, K + 1, 3).astype(np.float32)).cuda()
+        s3 = ops.scatter_add_3(kidx, kct, N)
+        return (a2o, o2a, kappa, x.grad, idx, w, feats.grad, kidx, kct, s3,
+                fp_run("cuda"))
 
-    (a2o, o2a, kappa, dx, idx, w, dfeats), _ = paths.run(
-        "public ops", PUBLIC_OPS + ("kappa_bwd",), run)
-    for name, t in (("kappa", kappa), ("dcloud", dx), ("dfeats", dfeats)):
+    (a2o, o2a, kappa, dx, idx, w, dfeats, kidx, kct, s3, fp_card), _ = paths.run(
+        "public ops", PUBLIC_OPS + ("kappa_bwd", "knn"), run)
+    for name, t in (("kappa", kappa), ("dcloud", dx), ("dfeats", dfeats),
+                    ("scatter_add_3", s3)):
         if not torch.isfinite(t).all():
             _fail(f"public ops: {name} is not finite")
     if a2o.shape != (B, N) or o2a.shape != (B, N) or dfeats.shape != (B, N, 128):
@@ -1114,19 +1447,33 @@ def public_ops_phase(torch, paths) -> None:
     # float32 sums of the rows that collide, in atomic order
     check("group_points backward", (dfeats - want).abs().max().item(),
           2e-5 * want.abs().max().item(), "dfeats vs the plain scatter")
+    want = sk.scatter_add_3_plain(kidx, kct, N)
+    check("ops.scatter_add_3", (s3 - want).abs().max().item(),
+          1e-5 * want.abs().max().item(), "out vs the plain scatter")
+    fp_cpu = fp_run("cpu")
+    require_equal(torch, "three_nn (card vs CPU)", fp_card[0], fp_cpu[0], "idx")
+    for g_, c_, what in zip(fp_card[1:], fp_cpu[1:],
+                            ("output", "unknown features' gradient",
+                             "known features' gradient")):
+        # float32 products in other orders (cuBLAS against the CPU's);
+        # interpolation weights from bit-equal selections
+        check("PointnetFPModule, card vs CPU", (g_ - c_).abs().max().item(),
+              1e-5 * c_.abs().max().item(), what)
 
 
-def ssg_phase(torch, paths) -> dict:
-    """Phase 6: the default attack on the PointNet++ SSG victim, full width."""
+def pointnetpp_phase(torch, paths, arch: str) -> dict:
+    """Phases 6 and 8: the default attack on a PointNet++ victim (SSG or MSG)
+    at its published width."""
     from geoa3_tpu_torch import make_attack_fn
     from geoa3_tpu_torch.workload import main_path_config, random_victim
 
-    _, logits_fn = random_victim("PointNetPP", seed=0)
+    tag, required = ("SSG", SSG_PATH) if arch == "PointNetPP" else ("MSG", MSG_PATH)
+    _, logits_fn = random_victim(arch, seed=0)
     pc, nrm, _ = make_batch(torch, B, N, seed=1)
     with torch.no_grad():
         logits = logits_fn(pc)
     if logits.shape != (B, 40) or not torch.isfinite(logits).all():
-        _fail("SSG: the victim's logits are not finite [32, 40]")
+        _fail(f"{tag}: the victim's logits are not finite [32, 40]")
     gt = logits.argmax(-1)
 
     def run(cfg, seed):
@@ -1135,38 +1482,48 @@ def ssg_phase(torch, paths) -> dict:
         return timed_attack(torch, fn, (pc, nrm, gt, gt, gen),
                             cfg.binary_max_steps * cfg.iter_max_steps)
 
-    run(main_path_config(1, 10, arch="PointNetPP"), 99)  # warm-up
+    run(main_path_config(1, 10, arch=arch), 99)  # warm-up
     steps = 30
-    cfg = main_path_config(1, steps, arch="PointNetPP")
-    (res, ms_step), counts = paths.run("SSG K=10", SSG_PATH, lambda: run(cfg, 0))
-    check_result(torch, res, steps, "SSG K=10")
-    # per forward: FPS and the fused query+group at two levels, the grouped
-    # MLP at three; per step one forward and one backward
-    want = {"fps": 2 * steps, "ballquery_group_fwd": 2 * steps,
-            "ballquery_group_bwd": 2 * steps, "group_mlp_fwd": 3 * steps,
-            "group_mlp_bwd": 3 * steps, "pool_fwd": 0, "pool_bwd": 0}
+    cfg = main_path_config(1, steps, arch=arch)
+    label = f"{tag} K=10"
+    (res, ms_step), counts = paths.run(label, required, lambda: run(cfg, 0))
+    check_result(torch, res, steps, label)
+    if arch == "PointNetPP":
+        # per forward: FPS and the fused query+group at two levels, the
+        # grouped MLP at three; per step one forward and one backward
+        want = {"fps": 2 * steps, "ballquery_group_fwd": 2 * steps,
+                "ballquery_group_bwd": 2 * steps, "group_mlp_fwd": 3 * steps,
+                "group_mlp_bwd": 3 * steps, "pool_fwd": 0, "pool_bwd": 0}
+    else:
+        want = msg_launches(steps, cfg.curv_knn_refresh_every)
     got = {k: counts[k] for k in want}
     if got != want:
-        _fail(f"SSG launches {got}, expected {want}")
+        _fail(f"{tag} launches {got}, expected {want}")
     per_step = {k: v / steps for k, v in counts.items() if v}
-    print(f"  SSG K=10 attack: 1x{steps} steps, {ms_step:.4f} ms/step (CUDA "
+    print(f"  {label} attack: 1x{steps} steps, {ms_step:.4f} ms/step (CUDA "
           f"events), success {int(res.success.sum())}/{B}; launches per step "
           f"{per_step}")
     return dict(ms_per_step=ms_step, launches_per_step=per_step,
                 success=int(res.success.sum()))
 
 
-def ssg_cpu_agreement(torch) -> None:
-    """A short SSG attack on the card against the same attack on the CPU (the
-    kernels' plain versions), from the same weights and initial offsets."""
+def pointnetpp_cpu_agreement(torch, arch: str) -> None:
+    """A short attack on a PointNet++ victim on the card against the same
+    attack on the CPU (the kernels' plain versions), from the same weights
+    and initial offsets; and the victim with normals as features."""
     from geoa3_tpu_torch import make_attack_fn
+    from geoa3_tpu_torch.models.pointnetpp import (
+        PointNet2ClassificationMSG,
+        PointNet2ClassificationSSG,
+    )
     from geoa3_tpu_torch.workload import main_path_config, random_victim
 
+    tag = "SSG" if arch == "PointNetPP" else "MSG"
     b, steps = 2, 4
-    model, _ = random_victim("PointNetPP", seed=2, device="cpu")
+    model, _ = random_victim(arch, seed=2, device="cpu")
     pc, nrm, rng = make_batch(torch, b, N, seed=2)
     off = torch.from_numpy(1e-3 * rng.randn(b, N, 3).astype(np.float32))
-    cfg = main_path_config(1, steps, refresh=2, arch="PointNetPP")
+    cfg = main_path_config(1, steps, refresh=2, arch=arch)
     results = {}
     for dev in ("cuda", "cpu"):
         m = model.to(dev)
@@ -1180,19 +1537,19 @@ def ssg_cpu_agreement(torch) -> None:
     a, b_ = g.all_loss.cpu(), c.all_loss
     rel = ((a - b_).abs().mean() / b_.abs().mean()).item()
     # float32 sums in other orders feed 4 Adam steps
-    print(f"  card vs CPU SSG attack ([2,1024], 1x{steps} steps): mean rel "
+    print(f"  card vs CPU {tag} attack ([2,1024], 1x{steps} steps): mean rel "
           f"all_loss diff {rel:.3e} (tol 1e-3), success {g.success.tolist()} "
           f"vs {c.success.tolist()}")
     if not rel <= 1e-3:
-        _fail("the SSG attack on the card disagrees with the CPU run")
+        _fail(f"the {tag} attack on the card disagrees with the CPU run")
 
     # normals as features ([b, n, 6]: three feature channels at the first
-    # level, where the layer-1 input is 6 wide): logits and input gradient
-    from geoa3_tpu_torch.models.pointnetpp import PointNet2ClassificationSSG
-
+    # level, where the layer-1 input is 6 wide and the whole-scale kernel
+    # runs): logits and input gradient
+    cls = PointNet2ClassificationSSG if arch == "PointNetPP" else PointNet2ClassificationMSG
     with torch.random.fork_rng(devices=[]):
         torch.manual_seed(3)
-        vn = PointNet2ClassificationSSG(use_normal=True).eval().requires_grad_(False)
+        vn = cls(use_normal=True).eval().requires_grad_(False)
     out = {}
     for dev in ("cuda", "cpu"):
         x = torch.cat([pc, nrm], -1).to(dev).requires_grad_(True)
@@ -1205,7 +1562,7 @@ def ssg_cpu_agreement(torch) -> None:
         # a maximum within rounding of a tie may switch, which moves single
         # entries (the bounds of the JAX package's own fused-against-unfused
         # model test)
-        check("SSG with normals, card vs CPU", (g_ - c_).abs().max().item(),
+        check(f"{tag} with normals, card vs CPU", (g_ - c_).abs().max().item(),
               tol * c_.abs().max().item(), what)
 
 
@@ -1314,6 +1671,7 @@ def main() -> int:
 
     phase("phase 2: kernels against their plain versions")
     kernels = kernel_checks(torch) + ssg_kernel_checks(torch)
+    kernels += msg_kernel_checks(torch, kernels)
     if args.kernels_only:
         print(json.dumps({"kernels": kernels}))
         return 0
@@ -1330,16 +1688,20 @@ def main() -> int:
     cli = cli_phase(torch, paths)
 
     phase("phase 6: the attack on the PointNet++ SSG victim at full width")
-    ssg = ssg_phase(torch, paths)
-    ssg_cpu_agreement(torch)
+    ssg = pointnetpp_phase(torch, paths, "PointNetPP")
+    pointnetpp_cpu_agreement(torch, "PointNetPP")
 
-    phase("phase 7: subsample mode with the uniform loss; the public ops; "
-          "the CLI on both")
+    phase("phase 7: subsample mode with the uniform loss; the public ops")
     sub = subsample_phase(torch, paths)
     public_ops_phase(torch, paths)
+
+    phase("phase 8: the attack on the PointNet++ MSG victim at full width; "
+          "the CLI on both PointNet++ victims and in subsample mode")
+    msg = pointnetpp_phase(torch, paths, "PointNetPP_MSG")
+    pointnetpp_cpu_agreement(torch, "PointNetPP_MSG")
     cli.update(cli_more_runs(torch, paths))
 
-    phase("phase 8: the result")
+    phase("phase 9: the result")
     paths.check_union()
     for k in kernels:
         k["launches"], k["launches_by_path"] = paths.launches(k["name"])
@@ -1349,7 +1711,8 @@ def main() -> int:
                    "ms_per_step_exact": run["ms_step_exact"],
                    "launches_exact": run["counts_exact"],
                    "success": run["success"], "batch": B, "card": smi},
-        "side_modes": side, "cli": cli, "ssg": ssg, "subsample_uniform": sub,
+        "side_modes": side, "cli": cli, "ssg": ssg, "msg": msg,
+        "subsample_uniform": sub,
     }))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -16,13 +16,15 @@
 // with one-hot products, because it has neither a prefix count nor a gather.
 // Here one warp owns a centre: it walks the points 32 at a time, ballots the
 // hits, places each by the popcount of the hits before it until ns are
-// taken, then copies rows (feature rows coalesced over cf). The backward
+// taken (ballquery.cuh, which sa_fused.cu shares), then copies rows
+// (feature rows coalesced over cf). The backward
 // does not rank again: the forward saved idx, so it is the C-channel scatter
 // of scatter.cuh over idx (for xyz and for the features) and one sum over
 // the slots for the centres, dcentre = -sum_s dgx.
 //
 // Bound on the H100: bytes (gf written once is the largest term at cf = 128;
 // the distance tests are b*m*n*10 operations at most and stop early).
+#include "ballquery.cuh"
 #include "common.cuh"
 #include "scatter.cuh"
 
@@ -46,35 +48,9 @@ __global__ void ballquery_kernel(const float* __restrict__ xyz,
   const float* P = xyz + (size_t)b * n * 3;
   const float* C = centres + ((size_t)b * m + c) * 3;
   const float cx = C[0], cy = C[1], cz = C[2];
-  const float c2 = geoa3_sq3(cx, cy, cz);
-
-  int cnt = 0, first = -1;
-  for (int base = 0; base < n && cnt < ns; base += 32) {
-    const int j = base + lane;
-    bool hit = false;
-    if (j < n) {
-      const float x = P[j * 3], y = P[j * 3 + 1], z = P[j * 3 + 2];
-      const float d = geoa3_sqdist(c2, geoa3_sq3(x, y, z),
-                                   geoa3_dot3(cx, cy, cz, x, y, z));
-      hit = d < r2;
-    }
-    const unsigned mask = __ballot_sync(GEOA3_FULL_MASK, hit);
-    if (hit) {
-      const int pos = cnt + __popc(mask & ((1u << lane) - 1u));
-      if (pos < ns) sidx[pos] = j;
-    }
-    if (first < 0 && mask) first = base + __ffs(mask) - 1;
-    cnt += __popc(mask);
-  }
-  if (cnt > ns) cnt = ns;
-  if (first < 0) first = 0;  // empty ball: every slot holds index 0
-  __syncwarp();
+  geoa3_ball_query_warp(P, n, cx, cy, cz, r2, ns, sidx);
   const size_t slot0 = ((size_t)b * m + c) * ns;
-  for (int s = lane; s < ns; s += 32) {
-    const int j = s < cnt ? sidx[s] : first;
-    sidx[s] = j;
-    idx[slot0 + s] = j;
-  }
+  for (int s = lane; s < ns; s += 32) idx[slot0 + s] = sidx[s];
   if (!kGather) return;
   __syncwarp();
   for (int t = lane; t < ns * 3; t += 32) {

@@ -1,5 +1,6 @@
 // Scatter-adds: out[b, idx[b,s], c] += ct[b, s, c], for 3 channels
-// (geoa3_scatter_add_3t) and for C channels (geoa3_scatter_add_nc).
+// (geoa3_scatter_add_3t, geoa3_scatter_add_3) and for C channels
+// (geoa3_scatter_add_nc).
 //
 // Replaces geoa3_tpu/ops/pallas/scatter_kernel.py:_scatter3t_kernel, the
 // backward of ops.o2a_coord_planes. The TPU builds a one-hot block and runs
@@ -9,6 +10,12 @@
 // (under 1 MB at the main path's shapes); the launch itself dominates. The
 // order of the additions varies from run to run, so sums of colliding rows
 // differ in the last bits between runs. Indices outside [0, n) are dropped.
+//
+// geoa3_scatter_add_3 replaces scatter_kernel.py:_scatter3_kernel
+// (scatter_add_pallas: idx [b, n, k], ct [b, n, k, 3] -> [b, m, 3], the
+// backward of a k-neighbour gather). Its [b, n, k] rows are row 2's [b, S]
+// rows with S = n * k, so it launches the same device kernel; the TPU's
+// [TM, 3] output blocks are a layout of that machine. Bound: bytes.
 //
 // geoa3_scatter_add_nc replaces scatter_kernel.py:_scatter_nc_kernel, the
 // backward of ops.group_points at C channels (the TPU tiles a one-hot product
@@ -45,6 +52,13 @@ extern "C" int geoa3_scatter_add_3t(const int* idx, const float* ct, int b,
     scatter3_kernel<<<blocks, threads, 0, static_cast<cudaStream_t>(stream)>>>(
         idx, ct, b, S, n, out);
   return (int)cudaGetLastError();
+}
+
+// idx [b, n, k], ct [b, n, k, 3] -> out [b, m, 3] (zeroed by the caller).
+extern "C" int geoa3_scatter_add_3(const int* idx, const float* ct, int b,
+                                   int n, int k, int m, float* out,
+                                   void* stream) {
+  return geoa3_scatter_add_3t(idx, ct, b, n * k, m, out, stream);
 }
 
 extern "C" int geoa3_scatter_add_nc(const int* idx, const float* ct, int b,

@@ -3,7 +3,9 @@
 Two sources:
   * `from_flax_variables`: the JAX package's flax variable tree (as numpy)
     -> a `state_dict` of models.pointnet.PointNet or, for a PointNet++ tree
-    (`SA{i}`/`head`), of models.pointnetpp.PointNet2ClassificationSSG;
+    (`SA{i}`/`head`), of models.pointnetpp.PointNet2ClassificationSSG or
+    PointNet2ClassificationMSG (the walk is the same for one scale a level
+    or three);
   * `load_reference_state_dict`: a reference PyTorch state_dict (the key
     names that geoa3_tpu/models/convert.py:82-163 reads), which the port's
     module names match one for one.

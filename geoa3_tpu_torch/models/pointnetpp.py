@@ -1,4 +1,5 @@
-"""PointNet++ SSG victim classifier (port of geoa3_tpu/models/pointnetpp.py).
+"""PointNet++ SSG and MSG victim classifiers and the feature-propagation
+module (port of geoa3_tpu/models/pointnetpp.py).
 
 Module and parameter names are those of the reference
 Model/PointNetPP_ssg.py and pointnet2_ops/pointnet2_modules.py
@@ -7,21 +8,28 @@ Model/PointNetPP_ssg.py and pointnet2_ops/pointnet2_modules.py
 (models/convert.py). The public layout is channel-last like the JAX package:
 the model takes [b, n, 3] clouds ([b, n, 6] with normals as features).
 
-Parity notes (reference PointNetPP_ssg.py:64-98, pointnet2_modules.py):
-  * SA(512, r=0.2, ns=64, mlp 64/64/128) -> SA(128, r=0.4, ns=64, mlp
+Parity notes (reference PointNetPP_ssg.py:64-98, PointNetPP_msg.py:17-46,
+pointnet2_modules.py):
+  * SSG: SA(512, r=0.2, ns=64, mlp 64/64/128) -> SA(128, r=0.4, ns=64, mlp
     128/128/256) -> GroupAll mlp 256/512/1024 -> FC head 512/256/classes with
     dropout 0.5;
+  * MSG: SA(512; radii 0.1/0.2/0.4, ns 16/32/128; mlps 32/32/64, 64/64/128,
+    64/96/128) -> SA(128; radii 0.2/0.4/0.8, ns 32/64/128; mlps 64/64/128,
+    128/128/256, 128/128/256) -> GroupAll mlp 256/512/1024 -> the same head;
+    each level's scales are concatenated (3 -> 3 + 320 -> 3 + 640 inputs);
   * with use_xyz the grouped relative coordinates come before the features in
     the first layer's input (pointnet2_utils.py:322-324);
   * the shared-MLP convs and the head's first two Linears carry no bias; every
     BatchNorm has eps 1e-5.
 
-Only eval mode is ported. Each set-abstraction level is farthest-point
-sampling, the fused ball query + grouping, and the grouped three-layer MLP
-with its max over nsample (ops/kernels/{fps,ballquery_group,group_mlp}_kernel),
-with the eval BatchNorms folded into the layers' weights; GroupAll feeds the
-whole cloud to the same MLP kernel as one group. The multi-scale victim and
-the feature-propagation module are queued in ROADMAP.md, as is train mode.
+Only eval mode is ported (train mode is queued in ROADMAP.md). Each
+set-abstraction level is farthest-point sampling, then per scale either the
+fused ball query + grouping and the grouped three-layer MLP with its max
+over nsample (ops/kernels/{ballquery_group,group_mlp}_kernel), or the whole
+scale in one (ops/kernels/sa_fused_kernel), chosen by the JAX package's
+shape rule (PointnetSAModuleMSG); the eval BatchNorms are folded into the
+layers' weights. GroupAll feeds the whole cloud to the grouped-MLP kernel as
+one group.
 """
 
 from __future__ import annotations
@@ -75,12 +83,36 @@ class SharedMLP(nn.Sequential):
             self._fold = cached
         return cached[1]
 
-    def forward(self, gx: torch.Tensor, gf: Optional[torch.Tensor]) -> torch.Tensor:
+    def _kernel_fold(self) -> FoldedMLP:
         _check_eval(self)
         if len(self.widths) != 3:
             raise NotImplementedError(
                 f"the grouped-MLP kernel takes three layers, got {self.widths}")
-        return ops.group_mlp_maxpool(gx, gf, self.folded())
+        return self.folded()
+
+    def forward(self, gx: torch.Tensor, gf: Optional[torch.Tensor]) -> torch.Tensor:
+        return ops.group_mlp_maxpool(gx, gf, self._kernel_fold())
+
+    def whole_scale(self, xyz, new_xyz, features, radius: float,
+                    nsample: int) -> torch.Tensor:
+        """The ball query, the grouping, this MLP and the max over nsample in
+        one (ops.sa_query_group_mlp): xyz [b, n, 3], new_xyz [b, m, 3],
+        features [b, n, cf] or None -> [b, m, widths[-1]]."""
+        return ops.sa_query_group_mlp(xyz, new_xyz, features, radius, nsample,
+                                      self._kernel_fold())
+
+    def rows(self, x: torch.Tensor) -> torch.Tensor:
+        """The layers applied to rows, not pooled, any number of them:
+        x [..., cin] -> [..., widths[-1]]. Plain PyTorch (the JAX package runs
+        this path unfused too); eval BatchNorm as flax computes it."""
+        _check_eval(self)
+        for i in range(0, len(self), 3):
+            conv, bn = self[i], self[i + 1]
+            x = x @ conv.weight[:, :, 0, 0].t()
+            x = (x - bn.running_mean) * (torch.rsqrt(bn.running_var + bn.eps)
+                                         * bn.weight) + bn.bias
+            x = torch.relu(x)
+        return x
 
 
 class PointnetSAModuleMSG(nn.Module):
@@ -112,9 +144,20 @@ class PointnetSAModuleMSG(nn.Module):
         if self.npoint is not None:
             fps_idx = ops.furthest_point_sampling(xyz, self.npoint)
             new_xyz = ops.gather_points(xyz, fps_idx)
+            cf = 0 if features is None else features.shape[-1]
             for radius, ns, mlp in zip(self.radii, self.nsamples, self.mlps):
-                _, gx, gf = ops.ball_query_group(xyz, new_xyz, features, radius, ns)
-                outs.append(mlp(gx, gf))
+                # the JAX package's route (geoa3_tpu/models/pointnetpp.py:
+                # 441-465, gated by group_mlp_available and
+                # ball_query_group_available): the split pair where cf is 0
+                # or a multiple of 128, the whole-scale kernel otherwise
+                # (MSG's SA2 at cf = 320, and SA1 with normals at cf = 3)
+                if cf % 128 == 0:
+                    _, gx, gf = ops.ball_query_group(xyz, new_xyz, features,
+                                                     radius, ns)
+                    outs.append(mlp(gx, gf))
+                else:
+                    outs.append(mlp.whole_scale(xyz, new_xyz, features,
+                                                radius, ns))
         else:
             new_xyz = None
             gf = features[:, None] if features is not None else None
@@ -162,8 +205,12 @@ class PointNet2ClassificationSSG(nn.Module):
         cin = 3 if use_normal else 0
         mods = []
         for cfg in self.SA_CONFIGS:
-            mods.append(PointnetSAModule(in_features=cin, use_xyz=use_xyz, **cfg))
-            cin = cfg["mlp"][-1]
+            # one scale (`mlp`) or several (`mlps`), as the reference builds
+            # its levels
+            sa = (PointnetSAModule if "mlp" in cfg else PointnetSAModuleMSG)(
+                in_features=cin, use_xyz=use_xyz, **cfg)
+            mods.append(sa)
+            cin = sum(mlp.widths[-1] for mlp in sa.mlps)
         self.SA_modules = nn.ModuleList(mods)
         self.fc_layer = _ClsHead(classes)
 
@@ -178,3 +225,45 @@ class PointNet2ClassificationSSG(nn.Module):
         for sa in self.SA_modules:
             xyz, features = sa(xyz, features)
         return self.fc_layer(features[:, 0, :])
+
+
+class PointNet2ClassificationMSG(PointNet2ClassificationSSG):
+    """PointNet++ MSG classifier (reference PointNetPP_msg.py:9-47): [b, n, 3]
+    (or [b, n, 6] with use_normal) -> logits [b, classes]."""
+
+    SA_CONFIGS = (
+        dict(npoint=512, radii=[0.1, 0.2, 0.4], nsamples=[16, 32, 128],
+             mlps=[[32, 32, 64], [64, 64, 128], [64, 96, 128]]),
+        dict(npoint=128, radii=[0.2, 0.4, 0.8], nsamples=[32, 64, 128],
+             mlps=[[64, 64, 128], [128, 128, 256], [128, 128, 256]]),
+        dict(mlp=[256, 512, 1024]),  # GroupAll
+    )
+
+
+class PointnetFPModule(nn.Module):
+    """Feature propagation by 3-NN interpolation (reference
+    pointnet2_modules.py:149-209): unknown [b, n, 3], known [b, m, 3] (or
+    None: known_feats [b, 1, c2] is broadcast), unknow_feats [b, n, c1] or
+    None, known_feats [b, m, c2] -> [b, n, mlp[-1]]. `mlp` lists the input
+    width (c2, + c1 with unknown features) and then the layers' widths, as
+    the reference's build_shared_mlp takes it; the layers are plain PyTorch
+    (`SharedMLP.rows`). No shipped classifier uses it."""
+
+    def __init__(self, mlp: Sequence[int]):
+        super().__init__()
+        self.mlp = SharedMLP(mlp[0], mlp[1:])
+
+    def forward(self, unknown: torch.Tensor, known: Optional[torch.Tensor],
+                unknow_feats: Optional[torch.Tensor],
+                known_feats: torch.Tensor) -> torch.Tensor:
+        _check_eval(self)
+        if known is not None:
+            dist, idx = ops.three_nn(unknown, known)
+            dist_recip = 1.0 / (dist + 1e-8)
+            weight = dist_recip / dist_recip.sum(dim=2, keepdim=True)
+            interpolated = ops.three_interpolate(known_feats, idx, weight)
+        else:
+            interpolated = known_feats.expand(-1, unknown.shape[1], -1)
+        if unknow_feats is not None:
+            interpolated = torch.cat([interpolated, unknow_feats], dim=-1)
+        return self.mlp.rows(interpolated)

@@ -8,7 +8,10 @@ from typing import Callable
 import torch
 
 from geoa3_tpu_torch.models.pointnet import PointNet
-from geoa3_tpu_torch.models.pointnetpp import PointNet2ClassificationSSG
+from geoa3_tpu_torch.models.pointnetpp import (
+    PointNet2ClassificationMSG,
+    PointNet2ClassificationSSG,
+)
 
 ARCHS = ("PointNet", "PointNetPP", "PointNetPP_MSG")
 
@@ -20,15 +23,10 @@ def build_model(
     in eval mode, on `device`."""
     if arch == "PointNet":
         return PointNet(classes=classes, npoint=npoint).to(device).eval()
-    if arch == "PointNetPP":
-        return PointNet2ClassificationSSG(
-            use_xyz=True, use_normal=False, classes=classes
-        ).to(device).eval()
-    if arch in ARCHS:
-        raise NotImplementedError(
-            f"{arch} is not ported yet (the multi-scale PointNet++ victim is "
-            "queued in ROADMAP.md)"
-        )
+    if arch in ("PointNetPP", "PointNetPP_MSG"):
+        cls = (PointNet2ClassificationSSG if arch == "PointNetPP"
+               else PointNet2ClassificationMSG)
+        return cls(use_xyz=True, use_normal=False, classes=classes).to(device).eval()
     raise ValueError(f"Not support such arch: {arch}")
 
 

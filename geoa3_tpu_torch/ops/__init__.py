@@ -1,12 +1,14 @@
 """Point-cloud ops of the port (counterpart of geoa3_tpu/ops)."""
 
 from geoa3_tpu_torch.ops.ball_query import ball_query
-from geoa3_tpu_torch.ops.grouping import group_points
+from geoa3_tpu_torch.ops.grouping import group_points, three_interpolate, three_nn
 from geoa3_tpu_torch.ops.kernels.ballquery_group_kernel import ball_query_group
 from geoa3_tpu_torch.ops.kernels.group_mlp_kernel import (
     fold_mlp,
     group_mlp_maxpool,
 )
+from geoa3_tpu_torch.ops.kernels.sa_fused_kernel import sa_query_group_mlp
+from geoa3_tpu_torch.ops.kernels.scatter_kernel import scatter_add_3
 from geoa3_tpu_torch.ops.knn import (
     KNNPlanes,
     KNNResult,
@@ -54,4 +56,8 @@ __all__ = [
     "group_points",
     "fold_mlp",
     "group_mlp_maxpool",
+    "sa_query_group_mlp",
+    "scatter_add_3",
+    "three_nn",
+    "three_interpolate",
 ]

@@ -16,6 +16,7 @@ from geoa3_tpu_torch.ops.kernels import (
     knn_kernel,
     nn1_kernel,
     pool_matmul_kernel,
+    sa_fused_kernel,
     scatter_kernel,
 )
 
@@ -38,6 +39,9 @@ KERNELS = {
     "ballquery_group_bwd": ballquery_group_kernel.ballquery_group_bwd,
     "group_mlp_fwd": group_mlp_kernel.group_mlp_fwd,
     "group_mlp_bwd": group_mlp_kernel.group_mlp_bwd,
+    "scatter_add_3": scatter_kernel.scatter_add_3,
+    "sa_fused_fwd": sa_fused_kernel.sa_fused_fwd,
+    "sa_fused_bwd": sa_fused_kernel.sa_fused_bwd,
 }
 
 

@@ -43,8 +43,22 @@ SIGNATURES = {
     "geoa3_knn": [_VP, _VP, _I, _I, _I, _I, _VP, _VP, _VP, _VP],
     # idx, ct, b, S, n, out, stream
     "geoa3_scatter_add_3t": [_VP, _VP, _I, _I, _I, _VP, _VP],
+    # idx, ct, b, n, k, m, out, stream
+    "geoa3_scatter_add_3": [_VP, _VP, _I, _I, _I, _I, _VP, _VP],
     # idx, ct, b, S, n, C, out, stream
     "geoa3_scatter_add_nc": [_VP, _VP, _I, _I, _I, _I, _VP, _VP],
+    # xyz, centres, feats (or null), w1, b1, w2, b2, w3, b3, b, n, m, ns, cf,
+    # c1, c2, c3, r2, P, Yc, idx, pooled, cnt, stream
+    "geoa3_sa_fused_fwd": [
+        _VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _I, _I, _I, _I, _I, _I,
+        _I, _I, _F, _VP, _VP, _VP, _VP, _VP, _VP,
+    ],
+    # P, Yc, idx, b1, w2, b2, w3, b3, w1t, w2t, w3t, pooled, cnt, gout, b, n,
+    # m, ns, cf, c1, c2, c3, dP, dYc, dxyz, dcentres, dfeats (or null), stream
+    "geoa3_sa_fused_bwd": [
+        _VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP,
+        _I, _I, _I, _I, _I, _I, _I, _I, _VP, _VP, _VP, _VP, _VP, _VP,
+    ],
     # xyz, start (or null), b, n, m, skip, idx, stream
     "geoa3_fps": [_VP, _VP, _I, _I, _I, _I, _VP, _VP],
     # xyz, centres, feats (or null), b, n, m, ns, cf, r2, idx, gx, gf, stream

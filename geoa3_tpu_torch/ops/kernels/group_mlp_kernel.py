@@ -16,15 +16,19 @@ a frozen victim's.
 
 Bound on the H100: operations (2 * rows * (c0*c1 + c1*c2 + c2*c3) forward,
 twice that backward: the recompute and one dz @ w^T product a layer, no
-weight gradients). A block takes 64 or 32 rows through all
+weight gradients). A block takes 64, 32 or 16 rows through all
 three layers in float32 with activations transposed in shared memory and
 weights streamed from L2; every thread holds a 4x4 output tile; layer 3 is
 made 64 columns at a time and pooled at once. A block owns whole groups, so
 the forward needs no atomics and also leaves every maximum's tie count.
 
 Limits: the three widths are multiples of 4; cf is any size >= 0; the
-backward's tile must fit a block's shared memory:
-(round4(3 + cf) + c1 + 2 c2 + 64 + (c1 if c1 > c2)) * 36 * 4 <= 232448 bytes.
+tiles must fit a block's shared memory at 16 rows, the smallest the kernels
+take (16-row tiles are taken only where 32 do not fit):
+(round4(3 + cf) + c1 + 2 c2 + 64 + (c1 if c1 > c2)) * 20 * 4 <= 232448 bytes
+for the backward, ((max(3 + cf, c2) + c1) * 20 + 16 * 65) * 4 for the
+forward. MSG's GroupAll (cf = 640, widths 256/512/1024) takes 16 rows
+backward (159,040 bytes; 286,272 at 32) and 32 forward.
 """
 
 from __future__ import annotations
@@ -92,10 +96,11 @@ def _check(gx, gf, p: FoldedMLP):
             f"the group_mlp kernel takes widths that are multiples of 4, got "
             f"{(c1, c2, c3)}")
     c0p = (c0 + 3) // 4 * 4
-    need = (c0p + c1 + 2 * c2 + 64 + (c1 if c1 > c2 else 0)) * 36 * 4
+    need = max((c0p + c1 + 2 * c2 + 64 + (c1 if c1 > c2 else 0)) * 20 * 4,
+               ((max(c0, c2) + c1) * 20 + 16 * 65) * 4)
     if need > _SMEM_MAX:
         raise ValueError(
-            f"the group_mlp kernel's backward tile needs {need} bytes of "
+            f"the group_mlp kernels' 16-row tiles need {need} bytes of "
             f"shared memory for cf={cf}, widths {(c1, c2, c3)}; a block has "
             f"{_SMEM_MAX}")
     _build.check_cuda(gx, "gx", torch.float32, (b, m, ns, 3))

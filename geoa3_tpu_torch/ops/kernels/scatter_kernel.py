@@ -11,6 +11,12 @@ has no scattered stores; here one thread per source row adds its three values
 with atomicAdd. The addition order varies from run to run, so colliding rows
 agree with the plain version to float32 rounding, not bitwise.
 
+`scatter_add_3` replaces :_scatter3_kernel (`scatter_add_pallas`): idx
+[b, n, k], ct [b, n, k, 3] -> [b, m, 3], the backward of a k-neighbour
+gather (a public op; no path of the JAX package calls it either). Its rows
+are `scatter_add_3t`'s [b, S] rows with S = n * k, so it launches the same
+device kernel. Bound: bytes.
+
 `scatter_add_nc` replaces :_scatter_nc_kernel (`scatter_add_nc_pallas`), the
 backward of ops.group_points at C channels: one thread per (source row,
 channel), so a warp reads 32 neighbouring cotangents and adds them to 32
@@ -44,6 +50,31 @@ def scatter_add_3t(idx, ct, n):
     out = torch.zeros(b, n, 3, dtype=torch.float32, device=ct.device)
     _build.launch("geoa3_scatter_add_3t", idx, ct, b, S, n, out)
     scatter_add_3t.launches += 1
+    return out
+
+
+def scatter_add_3_plain(idx, ct, m):
+    """Plain PyTorch version of `scatter_add_3` (out-of-range rows dropped,
+    as the kernel and the TPU's one-hot product drop them)."""
+    b = ct.shape[0]
+    idx = idx.reshape(b, -1).long()
+    ok = (idx >= 0) & (idx < m)
+    ct = torch.where(ok[..., None], ct.reshape(b, -1, 3), 0.0)
+    return scatter_add_3t_plain(torch.where(ok, idx, 0), ct, m)
+
+
+def scatter_add_3(idx, ct, m):
+    """idx [b, n, k] int32, ct [b, n, k, 3] -> [b, m, 3] with
+    out[b, idx[b, i, j]] += ct[b, i, j]; indices outside [0, m) are dropped.
+    CPU tensors take the plain version; CUDA tensors launch the kernel."""
+    if not ct.is_cuda:
+        return scatter_add_3_plain(idx, ct, m)
+    b, n, k = idx.shape
+    _build.check_cuda(idx, "idx", torch.int32, (b, n, k))
+    _build.check_cuda(ct, "ct", torch.float32, (b, n, k, 3))
+    out = torch.zeros(b, m, 3, dtype=torch.float32, device=ct.device)
+    _build.launch("geoa3_scatter_add_3", idx, ct, b, n, k, m, out)
+    scatter_add_3.launches += 1
     return out
 
 
@@ -81,4 +112,5 @@ def scatter_rows(idx, ct, m):
 
 
 scatter_add_3t.launches = 0
+scatter_add_3.launches = 0
 scatter_add_nc.launches = 0

@@ -1,7 +1,7 @@
 """Where an attack step spends its time on the card.
 
     python -m geoa3_tpu_torch.profile_step [--steps 20] [--refresh 10]
-        [--arch PointNet|PointNetPP]
+        [--arch PointNet|PointNetPP|PointNetPP_MSG]
 
 Runs the default attack (geoa3_tpu_torch/workload.py, b=32, n=1024) on the
 victim `--arch` for one
@@ -45,6 +45,10 @@ _GROUPS = [
     (re.compile(r"group_mlp_fwd_kernel"), "group_mlp_fwd (port)"),
     (re.compile(r"group_mlp_bwd_kernel"), "group_mlp_bwd (port)"),
     (re.compile(r"kappa_bwd_kernel"), "kappa_bwd (port)"),
+    (re.compile(r"sa_fwd_kernel"), "sa_fused_fwd query+MLP+pool (port)"),
+    (re.compile(r"sa_bwd_kernel"), "sa_fused_bwd recompute+scatter (port)"),
+    (re.compile(r"backproject_kernel"), "sa_fused_bwd back-projection (port)"),
+    (re.compile(r"project_kernel"), "sa_fused_fwd projection (port)"),
     (re.compile(r"gemm|sgemm|xmma|cutlass|cublas", re.I), "matrix products"),
     (re.compile(r"reduce|Reduce"), "reductions"),
     (re.compile(r"elementwise|vectorized|unrolled", re.I), "elementwise"),
@@ -71,7 +75,7 @@ def main() -> int:
     ap.add_argument("--steps", type=int, default=20)
     ap.add_argument("--refresh", type=int, default=10)
     ap.add_argument("--arch", default="PointNet",
-                    choices=("PointNet", "PointNetPP"))
+                    choices=("PointNet", "PointNetPP", "PointNetPP_MSG"))
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("profile_step: needs a CUDA card")

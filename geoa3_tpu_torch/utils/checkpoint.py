@@ -15,6 +15,8 @@ from typing import Dict
 
 import torch
 
+from geoa3_tpu_torch.models.registry import ARCHS
+
 CANDIDATES = ("model_best.pth.tar", "checkpoint.pth.tar", "model_best.pt",
               "checkpoint.pt")
 _MSGPACK_HELP = (
@@ -32,11 +34,8 @@ def load_victim_state(path_or_dir: str, arch: str = "PointNet") -> Dict[str, tor
     checkpoint.pth.tar, model_best.pt, checkpoint.pt in a directory
     (reference main_attack.py:133-147). Load it into a model with
     models.convert.load_reference_state_dict."""
-    if arch not in ("PointNet", "PointNetPP"):
-        raise NotImplementedError(
-            f"{arch} is not ported yet (the multi-scale PointNet++ victim is "
-            "queued in ROADMAP.md)"
-        )
+    if arch not in ARCHS:
+        raise ValueError(f"Not support such arch: {arch}")
     path = path_or_dir
     if os.path.isdir(path):
         found = [c for c in CANDIDATES if os.path.isfile(os.path.join(path, c))]

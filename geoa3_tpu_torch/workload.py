@@ -5,9 +5,10 @@ bench.py measures for the JAX package (bench.py:101-151): CE + two-sided
 Chamfer 1.0 + Hausdorff 0.1 + curvature 1.0 with k=16, Adam at lr 0.01, the
 curvature mask rebuilt every 10 steps; and the same attack on the PointNet++
 SSG victim at its published width (`random_victim("PointNetPP")`: SA
-512/0.2/64 -> SA 128/0.4/64 -> GroupAll -> head). chip_smoke.py and
-profile_step.py drive both; weights are random (no checkpoint ships with the
-repo).
+512/0.2/64 -> SA 128/0.4/64 -> GroupAll -> head) and on the MSG victim
+(`random_victim("PointNetPP_MSG")`: three scales a level, 1024 -> 512 -> 128
+-> GroupAll of 640 features). chip_smoke.py and profile_step.py drive them;
+weights are random (no checkpoint ships with the repo).
 """
 
 from __future__ import annotations

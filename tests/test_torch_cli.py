@@ -221,7 +221,7 @@ def test_refresh_falls_back_to_the_largest_divisor():
 
 
 LIFTED = {("--is_subsample_opt",), ("--uniform_loss_weight", "1"),
-          ("--arch", "PointNetPP")}
+          ("--arch", "PointNetPP"), ("--arch", "PointNetPP_MSG")}
 
 
 @pytest.mark.parametrize("flags", [
@@ -232,7 +232,7 @@ LIFTED = {("--is_subsample_opt",), ("--uniform_loss_weight", "1"),
 def test_refused_switches_raise(work, flags):
     """The switches that are still refused raise with their ROADMAP message
     before any output; the ones lifted since (farthest-point sampling and the
-    single-scale PointNet++ are ported) pass the gate."""
+    single- and multi-scale PointNet++ victims are ported) pass the gate."""
     args = build_parser().parse_args(_args(work, "refused", *flags))
     if flags in LIFTED:
         _refuse_unported(args)
@@ -273,17 +273,17 @@ def test_subsample_mode_with_the_uniform_loss_runs(work):
     assert m["adversary_point_clouds"].shape == (3, 512)
 
 
-def test_pointnetpp_runs_like_the_jax_cli(work, tmp_path):
-    """--arch PointNetPP on the same weights as the JAX CLI: the same
-    instances succeed. The two CLIs draw different initial offsets
-    (1e-3 N(0, 1)) and a random-weight victim holds several classes within
-    that of each other, so the predicted class in a file name may differ; it
-    is left out of the comparison."""
+def _runs_like_the_jax_cli(tmp_path, arch, jcls):
+    """The JAX CLI and the port's on the same weights of a PointNet++ victim
+    (`arch`, the JAX class `jcls`): the same experiment directory, the same
+    instances succeed, the same .mat contract. The two CLIs draw different
+    initial offsets (1e-3 N(0, 1)) and a random-weight victim holds several
+    classes within that of each other, so the predicted class in a file name
+    may differ; it is left out of the comparison."""
     from geoa3_tpu.cli.main_attack import build_parser as jparser, main as jmain
-    from geoa3_tpu.models.pointnetpp import PointNet2ClassificationSSG as JSSG
 
     n = 128
-    jmodel = JSSG(classes=40)
+    jmodel = jcls(classes=40)
     variables = jmodel.init({"params": jax.random.PRNGKey(1)},
                             jnp.zeros((1, n, 3)), train=False)
     rng = np.random.RandomState(2)
@@ -293,8 +293,8 @@ def test_pointnetpp_runs_like_the_jax_cli(work, tmp_path):
             jax.tree.map(np.asarray, variables["batch_stats"]), rng),
     }
     save_checkpoint(str(tmp_path / "jax"), variables, is_best=True)
-    torch.save(from_flax_variables(variables), tmp_path / "ssg.pt")
-    common = ["--arch", "PointNetPP", "--attack", "GeoA3", "--attack_label",
+    torch.save(from_flax_variables(variables), tmp_path / "victim.pt")
+    common = ["--arch", arch, "--attack", "GeoA3", "--attack_label",
               "Untarget", "--data_dir_file", "synthetic:1:128", "--npoint",
               str(n), "--binary_max_steps", "1", "--iter_max_steps", "2",
               "--curv_loss_knn", "4", "-b", "10"]
@@ -302,16 +302,34 @@ def test_pointnetpp_runs_like_the_jax_cli(work, tmp_path):
         "--exps_root", str(tmp_path / "jexps"), "--checkpoint", str(tmp_path / "jax")]))
     tdir = main(build_parser().parse_args(common + [
         "--exps_root", str(tmp_path / "texps"), "--checkpoint",
-        str(tmp_path / "ssg.pt"), "--device", "cpu"]))
+        str(tmp_path / "victim.pt"), "--device", "cpu"]))
     assert os.path.relpath(jdir, tmp_path / "jexps") == os.path.relpath(
         tdir, tmp_path / "texps")
+    assert arch + "_npoint" in os.path.relpath(tdir, tmp_path / "texps")
     strip = lambda names: [re.sub(r"_attack\d+_", "_", f) for f in names]  # noqa: E731
     jt, tt = _tree(jdir), _tree(tdir)
     assert tt["Mat"] and {k: strip(v) for k, v in tt.items()} == {
         k: strip(v) for k, v in jt.items()}
     assert _rate(tdir) == _rate(jdir)
+    jm = sio.loadmat(os.path.join(jdir, "Mat", jt["Mat"][0]))
     m = sio.loadmat(os.path.join(tdir, "Mat", tt["Mat"][0]))
     assert m["adversary_point_clouds"].shape == (3, n)
+    assert {k: np.shape(v) for k, v in m.items() if not k.startswith("__")} == {
+        k: np.shape(v) for k, v in jm.items() if not k.startswith("__")}
+
+
+def test_pointnetpp_runs_like_the_jax_cli(work, tmp_path):
+    """--arch PointNetPP (the single-scale victim) against the JAX CLI."""
+    from geoa3_tpu.models.pointnetpp import PointNet2ClassificationSSG as JSSG
+
+    _runs_like_the_jax_cli(tmp_path, "PointNetPP", JSSG)
+
+
+def test_pointnetpp_msg_runs_like_the_jax_cli(work, tmp_path):
+    """--arch PointNetPP_MSG (the multi-scale victim) against the JAX CLI."""
+    from geoa3_tpu.models.pointnetpp import PointNet2ClassificationMSG as JMSG
+
+    _runs_like_the_jax_cli(tmp_path, "PointNetPP_MSG", JMSG)
 
 
 def test_msgpack_checkpoint_is_refused(work):

@@ -305,3 +305,129 @@ def test_group_mlp_checks_its_weights():
     assert tops.group_mlp_maxpool(gx, None, p).shape == (1, 2, 16)
     assert p.w1t.shape == (8, 4) and not p.w1t[:, 3].any()  # padded to 4 columns
     assert gk.group_mlp_fwd.launches == gk.group_mlp_bwd.launches == 0
+
+
+# ------------------------------------------- k-neighbour 3-channel scatter ----
+
+
+def test_scatter_add_3_plain_matches_pallas_kernel():
+    """idx [b, n, k] into m rows, as tests/test_pallas_kernels.py's
+    TestScatterKernel runs the JAX kernel (interpret mode)."""
+    from geoa3_tpu.ops.pallas.scatter_kernel import scatter_add_pallas
+
+    rng = np.random.RandomState(90)
+    b, n, k, m = 2, 64, 5, 256
+    idx = rng.randint(0, m, (b, n, k)).astype(np.int32)
+    ct = rng.randn(b, n, k, 3).astype(np.float32)
+    with pltpu.force_tpu_interpret_mode():
+        want = np.asarray(scatter_add_pallas(jnp.asarray(idx), jnp.asarray(ct), m))
+    got = tops.scatter_add_3(_t(idx), _t(ct), m)
+    # the TPU kernel sums split-bf16 products (hi + lo, ~2^-16 relative)
+    np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=1e-4)
+    # rows outside [0, m) are dropped, as the one-hot product drops them
+    bad = idx.copy()
+    bad[:, :, 0] = m
+    bad[:, :, 1] = -1
+    keep = np.zeros_like(ct)
+    keep[:, :, 2:] = ct[:, :, 2:]
+    np.testing.assert_array_equal(tops.scatter_add_3(_t(bad), _t(ct), m).numpy(),
+                                  tops.scatter_add_3(_t(idx), _t(keep), m).numpy())
+    assert sk.scatter_add_3.launches == 0
+
+
+# ------------------------------------------------- 3-NN interpolation ----
+
+
+def test_three_nn_matches_jax():
+    rng = np.random.RandomState(91)
+    unknown = rng.randn(B, 128, 3).astype(np.float32)
+    known = rng.randn(B, 32, 3).astype(np.float32)
+    known[:, 5] = known[:, 9]  # a tie: the lower index comes first
+    wd, wi = jops.three_nn(jnp.asarray(unknown), jnp.asarray(known))
+    d, i = tops.three_nn(_t(unknown), _t(known))
+    np.testing.assert_array_equal(i.numpy(), np.asarray(wi))
+    # the same squared differences summed in the same order, then sqrt
+    np.testing.assert_allclose(d.numpy(), np.asarray(wd), rtol=1e-6, atol=0)
+    assert not d.requires_grad
+
+
+def test_three_interpolate_value_and_grads_match_jax():
+    rng = np.random.RandomState(92)
+    feats = rng.randn(B, 32, 24).astype(np.float32)
+    idx = rng.randint(0, 32, (B, 128, 3)).astype(np.int32)
+    weight = rng.rand(B, 128, 3).astype(np.float32)
+    ct = rng.randn(B, 128, 24).astype(np.float32)
+
+    def jloss(f, w):
+        out = jops.three_interpolate(f, jnp.asarray(idx), w)
+        return jnp.sum(out * ct), out
+
+    (_, want), (wf, ww) = jax.value_and_grad(jloss, argnums=(0, 1), has_aux=True)(
+        jnp.asarray(feats), jnp.asarray(weight))
+    f, w = _t(feats).requires_grad_(True), _t(weight).requires_grad_(True)
+    got = tops.three_interpolate(f, _t(idx), w)
+    (got * _t(ct)).sum().backward()
+    # three products summed per entry; the gather's backward sums colliding
+    # rows in another order
+    np.testing.assert_allclose(got.detach().numpy(), np.asarray(want), rtol=1e-6, atol=1e-6)
+    np.testing.assert_allclose(f.grad.numpy(), np.asarray(wf), rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(w.grad.numpy(), np.asarray(ww), rtol=1e-5, atol=1e-5)
+
+
+def _fp_state_dict(variables):
+    """The JAX FP module's {params, batch_stats} -> the port's state_dict
+    (`mlp.{3k}` Conv2d, `mlp.{3k+1}` BatchNorm2d)."""
+    params, stats = variables["params"]["mlp"], variables["batch_stats"]["mlp"]
+    sd = {}
+    for k in range(len([c for c in params if c.startswith("conv")])):
+        sd[f"mlp.{3 * k}.weight"] = _t(np.asarray(params[f"conv{k}"]["kernel"]).T[..., None, None].copy())
+        bn, st = params[f"bn{k}"], stats[f"bn{k}"]
+        sd[f"mlp.{3 * k + 1}.weight"] = _t(np.asarray(bn["scale"]))
+        sd[f"mlp.{3 * k + 1}.bias"] = _t(np.asarray(bn["bias"]))
+        sd[f"mlp.{3 * k + 1}.running_mean"] = _t(np.asarray(st["mean"]))
+        sd[f"mlp.{3 * k + 1}.running_var"] = _t(np.asarray(st["var"]))
+        sd[f"mlp.{3 * k + 1}.num_batches_tracked"] = torch.tensor(0)
+    return sd
+
+
+@pytest.mark.parametrize("with_known", [True, False])
+def test_fp_module_value_and_grads_match_jax(with_known):
+    """PointnetFPModule (two layers, non-pooled) against the JAX module's
+    CPU path, with random BatchNorm statistics: interpolated from 3 known
+    points, or (no known points) one broadcast feature row."""
+    from geoa3_tpu.models.pointnetpp import PointnetFPModule as JFP
+    from geoa3_tpu_torch.models.pointnetpp import PointnetFPModule
+    from tests.test_torch_models import _randomise_bn
+
+    rng = np.random.RandomState(93)
+    n, m, c1, c2 = 96, 24 if with_known else 1, 8, 16
+    unknown = rng.randn(B, n, 3).astype(np.float32)
+    known = rng.randn(B, m, 3).astype(np.float32) if with_known else None
+    ufeats = rng.randn(B, n, c1).astype(np.float32)
+    kfeats = rng.randn(B, m, c2).astype(np.float32)
+    ct = rng.randn(B, n, 32).astype(np.float32)
+    jmod = JFP(mlp=(32, 32))
+    jargs = [jnp.asarray(unknown), None if known is None else jnp.asarray(known),
+             jnp.asarray(ufeats), jnp.asarray(kfeats)]
+    variables = jmod.init({"params": jax.random.PRNGKey(3)}, *jargs, train=False)
+    variables = {"params": _randomise_bn(jax.tree.map(np.asarray, variables["params"]), rng),
+                 "batch_stats": _randomise_bn(
+                     jax.tree.map(np.asarray, variables["batch_stats"]), rng)}
+
+    def jloss(uf, kf):
+        out = jmod.apply(variables, jargs[0], jargs[1], uf, kf, train=False)
+        return jnp.sum(out * ct), out
+
+    (_, want), wgrads = jax.value_and_grad(jloss, argnums=(0, 1), has_aux=True)(
+        jargs[2], jargs[3])
+    mod = PointnetFPModule([c2 + c1, 32, 32]).eval()
+    mod.load_state_dict(_fp_state_dict(variables))
+    uf, kf = _t(ufeats).requires_grad_(True), _t(kfeats).requires_grad_(True)
+    got = mod(_t(unknown), None if known is None else _t(known), uf, kf)
+    (got * _t(ct)).sum().backward()
+    # two float32 layers in other summation orders
+    np.testing.assert_allclose(got.detach().numpy(), np.asarray(want), rtol=1e-5,
+                               atol=1e-5 * np.abs(np.asarray(want)).max())
+    for g, w in zip((uf.grad, kf.grad), wgrads):
+        w = np.asarray(w)
+        np.testing.assert_allclose(g.numpy(), w, rtol=1e-5, atol=1e-5 * np.abs(w).max())

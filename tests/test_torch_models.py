@@ -182,9 +182,11 @@ def test_structure_mirrors_reference():
 
 
 def test_unported_modes_raise():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        build_model("PointNetPP_MSG", device="cpu")
+    with pytest.raises(ValueError, match="Not support such arch"):
+        build_model("PointNetPP_SSG", device="cpu")
     assert build_model("PointNetPP", device="cpu").SA_modules[0].npoint == 512
+    assert build_model("PointNetPP_MSG", device="cpu").SA_modules[0].nsamples == (
+        16, 32, 128)
     model = PointNet(classes=CLASSES)  # a fresh module is in train mode
     with pytest.raises(NotImplementedError, match="train mode"):
         model(torch.zeros(1, N, 3))

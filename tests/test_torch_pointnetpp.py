@@ -169,14 +169,19 @@ def test_unported_modes_raise():
     model = PointNet2ClassificationSSG(classes=CLASSES)  # a fresh module trains
     with pytest.raises(NotImplementedError, match="train mode"):
         model(torch.zeros(1, N, 3))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        build_model("PointNetPP_MSG", device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(NotImplementedError, match="train mode"):
+        build_model("PointNetPP_MSG", device="cpu").train()(torch.zeros(1, N, 3))
+    with pytest.raises(FileNotFoundError):  # the MSG victim is ported now
         load_victim_state("nowhere", "PointNetPP_MSG")
+    with pytest.raises(ValueError, match="Not support such arch"):
+        load_victim_state("nowhere", "PointNetPP_SSG")
     with pytest.raises(NotImplementedError, match="use_xyz"):
         PointnetSAModule([8, 8, 16], npoint=4, radius=0.5, nsample=4, use_xyz=False)
     with pytest.raises(NotImplementedError, match="three layers"):
         SharedMLP(3, [8, 16]).eval()(torch.zeros(1, 2, 4, 3), None)
+    with pytest.raises(NotImplementedError, match="three layers"):
+        SharedMLP(6, [8, 16]).eval().whole_scale(
+            torch.zeros(1, 8, 3), torch.zeros(1, 2, 3), torch.zeros(1, 8, 3), 0.5, 4)
 
 
 def test_attack_on_the_ssg_victim_matches_jax(jax_victim):
