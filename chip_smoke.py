@@ -17,7 +17,12 @@ Needs one CUDA card, nvcc and this repository around the script. Phases:
      scales and at GroupAll with 640 features, and the k-neighbour scatter),
      with the tolerance stated, and time both (CUDA events, warm, median of
      20), plus one PyTorch library call where one computes the same
-     function, and for the whole-scale kernel the split pair it stands in for;
+     function, and for the whole-scale kernel the split pair it stands in for.
+     The pool forward's whole output (maximum, tie count, first tied rows) is
+     held bit-equal to an exact oracle of its fmaf chain at b=2; the 3-channel
+     scatter also in the o2a backward's strided plane layout and on its
+     global-atomic route for clouds too large for shared memory; the
+     scatter's and the pool wrapper's host time per call are printed;
   3. run the default untargeted GeoA3 attack on PointNet (40 classes, 1024
      points, random weights with non-trivial BatchNorm statistics, 32
      synthetic clouds; CE + Chamfer + 0.1 Hausdorff + curvature k=16, Adam
@@ -154,6 +159,20 @@ def fma_chain(torch, a, w):
     return acc
 
 
+def host_us(torch, fn, calls: int = 200) -> float:
+    """Host time of one call in microseconds: `calls` calls back to back with
+    no synchronisation inside, on the host clock (what the caller's thread
+    spends enqueuing, not the device time)."""
+    fn()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    us = (time.perf_counter() - t) / calls * 1e6
+    torch.cuda.synchronize()
+    return us
+
+
 def require_equal(torch, name, got, want, what) -> None:
     if not torch.equal(got, want):
         _fail(f"{name} {what} is not bit-equal to the plain version "
@@ -221,17 +240,44 @@ def kernel_checks(torch) -> list[dict]:
     w = sk.scatter_add_3t_plain(o2a, ct, N)
     # float32 sums of the rows that collide, in atomic (run-dependent) order
     check("scatter_add_3t", (g - w).abs().max().item(), 1e-5, "out")
+    # the o2a backward's layout: the first three rows of the [b, 8, m] plane
+    # cotangent, read through their strides
+    planes = torch.from_numpy(rng.randn(B, 8, N).astype(np.float32)).cuda()
+    pview = planes[:, :3].transpose(1, 2)
+    check("scatter_add_3t[planes]",
+          (sk.scatter_add_3t(o2a, pview, N)
+           - sk.scatter_add_3t_plain(o2a, pview.contiguous(), N)).abs().max().item(),
+          1e-5, "out")
+    # the global-atomic route, for clouds whose sums exceed shared memory,
+    # with out-of-range indices dropped
+    nb = sk.SHARED_ROWS + 1
+    big_idx = torch.from_numpy(rng.randint(-2, nb + 2, (2, nb)).astype(np.int32)).cuda()
+    big_ct = torch.from_numpy(rng.randn(2, nb, 3).astype(np.float32)).cuda()
+    keep = ((big_idx >= 0) & (big_idx < nb))[..., None]
+    check(f"scatter_add_3t[global route, n={nb}]",
+          (sk.scatter_add_3t(big_idx, big_ct, nb)
+           - sk.scatter_add_3t_plain(big_idx.clamp(0, nb - 1), big_ct * keep, nb)
+           ).abs().max().item(), 1e-5, "out")
+    del big_idx, big_ct, keep
     flat_idx = (o2a.long() + N * torch.arange(B, device="cuda")[:, None]).reshape(-1)
     flat_ct = ct.reshape(-1, 3)
     lib_out = torch.zeros(B * N, 3, device="cuda")
+    sc_ms = time_ms(lambda: sk.scatter_add_3t(o2a, ct, N))
+    lib_ms = time_ms(lambda: lib_out.index_add_(0, flat_idx, flat_ct))
+    host = {"scatter_add_3t": host_us(torch, lambda: sk.scatter_add_3t(o2a, ct, N)),
+            "planes": host_us(torch, lambda: sk.scatter_add_3t(o2a, pview, N)),
+            "index_add_": host_us(torch, lambda: lib_out.index_add_(0, flat_idx, flat_ct)),
+            "current_stream": host_us(torch, lambda: torch.cuda.current_stream().cuda_stream)}
+    print(f"  scatter_add_3t: ms={sc_ms:.4f} index_add_ms={lib_ms:.4f}; host us "
+          f"per call (200 calls, no sync inside): " + ", ".join(
+              f"{k}={v:.2f}" for k, v in host.items()))
     entry("scatter_add_3t", "geoa3_tpu_torch/csrc/scatter.cu",
           "geoa3_tpu/ops/pallas/scatter_kernel.py:167",
-          (g - w).abs().max().item(),
-          time_ms(lambda: sk.scatter_add_3t(o2a, ct, N)),
+          (g - w).abs().max().item(), sc_ms,
           time_ms(lambda: sk.scatter_add_3t_plain(o2a, ct, N)),
-          bound_ms(nbytes(o2a, ct, g), 3.0 * B * N),
-          time_ms(lambda: lib_out.index_add_(0, flat_idx, flat_ct)),
-          "idx [32,1024] -> [32,1024,3]")
+          bound_ms(nbytes(o2a, ct, g), 3.0 * B * N), lib_ms,
+          "idx [32,1024] -> [32,1024,3] (one launch, shared route); host us "
+          "per call: " + ", ".join(f"{k}={v:.2f}" for k, v in host.items()))
 
     # --- kappa selection mask ----------------------------------------------
     mask = kk.kappa_selmask(adv, K)
@@ -411,20 +457,36 @@ def kernel_checks(torch) -> list[dict]:
         # 128*taps float32 products summed in another order than cuBLAS
         check(f"pool_fwd[taps={taps}]", (pooled - want).abs().max().item(),
               1e-5 * scale, "pooled")
+        # the kernel's whole output, bit-equal at b=2 to an exact oracle of
+        # its chain (also on a ragged cloud of 1000 points)
+        pool_oracle_check(torch, pk, f"taps={taps}", x[:2], w3, bias,
+                          (pooled[:2], cnt[:2], rows[:2]))
+        xr = x[:2, :1000].contiguous()
+        pool_oracle_check(torch, pk, f"taps={taps}, n=1000", xr, w3, bias,
+                          pk.pool_fwd(xr, w3, bias))
         xs = x.transpose(1, 2).contiguous()
         wt = w3.permute(2, 1, 0).contiguous()
         lib = time_ms(lambda: F.conv1d(xs, wt, bias, padding=taps // 2))
+        flops = 2.0 * B * N * CIN * COUT * taps
         pool_rows[taps] = dict(
             err=(pooled - want).abs().max().item(),
             ms=time_ms(lambda: pk.pool_fwd(x, w3, bias)),
             plain_ms=time_ms(lambda: pk.pool_affine_max_plain(x, w3, bias)),
-            bound=bound_ms(nbytes(x, w3, bias, pooled, cnt, rows),
-                           2.0 * B * N * CIN * COUT * taps),
+            bound=bound_ms(nbytes(x, w3, bias, pooled, cnt, rows), flops),
             library_ms=lib,
+            # ten calls back to back: the wrapper's host time hides behind
+            # the device's work, so this reads the kernel's own time
+            dev_ms=time_ms(lambda: [pk.pool_fwd(x, w3, bias) for _ in range(10)]) / 10,
+            lib_dev_ms=time_ms(lambda: [F.conv1d(xs, wt, bias, padding=taps // 2)
+                                        for _ in range(10)]) / 10,
+            host_us=host_us(torch, lambda: pk.pool_fwd(x, w3, bias), calls=50),
         )
-        print(f"  pool_fwd[taps={taps}]: ms={pool_rows[taps]['ms']:.4f} "
-              f"plain_ms={pool_rows[taps]['plain_ms']:.4f} "
-              f"conv1d_ms={lib:.4f} bound_ms={pool_rows[taps]['bound'][0]:.4f}")
+        r_ = pool_rows[taps]
+        print(f"  pool_fwd[taps={taps}]: ms={r_['ms']:.4f} (one call; ten back to "
+              f"back: {r_['dev_ms']:.4f} = {flops / r_['dev_ms'] / 1e9:.1f} "
+              f"TFLOP/s; wrapper host us per call {r_['host_us']:.2f}) "
+              f"plain_ms={r_['plain_ms']:.4f} conv1d_ms={lib:.4f} (ten back "
+              f"to back: {r_['lib_dev_ms']:.4f}) bound_ms={r_['bound'][0]:.4f}")
 
         # backward: the pooled cotangent is kept off columns whose two
         # largest plain values lie within float32 rounding of each other
@@ -435,9 +497,27 @@ def kernel_checks(torch) -> list[dict]:
         x2 = x.clone()
         x2[0, 100:110] = 3.0 * x2[0, 100]
         pooled2, cnt2, rows2 = pk.pool_fwd(x2, w3, bias)
+        pool_oracle_check(torch, pk, f"taps={taps}, duplicated rows", x2[:2],
+                          w3, bias, (pooled2[:2], cnt2[:2], rows2[:2]))
         x64, w64, b64 = x2.double(), w3.double(), bias.double()
-        top2 = torch.topk(pk.affine_plain(x64, w64, b64), 2, dim=1).values
+        z64 = pk.affine_plain(x64, w64, b64)
+        top2 = torch.topk(z64, 2, dim=1).values
         gap_ok = (top2[:, 0] - top2[:, 1]) > 1e-4 * scale
+        # tie counts and rows against the plain version (cuBLAS sums): held
+        # on the columns whose maximum (tied or not) stands clear of every
+        # other value, where both must find the same rows
+        mx64 = top2[:, 0]
+        runner_up = torch.where(z64 == mx64[:, None], -torch.inf, z64).amax(1)
+        held = (mx64 - runner_up) > 1e-4 * scale
+        del z64, runner_up
+        _, cnt_p, rows_p = pk.pool_ties_plain(x2, w3, bias)
+        require_equal(torch, f"pool_fwd[taps={taps}, duplicated rows]",
+                      cnt2[held], cnt_p[held], "cnt vs pool_ties_plain")
+        require_equal(torch, f"pool_fwd[taps={taps}, duplicated rows]",
+                      rows2[held], rows_p[held], "rows vs pool_ties_plain")
+        print(f"  pool_fwd[taps={taps}]: cnt, rows equal to pool_ties_plain on "
+              f"{int(held.sum())}/{B * COUT} columns ({int((cnt_p[held] > 1).sum())} "
+              f"tied)")
         gap_ok |= cnt2 > 1
         gcot = torch.randn(B, COUT, device="cuda", generator=gen) * gap_ok
         xg = x64.clone().requires_grad_(True)
@@ -466,20 +546,45 @@ def kernel_checks(torch) -> list[dict]:
         )
         print(f"  pool_bwd[taps={taps}]: ms={pool_rows[taps]['bwd']['ms']:.4f} "
               f"(with the duplicate run: {pool_rows[taps]['bwd']['ms_ties']:.4f})")
-    p3 = pool_rows[3]
+    p3, p1 = pool_rows[3], pool_rows[1]
     entry("pool_fwd", "geoa3_tpu_torch/csrc/pool_matmul.cu",
           "geoa3_tpu/ops/pallas/pool_matmul_kernel.py:73", p3["err"], p3["ms"],
           p3["plain_ms"], p3["bound"], p3["library_ms"],
           "conv5 taps=3 [32,1024,128]->[32,1024] (library: F.conv1d alone, "
-          f"no pool); taps=1 T-Net pools: ms={pool_rows[1]['ms']:.4f} "
-          f"bound_ms={pool_rows[1]['bound'][0]:.4f}")
-    b3 = p3["bwd"]
+          f"no pool; ten calls back to back: ms={p3['dev_ms']:.4f} conv1d_ms="
+          f"{p3['lib_dev_ms']:.4f}; wrapper host us {p3['host_us']:.2f}); taps=1 "
+          f"T-Net pools: ms={p1['ms']:.4f} plain_ms={p1['plain_ms']:.4f} "
+          f"conv1d_ms={p1['library_ms']:.4f} bound_ms={p1['bound'][0]:.4f} "
+          f"(back to back: ms={p1['dev_ms']:.4f} conv1d_ms={p1['lib_dev_ms']:.4f})")
+    b3, b1 = p3["bwd"], p1["bwd"]
     entry("pool_bwd", "geoa3_tpu_torch/csrc/pool_matmul.cu",
           "geoa3_tpu/ops/pallas/pool_matmul_kernel.py:79", b3["err"], b3["ms"],
           b3["plain_ms"], b3["bound"], None,
           "conv5 taps=3 dx [32,1024,128] (plain: autograd through the plain "
-          f"forward); taps=1: ms={pool_rows[1]['bwd']['ms']:.4f}")
+          f"forward); taps=1: ms={b1['ms']:.4f} plain_ms={b1['plain_ms']:.4f} "
+          f"bound_ms={b1['bound'][0]:.4f}")
     return out
+
+
+def pool_oracle_check(torch, pk, label, x, w3, bias, got) -> None:
+    """pool_fwd's (pooled, cnt, rows) bit-equal to an exact oracle of its
+    arithmetic: x shifted per tap and concatenated on k (k' = t cin + k), one
+    fmaf chain from 0 with k' ascending (`fma_chain`), then + bias in
+    float32, and the maximum's ties read off those activations."""
+    taps, cin, cout = w3.shape
+    b_, n_, _ = x.shape
+    if taps == 3:
+        zero = x.new_zeros(b_, 1, cin)
+        x = torch.cat([torch.cat([zero, x[:, :-1]], 1), x,
+                       torch.cat([x[:, 1:], zero], 1)], dim=2)
+    z = fma_chain(torch, x.reshape(b_ * n_, taps * cin),
+                  w3.reshape(taps * cin, cout)) + bias
+    for g_, w_, what in zip(got, pk.max_ties(z.reshape(b_, n_, cout)),
+                            ("pooled", "cnt", "rows")):
+        require_equal(torch, f"pool_fwd[{label}]", g_, w_,
+                      f"{what} vs the fmaf-chain oracle")
+    print(f"  pool_fwd[{label}]: pooled, cnt, rows bit-equal to the fmaf-chain "
+          f"oracle (required; {int((got[1] > 1).sum())} tied columns)")
 
 
 def random_mlp(torch, gen, cf, widths):
@@ -631,7 +736,8 @@ def ssg_kernel_checks(torch) -> list[dict]:
         got_ = fk.fps(x_, m_, st_, skip_) if got_ is None else got_
         require_equal(torch, f"fps[{label}]", got_,
                       fk.fps_plain(x_, m_, st_, skip_), "idx")
-    if fk.fps(near, 512)[1].any() or not fk.fps(big, N, start, False)[:, 0].equal(start):
+    fps_big = fk.fps(big, N, start, False)
+    if fk.fps(near, 512)[1].any() or not fps_big[:, 0].equal(start):
         _fail("fps: the fully skipped cloud is not all index 0, or a start "
               "index is not the first pick")
     print(f"  fps: idx bit-equal to plain (required) at {list(cases)}")
@@ -642,7 +748,8 @@ def ssg_kernel_checks(torch) -> list[dict]:
           bound_ms(nbytes(pc, fps_idx), 9.0 * B * N * 511), None,
           "[32,1024,3] -> [32,512]; sequential depth 511 rounds of a "
           "block-wide argmax on 32 of 132 SMs; subsample [32,2048,3] -> "
-          f"[32,1024]: ms={time_ms(lambda: fk.fps(big, N, start, False)):.4f}")
+          f"[32,1024]: ms={time_ms(lambda: fk.fps(big, N, start, False)):.4f} "
+          f"bound_ms={bound_ms(nbytes(big, start, fps_big), 9.0 * B * 2 * N * (N - 1))[0]:.4f}")
 
     # --- ball query + group, forward and backward --------------------------
     c1 = ops.gather_points(pc, fps_idx)
@@ -716,6 +823,9 @@ def ssg_kernel_checks(torch) -> list[dict]:
     dgx2, dgf2 = randn(*gx2.shape), randn(*gf2.shape)
     dgx1 = randn(*gx1.shape)
     sa1_bwd_ms = time_ms(lambda: bk.ballquery_group_bwd(idx1, dgx1, None, N))
+    sa1_bwd_bound = bound_ms(nbytes(idx1, dgx1, *(
+        t for t in bk.ballquery_group_bwd(idx1, dgx1, None, N) if t is not None)),
+        3.0 * idx1.numel())[0]
     bout = bk.ballquery_group_bwd(idx2, dgx2, dgf2, 512)
     entry("ballquery_group_bwd", "geoa3_tpu_torch/csrc/ballquery_group.cu",
           "geoa3_tpu/ops/pallas/ballquery_group_kernel.py:224", bwd_err,
@@ -724,7 +834,7 @@ def ssg_kernel_checks(torch) -> list[dict]:
           bound_ms(nbytes(idx2, dgx2, dgf2, *bout), 131.0 * idx2.numel()), None,
           "SA2 idx [32,128,64], dgx [32,128,64,3], dgf [32,128,64,128] -> "
           "dxyz [32,512,3], dcentre [32,128,3], dfeats [32,512,128]; SA1 "
-          f"(cf=0): ms={sa1_bwd_ms:.4f}")
+          f"(cf=0): ms={sa1_bwd_ms:.4f} bound_ms={sa1_bwd_bound:.4f}")
 
     # --- C-channel scatter -------------------------------------------------
     flat2 = idx2.reshape(B, -1).contiguous()  # S = 8192 into 512 rows
@@ -1041,14 +1151,20 @@ def msg_kernel_checks(torch, kernels: list) -> list[dict]:
     lib_idx = (kidx.long() + N * torch.arange(B, device="cuda")[:, None, None]).reshape(-1)
     lib_ct = kct.reshape(-1, 3)
     lib_out = torch.zeros(B * N, 3, device="cuda")
+    s3_ms = time_ms(lambda: sk.scatter_add_3(kidx, kct, N))
+    s3_lib = time_ms(lambda: lib_out.index_add_(0, lib_idx, lib_ct))
+    host = {"scatter_add_3": host_us(torch, lambda: sk.scatter_add_3(kidx, kct, N)),
+            "index_add_": host_us(torch, lambda: lib_out.index_add_(0, lib_idx, lib_ct))}
+    print(f"  scatter_add_3: ms={s3_ms:.4f} index_add_ms={s3_lib:.4f}; host us "
+          "per call (200 calls, no sync inside): " + ", ".join(
+              f"{k}={v:.2f}" for k, v in host.items()))
     entry("scatter_add_3", "geoa3_tpu_torch/csrc/scatter.cu",
-          "geoa3_tpu/ops/pallas/scatter_kernel.py:31", s3_err,
-          time_ms(lambda: sk.scatter_add_3(kidx, kct, N)),
+          "geoa3_tpu/ops/pallas/scatter_kernel.py:31", s3_err, s3_ms,
           time_ms(lambda: sk.scatter_add_3_plain(kidx, kct, N)),
-          bound_ms(nbytes(kidx, kct, sg), 1.0 * kct.numel()),
-          time_ms(lambda: lib_out.index_add_(0, lib_idx, lib_ct)),
+          bound_ms(nbytes(kidx, kct, sg), 1.0 * kct.numel()), s3_lib,
           "idx [32,1024,17], ct [32,1024,17,3] -> [32,1024,3] (row 2's device "
-          "kernel at S = 17408; library: index_add_ on the flattened batch)")
+          "kernel at S = 17408; library: index_add_ on the flattened batch); "
+          "host us per call: " + ", ".join(f"{k}={v:.2f}" for k, v in host.items()))
     return out
 
 

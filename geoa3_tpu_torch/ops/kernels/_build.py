@@ -32,6 +32,7 @@ NVCC_FLAGS = ARCH_FLAGS + ["-std=c++17", "-O3", "-Xcompiler", "-fPIC"]
 
 _VP = ctypes.c_void_p
 _I = ctypes.c_int
+_LL = ctypes.c_longlong
 _F = ctypes.c_float
 # C entry points: name -> argument types (every entry returns cudaError_t)
 SIGNATURES = {
@@ -41,8 +42,8 @@ SIGNATURES = {
     "geoa3_nn1_dual": [_VP, _VP, _I, _I, _I, _VP, _VP, _VP],
     # query, points, b, n, m, k, dists, idx, nbrs, stream
     "geoa3_knn": [_VP, _VP, _I, _I, _I, _I, _VP, _VP, _VP, _VP],
-    # idx, ct, b, S, n, out, stream
-    "geoa3_scatter_add_3t": [_VP, _VP, _I, _I, _I, _VP, _VP],
+    # idx, ct, b, S, n, ct's batch/source/channel strides, out, stream
+    "geoa3_scatter_add_3t": [_VP, _VP, _I, _I, _I, _LL, _LL, _LL, _VP, _VP],
     # idx, ct, b, n, k, m, out, stream
     "geoa3_scatter_add_3": [_VP, _VP, _I, _I, _I, _I, _VP, _VP],
     # idx, ct, b, S, n, C, out, stream
@@ -104,6 +105,7 @@ SIGNATURES = {
 
 _lock = threading.Lock()
 _lib = None
+_entries: dict = {}  # C entry name -> its ctypes function, bound at load
 
 
 def _nvcc() -> str:
@@ -170,7 +172,8 @@ def build() -> Path:
 
 
 def lib() -> ctypes.CDLL:
-    """The loaded kernel library (built on first use)."""
+    """The loaded kernel library (built on first use). Loading binds every
+    C entry of SIGNATURES once, into `_entries`."""
     global _lib
     with _lock:
         if _lib is None:
@@ -179,6 +182,7 @@ def lib() -> ctypes.CDLL:
                 fn = getattr(so, name)
                 fn.argtypes = argtypes
                 fn.restype = ctypes.c_int
+                _entries[name] = fn
             _lib = so
     return _lib
 
@@ -186,26 +190,24 @@ def lib() -> ctypes.CDLL:
 def launch(name: str, *args) -> None:
     """Call C entry `name` with tensors (passed by data pointer; None is a
     null pointer), ints and floats, on the current CUDA stream; raise if the
-    launch was refused."""
-    conv = []
-    for a in args:
-        if isinstance(a, torch.Tensor):
-            conv.append(_VP(a.data_ptr()))
-        elif a is None:
-            conv.append(_VP(None))
-        elif isinstance(a, float):
-            conv.append(a)
-        else:
-            conv.append(int(a))
-    conv.append(_VP(torch.cuda.current_stream().cuda_stream))
-    err = getattr(lib(), name)(*conv)
+    launch was refused. After the first load a call takes no lock and looks
+    nothing up but `name` in a dict: ctypes converts the ints, floats and
+    None by the entry's argtypes."""
+    fn = _entries.get(name)
+    if fn is None:
+        lib()
+        fn = _entries[name]
+    err = fn(*[a.data_ptr() if isinstance(a, torch.Tensor) else a
+               for a in args], torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"{name}: CUDA launch failed with error {err}")
 
 
-def check_cuda(t: torch.Tensor, name: str, dtype: torch.dtype, shape) -> None:
-    """Validate what a kernel takes: a contiguous CUDA tensor of this dtype and
-    shape (None in `shape` matches any size)."""
+def check_cuda(t: torch.Tensor, name: str, dtype: torch.dtype, shape,
+               contiguous: bool = True) -> None:
+    """Validate what a kernel takes: a CUDA tensor of this dtype and shape
+    (None in `shape` matches any size), contiguous unless the kernel reads it
+    through its strides."""
     if not t.is_cuda:
         raise ValueError(f"{name}: expected a CUDA tensor, got {t.device}")
     if t.dtype != dtype:
@@ -214,5 +216,5 @@ def check_cuda(t: torch.Tensor, name: str, dtype: torch.dtype, shape) -> None:
         s is not None and s != d for s, d in zip(shape, t.shape)
     ):
         raise ValueError(f"{name}: expected shape {shape}, got {tuple(t.shape)}")
-    if not t.is_contiguous():
+    if contiguous and not t.is_contiguous():
         raise ValueError(f"{name}: expected a contiguous tensor")

@@ -5,13 +5,18 @@ _bwd_kernel (`pool_affine_max` with one global segment), which PointNet's
 three global pools run in eval mode. Source: csrc/pool_matmul.cu.
 
 Bound on the H100: operations (25.8 GFLOP of float32 for the kernel-3 conv5
-pool at [32, 1024, 128] -> 1024, 8.6 for each 1x1 T-Net pool). The kernel
-is a tiled shared-memory float32 product (no tensor cores, no TF32) whose
-epilogue takes the max over points, so the [b, n, 1024] activation never
-reaches device memory. While it scans, it records each column's tie count
-and first `MAX_TIES` tied rows; the backward adds g/cnt * w3[t, :, c] at
-those rows (shifted by tap) and needs no second product. The TPU kernel runs
-single-pass bf16 on the TPU; this one stays float32 like the victim.
+pool at [32, 1024, 128] -> 1024, 8.6 for each 1x1 T-Net pool). The forward
+is a float32 product on the FMA units (no tensor cores, no TF32): a block
+owns 128 channels of a cloud and walks its point tiles of 128, 8 x 8 outputs
+a thread, the tile's x rows staged once in shared memory for every tap and
+the weights streamed through a four-stage cp.async ring. Its epilogue takes
+the max over points in registers (shuffles and ballots), so the [b, n, 1024]
+activation never reaches device memory, and records each column's tie count
+and first `MAX_TIES` tied rows (ascending, 0 past the count); the backward
+adds g/cnt * w3[t, :, c] at those rows (shifted by tap) and needs no second
+product. Each output is one fmaf chain from 0 in (tap, k) order plus the
+bias, which the backward's recompute of a column with more ties repeats. The
+TPU kernel runs split-bf16 products; this one stays float32 like the victim.
 """
 
 from __future__ import annotations
@@ -21,8 +26,11 @@ import torch
 from geoa3_tpu_torch.ops.kernels import _build
 
 MAX_TIES = 4  # kMaxTies in csrc/pool_matmul.cu
-BLOCK_COUT = 64  # BN in csrc/pool_matmul.cu
+BLOCK_COUT = 128  # BN in csrc/pool_matmul.cu
 BLOCK_CIN = 16  # BK in csrc/pool_matmul.cu
+# the x slab (130 rows of cin + 4 floats) beside the weight ring and the
+# column states must fit a block's 232,448 bytes of shared memory
+MAX_CIN = 368
 
 
 def affine_plain(x, w3, bias):
@@ -43,19 +51,45 @@ def pool_affine_max_plain(x, w3, bias):
     return torch.amax(affine_plain(x, w3, bias), dim=1)
 
 
+def max_ties(z):
+    """z [B, n, cout] -> (max over points [B, cout], tie count [B, cout]
+    int32, first MAX_TIES rows holding the max [B, cout, MAX_TIES] int32,
+    ascending, 0 past the count): the forward kernel's whole output for
+    these activations."""
+    B, n, cout = z.shape
+    pooled = torch.amax(z, dim=1)
+    tied = z == pooled[:, None]
+    row = torch.arange(n, dtype=torch.int32, device=z.device)[None, :, None]
+    key = torch.where(tied, row, n).transpose(1, 2)  # [B, cout, n]
+    first = torch.topk(key, min(MAX_TIES, n), dim=2, largest=False).values
+    first = torch.where(first < n, first, 0)
+    rows = first.new_zeros(B, cout, MAX_TIES)
+    rows[..., :first.shape[2]] = first
+    return pooled, tied.sum(1, dtype=torch.int32), rows
+
+
+def pool_ties_plain(x, w3, bias):
+    """Plain PyTorch version of `pool_fwd`'s whole output: (pooled, cnt,
+    rows) of `affine_plain`."""
+    return max_ties(affine_plain(x, w3, bias))
+
+
 def _check(x, w3, bias):
     B, n, cin = x.shape
     taps, _, cout = w3.shape
-    if taps not in (1, 3):
-        raise ValueError(f"taps must be 1 or 3, got {taps}")
-    if cin % BLOCK_CIN or cout % BLOCK_COUT:
-        raise ValueError(
-            f"the pool kernel takes cin % {BLOCK_CIN} == 0 and "
-            f"cout % {BLOCK_COUT} == 0, got cin={cin}, cout={cout}"
-        )
     _build.check_cuda(x, "x", torch.float32, (B, n, cin))
     _build.check_cuda(w3, "w3", torch.float32, (taps, cin, cout))
     _build.check_cuda(bias, "bias", torch.float32, (cout,))
+    if taps not in (1, 3):
+        raise ValueError(f"taps must be 1 or 3, got {taps}")
+    if cin % BLOCK_CIN or cin > MAX_CIN or cout % BLOCK_COUT:
+        raise ValueError(
+            f"the pool kernel takes cin % {BLOCK_CIN} == 0, cin <= {MAX_CIN} "
+            f"and cout % {BLOCK_COUT} == 0, got cin={cin}, cout={cout}"
+        )
+    if x.data_ptr() % 16 or w3.data_ptr() % 16:
+        raise ValueError("the pool kernel copies x and w3 in 16-byte pieces: "
+                         "both must start on a 16-byte boundary")
     return B, n, cin, cout, taps
 
 

@@ -5,17 +5,23 @@ Replaces geoa3_tpu/ops/pallas/scatter_kernel.py:_scatter3t_kernel
 (`scatter_add_3t_pallas`), the backward of ops.o2a_coord_planes. Source:
 csrc/scatter.cu.
 
-Bound on the H100: bytes (under 1 MB at the main path's [32, 1024]); launch
-overhead dominates. The TPU's one-hot matrix product exists because the TPU
-has no scattered stores; here one thread per source row adds its three values
-with atomicAdd. The addition order varies from run to run, so colliding rows
-agree with the plain version to float32 rounding, not bitwise.
+Bound on the H100: bytes (under 1 MB at the main path's [32, 1024]), so a
+call's cost is its launches and its host path. The TPU's one-hot matrix
+product exists because the TPU has no scattered stores. Here one launch
+writes the whole output, so it comes from torch.empty with no fill launch:
+clouds of up to `SHARED_ROWS` rows sum in a block's shared memory (one block
+a cloud, shared-memory atomicAdd, one coalesced store of the [n, 3] output);
+larger clouds zero the output on the stream and add with global atomicAdd.
+The cotangent is read through its strides, so a strided view (the o2a
+backward's [b, 8, m] planes seen as [b, m, 3]) needs no copy. The addition
+order varies from run to run, so colliding rows agree with the plain version
+to float32 rounding, not bitwise.
 
 `scatter_add_3` replaces :_scatter3_kernel (`scatter_add_pallas`): idx
 [b, n, k], ct [b, n, k, 3] -> [b, m, 3], the backward of a k-neighbour
 gather (a public op; no path of the JAX package calls it either). Its rows
 are `scatter_add_3t`'s [b, S] rows with S = n * k, so it launches the same
-device kernel. Bound: bytes.
+device kernels. Bound: bytes.
 
 `scatter_add_nc` replaces :_scatter_nc_kernel (`scatter_add_nc_pallas`), the
 backward of ops.group_points at C channels: one thread per (source row,
@@ -31,6 +37,11 @@ import torch
 
 from geoa3_tpu_torch.ops.kernels import _build
 
+# kSharedRows in csrc/scatter.cu: the largest cloud whose [n, 3] float32 sums
+# fit a block's 232,448 bytes of shared memory on the H100; larger clouds
+# take the global-atomic route
+SHARED_ROWS = 232448 // 12
+
 
 def scatter_add_3t_plain(idx, ct, n):
     """Plain PyTorch version of `scatter_add_3t`."""
@@ -39,16 +50,16 @@ def scatter_add_3t_plain(idx, ct, n):
 
 
 def scatter_add_3t(idx, ct, n):
-    """idx [b, S] int32, ct [b, S, 3] -> [b, n, 3] with
+    """idx [b, S] int32, ct [b, S, 3] (any strides) -> [b, n, 3] with
     out[b, idx[b, s]] += ct[b, s]. CPU tensors take the plain version; CUDA
     tensors launch the kernel."""
     if not ct.is_cuda:
         return scatter_add_3t_plain(idx, ct, n)
     b, S = idx.shape
     _build.check_cuda(idx, "idx", torch.int32, (b, S))
-    _build.check_cuda(ct, "ct", torch.float32, (b, S, 3))
-    out = torch.zeros(b, n, 3, dtype=torch.float32, device=ct.device)
-    _build.launch("geoa3_scatter_add_3t", idx, ct, b, S, n, out)
+    _build.check_cuda(ct, "ct", torch.float32, (b, S, 3), contiguous=False)
+    out = torch.empty(b, n, 3, dtype=torch.float32, device=ct.device)
+    _build.launch("geoa3_scatter_add_3t", idx, ct, b, S, n, *ct.stride(), out)
     scatter_add_3t.launches += 1
     return out
 
@@ -72,7 +83,7 @@ def scatter_add_3(idx, ct, m):
     b, n, k = idx.shape
     _build.check_cuda(idx, "idx", torch.int32, (b, n, k))
     _build.check_cuda(ct, "ct", torch.float32, (b, n, k, 3))
-    out = torch.zeros(b, m, 3, dtype=torch.float32, device=ct.device)
+    out = torch.empty(b, m, 3, dtype=torch.float32, device=ct.device)
     _build.launch("geoa3_scatter_add_3", idx, ct, b, n, k, m, out)
     scatter_add_3.launches += 1
     return out

@@ -184,7 +184,7 @@ class _O2ACoordPlanes(torch.autograd.Function):
     @staticmethod
     def backward(ctx, ct):
         (idx,) = ctx.saved_tensors
-        ct3 = ct[:, :3].transpose(1, 2).contiguous()  # [b, m, 3]
+        ct3 = ct[:, :3].transpose(1, 2)  # [b, m, 3], read through its strides
         return scatter_kernel.scatter_add_3t(idx, ct3, ctx.n), None, None
 
 

@@ -37,7 +37,7 @@ _GROUPS = [
     (re.compile(r"nn1_(a2o|o2a)_kernel"), "nn1_payload (port)"),
     (re.compile(r"curv_term_kernel"), "curv_term (port)"),
     (re.compile(r"kappa_select_kernel"), "kappa select (port)"),
-    (re.compile(r"scatter3_kernel"), "scatter_add_3t (port)"),
+    (re.compile(r"scatter3_(global_)?kernel"), "scatter_add_3t (port)"),
     (re.compile(r"fps_kernel"), "fps (port)"),
     (re.compile(r"ballquery_kernel"), "ballquery_group fwd (port)"),
     (re.compile(r"scatter_nc_kernel|centre_grad_kernel"),
@@ -129,6 +129,11 @@ def main() -> int:
         key=lambda e: -e.self_cpu_time_total,
     )
     host_ms = sum(e.self_cpu_time_total for e in host) / 1e3 / args.steps
+    launch_calls = {e.key: e.count / args.steps for e in host
+                    if e.key.startswith("cudaLaunch")}
+    device_kernels = sum(v[1] for v in kernels.values()) / args.steps
+    print(f"launch calls a step {launch_calls}; device kernels and copies "
+          f"{device_kernels:.2f}/step")
     print(f"host: {host_ms:.4f} ms/step of self CPU time in profiled ops "
           f"(profiler overhead included); top ops (ms/step, calls/step):")
     for e in host[:15]:
@@ -137,6 +142,8 @@ def main() -> int:
     print(json.dumps({
         "ms_per_step": per_step, "device_busy_ms_per_step": busy_ms / args.steps,
         "idle_share": 1 - busy_ms / wall_ms, "host_self_cpu_ms_per_step": host_ms,
+        "launch_calls_per_step": launch_calls,
+        "device_kernels_per_step": device_kernels,
         "groups_ms_per_step": dict(groups), "steps": args.steps,
         "refresh": args.refresh, "batch": BATCH, "arch": args.arch,
         "card": torch.cuda.get_device_name(0),

@@ -125,6 +125,27 @@ class TestScatter:
             got.numpy(), np.asarray(want), rtol=HILO, atol=HILO * np.abs(ct).max()
         )
 
+    @pytest.mark.parametrize("layout", ["rows", "planes"])
+    @pytest.mark.parametrize("s", [N, N * (K + 1)])
+    def test_wrapper_matches_pallas_kernel(self, layout, s):
+        """`scatter_add_3t` with its cotangent as [b, S, 3] rows, or as the
+        first three rows of [b, 8, S] planes seen through their strides (the
+        o2a backward's layout), at S = n and at S = n (k + 1) sources."""
+        from geoa3_tpu.ops.pallas.scatter_kernel import scatter_add_3t_pallas
+
+        rng = np.random.RandomState(30 + s)
+        idx = rng.randint(0, N, (B, s)).astype(np.int32)
+        planes = rng.randn(B, 8, s).astype(np.float32)
+        ct = np.ascontiguousarray(planes[:, :3].transpose(0, 2, 1))
+        with pltpu.force_tpu_interpret_mode():
+            want = scatter_add_3t_pallas(jnp.asarray(idx), jnp.asarray(ct), N)
+        arg = _t(ct) if layout == "rows" else _t(planes)[:, :3].transpose(1, 2)
+        got = sk.scatter_add_3t(_t(idx), arg, N)
+        # split-bf16 one-hot products: 2^-16 of each summed term
+        atol = HILO * (np.abs(ct).max() if s == N else np.abs(ct).sum(1).max())
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=HILO,
+                                   atol=atol)
+
     def test_o2a_coord_planes_grad_matches_composed(self):
         ori, _, rng = _cloud(4)
         adv = (ori + 0.02 * rng.randn(*ori.shape)).astype(np.float32)
@@ -341,6 +362,54 @@ class TestPoolAffineMax:
         wg = np.asarray(wgrad)
         np.testing.assert_allclose(xt.grad.numpy(), wg,
                                    rtol=1e-4, atol=1e-4 * np.abs(wg).max())
+
+
+class TestPoolTies:
+    """`pool_ties_plain`, the plain version of the forward kernel's whole
+    output (pooled, tie count, first MAX_TIES tied rows), against ties read
+    off the JAX package's composed `_affine` on inputs with runs of
+    duplicated rows (exact ties by construction)."""
+
+    def _inputs(self, seed, taps):
+        rng = np.random.RandomState(seed)
+        x = np.maximum(rng.randn(B, 64, 128), 0).astype(np.float32)
+        x[0, 10:20] = 3.0 * x[0, 10]  # a run that holds many columns' max
+        for start in (40, 50):  # two runs: two tied rows at a column's max
+            x[1, start:start + taps] = 3.0 * x[1, 3]
+        w = (rng.randn(taps, 128, 256) / np.sqrt(taps * 128)).astype(np.float32)
+        bias = (rng.randn(256) * 0.1).astype(np.float32)
+        return x, w, bias
+
+    @pytest.mark.parametrize("taps", [1, 3])
+    def test_ties_match_composed_affine(self, taps):
+        from geoa3_tpu.ops.pallas.pool_matmul_kernel import _affine
+
+        x, w, bias = self._inputs(40 + taps, taps)
+        pooled, cnt, rows = pk.pool_ties_plain(_t(x), _t(w), _t(bias))
+        for b in range(B):
+            z = np.asarray(_affine(jnp.asarray(x[b]), jnp.asarray(w),
+                                   jnp.asarray(bias), True))
+            zmax = z.max(0)
+            tied = z == zmax
+            np.testing.assert_array_equal(cnt[b].numpy(), tied.sum(0))
+            for c in range(z.shape[1]):
+                first = np.flatnonzero(tied[:, c])[:pk.MAX_TIES]
+                want = np.zeros(pk.MAX_TIES, np.int32)
+                want[:len(first)] = first
+                np.testing.assert_array_equal(rows[b, c].numpy(), want)
+            # the composed path's split-bf16 products: 2^-16 of each of the
+            # 128 * taps summed terms, bounded by their largest absolute sum
+            np.testing.assert_allclose(
+                pooled[b].numpy(), zmax, rtol=0,
+                atol=HILO * np.abs(x[b]).max() * np.abs(w).sum((0, 1)).max())
+        assert (cnt > pk.MAX_TIES).any() and ((cnt > 1) & (cnt <= pk.MAX_TIES)).any()
+        assert torch.equal(pooled, pk.pool_affine_max_plain(_t(x), _t(w), _t(bias)))
+
+    def test_short_clouds_pad_rows_with_zero(self):
+        z = torch.tensor([[[1.0, 2.0], [1.0, 0.5]]])  # n = 2 < MAX_TIES
+        pooled, cnt, rows = pk.max_ties(z)
+        assert pooled.tolist() == [[1.0, 2.0]] and cnt.tolist() == [[2, 1]]
+        assert rows.tolist() == [[[0, 1, 0, 0], [0, 0, 0, 0]]]
 
 
 # ----------------------------------------------- boundaries and counts ----
