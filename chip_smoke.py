@@ -22,7 +22,14 @@ Needs one CUDA card, nvcc and this repository around the script. Phases:
      held bit-equal to an exact oracle of its fmaf chain at b=2; the 3-channel
      scatter also in the o2a backward's strided plane layout and on its
      global-atomic route for clouds too large for shared memory; the
-     scatter's and the pool wrapper's host time per call are printed;
+     scatter's and the pool wrapper's host time per call are printed. The
+     self-kNN selection (mask and fused kappa) and the kNN are also held
+     bit-equal at a ragged n = 1000, at n = 10000 and at 12288, the kappa
+     backward at 1000 and 10000, the curvature term (direct form) at 1000
+     and 12288, with its float32 gradient's distance
+     from float64 printed beside the expansion form's; the selection, the
+     curvature term, the fused kappa and the kNN are also timed ten calls
+     back to back;
   3. run the default untargeted GeoA3 attack on PointNet (40 classes, 1024
      points, random weights with non-trivial BatchNorm statistics, 32
      synthetic clouds; CE + Chamfer + 0.1 Hausdorff + curvature k=16, Adam
@@ -56,7 +63,12 @@ Needs one CUDA card, nvcc and this repository around the script. Phases:
      CPU, the MSG victim with normals against the CPU; then the CLI once
      with --arch PointNetPP, once with --arch PointNetPP_MSG and once with
      --is_subsample_opt on clouds of 2048 points;
-  9. print one JSON line listing the kernels, then the result line.
+  9. dense clouds (b=16, n=10000, runs/bench_dense.py's configuration):
+     the 1-NN payload and FPS at the subsample path's shapes against their
+     plain versions, then 1 x 20 steps in subsample mode and 1 x 20 steps
+     (two phases) in partial-variable mode, each with its launch counts
+     checked, its ms/step and its peak device memory;
+  10. print one JSON line listing the kernels, then the result line.
 
 Every path runs with the kernels' launch counts set to 0 just before and
 read just after, and fails if a kernel it names was not launched; together
@@ -81,6 +93,10 @@ REPO = Path(__file__).resolve().parent
 PEAK_F32_FLOPS = 67e12  # H100 SXM, float32 outside the tensor cores
 PEAK_BYTES = 3.35e12  # H100 SXM HBM3
 CIN, COUT = 128, 1024  # conv5's channels, the largest pool
+DENSE_B, DENSE_N = 16, 10000  # runs/bench_dense.py's batch and cloud size
+# (b, n) of the selection's checks past the main path: a ragged n, the
+# dense n, and the JAX package's largest padded n
+DENSE_CHECKS = ((2, 1000), (2, DENSE_N), (1, 12288))
 
 
 def _fail(msg: str) -> None:
@@ -108,6 +124,31 @@ def time_ms(fn, iters: int = 20, warm: int = 3) -> float:
         e.record()
         e.synchronize()
         times.append(s.elapsed_time(e))
+    return statistics.median(times)
+
+
+def ten_ms(fn, iters: int = 20) -> float:
+    """One call's device time: ten calls enqueued behind a 4096 x 4096 matrix
+    product that keeps the card busy while the host enqueues them, timed
+    from the product's end to the tenth call's end (median of `iters`), so
+    no wrapper's host time enters, however short the kernel."""
+    import torch
+
+    spacer = torch.ones(4096, 4096, device="cuda")
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(iters):
+        s = torch.cuda.Event(enable_timing=True)
+        e = torch.cuda.Event(enable_timing=True)
+        spacer @ spacer
+        s.record()
+        for _ in range(10):
+            fn()
+        e.record()
+        e.synchronize()
+        times.append(s.elapsed_time(e) / 10)
     return statistics.median(times)
 
 
@@ -288,12 +329,14 @@ def kernel_checks(torch) -> list[dict]:
     if not torch.all(mask.sum(-1, dtype=torch.int32) == K + 1):
         _fail("kappa_selmask rows do not hold k+1 members")
     print("  kappa_selmask: mask bit-equal to plain (required)")
+    sel_ten = ten_ms(lambda: kk.kappa_selmask(adv, K))
     entry("kappa_selmask", "geoa3_tpu_torch/csrc/kappa.cu",
           "geoa3_tpu/ops/pallas/kappa_kernel.py:210", 0.0,
           time_ms(lambda: kk.kappa_selmask(adv, K)),
           time_ms(lambda: kk.kappa_selmask_plain(adv, K)),
           bound_ms(nbytes(adv, mask), 11.0 * pairs), None,
-          "[32,1024,3] -> [32,1024,1024] int8")
+          f"[32,1024,3] -> [32,1024,1024] int8; ten calls back to back: "
+          f"ms={sel_ten:.4f}")
 
     # --- curvature term ----------------------------------------------------
     a2o = got[0]
@@ -301,28 +344,32 @@ def kernel_checks(torch) -> list[dict]:
     ref = got[2][:, 6].contiguous()
     cv, gr = kk.curv_term(adv, normal_b, ref, mask, K)
     cv_p, gr_p = kk.curv_term_plain(adv, normal_b, ref, mask, K)
-    # per-pair terms are bitwise the plain version's and the sums run in
-    # another (atomic) order. The plain gradient comes from autograd through
-    # the distance expansion, whose 2 p_j and -2 p_i terms are summed apart
-    # and cancel to p_j - p_i: for the closest pairs that f32 cancellation
-    # sets the difference, bounded against the largest entry
+    # the direct form on both sides with the same per-pair arithmetic; the
+    # kernel sums kappa and curv in another order, and its gradient is the
+    # analytic one summed with atomics where the plain one is autograd's
     check("curv_term", (cv - cv_p).abs().max().item(),
           1e-5 * cv_p.abs().max().item(), "curv")
     check("curv_term", (gr - gr_p).abs().max().item(),
-          2e-4 * gr_p.abs().max().item(), "grad")
-    _, gr_64 = kk.curv_term_plain(adv.double(), normal_b.double(),
-                                  ref.double(), mask, K)
-    print(f"  curv_term: (information) the float32 composed gradient is "
-          f"{(gr_p.double() - gr_64).abs().max().item() / gr_64.abs().max().item():.3e} "
-          f"of the largest entry from its float64 evaluation")
+          1e-4 * gr_p.abs().max().item(), "grad")
+    gaps = curv_float64_gaps(torch, kk, adv, normal_b, ref, mask, gr)
+    print("  curv_term: the float32 gradient's distance from float64, as a "
+          "share of the largest entry: " + ", ".join(
+              f"{k_}={v:.3e}" for k_, v in gaps.items()))
+    if not gaps["direct"] < gaps["expansion"]:
+        _fail("curv_term: the direct form's float32 gradient is not nearer "
+              "float64 than the expansion form's")
     pairs_sel = B * N * (K + 1)
+    curv_ten = ten_ms(lambda: kk.curv_term(adv, normal_b, ref, mask, K))
     entry("curv_term", "geoa3_tpu_torch/csrc/kappa.cu",
           "geoa3_tpu/ops/pallas/kappa_kernel.py:603",
           (gr - gr_p).abs().max().item(),
           time_ms(lambda: kk.curv_term(adv, normal_b, ref, mask, K)),
           time_ms(lambda: kk.curv_term_plain(adv, normal_b, ref, mask, K)),
           bound_ms(nbytes(adv, normal_b, ref, mask, cv, gr), 60.0 * pairs_sel),
-          None, "[32,1024,3], mask [32,1024,1024] -> [32], [32,1024,3]")
+          None, "[32,1024,3], mask [32,1024,1024] -> [32], [32,1024,3] "
+          f"(direct form); ten calls back to back: "
+          f"ms={curv_ten:.4f}; float32 gradient from float64, share of the "
+          "largest entry: " + ", ".join(f"{k_}={v:.3e}" for k_, v in gaps.items()))
     del a2o
 
     # --- fused kappa (prologue) --------------------------------------------
@@ -339,7 +386,8 @@ def kernel_checks(torch) -> list[dict]:
           time_ms(lambda: kk.kappa_fwd(pc, nrm, K)),
           time_ms(lambda: kk.kappa_fwd_plain(pc, nrm, K)),
           bound_ms(nbytes(pc, nrm, kp, km), 11.0 * pairs + 20.0 * B * N * K),
-          None, "[32,1024,3] -> [32,1024], [32,1024,1024] int8")
+          None, "[32,1024,3] -> [32,1024], [32,1024,1024] int8; ten calls "
+          f"back to back: ms={ten_ms(lambda: kk.kappa_fwd(pc, nrm, K)):.4f}")
 
     # --- kappa from a cached mask ------------------------------------------
     kf = kk.kappa_frommask(adv, normal_b, mask, K)
@@ -371,10 +419,12 @@ def kernel_checks(torch) -> list[dict]:
         bwd_max = gb_p.abs().max().item() if radius == "expansion" else None
         check(f"kappa_bwd[{radius}]", bwd_err[radius],
               2e-4 * gb_p.abs().max().item(), "grad")
-    # the curvature term's gradient is this backward at g = 2 (kappa - ref) / n
-    gb = kk.kappa_bwd(adv, normal_b, mask, (2.0 / N) * (kf - ref), K, "expansion")
-    # the same per-pair arithmetic summed in another atomic order
-    check("kappa_bwd[expansion]", (gb - gr).abs().max().item(),
+    # the curvature term's gradient is this backward (direct radius) at
+    # g = 2 (kappa - ref) / n, with kappa_fwd's kappa (the same selection)
+    kd = kk.kappa_fwd(adv, normal_b, K)[0]
+    gb = kk.kappa_bwd(adv, normal_b, mask, (2.0 / N) * (kd - ref), K, "direct")
+    # the same per-pair arithmetic summed in another order
+    check("kappa_bwd[direct]", (gb - gr).abs().max().item(),
           1e-5 * gr.abs().max().item(), "grad vs curv_term's own")
     entry("kappa_bwd", "geoa3_tpu_torch/csrc/kappa.cu",
           "geoa3_tpu/ops/pallas/kappa_kernel.py:258", max(bwd_err.values()),
@@ -439,7 +489,8 @@ def kernel_checks(torch) -> list[dict]:
           bound_ms(nbytes(adv, adv, *kres), 11.0 * pairs),
           time_ms(lambda: torch.topk(dmat, kq, largest=False)),
           "self-kNN [32,1024,3], k=17 -> [32,1024,17] x2, [32,1024,17,3] "
-          "(library: torch.topk on the precomputed distance matrix)")
+          "(library: torch.topk on the precomputed distance matrix); ten "
+          f"calls back to back: ms={ten_ms(lambda: qk.knn(adv, adv, kq)):.4f}")
     del dmat
 
     # --- pool forward / backward -------------------------------------------
@@ -564,6 +615,31 @@ def kernel_checks(torch) -> list[dict]:
           f"forward); taps=1: ms={b1['ms']:.4f} plain_ms={b1['plain_ms']:.4f} "
           f"bound_ms={b1['bound'][0]:.4f}")
     return out
+
+
+def curv_float64_gaps(torch, kk, cloud, normal, ref, mask, grad) -> dict:
+    """How far the float32 curvature gradients lie from their float64
+    evaluations on the same inputs, as a share of the largest entry: the
+    kernel's (`grad`) and the plain version's against the direct form in
+    float64, and the expansion form's (the port's form before, the JAX
+    package's composed path) against its own float64 evaluation."""
+    n = cloud.shape[1]
+
+    def expansion(c, nv, rv):
+        kap = kk.kappa_from_mask_plain(c, nv, mask, K)
+        return kk.kappa_bwd_plain(c, nv, mask, (2.0 / n) * (kap - rv), K,
+                                  "expansion")
+
+    c64, n64, r64 = cloud.double(), normal.double(), ref.double()
+    d64 = kk.curv_term_plain(c64, n64, r64, mask, K)[1]
+    e64 = expansion(c64, n64, r64)
+
+    def rel(g, w):
+        return ((g.double() - w).abs().max() / w.abs().max()).item()
+
+    return {"kernel": rel(grad, d64),
+            "direct": rel(kk.curv_term_plain(cloud, normal, ref, mask, K)[1], d64),
+            "expansion": rel(expansion(cloud, normal, ref), e64)}
 
 
 def pool_oracle_check(torch, pk, label, x, w3, bias, got) -> None:
@@ -1168,6 +1244,101 @@ def msg_kernel_checks(torch, kernels: list) -> list[dict]:
     return out
 
 
+def dense_kernel_checks(torch, kernels: list) -> None:
+    """Phase 2, last part: the streaming selection and the mask readers past
+    the main path's shapes. Rows 3, 5 and 11 bit-equal to their plain
+    versions at a ragged n = 1000 (b=2: most mask rows start off a 16-byte
+    boundary), at the reference's dense n = 10000 (b=2) and at 12288 (one
+    cloud), the kNN also at one query row against m = 10000 (the partial-
+    variable patch query); rows 8 and 9 at n = 1000 and row 8 at 10000;
+    row 4 at n = 1000 and 12288. The dense shapes' times and bounds join
+    the `shape` notes of `kernels`."""
+    from geoa3_tpu_torch.ops.kernels import kappa_kernel as kk, knn_kernel as qk
+
+    notes = {k_["name"]: [] for k_ in kernels}
+
+    def curv_case(label, pc, nrm, rng):
+        b_, n_, _ = pc.shape
+        mask = kk.kappa_selmask(pc, K)
+        ref = torch.from_numpy(np.abs(rng.randn(b_, n_)).astype(np.float32)).cuda()
+        adv = (pc + 1e-3 * torch.from_numpy(
+            rng.randn(b_, n_, 3).astype(np.float32)).cuda()).contiguous()
+        cv, gr = kk.curv_term(adv, nrm, ref, mask, K)
+        cv_p, gr_p = kk.curv_term_plain(adv, nrm, ref, mask, K)
+        # as at [32,1024]: sums in other orders, analytic against autograd
+        check(f"curv_term{label}", (cv - cv_p).abs().max().item(),
+              1e-5 * cv_p.abs().max().item(), "curv")
+        check(f"curv_term{label}", (gr - gr_p).abs().max().item(),
+              1e-4 * gr_p.abs().max().item(), "grad")
+        del cv_p, gr_p
+        notes["curv_term"].append(
+            f"{label}: ms={time_ms(lambda: kk.curv_term(adv, nrm, ref, mask, K), iters=5):.4f} "
+            f"bound_ms={bound_ms(nbytes(adv, nrm, ref, mask, cv, gr), 60.0 * b_ * n_ * (K + 1))[0]:.4f}")
+
+    ragged, dense, _ = DENSE_CHECKS
+    for b_, n_ in DENSE_CHECKS:
+        pc, nrm, rng = make_batch(torch, b_, n_, seed=30 + n_)
+        label = f"[{b_},{n_}]"
+        mask = kk.kappa_selmask(pc, K)
+        require_equal(torch, f"kappa_selmask{label}", mask,
+                      kk.kappa_selmask_plain(pc, K), "mask")
+        if not torch.all(mask.sum(-1, dtype=torch.int32) == K + 1):
+            _fail(f"kappa_selmask{label} rows do not hold k+1 members")
+        kp, km = kk.kappa_fwd(pc, nrm, K)
+        kp_p, km_p = kk.kappa_fwd_plain(pc, nrm, K)
+        require_equal(torch, f"kappa_fwd{label}", km, km_p, "mask")
+        # same selection and per-pair terms; the k-term sum in another order
+        check(f"kappa_fwd{label}", (kp - kp_p).abs().max().item(),
+              1e-5 * kp_p.abs().max().item(), "kappa")
+        del kp_p, km_p
+        knn_cases = {f"self k={K + 1}": (pc, pc, K + 1)}
+        if (b_, n_) == dense:
+            knn_cases["one query row k=4"] = (pc[:, 5:6].contiguous(), pc, 4)
+        for lab, (q_, p_, k_) in knn_cases.items():
+            for g_, w_, what in zip(qk.knn(q_, p_, k_), qk.knn_plain(q_, p_, k_),
+                                    ("dists", "idx", "nbrs")):
+                require_equal(torch, f"knn{label} {lab}", g_, w_, what)
+        print(f"  {label}: kappa_selmask, kappa_fwd's mask, knn at "
+              f"{list(knn_cases)} bit-equal to plain (required)")
+        g = torch.from_numpy(rng.randn(b_, n_).astype(np.float32)).cuda()
+        for radius in {ragged: ("direct", "expansion"), dense: ("direct",)}.get((b_, n_), ()):
+            gb = kk.kappa_bwd(pc, nrm, km, g, K, radius)
+            gb_p = kk.kappa_bwd_plain(pc, nrm, km, g, K, radius)
+            # as at [32,1024]
+            check(f"kappa_bwd[{radius}]{label}", (gb - gb_p).abs().max().item(),
+                  2e-4 * gb_p.abs().max().item(), "grad")
+            del gb_p
+        if (b_, n_) == ragged:
+            kf = kk.kappa_frommask(pc, nrm, km, K)
+            kf_p = kk.kappa_from_mask_plain(pc, nrm, km, K)
+            check(f"kappa_frommask{label}", (kf - kf_p).abs().max().item(),
+                  1e-5 * kf_p.abs().max().item(), "kappa")
+        if (b_, n_) != dense:
+            curv_case(label, pc, nrm, rng)
+        pairs_d = b_ * n_ * n_
+        notes["kappa_selmask"].append(
+            f"{label}: ms={time_ms(lambda: kk.kappa_selmask(pc, K), iters=5):.4f} "
+            f"bound_ms={bound_ms(nbytes(pc, mask), 11.0 * pairs_d)[0]:.4f}")
+        if (b_, n_) == dense:
+            kres = qk.knn(pc, pc, K + 1)
+            notes["kappa_fwd"].append(
+                f"{label}: ms={time_ms(lambda: kk.kappa_fwd(pc, nrm, K), iters=5):.4f} "
+                f"bound_ms={bound_ms(nbytes(pc, nrm, kp, km), 11.0 * pairs_d + 20.0 * b_ * n_ * K)[0]:.4f}")
+            notes["knn"].append(
+                f"{label} self k={K + 1}: ms={time_ms(lambda: qk.knn(pc, pc, K + 1), iters=5):.4f} "
+                f"bound_ms={bound_ms(nbytes(pc, pc, *kres), 11.0 * pairs_d)[0]:.4f}")
+            notes["kappa_bwd"].append(
+                f"{label} direct: ms={time_ms(lambda: kk.kappa_bwd(pc, nrm, km, g, K, 'direct'), iters=5):.4f} "
+                f"bound_ms={bound_ms(nbytes(pc, nrm, km, g, gb), 60.0 * b_ * n_ * (K + 1))[0]:.4f}")
+            del kres
+        del pc, nrm, mask, kp, km, g
+    torch.cuda.empty_cache()
+    for k_ in kernels:
+        if notes[k_["name"]]:
+            k_["shape"] += "; dense: " + "; ".join(notes[k_["name"]])
+            print(f"  {k_['name']} dense: " + "; ".join(notes[k_["name"]]))
+
+
 MAIN_PATH = ("nn1_payload", "scatter_add_3t", "kappa_selmask", "curv_term",
              "kappa_fwd", "pool_fwd", "pool_bwd")
 # kernels that no engine path launches (as in the JAX package): the public
@@ -1248,11 +1419,11 @@ def timed_attack(torch, fn, args, steps):
     return res, s.elapsed_time(e) / steps
 
 
-def check_result(torch, res, steps, label, n=N):
+def check_result(torch, res, steps, label, b=B, n=N):
     for name, t in res._asdict().items():
         if t.is_floating_point() and name != "best_loss" and not torch.isfinite(t).all():
             _fail(f"{label}: attack result {name} is not finite")
-    if res.best_attack.shape != (B, n, 3) or res.all_loss.shape != (steps, B):
+    if res.best_attack.shape != (b, n, 3) or res.all_loss.shape != (steps, b):
         _fail(f"{label}: attack result has the wrong shape")
 
 
@@ -1294,13 +1465,13 @@ def attack_phase(torch, paths) -> dict:
                 ms_step_exact=ms_step1, success=n_succ)
 
 
-def synthetic_labels(torch):
+def synthetic_labels(torch, b: int = B):
     """The ModelNet40 ids of workload.synthetic_batch's shape classes. A
     random victim does not predict them, so an untargeted attack against
     them succeeds at once for most instances."""
     from geoa3_tpu_torch.data.synthetic import TEN_LABEL_INDEXES
 
-    return torch.tensor([TEN_LABEL_INDEXES[i % 10] for i in range(B)],
+    return torch.tensor([TEN_LABEL_INDEXES[i % 10] for i in range(b)],
                         device="cuda")
 
 
@@ -1721,6 +1892,102 @@ def subsample_phase(torch, paths) -> dict:
     return dict(ms_per_step=ms_step, success=int(res.success.sum()))
 
 
+def dense_launches(mode: str, steps: int, phases: int) -> dict:
+    """Every kernel's launches in `steps` steps of the dense attack, read
+    from the code. Both modes: the kappa prologue at n = 10000 once; per
+    step the 1-NN payload, the o2a Chamfer scatter, PointNet's three pools
+    forward and backward, and the curvature term through the fused kappa
+    forward and its backward (no mask is held). Subsample mode adds per step
+    FPS for the loss and for the one-vote resampling (and the vote's forward:
+    three more pools), and the FPS gather's backward scatter; kappa runs at
+    npoint = 1024. Partial-variable mode runs the victim and kappa on the
+    whole cloud and the patch's kNN query once a phase."""
+    from geoa3_tpu_torch.ops.kernels import KERNELS
+
+    want = dict.fromkeys(KERNELS, 0)
+    want.update(nn1_payload=steps, scatter_add_3t=steps, pool_fwd=3 * steps,
+                pool_bwd=3 * steps, kappa_fwd=steps + 1, kappa_bwd=steps)
+    if mode == "subsample":
+        want.update(fps=2 * steps, scatter_add_3t=2 * steps, pool_fwd=6 * steps)
+    else:
+        want.update(knn=phases)
+    return want
+
+
+def dense_phase(torch, paths) -> dict:
+    """Phase 9: dense clouds, the reference's modelnet_pure size (b = 16,
+    n = 10000), with runs/bench_dense.py's configuration: PointNet at npoint
+    1024, CE + Chamfer + 0.1 Hausdorff + curvature 1.0 with k = 16, subsample
+    mode with one resampling vote, 1 x 20 steps; and the same loss in
+    partial-variable mode, 1 x 20 steps = 2 phases. The 1-NN payload at
+    [16,1024] x [16,10000] and FPS at [16,10000] -> 1024 (the subsample
+    path's shapes) are first held bit-equal to their plain versions. Each
+    run's launches must equal the counts read from the code; the ms/step
+    and the peak device memory are printed."""
+    import dataclasses
+
+    from geoa3_tpu_torch import make_attack_fn, ops
+    from geoa3_tpu_torch.ops.kernels import fps_kernel as fk, nn1_kernel as nk
+    from geoa3_tpu_torch.workload import main_path_config, random_victim
+
+    _, logits_fn = random_victim("PointNet", seed=0)
+    pc, nrm, rng = make_batch(torch, DENSE_B, DENSE_N, seed=9)
+    gt = synthetic_labels(torch, DENSE_B)
+
+    start = torch.from_numpy(rng.randint(0, DENSE_N, DENSE_B).astype(np.int32)).cuda()
+    idx = fk.fps(pc, N, start, False)
+    shape = f"[{DENSE_B},{DENSE_N}]"
+    require_equal(torch, f"fps{shape}->{N}", idx,
+                  fk.fps_plain(pc, N, start, False), "idx")
+    sub = ops.gather_points(pc, idx)
+    sub = (sub + 1e-3 * torch.from_numpy(
+        rng.randn(DENSE_B, N, 3).astype(np.float32)).cuda()).contiguous()
+    pay = torch.cat([pc.transpose(1, 2), nrm.transpose(1, 2),
+                     torch.zeros(DENSE_B, 2, DENSE_N, device="cuda")], 1).contiguous()
+    for g_, w_, what in zip(nk.nn1_dual_payload(sub, pc, pay),
+                            nk.nn1_dual_payload_plain(sub, pc, pay),
+                            ("a2o", "o2a", "gp", "op")):
+        require_equal(torch, f"nn1_payload[{DENSE_B},{N}]x{shape}", g_, w_, what)
+    nn1_ms = time_ms(lambda: nk.nn1_dual_payload(sub, pc, pay))
+    print(f"  fps {shape}->{N} and nn1_payload [{DENSE_B},{N}]x{shape} "
+          f"bit-equal to plain (required); nn1_payload ms={nn1_ms:.4f}")
+
+    steps = 20
+    base = dataclasses.replace(main_path_config(1, steps), is_subsample_opt=True,
+                               eval_num=1)
+    cfgs = {"subsample": base,
+            "partial-var": dataclasses.replace(base, is_partial_var=True,
+                                               partial_reinit_every=steps // 2)}
+    need = {"subsample": ("nn1_payload", "scatter_add_3t", "kappa_fwd",
+                          "kappa_bwd", "fps", "pool_fwd", "pool_bwd"),
+            "partial-var": ("nn1_payload", "scatter_add_3t", "kappa_fwd",
+                            "kappa_bwd", "knn", "pool_fwd", "pool_bwd")}
+    out = dict(nn1_payload_ms=nn1_ms)
+    for mode, cfg in cfgs.items():
+        def run(seed, cfg=cfg):
+            fn = make_attack_fn(logits_fn, cfg)
+            gen = torch.Generator(device="cuda").manual_seed(seed)
+            return timed_attack(torch, fn, (pc, nrm, gt, gt, gen), steps)
+
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        (res, ms_step), counts = paths.run(f"dense {mode}", need[mode],
+                                           lambda: run(5))
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        check_result(torch, res, steps, f"dense {mode}", b=DENSE_B, n=DENSE_N)
+        want = dense_launches("subsample" if mode == "subsample" else "partial",
+                              steps, steps // cfg.partial_reinit_every)
+        if counts != want:
+            _fail(f"dense {mode} launches {counts}, expected {want}")
+        print(f"  dense {mode}: {shape}, 1x{steps} steps, {ms_step:.4f} "
+              f"ms/step (CUDA events, the n = {DENSE_N} kappa prologue "
+              f"included), peak device memory {peak:.2f} GiB, "
+              f"success {int(res.success.sum())}/{DENSE_B}")
+        out[mode] = dict(ms_per_step=ms_step, peak_gib=peak,
+                         success=int(res.success.sum()))
+    return out
+
+
 def cpu_agreement(torch) -> None:
     """A short attack on the card against the same attack on the CPU (the
     kernels' plain versions), from the same weights and initial offsets."""
@@ -1788,6 +2055,7 @@ def main() -> int:
     phase("phase 2: kernels against their plain versions")
     kernels = kernel_checks(torch) + ssg_kernel_checks(torch)
     kernels += msg_kernel_checks(torch, kernels)
+    dense_kernel_checks(torch, kernels)
     if args.kernels_only:
         print(json.dumps({"kernels": kernels}))
         return 0
@@ -1817,7 +2085,10 @@ def main() -> int:
     pointnetpp_cpu_agreement(torch, "PointNetPP_MSG")
     cli.update(cli_more_runs(torch, paths))
 
-    phase("phase 9: the result")
+    phase("phase 9: dense clouds (n = 10000) in subsample and partial-variable mode")
+    dense = dense_phase(torch, paths)
+
+    phase("phase 10: the result")
     paths.check_union()
     for k in kernels:
         k["launches"], k["launches_by_path"] = paths.launches(k["name"])
@@ -1828,7 +2099,7 @@ def main() -> int:
                    "launches_exact": run["counts_exact"],
                    "success": run["success"], "batch": B, "card": smi},
         "side_modes": side, "cli": cli, "ssg": ssg, "msg": msg,
-        "subsample_uniform": sub,
+        "subsample_uniform": sub, "dense": dense,
     }))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -11,75 +11,66 @@
 //
 // The TPU kernel knocks the row minimum out of a VMEM-resident distance block
 // k times and copies coordinates by one-hot masked sums, because it has no
-// gather. Here one warp owns a query row (the design of kappa.cu's
-// selection): the row's distances sit in shared memory, and round r takes the
-// warp-wide minimum over 64-bit (distance bits, index) keys strictly above
-// round r-1's key, then lane 0 writes that neighbour's distance, index and
-// coordinates from the staged points.
+// gather. Here the selection is select.cuh's streaming one (shared with the
+// kappa selection): the block streams the points through shared memory in
+// tiles of 1024, each warp keeps its four rows' k best keys sorted across its
+// lanes (one key a lane for k <= 32, two for k <= 64), and lane p writes the
+// row's p-th neighbour: distance, index and coordinates. m is bounded by
+// nothing but the outputs.
 //
-// Bound on the H100: operations (b*n*m distance evaluations plus k passes of
-// key comparisons over each row, against a few MB of inputs and outputs).
-#include "common.cuh"
+// Bound on the H100: operations (b*n*m distance evaluations and key
+// comparisons, against a few MB of inputs and outputs).
+#include "select.cuh"
 
 namespace {
 
 constexpr int kWarps = 8;
-constexpr int kRowsPerWarp = 4;
-constexpr int kRowsPerBlock = kWarps * kRowsPerWarp;
+constexpr int kRows = 4;  // rows a warp selects at once
+constexpr int kRowsPerBlock = kWarps * kRows;
 
-__global__ void knn_kernel(const float* __restrict__ query,
-                           const float* __restrict__ points, int n, int m,
-                           int k, float* __restrict__ dists,
-                           int* __restrict__ idx, float* __restrict__ nbrs) {
-  extern __shared__ float smem[];
-  float* sx = smem;
-  float* sy = sx + m;
-  float* sz = sy + m;
-  float* s2 = sz + m;
+template <int kKPL>
+__global__ void __launch_bounds__(kWarps * 32)
+    knn_kernel(const float* __restrict__ query, const float* __restrict__ points,
+               int n, int m, int k, float* __restrict__ dists,
+               int* __restrict__ idx, float* __restrict__ nbrs) {
+  __shared__ float4 tile[geoa3::kTile];
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  float* drow = s2 + m + (size_t)warp * m;
   const int b = blockIdx.y;
   const float* P = points + (size_t)b * m * 3;
-  for (int j = threadIdx.x; j < m; j += blockDim.x) {
-    const float x = P[j * 3], y = P[j * 3 + 1], z = P[j * 3 + 2];
-    sx[j] = x;
-    sy[j] = y;
-    sz[j] = z;
-    s2[j] = geoa3_sq3(x, y, z);
+  int row[kRows];
+  float q[kRows][4];
+#pragma unroll
+  for (int r = 0; r < kRows; ++r) {
+    const int i = blockIdx.x * kRowsPerBlock + warp * kRows + r;
+    row[r] = i < n ? i : -1;
+    const float* Q = query + ((size_t)b * n + min(i, n - 1)) * 3;
+    q[r][0] = Q[0];
+    q[r][1] = Q[1];
+    q[r][2] = Q[2];
+    q[r][3] = geoa3_sq3(q[r][0], q[r][1], q[r][2]);
   }
-  __syncthreads();
+  geoa3::WarpList<kKPL> list[kRows];
+  geoa3::select_rows<kKPL, kRows, false>(P, m, tile, q, row, k, list);
 
-  for (int rr = 0; rr < kRowsPerWarp; ++rr) {
-    const int i = blockIdx.x * kRowsPerBlock + warp * kRowsPerWarp + rr;
-    if (i >= n) break;  // warp-uniform
-    const float* Q = query + ((size_t)b * n + i) * 3;
-    const float qx = Q[0], qy = Q[1], qz = Q[2];
-    const float q2 = geoa3_sq3(qx, qy, qz);
-    for (int j = lane; j < m; j += 32)
-      drow[j] = geoa3_sqdist(q2, s2[j], geoa3_dot3(qx, qy, qz, sx[j], sy[j], sz[j]));
-    __syncwarp();
-
-    const size_t out = ((size_t)b * n + i) * k;
-    unsigned long long prev = 0ull;
-    for (int r = 0; r < k; ++r) {
-      unsigned long long best = ~0ull;
-      for (int j = lane; j < m; j += 32) {
-        const unsigned long long key = geoa3_key(drow[j], j);
-        if (key > prev && key < best) best = key;
-      }
-      prev = geoa3_warp_min_u64(best);
-      if (lane == 0) {
-        const unsigned long long raw = prev - 1ull;
-        const int j = (int)(raw & 0xffffffffull);
-        dists[out + r] = __uint_as_float((unsigned int)(raw >> 32));
-        idx[out + r] = j;
-        float* nb = nbrs + (out + r) * 3;
-        nb[0] = sx[j];
-        nb[1] = sy[j];
-        nb[2] = sz[j];
+#pragma unroll
+  for (int r = 0; r < kRows; ++r) {
+    if (row[r] < 0) continue;  // warp-uniform
+    const size_t out = ((size_t)b * n + row[r]) * k;
+#pragma unroll
+    for (int s = 0; s < kKPL; ++s) {
+      const int p = 32 * s + lane;
+      if (p < k) {
+        const unsigned long long key = list[r].v[s];
+        const int j = list[r].index(s);
+        dists[out + p] = __uint_as_float((unsigned int)(key >> 32));
+        idx[out + p] = j;
+        float* nb = nbrs + (out + p) * 3;
+        const float* src = P + (size_t)j * 3;
+        nb[0] = src[0];
+        nb[1] = src[1];
+        nb[2] = src[2];
       }
     }
-    __syncwarp();  // drow is rewritten for the next row
   }
 }
 
@@ -88,12 +79,13 @@ __global__ void knn_kernel(const float* __restrict__ query,
 extern "C" int geoa3_knn(const float* query, const float* points, int b, int n,
                          int m, int k, float* dists, int* idx, float* nbrs,
                          void* stream) {
-  const size_t smem = (size_t)(4 + kWarps) * m * sizeof(float);
-  cudaError_t e = cudaFuncSetAttribute(
-      knn_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (e != cudaSuccess) return (int)e;
   dim3 grid((n + kRowsPerBlock - 1) / kRowsPerBlock, b);
-  knn_kernel<<<grid, kWarps * 32, smem, static_cast<cudaStream_t>(stream)>>>(
-      query, points, n, m, k, dists, idx, nbrs);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (k <= 32)
+    knn_kernel<1><<<grid, kWarps * 32, 0, s>>>(query, points, n, m, k, dists,
+                                               idx, nbrs);
+  else
+    knn_kernel<2><<<grid, kWarps * 32, 0, s>>>(query, points, n, m, k, dists,
+                                               idx, nbrs);
   return (int)cudaGetLastError();
 }

@@ -10,19 +10,26 @@ selection; the packed mode is a TPU layout option left for later):
   * `kappa_frommask` <- `_kappa_frommask_kernel` (`_kappa_frommask_call`)
   * `kappa_bwd`      <- `_kappa_bwd_kernel` (`_kappa_bwd_call`)
 
-Source: csrc/kappa.cu. Bound on the H100: bytes, the [b, n, n] int8 mask
-written by the selection or read by the curvature term (32 MB at the main
-path's [32, 1024, 1024]). One warp owns a row; the selection is one device
-function shared by the first two kernels, and the curvature term visits only
-the k+1 columns set in each mask row. Selection distances are rounded step by
-step like `pairwise_sqdist`, so masks are bitwise the plain version's.
+Source: csrc/kappa.cu (+ csrc/select.cuh, the selection it shares with the
+kNN). Bound on the H100: bytes, the [b, n, n] int8 mask written by the
+selection or read by the other three (32 MB at the main path's
+[32, 1024, 1024]). The selection streams the cloud through shared memory
+and keeps each row's k best keys in a warp's registers, so it takes any n
+the output fits; its distances are rounded step by step like
+`pairwise_sqdist`, so masks are bitwise the plain version's. The mask
+consumers stage the cloud (12 n bytes of shared memory: n <= MASK_MAX_N),
+read each mask row once and give each of its k+1 members a lane; the
+gradients are summed with global atomics.
 
-The curvature term follows the composed path of geoa3_tpu/ops/knn.py
-(`knn_kappa_from_mask`): 1 / max(sqrt(d), 1e-12) with the square root (and
-its gradient) gated off where d == 0, not the TPU kernel's clamp-free rsqrt.
-`kappa_frommask` is that term's kappa; `kappa_fwd` takes the radius from the
-direct difference |p_j - p_i| instead, as the composed `knn_kappa` does.
-`kappa_bwd` is the gradient of either forward: see its docstring.
+Two forms of the pair term. The direct one, |unit(p_j - p_i) . n_i| with
+unit(v) = v / max(|v|, 1e-12), is what the reference's normalize computes,
+what the TPU's curvature term builds from per-plane differences and what
+the JAX engine's CPU path composes: `kappa_fwd` and `curv_term` use it. The
+expansion one, |n_i.p_j - n_i.p_i| / max(sqrt(d), 1e-12) with d from the
+distance expansion and the square root (and its gradient) gated off where
+d == 0, is the TPU's `_kappa_frommask_kernel` and the JAX package's composed
+`knn_kappa_from_mask`: `kappa_frommask` uses it. `kappa_bwd` is the
+gradient of either: see its docstring.
 """
 
 from __future__ import annotations
@@ -33,7 +40,11 @@ from geoa3_tpu_torch.ops.distance import pairwise_sqdist, sqnorm3
 from geoa3_tpu_torch.ops.kernels import _build
 
 EPS = 1e-12  # the reference normalisation clamp (Lib/loss_utils.py:79)
-MAX_N = 4096  # the selection keeps 12 rows of n floats in shared memory
+MAX_K = 64  # the selection keeps a row's k best keys in two registers a lane
+# The mask consumers stage the cloud as three float planes beside one list
+# of k+1 members and one partial sum for each of 16 warps in a block's
+# 232,448 bytes of shared memory.
+MASK_MAX_N = (232448 - 16 * (MAX_K + 1) * 4 - 16 * 4) // 12  # 19,018
 
 
 def select_idx_plain(cloud, k):
@@ -115,11 +126,11 @@ def kappa_from_mask_plain(cloud, normal, mask, k):
 
 
 def curv_term_plain(cloud, normal, ref, mask, k):
-    """Plain PyTorch version of `curv_term`: the composed term and its
-    gradient by autograd."""
+    """Plain PyTorch version of `curv_term`: the direct-form term from the
+    mask's members and its gradient by autograd."""
     with torch.enable_grad():
         c = cloud.detach().requires_grad_(True)
-        kappa = kappa_from_mask_plain(c, normal, mask, k)
+        kappa = kappa_direct_from_mask_plain(c, normal, mask, k)
         curv = ((kappa - ref) ** 2).mean(-1)
         (grad,) = torch.autograd.grad(curv.sum(), c)
     return curv.detach(), grad
@@ -139,17 +150,21 @@ def kappa_bwd_plain(cloud, normal, mask, g, k, radius):
     return grad
 
 
-def _check_k(n, k):
+def _check_k(n, k, max_n=None):
     if not 0 <= k < n:
         raise ValueError(f"need 0 <= k < n, got k={k}, n={n}")
-    if n > MAX_N:
-        raise ValueError(f"the kappa kernels take n <= {MAX_N}, got {n}")
+    if k > MAX_K:
+        raise ValueError(f"the kappa kernels take k <= {MAX_K}, got {k}")
+    if max_n is not None and n > max_n:
+        raise ValueError(f"the mask-reading kappa kernels take n <= {max_n}, "
+                         f"got {n}")
 
 
 def kappa_selmask(cloud, k):
     """cloud [b, n, 3] -> [b, n, n] int8 membership mask: each row holds
-    itself plus its k nearest other points (lowest index on ties). CPU
-    tensors take the plain version; CUDA tensors launch the kernel."""
+    itself plus its k nearest other points (lowest index on ties). Any n
+    whose mask fits; k <= MAX_K. CPU tensors take the plain version; CUDA
+    tensors launch the kernel."""
     if not cloud.is_cuda:
         return kappa_selmask_plain(cloud, k)
     b, n, _ = cloud.shape
@@ -165,7 +180,8 @@ def kappa_fwd(cloud, normal, k):
     """cloud, normal [b, n, 3] -> (kappa [b, n], mask [b, n, n] int8) with
     kappa_i = mean over the k nearest other points j of
     |unit(p_j - p_i) . n_i|. Its gradient is `kappa_bwd(..., "direct")`.
-    CPU tensors take the plain version; CUDA tensors launch the kernel."""
+    Any n whose mask fits; k <= MAX_K. CPU tensors take the plain version;
+    CUDA tensors launch the kernel."""
     if not cloud.is_cuda:
         return kappa_fwd_plain(cloud, normal, k)
     b, n, _ = cloud.shape
@@ -180,19 +196,22 @@ def kappa_fwd(cloud, normal, k):
 
 
 def curv_term(cloud, normal, ref, mask, k):
-    """cloud, normal [b, n, 3], ref [b, n], mask [b, n, n] int8 ->
-    (curv [b] = mean_i (kappa_i - ref_i)^2, d curv / d cloud [b, n, 3]).
-    CPU tensors take the plain version; CUDA tensors launch the kernel."""
+    """cloud, normal [b, n, 3], ref [b, n], mask [b, n, n] int8 (k+1
+    members a row, self included) -> (curv [b] = mean_i (kappa_i - ref_i)^2,
+    d curv / d cloud [b, n, 3]) with kappa in the direct form. n <=
+    MASK_MAX_N. The kernel adds into outputs it zeroes on the stream with
+    global atomics, so the sums vary in the last bits from run to run. CPU
+    tensors take the plain version; CUDA tensors launch the kernel."""
     if not cloud.is_cuda:
         return curv_term_plain(cloud, normal, ref, mask, k)
     b, n, _ = cloud.shape
-    _check_k(n, k)
+    _check_k(n, k, MASK_MAX_N)
     _build.check_cuda(cloud, "cloud", torch.float32, (b, n, 3))
     _build.check_cuda(normal, "normal", torch.float32, (b, n, 3))
     _build.check_cuda(ref, "ref", torch.float32, (b, n))
     _build.check_cuda(mask, "mask", torch.int8, (b, n, n))
-    curv = torch.zeros(b, dtype=torch.float32, device=cloud.device)
-    grad = torch.zeros(b, n, 3, dtype=torch.float32, device=cloud.device)
+    curv = torch.empty(b, dtype=torch.float32, device=cloud.device)
+    grad = torch.empty(b, n, 3, dtype=torch.float32, device=cloud.device)
     _build.launch("geoa3_curv_term", cloud, normal, ref, mask, b, n, k, curv,
                   grad)
     curv_term.launches += 1
@@ -202,13 +221,13 @@ def curv_term(cloud, normal, ref, mask, k):
 def kappa_frommask(cloud, normal, mask, k):
     """cloud, normal [b, n, 3], mask [b, n, n] int8 -> kappa [b, n] =
     sum_j mask_ij |n_i.p_j - n_i.p_i| / max(r_ij, 1e-12) / k with r_ij the
-    square root of the expansion distance (the curvature term's kappa). Its
-    gradient is `kappa_bwd(..., "expansion")`. CPU tensors take the plain
-    version; CUDA tensors launch the kernel."""
+    square root of the expansion distance (the TPU kernel's form). Its
+    gradient is `kappa_bwd(..., "expansion")`. n <= MASK_MAX_N. CPU tensors
+    take the plain version; CUDA tensors launch the kernel."""
     if not cloud.is_cuda:
         return kappa_from_mask_plain(cloud, normal, mask, k)
     b, n, _ = cloud.shape
-    _check_k(n, k)
+    _check_k(n, k, MASK_MAX_N)
     _build.check_cuda(cloud, "cloud", torch.float32, (b, n, 3))
     _build.check_cuda(normal, "normal", torch.float32, (b, n, 3))
     _build.check_cuda(mask, "mask", torch.int8, (b, n, n))
@@ -227,21 +246,22 @@ def kappa_bwd(cloud, normal, mask, g, k, radius):
 
       * radius="direct": `kappa_fwd`, r_ij = |p_j - p_i| from the direct
         difference;
-      * radius="expansion": `kappa_frommask` (and `curv_term`), r_ij = the
-        square root of the expansion distance, gated at 0.
+      * radius="expansion": `kappa_frommask`, r_ij = the square root of
+        the expansion distance, gated at 0.
 
     (The TPU package shares one backward because both its forwards use the
     expansion.) One device function, templated on the radius, serves both.
     |x|'(0) = 0 on the self column and on coincident points, and the radius
     passes no gradient at or below the 1e-12 clamp. Neighbour-side terms are
-    added with atomics, so sums vary in the last bits from run to run. CPU
-    tensors take the plain version; CUDA tensors launch the kernel."""
+    added with atomics, so sums vary in the last bits from run to run. n <=
+    MASK_MAX_N. CPU tensors take the plain version; CUDA tensors launch the
+    kernel."""
     if radius not in RADII:
         raise ValueError(f"radius must be one of {RADII}, got {radius!r}")
     if not cloud.is_cuda:
         return kappa_bwd_plain(cloud, normal, mask, g, k, radius)
     b, n, _ = cloud.shape
-    _check_k(n, k)
+    _check_k(n, k, MASK_MAX_N)
     _build.check_cuda(cloud, "cloud", torch.float32, (b, n, 3))
     _build.check_cuda(normal, "normal", torch.float32, (b, n, 3))
     _build.check_cuda(mask, "mask", torch.int8, (b, n, n))

@@ -3,20 +3,20 @@
 Replaces geoa3_tpu/ops/pallas/knn_kernel.py:_knn_kernel (`knn_pallas`,
 `knn_pallas_planes`). Source: csrc/knn.cu.
 
-Bound on the H100: operations (b*n*m distance evaluations and k passes of
-key comparisons over each row, against a few MB of inputs and outputs). One
-warp owns a query row: its distances sit in shared memory, and round r takes
-the warp-wide minimum over (distance bits, index) keys strictly above round
-r-1's, writing that neighbour's distance, index and coordinates, so the
-output is ordered and ties go to the lowest index. Distances are rounded step
-by step like `pairwise_sqdist`, so the kernel orders bitwise what the plain
-version does. A point's own column is not special here: it competes like any
-other (the self-first rule belongs to the kappa kernels).
+Bound on the H100: operations (b*n*m distance evaluations and key
+comparisons, against a few MB of inputs and outputs). The selection is
+csrc/select.cuh's, shared with the kappa selection: the block streams the
+points through shared memory in tiles of 1024, and each warp keeps its rows'
+k best (distance bits, index) keys sorted across its lanes, so the output is
+ordered and ties go to the lowest index. Distances are rounded step by step
+like `pairwise_sqdist`, so the kernel orders bitwise what the plain version
+does. A point's own column is not special here: it competes like any other
+(the self-first rule belongs to the kappa kernels).
 
-Limits: 1 <= k <= min(m, 64) (ops.knn_points takes k == 1 as an argmin, as
-the JAX package does); m <= 4096 (the block keeps 12 rows of m floats in shared
-memory); b <= 65535 (the batch is the grid's second axis; the uniform loss
-calls with b * npoint / 20 groups as the batch).
+Limits: 1 <= k <= min(m, 64) on every device (ops.knn_points takes k == 1 as
+an argmin, as the JAX package does); any m; on the card b <= 65535 (the
+batch is the grid's second axis; the uniform loss calls with b * npoint / 20
+groups as the batch).
 """
 
 from __future__ import annotations
@@ -26,8 +26,7 @@ import torch
 from geoa3_tpu_torch.ops.distance import pairwise_sqdist
 from geoa3_tpu_torch.ops.kernels import _build
 
-MAX_K = 64
-MAX_M = 4096  # (4 + 8 warps) * m floats of shared memory
+MAX_K = 64  # two keys a lane of the warp's list
 MAX_B = 65535  # gridDim.y
 
 
@@ -50,8 +49,6 @@ def knn_plain(query, points, k):
 def _check(m, k):
     if not 1 <= k <= min(m, MAX_K):
         raise ValueError(f"knn takes 1 <= k <= min(m, {MAX_K}), got k={k}, m={m}")
-    if m > MAX_M:
-        raise ValueError(f"the knn kernel takes m <= {MAX_M}, got {m}")
 
 
 def knn(query, points, k):

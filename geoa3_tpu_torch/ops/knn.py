@@ -219,10 +219,11 @@ class _CurvTerm(torch.autograd.Function):
 def curv_term_from_mask(cloud, normal, ref, mask, k: int):
     """Per-instance curvature term with a cached selection mask: cloud,
     normal [b, n, 3], ref [b, n] (the 1-NN ori kappa), mask [b, n, n] int8
-    -> [b] = mean_i (kappa_i - ref_i)^2 (reference curvature_loss,
-    Lib/loss_utils.py:84-97). Differentiable in `cloud` only: the kernel
-    emits the gradient with the value, so the backward scales it by the
-    per-instance cotangent."""
+    -> [b] = mean_i (kappa_i - ref_i)^2 with kappa_i the mean over the
+    mask's other members j of |unit(p_j - p_i) . n_i| from the direct
+    difference (reference curvature_loss, Lib/loss_utils.py:84-97).
+    Differentiable in `cloud` only: the kernel emits the gradient with the
+    value, so the backward scales it by the per-instance cotangent."""
     return _CurvTerm.apply(
         cloud.contiguous(), normal.detach().contiguous(),
         ref.detach().contiguous(), mask, k,

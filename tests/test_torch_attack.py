@@ -6,10 +6,9 @@ The JAX engine's initial offsets are reproduced from its key splits and
 injected into the port through `init_offset`.
 
 Where the two differ in arithmetic: the JAX engine's CPU path computes the
-curvature statistic from gathered neighbours with direct differences; the
-port reads a selection mask and takes norms from the distance expansion (the
-kernels' form). Both pick the same neighbours, and kappa agrees to ~1e-5
-relative, which 40 Adam steps carry into the loss trajectories.
+curvature statistic from gathered neighbours, the port from a selection
+mask; both pick the same neighbours and take direct differences, and float32
+sums in other orders, which 40 Adam steps carry into the loss trajectories.
 """
 
 import jax
@@ -107,8 +106,7 @@ def test_forward_losses_value_and_grad(setup):
     )
     tl.backward()
     for name in ("cls_loss", "dis_loss", "hd_loss", "curv_loss", "loss_n"):
-        # float32 victim and loss sums in other orders; kappa's norms from
-        # the expansion against direct differences (~1e-5 relative)
+        # float32 victim and loss sums in other orders
         np.testing.assert_allclose(
             getattr(taux, name).detach().numpy(), np.asarray(getattr(jaux, name)),
             rtol=1e-4, atol=1e-6, err_msg=name,

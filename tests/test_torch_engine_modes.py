@@ -58,7 +58,7 @@ class JaxDraws:
         for bs in range(BS):
             for phase in range(ITERS // cfg.partial_reinit_every):
                 k, k_pt, k_off, _ = jax.random.split(k, 4)
-                self.seeds[bs, phase] = int(jax.random.randint(k_pt, (), 0, N))
+                self.seeds[bs, phase] = int(jax.random.randint(k_pt, (), 0, n))
                 self.parts[bs, phase] = np.asarray(1e-3 * jax.random.normal(
                     k_off, (B, cfg.knn_range, 3), jnp.float32))
 
@@ -181,6 +181,58 @@ def test_subsample_mode_matches_jax(setup, big_clouds, mode):  # noqa: F811
     np.testing.assert_array_equal(got.success.numpy(), np.asarray(want.success))
     np.testing.assert_array_equal(got.best_attack_bs_idx.numpy(),
                                   np.asarray(want.best_attack_bs_idx))
+    np.testing.assert_array_equal(got.best_attack_step.numpy(),
+                                  np.asarray(want.best_attack_step))
+    assert got.success[1]
+    # the tolerances of test_side_mode_matches_jax
+    np.testing.assert_allclose(got.all_loss.numpy(), np.asarray(want.all_loss),
+                               rtol=1e-4, atol=1e-6)
+    np.testing.assert_allclose(got.best_loss.numpy(), np.asarray(want.best_loss),
+                               rtol=5e-3)
+    np.testing.assert_allclose(got.best_attack.numpy(), np.asarray(want.best_attack),
+                               rtol=0, atol=5e-3)
+
+
+DENSE_N = 4352  # 17 * 256: past the 4096 points the kappa and kNN kernels once took
+DENSE = {
+    # the prologue's kappa at n = 4352, the loss's at npoint = 256
+    "subsample": dict(npoint=256, is_subsample_opt=True, eval_num=3,
+                      iter_max_steps=3),
+    # kappa and its backward at n = 4352 on every step, the patch's kNN
+    # query against m = 4352 points once a phase
+    "partial_var": dict(is_partial_var=True, knn_range=3, optim="sgd",
+                        lr=0.001, partial_reinit_every=1, iter_max_steps=2),
+}
+
+
+@pytest.fixture(scope="module")
+def dense_clouds():
+    from geoa3_tpu_torch.data.synthetic import sample_shape
+
+    rng = np.random.RandomState(15)
+    pcs, nrms = zip(*(sample_shape(i, DENSE_N, rng) for i in (2, 7)))
+    return np.stack(pcs), np.stack(nrms)
+
+
+@pytest.mark.parametrize("mode", sorted(DENSE))
+def test_dense_cloud_matches_jax(setup, dense_clouds, mode):  # noqa: F811
+    """Clouds of 4352 points (the reference's dense clouds, cut to a CPU
+    test's size) in subsample and partial-variable mode, one search step."""
+    jfn, tfn, _, _, _ = setup
+    pc, nrm = dense_clouds
+    # instance 0 is labelled with its cloud's class, instance 1 with another
+    # one (it succeeds from the first step)
+    pred = np.asarray(jfn(jnp.asarray(pc[:, ::17]))).argmax(-1)
+    gt = np.array([pred[0], (pred[1] + 1) % CFG["classes"]], np.int64)
+    cfg = dict(CFG, binary_max_steps=1, **DENSE[mode])
+    key = jax.random.PRNGKey(17)
+    want = jengine.make_attack_fn(jfn, JConfig(**cfg))(
+        jnp.asarray(pc), jnp.asarray(nrm), jnp.asarray(gt), jnp.asarray(gt), key
+    )
+    got = _run_port(tfn, pc, nrm, gt, cfg, JaxDraws(key, JConfig(**cfg), n=DENSE_N))
+
+    assert got.best_attack.shape == (B, DENSE_N, 3)
+    np.testing.assert_array_equal(got.success.numpy(), np.asarray(want.success))
     np.testing.assert_array_equal(got.best_attack_step.numpy(),
                                   np.asarray(want.best_attack_step))
     assert got.success[1]

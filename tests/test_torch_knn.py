@@ -15,7 +15,9 @@ import pytest
 import torch
 from jax.experimental.pallas import tpu as pltpu
 
+from geoa3_tpu import losses as jlosses
 from geoa3_tpu import ops as jops
+from geoa3_tpu_torch import losses as tlosses
 from geoa3_tpu_torch import ops as tops
 from geoa3_tpu_torch.ops.kernels import kappa_kernel as kk
 from geoa3_tpu_torch.ops.kernels import knn_kernel as qk
@@ -25,6 +27,7 @@ from tests.test_torch_ops import HILO, _cloud, _t, _with_ties
 
 torch.set_num_threads(1)
 B, N, K = 2, 128, 8
+DENSE = 4500  # past the 4096 points the kNN and kappa kernels once took
 
 
 def _knn_case(name):
@@ -129,8 +132,21 @@ class TestKNN:
             qk.knn(c, c, qk.MAX_K + 1)
         with pytest.raises(ValueError, match="k"):
             qk.knn(c, c[:, :4], 5)
-        with pytest.raises(ValueError, match="m <="):
-            qk.knn(c, torch.zeros(B, qk.MAX_M + 1, 3), 2)
+
+    def test_dense_points_match_composed(self):
+        """m = 4500, past the 4096 points the kernel once took: the CPU path
+        has no limit on m, as the JAX package's composed top_k has none."""
+        c, _, rng = _cloud(40, 1, DENSE)
+        q = (c[:, :400] + 0.01 * rng.randn(1, 400, 3)).astype(np.float32)
+        want = jops.knn_points(jnp.asarray(q), jnp.asarray(c), K)
+        _, idx, nbrs = qk.knn(_t(q), _t(c), K)
+        got = tops.knn_points(_t(q), _t(c), K)
+        for i_, n_ in ((idx, nbrs), (got.idx, got.nbrs)):
+            np.testing.assert_array_equal(i_.numpy(), np.asarray(want.idx))
+            np.testing.assert_array_equal(n_.numpy(), np.asarray(want.nbrs))
+        # both recompute the distances from the gathered coordinates
+        np.testing.assert_allclose(got.dists.numpy(), np.asarray(want.dists),
+                                   rtol=1e-6, atol=1e-9)
 
 
 class TestGathers:
@@ -328,6 +344,30 @@ class TestKappaBwd:
         # through a gather here
         np.testing.assert_allclose(p.grad.numpy(), wg, rtol=1e-4,
                                    atol=1e-5 * np.abs(wg).max())
+
+    def test_knn_kappa_and_kappa_ori_on_a_dense_cloud(self):
+        """n = 4500, past the 4096 points the kappa kernels once took: the
+        differentiable kappa and the attack's prologue against the JAX
+        package's composed paths."""
+        c, nrm, rng = _cloud(41, 1, DENSE)
+        w = rng.randn(1, DENSE).astype(np.float32)
+        jn = jnp.asarray(nrm)
+        want, wgrad = jax.value_and_grad(
+            lambda x: jnp.sum(jops.knn_kappa(x, jn, K) * w)
+        )(jnp.asarray(c))
+        p = _t(c).requires_grad_(True)
+        got = (tops.knn_kappa(p, _t(nrm), K) * _t(w)).sum()
+        got.backward()
+        # the tolerances of test_knn_kappa_grad_matches_composed
+        np.testing.assert_allclose(got.item(), float(want), rtol=1e-5)
+        wg = np.asarray(wgrad)
+        np.testing.assert_allclose(p.grad.numpy(), wg, rtol=1e-4,
+                                   atol=1e-5 * np.abs(wg).max())
+        # and of test_get_kappa_ori_matches_composed
+        np.testing.assert_allclose(
+            tlosses.get_kappa_ori(_t(c), _t(nrm), K).numpy(),
+            np.asarray(jlosses.get_kappa_ori(jnp.asarray(c), jn, K)),
+            rtol=1e-5, atol=1e-7)
 
     def test_the_two_radii_differ_only_by_rounding(self):
         c, nrm, rng = _cloud(36)

@@ -241,6 +241,26 @@ class TestCurvTerm:
         moved = (c + 1e-3 * rng.randn(*c.shape)).astype(np.float32)  # stale mask
         return moved, nrm, ref, mask
 
+    @staticmethod
+    def _direct(nrm, ref, mask, k):
+        """curv(x) [b] as the JAX engine's CPU lazy path composes it
+        (geoa3_tpu/attack/engine.py:242-250): the mask's non-self members
+        (ascending index) gathered with `knn_gather`, the direct differences
+        normalised by max(|v|, 1e-12), |. n_i| averaged over k, then
+        mean_i (kappa_i - ref_i)^2."""
+        m = np.array(mask, copy=True)
+        n = m.shape[1]
+        m[:, np.arange(n), np.arange(n)] = 0
+        idx = jnp.asarray(np.nonzero(m)[2].reshape(m.shape[0], n, k).astype(np.int32))
+
+        def curv(x):
+            v = jops.knn_gather(x, idx) - x[:, :, None, :]
+            v = v / jnp.maximum(jnp.linalg.norm(v, axis=-1, keepdims=True), 1e-12)
+            kap = jnp.abs(jnp.sum(v * jnp.asarray(nrm)[:, :, None, :], axis=-1)).mean(-1)
+            return jnp.mean((kap - jnp.asarray(ref)) ** 2, axis=-1)
+
+        return curv
+
     def test_plain_matches_pallas_kernel(self):
         from geoa3_tpu.ops.pallas.kappa_kernel import curv_term_frommask_pallas
 
@@ -255,51 +275,37 @@ class TestCurvTerm:
         p = _t(c).requires_grad_(True)
         got = tops.curv_term_from_mask(p, _t(nrm), _t(ref), _t(mask), K)
         (got * _t(cw)).sum().backward()
-        # the tolerances the JAX tests hold this kernel to against the
-        # composed path (direct-difference rsqrt, hi/lo products):
-        # tests/test_pallas_kernels.py:1271 (value), :1221 (gradient)
+        # both take the direct form; what is left is the TPU kernel's hi/lo
+        # split-bf16 products of n_i . p_j (~2^-16 relative a term), its
+        # rsqrt and its factored weights (measured over four seeds: values
+        # within 6e-7 relative, gradients within 7.1e-5 of the largest entry)
         np.testing.assert_allclose(got.detach().numpy(), np.asarray(want),
-                                   rtol=1e-4, atol=1e-7)
-        np.testing.assert_allclose(p.grad.numpy(), np.asarray(wgrad),
-                                   rtol=5e-3, atol=2e-5)
-
-    @staticmethod
-    def _without_self(mask):
-        """The mask with its self column cleared. The self term is exactly
-        zero in value, but jax.grad of the composed path takes |x|'(0) = 1,
-        so the self column adds +-w/1e-12 * n_i pairs to the gradient that
-        cancel only in exact arithmetic (a fault of the reference's composed
-        CPU path, ROADMAP.md section 3). The port takes |x|'(0) = 0; its
-        gradient is held against the composed one without that column."""
-        out = np.array(mask, copy=True)
-        idx = np.arange(out.shape[1])
-        out[:, idx, idx] = 0
-        return out
+                                   rtol=5e-6, atol=1e-7)
+        wg = np.asarray(wgrad)
+        np.testing.assert_allclose(p.grad.numpy(), wg, rtol=0,
+                                   atol=3e-4 * np.abs(wg).max())
 
     def test_value_and_grad_match_composed(self):
         c, nrm, ref, mask = self._inputs(12)
         cw = np.array([0.7, 1.3], np.float32)
-        args = (jnp.asarray(nrm), jnp.asarray(ref), jnp.asarray(mask))
-        want = jops.curv_term_from_mask(jnp.asarray(c), *args, K)
-        args_ns = args[:2] + (jnp.asarray(self._without_self(mask)),)
-        wgrad = jax.grad(
-            lambda x: jnp.sum(cw * jops.curv_term_from_mask(x, *args_ns, K))
-        )(jnp.asarray(c))
+        curv = self._direct(nrm, ref, mask, K)
+        want = curv(jnp.asarray(c))
+        wgrad = jax.grad(lambda x: jnp.sum(cw * curv(x)))(jnp.asarray(c))
         p = _t(c).requires_grad_(True)
         got = tops.curv_term_from_mask(p, _t(nrm), _t(ref), _t(mask), K)
         (got * _t(cw)).sum().backward()
-        # same composition on both sides; XLA and PyTorch sum in other orders
+        # the same direct composition on both sides; XLA and PyTorch sum in
+        # other orders
         np.testing.assert_allclose(got.detach().numpy(), np.asarray(want),
                                    rtol=1e-5, atol=1e-9)
         np.testing.assert_allclose(p.grad.numpy(), np.asarray(wgrad),
                                    rtol=1e-4, atol=1e-6)
 
     def test_near_origin_ulp_pair_stays_finite(self):
-        """Two points one ulp apart near the origin: d > 0 can round to a
-        tiny value or to 0. The port follows the composed path's
-        1/max(sqrt(d), 1e-12) with the sqrt gated at d == 0, and stays finite
-        and equal to it (the TPU kernel's clamp-free rsqrt is not the
-        reference here)."""
+        """Two points one ulp apart near the origin: the direct difference is
+        one ulp, |v| ~ 7e-15 lies under the 1e-12 clamp, and the pair's
+        gradient is n_i / 1e-12 times its weight: large, finite, and the
+        composed direct path's on every row."""
         c, nrm, rng = _cloud(13)
         c[0, 5] = np.array([1e-7, -2e-7, 3e-7], np.float32)
         c[0, 6] = c[0, 5]
@@ -311,20 +317,41 @@ class TestCurvTerm:
         val = tops.curv_term_from_mask(p, _t(nrm), _t(ref), mask, K)
         val.sum().backward()
         assert torch.isfinite(val).all() and torch.isfinite(p.grad).all()
-        args = (jnp.asarray(nrm), jnp.asarray(ref), jnp.asarray(mask.numpy()))
-        want = jops.curv_term_from_mask(jnp.asarray(c), *args, K)
-        args_ns = args[:2] + (jnp.asarray(self._without_self(mask.numpy())),)
-        wgrad = jax.grad(
-            lambda x: jnp.sum(jops.curv_term_from_mask(x, *args_ns, K))
-        )(jnp.asarray(c))
+        curv = self._direct(nrm, ref, mask.numpy(), K)
+        want = curv(jnp.asarray(c))
+        wgrad = jax.grad(lambda x: jnp.sum(curv(x)))(jnp.asarray(c))
         np.testing.assert_allclose(val.detach().numpy(), np.asarray(want), rtol=1e-5)
-        # the pair's own rows carry 1/max(r, 1e-12) with r made of rounding
-        # noise (d ~ 1e-28 against an expansion error ~1e-20): finite is the
-        # contract there; every other row matches the composed gradient
-        rest = np.ones(c.shape[:2], bool)
-        rest[0, 5:7] = False
-        np.testing.assert_allclose(p.grad.numpy()[rest], np.asarray(wgrad)[rest],
+        assert np.abs(p.grad.numpy()[0, 5:7]).max() > 1e6  # the clamp binds
+        np.testing.assert_allclose(p.grad.numpy(), np.asarray(wgrad),
                                    rtol=1e-4, atol=1e-6)
+
+    def test_direct_gradient_is_closer_to_float64_than_expansion(self):
+        """On a cloud with close pairs (a second copy of a quarter of the
+        points moved by 1e-4) the float32 gradient of the direct form is
+        nearer its float64 evaluation than the expansion form's is to its
+        own: the expansion's |p_i|^2 + |p_j|^2 - 2 p_i.p_j cancels in float32
+        where the pair is close."""
+        c, nrm, rng = _cloud(14)
+        c[:, N // 2:N // 2 + N // 4] = c[:, :N // 4] + 1e-4 * rng.randn(B, N // 4, 3)
+        ref = np.abs(rng.randn(B, N)).astype(np.float32)
+        mask = kk.kappa_selmask_plain(_t(c), K)
+
+        def expansion(x, nv, rv):
+            with torch.enable_grad():
+                x = x.detach().requires_grad_(True)
+                kap = kk.kappa_from_mask_plain(x, nv, mask, K)
+                (g,) = torch.autograd.grad(((kap - rv) ** 2).mean(-1).sum(), x)
+            return g
+
+        def gap(fn):
+            g32 = fn(_t(c), _t(nrm), _t(ref))
+            g64 = fn(_t(c).double(), _t(nrm).double(), _t(ref).double())
+            return ((g32.double() - g64).abs().max() / g64.abs().max()).item()
+
+        direct = gap(lambda x, nv, rv: kk.curv_term_plain(x, nv, rv, mask, K)[1])
+        exp = gap(expansion)
+        assert direct < exp, (direct, exp)
+        assert direct < 1e-5
 
 
 # --------------------------------------------------------------- pool ----
