@@ -9,7 +9,9 @@ Needs one CUDA card, nvcc and this repository around the script. Phases:
   2. hold every kernel against its plain PyTorch version at the paths'
      shapes (b=32, n=m=1024, k=16; PointNet's pools at [32, 1024, 128] ->
      1024; kNN also at m != n and at one query row; the dual 1-NN also at
-     2048 original against 1024 moved points; PointNet++ SSG's sampling,
+     2048 original against 1024 moved points, and both its variants at
+     exact ties, clouds whose points coincide, ragged shapes, one adv row
+     and the dense [16,1024] x [16,10000]; PointNet++ SSG's sampling,
      grouping and grouped MLPs at its three set-abstraction shapes, with
      empty, over-full and larger-than-the-cloud balls and duplicated rows;
      the MSG victim's whole-scale kernel at SA2's three scales, at cf=0 and
@@ -28,7 +30,8 @@ Needs one CUDA card, nvcc and this repository around the script. Phases:
      backward at 1000 and 10000, the curvature term (direct form) at 1000
      and 12288, with its float32 gradient's distance
      from float64 printed beside the expansion form's; the selection, the
-     curvature term, the fused kappa and the kNN are also timed ten calls
+     curvature term, the fused kappa, the kNN and both dual 1-NN variants
+     (the payload one also at the dense shape) are also timed ten calls
      back to back;
   3. run the default untargeted GeoA3 attack on PointNet (40 classes, 1024
      points, random weights with non-trivial BatchNorm statistics, 32
@@ -220,6 +223,57 @@ def require_equal(torch, name, got, want, what) -> None:
               f"({(got != want).sum().item()} entries differ)")
 
 
+def nn1_cases(torch, nk, adv, pc, rng):
+    """Both dual 1-NN variants bit-equal to their plain versions (a2o, o2a,
+    gp, op; a2o, o2a) where an order-free fold could go wrong: exact ties,
+    clouds whose points coincide, ragged shapes, one adv row, and the dense
+    subsample shape [16,1024] x [16,10000]. Returns the dense case's inputs
+    and the payload kernel's outputs there."""
+    def case(a_, o_):
+        b_, m_ = o_.shape[0], o_.shape[1]
+        return a_, o_, torch.from_numpy(rng.randn(b_, 8, m_).astype(np.float32)).cuda()
+
+    def cloud(b, n):
+        return torch.from_numpy(rng.randn(b, n, 3).astype(np.float32)).cuda()
+
+    ori_t = pc.clone()
+    ori_t[:, N // 2] = ori_t[:, 10]  # duplicated ori points
+    ori_t[:, N - 1] = ori_t[:, 10]
+    adv_t = adv.clone()
+    adv_t[:, 20] = ori_t[:, 10]  # adv rows on (duplicated) ori points
+    adv_t[:, N - 24] = ori_t[:, 0]
+    adv_t[:, 3 * N // 4] = adv_t[:, 3]  # two adv rows that tie for every column
+    # one point with an exact square norm: every distance between copies is 0
+    pt = torch.tensor([0.5, -0.25, 0.125], device="cuda")
+    ori_d = make_batch(torch, DENSE_B, DENSE_N, seed=9)[0]
+    dense = f"dense [{DENSE_B},{N}]x[{DENSE_B},{DENSE_N}]"
+    cases = {
+        f"ties [{B},{N}]x[{B},{N}]": case(adv_t, ori_t),
+        "all coincident [2,1000]x[2,1500]": case(
+            pt.expand(2, 1000, 3).contiguous(), pt.expand(2, 1500, 3).contiguous()),
+        "ori coincident [2,1000]x[2,1500]": case(
+            cloud(2, 1000), pt.expand(2, 1500, 3).contiguous()),
+        "ragged [3,1000]x[3,1500]": case(cloud(3, 1000), cloud(3, 1500)),
+        "ragged [2,1500]x[2,1000]": case(cloud(2, 1500), cloud(2, 1000)),
+        f"n=1 [{B},1]x[{B},{N}]": case(adv[:, 5:6].contiguous(), pc),
+        dense: case((ori_d[:, :N] + 1e-3 * cloud(DENSE_B, N)).contiguous(), ori_d),
+    }
+    for label, (a_, o_, p_) in cases.items():
+        got = nk.nn1_dual_payload(a_, o_, p_)
+        for g_, w_, what in zip(got, nk.nn1_dual_payload_plain(a_, o_, p_),
+                                ("a2o", "o2a", "gp", "op")):
+            require_equal(torch, f"nn1_payload[{label}]", g_, w_, what)
+        for g_, w_, what in zip(nk.nn1_dual(a_, o_), nk.nn1_dual_plain(a_, o_),
+                                ("a2o", "o2a")):
+            require_equal(torch, f"nn1_dual[{label}]", g_, w_, what)
+        if label.startswith("all coincident") and (
+                got[0].any().item() or got[1].any().item()):
+            _fail(f"nn1_payload[{label}]: index 0 did not win every tie")
+    print("  nn1_payload and nn1_dual bit-equal to plain (required) at: "
+          + "; ".join(cases))
+    return cases[dense], got  # the dense case runs last
+
+
 def kernel_checks(torch) -> list[dict]:
     """Phase 2: every kernel against its plain version at main-path shapes."""
     import torch.nn.functional as F
@@ -253,12 +307,26 @@ def kernel_checks(torch) -> list[dict]:
                   f"({(g != w).sum().item()} entries differ)")
     print("  nn1_payload: a2o, o2a, gp, op bit-equal to plain (required)")
     pairs = B * N * N
+    (sub_d, ori_d, pay_d), got_d = nn1_cases(torch, nk, adv, pc, rng)
+    bound_d = bound_ms(nbytes(sub_d, ori_d, pay_d, *got_d),
+                       10.0 * DENSE_B * N * DENSE_N)
+    nn1_ten = ten_ms(lambda: nk.nn1_dual_payload(adv, pc, pay))
+    dense_ms = time_ms(lambda: nk.nn1_dual_payload(sub_d, ori_d, pay_d))
+    dense_ten = ten_ms(lambda: nk.nn1_dual_payload(sub_d, ori_d, pay_d))
+    print(f"  nn1_payload ten calls back to back: ms={nn1_ten:.4f} at "
+          f"[{B},{N}]x[{B},{N}]; [{DENSE_B},{N}]x[{DENSE_B},{DENSE_N}]: one call "
+          f"ms={dense_ms:.4f}, ten ms={dense_ten:.4f}, bound ms={bound_d[0]:.4f} "
+          f"({bound_d[1]})")
     entry("nn1_payload", "geoa3_tpu_torch/csrc/nn1.cu",
           "geoa3_tpu/ops/pallas/nn1_kernel.py:200", 0.0,
           time_ms(lambda: nk.nn1_dual_payload(adv, pc, pay)),
           time_ms(lambda: nk.nn1_dual_payload_plain(adv, pc, pay)),
           bound_ms(nbytes(adv, pc, pay, *got), 10.0 * pairs), None,
-          "[32,1024,3]x[32,1024,3], payload [32,8,1024]")
+          f"[32,1024,3]x[32,1024,3], payload [32,8,1024]; ten calls back to "
+          f"back: ms={nn1_ten:.4f}; [{DENSE_B},{N}]x[{DENSE_B},{DENSE_N}]: one "
+          f"call ms={dense_ms:.4f}, ten ms={dense_ten:.4f}, bound "
+          f"ms={bound_d[0]:.4f} ({bound_d[1]})")
+    del sub_d, ori_d, pay_d, got_d
     o2a = got[1]
     # subsample mode: 2048 original points against 1024 moved ones
     pc2, nrm2, _ = make_batch(torch, B, 2 * N, seed=5)
@@ -450,7 +518,8 @@ def kernel_checks(torch) -> list[dict]:
           time_ms(lambda: nk.nn1_dual(adv, pc)),
           time_ms(lambda: nk.nn1_dual_plain(adv, pc)),
           bound_ms(nbytes(adv, pc, d_a2o, d_o2a), 10.0 * pairs), None,
-          "[32,1024,3]x[32,1024,3] -> int32 [32,1024] x2")
+          "[32,1024,3]x[32,1024,3] -> int32 [32,1024] x2; ten calls back to "
+          f"back: ms={ten_ms(lambda: nk.nn1_dual(adv, pc)):.4f}")
 
     # --- kNN ---------------------------------------------------------------
     dup = adv.clone()
@@ -1696,14 +1765,44 @@ def public_ops_phase(torch, paths) -> None:
             bn.running_mean.uniform_(-0.1, 0.1)
             bn.running_var.uniform_(0.5, 1.5)
 
-    def fp_run(dev):
+    class ReluPattern(torch.overrides.TorchFunctionMode):
+        """Records the input of each `torch.relu` in call order. Given the
+        card's inputs, a CPU relu takes the card's pattern where its own input
+        lies within rounding of 0 (1e-5 of the layer's largest: float32 dots
+        of 384 terms in other orders agree to ~4e-7 of it), so that a unit on
+        the other side of 0 does not move the gradient by a whole term; it
+        counts where the patterns differ inside and outside that band."""
+
+        def __init__(self, card=None):
+            super().__init__()
+            self.pre, self.card, self.taken, self.far = [], card, 0, 0
+
+        def __torch_function__(self, func, types, args=(), kwargs=None):
+            if func is not torch.relu:
+                return func(*args, **(kwargs or {}))
+            x = args[0]
+            xd = x.detach()
+            self.pre.append(xd.clone())
+            if self.card is None:
+                return func(x)
+            own, card = xd > 0, self.card[len(self.pre) - 1] > 0
+            near = xd.abs() <= 1e-5 * xd.abs().max()
+            self.taken += int(((own != card) & near).sum())
+            self.far += int(((own != card) & ~near).sum())
+            return torch.where(torch.where(near, card, own), x,
+                               torch.zeros_like(x))
+
+    def fp_run(dev, relus):
         """FP forward and the gradients of both feature inputs."""
         uf = ufeats.to(dev).requires_grad_(True)
         kf = kfeats.to(dev).requires_grad_(True)
         _, nn_idx = ops.three_nn(unknown.to(dev), known.to(dev))
-        y = fp.to(dev)(unknown.to(dev), known.to(dev), uf, kf)
+        with relus:
+            y = fp.to(dev)(unknown.to(dev), known.to(dev), uf, kf)
         duf, dkf = torch.autograd.grad((y * y).sum(), [uf, kf])
         return [t.detach().cpu() for t in (nn_idx, y, duf, dkf)]
+
+    card_relus = ReluPattern()
 
     def run():
         a2o, o2a = ops.nn1_dual(adv, pc)
@@ -1720,7 +1819,7 @@ def public_ops_phase(torch, paths) -> None:
         kct = torch.from_numpy(rng.randn(B, N, K + 1, 3).astype(np.float32)).cuda()
         s3 = ops.scatter_add_3(kidx, kct, N)
         return (a2o, o2a, kappa, x.grad, idx, w, feats.grad, kidx, kct, s3,
-                fp_run("cuda"))
+                fp_run("cuda", card_relus))
 
     (a2o, o2a, kappa, dx, idx, w, dfeats, kidx, kct, s3, fp_card), _ = paths.run(
         "public ops", PUBLIC_OPS + ("kappa_bwd", "knn"), run)
@@ -1737,13 +1836,18 @@ def public_ops_phase(torch, paths) -> None:
     want = sk.scatter_add_3_plain(kidx, kct, N)
     check("ops.scatter_add_3", (s3 - want).abs().max().item(),
           1e-5 * want.abs().max().item(), "out vs the plain scatter")
-    fp_cpu = fp_run("cpu")
+    cpu_relus = ReluPattern([t.cpu() for t in card_relus.pre])
+    fp_cpu = fp_run("cpu", cpu_relus)
+    print(f"  PointnetFPModule, card vs CPU: {cpu_relus.taken} ReLU units within "
+          f"rounding of 0 take the card's side, {cpu_relus.far} differ beyond it")
+    if len(cpu_relus.pre) != len(card_relus.pre) or cpu_relus.far:
+        _fail("PointnetFPModule, card vs CPU: the ReLU patterns differ")
     require_equal(torch, "three_nn (card vs CPU)", fp_card[0], fp_cpu[0], "idx")
     for g_, c_, what in zip(fp_card[1:], fp_cpu[1:],
                             ("output", "unknown features' gradient",
                              "known features' gradient")):
-        # float32 products in other orders (cuBLAS against the CPU's);
-        # interpolation weights from bit-equal selections
+        # float32 products in other orders (cuBLAS against the CPU's), the
+        # same ReLU pattern; interpolation weights from bit-equal selections
         check("PointnetFPModule, card vs CPU", (g_ - c_).abs().max().item(),
               1e-5 * c_.abs().max().item(), what)
 

@@ -36,10 +36,13 @@ _LL = ctypes.c_longlong
 _F = ctypes.c_float
 # C entry points: name -> argument types (every entry returns cudaError_t)
 SIGNATURES = {
-    # adv, ori, pay, b, n, m, a2o, o2a, gp, op, stream
-    "geoa3_nn1_payload": [_VP, _VP, _VP, _I, _I, _I, _VP, _VP, _VP, _VP, _VP],
-    # adv, ori, b, n, m, a2o, o2a, stream
-    "geoa3_nn1_dual": [_VP, _VP, _I, _I, _I, _VP, _VP, _VP],
+    # adv, ori, pay, b, n, m, keys (b*(n+m) int64 scratch), a2o, o2a, gp,
+    # op, stream
+    "geoa3_nn1_payload": [
+        _VP, _VP, _VP, _I, _I, _I, _VP, _VP, _VP, _VP, _VP, _VP,
+    ],
+    # adv, ori, b, n, m, keys, a2o, o2a, stream
+    "geoa3_nn1_dual": [_VP, _VP, _I, _I, _I, _VP, _VP, _VP, _VP],
     # query, points, b, n, m, k, dists, idx, nbrs, stream
     "geoa3_knn": [_VP, _VP, _I, _I, _I, _I, _VP, _VP, _VP, _VP],
     # idx, ct, b, S, n, ct's batch/source/channel strides, out, stream

@@ -3,15 +3,20 @@ their plain versions.
 
 Replaces geoa3_tpu/ops/pallas/nn1_kernel.py:_nn1_payload_kernel
 (`nn1_dual_payload_pallas`) and :_nn1_dual_kernel (`nn1_dual_pallas`), exact
-selection. Source: csrc/nn1.cu; the bare variant is the same two passes with
-the copies compiled out, so both select the same indices.
+selection. Source: csrc/nn1.cu; the bare variant is the same tile kernel
+with the copies compiled out of its finishing kernel, so both select the
+same indices.
 
 Bound on the H100: operations (b*n*m distance evaluations against a few MB
-of inputs and outputs). The TPU kernel folds the ori->adv minima across row
-blocks in grid order, which blocks on the GPU do not have; the kernel makes
-the two directions two passes over the same distances (a warp per adv row,
-a thread per ori column), each keeping a (distance bits, index) key whose
-minimum is the lowest-index argmin. Distances are rounded step by step like
+of inputs and outputs). One tile kernel computes each distance once and folds
+it into both directions' minima (a column's row index is found after each
+chunk by computing the winning row group's distances again); across blocks,
+which run in no order, the minima meet as 64-bit (distance bits, index) keys
+through `atomicMin`, a total order whose minimum is the lowest-index argmin,
+so the fold the TPU kernel made in grid order gives the same bits in any
+order. A finishing kernel decodes the keys and makes the copies. The wrapper
+allocates the key scratch (b * (n + m) int64, set to all ones inside the C
+entry) beside the outputs. Distances are rounded step by step like
 `pairwise_sqdist`, so the kernel selects bitwise what the plain version does.
 """
 
@@ -55,9 +60,11 @@ def nn1_dual(adv, ori):
     m = ori.shape[1]
     _build.check_cuda(adv, "adv", torch.float32, (b, n, 3))
     _build.check_cuda(ori, "ori", torch.float32, (b, m, 3))
-    a2o = torch.empty(b, n, dtype=torch.int32, device=adv.device)
-    o2a = torch.empty(b, m, dtype=torch.int32, device=adv.device)
-    _build.launch("geoa3_nn1_dual", adv, ori, b, n, m, a2o, o2a)
+    dev = adv.device
+    keys = torch.empty(b * (n + m), dtype=torch.int64, device=dev)
+    a2o = torch.empty(b, n, dtype=torch.int32, device=dev)
+    o2a = torch.empty(b, m, dtype=torch.int32, device=dev)
+    _build.launch("geoa3_nn1_dual", adv, ori, b, n, m, keys, a2o, o2a)
     nn1_dual.launches += 1
     return a2o, o2a
 
@@ -80,12 +87,13 @@ def nn1_dual_payload(adv, ori, payload):
     _build.check_cuda(ori, "ori", torch.float32, (b, m, 3))
     _build.check_cuda(payload, "payload", torch.float32, (b, 8, m))
     dev = adv.device
+    keys = torch.empty(b * (n + m), dtype=torch.int64, device=dev)
     a2o = torch.empty(b, n, dtype=torch.int32, device=dev)
     o2a = torch.empty(b, m, dtype=torch.int32, device=dev)
     gp = torch.empty(b, 8, n, dtype=torch.float32, device=dev)
     op = torch.empty(b, 8, m, dtype=torch.float32, device=dev)
-    _build.launch("geoa3_nn1_payload", adv, ori, payload, b, n, m, a2o, o2a,
-                  gp, op)
+    _build.launch("geoa3_nn1_payload", adv, ori, payload, b, n, m, keys, a2o,
+                  o2a, gp, op)
     nn1_dual_payload.launches += 1
     return a2o, o2a, gp, op
 

@@ -34,7 +34,7 @@ from geoa3_tpu_torch.workload import (
 _GROUPS = [
     (re.compile(r"pool_fwd_kernel"), "pool_fwd (port)"),
     (re.compile(r"pool_bwd_kernel"), "pool_bwd (port)"),
-    (re.compile(r"nn1_(a2o|o2a)_kernel"), "nn1_payload (port)"),
+    (re.compile(r"nn1_(tile|finish)_kernel"), "nn1_payload (port)"),
     (re.compile(r"curv_term_kernel"), "curv_term (port)"),
     (re.compile(r"kappa_select_kernel"), "kappa select (port)"),
     (re.compile(r"scatter3_(global_)?kernel"), "scatter_add_3t (port)"),

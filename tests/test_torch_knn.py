@@ -23,7 +23,15 @@ from geoa3_tpu_torch.ops.kernels import kappa_kernel as kk
 from geoa3_tpu_torch.ops.kernels import knn_kernel as qk
 from geoa3_tpu_torch.ops.kernels import nn1_kernel as nk
 from geoa3_tpu_torch.ops.kernels import scatter_kernel as sk
-from tests.test_torch_ops import HILO, _cloud, _t, _with_ties
+from tests.test_torch_ops import (
+    HILO,
+    NN1_CASES,
+    _check_coincident,
+    _cloud,
+    _nn1_inputs,
+    _t,
+    _with_ties,
+)
 
 torch.set_num_threads(1)
 B, N, K = 2, 128, 8
@@ -211,34 +219,33 @@ class TestGathers:
 
 class TestNN1Dual:
     def _inputs(self, seed, ties):
-        ori, _, rng = _cloud(seed)
-        adv = (ori + 0.02 * rng.randn(*ori.shape)).astype(np.float32)
-        if ties:
-            ori = _with_ties(ori)
-            adv[0, 3] = adv[0, 90]
-            adv[1, 20] = ori[1, 7]
+        adv, ori, _ = _nn1_inputs(seed, ties)
         return adv, ori
 
-    @pytest.mark.parametrize("ties", [False, True])
+    @pytest.mark.parametrize("ties", list(NN1_CASES))
     def test_plain_matches_pallas_kernel(self, ties):
         from geoa3_tpu.ops.pallas.nn1_kernel import nn1_dual_pallas
 
         adv, ori = self._inputs(30, ties)
         with pltpu.force_tpu_interpret_mode():
-            want = nn1_dual_pallas(jnp.asarray(adv), jnp.asarray(ori), row_block=32)
+            want = nn1_dual_pallas(jnp.asarray(adv), jnp.asarray(ori),
+                                   row_block=NN1_CASES[ties])
         got = nk.nn1_dual_plain(_t(adv), _t(ori))
         for g, w in zip(got, want):
             np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+        _check_coincident(ties, *want)
 
-    @pytest.mark.parametrize("ties", [False, True])
+    @pytest.mark.parametrize("ties", list(NN1_CASES))
     def test_op_matches_composed_and_the_payload_kernel(self, ties):
         adv, ori = self._inputs(31, ties)
         want = jops.nn1_dual(jnp.asarray(adv), jnp.asarray(ori))
         got = tops.nn1_dual(_t(adv), _t(ori))
-        pay = nk.nn1_dual_payload_plain(_t(adv), _t(ori), torch.zeros(B, 8, N))
+        pay = nk.nn1_dual_payload_plain(_t(adv), _t(ori),
+                                        torch.zeros(B, 8, ori.shape[1]))
         for g, w, p in zip(got, want, pay[:2]):
             np.testing.assert_array_equal(g.numpy(), np.asarray(w))
             assert torch.equal(g, p)
+        _check_coincident(ties, *got)
 
 
 # -------------------------------------------------- kappa from a mask ----

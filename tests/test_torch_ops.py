@@ -63,18 +63,48 @@ def _with_ties(c):
 # ---------------------------------------------------------------- nn1 ----
 
 
+# The dual 1-NN's cases: False (plain), True (exact ties), the inputs an
+# order-free fold across blocks could get wrong: clouds whose points all
+# coincide (every distance 0, index 0 wins both ways) and ragged unequal
+# shapes down to one adv row. Each maps to the Pallas kernel's row block,
+# which must divide n.
+NN1_CASES = {False: 32, True: 32, "coincident": 32, "n40_m100": 8,
+             "n100_m40": 20, "n1": 1}
+NN1_SHAPES = {"n40_m100": (40, 100), "n100_m40": (100, 40), "n1": (1, N)}
+
+
+def _nn1_inputs(seed, case):
+    """(adv [B, n, 3], ori [B, m, 3], rng) for a case of NN1_CASES."""
+    if case == "coincident":  # an exact square norm: every distance is 0
+        pt = np.array([0.5, -0.25, 0.125], np.float32)
+        return (np.tile(pt, (B, N, 1)), np.tile(pt, (B, N + 8, 1)),
+                np.random.RandomState(seed))
+    if case in NN1_SHAPES:
+        n, m = NN1_SHAPES[case]
+        ori, _, rng = _cloud(seed, n=m)
+        adv, _, _ = _cloud(seed + 100, n=n)
+        return adv, ori, rng
+    ori, _, rng = _cloud(seed)
+    adv = (ori + 0.02 * rng.randn(*ori.shape)).astype(np.float32)
+    if case:
+        ori = _with_ties(ori)
+        adv[0, 3] = adv[0, 90]  # two adv rows tie for every ori column
+        adv[1, 20] = ori[1, 7]  # an adv point on a duplicated ori point
+    return adv, ori, rng
+
+
+def _check_coincident(case, a2o, o2a):
+    if case == "coincident":
+        assert not np.asarray(a2o).any() and not np.asarray(o2a).any()
+
+
 class TestNN1Payload:
     def _inputs(self, seed, ties=False):
-        ori, _, rng = _cloud(seed)
-        adv = (ori + 0.02 * rng.randn(*ori.shape)).astype(np.float32)
-        if ties:
-            ori = _with_ties(ori)
-            adv[0, 3] = adv[0, 90]  # two adv rows tie for every ori column
-            adv[1, 20] = ori[1, 7]  # an adv point on a duplicated ori point
-        pay = rng.randn(B, 8, N).astype(np.float32)
+        adv, ori, rng = _nn1_inputs(seed, ties)
+        pay = rng.randn(B, 8, ori.shape[1]).astype(np.float32)
         return adv, ori, pay
 
-    @pytest.mark.parametrize("ties", [False, True])
+    @pytest.mark.parametrize("ties", list(NN1_CASES))
     def test_plain_matches_pallas_kernel(self, ties):
         from geoa3_tpu.ops.pallas.nn1_kernel import nn1_dual_payload_pallas
 
@@ -82,14 +112,15 @@ class TestNN1Payload:
         with pltpu.force_tpu_interpret_mode():
             want = nn1_dual_payload_pallas(
                 jnp.asarray(adv), jnp.asarray(ori), jnp.asarray(pay),
-                row_block=32, select="exact",
+                row_block=NN1_CASES[ties], select="exact",
             )
         got = nk.nn1_dual_payload_plain(_t(adv), _t(ori), _t(pay))
         # indices exact; payload and coordinate copies bit-equal
         for g, w in zip(got, want):
             np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+        _check_coincident(ties, *want[:2])
 
-    @pytest.mark.parametrize("ties", [False, True])
+    @pytest.mark.parametrize("ties", list(NN1_CASES))
     def test_op_matches_composed(self, ties):
         adv, ori, pay = self._inputs(1, ties)
         want = jops.nn1_dual_payload(
@@ -98,6 +129,7 @@ class TestNN1Payload:
         got = tops.nn1_dual_payload(_t(adv), _t(ori), _t(pay))
         for g, w in zip(got, want):
             np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+        _check_coincident(ties, *got[:2])
 
     def test_lowest_index_tie_break(self):
         adv, ori, pay = self._inputs(2, ties=True)
