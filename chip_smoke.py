@@ -21,7 +21,10 @@ Needs one CUDA card, nvcc and this repository around the script. Phases:
      20), plus one PyTorch library call where one computes the same
      function, and for the whole-scale kernel the split pair it stands in for.
      The pool forward's whole output (maximum, tie count, first tied rows) is
-     held bit-equal to an exact oracle of its fmaf chain at b=2; the 3-channel
+     held bit-equal to an exact oracle of its fmaf chain at b=2, and so are
+     the grouped-MLP forward's maxima and tie counts at all seven PointNet++
+     shapes (the first two clouds), GroupAll's with ties placed across the
+     blocks a cloud is split over; the 3-channel
      scatter also in the o2a backward's strided plane layout and on its
      global-atomic route for clouds too large for shared memory; the
      scatter's and the pool wrapper's host time per call are printed. The
@@ -100,6 +103,9 @@ DENSE_B, DENSE_N = 16, 10000  # runs/bench_dense.py's batch and cloud size
 # (b, n) of the selection's checks past the main path: a ragged n, the
 # dense n, and the JAX package's largest padded n
 DENSE_CHECKS = ((2, 1000), (2, DENSE_N), (1, 12288))
+# GroupAll rows that repeat row 0: on the 32-row tiles its 128 rows are
+# split into, they sit in the second, third and fourth block
+SPLIT_TIES = [63, 64, 127]
 
 
 def _fail(msg: str) -> None:
@@ -193,13 +199,30 @@ def entry_into(out: list):
 
 
 def fma_chain(torch, a, w):
-    """a [r, k] @ w [k, c] in float32 as the grouped-MLP kernel sums it: from
-    0, one fused multiply-add a term, k ascending. The product of two float32
-    values is exact in float64, so each step rounds once, as `fmaf` does."""
+    """a [r, k] @ w [k, c] in float32 as the grouped-MLP and pool kernels sum
+    it: from 0, one fused multiply-add a term, k ascending, each step rounded
+    once, as `fmaf` does. The product of two float32 values is exact in
+    float64; the float64 sum s = acc + p may round, so its error e (TwoSum,
+    exact) is kept, and where s falls on a float32 midpoint with e != 0 the
+    result is the float32 neighbour on e's side (what rounding acc + p in
+    one step gives), not the even one."""
     acc = torch.zeros(a.shape[0], w.shape[1], device=a.device)
     a64, w64 = a.double(), w.double()
     for k in range(w.shape[0]):
-        acc = (acc.double() + a64[:, k:k + 1] * w64[k]).float()
+        x, p = acc.double(), a64[:, k:k + 1] * w64[k]
+        s = x + p
+        bp = s - x
+        e = (x - (s - bp)) + (p - bp)
+        f = s.float()
+        up = s > f.double()
+        g = torch.nextafter(f, torch.where(up, torch.full_like(f, float("inf")),
+                                           torch.full_like(f, -float("inf"))))
+        tie = (s == (f.double() + g.double()) * 0.5) & (e != 0)
+        # on a tie the exact sum lies past s on e's side: take that neighbour
+        want_up = e > 0
+        hi = torch.maximum(f, g)
+        lo = torch.minimum(f, g)
+        acc = torch.where(tie, torch.where(want_up, hi, lo), f)
     return acc
 
 
@@ -745,11 +768,45 @@ def random_mlp(torch, gen, cf, widths):
     return fold_mlp(*parts)
 
 
+def group_mlp_oracle_check(torch, gk, label, gx_, gf_, p_, pooled, cnt) -> int:
+    """group_mlp_fwd's pooled and cnt bit-equal to an exact oracle of its
+    arithmetic on the first two clouds' groups: each layer one fmaf chain
+    from 0, k ascending, x's 3 channels first (`fma_chain`), + bias in
+    float32, the ReLU; then each group's maximum and its number of tied
+    rows. Returns how many (group, channel)s hold a maximum tied across two
+    of the blocks a split group's rows go to (0 where groups are not split)."""
+    b2 = min(2, gx_.shape[0])
+    _, m_, ns_, _ = gx_.shape
+    x0 = gx_[:b2] if gf_ is None else torch.cat([gx_[:b2], gf_[:b2]], dim=-1)
+    a = x0.reshape(b2 * m_ * ns_, -1)
+    for w_, bias in ((p_.w1, p_.b1), (p_.w2, p_.b2), (p_.w3, p_.b3)):
+        a = torch.relu(fma_chain(torch, a, w_) + bias)
+    a3 = a.reshape(b2, m_, ns_, -1)
+    want = a3.amax(dim=2)
+    ties = a3 == want[:, :, None]
+    require_equal(torch, f"group_mlp_fwd[{label}]", pooled[:b2], want,
+                  "pooled vs the fmaf-chain oracle")
+    require_equal(torch, f"group_mlp_fwd[{label}]", cnt[:b2],
+                  ties.sum(dim=2, dtype=torch.int32), "cnt vs the fmaf-chain oracle")
+    cf = 0 if gf_ is None else gf_.shape[-1]
+    rows, parts = gk.fwd_plan(ns_, cf, (p_.w1.shape[1], p_.w2.shape[1], p_.w3.shape[1]))
+    across = 0
+    if parts > 1:
+        part = torch.arange(ns_, device=ties.device) // rows  # a row's block
+        hit = torch.stack([ties[:, :, part == q].any(dim=2) for q in range(parts)])
+        across = int((hit.sum(dim=0) > 1).sum())
+    print(f"  group_mlp_fwd[{label}]: pooled, cnt bit-equal to the fmaf-chain "
+          f"oracle on {b2} clouds (required; {rows}-row tiles, {parts} block(s) "
+          f"a group; {across} (group, channel)s tied across two blocks)")
+    return across
+
+
 def group_mlp_case(torch, label, gx_, gf_, p_, randn) -> dict:
     """The grouped-MLP kernels against their plain version at one shape:
-    the forward against the float32 plain version, the backward against
-    float64 autograd over every row (see the comment below), and the times.
-    Returns the row of numbers the kernels line takes."""
+    the forward against the float32 plain version and bit-equal to the
+    exact oracle of its fmaf chains, the backward against float64 autograd
+    over every row (see the comment below), and the times. Returns the row
+    of numbers the kernels line takes."""
     from geoa3_tpu_torch.ops.kernels import group_mlp_kernel as gk
 
     b_, m_, ns_, _ = gx_.shape
@@ -759,6 +816,7 @@ def group_mlp_case(torch, label, gx_, gf_, p_, randn) -> dict:
     # three layers of float32 products summed in another order than cuBLAS
     fwd_err = (pooled - want).abs().max().item()
     check(f"group_mlp_fwd[{label}]", fwd_err, 2e-5 * scale, "pooled")
+    across = group_mlp_oracle_check(torch, gk, label, gx_, gf_, p_, pooled, cnt)
     # the backward is held against autograd in float64, where repeated
     # rows stay exactly tied, through the same three layers with every
     # ReLU's on/off pattern given: float64's own, except on the rows that
@@ -824,7 +882,9 @@ def group_mlp_case(torch, label, gx_, gf_, p_, randn) -> dict:
     wbytes = nbytes(*p_[:6])
     r_ = dict(
         fwd_err=fwd_err, bwd_err=max(bwd_errs), flops=flops, tied=tied,
+        across=across,
         fwd_ms=time_ms(lambda: gk.group_mlp_fwd(gx_, gf_, p_)),
+        fwd_ten=ten_ms(lambda: gk.group_mlp_fwd(gx_, gf_, p_)),
         fwd_plain=time_ms(lambda: gk.group_mlp_maxpool_plain(gx_, gf_, p_), iters=5),
         fwd_bound=bound_ms(nbytes(gx_, pooled, cnt) + wbytes
                            + (nbytes(gf_) if gf_ is not None else 0), flops),
@@ -837,9 +897,11 @@ def group_mlp_case(torch, label, gx_, gf_, p_, randn) -> dict:
                            + (2 * nbytes(gf_) if gf_ is not None else 0), 2.0 * flops),
     )
     print(f"  group_mlp[{label}]: {tied} (group, channel)s with tied maxima; "
-          f"fwd ms={r_['fwd_ms']:.4f} plain={r_['fwd_plain']:.4f} bound="
-          f"{r_['fwd_bound'][0]:.4f}; bwd ms={r_['bwd_ms']:.4f} plain="
-          f"{r_['bwd_plain']:.4f} bound={r_['bwd_bound'][0]:.4f}")
+          f"fwd ms={r_['fwd_ms']:.4f} (ten back to back: {r_['fwd_ten']:.4f}) "
+          f"plain={r_['fwd_plain']:.4f} bound={r_['fwd_bound'][0]:.4f} share of "
+          f"the bound={r_['fwd_bound'][0] / r_['fwd_ms']:.3f} (ten: "
+          f"{r_['fwd_bound'][0] / r_['fwd_ten']:.3f}); bwd ms={r_['bwd_ms']:.4f} "
+          f"plain={r_['bwd_plain']:.4f} bound={r_['bwd_bound'][0]:.4f}")
     return r_
 
 
@@ -1017,6 +1079,9 @@ def ssg_kernel_checks(torch) -> list[dict]:
     gf3 = torch.relu(randn(B, 1, 128, 256))
     gx3[:, :, 1::8] = gx3[:, :, 0::8]  # duplicated rows: exact ties
     gf3[:, :, 1::8] = gf3[:, :, 0::8]
+    # copies of row 0 in the other blocks of a split cloud: ties across them
+    gx3[:, :, SPLIT_TIES] = gx3[:, :, :1]
+    gf3[:, :, SPLIT_TIES] = gf3[:, :, :1]
     shapes = {
         "SA1": (gx1, None, random_mlp(torch, gen, 0, (64, 64, 128))),
         "SA2": (gx2, torch.relu(gf2), random_mlp(torch, gen, 128, (128, 128, 256))),
@@ -1026,17 +1091,23 @@ def ssg_kernel_checks(torch) -> list[dict]:
             for label, (gx_, gf_, p_) in shapes.items()}
     if rows["SA3"]["tied"] == 0 or rows["SA1"]["tied"] == 0:
         _fail("group_mlp: the inputs held no tied maxima, the tie split is unchecked")
+    if rows["SA3"]["across"] == 0:
+        _fail("group_mlp_fwd[SA3]: no maximum is tied across two blocks, the "
+              "split's merge is unchecked")
     r2_ = rows["SA2"]
     others = lambda k1, k2: "; ".join(  # noqa: E731
         f"{lab}: ms={rows[lab][k1]:.4f} bound_ms={rows[lab][k2][0]:.4f}"
+        + (f" ten={rows[lab]['fwd_ten']:.4f}" if k1 == "fwd_ms" else "")
         for lab in ("SA1", "SA3"))
     entry("group_mlp_fwd", "geoa3_tpu_torch/csrc/group_mlp.cu",
           "geoa3_tpu/ops/pallas/group_mlp_kernel.py:158",
           max(r["fwd_err"] for r in rows.values()), r2_["fwd_ms"],
           r2_["fwd_plain"], r2_["fwd_bound"], None,
-          "SA2 rows 32*128*64 x (131->128->128->256) -> [32,128,256]; SA1 rows "
-          "32*512*64 x (3->64->64->128), SA3 rows 32*1*128 x "
-          f"(259->256->512->1024): {others('fwd_ms', 'fwd_bound')}")
+          "SA2 rows 32*128*64 x (131->128->128->256) -> [32,128,256] (ten "
+          f"back to back: {r2_['fwd_ten']:.4f}); SA1 rows 32*512*64 x "
+          "(3->64->64->128), SA3 rows 32*1*128 x (259->256->512->1024), each "
+          "cloud split over 4 blocks and a finishing kernel: "
+          f"{others('fwd_ms', 'fwd_bound')}")
     entry("group_mlp_bwd", "geoa3_tpu_torch/csrc/group_mlp.cu",
           "geoa3_tpu/ops/pallas/group_mlp_kernel.py:177",
           max(r["bwd_err"] for r in rows.values()), r2_["bwd_ms"],
@@ -1264,12 +1335,17 @@ def msg_kernel_checks(torch, kernels: list) -> list[dict]:
     gf3 = torch.relu(randn(B, 1, 128, 640))
     gx3[:, :, 1::8] = gx3[:, :, 0::8]  # duplicated rows: exact ties
     gf3[:, :, 1::8] = gf3[:, :, 0::8]
+    gx3[:, :, SPLIT_TIES] = gx3[:, :, :1]  # ties across a split cloud's blocks
+    gf3[:, :, SPLIT_TIES] = gf3[:, :, :1]
     mshapes["MSG GroupAll cf=640"] = (gx3, gf3,
                                       random_mlp(torch, gen, 640, (256, 512, 1024)))
     mrows = {label: group_mlp_case(torch, label, gx_, gf_, p_, randn)
              for label, (gx_, gf_, p_) in mshapes.items()}
     if mrows["MSG GroupAll cf=640"]["tied"] == 0:
         _fail("group_mlp: GroupAll's inputs held no tied maxima")
+    if mrows["MSG GroupAll cf=640"]["across"] == 0:
+        _fail("group_mlp_fwd[MSG GroupAll]: no maximum is tied across two "
+              "blocks, the split's merge is unchecked")
     for k in kernels:
         if k["name"] in ("group_mlp_fwd", "group_mlp_bwd"):
             which = "fwd" if k["name"].endswith("fwd") else "bwd"
@@ -1278,6 +1354,7 @@ def msg_kernel_checks(torch, kernels: list) -> list[dict]:
             k["shape"] += "; MSG (GroupAll's backward on 16-row tiles): " + "; ".join(
                 f"{lab}: ms={r[which + '_ms']:.4f} plain_ms="
                 f"{r[which + '_plain']:.4f} bound_ms={r[which + '_bound'][0]:.4f}"
+                + (f" ten={r['fwd_ten']:.4f}" if which == "fwd" else "")
                 for lab, r in mrows.items())
 
     # --- the k-neighbour 3-channel scatter ----------------------------------

@@ -76,10 +76,10 @@ SIGNATURES = {
         _VP, _VP, _VP, _I, _I, _I, _I, _I, _VP, _VP, _VP, _VP,
     ],
     # gx, gf (or null), w1, b1, w2, b2, w3, b3, groups, ns, cf, c1, c2, c3,
-    # pooled, cnt, stream
+    # pooled, cnt, scratch (or null where ns <= 32), stream
     "geoa3_group_mlp_fwd": [
         _VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _I, _I, _I, _I, _I, _I, _VP,
-        _VP, _VP,
+        _VP, _VP, _VP,
     ],
     # gx, gf (or null), w1, b1, w2, b2, w3, b3, w1t, w2t, w3t, pooled, cnt,
     # gout, groups, ns, cf, c1, c2, c3, dgx, dgf (or null), stream

@@ -16,19 +16,27 @@ a frozen victim's.
 
 Bound on the H100: operations (2 * rows * (c0*c1 + c1*c2 + c2*c3) forward,
 twice that backward: the recompute and one dz @ w^T product a layer, no
-weight gradients). A block takes 64, 32 or 16 rows through all
-three layers in float32 with activations transposed in shared memory and
-weights streamed from L2; every thread holds a 4x4 output tile; layer 3 is
-made 64 columns at a time and pooled at once. A block owns whole groups, so
-the forward needs no atomics and also leaves every maximum's tie count.
+weight gradients). Every activation is one float32 fmaf chain from 0, k
+ascending, then + bias, then the ReLU, in both kernels, so the backward's
+recompute equals the forward's bitwise. The forward takes tiles of 128, 64
+or 32 rows (transposed in shared memory) on persistent blocks of 256
+threads, each thread 8 rows x 8 (or 4) columns, with each layer's weights
+streamed through a three-stage cp.async ring in shared memory; the pool
+reduces (maximum, tie count) in registers and merges by shuffles. A group
+larger than a tile (GroupAll) is split over blocks that write partials to a
+scratch, merged by a finishing kernel. The backward takes 64, 32 or 16 rows
+through all three layers with weights streamed from L2 and a 4x4 output
+tile a thread; it splits each pooled cotangent evenly among the rows the
+forward counted as tied.
 
-Limits: the three widths are multiples of 4; cf is any size >= 0; the
-tiles must fit a block's shared memory at 16 rows, the smallest the kernels
-take (16-row tiles are taken only where 32 do not fit):
-(round4(3 + cf) + c1 + 2 c2 + 64 + (c1 if c1 > c2)) * 20 * 4 <= 232448 bytes
-for the backward, ((max(3 + cf, c2) + c1) * 20 + 16 * 65) * 4 for the
-forward. MSG's GroupAll (cf = 640, widths 256/512/1024) takes 16 rows
-backward (159,040 bytes; 286,272 at 32) and 32 forward.
+Limits: the three widths are multiples of 4; cf is any size >= 0; each
+kernel's tiles must fit a block's 232,448 bytes of shared memory at their
+smallest height: the forward's need is `fwd_smem_bytes` (32 rows), the
+backward's (round4(3 + cf) + c1 + 2 c2 + 64 + (c1 if c1 > c2)) * 20 * 4
+bytes (16 rows). MSG's GroupAll (cf = 640, widths 256/512/1024) takes
+213,504 bytes forward (32 rows) and 159,040 backward (16 rows). The
+forward's limit is the narrower: with those widths it takes cf <= 789, the
+backward cf <= 1557, so a GroupAll of 790 to 1557 features is refused.
 """
 
 from __future__ import annotations
@@ -40,6 +48,45 @@ import torch
 from geoa3_tpu_torch.ops.kernels import _build
 
 _SMEM_MAX = 232448  # bytes of shared memory one block may use on Hopper
+_SMEM_HALF = 113 * 1024  # a block's share where two fit an SM
+_FWD_ROWS = (128, 64, 32)  # the forward's tile heights, largest first
+_FWD_BK, _FWD_STAGES = 16, 3  # weight rows a ring stage, ring depth
+
+
+def _fwd_cols(rows: int, cout: int) -> int:
+    """Columns one round of a forward layer covers (csrc fwd_cw): 2048/rows
+    column groups of 8 columns, or of 4 where 8 would idle threads or cout
+    is not a multiple of 8."""
+    groups = 2048 // rows
+    return groups * (8 if cout % 8 == 0 and cout >= groups * 8 else 4)
+
+
+def fwd_smem_bytes(cf: int, widths, rows: int = 32) -> int:
+    """Shared memory of the forward kernel's block at a tile of `rows` rows
+    (csrc/group_mlp.cu fwd_plan): the input / layer-2 buffer and layer 1's,
+    [channel][row], and the weight ring. At 32 rows, the smallest tile, it
+    is what a shape needs."""
+    c1, c2, c3 = widths
+    c0p = (3 + cf + 3) // 4 * 4
+    stage = _FWD_BK * max(_fwd_cols(rows, c) for c in (c1, c2, c3))
+    return ((max(c0p, c2) + c1) * rows + _FWD_STAGES * stage) * 4
+
+
+def fwd_plan(ns: int, cf: int, widths):
+    """(tile rows, parts a group is split into) as the forward's C entry
+    picks them: the largest tile whose block leaves room for two an SM,
+    else the largest that fits; a group of more rows than the tile is split
+    into ceil(ns / rows) parts, one a block."""
+    fits = [r for r in _FWD_ROWS if fwd_smem_bytes(cf, widths, r) <= _SMEM_HALF]
+    fits = fits or [r for r in _FWD_ROWS
+                    if fwd_smem_bytes(cf, widths, r) <= _SMEM_MAX]
+    if not fits:
+        raise ValueError(
+            f"the group_mlp forward's 32-row tile needs "
+            f"{fwd_smem_bytes(cf, widths)} bytes of shared memory for "
+            f"cf={cf}, widths {tuple(widths)}; a block has {_SMEM_MAX}")
+    rows = fits[0]
+    return rows, (ns + rows - 1) // rows if ns > rows else 1
 
 
 class FoldedMLP(NamedTuple):
@@ -96,11 +143,11 @@ def _check(gx, gf, p: FoldedMLP):
             f"the group_mlp kernel takes widths that are multiples of 4, got "
             f"{(c1, c2, c3)}")
     c0p = (c0 + 3) // 4 * 4
-    need = max((c0p + c1 + 2 * c2 + 64 + (c1 if c1 > c2 else 0)) * 20 * 4,
-               ((max(c0, c2) + c1) * 20 + 16 * 65) * 4)
+    fwd_plan(ns, cf, (c1, c2, c3))  # raises where the forward cannot fit
+    need = (c0p + c1 + 2 * c2 + 64 + (c1 if c1 > c2 else 0)) * 20 * 4
     if need > _SMEM_MAX:
         raise ValueError(
-            f"the group_mlp kernels' 16-row tiles need {need} bytes of "
+            f"the group_mlp backward's 16-row tiles need {need} bytes of "
             f"shared memory for cf={cf}, widths {(c1, c2, c3)}; a block has "
             f"{_SMEM_MAX}")
     _build.check_cuda(gx, "gx", torch.float32, (b, m, ns, 3))
@@ -122,8 +169,11 @@ def group_mlp_fwd(gx, gf, p: FoldedMLP):
     b, m = gx.shape[:2]
     pooled = torch.empty(b, m, c3, dtype=torch.float32, device=gx.device)
     cnt = torch.empty(b, m, c3, dtype=torch.int32, device=gx.device)
+    # a split group's partial maxima and counts (parts <= ceil(ns / 32))
+    scratch = (torch.empty(2 * groups * -(-ns // 32) * c3, dtype=torch.int32,
+                           device=gx.device) if ns > 32 else None)
     _build.launch("geoa3_group_mlp_fwd", gx, gf, p.w1, p.b1, p.w2, p.b2, p.w3,
-                  p.b3, groups, ns, cf, c1, c2, c3, pooled, cnt)
+                  p.b3, groups, ns, cf, c1, c2, c3, pooled, cnt, scratch)
     group_mlp_fwd.launches += 1
     return pooled, cnt
 

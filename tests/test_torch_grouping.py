@@ -250,11 +250,18 @@ def _planes(gx4):
     return jnp.concatenate([gxp, jnp.zeros((b, 5, m * ns), gxp.dtype)], axis=1)
 
 
+# (m, ns, cf, widths, ties): ties is None, "pairs" (every odd row repeats
+# the even row before it) or rows that repeat row 0
 GROUP_MLP_CASES = {
-    "SA1-like": (16, 8, 0, (16, 16, 32), False),
-    "SA2-like": (8, 8, 128, (32, 32, 64), False),
-    "GroupAll-like": (1, 16, 128, (32, 64, 128), False),
-    "ties": (8, 8, 0, (16, 16, 32), True),  # every row duplicated
+    "SA1-like": (16, 8, 0, (16, 16, 32), None),
+    "SA2-like": (8, 8, 128, (32, 32, 64), None),
+    "GroupAll-like": (1, 16, 128, (32, 64, 128), None),
+    "ties": (8, 8, 0, (16, 16, 32), "pairs"),
+    # one cloud, rows tied across its halves: the tied rows' equal shares
+    # of the gradient, on the CPU against Pallas (the card's split over
+    # blocks is held on the CPU by test_torch_group_mlp_emulated.py's
+    # "ns=200 split" and SA3 cases)
+    "GroupAll-split": (1, 64, 128, (32, 64, 128), (31, 32, 63)),
 }
 
 
@@ -266,8 +273,11 @@ def test_group_mlp_value_and_grad_match_pallas_kernel(case):
     rng = np.random.RandomState(70)
     gx = rng.randn(B, m, ns, 3).astype(np.float32)
     gf = rng.randn(B, m, ns, cf).astype(np.float32) if cf else None
-    if ties:
+    if ties == "pairs":
         gx[:, :, 1::2] = gx[:, :, ::2]
+    elif ties:
+        gx[:, :, list(ties)] = gx[:, :, :1]
+        gf[:, :, list(ties)] = gf[:, :, :1]
     p = _random_mlp(rng, cf, widths)
     ws = _jax_ws(p)
     tgt = rng.randn(B, m, widths[-1]).astype(np.float32)
@@ -292,10 +302,51 @@ def test_group_mlp_value_and_grad_match_pallas_kernel(case):
         w = np.asarray(w)
         np.testing.assert_allclose(a.grad.numpy(), w, rtol=1e-4,
                                    atol=1e-4 * np.abs(w).max())
-    if ties:
+    if ties == "pairs":
         # tied rows share a maximum's cotangent evenly
         np.testing.assert_array_equal(x.grad[:, :, 1::2].numpy(),
                                       x.grad[:, :, ::2].numpy())
+    elif ties:
+        rows = list(ties)
+        assert (got.detach() == tops.group_mlp_maxpool(
+            x[:, :, :1].detach(), f[:, :, :1].detach(), p)).any()
+        for a in (x, f):
+            np.testing.assert_array_equal(
+                a.grad[:, :, rows].numpy(),
+                np.broadcast_to(a.grad[:, :, :1].numpy(), a.grad[:, :, rows].shape))
+
+
+# (cf, widths, nsample) of every grouped MLP the SSG and MSG victims run
+# through group_mlp: SSG SA1-SA3, MSG SA1's three scales and GroupAll, with
+# the forward's tile height and split at each, and its shared memory there
+FWD_SHAPES = {
+    "SSG SA1": (0, (64, 64, 128), 64, (128, 1), 90112),
+    "SSG SA2": (128, (128, 128, 256), 64, (64, 1), 115712),
+    "SSG SA3": (256, (256, 512, 1024), 128, (32, 4), 196608),
+    "MSG SA1 ns=16": (0, (32, 32, 64), 16, (128, 1), 45056),
+    "MSG SA1 ns=32": (0, (64, 64, 128), 32, (128, 1), 90112),
+    "MSG SA1 ns=128": (0, (64, 96, 128), 128, (128, 1), 106496),
+    "MSG GroupAll": (640, (256, 512, 1024), 128, (32, 4), 213504),
+}
+
+
+@pytest.mark.parametrize("shape", sorted(FWD_SHAPES))
+def test_group_mlp_forward_plan_fits_every_victim_shape(shape):
+    cf, widths, ns, plan, smem = FWD_SHAPES[shape]
+    assert gk.fwd_plan(ns, cf, widths) == plan
+    assert gk.fwd_smem_bytes(cf, widths, plan[0]) == smem <= gk._SMEM_MAX
+    assert gk.fwd_smem_bytes(cf, widths) <= gk._SMEM_MAX  # the 32-row need
+
+
+def test_group_mlp_forward_refuses_what_cannot_fit():
+    # layer 2 of 1024 columns beside 640 features: 262,144 bytes at 32 rows
+    assert gk.fwd_smem_bytes(640, (256, 1024, 1024)) == 262144
+    with pytest.raises(ValueError, match="262144 bytes"):
+        gk.fwd_plan(128, 640, (256, 1024, 1024))
+    rng = np.random.RandomState(72)
+    p = _random_mlp(rng, 640, (256, 1024, 1024))
+    with pytest.raises(ValueError, match="262144 bytes"):
+        gk.group_mlp_fwd(torch.zeros(1, 1, 128, 3), torch.zeros(1, 1, 128, 640), p)
 
 
 def test_group_mlp_checks_its_weights():
