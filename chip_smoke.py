@@ -16,15 +16,19 @@ Needs one CUDA card, nvcc and this repository around the script. Phases:
      empty, over-full and larger-than-the-cloud balls and duplicated rows;
      the MSG victim's whole-scale kernel at SA2's three scales, at cf=0 and
      cf=3, with empty and over-full balls, its grouped MLPs at SA1's three
-     scales and at GroupAll with 640 features, and the k-neighbour scatter),
+     scales and at GroupAll with 640 features, the grouped MLPs also at
+     GroupAll with 896 and 1536 features (16-row tiles), and the
+     k-neighbour scatter),
      with the tolerance stated, and time both (CUDA events, warm, median of
      20), plus one PyTorch library call where one computes the same
      function, and for the whole-scale kernel the split pair it stands in for.
      The pool forward's whole output (maximum, tie count, first tied rows) is
      held bit-equal to an exact oracle of its fmaf chain at b=2, and so are
      the grouped-MLP forward's maxima and tie counts at all seven PointNet++
-     shapes (the first two clouds), GroupAll's with ties placed across the
-     blocks a cloud is split over; the 3-channel
+     shapes and the two wider GroupAll ones (the first two clouds),
+     GroupAll's with ties placed across the blocks a cloud is split over,
+     and the grouped-MLP backward against float64 and bit-equal between two
+     calls, and timed ten calls back to back beside its forward; the 3-channel
      scatter also in the o2a backward's strided plane layout and on its
      global-atomic route for clouds too large for shared memory; the
      scatter's and the pool wrapper's host time per call are printed. The
@@ -79,6 +83,12 @@ Needs one CUDA card, nvcc and this repository around the script. Phases:
 Every path runs with the kernels' launch counts set to 0 just before and
 read just after, and fails if a kernel it names was not launched; together
 the paths must cover every kernel. `--kernels-only` stops after phase 2.
+`--group-mlp-times [--tree DIR]` only builds the kernels and times the
+grouped-MLP kernels on phase 2's inputs, with their plain versions and
+bounds, checking nothing: those of this checkout at the seven PointNet++
+shapes and the two wider GroupAll ones, or those of the checkout at DIR (say
+a `git archive` of another commit under `build/`) at the seven shapes, so
+that two commits are timed on the same inputs in one call.
 
 Any failed check raises, and the script exits non-zero. It never falls back
 to the CPU: without a CUDA device it exits non-zero before printing results.
@@ -104,17 +114,27 @@ DENSE_B, DENSE_N = 16, 10000  # runs/bench_dense.py's batch and cloud size
 # dense n, and the JAX package's largest padded n
 DENSE_CHECKS = ((2, 1000), (2, DENSE_N), (1, 12288))
 # GroupAll rows that repeat row 0: on the 32-row tiles its 128 rows are
-# split into, they sit in the second, third and fourth block
+# split into at the victims' widths, they sit in the second, third and
+# fourth block; on the 16-row tiles of the wider GroupAll cases, in the
+# fourth, fifth and eighth
 SPLIT_TIES = [63, 64, 127]
+# GroupAll feature counts past 32-row forward tiles (16 rows, 8 blocks a
+# cloud), run as kernel cases beside the victims' shapes
+WIDE_GROUPALL = (896, 1536)
 
 
 def _fail(msg: str) -> None:
     raise SystemExit(f"chip_smoke: {msg}")
 
 
-if not (REPO / "geoa3_tpu_torch" / "csrc").is_dir():
-    _fail(f"geoa3_tpu_torch/ not found beside {Path(__file__).name}")
-sys.path.insert(0, str(REPO))
+# the checkout whose package runs: this one, or with `--tree DIR` (beside
+# `--group-mlp-times`) another one, whose kernels are timed on this script's
+# inputs
+CODE = (Path(sys.argv[sys.argv.index("--tree") + 1]).resolve()
+        if "--tree" in sys.argv[1:-1] else REPO)
+if not (CODE / "geoa3_tpu_torch" / "csrc").is_dir():
+    _fail(f"geoa3_tpu_torch/ not found in {CODE}")
+sys.path.insert(0, str(CODE))
 from geoa3_tpu_torch.workload import BATCH as B, KNN as K, NPOINT as N  # noqa: E402
 
 
@@ -768,6 +788,62 @@ def random_mlp(torch, gen, cf, widths):
     return fold_mlp(*parts)
 
 
+def group_mlp_inputs(torch, victim: str) -> dict:
+    """The grouped MLP's inputs, label -> (gx, gf, folded MLP), at b=32, made
+    from seeds by the checkout's own sampling and grouping kernels. "SSG":
+    the SSG victim's three set-abstraction shapes (1024 -> 512 centres x 64
+    samples, r=0.2; 512 -> 128 x 64 with 128 features, r=0.4; GroupAll of
+    128 points with 256 features). "MSG": its SA1 at the MSG victim's three
+    scales (ns 16, 32, 128) and GroupAll with 640 features. "wide": GroupAll
+    with 896 and 1536 features, past 32-row forward tiles. Under-full balls
+    repeat their first hit; GroupAll repeats every eighth row (exact ties)
+    and row 0 at `SPLIT_TIES` (ties across the blocks a cloud is split
+    over)."""
+    from geoa3_tpu_torch import ops
+    from geoa3_tpu_torch.ops.kernels import (
+        ballquery_group_kernel as bk,
+        fps_kernel as fk,
+    )
+
+    pc, _, _ = make_batch(torch, B, N, seed=3 if victim == "SSG" else 11)
+    gen = torch.Generator(device="cuda").manual_seed(
+        {"SSG": 7, "MSG": 13, "wide": 17}[victim])
+
+    def randn(*shape):
+        return torch.randn(*shape, device="cuda", generator=gen)
+
+    x1 = ops.gather_points(pc, fk.fps(pc, 512))  # SA1's centres
+    x2 = ops.gather_points(x1, fk.fps(x1, 128))  # SA2's centres
+
+    def group_all(cf):
+        gx_ = x2[:, None].clone()  # [32, 1, 128, 3], its own copy
+        gf_ = torch.relu(randn(B, 1, 128, cf))
+        for t in (gx_, gf_):
+            t[:, :, 1::8] = t[:, :, 0::8]
+            t[:, :, SPLIT_TIES] = t[:, :, :1]
+        return gx_, gf_, random_mlp(torch, gen, cf, (256, 512, 1024))
+
+    if victim == "SSG":
+        f1 = randn(B, 512, 128)
+        _, gx2, gf2 = bk.ballquery_group_fwd(x1, x2, f1, 0.4, 64)
+        return {
+            "SSG SA1": (bk.ballquery_group_fwd(pc, x1, None, 0.2, 64)[1], None,
+                        random_mlp(torch, gen, 0, (64, 64, 128))),
+            "SSG SA2": (gx2, torch.relu(gf2),
+                        random_mlp(torch, gen, 128, (128, 128, 256))),
+            "SSG SA3": group_all(256),
+        }
+    if victim == "MSG":
+        out = {f"MSG SA1 ns={ns_}": (bk.ballquery_group_fwd(pc, x1, None, r_, ns_)[1],
+                                     None, random_mlp(torch, gen, 0, w_))
+               for r_, ns_, w_ in ((0.1, 16, (32, 32, 64)), (0.2, 32, (64, 64, 128)),
+                                   (0.4, 128, (64, 96, 128)))}
+        out["MSG GroupAll cf=640"] = group_all(640)
+        return out
+    return {f"GroupAll cf={cf_} (16-row tiles)": group_all(cf_)
+            for cf_ in WIDE_GROUPALL}
+
+
 def group_mlp_oracle_check(torch, gk, label, gx_, gf_, p_, pooled, cnt) -> int:
     """group_mlp_fwd's pooled and cnt bit-equal to an exact oracle of its
     arithmetic on the first two clouds' groups: each layer one fmaf chain
@@ -858,6 +934,12 @@ def group_mlp_case(torch, label, gx_, gf_, p_, randn) -> dict:
         [xg] + ([fg] if fg is not None else []))
     del a3, z1, z2, top2, gap, on1, on2
     got = gk.group_mlp_bwd(gcot, gx_, gf_, p_, pooled, cnt)
+    # no atomics: a second call on the same inputs gives the same bits
+    again = gk.group_mlp_bwd(gcot, gx_, gf_, p_, pooled, cnt)
+    for g_, a_, what in zip(got, again, ("dgx", "dgf")):
+        if g_ is not None:
+            require_equal(torch, f"group_mlp_bwd[{label}]", a_, g_,
+                          f"{what} of a second call")
     tied = int((cnt > 1).sum())
     bwd_errs = []
     for g_, w_, what in zip(got, grads, ("dgx", "dgf")):
@@ -873,36 +955,88 @@ def group_mlp_case(torch, label, gx_, gf_, p_, randn) -> dict:
           f"the reverse; {int(gap_ok.sum())}/{gap_ok.numel()} maxima carry "
           f"a cotangent")
     del grads, xg, fg
-    c0, c1_, c2_, c3_ = p_.w1.shape[0], p_.w1.shape[1], p_.w2.shape[1], p_.w3.shape[1]
-    flops = 2.0 * b_ * m_ * ns_ * (c0 * c1_ + c1_ * c2_ + c2_ * c3_)
-    g_all = randn(b_, m_, c3_)
+    r_ = dict(fwd_err=fwd_err, bwd_err=max(bwd_errs), tied=tied, across=across,
+              **group_mlp_times(torch, gk, gx_, gf_, p_, pooled, cnt,
+                                randn(b_, m_, p_.w3.shape[1])))
+    print(f"  group_mlp[{label}]: {tied} (group, channel)s with tied maxima; "
+          + group_mlp_times_line(r_))
+    return r_
+
+
+def group_mlp_times(torch, gk, gx_, gf_, p_, pooled, cnt, g_all) -> dict:
+    """The grouped-MLP kernels' times at one shape (CUDA events: one call,
+    median of 20, and `ten_ms`), their plain versions' (the backward's:
+    autograd through the plain forward, forward included) and both bounds
+    for this run's inputs. The backward's operations are what its function
+    needs on this data: the three layers' recompute over every row (it
+    finds the rows that hold the maxima); dz3 @ w3t over dz3's nonzero
+    entries only, c2 multiply-adds each (cnt of them for each (group,
+    channel) whose maximum is above 0 and whose cotangent is not); d2 @ w2t
+    and d1 @ w1t over the rows that carry a cotangent, read from the plain
+    version's gradient (every other row's d2 and d1 are 0). ReLU zeros
+    inside a row count as work, as in the forward's bound."""
+    b_, m_, ns_, _ = gx_.shape
+    c0, c1 = p_.w1.shape
+    c2, c3 = p_.w3.shape
+    flops = 2.0 * b_ * m_ * ns_ * (c0 * c1 + c1 * c2 + c2 * c3)
     xr = gx_.clone().requires_grad_(True)
     fr = gf_.clone().requires_grad_(True) if gf_ is not None else None
     ins = [xr] + ([fr] if fr is not None else [])
+
+    def plain_bwd():
+        return torch.autograd.grad(
+            (gk.group_mlp_maxpool_plain(xr, fr, p_) * g_all).sum(), ins)
+
+    carried = torch.stack([(d != 0).any(-1) for d in plain_bwd()]).any(0).sum().item()
+    hits = (cnt * ((pooled > 0) & (g_all != 0))).sum().item()
     wbytes = nbytes(*p_[:6])
-    r_ = dict(
-        fwd_err=fwd_err, bwd_err=max(bwd_errs), flops=flops, tied=tied,
-        across=across,
+    fbytes = nbytes(gf_) if gf_ is not None else 0
+    return dict(
+        flops=flops, hits=hits, carried=carried,
         fwd_ms=time_ms(lambda: gk.group_mlp_fwd(gx_, gf_, p_)),
         fwd_ten=ten_ms(lambda: gk.group_mlp_fwd(gx_, gf_, p_)),
         fwd_plain=time_ms(lambda: gk.group_mlp_maxpool_plain(gx_, gf_, p_), iters=5),
-        fwd_bound=bound_ms(nbytes(gx_, pooled, cnt) + wbytes
-                           + (nbytes(gf_) if gf_ is not None else 0), flops),
+        fwd_bound=bound_ms(nbytes(gx_, pooled, cnt) + wbytes + fbytes, flops),
         bwd_ms=time_ms(lambda: gk.group_mlp_bwd(g_all, gx_, gf_, p_, pooled, cnt)),
-        bwd_plain=time_ms(lambda: torch.autograd.grad(
-            (gk.group_mlp_maxpool_plain(xr, fr, p_) * g_all).sum(), ins), iters=5),
-        # the recompute and one dz @ w^T product a layer (no weight
-        # gradients): twice the forward
-        bwd_bound=bound_ms(2 * nbytes(gx_) + nbytes(g_all, pooled, cnt) + 2 * wbytes
-                           + (2 * nbytes(gf_) if gf_ is not None else 0), 2.0 * flops),
+        bwd_ten=ten_ms(lambda: gk.group_mlp_bwd(g_all, gx_, gf_, p_, pooled, cnt)),
+        bwd_plain=time_ms(plain_bwd, iters=5),
+        bwd_plain_ten=ten_ms(plain_bwd, iters=5),
+        bwd_bound=bound_ms(
+            2 * nbytes(gx_) + nbytes(g_all, pooled, cnt) + 2 * wbytes + 2 * fbytes,
+            flops + 2.0 * (hits * c2 + carried * (c2 * c1 + c1 * c0))),
     )
-    print(f"  group_mlp[{label}]: {tied} (group, channel)s with tied maxima; "
-          f"fwd ms={r_['fwd_ms']:.4f} (ten back to back: {r_['fwd_ten']:.4f}) "
-          f"plain={r_['fwd_plain']:.4f} bound={r_['fwd_bound'][0]:.4f} share of "
-          f"the bound={r_['fwd_bound'][0] / r_['fwd_ms']:.3f} (ten: "
-          f"{r_['fwd_bound'][0] / r_['fwd_ten']:.3f}); bwd ms={r_['bwd_ms']:.4f} "
-          f"plain={r_['bwd_plain']:.4f} bound={r_['bwd_bound'][0]:.4f}")
-    return r_
+
+
+def group_mlp_times_line(r_: dict) -> str:
+    fb, bb = r_["fwd_bound"][0], r_["bwd_bound"][0]
+    return (f"fwd ms={r_['fwd_ms']:.4f} (ten back to back: {r_['fwd_ten']:.4f}) "
+            f"plain={r_['fwd_plain']:.4f} bound={fb:.4f} share of the bound="
+            f"{fb / r_['fwd_ms']:.3f} (ten: {fb / r_['fwd_ten']:.3f}); bwd ms="
+            f"{r_['bwd_ms']:.4f} (ten back to back: {r_['bwd_ten']:.4f}) plain="
+            f"{r_['bwd_plain']:.4f} (ten: {r_['bwd_plain_ten']:.4f}) bound={bb:.4f} "
+            f"share of the bound={bb / r_['bwd_ms']:.3f} (ten: "
+            f"{bb / r_['bwd_ten']:.3f}; {r_['hits']} nonzero dz3 entries, "
+            f"{r_['carried']} rows carry a cotangent)")
+
+
+def group_mlp_times_phase(torch, wide: bool) -> dict:
+    """`--group-mlp-times`: the checkout's grouped-MLP kernels timed at the
+    seven PointNet++ shapes (`wide`: and the two wider GroupAll ones, which
+    older checkouts refuse) on `group_mlp_inputs`' inputs, as phase 2 times
+    them, with no check run."""
+    from geoa3_tpu_torch.ops.kernels import group_mlp_kernel as gk
+
+    print(f"grouped-MLP times of {gk.__file__}")
+    gen = torch.Generator(device="cuda").manual_seed(19)
+    out = {}
+    for victim in ("SSG", "MSG") + (("wide",) if wide else ()):
+        for label, (gx_, gf_, p_) in group_mlp_inputs(torch, victim).items():
+            pooled, cnt = gk.group_mlp_fwd(gx_, gf_, p_)
+            g_all = torch.randn(*pooled.shape, device="cuda", generator=gen)
+            out[label] = group_mlp_times(torch, gk, gx_, gf_, p_, pooled, cnt, g_all)
+            print(f"  group_mlp[{label}]: " + group_mlp_times_line(out[label]),
+                  flush=True)
+    return out
 
 
 def ssg_kernel_checks(torch) -> list[dict]:
@@ -1075,30 +1209,19 @@ def ssg_kernel_checks(torch) -> list[dict]:
     del ct1, lib_ct, lib_out, sc_out
 
     # --- grouped MLP + max-pool, forward and backward ----------------------
-    gx3 = c2[:, None].contiguous()  # GroupAll: [32, 1, 128, 3]
-    gf3 = torch.relu(randn(B, 1, 128, 256))
-    gx3[:, :, 1::8] = gx3[:, :, 0::8]  # duplicated rows: exact ties
-    gf3[:, :, 1::8] = gf3[:, :, 0::8]
-    # copies of row 0 in the other blocks of a split cloud: ties across them
-    gx3[:, :, SPLIT_TIES] = gx3[:, :, :1]
-    gf3[:, :, SPLIT_TIES] = gf3[:, :, :1]
-    shapes = {
-        "SA1": (gx1, None, random_mlp(torch, gen, 0, (64, 64, 128))),
-        "SA2": (gx2, torch.relu(gf2), random_mlp(torch, gen, 128, (128, 128, 256))),
-        "SA3": (gx3, gf3, random_mlp(torch, gen, 256, (256, 512, 1024))),
-    }
+    shapes = group_mlp_inputs(torch, "SSG")
     rows = {label: group_mlp_case(torch, label, gx_, gf_, p_, randn)
             for label, (gx_, gf_, p_) in shapes.items()}
-    if rows["SA3"]["tied"] == 0 or rows["SA1"]["tied"] == 0:
+    if rows["SSG SA3"]["tied"] == 0 or rows["SSG SA1"]["tied"] == 0:
         _fail("group_mlp: the inputs held no tied maxima, the tie split is unchecked")
-    if rows["SA3"]["across"] == 0:
-        _fail("group_mlp_fwd[SA3]: no maximum is tied across two blocks, the "
+    if rows["SSG SA3"]["across"] == 0:
+        _fail("group_mlp_fwd[SSG SA3]: no maximum is tied across two blocks, the "
               "split's merge is unchecked")
-    r2_ = rows["SA2"]
+    r2_ = rows["SSG SA2"]
     others = lambda k1, k2: "; ".join(  # noqa: E731
-        f"{lab}: ms={rows[lab][k1]:.4f} bound_ms={rows[lab][k2][0]:.4f}"
-        + (f" ten={rows[lab]['fwd_ten']:.4f}" if k1 == "fwd_ms" else "")
-        for lab in ("SA1", "SA3"))
+        f"{lab}: ms={rows[lab][k1]:.4f} bound_ms={rows[lab][k2][0]:.4f} "
+        f"ten={rows[lab][k1[:3] + '_ten']:.4f}"
+        for lab in ("SSG SA1", "SSG SA3"))
     entry("group_mlp_fwd", "geoa3_tpu_torch/csrc/group_mlp.cu",
           "geoa3_tpu/ops/pallas/group_mlp_kernel.py:158",
           max(r["fwd_err"] for r in rows.values()), r2_["fwd_ms"],
@@ -1112,7 +1235,8 @@ def ssg_kernel_checks(torch) -> list[dict]:
           "geoa3_tpu/ops/pallas/group_mlp_kernel.py:177",
           max(r["bwd_err"] for r in rows.values()), r2_["bwd_ms"],
           r2_["bwd_plain"], r2_["bwd_bound"], None,
-          "SA2 -> dgx [32,128,64,3], dgf [32,128,64,128] (plain: autograd "
+          f"SA2 -> dgx [32,128,64,3], dgf [32,128,64,128] (ten back to back: "
+          f"{r2_['bwd_ten']:.4f}; plain: autograd "
           "through the plain forward, forward included; max_abs_err against "
           "float64 autograd over every row, with the float32 ReLU pattern on "
           "the rows that hold a pre-activation within rounding of 0); "
@@ -1255,12 +1379,12 @@ def msg_kernel_checks(torch, kernels: list) -> list[dict]:
     (b=32): the whole-scale kernel at SA2's three scales (512 -> 128 centres,
     ns 32/64/128, 320 features), at cf=0 and cf=3 and with empty and
     over-full balls; the grouped MLP at SA1's three scales and at GroupAll
-    (128 points, 640 features: the 16-row backward tile), whose numbers join
-    the group_mlp entries of `kernels`; and the k-neighbour 3-channel
+    (128 points, 640 features; and 896 and 1536 features, past 32-row
+    forward tiles), whose numbers join the group_mlp entries of `kernels`;
+    and the k-neighbour 3-channel
     scatter at [32,1024,17,3] -> 1024."""
     from geoa3_tpu_torch import ops
     from geoa3_tpu_torch.ops.kernels import (
-        ballquery_group_kernel as bk,
         fps_kernel as fk,
         knn_kernel as qk,
         scatter_kernel as sk,
@@ -1326,35 +1450,24 @@ def msg_kernel_checks(torch, kernels: list) -> list[dict]:
           + rest("bwd_ms", "bwd_bound", "split_bwd"))
 
     # --- the grouped MLP at MSG's shapes -------------------------------------
-    mshapes = {}
-    for r_, ns_, w_ in ((0.1, 16, (32, 32, 64)), (0.2, 32, (64, 64, 128)),
-                        (0.4, 128, (64, 96, 128))):
-        _, gx_, _ = bk.ballquery_group_fwd(pc, x1, None, r_, ns_)
-        mshapes[f"MSG SA1 ns={ns_}"] = (gx_, None, random_mlp(torch, gen, 0, w_))
-    gx3 = x2[:, None].contiguous()  # GroupAll: [32, 1, 128, 3]
-    gf3 = torch.relu(randn(B, 1, 128, 640))
-    gx3[:, :, 1::8] = gx3[:, :, 0::8]  # duplicated rows: exact ties
-    gf3[:, :, 1::8] = gf3[:, :, 0::8]
-    gx3[:, :, SPLIT_TIES] = gx3[:, :, :1]  # ties across a split cloud's blocks
-    gf3[:, :, SPLIT_TIES] = gf3[:, :, :1]
-    mshapes["MSG GroupAll cf=640"] = (gx3, gf3,
-                                      random_mlp(torch, gen, 640, (256, 512, 1024)))
+    mshapes = {**group_mlp_inputs(torch, "MSG"), **group_mlp_inputs(torch, "wide")}
     mrows = {label: group_mlp_case(torch, label, gx_, gf_, p_, randn)
              for label, (gx_, gf_, p_) in mshapes.items()}
-    if mrows["MSG GroupAll cf=640"]["tied"] == 0:
-        _fail("group_mlp: GroupAll's inputs held no tied maxima")
-    if mrows["MSG GroupAll cf=640"]["across"] == 0:
-        _fail("group_mlp_fwd[MSG GroupAll]: no maximum is tied across two "
-              "blocks, the split's merge is unchecked")
+    for label in [lab for lab in mrows if "GroupAll" in lab]:
+        if mrows[label]["tied"] == 0:
+            _fail(f"group_mlp[{label}]: the inputs held no tied maxima")
+        if mrows[label]["across"] == 0:
+            _fail(f"group_mlp_fwd[{label}]: no maximum is tied across two "
+                  "blocks, the split's merge is unchecked")
     for k in kernels:
         if k["name"] in ("group_mlp_fwd", "group_mlp_bwd"):
             which = "fwd" if k["name"].endswith("fwd") else "bwd"
             k["max_abs_err"] = max([k["max_abs_err"]] + [
                 r[f"{which}_err"] for r in mrows.values()])
-            k["shape"] += "; MSG (GroupAll's backward on 16-row tiles): " + "; ".join(
+            k["shape"] += "; MSG and wider GroupAll: " + "; ".join(
                 f"{lab}: ms={r[which + '_ms']:.4f} plain_ms="
                 f"{r[which + '_plain']:.4f} bound_ms={r[which + '_bound'][0]:.4f}"
-                + (f" ten={r['fwd_ten']:.4f}" if which == "fwd" else "")
+                f" ten={r[which + '_ten']:.4f}"
                 for lab, r in mrows.items())
 
     # --- the k-neighbour 3-channel scatter ----------------------------------
@@ -2209,7 +2322,16 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--kernels-only", action="store_true",
                     help="stop after phase 2 (a short check of a new kernel)")
+    ap.add_argument("--group-mlp-times", action="store_true",
+                    help="only time the grouped-MLP kernels at the seven "
+                         "PointNet++ shapes, on phase 2's inputs, no check")
+    ap.add_argument("--tree", metavar="DIR",
+                    help="with --group-mlp-times: the checkout whose kernels "
+                         "run (e.g. a `git archive` of another commit), timed "
+                         "at the seven shapes only")
     args = ap.parse_args()
+    if args.tree and not args.group_mlp_times:
+        _fail("--tree goes with --group-mlp-times")
 
     if not torch.cuda.is_available():
         _fail("torch.cuda.is_available() is false: this script needs a CUDA card")
@@ -2232,6 +2354,11 @@ def main() -> int:
 
     def phase(title):
         print(f"{title} (at {time.time() - t0:.1f} s)")
+
+    if args.group_mlp_times:
+        print(json.dumps({"card": smi, "tree": str(CODE), "shapes":
+                          group_mlp_times_phase(torch, CODE == REPO)}))
+        return 0
 
     phase("phase 2: kernels against their plain versions")
     kernels = kernel_checks(torch) + ssg_kernel_checks(torch)

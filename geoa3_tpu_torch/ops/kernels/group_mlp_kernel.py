@@ -14,33 +14,37 @@ splits each pooled cotangent evenly among the rows that tie for the maximum
 ReLU'(0) = 0, and returns the cotangents of gx and gf only: the weights are
 a frozen victim's.
 
-Bound on the H100: operations (2 * rows * (c0*c1 + c1*c2 + c2*c3) forward,
-twice that backward: the recompute and one dz @ w^T product a layer, no
-weight gradients). Every activation is one float32 fmaf chain from 0, k
+Bound on the H100: operations (2 * rows * (c0*c1 + c1*c2 + c2*c3) forward;
+backward, the same recompute, plus 2 * c2 for each nonzero entry of dz3 and
+2 * (c2*c1 + c1*c0) for each row that carries a cotangent, no weight
+gradients). Every activation is one float32 fmaf chain from 0, k
 ascending, then + bias, then the ReLU, in both kernels, so the backward's
-recompute equals the forward's bitwise. The forward takes tiles of 128, 64
-or 32 rows (transposed in shared memory) on persistent blocks of 256
-threads, each thread 8 rows x 8 (or 4) columns, with each layer's weights
-streamed through a three-stage cp.async ring in shared memory; the pool
-reduces (maximum, tie count) in registers and merges by shuffles. A group
-larger than a tile (GroupAll) is split over blocks that write partials to a
-scratch, merged by a finishing kernel. The backward takes 64, 32 or 16 rows
-through all three layers with weights streamed from L2 and a 4x4 output
-tile a thread; it splits each pooled cotangent evenly among the rows the
-forward counted as tied.
+recompute equals the forward's bitwise. Both kernels run one loop: tiles of
+rows transposed in shared memory on persistent blocks of 256 threads, each
+thread 8 rows x 8 (or 4) columns, with each layer's weights streamed
+through a three-stage cp.async ring in shared memory. The forward takes
+tiles of 128, 64, 32 or 16 rows, two blocks an SM where they fit; it is
+three layers, its pool reduces (maximum, tie count) in registers and merges
+by shuffles, and a group larger than a tile (GroupAll) is split over blocks
+that write partials to a scratch, merged by a finishing kernel. The
+backward takes the tallest of 256 .. 16 rows that fits one block an SM; it
+is six layers: the three recomputes, then dz3 @ w3t, d2 @ w2t and d1 @ w1t,
+with dz3 the pooled cotangent split evenly among the rows the forward
+counted as tied; a split group needs no merge. Where groups hold 64 rows
+or more, dz3 @ w3t runs off the ring, each thread over the columns whose
+maximum its 8 rows hold (hit bits); where cf <= 1, so does d1 @ w1t.
 
 Limits: the three widths are multiples of 4; cf is any size >= 0; each
 kernel's tiles must fit a block's 232,448 bytes of shared memory at their
-smallest height: the forward's need is `fwd_smem_bytes` (32 rows), the
-backward's (round4(3 + cf) + c1 + 2 c2 + 64 + (c1 if c1 > c2)) * 20 * 4
-bytes (16 rows). MSG's GroupAll (cf = 640, widths 256/512/1024) takes
-213,504 bytes forward (32 rows) and 159,040 backward (16 rows). The
-forward's limit is the narrower: with those widths it takes cf <= 789, the
-backward cf <= 1557, so a GroupAll of 790 to 1557 features is refused.
+smallest height, 16 rows: `fwd_smem_bytes` and `bwd_smem_bytes`. MSG's
+GroupAll (cf = 640, widths 256/512/1024) takes 213,504 bytes forward (32
+rows) and 221,696 backward (32 rows). With those widths the forward takes
+cf <= 1837, the backward cf <= 1741.
 """
 
 from __future__ import annotations
 
+from functools import lru_cache
 from typing import NamedTuple, Optional
 
 import torch
@@ -49,44 +53,89 @@ from geoa3_tpu_torch.ops.kernels import _build
 
 _SMEM_MAX = 232448  # bytes of shared memory one block may use on Hopper
 _SMEM_HALF = 113 * 1024  # a block's share where two fit an SM
-_FWD_ROWS = (128, 64, 32)  # the forward's tile heights, largest first
-_FWD_BK, _FWD_STAGES = 16, 3  # weight rows a ring stage, ring depth
+_TILE_ROWS = (128, 64, 32, 16)  # the forward's tile heights, largest first
+_BWD_ROWS = (256,) + _TILE_ROWS  # the backward's
+_BK, _STAGES = 16, 3  # weight rows a ring stage, ring depth
 
 
-def _fwd_cols(rows: int, cout: int) -> int:
-    """Columns one round of a forward layer covers (csrc fwd_cw): 2048/rows
-    column groups of 8 columns, or of 4 where 8 would idle threads or cout
-    is not a multiple of 8."""
+def _tile_cols(rows: int, cout: int) -> int:
+    """Columns one round of a layer covers (csrc tile_cw): 2048/rows column
+    groups of 8 columns where cout is a multiple of 8 wider than a round of
+    4, else of 4, and always of 4 at 16 rows."""
     groups = 2048 // rows
-    return groups * (8 if cout % 8 == 0 and cout >= groups * 8 else 4)
+    wide = rows > 16 and cout % 8 == 0 and cout > groups * 4
+    return groups * (8 if wide else 4)
 
 
-def fwd_smem_bytes(cf: int, widths, rows: int = 32) -> int:
-    """Shared memory of the forward kernel's block at a tile of `rows` rows
-    (csrc/group_mlp.cu fwd_plan): the input / layer-2 buffer and layer 1's,
-    [channel][row], and the weight ring. At 32 rows, the smallest tile, it
-    is what a shape needs."""
+def _smem_bytes(ns: int, cf: int, widths, rows: int, bwd: bool,
+                bk: int = _BK) -> int:
+    """csrc/group_mlp.cu make_plan's shared memory: region X (the input,
+    then layer 2's activations and, where the backward's layer 4 runs on the
+    ring (ns < 64), dz3 after them), layer 1's activations, [channel][row],
+    the weight ring (bk weight rows a stage, its widest round), and where
+    layer 4 runs off the ring, dz3 as a hit bit a (row, column) and each of
+    the tile's groups' cotangent shares."""
     c1, c2, c3 = widths
     c0p = (3 + cf + 3) // 4 * 4
-    stage = _FWD_BK * max(_fwd_cols(rows, c) for c in (c1, c2, c3))
-    return ((max(c0p, c2) + c1) * rows + _FWD_STAGES * stage) * 4
+    couts = (c1, c2, c3, c0p) if bwd else (c1, c2, c3)
+    stage = bk * max(_tile_cols(rows, c) for c in couts)
+    sparse = bwd and ns >= 64
+    top = c2 + c3 if bwd and not sparse else c2
+    words = (max(c0p, top) + c1) * rows + _STAGES * stage
+    if sparse:
+        slot = max(8, 1 << (ns - 1).bit_length())
+        words += (c3 + 31) // 32 * rows + (rows // slot if ns <= rows else 1) * c3
+    return words * 4
+
+
+def fwd_smem_bytes(cf: int, widths, rows: int = 16) -> int:
+    """Shared memory of the forward kernel's block at a tile of `rows` rows.
+    At 16 rows, the smallest tile, it is what a shape needs."""
+    return _smem_bytes(1, cf, widths, rows, False)
+
+
+def bwd_smem_bytes(ns: int, cf: int, widths, rows: int = 16) -> int:
+    """Shared memory of the backward kernel's block for groups of ns rows at
+    a tile of `rows` rows, with ring stages of 32 weight rows where they fit
+    (above 16 rows), else 16 (csrc bwd_tile_plan). At 16 rows, the smallest
+    tile, it is what a shape needs."""
+    deep = _smem_bytes(ns, cf, widths, rows, True, 2 * _BK)
+    if rows > 16 and deep <= _SMEM_MAX:
+        return deep
+    return _smem_bytes(ns, cf, widths, rows, True)
+
+
+@lru_cache(maxsize=256)
+def _plan(ns: int, cf: int, widths, bwd: bool):
+    def need(rows):
+        return _smem_bytes(ns, cf, widths, rows, bwd)
+
+    fits = [] if bwd else [r for r in _TILE_ROWS[:-1] if need(r) <= _SMEM_HALF]
+    fits = fits or [r for r in (_BWD_ROWS if bwd else _TILE_ROWS)
+                    if need(r) <= _SMEM_MAX]
+    if not fits:
+        raise ValueError(
+            f"the group_mlp {'backward' if bwd else 'forward'}'s 16-row tile "
+            f"needs {need(16)} bytes of shared memory for cf={cf}, "
+            f"widths {tuple(widths)}; a block has {_SMEM_MAX}")
+    rows = fits[0]
+    return rows, (ns + rows - 1) // rows if ns > rows else 1
 
 
 def fwd_plan(ns: int, cf: int, widths):
     """(tile rows, parts a group is split into) as the forward's C entry
-    picks them: the largest tile whose block leaves room for two an SM,
-    else the largest that fits; a group of more rows than the tile is split
-    into ceil(ns / rows) parts, one a block."""
-    fits = [r for r in _FWD_ROWS if fwd_smem_bytes(cf, widths, r) <= _SMEM_HALF]
-    fits = fits or [r for r in _FWD_ROWS
-                    if fwd_smem_bytes(cf, widths, r) <= _SMEM_MAX]
-    if not fits:
-        raise ValueError(
-            f"the group_mlp forward's 32-row tile needs "
-            f"{fwd_smem_bytes(cf, widths)} bytes of shared memory for "
-            f"cf={cf}, widths {tuple(widths)}; a block has {_SMEM_MAX}")
-    rows = fits[0]
-    return rows, (ns + rows - 1) // rows if ns > rows else 1
+    picks them: the largest tile of 32 rows or more whose block leaves room
+    for two an SM, else the largest that fits (16 rows only where 32 do
+    not); a group of more rows than the tile is split into ceil(ns / rows)
+    parts, one a block."""
+    return _plan(ns, cf, tuple(widths), False)
+
+
+def bwd_plan(ns: int, cf: int, widths):
+    """(tile rows, parts a group is split into) as the backward's C entry
+    picks them: the largest of 256, 128, 64, 32 and 16 rows that fits one
+    block an SM (`bwd_smem_bytes`), split as the forward's."""
+    return _plan(ns, cf, tuple(widths), True)
 
 
 class FoldedMLP(NamedTuple):
@@ -143,13 +192,9 @@ def _check(gx, gf, p: FoldedMLP):
             f"the group_mlp kernel takes widths that are multiples of 4, got "
             f"{(c1, c2, c3)}")
     c0p = (c0 + 3) // 4 * 4
-    fwd_plan(ns, cf, (c1, c2, c3))  # raises where the forward cannot fit
-    need = (c0p + c1 + 2 * c2 + 64 + (c1 if c1 > c2 else 0)) * 20 * 4
-    if need > _SMEM_MAX:
-        raise ValueError(
-            f"the group_mlp backward's 16-row tiles need {need} bytes of "
-            f"shared memory for cf={cf}, widths {(c1, c2, c3)}; a block has "
-            f"{_SMEM_MAX}")
+    # raise where either kernel cannot fit
+    fwd_plan(ns, cf, (c1, c2, c3))
+    bwd_plan(ns, cf, (c1, c2, c3))
     _build.check_cuda(gx, "gx", torch.float32, (b, m, ns, 3))
     if gf is not None:
         _build.check_cuda(gf, "gf", torch.float32, (b, m, ns, cf))
@@ -169,9 +214,10 @@ def group_mlp_fwd(gx, gf, p: FoldedMLP):
     b, m = gx.shape[:2]
     pooled = torch.empty(b, m, c3, dtype=torch.float32, device=gx.device)
     cnt = torch.empty(b, m, c3, dtype=torch.int32, device=gx.device)
-    # a split group's partial maxima and counts (parts <= ceil(ns / 32))
-    scratch = (torch.empty(2 * groups * -(-ns // 32) * c3, dtype=torch.int32,
-                           device=gx.device) if ns > 32 else None)
+    # a split group's partial maxima and counts, one pair a part
+    parts = fwd_plan(ns, cf, (c1, c2, c3))[1]
+    scratch = (torch.empty(2 * groups * parts * c3, dtype=torch.int32,
+                           device=gx.device) if parts > 1 else None)
     _build.launch("geoa3_group_mlp_fwd", gx, gf, p.w1, p.b1, p.w2, p.b2, p.w3,
                   p.b3, groups, ns, cf, c1, c2, c3, pooled, cnt, scratch)
     group_mlp_fwd.launches += 1

@@ -43,7 +43,7 @@ _GROUPS = [
     (re.compile(r"scatter_nc_kernel|centre_grad_kernel"),
      "ballquery_group bwd / scatter_add_nc (port)"),
     (re.compile(r"group_mlp_fwd_(tiles|finish)"), "group_mlp_fwd (port)"),
-    (re.compile(r"group_mlp_bwd_kernel"), "group_mlp_bwd (port)"),
+    (re.compile(r"group_mlp_bwd_tiles"), "group_mlp_bwd (port)"),
     (re.compile(r"kappa_bwd_kernel"), "kappa_bwd (port)"),
     (re.compile(r"sa_fwd_kernel"), "sa_fused_fwd query+MLP+pool (port)"),
     (re.compile(r"sa_bwd_kernel"), "sa_fused_bwd recompute+scatter (port)"),

@@ -40,6 +40,12 @@ struct float4 {
 inline float4 make_float4(float a, float b, float c, float d) {
   return {a, b, c, d};
 }
+struct uint4 {
+  unsigned x, y, z, w;
+};
+inline uint4 make_uint4(unsigned a, unsigned b, unsigned c, unsigned d) {
+  return {a, b, c, d};
+}
 struct dim3 {
   unsigned x = 0, y = 0, z = 0;
 };
@@ -63,6 +69,10 @@ inline unsigned __float_as_uint(float f) {
   return u;
 }
 inline void __syncthreads() { g_block_barrier->arrive_and_wait(); }
+inline unsigned atomicOr(unsigned* p, unsigned v) {
+  return __atomic_fetch_or(p, v, __ATOMIC_RELAXED);
+}
+inline int __ffs(unsigned x) { return __builtin_ffs((int)x); }
 
 // every lane of the warp must call it, as the kernels do
 template <class T>
@@ -105,6 +115,14 @@ void cp_async_wait() {}
 template <class F>
 cudaError_t cudaFuncSetAttribute(F, cudaFuncAttribute, int bytes) {
   return bytes > kEmuSmemMax ? cudaErrorInvalidValue : cudaSuccess;
+}
+// blocks an SM holds: two where each takes at most half an SM's shared
+// memory (the emulation runs blocks one after another whatever it says)
+template <class F>
+cudaError_t cudaOccupancyMaxActiveBlocksPerMultiprocessor(int* n, F, int,
+                                                          size_t smem) {
+  *n = smem <= 113 * 1024 ? 2 : 1;
+  return cudaSuccess;
 }
 inline cudaError_t cudaGetLastError() { return cudaSuccess; }
 inline cudaError_t cudaGetDevice(int* dev) {

@@ -1,13 +1,18 @@
-"""The grouped-MLP forward's CUDA source (geoa3_tpu_torch/csrc/group_mlp.cu),
-compiled with g++ against tests/cuda_emu/cuda_runtime.h and run on the CPU,
-held bit-equal to a serial fmaf-chain oracle (tests/cuda_emu/
-group_mlp_fwd.cpp): the tile plans of every victim shape at a few groups,
-padded slots, groups split across blocks, ties across those blocks,
-misaligned features, persistent blocks walking several tiles, and widths
-that are 4 mod 8 past a round of 8-column threads. Each case's tile plan, as
-the C entry picks it, must be the one the wrapper's `fwd_plan` predicts.
+"""The grouped-MLP CUDA source (geoa3_tpu_torch/csrc/group_mlp.cu), compiled
+with g++ against tests/cuda_emu/cuda_runtime.h and run on the CPU. The
+forward is held bit-equal to a serial fmaf-chain oracle (tests/cuda_emu/
+group_mlp_fwd.cpp); the backward, run after the forward on the same inputs,
+to the backward taken in float64 through that oracle's float32 ReLU
+patterns and tie sets, at 2e-5 of each output's largest entry
+(tests/cuda_emu/group_mlp_bwd.cpp). The cases: the tile plans of every
+victim shape at a few groups, padded slots, groups split across blocks,
+ties across those blocks, misaligned features, persistent blocks walking
+several tiles, widths that are 4 mod 8 past a round of 8-column threads,
+and GroupAll's widths past 32-row tiles. Each case's tile plan, as the C
+entry picks it, must be the one the wrapper's `fwd_plan` / `bwd_plan`
+predicts. Both drivers fail on a write past the end of an output.
 
-The emulation runs the kernel's own index arithmetic, barriers, shuffles
+The emulation runs the kernels' own index arithmetic, barriers, shuffles
 and float operations, one thread a CUDA thread; it says nothing of speed
 or of the card's memory model, which `chip_smoke.py` covers on the card.
 """
@@ -42,6 +47,15 @@ CASES = {
     # 8-column threads would write past the layer's end in these
     "layer 3 of 260 columns at 128-row tiles": (3, 32, 0, (64, 64, 260), 1, 0, (5,)),
     "layer 1 of 132 columns at 128-row tiles, split": (2, 200, 4, (132, 44, 68), 2, 0, (0, 127, 128, 199)),
+    # cf = 1: the backward's last layer, 4 columns wide, runs off the ring
+    # and writes dgf's one column (with layer 4 on the ring, ns < 64, and
+    # off it)
+    "cf=1, ns=48": (5, 48, 1, (32, 32, 64), 2, 0, (7, 47)),
+    "cf=1, ns=64": (3, 64, 1, (64, 64, 128), 1, 0, (1, 63)),
+    # GroupAll past 32-row tiles: 16-row tiles, 8 parts a group, ties
+    # across the parts
+    "GroupAll cf=896 (16-row tiles)": (2, 128, 896, (256, 512, 1024), 3, 0, (1, 16, 47, 64, 127)),
+    "GroupAll cf=1536 (16-row tiles)": (1, 128, 1536, (256, 512, 1024), 2, 0, (15, 16, 80, 127)),
 }
 
 
@@ -65,20 +79,34 @@ def _rewrite(src: str) -> str:
 
 
 @pytest.fixture(scope="module")
-def emulated_fwd(tmp_path_factory):
+def emulated(tmp_path_factory):
+    """The two drivers, built from the rewritten source side by side."""
     gxx = shutil.which("g++")
     if gxx is None:
         pytest.skip("no g++ to compile the emulated kernel")
     build = tmp_path_factory.mktemp("group_mlp_emu")
     (build / "group_mlp_emu.cpp").write_text(_rewrite((CSRC / "group_mlp.cu").read_text()))
-    exe = build / "group_mlp_fwd"
-    res = subprocess.run(
-        [gxx, "-std=c++20", "-O2", "-ffp-contract=off", "-pthread",
-         "-Wno-unknown-pragmas", "-I", str(build), "-I", str(CSRC), "-I", str(EMU),
-         str(EMU / "group_mlp_fwd.cpp"), "-o", str(exe)],
-        capture_output=True, text=True, timeout=300)
-    assert res.returncode == 0, res.stderr[-4000:]
-    return exe
+    procs = {}
+    for name in ("group_mlp_fwd", "group_mlp_bwd"):
+        procs[name] = subprocess.Popen(
+            [gxx, "-std=c++20", "-O2", "-ffp-contract=off", "-pthread",
+             "-Wno-unknown-pragmas", "-I", str(build), "-I", str(CSRC), "-I", str(EMU),
+             str(EMU / f"{name}.cpp"), "-o", str(build / name)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    for name, proc in procs.items():
+        out, _ = proc.communicate(timeout=300)
+        assert proc.returncode == 0, out[-4000:]
+    return {name: build / name for name in procs}
+
+
+def _run(exe, case):
+    groups, ns, cf, widths, sms, shift, tied = CASES[case]
+    args = [groups, ns, cf, *widths, 11, sms, shift, *tied]
+    res = subprocess.run([str(exe), *map(str, args)],
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stdout + res.stderr
+    plan = re.search(r"rows=(\d+) slot=\d+ parts=(\d+) tiles=\d+ smem=(\d+) ", res.stdout)
+    return res.stdout, tuple(map(int, plan.groups()))
 
 
 def test_the_launch_rewrite_keeps_every_launch():
@@ -88,14 +116,20 @@ def test_the_launch_rewrite_keeps_every_launch():
 
 
 @pytest.mark.parametrize("case", sorted(CASES))
-def test_group_mlp_fwd_source_is_bit_equal_to_the_fmaf_oracle(emulated_fwd, case):
-    groups, ns, cf, widths, sms, shift, tied = CASES[case]
-    args = [groups, ns, cf, *widths, 11, sms, shift, *tied]
-    res = subprocess.run([str(emulated_fwd), *map(str, args)],
-                         capture_output=True, text=True, timeout=120)
-    assert res.returncode == 0, res.stdout + res.stderr
-    assert "differ=0 " in res.stdout, res.stdout
-    plan = re.search(r"rows=(\d+) slot=\d+ parts=(\d+) tiles=\d+ smem=(\d+) ", res.stdout)
-    rows, parts, smem = map(int, plan.groups())
-    assert (rows, parts) == gk.fwd_plan(ns, cf, widths), res.stdout
-    assert smem == gk.fwd_smem_bytes(cf, widths, rows), res.stdout
+def test_group_mlp_fwd_source_is_bit_equal_to_the_fmaf_oracle(emulated, case):
+    _, ns, cf, widths, *_ = CASES[case]
+    out, (rows, parts, smem) = _run(emulated["group_mlp_fwd"], case)
+    assert "differ=0 " in out, out
+    assert (rows, parts) == gk.fwd_plan(ns, cf, widths), out
+    assert smem == gk.fwd_smem_bytes(cf, widths, rows), out
+
+
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_group_mlp_bwd_source_matches_the_float64_oracle(emulated, case):
+    _, ns, cf, widths, *_ = CASES[case]
+    out, (rows, parts, smem) = _run(emulated["group_mlp_bwd"], case)
+    assert " bad=0 " in out, out
+    carried = int(re.search(r"carried=(\d+)", out).group(1))
+    assert carried > 0, out  # some cotangent reached the rows
+    assert (rows, parts) == gk.bwd_plan(ns, cf, widths), out
+    assert smem == gk.bwd_smem_bytes(ns, cf, widths, rows), out

@@ -335,18 +335,72 @@ def test_group_mlp_forward_plan_fits_every_victim_shape(shape):
     cf, widths, ns, plan, smem = FWD_SHAPES[shape]
     assert gk.fwd_plan(ns, cf, widths) == plan
     assert gk.fwd_smem_bytes(cf, widths, plan[0]) == smem <= gk._SMEM_MAX
-    assert gk.fwd_smem_bytes(cf, widths) <= gk._SMEM_MAX  # the 32-row need
+    assert gk.fwd_smem_bytes(cf, widths, 32) <= gk._SMEM_MAX  # the 32-row need
+
+
+@pytest.mark.parametrize("cf, smem", [(896, 172288), (1536, 213248)])
+def test_group_mlp_forward_takes_wide_groupall_on_16_row_tiles(cf, smem):
+    # past 32-row tiles (246,272 bytes at cf = 896): 16 rows, 8 parts a cloud
+    widths = (256, 512, 1024)
+    assert gk.fwd_smem_bytes(cf, widths, 32) > gk._SMEM_MAX
+    assert gk.fwd_plan(128, cf, widths) == (16, 8)
+    assert gk.fwd_smem_bytes(cf, widths) == smem
+
+
+# the backward's tile height and split at the same shapes, its shared
+# memory there (ring stages of 32 weight rows above 16-row tiles; dz3 as
+# hit bits and cotangent shares where ns >= 64), and GroupAll at cf = 1557
+BWD_SHAPES = {
+    "SSG SA1": (0, (64, 64, 128), 64, (256, 1), 161792),
+    "SSG SA2": (128, (128, 128, 256), 64, (128, 1), 188416),
+    "SSG SA3": (256, (256, 512, 1024), 128, (32, 4), 204800),
+    "MSG SA1 ns=16": (0, (32, 32, 64), 16, (256, 1), 155648),
+    "MSG SA1 ns=32": (0, (64, 64, 128), 32, (128, 1), 180224),
+    "MSG SA1 ns=128": (0, (64, 96, 128), 128, (256, 1), 193536),
+    "MSG GroupAll": (640, (256, 512, 1024), 128, (32, 4), 221696),
+    "GroupAll cf=1557": (1557, (256, 512, 1024), 128, (16, 8), 220672),
+}
+
+
+@pytest.mark.parametrize("shape", sorted(BWD_SHAPES))
+def test_group_mlp_backward_plan_fits_every_victim_shape(shape):
+    cf, widths, ns, plan, smem = BWD_SHAPES[shape]
+    assert gk.bwd_plan(ns, cf, widths) == plan
+    assert gk.bwd_smem_bytes(ns, cf, widths, plan[0]) == smem <= gk._SMEM_MAX
+    gk.fwd_plan(ns, cf, widths)  # the forward takes it too
 
 
 def test_group_mlp_forward_refuses_what_cannot_fit():
-    # layer 2 of 1024 columns beside 640 features: 262,144 bytes at 32 rows
-    assert gk.fwd_smem_bytes(640, (256, 1024, 1024)) == 262144
-    with pytest.raises(ValueError, match="262144 bytes"):
-        gk.fwd_plan(128, 640, (256, 1024, 1024))
+    # GroupAll's widths fit the forward's 16-row tiles up to cf = 1837 and
+    # the backward's up to cf = 1741 (its hit bits and cotangent shares take
+    # 6,144 bytes more), each then taking all of a block; past those they
+    # refuse
+    widths = (256, 512, 1024)
+    assert gk.fwd_smem_bytes(1837, widths) == gk._SMEM_MAX
+    assert gk.fwd_smem_bytes(1838, widths) == 232704
+    assert gk.bwd_smem_bytes(128, 1741, widths) == gk._SMEM_MAX
+    assert gk.bwd_smem_bytes(128, 1742, widths) == 232704
+    with pytest.raises(ValueError, match="forward's 16-row tile needs 232704 bytes"):
+        gk.fwd_plan(128, 1838, widths)
+    with pytest.raises(ValueError, match="backward's 16-row tile needs 232704 bytes"):
+        gk.bwd_plan(128, 1742, widths)
     rng = np.random.RandomState(72)
-    p = _random_mlp(rng, 640, (256, 1024, 1024))
-    with pytest.raises(ValueError, match="262144 bytes"):
-        gk.group_mlp_fwd(torch.zeros(1, 1, 128, 3), torch.zeros(1, 1, 128, 640), p)
+    p = _random_mlp(rng, 1838, widths)
+    with pytest.raises(ValueError, match="forward's 16-row tile needs 232704 bytes"):
+        gk.group_mlp_fwd(torch.zeros(1, 1, 128, 3), torch.zeros(1, 1, 128, 1838), p)
+    # 1800 features fit the forward (230,144 bytes) but not the backward
+    # (236,288), and the wrapper refuses the pair
+    assert gk.fwd_plan(128, 1800, widths) == (16, 8)
+    assert gk.fwd_smem_bytes(1800, widths) == 230144
+    p = _random_mlp(rng, 1800, widths)
+    with pytest.raises(ValueError, match="backward's 16-row tile needs 236288 bytes"):
+        gk.group_mlp_fwd(torch.zeros(1, 1, 128, 3), torch.zeros(1, 1, 128, 1800), p)
+    # layer 2 of 1024 columns beside 640 features, refused by the backward
+    # until dz3 went to hit bits: both kernels now take it on 16-row tiles
+    widths = (256, 1024, 1024)
+    assert gk.fwd_plan(128, 640, widths) == gk.bwd_plan(128, 640, widths) == (16, 8)
+    assert gk.fwd_smem_bytes(640, widths) == 180224
+    assert gk.bwd_smem_bytes(128, 640, widths) == 186368
 
 
 def test_group_mlp_checks_its_weights():
