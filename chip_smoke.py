@@ -14,11 +14,12 @@ Needs one CUDA card, nvcc and this repository around the script. Phases:
      and the dense [16,1024] x [16,10000]; PointNet++ SSG's sampling,
      grouping and grouped MLPs at its three set-abstraction shapes, with
      empty, over-full and larger-than-the-cloud balls and duplicated rows;
-     the MSG victim's whole-scale kernel at SA2's three scales, at cf=0 and
-     cf=3, with empty and over-full balls, its grouped MLPs at SA1's three
-     scales and at GroupAll with 640 features, the grouped MLPs also at
-     GroupAll with 896 and 1536 features (16-row tiles), and the
-     k-neighbour scatter),
+     the MSG victim's whole-scale kernel at SA2's three scales and SA1's
+     three with normals (cf=3), at cf=0, with empty and over-full balls and
+     at widths of 1024, its grouped MLPs at SA1's three scales and at
+     GroupAll with 640 features, the grouped MLPs also at GroupAll with 896
+     and 1536 features (16-row tiles) and 2048 and 4096 (layer 1's input in
+     slices), and the k-neighbour scatter),
      with the tolerance stated, and time both (CUDA events, warm, median of
      20), plus one PyTorch library call where one computes the same
      function, and for the whole-scale kernel the split pair it stands in for.
@@ -86,9 +87,12 @@ the paths must cover every kernel. `--kernels-only` stops after phase 2.
 `--group-mlp-times [--tree DIR]` only builds the kernels and times the
 grouped-MLP kernels on phase 2's inputs, with their plain versions and
 bounds, checking nothing: those of this checkout at the seven PointNet++
-shapes and the two wider GroupAll ones, or those of the checkout at DIR (say
-a `git archive` of another commit under `build/`) at the seven shapes, so
-that two commits are timed on the same inputs in one call.
+shapes and the four wider GroupAll ones, or those of the checkout at DIR
+(say a `git archive` of another commit under `build/`) at the seven
+shapes, so that two commits are timed on the same inputs in one call.
+`--sa-fused-times [--tree DIR]` does the same for the whole-scale kernels
+at MSG SA2's three scales and SA1's three with normals; for this checkout
+it also times the backward built without its scatter epilogue.
 
 Any failed check raises, and the script exits non-zero. It never falls back
 to the CPU: without a CUDA device it exits non-zero before printing results.
@@ -114,13 +118,16 @@ DENSE_B, DENSE_N = 16, 10000  # runs/bench_dense.py's batch and cloud size
 # dense n, and the JAX package's largest padded n
 DENSE_CHECKS = ((2, 1000), (2, DENSE_N), (1, 12288))
 # GroupAll rows that repeat row 0: on the 32-row tiles its 128 rows are
-# split into at the victims' widths, they sit in the second, third and
-# fourth block; on the 16-row tiles of the wider GroupAll cases, in the
-# fourth, fifth and eighth
+# split into at the victims' widths (and past cf = 1837, where layer 1's
+# input is staged in slices), they sit in the second, third and fourth
+# block; on the 16-row tiles of cf = 896 and 1536, in the fourth, fifth and
+# eighth
 SPLIT_TIES = [63, 64, 127]
-# GroupAll feature counts past 32-row forward tiles (16 rows, 8 blocks a
-# cloud), run as kernel cases beside the victims' shapes
-WIDE_GROUPALL = (896, 1536)
+# GroupAll feature counts past the victims': past 32-row forward tiles (16
+# rows, 8 blocks a cloud), and past the whole input's limit (32-row tiles,
+# layer 1's input staged in slices), run as kernel cases beside the
+# victims' shapes
+WIDE_GROUPALL = (896, 1536, 2048, 4096)
 
 
 def _fail(msg: str) -> None:
@@ -795,7 +802,9 @@ def group_mlp_inputs(torch, victim: str) -> dict:
     samples, r=0.2; 512 -> 128 x 64 with 128 features, r=0.4; GroupAll of
     128 points with 256 features). "MSG": its SA1 at the MSG victim's three
     scales (ns 16, 32, 128) and GroupAll with 640 features. "wide": GroupAll
-    with 896 and 1536 features, past 32-row forward tiles. Under-full balls
+    with 896 and 1536 features, past 32-row forward tiles, and with 2048 and
+    4096, past the whole input's limit (its input staged in slices).
+    Under-full balls
     repeat their first hit; GroupAll repeats every eighth row (exact ties)
     and row 0 at `SPLIT_TIES` (ties across the blocks a cloud is split
     over)."""
@@ -840,7 +849,8 @@ def group_mlp_inputs(torch, victim: str) -> dict:
                                    (0.4, 128, (64, 96, 128)))}
         out["MSG GroupAll cf=640"] = group_all(640)
         return out
-    return {f"GroupAll cf={cf_} (16-row tiles)": group_all(cf_)
+    return {f"GroupAll cf={cf_} ("
+            f"{'16-row tiles' if cf_ < 1838 else 'input in slices'})": group_all(cf_)
             for cf_ in WIDE_GROUPALL}
 
 
@@ -1244,36 +1254,63 @@ def ssg_kernel_checks(torch) -> list[dict]:
     return out
 
 
-def sa_fused_case(torch, label, xyz, cen, feats, radius, ns, p_, randn,
-                  timed=False) -> dict:
-    """sa_fused_fwd/_bwd against the plain version at one shape: the ball
-    query's indices bit-equal to `ball_query_plain`, pooled against the
-    float32 plain version, the backward against float64 autograd over every
-    row as in `group_mlp_case` (the kernel's float32 ReLU pattern on rows
-    with a hidden pre-activation within rounding of 0, read from the
-    kernel's own projections P and Yc; the pooled cotangent kept off maxima
-    within rounding of a runner-up or of 0). With `timed`, the kernels', the
-    plain version's and the split pair's times and the bounds."""
-    from geoa3_tpu_torch.ops.kernels import (
-        ballquery_group_kernel as bk,
-        group_mlp_kernel as gk,
-        sa_fused_kernel as sf,
-    )
+def sa_fused_recompute(torch, p_, idx, proj, yc):
+    """Row 17's activations as its kernels compute them from the forward's
+    idx, P and Yc: a1 = relu((P[idx] - Yc) + b1), then each layer one fmaf
+    chain from 0, k ascending (`fma_chain`), + bias, the ReLU."""
     from geoa3_tpu_torch.ops.kernels.knn_kernel import gather_nbrs
 
-    b_, n_ = xyz.shape[:2]
-    m_ = cen.shape[1]
-    cf = 0 if feats is None else feats.shape[-1]
-    pooled, cnt, idx, proj, yc = sf.sa_fused_fwd(xyz, cen, feats, radius, ns, p_)
-    require_equal(torch, f"sa_fused_fwd[{label}]", idx,
-                  bk.ball_query_plain(xyz, cen, radius, ns), "idx")
-    want = sf.sa_query_group_mlp_plain(xyz, cen, feats, radius, ns, p_)
-    scale = want.abs().max().item()
-    # layer 1 from projections summed in another order than cuBLAS's, two
-    # more layers of float32 products
-    fwd_err = (pooled - want).abs().max().item()
-    check(f"sa_fused_fwd[{label}]", fwd_err, 2e-5 * scale, "pooled")
+    a1 = torch.relu((gather_nbrs(proj, idx) - yc[:, :, None]) + p_.b1)
+    a2 = torch.relu(fma_chain(torch, a1.reshape(-1, a1.shape[-1]), p_.w2) + p_.b2)
+    a3 = torch.relu(fma_chain(torch, a2, p_.w3) + p_.b3)
+    return a1, a2.reshape(*a1.shape[:-1], -1), a3.reshape(*a1.shape[:-1], -1)
 
+
+def sa_fused_pattern_hold(torch, sf, label, p_, cf, pooled, cnt, idx, proj,
+                          yc, g) -> float:
+    """sa_fused_bwd against the backward taken in float64 through the
+    kernel's own float32 ReLU patterns and tie sets (what
+    tests/cuda_emu/sa_fused_bwd.cpp holds on the CPU): dz3 = g / cnt on the
+    rows whose recomputed a3 equals pooled > 0, back through w3 and w2 with
+    the masks a2 > 0 and a1 > 0, into P and Yc, projected back by w1. Every
+    output within 2e-5 of its largest entry; returns the largest error."""
+    from geoa3_tpu_torch.ops.kernels import group_mlp_kernel as gk
+    from geoa3_tpu_torch.ops.kernels.knn_kernel import gather_nbrs
+
+    a1, a2, a3 = sa_fused_recompute(torch, p_, idx, proj, yc)
+    p64 = gk.FoldedMLP(*(t.double() for t in p_))
+    P64 = proj.double().requires_grad_(True)
+    Y64 = yc.double().requires_grad_(True)
+    z1 = ((gather_nbrs(P64, idx) - Y64[:, :, None]) + p64.b1) * (a1 > 0)
+    z2 = (z1 @ p64.w2 + p64.b2) * (a2 > 0)
+    hit = (a3 == pooled[:, :, None]) & (pooled[:, :, None] > 0)
+    dz3 = hit * (g.double() / cnt.clamp(min=1))[:, :, None]
+    gP, gY = torch.autograd.grad(((z2 @ p64.w3) * dz3).sum(), [P64, Y64])
+    del a1, a2, a3, z1, z2, hit, dz3
+    wants = (gP @ p64.w1[:3].t(), gY @ p64.w1[:3].t(),
+             gP @ p64.w1[3:].t() if cf else None)
+    errs = []
+    for g_, w_, what in zip(sf.sa_fused_bwd(g, p_, cf, pooled, cnt, idx, proj, yc),
+                            wants, ("dxyz", "dnew_xyz", "dfeats")):
+        if w_ is None:
+            continue
+        err = (g_.double() - w_).abs().max().item()
+        # float32 products in another order, and the scatter's atomics
+        check(f"sa_fused_bwd[{label}]", err, 2e-5 * w_.abs().max().item(),
+              f"{what} vs float64 through the kernel's patterns and ties")
+        errs.append(err)
+    return max(errs)
+
+
+def sa_fused_autograd_hold(torch, sf, label, xyz, cen, feats, ns, p_, scale,
+                           pooled, cnt, idx, proj, yc, randn) -> float:
+    """sa_fused_bwd against float64 autograd over every row (see
+    `sa_fused_case`); returns the largest error."""
+    from geoa3_tpu_torch.ops.kernels import group_mlp_kernel as gk
+    from geoa3_tpu_torch.ops.kernels.knn_kernel import gather_nbrs
+
+    b_, m_ = cen.shape[:2]
+    cf = 0 if feats is None else feats.shape[-1]
     p64 = gk.FoldedMLP(*(t.double() for t in p_))
 
     def layer1(x, c, f, w1):
@@ -1321,41 +1358,66 @@ def sa_fused_case(torch, label, xyz, cen, feats, radius, ns, p_, randn,
           f"switched), {int(gap_ok.sum())}/{gap_ok.numel()} maxima carry a "
           f"cotangent, {int((cnt > 1).sum())} tied maxima")
     del grads, xg, cg, fg
-    r_ = dict(fwd_err=fwd_err, bwd_err=max(bwd_errs), idx=idx)
+    return max(bwd_errs)
+
+
+def sa_fused_case(torch, label, xyz, cen, feats, radius, ns, p_, randn,
+                  timed=False, patterns=False) -> dict:
+    """sa_fused_fwd/_bwd against the plain version at one shape: the ball
+    query's indices bit-equal to `ball_query_plain`, pooled against the
+    float32 plain version and, on the first two clouds, pooled and cnt
+    bit-equal to an exact oracle of the kernels' fmaf chains (the tie sets
+    the backward's recompute finds again); the backward against float64
+    autograd over every row as in `group_mlp_case` (the kernel's float32
+    ReLU pattern on rows with a hidden pre-activation within rounding of 0,
+    read from the kernel's own projections P and Yc; the pooled cotangent
+    kept off maxima within rounding of a runner-up or of 0), or, with
+    `patterns`, by `sa_fused_pattern_hold`. With `timed`, the kernels', the
+    plain version's and the split pair's times and the bounds."""
+    from geoa3_tpu_torch.ops.kernels import (
+        ballquery_group_kernel as bk,
+        group_mlp_kernel as gk,
+        sa_fused_kernel as sf,
+    )
+
+    b_, n_ = xyz.shape[:2]
+    m_ = cen.shape[1]
+    cf = 0 if feats is None else feats.shape[-1]
+    pooled, cnt, idx, proj, yc = sf.sa_fused_fwd(xyz, cen, feats, radius, ns, p_)
+    require_equal(torch, f"sa_fused_fwd[{label}]", idx,
+                  bk.ball_query_plain(xyz, cen, radius, ns), "idx")
+    want = sf.sa_query_group_mlp_plain(xyz, cen, feats, radius, ns, p_)
+    scale = want.abs().max().item()
+    # layer 1 from projections summed in another order than cuBLAS's, two
+    # more layers of float32 products
+    fwd_err = (pooled - want).abs().max().item()
+    check(f"sa_fused_fwd[{label}]", fwd_err, 2e-5 * scale, "pooled")
+    b2 = min(2, b_)
+    a3 = sa_fused_recompute(torch, p_, idx[:b2], proj[:b2], yc[:b2])[2]
+    top = a3.amax(dim=2)
+    require_equal(torch, f"sa_fused_fwd[{label}]", pooled[:b2], top,
+                  "pooled vs the fmaf-chain oracle")
+    require_equal(torch, f"sa_fused_fwd[{label}]", cnt[:b2],
+                  (a3 == top[:, :, None]).sum(dim=2, dtype=torch.int32),
+                  "cnt vs the fmaf-chain oracle")
+    del a3, top
+    if patterns:
+        bwd_err = sa_fused_pattern_hold(torch, sf, label, p_, cf, pooled, cnt,
+                                        idx, proj, yc, randn(*pooled.shape))
+    else:
+        bwd_err = sa_fused_autograd_hold(torch, sf, label, xyz, cen, feats, ns,
+                                         p_, scale, pooled, cnt, idx, proj, yc,
+                                         randn)
+    r_ = dict(fwd_err=fwd_err, bwd_err=bwd_err, idx=idx)
     if not timed:
         return r_
-    c1, c2, c3 = p_.w1.shape[1], p_.w2.shape[1], p_.w3.shape[1]
-    rows_ = b_ * m_ * ns
-    proj_flops = 2.0 * (b_ * n_ * (3 + cf) * c1 + b_ * m_ * 3 * c1)
-    mlp_flops = 2.0 * rows_ * (c1 * c2 + c2 * c3)
-    wbytes = nbytes(*p_)
-    fbytes = nbytes(feats) if feats is not None else 0
-    g_all = randn(b_, m_, c3)
-    xr = xyz.clone().requires_grad_(True)
-    cr = cen.clone().requires_grad_(True)
-    fr = feats.clone().requires_grad_(True) if feats is not None else None
-    ins = [xr, cr] + ([fr] if fr is not None else [])
-    r_.update(
-        fwd_ms=time_ms(lambda: sf.sa_fused_fwd(xyz, cen, feats, radius, ns, p_)),
-        fwd_plain=time_ms(lambda: sf.sa_query_group_mlp_plain(
-            xyz, cen, feats, radius, ns, p_), iters=5),
-        fwd_bound=bound_ms(nbytes(xyz, cen, proj, yc, idx, pooled, cnt) + fbytes
-                           + wbytes, proj_flops + mlp_flops),
-        bwd_ms=time_ms(lambda: sf.sa_fused_bwd(g_all, p_, cf, pooled, cnt, idx,
-                                               proj, yc)),
-        bwd_plain=time_ms(lambda: torch.autograd.grad(
-            (sf.sa_query_group_mlp_plain(xr, cr, fr, radius, ns, p_) * g_all).sum(),
-            ins), iters=5),
-        # the recompute and the backward of layers 2-3 (twice the layers'
-        # forward), the back-projection, one addition a scattered entry
-        bwd_bound=bound_ms(nbytes(proj, yc, idx, pooled, cnt, g_all, xyz, cen)
-                           + fbytes + wbytes,
-                           2.0 * mlp_flops + proj_flops + rows_ * c1),
-    )
+    r_.update(sa_fused_times(torch, sf, xyz, cen, feats, radius, ns, p_,
+                             randn(b_, m_, p_.w3.shape[1])))
     # the alternative route a later PR weighs: the split pair (the fused
     # ball query + grouping, then the grouped MLP), forward and backward
     _, sgx, sgf = bk.ballquery_group_fwd(xyz, cen, feats, radius, ns)
     spooled, scnt = gk.group_mlp_fwd(sgx, sgf, p_)
+    g_all = randn(b_, m_, p_.w3.shape[1])
 
     def split_fwd():
         i_, gx_, gf_ = bk.ballquery_group_fwd(xyz, cen, feats, radius, ns)
@@ -1367,74 +1429,239 @@ def sa_fused_case(torch, label, xyz, cen, feats, radius, ns, p_, randn,
 
     r_.update(split_fwd=time_ms(split_fwd), split_bwd=time_ms(split_bwd))
     del sgx, sgf
-    print(f"  sa_fused[{label}]: fwd ms={r_['fwd_ms']:.4f} plain={r_['fwd_plain']:.4f} "
-          f"bound={r_['fwd_bound'][0]:.4f} split pair={r_['split_fwd']:.4f}; bwd "
-          f"ms={r_['bwd_ms']:.4f} plain={r_['bwd_plain']:.4f} bound="
-          f"{r_['bwd_bound'][0]:.4f} split pair={r_['split_bwd']:.4f}")
+    print(f"  sa_fused[{label}]: " + sa_fused_times_line(r_)
+          + f"; split pair fwd={r_['split_fwd']:.4f} bwd={r_['split_bwd']:.4f}")
     return r_
+
+
+def sa_fused_inputs(torch) -> dict:
+    """Row 17's inputs, label -> (xyz, centres, feats, radius, nsample,
+    folded MLP), at b=32 from seeds, centres by the checkout's own FPS: the
+    MSG victim's SA2 at its three scales (512 -> 128 centres, 320
+    features) and its SA1 with normals (1024 -> 512 centres, cf = 3)."""
+    from geoa3_tpu_torch import ops
+    from geoa3_tpu_torch.ops.kernels import fps_kernel as fk
+
+    pc, nrm, _ = make_batch(torch, B, N, seed=11)
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    x1 = ops.gather_points(pc, fk.fps(pc, 512))  # SA1's centres
+    x2 = ops.gather_points(x1, fk.fps(x1, 128))  # SA2's centres
+    f1 = torch.relu(torch.randn(B, 512, 320, device="cuda", generator=gen))
+    out = {}
+    for r_, ns_, w_ in ((0.2, 32, (64, 64, 128)), (0.4, 64, (128, 128, 256)),
+                        (0.8, 128, (128, 128, 256))):
+        out[f"SA2 r={r_} ns={ns_}"] = (x1, x2, f1, r_, ns_,
+                                       random_mlp(torch, gen, 320, w_))
+    for r_, ns_, w_ in ((0.1, 16, (32, 32, 64)), (0.2, 32, (64, 64, 128)),
+                        (0.4, 128, (64, 96, 128))):
+        out[f"SA1 normals r={r_} ns={ns_}"] = (pc, x1, nrm, r_, ns_,
+                                               random_mlp(torch, gen, 3, w_))
+    return out
+
+
+def sa_fused_times(torch, sf, xyz, cen, feats, radius, ns, p_, g_all,
+                   variant=None) -> dict:
+    """Row 17's times at one shape (CUDA events: one call, median of 20, and
+    `ten_ms`), its plain version's (the backward's: autograd through the
+    plain forward, forward included) and both bounds for this run's inputs.
+    The backward's operations are what its function needs on this data: the
+    recompute of layers 2-3 over every row (it finds the rows that hold the
+    maxima); dz3 @ w3t over dz3's nonzero entries only, c2 multiply-adds
+    each (cnt of them for each (ball, channel) whose maximum is above 0 and
+    whose cotangent is not); d2 @ w2t over the rows that carry a cotangent
+    (a nonzero layer-2 cotangent in the plain version's graph); one add a
+    scattered entry of dz1 (c1 a carrying row); the two back-projections.
+    `variant`: another build's C entry of the backward (the epilogue-less
+    one of `sa_variant_entry`), timed ten back to back in its place."""
+    from geoa3_tpu_torch.ops.kernels import _build
+    from geoa3_tpu_torch.ops.kernels.knn_kernel import gather_nbrs
+
+    b_, n_ = xyz.shape[:2]
+    m_ = cen.shape[1]
+    cf = 0 if feats is None else feats.shape[-1]
+    c1, c2, c3 = p_.w1.shape[1], p_.w2.shape[1], p_.w3.shape[1]
+    rows_ = b_ * m_ * ns
+    pooled, cnt, idx, proj, yc = sf.sa_fused_fwd(xyz, cen, feats, radius, ns, p_)
+    with torch.enable_grad():
+        a1 = torch.relu((gather_nbrs(proj, idx) - yc[:, :, None]) + p_.b1)
+        z2 = (a1 @ p_.w2 + p_.b2).requires_grad_(True)
+        a3 = torch.relu(torch.relu(z2) @ p_.w3 + p_.b3)
+        (dz2,) = torch.autograd.grad((torch.amax(a3, dim=2) * g_all).sum(), [z2])
+    carried = (dz2 != 0).any(-1).sum().item()
+    hits = (cnt * ((pooled > 0) & (g_all != 0))).sum().item()
+    del a1, z2, a3, dz2
+    proj_flops = 2.0 * (b_ * n_ * (3 + cf) * c1 + b_ * m_ * 3 * c1)
+    mlp_flops = 2.0 * rows_ * (c1 * c2 + c2 * c3)
+    wbytes = nbytes(*p_)
+    fbytes = nbytes(feats) if feats is not None else 0
+    xr = xyz.clone().requires_grad_(True)
+    cr = cen.clone().requires_grad_(True)
+    fr = feats.clone().requires_grad_(True) if feats is not None else None
+    ins = [xr, cr] + ([fr] if fr is not None else [])
+
+    def plain_bwd():
+        return torch.autograd.grad(
+            (sf.sa_query_group_mlp_plain(xr, cr, fr, radius, ns, p_) * g_all).sum(),
+            ins)
+
+    def bwd():
+        return sf.sa_fused_bwd(g_all, p_, cf, pooled, cnt, idx, proj, yc)
+
+    r_ = dict(
+        hits=hits, carried=carried,
+        fwd_ms=time_ms(lambda: sf.sa_fused_fwd(xyz, cen, feats, radius, ns, p_)),
+        fwd_ten=ten_ms(lambda: sf.sa_fused_fwd(xyz, cen, feats, radius, ns, p_)),
+        fwd_plain=time_ms(lambda: sf.sa_query_group_mlp_plain(
+            xyz, cen, feats, radius, ns, p_), iters=5),
+        fwd_bound=bound_ms(nbytes(xyz, cen, proj, yc, idx, pooled, cnt) + fbytes
+                           + wbytes, proj_flops + mlp_flops),
+        bwd_ms=time_ms(bwd),
+        bwd_ten=ten_ms(bwd),
+        bwd_plain=time_ms(plain_bwd, iters=5),
+        bwd_plain_ten=ten_ms(plain_bwd, iters=5),
+        bwd_bound=bound_ms(
+            nbytes(proj, yc, idx, pooled, cnt, g_all, xyz, cen) + fbytes + wbytes,
+            mlp_flops + 2.0 * (hits * c2 + carried * c2 * c1)
+            + 2.0 * (b_ * n_ * c1 * (3 + cf) + b_ * m_ * c1 * 3) + carried * c1),
+    )
+    if variant is not None:
+        name = "geoa3_sa_fused_bwd"
+        entry, _build._entries[name] = _build._entries[name], variant
+        try:
+            r_["bwd_ten_no_scatter"] = ten_ms(bwd)
+        finally:
+            _build._entries[name] = entry
+    return r_
+
+
+def sa_fused_times_line(r_: dict) -> str:
+    fb, bb = r_["fwd_bound"][0], r_["bwd_bound"][0]
+    line = (f"fwd ms={r_['fwd_ms']:.4f} (ten back to back: {r_['fwd_ten']:.4f}) "
+            f"plain={r_['fwd_plain']:.4f} bound={fb:.4f} share of the bound="
+            f"{fb / r_['fwd_ten']:.3f} (ten); bwd ms={r_['bwd_ms']:.4f} (ten back "
+            f"to back: {r_['bwd_ten']:.4f}) plain={r_['bwd_plain']:.4f} (ten: "
+            f"{r_['bwd_plain_ten']:.4f}) bound={bb:.4f} share of the bound="
+            f"{bb / r_['bwd_ten']:.3f} (ten; {r_['hits']} nonzero dz3 entries, "
+            f"{r_['carried']} rows carry a cotangent)")
+    if "bwd_ten_no_scatter" in r_:
+        ns_ = r_["bwd_ten_no_scatter"]
+        line += (f"; without the scatter epilogue ten={ns_:.4f} (the epilogue: "
+                 f"{(r_['bwd_ten'] - ns_) / r_['bwd_ten']:.3f} of the backward)")
+    return line
+
+
+def sa_variant_entry(define: str):
+    """Starts building csrc/sa_fused.cu alone with `define` set (a timing
+    variant, never the package's) into build/variants/ (named by the
+    sources' digest, so a built one is reused); returns a function that
+    waits for the build and returns the variant's geoa3_sa_fused_bwd, bound
+    as _build binds the package's."""
+    import ctypes
+
+    from geoa3_tpu_torch.ops.kernels import _build
+
+    out = REPO / "build" / "variants" / f"sa_fused_{define}_{_build._digest()}.so"
+    out.parent.mkdir(parents=True, exist_ok=True)
+    proc = None if out.exists() else subprocess.Popen(
+        [_build._nvcc(), *_build.NVCC_FLAGS, f"-D{define}", "-I", str(_build.CSRC),
+         "-shared", str(_build.CSRC / "sa_fused.cu"), "-o", str(out)],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+
+    def wait():
+        log, _ = proc.communicate(timeout=900) if proc else ("", None)
+        if proc and proc.returncode != 0:
+            _fail(f"the {define} variant of sa_fused.cu did not build:\n{log}")
+        fn = ctypes.CDLL(str(out)).geoa3_sa_fused_bwd
+        fn.argtypes = _build.SIGNATURES["geoa3_sa_fused_bwd"]
+        fn.restype = ctypes.c_int
+        return fn
+
+    return wait
+
+
+def sa_fused_times_phase(torch, variant=None) -> dict:
+    """`--sa-fused-times`: the checkout's row 17 kernels timed at MSG SA2's
+    three scales and SA1 with normals (`sa_fused_inputs`), as phase 2 times
+    them, with no check run; with `variant`, the backward without its
+    scatter epilogue too."""
+    from geoa3_tpu_torch.ops.kernels import sa_fused_kernel as sf
+
+    print(f"row 17 times of {sf.__file__}")
+    gen = torch.Generator(device="cuda").manual_seed(31)
+    out = {}
+    for label, (x_, c_, f_, r_, ns_, p_) in sa_fused_inputs(torch).items():
+        g_all = torch.randn(B, c_.shape[1], p_.w3.shape[1], device="cuda",
+                            generator=gen)
+        out[label] = sa_fused_times(torch, sf, x_, c_, f_, r_, ns_, p_, g_all,
+                                    variant)
+        print(f"  sa_fused[{label}]: " + sa_fused_times_line(out[label]), flush=True)
+    return out
 
 
 def msg_kernel_checks(torch, kernels: list) -> list[dict]:
     """Phase 2, third part: the PointNet++ MSG victim's kernels at its shapes
     (b=32): the whole-scale kernel at SA2's three scales (512 -> 128 centres,
-    ns 32/64/128, 320 features), at cf=0 and cf=3 and with empty and
-    over-full balls; the grouped MLP at SA1's three scales and at GroupAll
-    (128 points, 640 features; and 896 and 1536 features, past 32-row
-    forward tiles), whose numbers join the group_mlp entries of `kernels`;
-    and the k-neighbour 3-channel
-    scatter at [32,1024,17,3] -> 1024."""
-    from geoa3_tpu_torch import ops
+    ns 32/64/128, 320 features) and SA1's three with normals (cf=3), at
+    cf=0, with empty and over-full balls, and at widths of 1024 (8 clouds);
+    the grouped MLP at SA1's three scales and at GroupAll (128 points, 640
+    features; and 896 and 1536 features, past 32-row forward tiles, and
+    2048 and 4096, with layer 1's input in slices), whose numbers join the
+    group_mlp entries of `kernels`; and the k-neighbour 3-channel scatter at
+    [32,1024,17,3] -> 1024."""
     from geoa3_tpu_torch.ops.kernels import (
-        fps_kernel as fk,
         knn_kernel as qk,
         scatter_kernel as sk,
     )
 
     out = []
     entry = entry_into(out)
-    pc, nrm, rng = make_batch(torch, B, N, seed=11)
     gen = torch.Generator(device="cuda").manual_seed(13)
 
     def randn(*shape):
         return torch.randn(*shape, device="cuda", generator=gen)
 
-    x1 = ops.gather_points(pc, fk.fps(pc, 512))  # SA1's centres
-    x2 = ops.gather_points(x1, fk.fps(x1, 128))  # SA2's centres
-    f1 = torch.relu(randn(B, 512, 320))  # SA1's 64 + 128 + 128 features
-
     # --- the whole set-abstraction scale ------------------------------------
-    sa2 = {"SA2 r=0.2 ns=32": (0.2, 32, (64, 64, 128)),
-           "SA2 r=0.4 ns=64": (0.4, 64, (128, 128, 256)),
-           "SA2 r=0.8 ns=128": (0.8, 128, (128, 128, 256))}
-    rows = {label: sa_fused_case(torch, label, x1, x2, f1, r_, ns_,
-                                 random_mlp(torch, gen, 320, w_), randn, timed=True)
-            for label, (r_, ns_, w_) in sa2.items()}
+    sa_in = sa_fused_inputs(torch)
+    # SA1 with normals at r=0.2 ns=32: the float64 autograd hold misses by
+    # ~5e-4 of dxyz's largest entry there, for the kernel before this one's
+    # redesign alike, while the float64 backward through the kernel's own
+    # patterns and ties holds (PERF.md, open questions): held that way
+    rows = {label: sa_fused_case(torch, label, x_, c_, f_, r_, ns_, p_, randn,
+                                 timed=True,
+                                 patterns=label == "SA1 normals r=0.2 ns=32")
+            for label, (x_, c_, f_, r_, ns_, p_) in sa_in.items()}
+    x1, x2, f1 = sa_in["SA2 r=0.2 ns=32"][:3]
+    pc = sa_in["SA1 normals r=0.1 ns=16"][0]
     far = x2.clone()
     far[:, ::2] += 100.0  # every other ball is empty
     others = {
-        "cf=0 r=0.1 ns=16": (pc, x1, None, 0.1, 16),
-        "cf=3 (normals) r=0.1 ns=16": (pc, x1, nrm, 0.1, 16),
-        "empty balls": (x1, far, f1, 0.2, 32),
-        "over-full balls r=2": (x1, x2, f1, 2.0, 32),
+        "cf=0 r=0.1 ns=16": (pc, x1, None, 0.1, 16, (32, 32, 64)),
+        "empty balls": (x1, far, f1, 0.2, 32, (32, 32, 64)),
+        "over-full balls r=2": (x1, x2, f1, 2.0, 32, (32, 32, 64)),
+        # the widest MLP the JAX package's gate admits: 16-row tiles, 8-row
+        # ring stages, hit bits, each ball split over 4 tiles
+        "widths 1024, 8 clouds, r=0.2 ns=64": (x1[:8], x2[:8], f1[:8], 0.2, 64,
+                                               (1024, 1024, 1024)),
     }
-    for label, (x_, c_, f_, r_, ns_) in others.items():
+    for label, (x_, c_, f_, r_, ns_, w_) in others.items():
         cf_ = 0 if f_ is None else f_.shape[-1]
         rows[label] = sa_fused_case(torch, label, x_, c_, f_, r_, ns_,
-                                    random_mlp(torch, gen, cf_, (32, 32, 64)), randn)
+                                    random_mlp(torch, gen, cf_, w_), randn)
     if rows["empty balls"]["idx"][:, ::2].any():
         _fail("sa_fused_fwd: an empty ball does not hold index 0")
     head = rows["SA2 r=0.8 ns=128"]
     rest = lambda k1, k2, ks: "; ".join(  # noqa: E731
-        f"{lab}: ms={rows[lab][k1]:.4f} bound_ms={rows[lab][k2][0]:.4f} "
-        f"split pair ms={rows[lab][ks]:.4f}"
-        for lab in ("SA2 r=0.2 ns=32", "SA2 r=0.4 ns=64"))
+        f"{lab}: ms={rows[lab][k1]:.4f} ten={rows[lab][k1[:3] + '_ten']:.4f} "
+        f"bound_ms={rows[lab][k2][0]:.4f} split pair ms={rows[lab][ks]:.4f}"
+        for lab in sa_in if lab != "SA2 r=0.8 ns=128")
     entry("sa_fused_fwd", "geoa3_tpu_torch/csrc/sa_fused.cu",
           "geoa3_tpu/ops/pallas/sa_fused_kernel.py:108",
           max(r["fwd_err"] for r in rows.values()), head["fwd_ms"],
           head["fwd_plain"], head["fwd_bound"], None,
           "MSG SA2 r=0.8 ns=128: xyz [32,512,3], centres [32,128,3], feats "
           "[32,512,320], (323->128->128->256) -> [32,128,256] (projections, "
-          "query, gather, MLP, pool; three device kernels); split pair "
+          "query, gather, MLP, pool; three device kernels; ten back to back: "
+          f"{head['fwd_ten']:.4f}); split pair "
           f"(ballquery_group + group_mlp) ms={head['split_fwd']:.4f}; "
           + rest("fwd_ms", "fwd_bound", "split_fwd"))
     entry("sa_fused_bwd", "geoa3_tpu_torch/csrc/sa_fused.cu",
@@ -1443,10 +1670,12 @@ def msg_kernel_checks(torch, kernels: list) -> list[dict]:
           head["bwd_plain"], head["bwd_bound"], None,
           "MSG SA2 r=0.8 ns=128 -> dxyz [32,512,3], dnew_xyz [32,128,3], "
           "dfeats [32,512,320] (recompute + scatter, two back-projections; "
-          "plain: autograd through the plain forward, forward included; "
-          "max_abs_err against float64 autograd over every row, with the "
-          "kernel's float32 ReLU pattern where a pre-activation is within "
-          f"rounding of 0); split pair ms={head['split_bwd']:.4f}; "
+          f"ten back to back: {head['bwd_ten']:.4f}; bound: what the function "
+          "needs on this run's data; plain: autograd through the plain "
+          "forward, forward included; max_abs_err against float64 autograd "
+          "over every row, with the kernel's float32 ReLU pattern where a "
+          "pre-activation is within rounding of 0); split pair "
+          f"ms={head['split_bwd']:.4f}; "
           + rest("bwd_ms", "bwd_bound", "split_bwd"))
 
     # --- the grouped MLP at MSG's shapes -------------------------------------
@@ -2325,13 +2554,17 @@ def main() -> int:
     ap.add_argument("--group-mlp-times", action="store_true",
                     help="only time the grouped-MLP kernels at the seven "
                          "PointNet++ shapes, on phase 2's inputs, no check")
+    ap.add_argument("--sa-fused-times", action="store_true",
+                    help="only time the whole-scale kernels at MSG SA2's three "
+                         "scales and SA1 with normals, on phase 2's inputs, "
+                         "no check")
     ap.add_argument("--tree", metavar="DIR",
-                    help="with --group-mlp-times: the checkout whose kernels "
-                         "run (e.g. a `git archive` of another commit), timed "
-                         "at the seven shapes only")
+                    help="with --group-mlp-times or --sa-fused-times: the "
+                         "checkout whose kernels run (e.g. a `git archive` of "
+                         "another commit), timed at the victims' shapes only")
     args = ap.parse_args()
-    if args.tree and not args.group_mlp_times:
-        _fail("--tree goes with --group-mlp-times")
+    if args.tree and not (args.group_mlp_times or args.sa_fused_times):
+        _fail("--tree goes with --group-mlp-times or --sa-fused-times")
 
     if not torch.cuda.is_available():
         _fail("torch.cuda.is_available() is false: this script needs a CUDA card")
@@ -2349,6 +2582,10 @@ def main() -> int:
     from geoa3_tpu_torch.ops.kernels import _build
 
     t0 = time.time()
+    # this checkout's backward without its scatter epilogue, built beside
+    # the kernels (a parent tree's source has no such variant)
+    variant = (sa_variant_entry("GEOA3_SA_BWD_NO_SCATTER")
+               if args.sa_fused_times and CODE == REPO else None)
     so = _build.lib()
     print(f"phase 1: built {so} in {time.time() - t0:.1f} s")
 
@@ -2358,6 +2595,10 @@ def main() -> int:
     if args.group_mlp_times:
         print(json.dumps({"card": smi, "tree": str(CODE), "shapes":
                           group_mlp_times_phase(torch, CODE == REPO)}))
+        return 0
+    if args.sa_fused_times:
+        print(json.dumps({"card": smi, "tree": str(CODE), "shapes":
+                          sa_fused_times_phase(torch, variant and variant())}))
         return 0
 
     phase("phase 2: kernels against their plain versions")

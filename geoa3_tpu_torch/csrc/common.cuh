@@ -6,6 +6,11 @@
 
 #define GEOA3_FULL_MASK 0xffffffffu
 
+namespace geoa3 {
+constexpr size_t kSmemMax = 232448;       // what one block may use on Hopper
+constexpr size_t kSmemHalf = 113 * 1024;  // two blocks on an SM
+}  // namespace geoa3
+
 // Squared norm (x*x + y*y) + z*z with every product and sum rounded on its
 // own (the __f*_rn intrinsics are never contracted into an FMA), so the
 // value is bitwise the one the plain PyTorch version computes elementwise.

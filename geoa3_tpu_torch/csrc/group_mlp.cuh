@@ -1,6 +1,6 @@
-// The grouped-MLP building blocks, shared by group_mlp.cu (the grouped
-// three-layer MLP + max-pool over gathered rows) and sa_fused.cu (the whole
-// set-abstraction scale, whose layer 1 is gathered from projected rows).
+// The grouped-MLP building blocks of sa_fused.cu's forward (the whole
+// set-abstraction scale, whose layer 1 is gathered from projected rows) and
+// of its projections; its backward and group_mlp.cu run tile_loop.cuh.
 //
 // A block takes a tile of R = 64, 32 or 16 rows in float32: activations sit
 // transposed in shared memory ([channel][row], so a thread reads its 4 rows
@@ -21,9 +21,6 @@ struct Tile {
   static constexpr int LD = R + 4;        // floats per channel row
   static constexpr int LDC = 65;          // floats per row of a layer-3 chunk
 };
-
-constexpr size_t kSmemMax = 232448;       // what one block may use on Hopper
-constexpr size_t kSmemHalf = 113 * 1024;  // two blocks on an SM
 
 // The tile height: the largest of 64 and 32 whose shared memory leaves room
 // for two blocks on an SM, else the largest of 64, 32 and 16 that fits at
@@ -172,122 +169,6 @@ __device__ void layer3_pool(const float* a2T, int c2, const float* w3,
     }
     __syncthreads();
   }
-}
-
-// Shared-memory layout of a backward tile, in floats from the start: the
-// input (c0p channels; 0 where layer 1 is gathered), the three activations'
-// and cotangents' buffers, one chunk of layer-3 cotangents.
-struct BwdLayout {
-  int a0, a1, a2, d2, ch, d1, total;
-};
-
-template <int R>
-BwdLayout bwd_layout(int c0p, int c1, int c2) {
-  constexpr int LD = Tile<R>::LD;
-  BwdLayout l;
-  l.a0 = 0;
-  l.a1 = l.a0 + c0p * LD;
-  l.a2 = l.a1 + c1 * LD;
-  l.d2 = l.a2 + c2 * LD;
-  l.ch = l.d2 + c2 * LD;
-  l.total = l.ch + 64 * LD;
-  if (c1 <= c2) {
-    l.d1 = l.a2;  // layer 2's activations are dead once dz2 is masked
-  } else {
-    l.d1 = l.total;
-    l.total += c1 * LD;
-  }
-  return l;
-}
-
-// From a tile's recomputed activations (a1T, a2T) to layer 1's
-// pre-activation cotangent dz1 in d1T: each pooled cotangent gout goes to
-// the rows whose a3 equals the pooled maximum, split evenly over its tie
-// count, then back through layers 3 and 2 with ReLU'(0) = 0. d2T and chT
-// are scratch; d1T may alias a2T (bwd_layout). Every thread calls it; it
-// ends on a barrier.
-template <int R>
-__device__ void backward_to_dz1(const float* a1T, const float* a2T, float* d2T,
-                                float* chT, float* d1T, const float* w2t,
-                                const float* w3, const float* __restrict__ b3,
-                                const float* w3t, int c1, int c2, int c3,
-                                const float* __restrict__ pooled,
-                                const int* __restrict__ cnt,
-                                const float* __restrict__ gout, long long row0,
-                                int nrows, int ns) {
-  constexpr int LD = Tile<R>::LD, T = Tile<R>::kThreads;
-  const int ty = threadIdx.x >> 4, tx = threadIdx.x & 15;
-  for (int e = threadIdx.x; e < c2 * LD; e += T) d2T[e] = 0.0f;
-  __syncthreads();
-  long long grp[4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = ty * 4 + i;
-    grp[i] = r < nrows ? (row0 + r) / ns : -1;
-  }
-  float acc[4][4];
-  for (int jc = 0; jc < c3; jc += 64) {
-    // dz3 of this chunk of layer-3 columns, transposed into chT
-    const int j0 = jc + tx * 4;
-    float dz[4][4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) dz[i][j] = 0.0f;
-    if (j0 < c3) {
-      gemm_tile<R>(a2T, c2, w3, c3, j0, acc);
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        if (grp[i] < 0) continue;
-        const size_t o = (size_t)grp[i] * c3 + j0;
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const float a3 = fmaxf(acc[i][j] + b3[j0 + j], 0.0f);
-          if (a3 > 0.0f && a3 == pooled[o + j])
-            dz[i][j] = gout[o + j] / (float)cnt[o + j];
-        }
-      }
-    }
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-      *reinterpret_cast<float4*>(chT + (size_t)(tx * 4 + j) * LD + ty * 4) =
-          make_float4(dz[0][j], dz[1][j], dz[2][j], dz[3][j]);
-    __syncthreads();
-    // da2 += dz3[:, chunk] @ w3t[chunk, :]
-    const int kk = c3 - jc < 64 ? c3 - jc : 64;
-    for (int j2 = tx * 4; j2 < c2; j2 += 64) {
-      gemm_tile<R>(chT, kk, w3t + (size_t)jc * c2, c2, j2, acc);
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        float4* p =
-            reinterpret_cast<float4*>(d2T + (size_t)(j2 + j) * LD + ty * 4);
-        float4 v = *p;
-        v.x += acc[0][j];
-        v.y += acc[1][j];
-        v.z += acc[2][j];
-        v.w += acc[3][j];
-        *p = v;
-      }
-    }
-    __syncthreads();
-  }
-  // dz2 = da2 where layer 2 was active
-  for (int e = threadIdx.x; e < c2 * LD; e += T)
-    d2T[e] = a2T[e] > 0.0f ? d2T[e] : 0.0f;
-  __syncthreads();
-  // dz1 = (dz2 @ w2t) where layer 1 was active
-  for (int j1 = tx * 4; j1 < c1; j1 += 64) {
-    gemm_tile<R>(d2T, c2, w2t, c1, j1, acc);
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const size_t o = (size_t)(j1 + j) * LD + ty * 4;
-      const float4 a = *reinterpret_cast<const float4*>(a1T + o);
-      *reinterpret_cast<float4*>(d1T + o) = make_float4(
-          a.x > 0.0f ? acc[0][j] : 0.0f, a.y > 0.0f ? acc[1][j] : 0.0f,
-          a.z > 0.0f ? acc[2][j] : 0.0f, a.w > 0.0f ? acc[3][j] : 0.0f);
-    }
-  }
-  __syncthreads();
 }
 
 }  // namespace geoa3

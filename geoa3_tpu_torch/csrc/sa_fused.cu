@@ -21,27 +21,35 @@
 // fill its R-row tile, or one larger ball walked tile by tile), its warps
 // run the ball queries into shared memory, then each tile gathers layer 1
 // from P and Yc, runs layers 2-3 and pools, leaving pooled, each maximum's
-// tie count, and idx for the backward; (c) `sa_bwd_kernel` recomputes a tile
-// from the saved idx (bitwise the forward's activations), takes the chain
-// to dz1 from group_mlp.cuh, then each thread walks its columns of dz1 down
-// the tile: it merges runs of one point (an under-full ball repeats its
-// first hit) into one atomicAdd to dP [b, n, c1], and sums each ball's rows
-// for dYc = -sum_s dz1 without atomics; (d) `backproject_kernel` maps dP and
-// dYc back once: dxyz = dP @ W1x^T, dfeats = dP @ W1f^T,
-// dcentres = dYc @ W1x^T.
+// tie count, and idx for the backward; (c) `sa_bwd_tiles` runs
+// tile_loop.cuh's loop (row 16's: persistent blocks, 8x8 register tiles, a
+// cp.async weight ring) over tiles of whole balls: its staging hook reads
+// the tile's rows' idx from device memory and gathers a1 = relu((P[idx] -
+// Yc) + b1) into shared memory, then four layers run on the ring: w2
+// (relu), w3 (dz3: the pooled cotangent split over the ties, where a3 ==
+// pooled > 0), w3t masked by a2 > 0 (off the ring over hit bits where ns >=
+// 64, as row 16's) and w2t masked by a1 > 0, whose epilogue takes dz1
+// straight from registers: each thread adds its 8 rows x 4 or 8 columns
+// into dP [b, n, c1] by float4 atomics (Hopper's vector atomicAdd), rows of
+// one point merged first (an under-full ball repeats its first hit), and
+// the lanes of a ball's slot sum dYc = -sum_s dz1 by shuffles (a ball
+// split over tiles adds its parts' sums by atomics into a zeroed dYc); (d)
+// `backproject_kernel` maps dP and dYc back once: dxyz = dP @ W1x^T,
+// dfeats = dP @ W1f^T, dcentres = dYc @ W1x^T.
 //
 // Bound on the H100: operations. Forward 2 (b n (3 + cf) c1 + b m 3 c1)
 // for the projections plus 2 b m ns (c1 c2 + c2 c3) for layers 2-3; the
-// backward twice the layers' share (the recompute and one dz @ w^T product
-// a layer) plus the back-projection; the bytes (the clouds, features, P, Yc
-// and the outputs) are a few tens of MB at MSG SA2.
+// backward the recompute of layers 2-3, 2 c2 for each nonzero entry of dz3,
+// 2 c2 c1 for each row that carries a cotangent, the back-projection and
+// one add a scattered entry; the bytes (the clouds, features, P, Yc and the
+// outputs) are a few tens of MB at MSG SA2.
 #include "ballquery.cuh"
 #include "common.cuh"
 #include "group_mlp.cuh"
+#include "tile_loop.cuh"
 
 namespace {
 
-using geoa3::BwdLayout;
 using geoa3::Tile;
 
 struct SADims {
@@ -167,74 +175,243 @@ __global__ void __launch_bounds__(Tile<R>::kThreads)
   }
 }
 
+// The backward's staging hook at a tile's first step: each row's point
+// (its row of P and dP; -1 on rows outside the balls) into `sidx`, then
+// a1[c][row] = relu((P[point, c] - Yc[ball, c]) + b1[c]), the forward's
+// gather_layer1 in its association, into layer 0's input, 0 on rows
+// outside the balls.
 template <int R>
-size_t bwd_smem(const SADims& d, int rows_per_block) {
-  return (size_t)geoa3::bwd_layout<R>(0, d.c1, d.c2).total * sizeof(float) +
-         (size_t)rows_per_block * sizeof(int) + (size_t)d.c1 * sizeof(float);
+__device__ __forceinline__ void gather_a1(long long gbase, int part,
+                                          const float* __restrict__ P,
+                                          const float* __restrict__ Yc,
+                                          const int* __restrict__ idx,
+                                          const float* __restrict__ b1,
+                                          const SADims& sd, const Dims& d,
+                                          const Plan& p) {
+  extern __shared__ __align__(16) float smem[];
+  int* sidx = reinterpret_cast<int*>(smem + p.aux);
+  float* a1 = smem + p.lay[0].in;
+  for (int rt = threadIdx.x; rt < R; rt += kThreads) {
+    const long long ball = gbase + (rt >> p.psh);
+    const int rr = part * p.P + (rt & (p.P - 1));
+    sidx[rt] = ball < p.groups && rr < d.ns
+                   ? (int)((ball / sd.m) * sd.n + __ldg(idx + ball * d.ns + rr))
+                   : -1;
+  }
+  __syncthreads();
+  for (int e = threadIdx.x; e < d.c1 / 4 * R; e += kThreads) {
+    const int q = e / R, rt = e - q * R;
+    const int pt = sidx[rt];
+    float4 v = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    if (pt >= 0) {
+      const long long ball = gbase + (rt >> p.psh);
+      const float4 x =
+          __ldg(reinterpret_cast<const float4*>(P + (size_t)pt * d.c1) + q);
+      const float4 y =
+          __ldg(reinterpret_cast<const float4*>(Yc + ball * d.c1) + q);
+      const float4 c = __ldg(reinterpret_cast<const float4*>(b1) + q);
+      v = make_float4(fmaxf((x.x - y.x) + c.x, 0.0f),
+                      fmaxf((x.y - y.y) + c.y, 0.0f),
+                      fmaxf((x.z - y.z) + c.z, 0.0f),
+                      fmaxf((x.w - y.w) + c.w, 0.0f));
+    }
+    float* o = a1 + (size_t)4 * q * R + rt;
+    o[0] = v.x;
+    o[R] = v.y;
+    o[2 * R] = v.z;
+    o[3 * R] = v.w;
+  }
 }
 
-// dP [b, n, c1] (zeroed by the caller) += the scatter of dz1 over idx;
-// dYc [b, m, c1] = -sum_s dz1.
-template <int R>
-__global__ void __launch_bounds__(Tile<R>::kThreads)
-    sa_bwd_kernel(const float* __restrict__ P, const float* __restrict__ Yc,
-                  const int* __restrict__ idx, const float* b1,
-                  const float* w2, const float* b2, const float* w3,
-                  const float* b3, const float* w2t, const float* w3t,
-                  const float* __restrict__ pooled,
-                  const int* __restrict__ cnt, const float* __restrict__ gout,
-                  SADims d, int rows_per_block, BwdLayout l,
-                  float* __restrict__ dP, float* __restrict__ dYc) {
-  constexpr int LD = Tile<R>::LD, T = Tile<R>::kThreads;
-  extern __shared__ __align__(16) float smem[];
-  float* a1T = smem + l.a1;
-  float* a2T = smem + l.a2;
-  float* d1T = smem + l.d1;
-  int* sidx = reinterpret_cast<int*>(smem + l.total);
-  float* gsum = smem + l.total + rows_per_block;  // a ball's running sum
+// q[0..3] += v[0..3] into device memory by one float4 atomic, unless v is 0.
+template <int CW>
+__device__ __forceinline__ void add4(float* q, const float (&v)[CW], int j0) {
+  if (v[j0] == 0.0f && v[j0 + 1] == 0.0f && v[j0 + 2] == 0.0f &&
+      v[j0 + 3] == 0.0f)
+    return;
+  atomicAdd(reinterpret_cast<float4*>(q),
+            make_float4(v[j0], v[j0 + 1], v[j0 + 2], v[j0 + 3]));
+}
 
-  long long row_end;
-  const long long row_begin = block_rows(d, rows_per_block, &row_end);
-  for (int e = threadIdx.x; e < (int)(row_end - row_begin); e += T)
-    sidx[e] = idx[row_begin + e];  // the flat idx is indexed by row
-  for (int c = threadIdx.x; c < d.c1; c += T) gsum[c] = 0.0f;
-  __syncthreads();
-  for (long long row0 = row_begin; row0 < row_end; row0 += R) {
-    const int nrows = (int)(row_end - row0 < R ? row_end - row0 : R);
-    const int* ts = sidx + (row0 - row_begin);
-    gather_layer1<R>(a1T, P, Yc, b1, ts, row0, nrows, d);
-    __syncthreads();
-    geoa3::dense_relu<R>(a1T, d.c1, w2, d.c2, b2, a2T);
-    __syncthreads();
-    geoa3::backward_to_dz1<R>(a1T, a2T, smem + l.d2, smem + l.ch, d1T, w2t,
-                              w3, b3, w3t, d.c1, d.c2, d.c3, pooled, cnt,
-                              gout, row0, nrows, d.ns);
-    // a thread owns columns of dz1 and walks the tile's rows in order
-    for (int c = threadIdx.x; c < d.c1; c += T) {
-      float gs = gsum[c];
-      long long run_pt = -1;
-      float run = 0.0f;
-      for (int r = 0; r < nrows; ++r) {
-        const long long row = row0 + r;
-        const long long centre = row / d.ns;
-        const int s = (int)(row - centre * d.ns);
-        const float v = d1T[(size_t)c * LD + r];
-        gs = s == 0 ? v : gs + v;
-        if (s == d.ns - 1) dYc[centre * d.c1 + c] = -gs;
-        const long long pt = (centre / d.m) * d.n + ts[r];
-        if (pt != run_pt) {
-          if (run != 0.0f) atomicAdd(dP + run_pt * d.c1 + c, run);
-          run_pt = pt;
-          run = v;
-        } else {
-          run += v;
-        }
-      }
-      if (run != 0.0f) atomicAdd(dP + run_pt * d.c1 + c, run);
-      gsum[c] = gs;
+// The last layer's epilogue: dz1 = (d2 @ w2t) where a1 > 0 (ReLU'(0) = 0)
+// for the thread's 8 rows x CW columns, added into dP [b, n, c1] from
+// registers (the rows in tile order, each run of rows holding one point
+// merged into one float4 atomic a 4 columns), and each ball's -sum over
+// its rows into dYc [b, m, c1]: the thread's 8 rows, then the `lanes`
+// lanes of its slot by shuffles; the slot's first lane writes it, or adds
+// it by an atomic where the ball is split over tiles (dYc zeroed first).
+// Every lane of the warp calls it (`ok`: the thread's columns lie inside
+// the layer). Built with GEOA3_SA_BWD_NO_SCATTER (a timing variant of
+// chip_smoke.py's, never the package's), it writes nothing: the time
+// without this epilogue.
+template <int R, int CW>
+__device__ __forceinline__ void scatter_dz1(
+    const float (&acc)[8][8], int col, bool ok, const Lane& ln,
+    long long ball, int lanes, const Dims& d, const Plan& p,
+    const float* a1T, const int* sidx, float* __restrict__ dP,
+    float* __restrict__ dYc) {
+  float v[8][CW];  // dz1, rows in tile order (8 rg + t)
+#pragma unroll
+  for (int j = 0; j < CW; ++j) {
+    float4 a0 = make_float4(0.0f, 0.0f, 0.0f, 0.0f), a4 = a0;
+    if (ok) {
+      a0 = *reinterpret_cast<const float4*>(a1T + (size_t)(col + j) * R +
+                                            8 * ln.rg);
+      a4 = *reinterpret_cast<const float4*>(a1T + (size_t)(col + j) * R +
+                                            8 * ln.rg + 4);
     }
-    __syncthreads();
+    const float a[8] = {a0.x, a0.y, a0.z, a0.w, a4.x, a4.y, a4.z, a4.w};
+#pragma unroll
+    for (int t = 0; t < 8; ++t)
+      v[t][j] = a[t] > 0.0f ? (ln.sw ? acc[t ^ 4][j] : acc[t][j]) : 0.0f;
   }
+#ifdef GEOA3_SA_BWD_NO_SCATTER
+  float any = 0.0f;
+#pragma unroll
+  for (int t = 0; t < 8; ++t)
+#pragma unroll
+    for (int j = 0; j < CW; ++j) any += v[t][j];
+  if (any != any) dP[0] = any;  // never: keeps the products alive
+  return;
+#endif
+  if (ok) {
+    const int4 s0 = *reinterpret_cast<const int4*>(sidx + 8 * ln.rg);
+    const int4 s4 = *reinterpret_cast<const int4*>(sidx + 8 * ln.rg + 4);
+    const int pts[8] = {s0.x, s0.y, s0.z, s0.w, s4.x, s4.y, s4.z, s4.w};
+    float run[CW];
+    int at = pts[0];
+#pragma unroll
+    for (int j = 0; j < CW; ++j) run[j] = v[0][j];
+#pragma unroll
+    for (int t = 1; t <= 8; ++t) {
+      if (t < 8 && pts[t] == at) {
+#pragma unroll
+        for (int j = 0; j < CW; ++j) run[j] += v[t][j];
+        continue;
+      }
+      if (at >= 0)
+#pragma unroll
+        for (int j0 = 0; j0 < CW; j0 += 4)
+          add4<CW>(dP + (size_t)at * d.c1 + col + j0, run, j0);
+      if (t < 8) {
+        at = pts[t];
+#pragma unroll
+        for (int j = 0; j < CW; ++j) run[j] = v[t][j];
+      }
+    }
+  }
+  float sum[CW];
+#pragma unroll
+  for (int j = 0; j < CW; ++j) {
+    float s = 0.0f;
+#pragma unroll
+    for (int t = 0; t < 8; ++t) s += v[t][j];
+    for (int o = 1; o < lanes; o <<= 1)
+      s += __shfl_xor_sync(GEOA3_FULL_MASK, s, o);
+    sum[j] = -s;
+  }
+  if (!ok || ln.rg % lanes != 0 || ball >= p.groups) return;
+#pragma unroll
+  for (int j0 = 0; j0 < CW; j0 += 4) {
+    float4* q = reinterpret_cast<float4*>(dYc + ball * d.c1 + col + j0);
+    const float4 s4 =
+        make_float4(sum[j0], sum[j0 + 1], sum[j0 + 2], sum[j0 + 3]);
+    if (p.parts == 1)
+      *q = s4;
+    else
+      atomicAdd(q, s4);
+  }
+}
+
+// The backward's plan at R rows and depth bk: region X (a2, then d2 in
+// place, and where dz3 @ w3t runs on the ring, dz3 after it), region B
+// (a1, gathered), the ring, the hit bits and shares where dz3 is sparse,
+// and R ints of the rows' points. Weights: w2, w3, w3t, w2t.
+Plan sa_bwd_make(const Dims& d, int R, int bk, bool sparse) {
+  Plan p = tile_groups(d, R, bk);
+  const int top = sparse ? d.c2 : d.c2 + d.c3;
+  const int X = 0, B = top * R, Z = d.c2 * R;
+  int n = 0;
+  p.lay[n++] = make_layer(R, bk, d.c1, d.c2, B, X, 0, kRelu);
+  p.lay[n] = make_layer(R, bk, d.c2, d.c3, X, sparse ? -1 : Z, 1, kDz3);
+  if (sparse) {
+    p.lay[n++].then = kSparse;
+    p.sparse = make_layer(R, bk, d.c3, d.c2, -1, X, 2, kMask);
+  } else {
+    ++n;
+    p.lay[n++] = make_layer(R, bk, d.c3, d.c2, Z, X, 2, kMask);
+  }
+  p.lay[n++] = make_layer(R, bk, d.c2, d.c1, X, B, 3, kScatter);
+  p.nl = n;
+  place_ring(p, d, R, (top + d.c1) * R, sparse, R);
+  return p;
+}
+
+// tile_loop.cuh's pick_bwd: dz3 as hit bits where ns >= 64 or from level 2
+// on (level 1 is level 0: there is no input to slice).
+Plan sa_bwd_plan(const Dims& d, int* R) {
+  return pick_bwd(
+      [&](int rows, int bk, int level) {
+        return sa_bwd_make(d, rows, bk, d.ns >= 64 || level >= 2);
+      },
+      R);
+}
+
+// One block an SM, as row 16's backward. dP [b, n, c1] (zeroed by the
+// caller) += the scatter of dz1 over idx; dYc [b, m, c1] = -sum_s dz1.
+template <int R, int BK>
+__global__ void __launch_bounds__(kThreads, 1)
+    sa_bwd_tiles(const float* __restrict__ P, const float* __restrict__ Yc,
+                 const int* __restrict__ idx, const float* __restrict__ b1,
+                 Weights wt, const float* __restrict__ b3, SADims sd, Dims d,
+                 Plan p, const float* __restrict__ pooled,
+                 const int* __restrict__ cnt, const float* __restrict__ gout,
+                 float* __restrict__ dP, float* __restrict__ dYc) {
+  extern __shared__ __align__(16) float smem[];
+  const Lane ln = lane<R>();
+  const int lanes = p.P / 8 < R / 8 ? p.P / 8 : R / 8;  // lanes sharing a slot
+  run_tiles<R, 1, true, BK>(
+      wt, p,
+      [&](int L, int r, int sl, int, long long gbase, int part) {
+        if ((L | r | sl) != 0) return false;
+        gather_a1<R>(gbase, part, P, Yc, idx, b1, sd, d, p);
+        return true;
+      },
+      [&](const Layer& l, int r, const float(&acc)[8][8], int col, bool ok,
+          long long gbase, int part) {
+        const int rr0 = part * p.P + ((8 * ln.rg) & (p.P - 1));
+        const long long ball = gbase + ((8 * ln.rg) >> p.psh);
+        if (l.epi == kScatter) {
+          const int* sidx = reinterpret_cast<const int*>(smem + p.aux);
+          if (R > 16 && l.cw == 8)
+            scatter_dz1<R, 8>(acc, col, ok, ln, ball, lanes, d, p,
+                              smem + l.out, sidx, dP, dYc);
+          else
+            scatter_dz1<R, 4>(acc, col, ok, ln, ball, lanes, d, p,
+                              smem + l.out, sidx, dP, dYc);
+          return;
+        }
+        if (ok && R > 16 && l.cw == 8) {
+          if (l.epi == kDz3)
+            dz3_store<R, 8>(l, acc, col, ln, ball, rr0, d, p, b3, pooled, cnt,
+                            gout, smem);
+          else
+            mask_store<R, 8>(acc, col, ln, smem + l.out);
+        } else if (ok) {
+          if (l.epi == kDz3)
+            dz3_store<R, 4>(l, acc, col, ln, ball, rr0, d, p, b3, pooled, cnt,
+                            gout, smem);
+          else
+            mask_store<R, 4>(acc, col, ln, smem + l.out);
+        }
+        if (l.then == kSparse && r == l.rounds - 1) {
+          __syncthreads();  // the hit bits and shares are whole
+          if (R > 16 && p.sparse.cw == 8)
+            sparse_layer<R, 8>(p.sparse, d, p, ln, wt.w[p.sparse.w], smem);
+          else
+            sparse_layer<R, 4>(p.sparse, d, p, ln, wt.w[p.sparse.w], smem);
+        }
+      });
 }
 
 // dv [rows, c1] @ w1t [c1, c0p], its first `cols` columns (a multiple of
@@ -354,22 +531,32 @@ int launch_fwd(const float* xyz, const float* centres, const float* P,
   return (int)cudaGetLastError();
 }
 
-template <int R>
-int launch_bwd(const float* P, const float* Yc, const int* idx,
-               const float* b1, const float* w2, const float* b2,
-               const float* w3, const float* b3, const float* w2t,
-               const float* w3t, const float* pooled, const int* cnt,
-               const float* gout, const SADims& d, float* dP, float* dYc,
+template <int R, int BK>
+int launch_bwd(const Plan& p, const float* P, const float* Yc, const int* idx,
+               const float* b1, const Weights& wt, const float* b3,
+               const SADims& sd, const Dims& d, const float* pooled,
+               const int* cnt, const float* gout, float* dP, float* dYc,
                cudaStream_t s) {
-  const int rpb = rows_per_block_for(R, d.ns);
-  const size_t smem = bwd_smem<R>(d, rpb);
-  cudaError_t e = allow_smem(sa_bwd_kernel<R>, smem);
+  cudaError_t e = allow_smem(sa_bwd_tiles<R, BK>, p.smem);
   if (e != cudaSuccess) return (int)e;
-  sa_bwd_kernel<R><<<(unsigned)((d.rows + rpb - 1) / rpb), Tile<R>::kThreads,
-                     smem, s>>>(P, Yc, idx, b1, w2, b2, w3, b3, w2t, w3t,
-                                pooled, cnt, gout, d, rpb,
-                                geoa3::bwd_layout<R>(0, d.c1, d.c2), dP, dYc);
+  sa_bwd_tiles<R, BK><<<tile_grid(sa_bwd_tiles<R, BK>, p), kThreads, p.smem,
+                        s>>>(P, Yc, idx, b1, wt, b3, sd, d, p, pooled, cnt,
+                             gout, dP, dYc);
   return (int)cudaGetLastError();
+}
+
+// The plan's depth: 2 kBK or kBK above 16 rows, kBK or kBK / 2 at 16.
+template <int R>
+int launch_bwd_rows(const Plan& p, const float* P, const float* Yc,
+                    const int* idx, const float* b1, const Weights& wt,
+                    const float* b3, const SADims& sd, const Dims& d,
+                    const float* pooled, const int* cnt, const float* gout,
+                    float* dP, float* dYc, cudaStream_t s) {
+  if (p.bk == kBK)
+    return launch_bwd<R, kBK>(p, P, Yc, idx, b1, wt, b3, sd, d, pooled, cnt,
+                              gout, dP, dYc, s);
+  return launch_bwd<R, (R > 16 ? 2 * kBK : kBK / 2)>(
+      p, P, Yc, idx, b1, wt, b3, sd, d, pooled, cnt, gout, dP, dYc, s);
 }
 
 SADims make_dims(int b, int n, int m, int ns, int cf, int c1, int c2, int c3,
@@ -439,7 +626,9 @@ extern "C" int geoa3_sa_fused_fwd(const float* xyz, const float* centres,
 // its 3 + cf columns zero-padded to a multiple of 4), w2t [c2, c1], w3t
 // [c3, c2]; gout [b, m, c3]. Scratch dP [b, n, c1] zeroed by the caller and
 // dYc [b, m, c1]. Writes dxyz [b, n, 3], dcentres [b, m, 3] and dfeats
-// [b, n, cf] (null when cf == 0).
+// [b, n, cf] (null when cf == 0). Refused (cudaErrorInvalidConfiguration)
+// where even a 16-row tile with 8-row ring stages and hit bits does not fit
+// (sa_fused_kernel.bwd_plan): never at widths of at most 1024.
 extern "C" int geoa3_sa_fused_bwd(
     const float* P, const float* Yc, const int* idx, const float* b1,
     const float* w2, const float* b2, const float* w3, const float* b3,
@@ -447,34 +636,46 @@ extern "C" int geoa3_sa_fused_bwd(
     const int* cnt, const float* gout, int b, int n, int m, int ns, int cf,
     int c1, int c2, int c3, float* dP, float* dYc, float* dxyz,
     float* dcentres, float* dfeats, void* stream) {
-  const SADims d = make_dims(b, n, m, ns, cf, c1, c2, c3, 0.0f);
-  if (!dims_ok(d) || n <= 0) return (int)cudaErrorInvalidValue;
+  const SADims sd = make_dims(b, n, m, ns, cf, c1, c2, c3, 0.0f);
+  if (!dims_ok(sd) || n <= 0) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (d.rows > 0) {
-    const int r64 = rows_per_block_for(64, ns),
-              r32 = rows_per_block_for(32, ns),
-              r16 = rows_per_block_for(16, ns);
-    int e = (int)cudaErrorInvalidConfiguration;
-    switch (geoa3::pick_rows(bwd_smem<64>(d, r64), bwd_smem<32>(d, r32),
-                             bwd_smem<16>(d, r16))) {
+  if (sd.rows > 0) {
+    const Dims d = make_dims((long long)b * m, ns, cf, c1, c2, c3);
+    const Weights wt = {{w2, w3, w3t, w2t, nullptr, nullptr}, {b2, nullptr}};
+    int R = 0;
+    const Plan p = sa_bwd_plan(d, &R);
+    if (R == 0) return (int)cudaErrorInvalidConfiguration;
+    int e = 0;
+    if (p.parts > 1)  // split balls add their parts' sums
+      e = (int)cudaMemsetAsync(dYc, 0, (size_t)b * m * c1 * sizeof(float), s);
+    if (e) return e;
+    switch (R) {
+      case 256:
+        e = launch_bwd_rows<256>(p, P, Yc, idx, b1, wt, b3, sd, d, pooled,
+                                 cnt, gout, dP, dYc, s);
+        break;
+      case 128:
+        e = launch_bwd_rows<128>(p, P, Yc, idx, b1, wt, b3, sd, d, pooled,
+                                 cnt, gout, dP, dYc, s);
+        break;
       case 64:
-        e = launch_bwd<64>(P, Yc, idx, b1, w2, b2, w3, b3, w2t, w3t, pooled,
-                           cnt, gout, d, dP, dYc, s);
+        e = launch_bwd_rows<64>(p, P, Yc, idx, b1, wt, b3, sd, d, pooled, cnt,
+                                gout, dP, dYc, s);
         break;
       case 32:
-        e = launch_bwd<32>(P, Yc, idx, b1, w2, b2, w3, b3, w2t, w3t, pooled,
-                           cnt, gout, d, dP, dYc, s);
+        e = launch_bwd_rows<32>(p, P, Yc, idx, b1, wt, b3, sd, d, pooled, cnt,
+                                gout, dP, dYc, s);
         break;
       case 16:
-        e = launch_bwd<16>(P, Yc, idx, b1, w2, b2, w3, b3, w2t, w3t, pooled,
-                           cnt, gout, d, dP, dYc, s);
+        e = launch_bwd_rows<16>(p, P, Yc, idx, b1, wt, b3, sd, d, pooled, cnt,
+                                gout, dP, dYc, s);
         break;
     }
     if (e) return e;
   }
-  int e = backproject(dP, (long long)b * n, c1, w1t, d.c0p, d.c0p, cf, dxyz,
+  int e = backproject(dP, (long long)b * n, c1, w1t, sd.c0p, sd.c0p, cf, dxyz,
                       dfeats, s);
   if (e) return e;
-  return backproject(dYc, (long long)b * m, c1, w1t, d.c0p, 4, 0, dcentres,
+  return backproject(dYc, (long long)b * m, c1, w1t, sd.c0p, 4, 0, dcentres,
                      nullptr, s);
 }

@@ -34,12 +34,20 @@ counted as tied; a split group needs no merge. Where groups hold 64 rows
 or more, dz3 @ w3t runs off the ring, each thread over the columns whose
 maximum its 8 rows hold (hit bits); where cf <= 1, so does d1 @ w1t.
 
-Limits: the three widths are multiples of 4; cf is any size >= 0; each
-kernel's tiles must fit a block's 232,448 bytes of shared memory at their
-smallest height, 16 rows: `fwd_smem_bytes` and `bwd_smem_bytes`. MSG's
-GroupAll (cf = 640, widths 256/512/1024) takes 213,504 bytes forward (32
-rows) and 221,696 backward (32 rows). With those widths the forward takes
-cf <= 1837, the backward cf <= 1741.
+Limits: the three widths are multiples of 4; cf is any size >= 0. Layer
+1's input sits whole in shared memory where some tile height takes it so;
+where none does, it is staged in slices of its channels (csrc/group_mlp.cu),
+so cf sets no limit: a shape is refused only for its widths, where even a
+16-row tile does not fit a block's 232,448 bytes with the input in the
+narrowest slices: the forward needs c1 + max(c2, 16) <= 2096; the backward,
+with 8-channel slices, dz3 as hit bits and 8-row ring stages,
+64 (max(c2, 8) + c1) + 64 ceil(c3 / 32) + 4 gpt c3 <= 183,296 bytes (gpt = 2
+where ns <= 8, else 1). Every shape whose three widths are at most 1024
+runs. MSG's GroupAll (cf = 640, widths 256/512/1024) takes 213,504 bytes
+forward (32 rows) and 221,696 backward (32 rows), its whole input in shared
+memory; from cf = 1838 on the forward, 1742 on the backward, the input is
+sliced (32-row tiles at cf = 2048: 784 channels a slice forward, 720
+backward).
 """
 
 from __future__ import annotations
@@ -68,74 +76,149 @@ def _tile_cols(rows: int, cout: int) -> int:
 
 
 def _smem_bytes(ns: int, cf: int, widths, rows: int, bwd: bool,
-                bk: int = _BK) -> int:
-    """csrc/group_mlp.cu make_plan's shared memory: region X (the input,
-    then layer 2's activations and, where the backward's layer 4 runs on the
-    ring (ns < 64), dz3 after them), layer 1's activations, [channel][row],
-    the weight ring (bk weight rows a stage, its widest round), and where
-    layer 4 runs off the ring, dz3 as a hit bit a (row, column) and each of
-    the tile's groups' cotangent shares."""
+                bk: int = _BK, kin: int = 0, sparse: Optional[bool] = None) -> int:
+    """csrc/group_mlp.cu make_plan's shared memory: region X (layer 1's
+    input, whole or `kin` channels of it, then layer 2's activations and,
+    where the backward's layer 4 runs on the ring, dz3 after them), layer
+    1's activations, [channel][row], the weight ring (bk weight rows a stage,
+    its widest round), and where layer 4 runs off the ring (`sparse`, by
+    default ns >= 64), dz3 as a hit bit a (row, column) and each of the
+    tile's groups' cotangent shares."""
     c1, c2, c3 = widths
     c0p = (3 + cf + 3) // 4 * 4
     couts = (c1, c2, c3, c0p) if bwd else (c1, c2, c3)
     stage = bk * max(_tile_cols(rows, c) for c in couts)
-    sparse = bwd and ns >= 64
+    if sparse is None:
+        sparse = bwd and ns >= 64
     top = c2 + c3 if bwd and not sparse else c2
-    words = (max(c0p, top) + c1) * rows + _STAGES * stage
+    words = (max(kin or c0p, top) + c1) * rows + _STAGES * stage
     if sparse:
-        slot = max(8, 1 << (ns - 1).bit_length())
-        words += (c3 + 31) // 32 * rows + (rows // slot if ns <= rows else 1) * c3
+        words += (c3 + 31) // 32 * rows + _groups_a_tile(ns, rows) * c3
     return words * 4
 
 
+def _groups_a_tile(ns: int, rows: int) -> int:
+    """Groups a tile of `rows` rows holds: rows / (ns padded to a power of
+    two >= 8), or 1 where a group is split over tiles."""
+    slot = max(8, 1 << (ns - 1).bit_length())
+    return rows // slot if ns <= rows else 1
+
+
 def fwd_smem_bytes(cf: int, widths, rows: int = 16) -> int:
-    """Shared memory of the forward kernel's block at a tile of `rows` rows.
-    At 16 rows, the smallest tile, it is what a shape needs."""
+    """Shared memory of the forward kernel's block at a tile of `rows` rows
+    with layer 1's whole input in it."""
     return _smem_bytes(1, cf, widths, rows, False)
 
 
 def bwd_smem_bytes(ns: int, cf: int, widths, rows: int = 16) -> int:
     """Shared memory of the backward kernel's block for groups of ns rows at
-    a tile of `rows` rows, with ring stages of 32 weight rows where they fit
-    (above 16 rows), else 16 (csrc bwd_tile_plan). At 16 rows, the smallest
-    tile, it is what a shape needs."""
+    a tile of `rows` rows with layer 1's whole input in it, with ring stages
+    of 32 weight rows where they fit (above 16 rows), else 16."""
     deep = _smem_bytes(ns, cf, widths, rows, True, 2 * _BK)
     if rows > 16 and deep <= _SMEM_MAX:
         return deep
     return _smem_bytes(ns, cf, widths, rows, True)
 
 
-@lru_cache(maxsize=256)
-def _plan(ns: int, cf: int, widths, bwd: bool):
-    def need(rows):
-        return _smem_bytes(ns, cf, widths, rows, bwd)
+def _fit(ns, cf, widths, rows, bwd, bk, level, limit):
+    """(shared memory, kin) of csrc fit_plan: the plan at a level of
+    `pick_bwd`'s: dz3 as hit bits where ns >= 64 or from level 2 on; layer
+    1's whole input at level 0 or where it fits `limit`, else its widest
+    slices (kin, a multiple of bk channels) that fit."""
+    sparse = bwd and (ns >= 64 or level >= 2)
+    whole = _smem_bytes(ns, cf, widths, rows, bwd, bk, 0, sparse)
+    if level == 0 or whole <= limit:
+        return whole, 0
+    c1, c2, c3 = widths
+    top = c2 + c3 if bwd and not sparse else c2
+    rest = whole - max((3 + cf + 3) // 4 * 4, top) * rows * 4
+    kin = (limit - rest) // (rows * 4) // bk * bk if rest < limit else 0
+    if kin < bk:
+        return whole, 0
+    return _smem_bytes(ns, cf, widths, rows, bwd, bk, kin, sparse), kin
 
-    fits = [] if bwd else [r for r in _TILE_ROWS[:-1] if need(r) <= _SMEM_HALF]
-    fits = fits or [r for r in (_BWD_ROWS if bwd else _TILE_ROWS)
-                    if need(r) <= _SMEM_MAX]
-    if not fits:
+
+_LEVELS = 4  # csrc tile_loop.cuh kLevels
+
+
+def _pick_bwd(fit):
+    """csrc tile_loop.cuh pick_bwd: (rows, depth, fit(rows, depth, level))
+    of a backward's plan, fit's result led by its shared memory: the tallest
+    of 256 .. 16 rows whose plan at 16-row ring stages fits one block an SM,
+    at the lowest level that has one, with 32-row stages where that plan
+    still fits (above 16 rows, below level 3; level 3: 16-row tiles with
+    8-row stages); None where nothing fits."""
+    for level in range(_LEVELS):
+        bk = _BK // 2 if level == 3 else _BK
+        for rows in (_BWD_ROWS[-1:] if level == 3 else _BWD_ROWS):
+            got = fit(rows, bk, level)
+            if got[0] > _SMEM_MAX:
+                continue
+            if level < 3 and rows > 16:
+                deep = fit(rows, 2 * _BK, level)
+                if deep[0] <= _SMEM_MAX:
+                    return rows, 2 * _BK, deep
+            return rows, bk, got
+    return None
+
+
+class TilePlan(NamedTuple):
+    """A kernel's plan as its C entry picks it: tile rows, parts a group is
+    split into, weight rows a ring stage, layer-1 input channels a slice (0:
+    the whole input) and shared memory (bytes)."""
+
+    rows: int
+    parts: int
+    depth: int
+    kin: int
+    smem: int
+
+
+@lru_cache(maxsize=256)
+def tile_plan(ns: int, cf: int, widths, bwd: bool) -> TilePlan:
+    """The forward's (bwd False) or the backward's plan, as csrc/group_mlp.cu
+    fwd_tile_plan / bwd_tile_plan pick it; raises where nothing fits."""
+    widths = tuple(widths)
+    found = None
+    if not bwd:
+        for level in (0, 1):
+            for limit, heights in ((_SMEM_HALF, _TILE_ROWS[:-1]),
+                                   (_SMEM_MAX, _TILE_ROWS)):
+                for rows in heights:
+                    smem, kin = _fit(ns, cf, widths, rows, False, _BK, level, limit)
+                    if found is None and smem <= limit:
+                        found = rows, _BK, (smem, kin)
+    else:
+        found = _pick_bwd(lambda rows, bk, level: _fit(
+            ns, cf, widths, rows, True, bk, level, _SMEM_MAX))
+    if found is None:
+        need = (_smem_bytes(ns, cf, widths, 16, True, _BK // 2, _BK // 2, True)
+                if bwd else _smem_bytes(ns, cf, widths, 16, False, _BK, _BK))
         raise ValueError(
             f"the group_mlp {'backward' if bwd else 'forward'}'s 16-row tile "
-            f"needs {need(16)} bytes of shared memory for cf={cf}, "
-            f"widths {tuple(widths)}; a block has {_SMEM_MAX}")
-    rows = fits[0]
-    return rows, (ns + rows - 1) // rows if ns > rows else 1
+            f"needs {need} bytes of shared memory with layer 1's input in "
+            f"the narrowest slices, for widths {widths}; a block has "
+            f"{_SMEM_MAX}")
+    rows, depth, (smem, kin) = found
+    return TilePlan(rows, (ns + rows - 1) // rows if ns > rows else 1, depth,
+                    kin, smem)
 
 
 def fwd_plan(ns: int, cf: int, widths):
     """(tile rows, parts a group is split into) as the forward's C entry
     picks them: the largest tile of 32 rows or more whose block leaves room
     for two an SM, else the largest that fits (16 rows only where 32 do
-    not); a group of more rows than the tile is split into ceil(ns / rows)
-    parts, one a block."""
-    return _plan(ns, cf, tuple(widths), False)
+    not), with layer 1's whole input where some height takes it so, else by
+    the same rule in slices; a group of more rows than the tile is split
+    into ceil(ns / rows) parts, one a block."""
+    return tile_plan(ns, cf, tuple(widths), False)[:2]
 
 
 def bwd_plan(ns: int, cf: int, widths):
     """(tile rows, parts a group is split into) as the backward's C entry
     picks them: the largest of 256, 128, 64, 32 and 16 rows that fits one
-    block an SM (`bwd_smem_bytes`), split as the forward's."""
-    return _plan(ns, cf, tuple(widths), True)
+    block an SM (`_pick_bwd`), split as the forward's."""
+    return tile_plan(ns, cf, tuple(widths), True)[:2]
 
 
 class FoldedMLP(NamedTuple):

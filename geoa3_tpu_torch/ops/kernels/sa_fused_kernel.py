@@ -3,7 +3,9 @@ and the max over each ball): CUDA kernel wrappers and their plain version.
 
 Replaces geoa3_tpu/ops/pallas/sa_fused_kernel.py:_fwd_kernel and
 :_bwd_kernel (`sa_query_group_mlp`). Source: csrc/sa_fused.cu, with the ball
-query of csrc/ballquery.cuh and the grouped-MLP tile of csrc/group_mlp.cuh.
+query of csrc/ballquery.cuh, the forward's grouped-MLP tile of
+csrc/group_mlp.cuh and the backward's tile loop of csrc/tile_loop.cuh
+(row 16's).
 
 Layer 1 is linear, so it is projected once a point and once a centre:
 P = xyz @ W1x + feats @ W1f [b, n, c1], Yc = new_xyz @ W1x [b, m, c1], and a
@@ -13,31 +15,48 @@ folded-BatchNorm affine+ReLU layers and the max over the ns slots follow
 (ties split evenly, ReLU'(0) = 0). The grouped rows never reach device
 memory, and a gathered row is c1 floats wide instead of 3 + cf.
 
-The backward scatters dz1 (c1 wide) over idx into dP [b, n, c1] and sums
-dYc = -sum_s dz1 per centre, then projects back once: dxyz = dP @ W1x^T,
-dfeats = dP @ W1f^T, dnew_xyz = dYc @ W1x^T. Weights are a frozen victim's
-and indices carry no gradient.
+The backward recomputes a tile's layers from the forward's idx, P and Yc
+(bitwise the forward's activations), scatters dz1 (c1 wide) over idx into
+dP [b, n, c1] by float4 atomics and sums dYc = -sum_s dz1 per centre, then
+projects back once: dxyz = dP @ W1x^T, dfeats = dP @ W1f^T, dnew_xyz = dYc
+@ W1x^T. Weights are a frozen victim's and indices carry no gradient; dP,
+and dYc where a ball is split over tiles, sum in atomic order, so their last
+bits vary between calls.
 
 Bound on the H100: operations (the projections, 2 b m ns (c1 c2 + c2 c3)
-forward, twice the layers' share backward). The kernels are float32 (no
-TF32): the victim's numerics stay those of the CPU reference. One launch of
-`sa_fused_fwd` runs three device kernels (the point and centre projections,
-then the query + gather + MLP + pool); one of `sa_fused_bwd` runs three (the
-recompute + scatter, then the two back-projections).
+forward; backward the recompute of layers 2-3, dz3 @ w3t over dz3's nonzero
+entries and d2 @ w2t over the rows that carry a cotangent, the
+back-projections). The kernels are float32 (no TF32): the victim's numerics
+stay those of the CPU reference. One launch of `sa_fused_fwd` runs three
+device kernels (the point and centre projections, then the query + gather
++ MLP + pool); one of `sa_fused_bwd` runs three (the recompute + scatter,
+then the two back-projections), and a memset of dYc where balls are split.
 
-Limits: the three widths are multiples of 4; n >= 1; a 16-row tile must fit
-a block's shared memory (`_check`).
+Limits: the three widths are multiples of 4; n >= 1; the forward's 16-row
+tiles must fit a block's shared memory (`_smem16`: any ns up to some
+thousands at widths of 1024), and the backward's plan (`bwd_plan`) takes
+every shape whose widths are at most 1024, on 16-row tiles with 8-row ring
+stages and dz3 as hit bits where nothing else fits.
 """
 
 from __future__ import annotations
 
+from functools import lru_cache
 from typing import Optional
 
 import torch
 
 from geoa3_tpu_torch.ops.kernels import _build
 from geoa3_tpu_torch.ops.kernels.ballquery_group_kernel import _r2, ball_query_plain
-from geoa3_tpu_torch.ops.kernels.group_mlp_kernel import _SMEM_MAX, FoldedMLP
+from geoa3_tpu_torch.ops.kernels.group_mlp_kernel import (
+    _BK,
+    _SMEM_MAX,
+    _STAGES,
+    FoldedMLP,
+    _groups_a_tile,
+    _pick_bwd,
+    _tile_cols,
+)
 from geoa3_tpu_torch.ops.kernels.knn_kernel import gather_nbrs
 
 
@@ -59,12 +78,49 @@ def sa_query_group_mlp_plain(xyz, new_xyz, feats, radius, nsample, p: FoldedMLP)
 
 
 def _smem16(ns, cf, c1, c2) -> int:
-    """Bytes of shared memory the largest of the kernels takes at 16-row
-    tiles (csrc/sa_fused.cu: fwd_smem, bwd_smem, the projections)."""
+    """Bytes of shared memory the forward's kernels take at 16-row tiles
+    (csrc/sa_fused.cu: fwd_smem, the projections, the back-projections);
+    the backward's tiles are `bwd_plan`'s."""
     ld = 20
     fwd = ((c1 + c2) * ld + 16 * 65) * 4 + max(16, ns) * 4
-    bwd = ((c1 + 2 * c2 + 64 + (c1 if c1 > c2 else 0)) * ld + c1) * 4 + max(16, ns) * 4
-    return max(fwd, bwd, (3 + cf) * ld * 4, c1 * ld * 4)
+    return max(fwd, (3 + cf) * ld * 4, c1 * ld * 4)
+
+
+def _bwd_smem(ns, widths, rows, bk, sparse) -> int:
+    """csrc/sa_fused.cu sa_bwd_make's shared memory: region X (a2, then d2,
+    and dz3 after them where dz3 @ w3t runs on the ring), a1, the weight
+    ring (its widest round, bk weight rows a stage), the hit bits and
+    cotangent shares where dz3 is sparse, and each row's point."""
+    c1, c2, c3 = widths
+    stage = bk * max(_tile_cols(rows, c) for c in (c1, c2, c3))
+    top = c2 if sparse else c2 + c3
+    words = (top + c1) * rows + _STAGES * stage + rows
+    if sparse:
+        words += (c3 + 31) // 32 * rows + _groups_a_tile(ns, rows) * c3
+    return words * 4
+
+
+@lru_cache(maxsize=64)
+def bwd_plan(ns, widths):
+    """(tile rows, parts a ball is split into, weight rows a ring stage,
+    whether dz3 is hit bits, shared memory) of the backward as its C entry
+    picks them (group_mlp_kernel._pick_bwd: the tallest of 256 .. 16 rows
+    that fits one block an SM; hit bits where ns >= 64 or where nothing
+    else fits, then 8-row ring stages on 16-row tiles); raises where
+    nothing fits."""
+    def fit(rows, bk, level):
+        sparse = ns >= 64 or level >= 2
+        return _bwd_smem(ns, widths, rows, bk, sparse), sparse
+
+    found = _pick_bwd(fit)
+    if found is None:
+        raise ValueError(
+            f"the sa_fused backward's 16-row tile needs "
+            f"{_bwd_smem(ns, widths, 16, _BK // 2, True)} bytes of shared "
+            f"memory for nsample={ns}, widths {tuple(widths)}; a block has "
+            f"{_SMEM_MAX}")
+    rows, depth, (smem, sparse) = found
+    return rows, (ns + rows - 1) // rows if ns > rows else 1, depth, sparse, smem
 
 
 def _check(xyz, new_xyz, feats, nsample, p: FoldedMLP):
@@ -90,6 +146,7 @@ def _check(xyz, new_xyz, feats, nsample, p: FoldedMLP):
             f"the sa_fused kernels need {need} bytes of shared memory for "
             f"nsample={nsample}, cf={cf}, widths {(c1, c2, c3)}; a block has "
             f"{_SMEM_MAX}")
+    bwd_plan(nsample, (c1, c2, c3))  # raises where the backward cannot fit
     _build.check_cuda(xyz, "xyz", torch.float32, (b, n, 3))
     _build.check_cuda(new_xyz, "new_xyz", torch.float32, (b, m, 3))
     if feats is not None:

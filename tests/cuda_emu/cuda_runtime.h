@@ -8,8 +8,9 @@
 // `kernel<<<grid, block, bytes, stream>>>(args)` of the source into an
 // emu_launch of the blocks one after another, since g++ cannot parse the
 // launch syntax. Timing and the memory model are not emulated; the index
-// arithmetic, the barriers' placement, the shuffles and the floating-point
-// operations are (fmaf is the C library's, exact).
+// arithmetic, the barriers' placement, the shuffles and ballots, the
+// atomics (under one lock) and the floating-point operations are (fmaf is
+// the C library's, exact).
 #pragma once
 
 #define GEOA3_EMU 1
@@ -21,6 +22,7 @@
 #include <cstdlib>
 #include <cstring>
 #include <functional>
+#include <mutex>
 #include <thread>
 #include <tuple>
 #include <vector>
@@ -46,6 +48,9 @@ struct uint4 {
 inline uint4 make_uint4(unsigned a, unsigned b, unsigned c, unsigned d) {
   return {a, b, c, d};
 }
+struct int4 {
+  int x, y, z, w;
+};
 struct dim3 {
   unsigned x = 0, y = 0, z = 0;
 };
@@ -73,6 +78,23 @@ inline unsigned atomicOr(unsigned* p, unsigned v) {
   return __atomic_fetch_or(p, v, __ATOMIC_RELAXED);
 }
 inline int __ffs(unsigned x) { return __builtin_ffs((int)x); }
+inline int __popc(unsigned x) { return __builtin_popcount(x); }
+inline void __syncwarp() { g_warp_barrier[threadIdx.x / 32]->arrive_and_wait(); }
+
+// atomics on device memory, under one lock
+inline std::mutex g_atomic_mu;
+inline float atomicAdd(float* p, float v) {
+  std::lock_guard<std::mutex> hold(g_atomic_mu);
+  const float old = *p;
+  *p = old + v;
+  return old;
+}
+inline float4 atomicAdd(float4* p, float4 v) {
+  std::lock_guard<std::mutex> hold(g_atomic_mu);
+  const float4 old = *p;
+  *p = {old.x + v.x, old.y + v.y, old.z + v.z, old.w + v.w};
+  return old;
+}
 
 // every lane of the warp must call it, as the kernels do
 template <class T>
@@ -87,6 +109,17 @@ T __shfl_xor_sync(unsigned, T v, int lane_mask) {
   T out;
   memcpy(&out, &r, sizeof(T));
   return out;
+}
+
+// every lane of the warp must call it
+inline unsigned __ballot_sync(unsigned, bool pred) {
+  const int t = threadIdx.x;
+  g_lanes[t] = pred ? 1u : 0u;
+  g_warp_barrier[t / 32]->arrive_and_wait();
+  unsigned m = 0;
+  for (int l = 0; l < 32; ++l) m |= (unsigned)g_lanes[(t & ~31) + l] << l;
+  g_warp_barrier[t / 32]->arrive_and_wait();
+  return m;
 }
 
 typedef int cudaError_t;
@@ -125,6 +158,10 @@ cudaError_t cudaOccupancyMaxActiveBlocksPerMultiprocessor(int* n, F, int,
   return cudaSuccess;
 }
 inline cudaError_t cudaGetLastError() { return cudaSuccess; }
+inline cudaError_t cudaMemsetAsync(void* p, int v, size_t n, cudaStream_t) {
+  memset(p, v, n);
+  return cudaSuccess;
+}
 inline cudaError_t cudaGetDevice(int* dev) {
   *dev = 0;
   return cudaSuccess;

@@ -127,11 +127,11 @@ int main(int argc, char** argv) {
   long long ties = 0;
   for (int c : k.cnt) ties += c > 1;
   const Dims d = make_dims(k.groups, k.ns, cf, c1, c2, c3);
-  const int R = tile_rows(d, true);
-  const Plan p = bwd_tile_plan(d, R);
-  printf("rows=%d slot=%d parts=%d tiles=%lld smem=%zu depth=%d bad=%lld "
+  int R = 0;
+  const Plan p = bwd_tile_plan(d, &R);
+  printf("rows=%d slot=%d parts=%d tiles=%lld smem=%zu depth=%d kin=%d bad=%lld "
          "dgx_err=%.3e tol=%.3e dgf_err=%.3e tol=%.3e tied=%lld carried=%lld\n",
-         R, p.P, p.parts, p.tiles, p.smem, p.bk, bad, errs[0], tols[0],
+         R, p.P, p.parts, p.tiles, p.smem, p.bk, p.kin, bad, errs[0], tols[0],
          errs[1], tols[1], ties, carried);
   return bad != 0;
 }

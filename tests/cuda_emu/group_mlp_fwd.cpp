@@ -25,9 +25,10 @@ int main(int argc, char** argv) {
   long long ties = 0;
   for (int c : k.cnt) ties += c > 1;
   const Dims d = make_dims(k.groups, k.ns, k.cf, k.c1, k.c2, k.c3);
-  const int R = tile_rows(d, false);
-  const Plan p = make_plan(d, R, false, kBK);
-  printf("rows=%d slot=%d parts=%d tiles=%lld smem=%zu differ=%lld of %zu tied=%lld\n",
-         R, p.P, p.parts, p.tiles, p.smem, bad, k.pooled.size(), ties);
+  int R = 0;
+  const Plan p = fwd_tile_plan(d, &R);
+  printf("rows=%d slot=%d parts=%d tiles=%lld smem=%zu depth=%d kin=%d differ=%lld of %zu "
+         "tied=%lld\n",
+         R, p.P, p.parts, p.tiles, p.smem, p.bk, p.kin, bad, k.pooled.size(), ties);
   return bad != 0;
 }

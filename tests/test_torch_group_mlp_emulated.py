@@ -8,9 +8,11 @@ patterns and tie sets, at 2e-5 of each output's largest entry
 victim shape at a few groups, padded slots, groups split across blocks,
 ties across those blocks, misaligned features, persistent blocks walking
 several tiles, widths that are 4 mod 8 past a round of 8-column threads,
-and GroupAll's widths past 32-row tiles. Each case's tile plan, as the C
-entry picks it, must be the one the wrapper's `fwd_plan` / `bwd_plan`
-predicts. Both drivers fail on a write past the end of an output.
+GroupAll's widths past 32-row tiles, layer 1's input staged in slices
+(by float4s and by floats), and widths of 1024 (8-row ring stages). Each
+case's tile plan, as the C entry picks it (tile rows, parts, ring depth,
+input channels a slice, shared memory), must be the one the wrapper's
+`tile_plan` predicts. Both programs fail on a write past the end of an output.
 
 The emulation runs the kernels' own index arithmetic, barriers, shuffles
 and float operations, one thread a CUDA thread; it says nothing of speed
@@ -56,6 +58,15 @@ CASES = {
     # across the parts
     "GroupAll cf=896 (16-row tiles)": (2, 128, 896, (256, 512, 1024), 3, 0, (1, 16, 47, 64, 127)),
     "GroupAll cf=1536 (16-row tiles)": (1, 128, 1536, (256, 512, 1024), 2, 0, (15, 16, 80, 127)),
+    # layer 1's input in slices (32-row tiles, 784 channels a slice forward,
+    # 720 backward): by float4s, and by floats where cf is not a multiple of 4
+    "GroupAll cf=2048 (input in slices)": (1, 128, 2048, (256, 512, 1024), 2, 0, (1, 31, 32, 127)),
+    "GroupAll cf=1901 (input in slices, scalar staging)": (1, 128, 1901, (256, 512, 1024), 3, 0, (5, 64)),
+    # widths of 1024: the backward on 16-row tiles with 8-row ring stages and
+    # dz3 as hit bits at ns < 64; at cf = 2000 the input in slices too, over
+    # layer 1's two rounds of columns
+    "widths 1024, cf=1024": (1, 16, 1024, (1024, 1024, 1024), 1, 0, (3, 15)),
+    "widths 1024, cf=2000 (input in slices)": (2, 32, 2000, (1024, 1024, 1024), 2, 0, (17,)),
 }
 
 
@@ -105,8 +116,10 @@ def _run(exe, case):
     res = subprocess.run([str(exe), *map(str, args)],
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stdout + res.stderr
-    plan = re.search(r"rows=(\d+) slot=\d+ parts=(\d+) tiles=\d+ smem=(\d+) ", res.stdout)
-    return res.stdout, tuple(map(int, plan.groups()))
+    plan = re.search(r"rows=(\d+) slot=\d+ parts=(\d+) tiles=\d+ smem=(\d+) depth=(\d+) "
+                     r"kin=(\d+) ", res.stdout)
+    rows, parts, smem, depth, kin = map(int, plan.groups())
+    return res.stdout, (rows, parts, depth, kin, smem)
 
 
 def test_the_launch_rewrite_keeps_every_launch():
@@ -118,18 +131,16 @@ def test_the_launch_rewrite_keeps_every_launch():
 @pytest.mark.parametrize("case", sorted(CASES))
 def test_group_mlp_fwd_source_is_bit_equal_to_the_fmaf_oracle(emulated, case):
     _, ns, cf, widths, *_ = CASES[case]
-    out, (rows, parts, smem) = _run(emulated["group_mlp_fwd"], case)
+    out, plan = _run(emulated["group_mlp_fwd"], case)
     assert "differ=0 " in out, out
-    assert (rows, parts) == gk.fwd_plan(ns, cf, widths), out
-    assert smem == gk.fwd_smem_bytes(cf, widths, rows), out
+    assert plan == gk.tile_plan(ns, cf, widths, False), out
 
 
 @pytest.mark.parametrize("case", sorted(CASES))
 def test_group_mlp_bwd_source_matches_the_float64_oracle(emulated, case):
     _, ns, cf, widths, *_ = CASES[case]
-    out, (rows, parts, smem) = _run(emulated["group_mlp_bwd"], case)
+    out, plan = _run(emulated["group_mlp_bwd"], case)
     assert " bad=0 " in out, out
     carried = int(re.search(r"carried=(\d+)", out).group(1))
     assert carried > 0, out  # some cotangent reached the rows
-    assert (rows, parts) == gk.bwd_plan(ns, cf, widths), out
-    assert smem == gk.bwd_smem_bytes(ns, cf, widths, rows), out
+    assert plan == gk.tile_plan(ns, cf, widths, True), out

@@ -233,7 +233,10 @@ def test_repeated_rows_return_the_whole_cotangent_to_their_source():
 def _random_mlp(rng, cf, widths):
     parts, cin = [], 3 + cf
     for w in widths:
-        parts.append(_t((rng.randn(cin, w) * 0.3).astype(np.float32)))
+        # 0.3 keeps the narrow layers' activations near 1; past 512 inputs
+        # He's scale does (0.3 would grow them ~10x a layer)
+        scale = 0.3 if cin <= 512 else (2.0 / cin) ** 0.5
+        parts.append(_t((rng.randn(cin, w) * scale).astype(np.float32)))
         parts.append(_t((rng.randn(w) * 0.1).astype(np.float32)))
         cin = w
     return tops.fold_mlp(*parts)
@@ -316,6 +319,66 @@ def test_group_mlp_value_and_grad_match_pallas_kernel(case):
                 np.broadcast_to(a.grad[:, :, :1].numpy(), a.grad[:, :, rows].shape))
 
 
+def _off_near_ties(a3, out, tgt):
+    """tgt where each pooled maximum is clear, `out` itself where the
+    maximum lies within rounding (1e-5 of the largest entry) of a runner-up
+    without an exact tie, or of 0: there float32 sums in another order may
+    rightly pick another row, so no cotangent is sent (a3 [..., ns, c],
+    out = its max over ns)."""
+    top2 = torch.topk(a3, 2, dim=-2).values
+    gap = top2[..., 0, :] - top2[..., 1, :]
+    tol = 1e-5 * out.abs().max()
+    fragile = ((gap > 0) & (gap < tol)) | (top2[..., 0, :] < tol)
+    return np.where(fragile.numpy(), out.numpy(), tgt).astype(np.float32)
+
+
+def test_group_mlp_at_groupall_cf2048_matches_pallas_kernel():
+    """GroupAll past the whole input's limit of the card's kernels (which
+    stage layer 1's input in slices there), with rows tied across the
+    card's 32-row parts, against the JAX kernel (interpret mode). K = 2051
+    float32 products a layer-1 sum in other orders than the TPU kernel's
+    split bf16: values held to 1e-4 of the largest entry, gradients to 1e-3
+    (as tests/test_torch_sa_fused.py holds the whole-scale op), with the
+    cotangent kept off maxima within rounding of a runner-up."""
+    from geoa3_tpu.ops.pallas.group_mlp_kernel import group_mlp_maxpool
+
+    cf, ns, widths = 2048, 128, (256, 512, 1024)
+    rng = np.random.RandomState(73)
+    gx = rng.randn(B, 1, ns, 3).astype(np.float32)
+    gf = rng.randn(B, 1, ns, cf).astype(np.float32)
+    gx[:, :, [31, 32, 127]] = gx[:, :, :1]
+    gf[:, :, [31, 32, 127]] = gf[:, :, :1]
+    p = _random_mlp(rng, cf, widths)
+    with torch.no_grad():
+        a = torch.relu(_t(gx) @ p.w1[:3] + _t(gf) @ p.w1[3:] + p.b1)
+        a = torch.relu(torch.relu(a @ p.w2 + p.b2) @ p.w3 + p.b3)
+    tgt = _off_near_ties(a, a.amax(dim=2), rng.randn(B, 1, widths[-1]))
+    ws = _jax_ws(p)
+
+    def jloss(x, f):
+        out = group_mlp_maxpool(_planes(x), f, ns, True, ws)
+        return jnp.sum((out - tgt) ** 2), out
+
+    (_, want), wgrads = jax.value_and_grad(jloss, argnums=(0, 1), has_aux=True)(
+        jnp.asarray(gx), jnp.asarray(gf))
+    x, f = _t(gx).requires_grad_(True), _t(gf).requires_grad_(True)
+    got = tops.group_mlp_maxpool(x, f, p)
+    ((got - _t(tgt)) ** 2).sum().backward()
+    want = np.asarray(want)
+    np.testing.assert_allclose(got.detach().numpy(), want, rtol=0,
+                               atol=1e-4 * np.abs(want).max())
+    for a_, w in zip((x, f), wgrads):
+        w = np.asarray(w)
+        assert np.abs(w).max() > 0
+        np.testing.assert_allclose(a_.grad.numpy(), w, rtol=0,
+                                   atol=1e-3 * np.abs(w).max())
+    # the rows tied to row 0 share its cotangent evenly
+    for a_ in (x, f):
+        np.testing.assert_array_equal(
+            a_.grad[:, :, [31, 32, 127]].numpy(),
+            np.broadcast_to(a_.grad[:, :, :1].numpy(), (B, 1, 3, a_.shape[-1])))
+
+
 # (cf, widths, nsample) of every grouped MLP the SSG and MSG victims run
 # through group_mlp: SSG SA1-SA3, MSG SA1's three scales and GroupAll, with
 # the forward's tile height and split at each, and its shared memory there
@@ -371,36 +434,72 @@ def test_group_mlp_backward_plan_fits_every_victim_shape(shape):
 
 
 def test_group_mlp_forward_refuses_what_cannot_fit():
-    # GroupAll's widths fit the forward's 16-row tiles up to cf = 1837 and
-    # the backward's up to cf = 1741 (its hit bits and cotangent shares take
-    # 6,144 bytes more), each then taking all of a block; past those they
-    # refuse
+    # GroupAll's widths fit the forward's 16-row tiles with the whole input
+    # up to cf = 1837 and the backward's up to cf = 1741 (its hit bits and
+    # cotangent shares take 6,144 bytes more), each then taking all of a
+    # block; past those layer 1's input is staged in slices, so cf sets no
+    # limit (test_group_mlp_takes_any_cf_at_groupall_widths)
     widths = (256, 512, 1024)
     assert gk.fwd_smem_bytes(1837, widths) == gk._SMEM_MAX
     assert gk.fwd_smem_bytes(1838, widths) == 232704
     assert gk.bwd_smem_bytes(128, 1741, widths) == gk._SMEM_MAX
     assert gk.bwd_smem_bytes(128, 1742, widths) == 232704
+    assert gk.tile_plan(128, 1837, widths, False) == (16, 8, 16, 0, gk._SMEM_MAX)
+    assert gk.tile_plan(128, 1741, widths, True) == (16, 8, 16, 0, gk._SMEM_MAX)
+    # what cannot fit is a pair of widths: the forward's 16-row tile with
+    # 16-channel input slices takes c1 + max(c2, 16) <= 2096
+    assert gk.tile_plan(16, 0, (1040, 1056, 16), False) == (16, 1, 16, 0, gk._SMEM_MAX)
     with pytest.raises(ValueError, match="forward's 16-row tile needs 232704 bytes"):
-        gk.fwd_plan(128, 1838, widths)
-    with pytest.raises(ValueError, match="backward's 16-row tile needs 232704 bytes"):
-        gk.bwd_plan(128, 1742, widths)
+        gk.fwd_plan(16, 0, (1040, 1060, 16))
     rng = np.random.RandomState(72)
-    p = _random_mlp(rng, 1838, widths)
+    p = _random_mlp(rng, 0, (1040, 1060, 16))
     with pytest.raises(ValueError, match="forward's 16-row tile needs 232704 bytes"):
-        gk.group_mlp_fwd(torch.zeros(1, 1, 128, 3), torch.zeros(1, 1, 128, 1838), p)
-    # 1800 features fit the forward (230,144 bytes) but not the backward
-    # (236,288), and the wrapper refuses the pair
-    assert gk.fwd_plan(128, 1800, widths) == (16, 8)
-    assert gk.fwd_smem_bytes(1800, widths) == 230144
-    p = _random_mlp(rng, 1800, widths)
-    with pytest.raises(ValueError, match="backward's 16-row tile needs 236288 bytes"):
-        gk.group_mlp_fwd(torch.zeros(1, 1, 128, 3), torch.zeros(1, 1, 128, 1800), p)
+        gk.group_mlp_fwd(torch.zeros(1, 1, 16, 3), None, p)
+    # the backward's limit (8-channel slices, hit bits, 8-row ring stages)
+    # lies past the forward's at any c1 + c2, in c3: 8200 columns fit the
+    # forward but not the backward (183,392 bytes past the ring's 49,152),
+    # and the wrapper refuses the pair
+    assert gk.fwd_plan(16, 0, (1040, 1056, 8200)) == (16, 1)
+    with pytest.raises(ValueError, match="backward's 16-row tile needs 232544 bytes"):
+        gk.bwd_plan(16, 0, (1040, 1056, 8200))
+    p = _random_mlp(rng, 0, (1040, 1056, 8200))
+    with pytest.raises(ValueError, match="backward's 16-row tile needs 232544 bytes"):
+        gk.group_mlp_fwd(torch.zeros(1, 1, 16, 3), None, p)
     # layer 2 of 1024 columns beside 640 features, refused by the backward
     # until dz3 went to hit bits: both kernels now take it on 16-row tiles
     widths = (256, 1024, 1024)
     assert gk.fwd_plan(128, 640, widths) == gk.bwd_plan(128, 640, widths) == (16, 8)
     assert gk.fwd_smem_bytes(640, widths) == 180224
     assert gk.bwd_smem_bytes(128, 640, widths) == 186368
+
+
+# GroupAll's widths past the whole input's limits: 32-row tiles (4 parts a
+# cloud) with layer 1's input in the widest slices that fit, a multiple of
+# 16 channels (both kernels' ring depth), at cf = 1838 (the forward's first
+# sliced cf), 1901 (the scalar staging path), 2048 and 4096
+@pytest.mark.parametrize("cf", [1838, 1901, 2048, 4096])
+def test_group_mlp_takes_any_cf_at_groupall_widths(cf):
+    widths = (256, 512, 1024)
+    assert gk.tile_plan(128, cf, widths, False) == (32, 4, 16, 784, 231424)
+    assert gk.tile_plan(128, cf, widths, True) == (32, 4, 16, 720, 231424)
+    assert gk._smem_bytes(128, cf, widths, 32, False, kin=784) == 231424
+    assert gk._smem_bytes(128, cf, widths, 32, False, kin=800) > gk._SMEM_MAX
+
+
+# widths of 1024, which the JAX package's gate admits: the forward keeps the
+# whole input to cf = 1021; the backward takes dz3 as hit bits and 8-row
+# ring stages on 16-row tiles (dz3 as [c3][R] and the 16-row ring need
+# 295,936 bytes at cf = 1024)
+@pytest.mark.parametrize("ns, cf, fwd, bwd", [
+    (16, 1024, (16, 1, 16, 0, 229632), (16, 1, 8, 0, 186624)),
+    (128, 1024, (16, 8, 16, 0, 229632), (16, 8, 8, 0, 186624)),
+    (4, 0, (16, 1, 16, 0, 229376), (16, 1, 8, 0, 190464)),
+    (32, 2000, (16, 2, 16, 1072, 232448), (16, 2, 8, 1744, 232448)),
+])
+def test_group_mlp_takes_widths_of_1024(ns, cf, fwd, bwd):
+    widths = (1024, 1024, 1024)
+    assert gk.tile_plan(ns, cf, widths, False) == fwd
+    assert gk.tile_plan(ns, cf, widths, True) == bwd
 
 
 def test_group_mlp_checks_its_weights():

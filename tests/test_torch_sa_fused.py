@@ -20,7 +20,8 @@ from jax.experimental.pallas import tpu as pltpu
 from geoa3_tpu.ops.pallas.sa_fused_kernel import sa_query_group_mlp as jsa
 from geoa3_tpu_torch import ops as tops
 from geoa3_tpu_torch.ops.kernels import sa_fused_kernel as sf
-from tests.test_torch_grouping import _jax_ws, _line_scene, _random_mlp
+from geoa3_tpu_torch.ops.kernels.knn_kernel import gather_nbrs
+from tests.test_torch_grouping import _jax_ws, _line_scene, _off_near_ties, _random_mlp
 from tests.test_torch_ops import _t
 
 torch.set_num_threads(1)
@@ -91,6 +92,36 @@ def test_value_and_grads_match_pallas_kernel(n, m, ns, cf, widths, radius):
              _jax(radius, ns, xyz, cen, feats, p, tgt))
 
 
+def test_widths_of_1024_match_pallas_kernel():
+    """The widest MLP the JAX package's gate admits (the card's backward
+    takes it on 16-row tiles with 8-row ring stages and hit bits), held as
+    the shapes above, with the cotangent kept off maxima within rounding
+    of a runner-up and off the balls whose rows hold a hidden unit within
+    rounding of 0 (1e-6 of its layer's largest pre-activation: sums of 1024
+    float32 products in other orders differ by about that much): among
+    1024 channels and 2048 hidden units a row, some lie that close, and the
+    two versions may rightly take either side."""
+    widths = (1024, 1024, 1024)
+    xyz, cen, feats, rng = _scene(84, 256, 16, 64)
+    p = _random_mlp(rng, 64, widths)
+    x, c, f = _t(xyz), _t(cen), _t(feats)
+    idx = tops.ball_query(0.5, 16, x, c)
+    with torch.no_grad():
+        prj = x @ p.w1[:3] + f @ p.w1[3:]
+        z1 = (gather_nbrs(prj, idx) - (c @ p.w1[:3])[:, :, None]) + p.b1
+        z2 = torch.relu(z1) @ p.w2 + p.b2
+        a = torch.relu(torch.relu(z2) @ p.w3 + p.b3)
+        fragile = torch.zeros(B, 16, dtype=torch.bool)
+        for z in (z1, z2):
+            fragile |= (z.abs() < 1e-6 * z.abs().max()).any(-1).any(-1)
+    out = a.amax(dim=2)
+    tgt = _off_near_ties(a, out, rng.randn(B, 16, widths[-1]))
+    tgt = np.where(fragile[..., None].numpy(), out.numpy(), tgt)
+    assert fragile.sum() <= 8  # most balls carry a cotangent
+    _compare(_port(0.5, 16, xyz, cen, feats, p, tgt),
+             _jax(0.5, 16, xyz, cen, feats, p, tgt))
+
+
 def test_empty_and_overfull_balls_match_pallas_kernel():
     """A dense cluster (over-full balls: the first 16 hits in index order)
     and far centres (empty balls: every slot holds point 0)."""
@@ -139,8 +170,24 @@ def test_plain_version_is_the_grouped_mlp_of_the_ball_query():
 
 
 def test_shared_memory_check_follows_the_kernels():
-    """The wrapper's check takes the largest of the kernels' 16-row shared
-    memory: MSG SA2's scales fit; a nsample of 60000 does not."""
+    """The wrapper's check takes the largest of the forward kernels' 16-row
+    shared memory and the backward's plan (csrc/sa_fused.cu sa_bwd_plan):
+    MSG SA2's scales fit, and so does every shape the JAX package's gate
+    admits, up to widths of 1024 and cf = 1024 (the backward on 16-row
+    tiles with 8-row ring stages and hit bits); a nsample of 60000 does
+    not."""
     assert sf._smem16(128, 320, 128, 128) < sf._SMEM_MAX
     assert sf._smem16(128, 3, 64, 96) < sf._SMEM_MAX
     assert sf._smem16(60000, 0, 32, 32) > sf._SMEM_MAX
+    # MSG SA2's scales: 128-row tiles, 32-row ring stages, hit bits at 64+
+    assert sf.bwd_plan(32, (64, 64, 128)) == (128, 1, 32, False, 180736)
+    assert sf.bwd_plan(64, (128, 128, 256)) == (128, 1, 32, True, 186880)
+    assert sf.bwd_plan(128, (128, 128, 256)) == (128, 1, 32, True, 185856)
+    widths = (1024, 1024, 1024)
+    assert sf._smem16(128, 1024, 1024, 1024) == 168512
+    for ns in (16, 32, 64, 128):
+        rows, parts, depth, sparse, smem = sf.bwd_plan(ns, widths)
+        assert (rows, depth, sparse) == (16, 8, True) and smem <= sf._SMEM_MAX
+        assert parts == max(1, ns // 16)
+    # dz3 as [c3][R] and 16-row ring stages would take 294,976 bytes
+    assert sf._bwd_smem(16, widths, 16, 16, False) == 294976

@@ -1,0 +1,90 @@
+"""The whole-scale set-abstraction CUDA source (geoa3_tpu_torch/csrc/
+sa_fused.cu), compiled with g++ against tests/cuda_emu/cuda_runtime.h and
+run on the CPU: its forward, then its backward, on the same inputs
+(tests/cuda_emu/sa_fused_bwd.cpp). The forward's ball query is held
+bit-equal to a serial one, its pooled maxima and tie counts to a serial
+fmaf-chain oracle (the tie sets the backward's recompute must find again);
+the backward's dP, dYc and the three input cotangents to the backward taken
+in float64 through that oracle's float32 ReLU patterns and tie sets, at 2e-5
+of each output's largest entry. The cases: MSG SA2's three scales at a few
+balls (dz3 on the ring at ns = 32, hit bits at 64 and 128), cf = 0 and 3,
+padded slots, empty and over-full balls, balls split over tiles, and widths
+of 1024 at cf = 1024 (16-row tiles, 8-row ring stages). Each case's tile
+plan, as the C entry picks it, must be the one the wrapper's `bwd_plan`
+predicts. The program fails on a write past the end of an output.
+
+The emulation runs the kernels' own index arithmetic, barriers, shuffles,
+ballots, atomics and float operations, one thread a CUDA thread; it says
+nothing of speed or of the card's memory model, which `chip_smoke.py`
+covers on the card.
+"""
+
+from __future__ import annotations
+
+import re
+import shutil
+import subprocess
+
+import pytest
+
+from geoa3_tpu_torch.ops.kernels import sa_fused_kernel as sf
+from tests.test_torch_group_mlp_emulated import CSRC, EMU, _rewrite
+
+# b, n, m, ns, cf, (c1, c2, c3), radius, SMs, far (every other centre
+# moved away: empty balls)
+CASES = {
+    "MSG SA2 r=0.4 ns=32 (dz3 on the ring)": (2, 256, 6, 32, 320, (64, 64, 128), 0.4, 2, 0),
+    "MSG SA2 r=0.6 ns=64 (hit bits, two balls a tile)": (2, 256, 5, 64, 320, (128, 128, 256), 0.6, 1, 0),
+    "MSG SA2 r=0.8 ns=128": (2, 256, 3, 128, 320, (128, 128, 256), 0.8, 2, 0),
+    "cf=0 r=0.3 ns=16 (256-row tiles)": (2, 256, 20, 16, 0, (32, 32, 64), 0.3, 1, 0),
+    "cf=3 (normals) ns=16": (2, 256, 9, 16, 3, (32, 32, 64), 0.3, 2, 0),
+    "ns=24 padded slots, cf=5": (2, 256, 7, 24, 5, (32, 32, 64), 0.4, 1, 0),
+    "empty balls": (2, 256, 8, 32, 320, (32, 32, 64), 0.4, 1, 1),
+    "over-full balls r=2": (2, 256, 6, 32, 320, (32, 32, 64), 2.0, 1, 0),
+    "balls split over 4 tiles (32-row tiles)": (2, 256, 2, 128, 64, (256, 512, 1024), 0.8, 3, 0),
+    "widths 1024, cf=1024 (8-row ring stages, balls split in 2)": (1, 128, 2, 32, 1024, (1024, 1024, 1024), 0.6, 2, 0),
+}
+
+
+@pytest.fixture(scope="module")
+def emulated(tmp_path_factory):
+    """The test program, built from the rewritten source."""
+    gxx = shutil.which("g++")
+    if gxx is None:
+        pytest.skip("no g++ to compile the emulated kernel")
+    build = tmp_path_factory.mktemp("sa_fused_emu")
+    (build / "sa_fused_emu.cpp").write_text(_rewrite((CSRC / "sa_fused.cu").read_text()))
+    exe = build / "sa_fused_bwd"
+    res = subprocess.run(
+        [gxx, "-std=c++20", "-O2", "-ffp-contract=off", "-pthread",
+         "-Wno-unknown-pragmas", "-I", str(build), "-I", str(CSRC), "-I", str(EMU),
+         str(EMU / "sa_fused_bwd.cpp"), "-o", str(exe)],
+        capture_output=True, text=True, timeout=300)
+    assert res.returncode == 0, (res.stdout + res.stderr)[-4000:]
+    return exe
+
+
+def test_the_launch_rewrite_keeps_every_launch():
+    src = (CSRC / "sa_fused.cu").read_text()
+    out = _rewrite(src)
+    assert "<<<" not in out and out.count("emu_launch(") == src.count("<<<") > 0
+
+
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_sa_fused_bwd_source_matches_the_float64_oracle(emulated, case):
+    b, n, m, ns, cf, widths, radius, sms, far = CASES[case]
+    args = [b, n, m, ns, cf, *widths, radius, 23, sms, far]
+    res = subprocess.run([str(emulated), *map(str, args)],
+                         capture_output=True, text=True, timeout=300)
+    out = res.stdout + res.stderr
+    assert res.returncode == 0, out
+    assert " bad=0 " in out, out
+    plan = re.search(r"rows=(\d+) slot=\d+ parts=(\d+) tiles=\d+ smem=(\d+) depth=(\d+) "
+                     r"sparse=(\d) ", out)
+    rows, parts, smem, depth, sparse = map(int, plan.groups())
+    assert (rows, parts, depth, bool(sparse), smem) == sf.bwd_plan(ns, widths), out
+    assert int(re.search(r"carried=(\d+)", out).group(1)) > 0, out
+    if "split" in case:
+        assert parts > 1, out
+    if "over-full" in case or "padded" in case or "ns=16" in case:
+        assert int(re.search(r"tied=(\d+)", out).group(1)) > 0, out
