@@ -91,8 +91,10 @@ shapes and the four wider GroupAll ones, or those of the checkout at DIR
 (say a `git archive` of another commit under `build/`) at the seven
 shapes, so that two commits are timed on the same inputs in one call.
 `--sa-fused-times [--tree DIR]` does the same for the whole-scale kernels
-at MSG SA2's three scales and SA1's three with normals; for this checkout
-it also times the backward built without its scatter epilogue.
+at MSG SA2's three scales and SA1's three with normals, with the forward's
+device time by kernel (torch.profiler) and the split pair beside it; for
+this checkout it also times the backward built without its scatter
+epilogue.
 
 Any failed check raises, and the script exits non-zero. It never falls back
 to the CPU: without a CUDA device it exits non-zero before printing results.
@@ -101,6 +103,7 @@ to the CPU: without a CUDA device it exits non-zero before printing results.
 from __future__ import annotations
 
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -1337,13 +1340,19 @@ def sa_fused_autograd_hold(torch, sf, label, xyz, cen, feats, ns, p_, scale,
     fg = feats.double().requires_grad_(True) if feats is not None else None
     z2 = (layer1(xg, cg, fg, p64.w1) * on1) @ p64.w2 + p64.b2
     a3 = torch.relu((z2 * on2) @ p64.w3 + p64.b3)
-    top2 = torch.topk(a3.detach(), 2, dim=2).values
-    gap = top2[:, :, 0] - top2[:, :, 1]
-    gap_ok = ((gap > 1e-4 * scale) | (gap == 0)) & (top2[:, :, 0] > 1e-4 * scale)
+    # each maximum's gap to the largest value below it, not to the runner-up:
+    # an exact tie of an under-full ball's repeated rows may hide a distinct
+    # row within rounding of it, which float32 sums may rightly lift above
+    with torch.no_grad():
+        top = a3.amax(dim=2, keepdim=True)
+        below = torch.where(a3 < top, a3, torch.full_like(a3, -1.0)).amax(dim=2)
+        top = top[:, :, 0]
+        gap_ok = (top - below > 1e-4 * scale) & (top > 1e-4 * scale)
+        del top, below
     gcot = (randn(b_, m_, p_.w3.shape[1]) * gap_ok).contiguous()
     ins = [xg, cg] + ([fg] if fg is not None else [])
     grads = torch.autograd.grad((torch.amax(a3, dim=2) * gcot.double()).sum(), ins)
-    del a3, z2, top2, gap, on1, on2
+    del a3, z2, on1, on2
     got = sf.sa_fused_bwd(gcot, p_, cf, pooled, cnt, idx, proj, yc)
     bwd_errs = []
     for g_, w_, what in zip(got, grads, ("dxyz", "dnew_xyz", "dfeats")):
@@ -1371,16 +1380,15 @@ def sa_fused_case(torch, label, xyz, cen, feats, radius, ns, p_, randn,
     autograd over every row as in `group_mlp_case` (the kernel's float32
     ReLU pattern on rows with a hidden pre-activation within rounding of 0,
     read from the kernel's own projections P and Yc; the pooled cotangent
-    kept off maxima within rounding of a runner-up or of 0), or, with
-    `patterns`, by `sa_fused_pattern_hold`. With `timed`, the kernels', the
-    plain version's and the split pair's times and the bounds."""
+    kept off maxima within rounding of a lower value or of 0), and, with
+    `patterns`, by `sa_fused_pattern_hold` too. With `timed`, the times of
+    `sa_fused_times`."""
     from geoa3_tpu_torch.ops.kernels import (
         ballquery_group_kernel as bk,
-        group_mlp_kernel as gk,
         sa_fused_kernel as sf,
     )
 
-    b_, n_ = xyz.shape[:2]
+    b_ = xyz.shape[0]
     m_ = cen.shape[1]
     cf = 0 if feats is None else feats.shape[-1]
     pooled, cnt, idx, proj, yc = sf.sa_fused_fwd(xyz, cen, feats, radius, ns, p_)
@@ -1401,36 +1409,18 @@ def sa_fused_case(torch, label, xyz, cen, feats, radius, ns, p_, randn,
                   (a3 == top[:, :, None]).sum(dim=2, dtype=torch.int32),
                   "cnt vs the fmaf-chain oracle")
     del a3, top
+    bwd_err = sa_fused_autograd_hold(torch, sf, label, xyz, cen, feats, ns, p_,
+                                     scale, pooled, cnt, idx, proj, yc, randn)
     if patterns:
-        bwd_err = sa_fused_pattern_hold(torch, sf, label, p_, cf, pooled, cnt,
-                                        idx, proj, yc, randn(*pooled.shape))
-    else:
-        bwd_err = sa_fused_autograd_hold(torch, sf, label, xyz, cen, feats, ns,
-                                         p_, scale, pooled, cnt, idx, proj, yc,
-                                         randn)
+        bwd_err = max(bwd_err, sa_fused_pattern_hold(
+            torch, sf, label, p_, cf, pooled, cnt, idx, proj, yc,
+            randn(*pooled.shape)))
     r_ = dict(fwd_err=fwd_err, bwd_err=bwd_err, idx=idx)
     if not timed:
         return r_
     r_.update(sa_fused_times(torch, sf, xyz, cen, feats, radius, ns, p_,
                              randn(b_, m_, p_.w3.shape[1])))
-    # the alternative route a later PR weighs: the split pair (the fused
-    # ball query + grouping, then the grouped MLP), forward and backward
-    _, sgx, sgf = bk.ballquery_group_fwd(xyz, cen, feats, radius, ns)
-    spooled, scnt = gk.group_mlp_fwd(sgx, sgf, p_)
-    g_all = randn(b_, m_, p_.w3.shape[1])
-
-    def split_fwd():
-        i_, gx_, gf_ = bk.ballquery_group_fwd(xyz, cen, feats, radius, ns)
-        return gk.group_mlp_fwd(gx_, gf_, p_)
-
-    def split_bwd():
-        dgx, dgf = gk.group_mlp_bwd(g_all, sgx, sgf, p_, spooled, scnt)
-        return bk.ballquery_group_bwd(idx, dgx, dgf, n_)
-
-    r_.update(split_fwd=time_ms(split_fwd), split_bwd=time_ms(split_bwd))
-    del sgx, sgf
-    print(f"  sa_fused[{label}]: " + sa_fused_times_line(r_)
-          + f"; split pair fwd={r_['split_fwd']:.4f} bwd={r_['split_bwd']:.4f}")
+    print(f"  sa_fused[{label}]: " + sa_fused_times_line(r_))
     return r_
 
 
@@ -1459,11 +1449,41 @@ def sa_fused_inputs(torch) -> dict:
     return out
 
 
+def kernel_ms(torch, fn, calls: int = 10) -> dict:
+    """The device time of each kernel `fn` launches, ms a call: `calls` calls
+    under torch.profiler after a warm one, summed by kernel name."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for evt in prof.key_averages():
+        us = getattr(evt, "self_device_time_total",
+                     getattr(evt, "self_cuda_time_total", 0.0))
+        if us > 0 and evt.device_type == torch.autograd.DeviceType.CUDA:
+            out[evt.key] = out.get(evt.key, 0.0) + us / 1e3 / calls
+    return out
+
+
+def kernels_matching(by_kernel: dict, pattern: str) -> float:
+    return sum(ms for name, ms in by_kernel.items() if re.search(pattern, name))
+
+
 def sa_fused_times(torch, sf, xyz, cen, feats, radius, ns, p_, g_all,
                    variant=None) -> dict:
     """Row 17's times at one shape (CUDA events: one call, median of 20, and
     `ten_ms`), its plain version's (the backward's: autograd through the
     plain forward, forward included) and both bounds for this run's inputs.
+    The forward's device time by kernel (`kernel_ms`): the ball query pass,
+    the tiles with their finish, the projections (in a checkout whose
+    forward runs the queries inside its tiles, the query pass is 0). The
+    split pair, the alternative route (row 15's fused ball query +
+    grouping, then row 16's grouped MLP), forward and backward: one call,
+    ten back to back, and its query + grouping kernel's device time.
     The backward's operations are what its function needs on this data: the
     recompute of layers 2-3 over every row (it finds the rows that hold the
     maxima); dz3 @ w3t over dz3's nonzero entries only, c2 multiply-adds
@@ -1473,7 +1493,11 @@ def sa_fused_times(torch, sf, xyz, cen, feats, radius, ns, p_, g_all,
     scattered entry of dz1 (c1 a carrying row); the two back-projections.
     `variant`: another build's C entry of the backward (the epilogue-less
     one of `sa_variant_entry`), timed ten back to back in its place."""
-    from geoa3_tpu_torch.ops.kernels import _build
+    from geoa3_tpu_torch.ops.kernels import (
+        _build,
+        ballquery_group_kernel as bk,
+        group_mlp_kernel as gk,
+    )
     from geoa3_tpu_torch.ops.kernels.knn_kernel import gather_nbrs
 
     b_, n_ = xyz.shape[:2]
@@ -1507,10 +1531,32 @@ def sa_fused_times(torch, sf, xyz, cen, feats, radius, ns, p_, g_all,
     def bwd():
         return sf.sa_fused_bwd(g_all, p_, cf, pooled, cnt, idx, proj, yc)
 
+    def fwd():
+        return sf.sa_fused_fwd(xyz, cen, feats, radius, ns, p_)
+
+    _, sgx, sgf = bk.ballquery_group_fwd(xyz, cen, feats, radius, ns)
+    spooled, scnt = gk.group_mlp_fwd(sgx, sgf, p_)
+
+    def split_fwd():
+        i_, gx_, gf_ = bk.ballquery_group_fwd(xyz, cen, feats, radius, ns)
+        return gk.group_mlp_fwd(gx_, gf_, p_)
+
+    def split_bwd():
+        dgx, dgf = gk.group_mlp_bwd(g_all, sgx, sgf, p_, spooled, scnt)
+        return bk.ballquery_group_bwd(idx, dgx, dgf, n_)
+
+    by_kernel = kernel_ms(torch, fwd)
     r_ = dict(
         hits=hits, carried=carried,
-        fwd_ms=time_ms(lambda: sf.sa_fused_fwd(xyz, cen, feats, radius, ns, p_)),
-        fwd_ten=ten_ms(lambda: sf.sa_fused_fwd(xyz, cen, feats, radius, ns, p_)),
+        fwd_ms=time_ms(fwd),
+        fwd_ten=ten_ms(fwd),
+        fwd_query=kernels_matching(by_kernel, r"sa_query_kernel"),
+        fwd_tiles=kernels_matching(by_kernel, r"sa_fwd_(tiles|finish|kernel)"),
+        fwd_proj=kernels_matching(by_kernel, r"project_kernel"),
+        split_fwd=time_ms(split_fwd),
+        split_ten=ten_ms(split_fwd),
+        split_query=kernels_matching(kernel_ms(torch, split_fwd), r"ballquery_kernel"),
+        split_bwd=time_ms(split_bwd),
         fwd_plain=time_ms(lambda: sf.sa_query_group_mlp_plain(
             xyz, cen, feats, radius, ns, p_), iters=5),
         fwd_bound=bound_ms(nbytes(xyz, cen, proj, yc, idx, pooled, cnt) + fbytes
@@ -1524,6 +1570,7 @@ def sa_fused_times(torch, sf, xyz, cen, feats, radius, ns, p_, g_all,
             mlp_flops + 2.0 * (hits * c2 + carried * c2 * c1)
             + 2.0 * (b_ * n_ * c1 * (3 + cf) + b_ * m_ * c1 * 3) + carried * c1),
     )
+    del sgx, sgf, spooled, scnt
     if variant is not None:
         name = "geoa3_sa_fused_bwd"
         entry, _build._entries[name] = _build._entries[name], variant
@@ -1547,6 +1594,11 @@ def sa_fused_times_line(r_: dict) -> str:
         ns_ = r_["bwd_ten_no_scatter"]
         line += (f"; without the scatter epilogue ten={ns_:.4f} (the epilogue: "
                  f"{(r_['bwd_ten'] - ns_) / r_['bwd_ten']:.3f} of the backward)")
+    line += (f"; fwd by kernel (profiler, ms a call): query pass "
+             f"{r_['fwd_query']:.4f}, tiles + finish {r_['fwd_tiles']:.4f}, "
+             f"projections {r_['fwd_proj']:.4f}; split pair fwd={r_['split_fwd']:.4f} "
+             f"(ten back to back: {r_['split_ten']:.4f}; its query + grouping "
+             f"{r_['split_query']:.4f}) bwd={r_['split_bwd']:.4f}")
     return line
 
 
@@ -1622,10 +1674,10 @@ def msg_kernel_checks(torch, kernels: list) -> list[dict]:
 
     # --- the whole set-abstraction scale ------------------------------------
     sa_in = sa_fused_inputs(torch)
-    # SA1 with normals at r=0.2 ns=32: the float64 autograd hold misses by
-    # ~5e-4 of dxyz's largest entry there, for the kernel before this one's
-    # redesign alike, while the float64 backward through the kernel's own
-    # patterns and ties holds (PERF.md, open questions): held that way
+    # SA1 with normals at r=0.2 ns=32, where exact ties of repeated rows
+    # hide distinct rows within rounding of the maximum (the autograd hold
+    # keeps its cotangent off those), also held through the kernel's own
+    # patterns and ties
     rows = {label: sa_fused_case(torch, label, x_, c_, f_, r_, ns_, p_, randn,
                                  timed=True,
                                  patterns=label == "SA1 normals r=0.2 ns=32")
@@ -1660,7 +1712,8 @@ def msg_kernel_checks(torch, kernels: list) -> list[dict]:
           head["fwd_plain"], head["fwd_bound"], None,
           "MSG SA2 r=0.8 ns=128: xyz [32,512,3], centres [32,128,3], feats "
           "[32,512,320], (323->128->128->256) -> [32,128,256] (projections, "
-          "query, gather, MLP, pool; three device kernels; ten back to back: "
+          "query pass, tiles: gather, MLP, pool; four device kernels and a "
+          "finishing one where balls are split; ten back to back: "
           f"{head['fwd_ten']:.4f}); split pair "
           f"(ballquery_group + group_mlp) ms={head['split_fwd']:.4f}; "
           + rest("fwd_ms", "fwd_bound", "split_fwd"))

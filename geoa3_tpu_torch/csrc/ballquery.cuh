@@ -12,8 +12,8 @@
 // its own in ops/distance.py's association, so a centre that is a member of
 // P hits itself at exactly 0. The warp walks the points 32 at a time,
 // ballots the hits, places each by the popcount of the hits before it, and
-// stops once ns are placed. sidx [ns] is shared memory. Every lane of the
-// warp calls it (warp-uniform control); it ends on __syncwarp.
+// stops once ns are placed. sidx [ns] is shared or device memory. Every
+// lane of the warp calls it (warp-uniform control); it ends on __syncwarp.
 __device__ __forceinline__ void geoa3_ball_query_warp(
     const float* __restrict__ P, int n, float cx, float cy, float cz,
     float r2, int ns, int* sidx) {

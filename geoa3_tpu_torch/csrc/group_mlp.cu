@@ -147,57 +147,8 @@ __device__ __forceinline__ bool stage_layer1(int L, int r, int sl, int ka,
   return true;
 }
 
-// The forward's layer 3 epilogue, the pool: each column's (maximum, tie
-// count) over the thread's 8 rows (rows past the group's end count as -1,
-// below every post-ReLU value), merged over the `lanes` lanes that share the
-// slot by shuffles (the maximum of the maxima, the sum of the counts of the
-// partials that hold it); the slot's first lane writes the group's result,
-// or the part's partial where the group is split. Every lane of the warp
-// calls it.
-template <int CW>
-__device__ __forceinline__ void fwd_pool(
-    const float (&acc)[8][8], const float* __restrict__ b3, bool ok, int col,
-    int c3, int rr0, int sw, int ns, int lanes, bool writer, long long grp,
-    int parts, int part, float* __restrict__ pooled, int* __restrict__ cnt,
-    float* __restrict__ part_max, int* __restrict__ part_cnt) {
-#pragma unroll
-  for (int j = 0; j < CW; ++j) {
-    const float bj = ok ? __ldg(b3 + col + j) : 0.0f;
-    float m = -1.0f;
-    int c = 0;
-#pragma unroll
-    for (int i = 0; i < 8; ++i) {
-      const float v =
-          rr0 + acc_row(i, sw) < ns ? relu_bias(acc[i][j], bj) : -1.0f;
-      if (v > m) {
-        m = v;
-        c = 1;
-      } else if (v == m) {
-        ++c;
-      }
-    }
-    for (int o = 1; o < lanes; o <<= 1) {
-      const float om = __shfl_xor_sync(GEOA3_FULL_MASK, m, o);
-      const int oc = __shfl_xor_sync(GEOA3_FULL_MASK, c, o);
-      const float mx = fmaxf(m, om);
-      c = (m == mx ? c : 0) + (om == mx ? oc : 0);
-      m = mx;
-    }
-    if (ok && writer) {
-      if (parts == 1) {
-        pooled[grp * c3 + col + j] = m;
-        cnt[grp * c3 + col + j] = c;
-      } else {
-        const size_t o = ((size_t)grp * parts + part) * c3 + col + j;
-        part_max[o] = m;
-        part_cnt[o] = c;
-      }
-    }
-  }
-}
-
-// 32- and 16-row tiles are taken only where two blocks do not fit an SM's
-// shared memory, so they may use its registers alone.
+// The forward: tile_loop.cuh's fwd_tiles (its pool after layer 3) with
+// layer 1's input staged by stage_layer1.
 template <int R>
 __global__ void __launch_bounds__(kThreads, R <= 32 ? 1 : 2)
     group_mlp_fwd_tiles(const float* __restrict__ gx,
@@ -206,48 +157,22 @@ __global__ void __launch_bounds__(kThreads, R <= 32 ? 1 : 2)
                         float* __restrict__ pooled, int* __restrict__ cnt,
                         float* __restrict__ part_max,
                         int* __restrict__ part_cnt) {
-  const Lane ln = lane<R>();
-  const int lanes = p.P / 8 < R / 8 ? p.P / 8 : R / 8;  // lanes sharing a slot
-  run_tiles<R, R <= 32 ? 1 : 2, false, kBK>(
-      wt, p,
+  fwd_tiles<R>(
+      wt, p, d, b3,
       [&](int L, int r, int sl, int ka, long long gbase, int part) {
         return stage_layer1<R, kBK>(L, r, sl, ka, gbase, part, gx, gf, d, p,
                                     vec4);
       },
-      [&](const Layer& l, int, const float(&acc)[8][8], int col, bool ok,
-          long long gbase, int part) {
-        const int rr0 = part * p.P + ((8 * ln.rg) & (p.P - 1));
-        const long long grp = gbase + ((8 * ln.rg) >> p.psh);
-        const bool writer = ln.rg % lanes == 0 && grp < p.groups;
-        if (R > 16 && l.cw == 8)
-          fwd_pool<8>(acc, b3, ok, col, d.c3, rr0, ln.sw, d.ns, lanes, writer,
-                      grp, p.parts, part, pooled, cnt, part_max, part_cnt);
-        else
-          fwd_pool<4>(acc, b3, ok, col, d.c3, rr0, ln.sw, d.ns, lanes, writer,
-                      grp, p.parts, part, pooled, cnt, part_max, part_cnt);
-      });
+      pooled, cnt, part_max, part_cnt);
 }
 
-// A split group's result from its parts' partials: the maximum of their
-// maxima, and the sum of the counts of the parts that hold it.
+// Row 16's split groups from their parts' partials (tile_loop.cuh).
 __global__ void group_mlp_fwd_finish(const float* __restrict__ part_max,
                                      const int* __restrict__ part_cnt,
                                      long long n, int parts, int c3,
                                      float* __restrict__ pooled,
                                      int* __restrict__ cnt) {
-  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  const long long g = i / c3;
-  const size_t base = (size_t)g * parts * c3 + (size_t)(i - g * c3);
-  float m = part_max[base];
-  for (int q = 1; q < parts; ++q)
-    m = fmaxf(m, part_max[base + (size_t)q * c3]);
-  int k = 0;
-  for (int q = 0; q < parts; ++q)
-    if (part_max[base + (size_t)q * c3] == m)
-      k += part_cnt[base + (size_t)q * c3];
-  pooled[i] = m;
-  cnt[i] = k;
+  fwd_finish(part_max, part_cnt, n, parts, c3, pooled, cnt);
 }
 
 // The backward's epilogues for a thread's 8 rows x CW columns (all inside
@@ -424,30 +349,14 @@ Plan fit_plan(const Dims& d, int R, bool bwd, int bk, int level,
   return kin < bk ? whole : make_plan(d, R, bwd, bk, kin, sparse);
 }
 
-// The forward's plan: the largest of 128, 64 and 32 rows whose block leaves
-// room for two an SM, else the largest of 128, 64, 32 and 16 that fits one;
-// at level 0, else at level 1 (layer 1's input in slices); *R = 0 where
-// none fits.
+// The forward's plan (tile_loop.cuh's pick_fwd over fit_plan): at level 0,
+// else at level 1 (layer 1's input in slices).
 Plan fwd_tile_plan(const Dims& d, int* R) {
-  const int heights[4] = {128, 64, 32, 16};
-  for (int level = 0; level < 2; ++level) {
-    for (int i = 0; i < 3; ++i) {
-      const Plan p = fit_plan(d, heights[i], false, kBK, level, kSmemHalf);
-      if (p.smem <= kSmemHalf) {
-        *R = heights[i];
-        return p;
-      }
-    }
-    for (int i = 0; i < 4; ++i) {
-      const Plan p = fit_plan(d, heights[i], false, kBK, level, kSmemMax);
-      if (p.smem <= kSmemMax) {
-        *R = heights[i];
-        return p;
-      }
-    }
-  }
-  *R = 0;
-  return make_plan(d, 16, false, kBK, 0, false);
+  return pick_fwd(
+      [&](int rows, int level, size_t limit) {
+        return fit_plan(d, rows, false, kBK, level, limit);
+      },
+      2, R);
 }
 
 // The backward's plan (tile_loop.cuh's pick_bwd over fit_plan).

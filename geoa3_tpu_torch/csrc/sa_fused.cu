@@ -8,34 +8,37 @@
 //   P = xyz @ W1x (+ feats @ W1f)   [b, n, c1]   (two fmaf chains, added)
 //   Yc = centres @ W1x              [b, m, c1]
 //   z1[g, s] = (P[idx[g, s]] - Yc[g]) + b1
-// then two more affine+ReLU layers (group_mlp.cuh's tile) and the maximum
-// over the ns slots, ties split evenly and ReLU'(0) = 0. idx is the ball
-// query of ballquery.cuh, bitwise ops.ball_query's selection. The grouped
-// rows never reach device memory, and a row gathers c1 floats instead of
-// 3 + cf (64 or 128 instead of 323 at MSG SA2).
+// then two more affine+ReLU layers and the maximum over the ns slots, ties
+// split evenly and ReLU'(0) = 0. idx is the ball query of ballquery.cuh,
+// bitwise ops.ball_query's selection. The grouped rows never reach device
+// memory, and a row gathers c1 floats instead of 3 + cf (64 or 128 instead
+// of 323 at MSG SA2).
 //
 // The TPU kernel ranks hits with a triangular product and gathers with
 // one-hot products in split bf16, having neither a prefix count nor a
 // gather. Here: (a) `project_kernel` makes P and Yc with group_mlp.cuh's
-// float32 tile; (b) `sa_fwd_kernel`: a block owns whole balls (as many as
-// fill its R-row tile, or one larger ball walked tile by tile), its warps
-// run the ball queries into shared memory, then each tile gathers layer 1
-// from P and Yc, runs layers 2-3 and pools, leaving pooled, each maximum's
-// tie count, and idx for the backward; (c) `sa_bwd_tiles` runs
-// tile_loop.cuh's loop (row 16's: persistent blocks, 8x8 register tiles, a
-// cp.async weight ring) over tiles of whole balls: its staging hook reads
-// the tile's rows' idx from device memory and gathers a1 = relu((P[idx] -
-// Yc) + b1) into shared memory, then four layers run on the ring: w2
-// (relu), w3 (dz3: the pooled cotangent split over the ties, where a3 ==
-// pooled > 0), w3t masked by a2 > 0 (off the ring over hit bits where ns >=
-// 64, as row 16's) and w2t masked by a1 > 0, whose epilogue takes dz1
-// straight from registers: each thread adds its 8 rows x 4 or 8 columns
-// into dP [b, n, c1] by float4 atomics (Hopper's vector atomicAdd), rows of
-// one point merged first (an under-full ball repeats its first hit), and
-// the lanes of a ball's slot sum dYc = -sum_s dz1 by shuffles (a ball
-// split over tiles adds its parts' sums by atomics into a zeroed dYc); (d)
+// float32 tile; (b) `sa_query_kernel` runs every ball query at once, one
+// warp a centre, into idx (which the backward reads too); (c)
+// `sa_fwd_tiles` runs tile_loop.cuh's forward (row 16's: persistent
+// blocks, 8x8 register tiles, a cp.async weight ring, the pool by
+// shuffles) over tiles of whole balls, or of one R-row part of a larger
+// ball: its staging hook, gather_a1, reads the tile's rows' idx and
+// gathers a1 = relu((P[idx] - Yc) + b1) into shared memory, then w2 (relu)
+// and w3 (the pool) run on the ring; split balls' partials are merged by
+// `sa_fwd_finish`; (d) `sa_bwd_tiles` runs the same loop with the same
+// hook, then four layers on the ring: w2 (relu), w3 (dz3: the pooled
+// cotangent split over the ties, where a3 == pooled > 0), w3t masked by
+// a2 > 0 (off the ring over hit bits where ns >= 64, as row 16's) and w2t
+// masked by a1 > 0, whose epilogue takes dz1 straight from registers: each
+// thread adds its 8 rows x 4 or 8 columns into dP [b, n, c1] by float4
+// atomics (Hopper's vector atomicAdd), rows of one point merged first (an
+// under-full ball repeats its first hit), and the lanes of a ball's slot
+// sum dYc = -sum_s dz1 by shuffles (a ball split over tiles adds its
+// parts' sums by atomics into a zeroed dYc); (e)
 // `backproject_kernel` maps dP and dYc back once: dxyz = dP @ W1x^T,
-// dfeats = dP @ W1f^T, dcentres = dYc @ W1x^T.
+// dfeats = dP @ W1f^T, dcentres = dYc @ W1x^T. The forward's tiles and the
+// backward's recompute share the gather and the loop, so `a3 == pooled` is
+// exact by construction.
 //
 // Bound on the H100: operations. Forward 2 (b n (3 + cf) c1 + b m 3 c1)
 // for the projections plus 2 b m ns (c1 c2 + c2 c3) for layers 2-3; the
@@ -93,93 +96,10 @@ __global__ void __launch_bounds__(Tile<R>::kThreads)
   }
 }
 
-// Layer 1 of a tile, gathered: a1T[c][r] = relu((P[idx_r, c] - Yc[g_r, c])
-// + b1[c]) for the tile's rows (sidx holds their point indices); rows past
-// nrows are 0.
-template <int R>
-__device__ void gather_layer1(float* a1T, const float* __restrict__ P,
-                              const float* __restrict__ Yc,
-                              const float* __restrict__ b1, const int* sidx,
-                              long long row0, int nrows, const SADims& d) {
-  constexpr int LD = Tile<R>::LD, T = Tile<R>::kThreads;
-  for (int e = threadIdx.x; e < R * d.c1; e += T) {
-    const int r = e / d.c1, c = e - r * d.c1;
-    float v = 0.0f;
-    if (r < nrows) {
-      const long long centre = (row0 + r) / d.ns;
-      const long long pt = (centre / d.m) * d.n + sidx[r];
-      v = fmaxf((P[pt * d.c1 + c] - Yc[centre * d.c1 + c]) + b1[c], 0.0f);
-    }
-    a1T[(size_t)c * LD + r] = v;
-  }
-}
-
-// The block's first row and row count: whole balls, rows_per_block a
-// multiple of ns.
-__device__ __forceinline__ long long block_rows(const SADims& d,
-                                                int rows_per_block,
-                                                long long* row_end) {
-  const long long row_begin = (long long)blockIdx.x * rows_per_block;
-  *row_end = row_begin + rows_per_block < d.rows ? row_begin + rows_per_block
-                                                 : d.rows;
-  return row_begin;
-}
-
-template <int R>
-size_t fwd_smem(const SADims& d, int rows_per_block) {
-  return ((size_t)(d.c1 + d.c2) * Tile<R>::LD + (size_t)R * Tile<R>::LDC) *
-             sizeof(float) +
-         (size_t)rows_per_block * sizeof(int);
-}
-
-template <int R>
-__global__ void __launch_bounds__(Tile<R>::kThreads)
-    sa_fwd_kernel(const float* __restrict__ xyz,
-                  const float* __restrict__ centres,
-                  const float* __restrict__ P, const float* __restrict__ Yc,
-                  const float* b1, const float* w2, const float* b2,
-                  const float* w3, const float* b3, SADims d,
-                  int rows_per_block, int* __restrict__ idx, float* pooled,
-                  int* cnt) {
-  constexpr int LD = Tile<R>::LD, T = Tile<R>::kThreads;
-  extern __shared__ __align__(16) float smem[];
-  float* a1T = smem;
-  float* a2T = a1T + (size_t)d.c1 * LD;
-  float* chunk = a2T + (size_t)d.c2 * LD;
-  int* sidx = reinterpret_cast<int*>(chunk + R * Tile<R>::LDC);
-
-  long long row_end;
-  const long long row_begin = block_rows(d, rows_per_block, &row_end);
-  // the block's balls, one warp a centre
-  const long long g0 = row_begin / d.ns;
-  const int groups = (int)((row_end - row_begin) / d.ns);
-  for (int g = threadIdx.x >> 5; g < groups; g += T / 32) {
-    const long long centre = g0 + g;
-    const float* C = centres + centre * 3;
-    int* s = sidx + g * d.ns;
-    geoa3_ball_query_warp(xyz + (centre / d.m) * d.n * 3, d.n, C[0], C[1],
-                          C[2], d.r2, d.ns, s);
-    for (int k = threadIdx.x & 31; k < d.ns; k += 32)
-      idx[centre * d.ns + k] = s[k];
-  }
-  __syncthreads();
-  for (long long row0 = row_begin; row0 < row_end; row0 += R) {
-    const int nrows = (int)(row_end - row0 < R ? row_end - row0 : R);
-    gather_layer1<R>(a1T, P, Yc, b1, sidx + (row0 - row_begin), row0, nrows,
-                     d);
-    __syncthreads();
-    geoa3::dense_relu<R>(a1T, d.c1, w2, d.c2, b2, a2T);
-    __syncthreads();
-    geoa3::layer3_pool<R>(a2T, d.c2, w3, b3, d.c3, chunk, row0, nrows, d.ns,
-                          pooled, cnt);
-  }
-}
-
 // The backward's staging hook at a tile's first step: each row's point
 // (its row of P and dP; -1 on rows outside the balls) into `sidx`, then
-// a1[c][row] = relu((P[point, c] - Yc[ball, c]) + b1[c]), the forward's
-// gather_layer1 in its association, into layer 0's input, 0 on rows
-// outside the balls.
+// a1[c][row] = relu((P[point, c] - Yc[ball, c]) + b1[c]) into layer 0's
+// input, 0 on rows outside the balls. The forward's hook too.
 template <int R>
 __device__ __forceinline__ void gather_a1(long long gbase, int part,
                                           const float* __restrict__ P,
@@ -221,6 +141,66 @@ __device__ __forceinline__ void gather_a1(long long gbase, int part,
     o[2 * R] = v.z;
     o[3 * R] = v.w;
   }
+}
+
+// The ball query of every centre, one warp a centre: idx [b, m, ns].
+__global__ void __launch_bounds__(kThreads)
+    sa_query_kernel(const float* __restrict__ xyz,
+                    const float* __restrict__ centres, SADims sd,
+                    int* __restrict__ idx) {
+  const long long ball =
+      (long long)blockIdx.x * (kThreads / 32) + (threadIdx.x >> 5);
+  if (ball >= (long long)sd.b * sd.m) return;  // warp-uniform
+  const float* C = centres + ball * 3;
+  geoa3_ball_query_warp(xyz + (ball / sd.m) * sd.n * 3, sd.n, C[0], C[1],
+                        C[2], sd.r2, sd.ns, idx + ball * sd.ns);
+}
+
+// The forward's plan at R rows: region X (a2), region B (a1, gathered), the
+// ring and R ints of the rows' points. Weights: w2, w3. The projections
+// took layer 1, so there is no input region and nothing to slice.
+Plan sa_fwd_make(const Dims& d, int R) {
+  Plan p = tile_groups(d, R, kBK);
+  const int X = 0, B = d.c2 * R;
+  p.lay[0] = make_layer(R, kBK, d.c1, d.c2, B, X, 0, kRelu);
+  p.lay[1] = make_layer(R, kBK, d.c2, d.c3, X, -1, 1, kPool);
+  p.nl = 2;
+  place_ring(p, d, R, (d.c2 + d.c1) * R, false, R);
+  return p;
+}
+
+// tile_loop.cuh's pick_fwd at one level.
+Plan sa_fwd_plan(const Dims& d, int* R) {
+  return pick_fwd([&](int rows, int, size_t) { return sa_fwd_make(d, rows); },
+                  1, R);
+}
+
+// The forward's tiles: tile_loop.cuh's fwd_tiles with gather_a1 as the
+// hook. pooled, cnt [b, m, c3] (or, where balls are split, the parts'
+// partials for sa_fwd_finish).
+template <int R>
+__global__ void __launch_bounds__(kThreads, R <= 32 ? 1 : 2)
+    sa_fwd_tiles(const float* __restrict__ P, const float* __restrict__ Yc,
+                 const int* __restrict__ idx, const float* __restrict__ b1,
+                 Weights wt, const float* __restrict__ b3, SADims sd, Dims d,
+                 Plan p, float* __restrict__ pooled, int* __restrict__ cnt,
+                 float* __restrict__ part_max, int* __restrict__ part_cnt) {
+  fwd_tiles<R>(
+      wt, p, d, b3,
+      [&](int L, int r, int sl, int, long long gbase, int part) {
+        if ((L | r | sl) != 0) return false;
+        gather_a1<R>(gbase, part, P, Yc, idx, b1, sd, d, p);
+        return true;
+      },
+      pooled, cnt, part_max, part_cnt);
+}
+
+// Row 17's split balls from their parts' partials (tile_loop.cuh).
+__global__ void sa_fwd_finish(const float* __restrict__ part_max,
+                              const int* __restrict__ part_cnt, long long n,
+                              int parts, int c3, float* __restrict__ pooled,
+                              int* __restrict__ cnt) {
+  fwd_finish(part_max, part_cnt, n, parts, c3, pooled, cnt);
 }
 
 // q[0..3] += v[0..3] into device memory by one float4 atomic, unless v is 0.
@@ -457,8 +437,6 @@ cudaError_t allow_smem(Kernel kernel, size_t smem) {
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
 }
 
-int rows_per_block_for(int R, int ns) { return ns <= R ? (R / ns) * ns : ns; }
-
 template <int R>
 int launch_project(const float* x, const float* f, long long rows, int cf,
                    const float* w1, int c1, float* out, cudaStream_t s) {
@@ -515,19 +493,25 @@ int backproject(const float* dv, long long rows, int c1, const float* w1t,
   return (int)cudaErrorInvalidConfiguration;
 }
 
+// The tiles, then, where balls are split, the finishing kernel.
 template <int R>
-int launch_fwd(const float* xyz, const float* centres, const float* P,
-               const float* Yc, const float* b1, const float* w2,
-               const float* b2, const float* w3, const float* b3,
-               const SADims& d, int* idx, float* pooled, int* cnt,
-               cudaStream_t s) {
-  const int rpb = rows_per_block_for(R, d.ns);
-  const size_t smem = fwd_smem<R>(d, rpb);
-  cudaError_t e = allow_smem(sa_fwd_kernel<R>, smem);
+int launch_fwd(const Plan& p, const float* P, const float* Yc, const int* idx,
+               const float* b1, const Weights& wt, const float* b3,
+               const SADims& sd, const Dims& d, float* pooled, int* cnt,
+               void* scratch, cudaStream_t s) {
+  if (p.parts > 1 && scratch == nullptr) return (int)cudaErrorInvalidValue;
+  cudaError_t e = allow_smem(sa_fwd_tiles<R>, p.smem);
   if (e != cudaSuccess) return (int)e;
-  sa_fwd_kernel<R><<<(unsigned)((d.rows + rpb - 1) / rpb), Tile<R>::kThreads,
-                     smem, s>>>(xyz, centres, P, Yc, b1, w2, b2, w3, b3, d,
-                                rpb, idx, pooled, cnt);
+  float* part_max = static_cast<float*>(scratch);
+  int* part_cnt = reinterpret_cast<int*>(
+      part_max + (p.parts > 1 ? (size_t)p.groups * p.parts * d.c3 : 0));
+  sa_fwd_tiles<R><<<tile_grid(sa_fwd_tiles<R>, p), kThreads, p.smem, s>>>(
+      P, Yc, idx, b1, wt, b3, sd, d, p, pooled, cnt, part_max, part_cnt);
+  e = cudaGetLastError();
+  if (e != cudaSuccess || p.parts == 1) return (int)e;
+  const long long n = p.groups * d.c3;
+  sa_fwd_finish<<<(unsigned)((n + 255) / 256), 256, 0, s>>>(
+      part_max, part_cnt, n, p.parts, d.c3, pooled, cnt);
   return (int)cudaGetLastError();
 }
 
@@ -587,8 +571,12 @@ bool dims_ok(const SADims& d) {
 // w1 [3 + cf, c1], w2 [c1, c2], w3 [c2, c3] row-major with their biases.
 // Writes the projections P [b, n, c1] and Yc [b, m, c1] (kept for the
 // backward), idx [b, m, ns], pooled [b, m, c3] and each maximum's tie count
-// cnt [b, m, c3]. Widths must be multiples of 4 and every pointer 16-byte
-// aligned.
+// cnt [b, m, c3]. scratch: where the plan splits a ball into parts =
+// ceil(ns / R) > 1 (R the tile height, sa_fused_kernel.fwd_plan), 2 * b * m
+// * parts * c3 four-byte words for their partials (else unused, may be
+// null). Widths must be multiples of 4 and every pointer 16-byte aligned.
+// Refused (cudaErrorInvalidConfiguration) where even a 16-row tile does not
+// fit a block's shared memory: where c1 + c2 > 2095, whatever ns.
 extern "C" int geoa3_sa_fused_fwd(const float* xyz, const float* centres,
                                   const float* feats, const float* w1,
                                   const float* b1, const float* w2,
@@ -596,28 +584,38 @@ extern "C" int geoa3_sa_fused_fwd(const float* xyz, const float* centres,
                                   const float* b3, int b, int n, int m, int ns,
                                   int cf, int c1, int c2, int c3, float r2,
                                   float* P, float* Yc, int* idx, float* pooled,
-                                  int* cnt, void* stream) {
-  const SADims d = make_dims(b, n, m, ns, cf, c1, c2, c3, r2);
-  if (!dims_ok(d) || n <= 0) return (int)cudaErrorInvalidValue;
-  if (d.rows == 0) return 0;
+                                  int* cnt, void* scratch, void* stream) {
+  const SADims sd = make_dims(b, n, m, ns, cf, c1, c2, c3, r2);
+  if (!dims_ok(sd) || n <= 0) return (int)cudaErrorInvalidValue;
+  if (sd.rows == 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   int e = project(xyz, feats, (long long)b * n, cf, w1, c1, P, s);
   if (e) return e;
   e = project(centres, nullptr, (long long)b * m, 0, w1, c1, Yc, s);
   if (e) return e;
-  const int r64 = rows_per_block_for(64, ns), r32 = rows_per_block_for(32, ns),
-            r16 = rows_per_block_for(16, ns);
-  switch (geoa3::pick_rows(fwd_smem<64>(d, r64), fwd_smem<32>(d, r32),
-                           fwd_smem<16>(d, r16))) {
+  const long long balls = (long long)b * m;
+  sa_query_kernel<<<(unsigned)((balls + kThreads / 32 - 1) / (kThreads / 32)),
+                    kThreads, 0, s>>>(xyz, centres, sd, idx);
+  e = (int)cudaGetLastError();
+  if (e) return e;
+  const Dims d = make_dims(balls, ns, cf, c1, c2, c3);
+  const Weights wt = {{w2, w3, nullptr, nullptr, nullptr, nullptr},
+                      {b2, nullptr}};
+  int R = 0;
+  const Plan p = sa_fwd_plan(d, &R);
+  switch (R) {
+    case 128:
+      return launch_fwd<128>(p, P, Yc, idx, b1, wt, b3, sd, d, pooled, cnt,
+                             scratch, s);
     case 64:
-      return launch_fwd<64>(xyz, centres, P, Yc, b1, w2, b2, w3, b3, d, idx,
-                            pooled, cnt, s);
+      return launch_fwd<64>(p, P, Yc, idx, b1, wt, b3, sd, d, pooled, cnt,
+                            scratch, s);
     case 32:
-      return launch_fwd<32>(xyz, centres, P, Yc, b1, w2, b2, w3, b3, d, idx,
-                            pooled, cnt, s);
+      return launch_fwd<32>(p, P, Yc, idx, b1, wt, b3, sd, d, pooled, cnt,
+                            scratch, s);
     case 16:
-      return launch_fwd<16>(xyz, centres, P, Yc, b1, w2, b2, w3, b3, d, idx,
-                            pooled, cnt, s);
+      return launch_fwd<16>(p, P, Yc, idx, b1, wt, b3, sd, d, pooled, cnt,
+                            scratch, s);
   }
   return (int)cudaErrorInvalidConfiguration;
 }

@@ -1,5 +1,5 @@
 // The tile loop of the grouped-MLP kernels: group_mlp.cu's forward and
-// backward (row 16) and sa_fused.cu's backward (row 17) run it.
+// backward (row 16) and sa_fused.cu's forward and backward (row 17) run it.
 //
 // A kernel is a schedule of layers on the FMA units (no tensor cores: those
 // are other numerics), each layer an activation [K][R] in shared memory
@@ -25,7 +25,9 @@
 // tile's first activations (row 16: layer 1's input, whole or a slice of
 // its channels at a time; row 17: layer 1's activations gathered from
 // projected rows), and an epilogue for every layer's round that does not
-// end in relu(acc + bias) stored in shared memory.
+// end in relu(acc + bias) stored in shared memory. Both forwards end in
+// the same pool (fwd_tiles) and merge a split group's partials with the
+// same finish (fwd_finish).
 //
 // Everything here lies in the translation unit's unnamed namespace (the CPU
 // emulation of a source, tests/cuda_emu/cuda_runtime.h, declares the
@@ -245,6 +247,35 @@ Plan pick_bwd(Fit fit, int* R) {
   }
   *R = 0;
   return fit(16, kBK, 0);
+}
+
+// A forward's plan: the largest of 128, 64 and 32 rows whose block leaves
+// room for two an SM, else the largest of 128, 64, 32 and 16 that fits one
+// (16 rows halve each weight's reuse and are taken only where 32 do not
+// fit), at the lowest of `levels` levels that has one; *R = 0 where none
+// fits. fit(R, level, limit) makes a plan, fitting `limit` bytes where its
+// level lets it.
+template <class Fit>
+Plan pick_fwd(Fit fit, int levels, int* R) {
+  const int heights[4] = {128, 64, 32, 16};
+  for (int level = 0; level < levels; ++level) {
+    for (int i = 0; i < 3; ++i) {
+      const Plan p = fit(heights[i], level, kSmemHalf);
+      if (p.smem <= kSmemHalf) {
+        *R = heights[i];
+        return p;
+      }
+    }
+    for (int i = 0; i < 4; ++i) {
+      const Plan p = fit(heights[i], level, kSmemMax);
+      if (p.smem <= kSmemMax) {
+        *R = heights[i];
+        return p;
+      }
+    }
+  }
+  *R = 0;
+  return fit(16, 0, kSmemMax);
 }
 
 // acc[i][j] = fmaf(x[row i][k], w[k][j], acc[i][j]) for nk steps of k,
@@ -469,6 +500,113 @@ __device__ __forceinline__ void run_tiles(const Weights& wt, const Plan& p,
     advance(L, r, sl, t);
   }
   cp_async_wait<0>();
+}
+
+// The forward's layer 3 epilogue, the pool: each column's (maximum, tie
+// count) over the thread's 8 rows (rows past the group's end count as -1,
+// below every post-ReLU value), merged over the `lanes` lanes that share the
+// slot by shuffles (the maximum of the maxima, the sum of the counts of the
+// partials that hold it); the slot's first lane writes the group's result,
+// or the part's partial where the group is split. Every lane of the warp
+// calls it.
+template <int CW>
+__device__ __forceinline__ void fwd_pool(
+    const float (&acc)[8][8], const float* __restrict__ b3, bool ok, int col,
+    int c3, int rr0, int sw, int ns, int lanes, bool writer, long long grp,
+    int parts, int part, float* __restrict__ pooled, int* __restrict__ cnt,
+    float* __restrict__ part_max, int* __restrict__ part_cnt) {
+#pragma unroll
+  for (int j = 0; j < CW; ++j) {
+    const float bj = ok ? __ldg(b3 + col + j) : 0.0f;
+    float m = -1.0f;
+    int c = 0;
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const float v =
+          rr0 + acc_row(i, sw) < ns ? relu_bias(acc[i][j], bj) : -1.0f;
+      if (v > m) {
+        m = v;
+        c = 1;
+      } else if (v == m) {
+        ++c;
+      }
+    }
+    for (int o = 1; o < lanes; o <<= 1) {
+      const float om = __shfl_xor_sync(GEOA3_FULL_MASK, m, o);
+      const int oc = __shfl_xor_sync(GEOA3_FULL_MASK, c, o);
+      const float mx = fmaxf(m, om);
+      c = (m == mx ? c : 0) + (om == mx ? oc : 0);
+      m = mx;
+    }
+    if (ok && writer) {
+      if (parts == 1) {
+        pooled[grp * c3 + col + j] = m;
+        cnt[grp * c3 + col + j] = c;
+      } else {
+        const size_t o = ((size_t)grp * parts + part) * c3 + col + j;
+        part_max[o] = m;
+        part_cnt[o] = c;
+      }
+    }
+  }
+}
+
+// A forward on the loop (MB: two blocks an SM above 32 rows, where the
+// kernel's __launch_bounds__ say so; 32- and 16-row tiles are taken only
+// where two blocks do not fit an SM's shared memory, so they may use its
+// registers alone): the plan's ring layers after the staging hook `fill`,
+// the last one's rounds ending in fwd_pool. pooled, cnt [groups, c3];
+// where the plan splits groups, each part's partials into part_max and
+// part_cnt [groups, parts, c3] for fwd_finish.
+template <int R, class Fill>
+__device__ __forceinline__ void fwd_tiles(const Weights& wt, const Plan& p,
+                                          const Dims& d,
+                                          const float* __restrict__ b3,
+                                          Fill&& fill,
+                                          float* __restrict__ pooled,
+                                          int* __restrict__ cnt,
+                                          float* __restrict__ part_max,
+                                          int* __restrict__ part_cnt) {
+  const Lane ln = lane<R>();
+  const int lanes = p.P / 8 < R / 8 ? p.P / 8 : R / 8;  // lanes sharing a slot
+  run_tiles<R, R <= 32 ? 1 : 2, false, kBK>(
+      wt, p, fill,
+      [&](const Layer& l, int, const float(&acc)[8][8], int col, bool ok,
+          long long gbase, int part) {
+        const int rr0 = part * p.P + ((8 * ln.rg) & (p.P - 1));
+        const long long grp = gbase + ((8 * ln.rg) >> p.psh);
+        const bool writer = ln.rg % lanes == 0 && grp < p.groups;
+        if (R > 16 && l.cw == 8)
+          fwd_pool<8>(acc, b3, ok, col, d.c3, rr0, ln.sw, d.ns, lanes, writer,
+                      grp, p.parts, part, pooled, cnt, part_max, part_cnt);
+        else
+          fwd_pool<4>(acc, b3, ok, col, d.c3, rr0, ln.sw, d.ns, lanes, writer,
+                      grp, p.parts, part, pooled, cnt, part_max, part_cnt);
+      });
+}
+
+// A split group's result from its parts' partials: the maximum of their
+// maxima, and the sum of the counts of the parts that hold it. One thread
+// an output of the n = groups * c3; each forward's finishing kernel (named
+// for its row, so a profile tells them apart) is this body alone.
+__device__ __forceinline__ void fwd_finish(const float* __restrict__ part_max,
+                                           const int* __restrict__ part_cnt,
+                                           long long n, int parts, int c3,
+                                           float* __restrict__ pooled,
+                                           int* __restrict__ cnt) {
+  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  const long long g = i / c3;
+  const size_t base = (size_t)g * parts * c3 + (size_t)(i - g * c3);
+  float m = part_max[base];
+  for (int q = 1; q < parts; ++q)
+    m = fmaxf(m, part_max[base + (size_t)q * c3]);
+  int k = 0;
+  for (int q = 0; q < parts; ++q)
+    if (part_max[base + (size_t)q * c3] == m)
+      k += part_cnt[base + (size_t)q * c3];
+  pooled[i] = m;
+  cnt[i] = k;
 }
 
 // out[col + j][row] = acc where the activation there (which it overwrites)

@@ -52,10 +52,11 @@ SIGNATURES = {
     # idx, ct, b, S, n, C, out, stream
     "geoa3_scatter_add_nc": [_VP, _VP, _I, _I, _I, _I, _VP, _VP],
     # xyz, centres, feats (or null), w1, b1, w2, b2, w3, b3, b, n, m, ns, cf,
-    # c1, c2, c3, r2, P, Yc, idx, pooled, cnt, stream
+    # c1, c2, c3, r2, P, Yc, idx, pooled, cnt, scratch (or null: split
+    # balls' partials), stream
     "geoa3_sa_fused_fwd": [
         _VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _I, _I, _I, _I, _I, _I,
-        _I, _I, _F, _VP, _VP, _VP, _VP, _VP, _VP,
+        _I, _I, _F, _VP, _VP, _VP, _VP, _VP, _VP, _VP,
     ],
     # P, Yc, idx, b1, w2, b2, w3, b3, w1t, w2t, w3t, pooled, cnt, gout, b, n,
     # m, ns, cf, c1, c2, c3, dP, dYc, dxyz, dcentres, dfeats (or null), stream

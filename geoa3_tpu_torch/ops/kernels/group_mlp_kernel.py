@@ -162,6 +162,22 @@ def _pick_bwd(fit):
     return None
 
 
+def _pick_fwd(fit, levels):
+    """csrc tile_loop.cuh pick_fwd: (rows, fit(rows, level, limit)) of a
+    forward's plan, fit's result led by its shared memory: the largest of
+    128, 64 and 32 rows whose block leaves room for two an SM, else the
+    largest of 128 .. 16 that fits one, at the lowest of `levels` levels
+    that has one; None where nothing fits."""
+    for level in range(levels):
+        for limit, heights in ((_SMEM_HALF, _TILE_ROWS[:-1]),
+                               (_SMEM_MAX, _TILE_ROWS)):
+            for rows in heights:
+                got = fit(rows, level, limit)
+                if got[0] <= limit:
+                    return rows, got
+    return None
+
+
 class TilePlan(NamedTuple):
     """A kernel's plan as its C entry picks it: tile rows, parts a group is
     split into, weight rows a ring stage, layer-1 input channels a slice (0:
@@ -179,15 +195,10 @@ def tile_plan(ns: int, cf: int, widths, bwd: bool) -> TilePlan:
     """The forward's (bwd False) or the backward's plan, as csrc/group_mlp.cu
     fwd_tile_plan / bwd_tile_plan pick it; raises where nothing fits."""
     widths = tuple(widths)
-    found = None
     if not bwd:
-        for level in (0, 1):
-            for limit, heights in ((_SMEM_HALF, _TILE_ROWS[:-1]),
-                                   (_SMEM_MAX, _TILE_ROWS)):
-                for rows in heights:
-                    smem, kin = _fit(ns, cf, widths, rows, False, _BK, level, limit)
-                    if found is None and smem <= limit:
-                        found = rows, _BK, (smem, kin)
+        got = _pick_fwd(lambda rows, level, limit: _fit(
+            ns, cf, widths, rows, False, _BK, level, limit), 2)
+        found = None if got is None else (got[0], _BK, got[1])
     else:
         found = _pick_bwd(lambda rows, bk, level: _fit(
             ns, cf, widths, rows, True, bk, level, _SMEM_MAX))

@@ -3,9 +3,9 @@ and the max over each ball): CUDA kernel wrappers and their plain version.
 
 Replaces geoa3_tpu/ops/pallas/sa_fused_kernel.py:_fwd_kernel and
 :_bwd_kernel (`sa_query_group_mlp`). Source: csrc/sa_fused.cu, with the ball
-query of csrc/ballquery.cuh, the forward's grouped-MLP tile of
-csrc/group_mlp.cuh and the backward's tile loop of csrc/tile_loop.cuh
-(row 16's).
+query of csrc/ballquery.cuh, the projections' tile of csrc/group_mlp.cuh
+and the tile loop of csrc/tile_loop.cuh (row 16's) for the forward's and
+the backward's layers.
 
 Layer 1 is linear, so it is projected once a point and once a centre:
 P = xyz @ W1x + feats @ W1f [b, n, c1], Yc = new_xyz @ W1x [b, m, c1], and a
@@ -15,28 +15,39 @@ folded-BatchNorm affine+ReLU layers and the max over the ns slots follow
 (ties split evenly, ReLU'(0) = 0). The grouped rows never reach device
 memory, and a gathered row is c1 floats wide instead of 3 + cf.
 
-The backward recomputes a tile's layers from the forward's idx, P and Yc
-(bitwise the forward's activations), scatters dz1 (c1 wide) over idx into
-dP [b, n, c1] by float4 atomics and sums dYc = -sum_s dz1 per centre, then
-projects back once: dxyz = dP @ W1x^T, dfeats = dP @ W1f^T, dnew_xyz = dYc
-@ W1x^T. Weights are a frozen victim's and indices carry no gradient; dP,
-and dYc where a ball is split over tiles, sum in atomic order, so their last
-bits vary between calls.
+The forward runs the ball queries in a pass of their own (one warp a
+centre, into idx), then tiles of whole balls, or of one part of a ball
+larger than the tile, on the loop: a1 gathered from P, Yc and idx into
+shared memory, w2 and w3 streamed through the weight ring, the maximum and
+its tie count reduced in registers and by shuffles; a split ball's parts
+write partials that a finishing kernel merges exactly (a maximum and an
+integer sum). The backward recomputes a tile's layers from the forward's
+idx, P and Yc with the same gather on the same loop (bitwise the forward's
+activations), scatters dz1 (c1 wide) over idx into dP [b, n, c1] by float4
+atomics and sums dYc = -sum_s dz1 per centre, then projects back once:
+dxyz = dP @ W1x^T, dfeats = dP @ W1f^T, dnew_xyz = dYc @ W1x^T. Weights are
+a frozen victim's and indices carry no gradient; dP, and dYc where a ball
+is split over tiles, sum in atomic order, so their last bits vary between
+calls.
 
 Bound on the H100: operations (the projections, 2 b m ns (c1 c2 + c2 c3)
 forward; backward the recompute of layers 2-3, dz3 @ w3t over dz3's nonzero
 entries and d2 @ w2t over the rows that carry a cotangent, the
 back-projections). The kernels are float32 (no TF32): the victim's numerics
-stay those of the CPU reference. One launch of `sa_fused_fwd` runs three
-device kernels (the point and centre projections, then the query + gather
-+ MLP + pool); one of `sa_fused_bwd` runs three (the recompute + scatter,
-then the two back-projections), and a memset of dYc where balls are split.
+stay those of the CPU reference. One launch of `sa_fused_fwd` runs four
+device kernels (the point and centre projections, the ball queries, the
+tiles), and a finishing kernel where balls are split; one of `sa_fused_bwd`
+runs three (the recompute + scatter, then the two back-projections), and a
+memset of dYc where balls are split.
 
-Limits: the three widths are multiples of 4; n >= 1; the forward's 16-row
-tiles must fit a block's shared memory (`_smem16`: any ns up to some
-thousands at widths of 1024), and the backward's plan (`bwd_plan`) takes
-every shape whose widths are at most 1024, on 16-row tiles with 8-row ring
-stages and dz3 as hit bits where nothing else fits.
+Limits: the three widths are multiples of 4; n >= 1; ns is any size. The
+forward's tiles (`fwd_plan`) need (c1 + c2) 64 + 98,368 bytes of shared
+memory at 16 rows, so c1 + c2 <= 2095; the projections' and
+back-projections' 16-row tiles (3 + cf) 80 and c1 80 bytes, so cf <= 2902;
+the backward's plan (`bwd_plan`) takes every shape whose widths are at most
+1024, on 16-row tiles with 8-row ring stages and dz3 as hit bits where
+nothing else fits. Every shape the JAX package's gate admits (widths and cf
+of at most 1024) runs.
 """
 
 from __future__ import annotations
@@ -55,6 +66,7 @@ from geoa3_tpu_torch.ops.kernels.group_mlp_kernel import (
     FoldedMLP,
     _groups_a_tile,
     _pick_bwd,
+    _pick_fwd,
     _tile_cols,
 )
 from geoa3_tpu_torch.ops.kernels.knn_kernel import gather_nbrs
@@ -77,13 +89,37 @@ def sa_query_group_mlp_plain(xyz, new_xyz, feats, radius, nsample, p: FoldedMLP)
     return torch.amax(a, dim=2)
 
 
-def _smem16(ns, cf, c1, c2) -> int:
-    """Bytes of shared memory the forward's kernels take at 16-row tiles
-    (csrc/sa_fused.cu: fwd_smem, the projections, the back-projections);
-    the backward's tiles are `bwd_plan`'s."""
-    ld = 20
-    fwd = ((c1 + c2) * ld + 16 * 65) * 4 + max(16, ns) * 4
-    return max(fwd, (3 + cf) * ld * 4, c1 * ld * 4)
+_PROJ_LD = 20  # csrc group_mlp.cuh Tile<16>::LD: floats a channel at 16 rows
+
+
+def _fwd_smem(widths, rows) -> int:
+    """csrc/sa_fused.cu sa_fwd_make's shared memory: a2 and a1 [channel][row],
+    the weight ring (16 weight rows a stage, w2's or w3's round, the wider)
+    and each row's point."""
+    c1, c2, c3 = widths
+    stage = _BK * max(_tile_cols(rows, c) for c in (c2, c3))
+    return ((c2 + c1) * rows + _STAGES * stage + rows) * 4
+
+
+@lru_cache(maxsize=64)
+def fwd_plan(ns, cf, widths):
+    """(tile rows, parts a ball is split into, shared memory) of the
+    forward's tiles as its C entry picks them (tile_loop.cuh pick_fwd at one
+    level: the largest of 128, 64 and 32 rows that leaves room for two
+    blocks an SM, else the largest of 128 .. 16 that fits one); a ball of
+    more rows than the tile is split into ceil(ns / rows) parts. Raises
+    where nothing fits, or where the projections' or back-projections'
+    16-row tiles (csrc/sa_fused.cu project, backproject) do not."""
+    widths = tuple(widths)
+    proj = max(3 + cf, widths[0]) * _PROJ_LD * 4
+    found = _pick_fwd(lambda rows, level, limit: (_fwd_smem(widths, rows),), 1)
+    if found is None or proj > _SMEM_MAX:
+        raise ValueError(
+            f"the sa_fused forward's 16-row tiles need "
+            f"{max(_fwd_smem(widths, 16), proj)} bytes of shared memory for "
+            f"cf={cf}, widths {widths}; a block has {_SMEM_MAX}")
+    rows, (smem,) = found
+    return rows, (ns + rows - 1) // rows if ns > rows else 1, smem
 
 
 def _bwd_smem(ns, widths, rows, bk, sparse) -> int:
@@ -140,13 +176,9 @@ def _check(xyz, new_xyz, feats, nsample, p: FoldedMLP):
     if n < 1 or nsample < 1:
         raise ValueError(f"sa_fused: needs n >= 1 and nsample >= 1, got "
                          f"n={n}, nsample={nsample}")
-    need = _smem16(nsample, cf, c1, c2)
-    if need > _SMEM_MAX:
-        raise ValueError(
-            f"the sa_fused kernels need {need} bytes of shared memory for "
-            f"nsample={nsample}, cf={cf}, widths {(c1, c2, c3)}; a block has "
-            f"{_SMEM_MAX}")
-    bwd_plan(nsample, (c1, c2, c3))  # raises where the backward cannot fit
+    # raise where either pass cannot fit
+    fwd_plan(nsample, cf, (c1, c2, c3))
+    bwd_plan(nsample, (c1, c2, c3))
     _build.check_cuda(xyz, "xyz", torch.float32, (b, n, 3))
     _build.check_cuda(new_xyz, "new_xyz", torch.float32, (b, m, 3))
     if feats is not None:
@@ -173,9 +205,13 @@ def sa_fused_fwd(xyz, new_xyz, feats, radius, nsample, p: FoldedMLP):
     idx = torch.empty(b, m, nsample, dtype=torch.int32, device=dev)
     pooled = torch.empty(b, m, c3, dtype=torch.float32, device=dev)
     cnt = torch.empty(b, m, c3, dtype=torch.int32, device=dev)
+    # a split ball's partial maxima and counts, one pair a part
+    parts = fwd_plan(nsample, cf, (c1, c2, c3))[1]
+    scratch = (torch.empty(2 * b * m * parts * c3, dtype=torch.int32, device=dev)
+               if parts > 1 else None)
     _build.launch("geoa3_sa_fused_fwd", xyz, new_xyz, feats if cf else None,
                   p.w1, p.b1, p.w2, p.b2, p.w3, p.b3, b, n, m, nsample, cf,
-                  c1, c2, c3, _r2(radius), proj, yc, idx, pooled, cnt)
+                  c1, c2, c3, _r2(radius), proj, yc, idx, pooled, cnt, scratch)
     sa_fused_fwd.launches += 1
     return pooled, cnt, idx, proj, yc
 

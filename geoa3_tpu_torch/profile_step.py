@@ -45,7 +45,8 @@ _GROUPS = [
     (re.compile(r"group_mlp_fwd_(tiles|finish)"), "group_mlp_fwd (port)"),
     (re.compile(r"group_mlp_bwd_tiles"), "group_mlp_bwd (port)"),
     (re.compile(r"kappa_bwd_kernel"), "kappa_bwd (port)"),
-    (re.compile(r"sa_fwd_kernel"), "sa_fused_fwd query+MLP+pool (port)"),
+    (re.compile(r"sa_(query_kernel|fwd_tiles|fwd_finish)"),
+     "sa_fused_fwd query + MLP + pool (port)"),
     (re.compile(r"sa_bwd_tiles"), "sa_fused_bwd recompute+scatter (port)"),
     (re.compile(r"backproject_kernel"), "sa_fused_bwd back-projection (port)"),
     (re.compile(r"project_kernel"), "sa_fused_fwd projection (port)"),

@@ -16,12 +16,13 @@
 //    is the ball's maximum and > 0, then through w3 and w2 with the masks
 //    a2 > 0 and a1 > 0, scattered into dP by idx, -summed into dYc, and
 //    projected back by w1;
-// and fails on a write past the end of an output.
+// and fails on a write past the end of an output (the forward's idx, pooled
+// and cnt among them).
 //
 //   sa_fused_bwd b n m ns cf c1 c2 c3 radius seed sms far
 //
-// Prints the backward's tile plan, the largest errors and the entries past
-// the tolerance, and exits 1 if any is.
+// Prints the forward's and the backward's tile plans, the largest errors
+// and the entries past the tolerance, and exits 1 if any is.
 #include "sa_fused_emu.cpp"  // the kernel source, rewritten by the test
 
 #include <algorithm>
@@ -43,9 +44,11 @@ float chain(const float* x, int K, const float* w, int ldw, int c) {
 
 float sq3(float x, float y, float z) { return (x * x + y * y) + z * z; }
 
-bool untouched(const std::vector<float>& v, size_t n, const char* name) {
+template <class T>
+bool untouched(const std::vector<T>& v, size_t n, const char* name) {
+  const T sentinel = (T)kSentinel;
   for (size_t i = n; i < v.size(); ++i)
-    if (memcmp(&v[i], &kSentinel, 4) != 0) {
+    if (memcmp(&v[i], &sentinel, sizeof(T)) != 0) {
       printf("wrote past %s's end at [%zu]\n", name, i);
       return false;
     }
@@ -87,19 +90,29 @@ int main(int argc, char** argv) {
   for (auto* bias : {&b1, &b2, &b3})
     for (auto& v : *bias) v = 0.1f * nd(rng);
 
-  // the forward C entry
+  // the forward C entry, with the split balls' scratch its plan asks for
   const size_t balls = (size_t)b * m, rows = balls * ns;
-  std::vector<float> P((size_t)b * n * c1), Yc(balls * c1), pooled(balls * c3);
-  std::vector<int> idx(rows), cnt(balls * c3);
+  const Dims d = make_dims((long long)balls, ns, cf, c1, c2, c3);
+  int fR = 0;
+  const Plan fp = sa_fwd_plan(d, &fR);
+  std::vector<int> scratch(fp.parts > 1 ? 2 * balls * fp.parts * c3 : 0);
+  std::vector<float> P((size_t)b * n * c1), Yc(balls * c1),
+      pooled(balls * c3 + kGuard, kSentinel);
+  std::vector<int> idx(rows + kGuard, (int)kSentinel),
+      cnt(balls * c3 + kGuard, (int)kSentinel);
   int err = geoa3_sa_fused_fwd(xyz.data(), cen.data(), cf ? feats.data() : nullptr,
                                w1.data(), b1.data(), w2.data(), b2.data(),
                                w3.data(), b3.data(), b, n, m, ns, cf, c1, c2, c3,
                                r2, P.data(), Yc.data(), idx.data(),
-                               pooled.data(), cnt.data(), nullptr);
+                               pooled.data(), cnt.data(),
+                               scratch.empty() ? nullptr : scratch.data(), nullptr);
   if (err) {
     printf("forward refused: %d\n", err);
     return 1;
   }
+  if (!untouched(idx, rows, "idx") || !untouched(pooled, balls * c3, "pooled") ||
+      !untouched(cnt, balls * c3, "cnt"))
+    return 1;
 
   // the serial ball query: d = max((|c|^2 + |x|^2) - 2 c.x, 0) < r2, the
   // first ns hits in index order, an under-full ball repeating its first
@@ -269,12 +282,13 @@ int main(int argc, char** argv) {
     }
     printf(" %s_err=%.3e tol=%.3e", o.name, worst, tol);
   }
-  const Dims d = make_dims((long long)balls, ns, cf, c1, c2, c3);
   int R = 0;
   const Plan p = sa_bwd_plan(d, &R);
   printf("\nrows=%d slot=%d parts=%d tiles=%lld smem=%zu depth=%d sparse=%d bad=%lld "
          "tied=%lld carried=%lld\n",
          R, p.P, p.parts, p.tiles, p.smem, p.bk, p.hits >= 0 ? 1 : 0, bad, ties,
          carried);
+  printf("fwd_rows=%d fwd_slot=%d fwd_parts=%d fwd_tiles=%lld fwd_smem=%zu\n", fR,
+         fp.P, fp.parts, fp.tiles, fp.smem);
   return bad != 0;
 }

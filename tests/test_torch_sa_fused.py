@@ -169,23 +169,54 @@ def test_plain_version_is_the_grouped_mlp_of_the_ball_query():
     assert sf.sa_fused_fwd.launches == sf.sa_fused_bwd.launches == 0  # CPU: plain
 
 
+def test_balls_the_card_splits_match_pallas_kernel():
+    """nsample = 96 at MSG SA2's widths and features: the card's forward
+    takes 64-row tiles there (`fwd_plan`), so each ball is two parts, the
+    second half padding, whose partials a finishing kernel merges. On the
+    CPU the port's plain version, held as the shapes above."""
+    widths = (128, 128, 256)
+    assert sf.fwd_plan(96, 320, widths)[:2] == (64, 2)
+    xyz, cen, feats, rng = _scene(85, 256, 16, 320)
+    p = _random_mlp(rng, 320, widths)
+    tgt = rng.randn(B, 16, widths[-1]).astype(np.float32)
+    _compare(_port(0.8, 96, xyz, cen, feats, p, tgt),
+             _jax(0.8, 96, xyz, cen, feats, p, tgt))
+
+
 def test_shared_memory_check_follows_the_kernels():
-    """The wrapper's check takes the largest of the forward kernels' 16-row
-    shared memory and the backward's plan (csrc/sa_fused.cu sa_bwd_plan):
-    MSG SA2's scales fit, and so does every shape the JAX package's gate
-    admits, up to widths of 1024 and cf = 1024 (the backward on 16-row
-    tiles with 8-row ring stages and hit bits); a nsample of 60000 does
-    not."""
-    assert sf._smem16(128, 320, 128, 128) < sf._SMEM_MAX
-    assert sf._smem16(128, 3, 64, 96) < sf._SMEM_MAX
-    assert sf._smem16(60000, 0, 32, 32) > sf._SMEM_MAX
+    """The wrapper's check takes the forward's plan (csrc/sa_fused.cu
+    sa_fwd_plan: tile_loop.cuh pick_fwd, with the projections' 16-row tiles)
+    and the backward's (sa_bwd_plan): MSG SA2's scales
+    and SA1 with normals fit, and so does every shape the JAX package's
+    gate admits, up to widths of 1024 and cf = 1024 (the forward on 16-row
+    tiles, each ball in ns / 16 parts; the backward on 16-row tiles with
+    8-row ring stages and hit bits). No nsample is refused: a ball of 60000
+    rows is 469 parts of 128. The forward refuses c1 + c2 > 2095 and the
+    projections cf > 2902."""
+    # the forward: 64-row tiles (two blocks an SM) past 64 channels at MSG
+    # SA2, ns = 128 in two parts; 128-row tiles at SA1 with normals
+    assert sf.fwd_plan(32, 320, (64, 64, 128)) == (128, 1, 90624)
+    assert sf.fwd_plan(64, 320, (128, 128, 256)) == (64, 1, 114944)
+    assert sf.fwd_plan(128, 320, (128, 128, 256)) == (64, 2, 114944)
+    assert sf.fwd_plan(16, 3, (32, 32, 64)) == (128, 1, 45568)
+    assert sf.fwd_plan(32, 3, (64, 64, 128)) == (128, 1, 90624)
+    assert sf.fwd_plan(128, 3, (64, 96, 128)) == (128, 1, 107008)
+    assert sf.fwd_plan(60000, 0, (32, 32, 64)) == (128, 469, 45568)
+    assert sf.bwd_plan(60000, (32, 32, 64))[4] <= sf._SMEM_MAX
+    # the limits: 16-row tiles take c1 + c2 <= 2095, the projections cf <= 2902
+    assert sf.fwd_plan(16, 0, (1044, 1048, 64)) == (16, 1, 232256)
+    with pytest.raises(ValueError, match="shared memory"):
+        sf.fwd_plan(16, 0, (1048, 1048, 64))
+    assert sf.fwd_plan(16, 2902, (32, 32, 64))[0] == 128
+    with pytest.raises(ValueError, match="shared memory"):
+        sf.fwd_plan(16, 2903, (32, 32, 64))
     # MSG SA2's scales: 128-row tiles, 32-row ring stages, hit bits at 64+
     assert sf.bwd_plan(32, (64, 64, 128)) == (128, 1, 32, False, 180736)
     assert sf.bwd_plan(64, (128, 128, 256)) == (128, 1, 32, True, 186880)
     assert sf.bwd_plan(128, (128, 128, 256)) == (128, 1, 32, True, 185856)
     widths = (1024, 1024, 1024)
-    assert sf._smem16(128, 1024, 1024, 1024) == 168512
     for ns in (16, 32, 64, 128):
+        assert sf.fwd_plan(ns, 1024, widths) == (16, max(1, ns // 16), 229440)
         rows, parts, depth, sparse, smem = sf.bwd_plan(ns, widths)
         assert (rows, depth, sparse) == (16, 8, True) and smem <= sf._SMEM_MAX
         assert parts == max(1, ns // 16)

@@ -1,17 +1,22 @@
 """The whole-scale set-abstraction CUDA source (geoa3_tpu_torch/csrc/
 sa_fused.cu), compiled with g++ against tests/cuda_emu/cuda_runtime.h and
 run on the CPU: its forward, then its backward, on the same inputs
-(tests/cuda_emu/sa_fused_bwd.cpp). The forward's ball query is held
-bit-equal to a serial one, its pooled maxima and tie counts to a serial
-fmaf-chain oracle (the tie sets the backward's recompute must find again);
+(tests/cuda_emu/sa_fused_bwd.cpp). The forward's ball query pass is held
+bit-equal to a serial one, its tiles' pooled maxima and tie counts to a
+serial fmaf-chain oracle (the tie sets the backward's recompute must find
+again), balls split over tiles merged by the finishing kernel;
 the backward's dP, dYc and the three input cotangents to the backward taken
 in float64 through that oracle's float32 ReLU patterns and tie sets, at 2e-5
 of each output's largest entry. The cases: MSG SA2's three scales at a few
 balls (dz3 on the ring at ns = 32, hit bits at 64 and 128), cf = 0 and 3,
 padded slots, empty and over-full balls, balls split over tiles, and widths
-of 1024 at cf = 1024 (16-row tiles, 8-row ring stages). Each case's tile
-plan, as the C entry picks it, must be the one the wrapper's `bwd_plan`
-predicts. The program fails on a write past the end of an output.
+of 1024 at cf = 1024 (16-row tiles, 8-row ring stages), and the forward's
+own layouts at MSG SA2's widths (64-row tiles): balls of 128 and of 96
+rows in two parts (the second part of a 96-row ball half padding), two
+balls of 24 in a tile's 32-row slots. Each case's tile plans, as the C
+entries pick them, must be the ones the wrapper's `fwd_plan` and
+`bwd_plan` predict. The program fails on a write past the end of an
+output.
 
 The emulation runs the kernels' own index arithmetic, barriers, shuffles,
 ballots, atomics and float operations, one thread a CUDA thread; it says
@@ -43,6 +48,10 @@ CASES = {
     "over-full balls r=2": (2, 256, 6, 32, 320, (32, 32, 64), 2.0, 1, 0),
     "balls split over 4 tiles (32-row tiles)": (2, 256, 2, 128, 64, (256, 512, 1024), 0.8, 3, 0),
     "widths 1024, cf=1024 (8-row ring stages, balls split in 2)": (1, 128, 2, 32, 1024, (1024, 1024, 1024), 0.6, 2, 0),
+    # the forward's tiles at MSG SA2's widths are 64 rows
+    "ns=128 in two forward parts (64-row tiles)": (2, 256, 5, 128, 64, (128, 128, 256), 0.8, 3, 0),
+    "ns=96 in two forward parts, the second padded": (2, 256, 4, 96, 64, (128, 128, 256), 0.7, 2, 0),
+    "ns=24, two balls a 64-row forward tile": (2, 256, 5, 24, 64, (128, 128, 256), 0.5, 2, 0),
 }
 
 
@@ -83,6 +92,14 @@ def test_sa_fused_bwd_source_matches_the_float64_oracle(emulated, case):
                      r"sparse=(\d) ", out)
     rows, parts, smem, depth, sparse = map(int, plan.groups())
     assert (rows, parts, depth, bool(sparse), smem) == sf.bwd_plan(ns, widths), out
+    fplan = re.search(r"fwd_rows=(\d+) fwd_slot=(\d+) fwd_parts=(\d+) fwd_tiles=\d+ "
+                      r"fwd_smem=(\d+)", out)
+    frows, fslot, fparts, fsmem = map(int, fplan.groups())
+    assert (frows, fparts, fsmem) == sf.fwd_plan(ns, cf, widths), out
+    if "forward parts" in case:
+        assert (frows, fparts) == (64, 2), out
+    if "64-row forward tile" in case:
+        assert (frows, fslot, fparts) == (64, 32, 1), out
     assert int(re.search(r"carried=(\d+)", out).group(1)) > 0, out
     if "split" in case:
         assert parts > 1, out
