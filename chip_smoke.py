@@ -19,9 +19,11 @@ Needs one CUDA card, nvcc and this repository around the script. Phases:
      at widths of 1024, its grouped MLPs at SA1's three scales and at
      GroupAll with 640 features, the grouped MLPs also at GroupAll with 896
      and 1536 features (16-row tiles) and 2048 and 4096 (layer 1's input in
-     slices), and the k-neighbour scatter),
-     with the tolerance stated, and time both (CUDA events, warm, median of
-     20), plus one PyTorch library call where one computes the same
+     slices), and the k-neighbour scatter; FPS at the paths' shapes (the
+     vote's [96, 2048] -> 1024 among them), at a ragged n = 1000, at the
+     limit n = 14336, at m > n and with skipped points and a fully skipped
+     cloud), with the tolerance stated, and time both (CUDA events, warm,
+     median of 20), plus one PyTorch library call where one computes the same
      function, and for the whole-scale kernel the split pair it stands in for.
      The pool forward's whole output (maximum, tie count, first tied rows) is
      held bit-equal to an exact oracle of its fmaf chain at b=2, and so are
@@ -94,7 +96,8 @@ shapes, so that two commits are timed on the same inputs in one call.
 at MSG SA2's three scales and SA1's three with normals, with the forward's
 device time by kernel (torch.profiler) and the split pair beside it; for
 this checkout it also times the backward built without its scatter
-epilogue.
+epilogue. `--fps-times [--tree DIR]` times farthest-point sampling at its
+six path shapes (ms ten back to back, us a round, the bound).
 
 Any failed check raises, and the script exits non-zero. It never falls back
 to the CPU: without a CUDA device it exits non-zero before printing results.
@@ -1077,6 +1080,9 @@ def ssg_kernel_checks(torch) -> list[dict]:
     near[1] *= 1e-3  # a cloud with every point dropped: all picks are 0
     big, _, _ = make_batch(torch, B, 2 * N, seed=4)
     start = torch.from_numpy(rng.randint(0, 2 * N, B).astype(np.int32)).cuda()
+    votes = torch.from_numpy(rng.randint(0, 2 * N, 3 * B).astype(np.int32)).cuda()
+    limit, _, _ = make_batch(torch, 4, fk.MAX_N, seed=5)
+    limit[:, ::7] *= 0.01  # skipped points, the coordinates in shared memory
     fps_idx = fk.fps(pc, 512)
     cases = {
         "SA1 1024->512, skip": (pc, 512, None, True, fps_idx),
@@ -1085,6 +1091,12 @@ def ssg_kernel_checks(torch) -> list[dict]:
         "skipped points and a fully skipped cloud": (near, 512, None, True, None),
         "no skip": (near, 512, None, False, None),
         "subsample 2048->1024 from a start, no skip": (big, N, start, False, None),
+        "ragged 1000->512, skip": (pc[:, :1000].contiguous(), 512, None, True, None),
+        f"[4,{fk.MAX_N}] (the limit)->256, skip": (limit, 256, None, True, None),
+        "m > n: 40->64, skipped points, skip": (near[:, :40].contiguous(), 64,
+                                                None, True, None),
+        "vote [96,2048]->1024 from starts, no skip": (big.repeat(3, 1, 1), N,
+                                                      votes, False, None),
     }
     for label, (x_, m_, st_, skip_, got_) in cases.items():
         got_ = fk.fps(x_, m_, st_, skip_) if got_ is None else got_
@@ -1095,15 +1107,22 @@ def ssg_kernel_checks(torch) -> list[dict]:
         _fail("fps: the fully skipped cloud is not all index 0, or a start "
               "index is not the first pick")
     print(f"  fps: idx bit-equal to plain (required) at {list(cases)}")
+    dense = fps_inputs(torch)[f"dense [{DENSE_B},{DENSE_N}]->{N}"]
+    sub_t, dense_t = (fps_time(torch, fk, big, N, start, False),
+                      fps_time(torch, fk, *dense))
     entry("fps", "geoa3_tpu_torch/csrc/fps.cu",
           "geoa3_tpu/ops/pallas/fps_kernel.py:29", 0.0,
           time_ms(lambda: fk.fps(pc, 512)),
           time_ms(lambda: fk.fps_plain(pc, 512), iters=3, warm=1),
           bound_ms(nbytes(pc, fps_idx), 9.0 * B * N * 511), None,
           "[32,1024,3] -> [32,512]; sequential depth 511 rounds of a "
-          "block-wide argmax on 32 of 132 SMs; subsample [32,2048,3] -> "
-          f"[32,1024]: ms={time_ms(lambda: fk.fps(big, N, start, False)):.4f} "
-          f"bound_ms={bound_ms(nbytes(big, start, fps_big), 9.0 * B * 2 * N * (N - 1))[0]:.4f}")
+          "block-wide argmax on 32 of 132 SMs; ten back to back "
+          f"{fps_time(torch, fk, pc, 512, None, True)['ms']:.4f}; subsample "
+          f"[32,2048,3] -> [32,1024] ten back to back: ms={sub_t['ms']:.4f} "
+          f"us_round={sub_t['us_round']:.4f} bound_ms={sub_t['bound_ms']:.4f}; "
+          f"dense [{DENSE_B},{DENSE_N},3] -> [{DENSE_B},{N}] ten back to back: "
+          f"ms={dense_t['ms']:.4f} us_round={dense_t['us_round']:.4f} "
+          f"bound_ms={dense_t['bound_ms']:.4f}")
 
     # --- ball query + group, forward and backward --------------------------
     c1 = ops.gather_points(pc, fps_idx)
@@ -1647,6 +1666,62 @@ def sa_fused_times_phase(torch, variant=None) -> dict:
         out[label] = sa_fused_times(torch, sf, x_, c_, f_, r_, ns_, p_, g_all,
                                     variant)
         print(f"  sa_fused[{label}]: " + sa_fused_times_line(out[label]), flush=True)
+    return out
+
+
+def fps_inputs(torch) -> dict:
+    """FPS's six path shapes, label -> (xyz, m, start, skip), from seeds:
+    PointNet++ SA1 and SA2 (SA1's centres by the checkout's own FPS), the
+    uniform loss's seeds, subsample mode's resampling and its three-fold
+    vote from random starts, and the dense subsample path."""
+    from geoa3_tpu_torch import ops
+    from geoa3_tpu_torch.ops.kernels import fps_kernel as fk
+
+    pc, _, rng = make_batch(torch, B, N, seed=3)
+    big, _, _ = make_batch(torch, B, 2 * N, seed=4)
+    dense, _, _ = make_batch(torch, DENSE_B, DENSE_N, seed=9)
+
+    def starts(b, n):
+        return torch.from_numpy(rng.randint(0, n, b).astype(np.int32)).cuda()
+
+    x1 = ops.gather_points(pc, fk.fps(pc, 512)).contiguous()
+    return {
+        f"SA1 [{B},{N}]->512": (pc, 512, None, True),
+        f"SA2 [{B},512]->128": (x1, 128, None, True),
+        f"uniform loss [{B},{N}]->51": (pc, 51, None, True),
+        f"subsample [{B},{2 * N}]->{N}": (big, N, starts(B, 2 * N), False),
+        f"vote [{3 * B},{2 * N}]->{N}": (big.repeat(3, 1, 1), N,
+                                         starts(3 * B, 2 * N), False),
+        f"dense [{DENSE_B},{DENSE_N}]->{N}": (dense, N,
+                                              starts(DENSE_B, DENSE_N), False),
+    }
+
+
+def fps_time(torch, fk, x_, m_, st_, skip_) -> dict:
+    """One FPS shape: ten calls back to back (`ten_ms`), the time a round
+    (ms / (m-1)) and the bound (the cloud and starts read once, the indices
+    written once; 9 operations a point a round)."""
+    b_, n_, _ = x_.shape
+    ms = ten_ms(lambda: fk.fps(x_, m_, st_, skip_))
+    bound = bound_ms(nbytes(x_) + (0 if st_ is None else nbytes(st_)) + 4 * b_ * m_,
+                     9.0 * b_ * n_ * (m_ - 1))
+    return {"ms": ms, "us_round": ms * 1e3 / max(m_ - 1, 1),
+            "bound_ms": bound[0], "bound_by": bound[1]}
+
+
+def fps_times_phase(torch) -> dict:
+    """`--fps-times`: the checkout's FPS timed at its six path shapes
+    (`fps_inputs`), with no check run."""
+    from geoa3_tpu_torch.ops.kernels import _build, fps_kernel as fk
+
+    print(f"row 12 times of {fk.__file__}")
+    inputs = fps_inputs(torch)
+    _build.lib()
+    out = {}
+    for label, args_ in inputs.items():
+        out[label] = r_ = fps_time(torch, fk, *args_)
+        print(f"  fps[{label}]: ms={r_['ms']:.4f} us_round={r_['us_round']:.4f} "
+              f"bound_ms={r_['bound_ms']:.4f} ({r_['bound_by']})", flush=True)
     return out
 
 
@@ -2611,13 +2686,19 @@ def main() -> int:
                     help="only time the whole-scale kernels at MSG SA2's three "
                          "scales and SA1 with normals, on phase 2's inputs, "
                          "no check")
+    ap.add_argument("--fps-times", action="store_true",
+                    help="only time farthest-point sampling at its six path "
+                         "shapes, no check")
     ap.add_argument("--tree", metavar="DIR",
-                    help="with --group-mlp-times or --sa-fused-times: the "
-                         "checkout whose kernels run (e.g. a `git archive` of "
-                         "another commit), timed at the victims' shapes only")
+                    help="with --group-mlp-times, --sa-fused-times or "
+                         "--fps-times: the checkout whose kernels run (e.g. a "
+                         "`git archive` of another commit), timed at the "
+                         "victims' shapes only")
     args = ap.parse_args()
-    if args.tree and not (args.group_mlp_times or args.sa_fused_times):
-        _fail("--tree goes with --group-mlp-times or --sa-fused-times")
+    if args.tree and not (args.group_mlp_times or args.sa_fused_times
+                          or args.fps_times):
+        _fail("--tree goes with --group-mlp-times, --sa-fused-times or "
+              "--fps-times")
 
     if not torch.cuda.is_available():
         _fail("torch.cuda.is_available() is false: this script needs a CUDA card")
@@ -2652,6 +2733,9 @@ def main() -> int:
     if args.sa_fused_times:
         print(json.dumps({"card": smi, "tree": str(CODE), "shapes":
                           sa_fused_times_phase(torch, variant and variant())}))
+        return 0
+    if args.fps_times:
+        print(json.dumps({"card": smi, "tree": str(CODE), "shapes": fps_times_phase(torch)}))
         return 0
 
     phase("phase 2: kernels against their plain versions")

@@ -5,13 +5,18 @@ Source: csrc/fps.cu.
 
 Bound on the H100: by the roofline rule bytes (the cloud read once, the
 indices written once), an empty bound here: the work is m-1 dependent rounds
-of a distance update and a block-wide argmax on b of the 132 SMs. One block
-owns a cloud; the cloud and its running minimum sit in shared memory; the
-argmax runs over 64-bit (minimum-distance bits, ~index) keys so that ties go
-to the lowest index. Distances are rounded step by step like the plain
-version's, so both pick bitwise the same points.
+on b of the 132 SMs, each bound by the latency of its chain and, past ~2048
+points, by the instructions its scan issues on one SM. One block owns a
+cloud; each thread keeps its points' coordinates and running minima in
+registers for all rounds (`fps_plan`); a point's score is its minimum's bits
+as a signed int (INT_MIN when skipped), so the update is one integer minimum;
+warps take the argmax with two `redux.sync` reductions (maximum score, then
+lowest index), every warp reduces the warps' winners after the round's one
+barrier and reads the pick's coordinates from a copy of the cloud in shared
+memory. Distances are rounded step by step like the plain version's, so both
+pick bitwise the same points.
 
-Limit: n <= 14336 (the block keeps 4 floats a point in shared memory).
+Limit: n <= 14336 (1024 threads of 14 points).
 """
 
 from __future__ import annotations
@@ -24,6 +29,29 @@ from geoa3_tpu_torch.ops.kernels import _build
 INIT_DIST = 1e10  # the running minimum's start (reference sampling.cpp:78)
 SKIP_MAG2 = 1e-3  # |p|^2 at or below which a point is never a candidate
 MAX_N = 14336
+# the plan csrc/fps.cu's fps_plan takes
+MAX_THREADS = 1024
+PLAN_THREADS = 256  # the block's width wherever it holds the cloud
+REG_POINTS = 10  # the most points a thread keeps in registers at 1024 threads
+SLOT_BYTES = 2 * 32 * (4 + 4)  # the warps' double-buffered (score, index)
+
+
+def fps_plan(n):
+    """(threads, points a thread, coordinates read from shared memory, shared
+    memory bytes) of the kernel's block for clouds of n points: PLAN_THREADS
+    threads wherever they hold the cloud at REG_POINTS points a thread (n from
+    PLAN_THREADS to 2560), the narrowest power of two from 32 with a point a
+    thread below that, and above it the narrowest power of two that holds the
+    cloud at REG_POINTS points a thread, at most 1024; P = ceil(n / T) points
+    a thread, whose coordinates leave registers for shared memory only where
+    P > REG_POINTS (n > 10240). Shared memory holds the warps' slots and a
+    float4 copy of the cloud, from which every thread reads each round's
+    pick."""
+    t = 32
+    while t < MAX_THREADS and (t < n if t < PLAN_THREADS else t * REG_POINTS < n):
+        t *= 2
+    p = -(-n // t)
+    return t, p, p > REG_POINTS, SLOT_BYTES + 16 * t * p
 
 
 def fps_plain(xyz, m, start=None, skip_near_origin=True):

@@ -38,7 +38,7 @@ _GROUPS = [
     (re.compile(r"curv_term_kernel"), "curv_term (port)"),
     (re.compile(r"kappa_select_kernel"), "kappa select (port)"),
     (re.compile(r"scatter3_(global_)?kernel"), "scatter_add_3t (port)"),
-    (re.compile(r"fps_kernel"), "fps (port)"),
+    (re.compile(r"fps_rounds"), "fps (port)"),
     (re.compile(r"ballquery_kernel"), "ballquery_group fwd (port)"),
     (re.compile(r"scatter_nc_kernel|centre_grad_kernel"),
      "ballquery_group bwd / scatter_add_nc (port)"),

@@ -8,9 +8,9 @@
 // `kernel<<<grid, block, bytes, stream>>>(args)` of the source into an
 // emu_launch of the blocks one after another, since g++ cannot parse the
 // launch syntax. Timing and the memory model are not emulated; the index
-// arithmetic, the barriers' placement, the shuffles and ballots, the
-// atomics (under one lock) and the floating-point operations are (fmaf is
-// the C library's, exact).
+// arithmetic, the barriers' placement, the shuffles, ballots and redux
+// reductions, the atomics (under one lock) and the floating-point
+// operations are (fmaf is the C library's, exact).
 #pragma once
 
 #define GEOA3_EMU 1
@@ -73,6 +73,11 @@ inline unsigned __float_as_uint(float f) {
   memcpy(&u, &f, 4);
   return u;
 }
+inline int __float_as_int(float f) {
+  int i;
+  memcpy(&i, &f, 4);
+  return i;
+}
 inline void __syncthreads() { g_block_barrier->arrive_and_wait(); }
 inline unsigned atomicOr(unsigned* p, unsigned v) {
   return __atomic_fetch_or(p, v, __ATOMIC_RELAXED);
@@ -120,6 +125,36 @@ inline unsigned __ballot_sync(unsigned, bool pred) {
   for (int l = 0; l < 32; ++l) m |= (unsigned)g_lanes[(t & ~31) + l] << l;
   g_warp_barrier[t / 32]->arrive_and_wait();
   return m;
+}
+
+// redux.sync: every lane of the warp must call it, as the kernels do
+template <class T, class Op>
+T emu_warp_reduce(T v, Op op) {
+  const int t = threadIdx.x;
+  uint64_t u = 0;
+  memcpy(&u, &v, sizeof(T));
+  g_lanes[t] = u;
+  g_warp_barrier[t / 32]->arrive_and_wait();
+  T r = v;
+  for (int l = 0; l < 32; ++l) {
+    T o;
+    memcpy(&o, &g_lanes[(t & ~31) + l], sizeof(T));
+    r = op(r, o);
+  }
+  g_warp_barrier[t / 32]->arrive_and_wait();
+  return r;
+}
+inline unsigned __reduce_max_sync(unsigned, unsigned v) {
+  return emu_warp_reduce(v, [](unsigned a, unsigned b) { return a > b ? a : b; });
+}
+inline int __reduce_max_sync(unsigned, int v) {
+  return emu_warp_reduce(v, [](int a, int b) { return a > b ? a : b; });
+}
+inline unsigned __reduce_min_sync(unsigned, unsigned v) {
+  return emu_warp_reduce(v, [](unsigned a, unsigned b) { return a < b ? a : b; });
+}
+inline int __reduce_min_sync(unsigned, int v) {
+  return emu_warp_reduce(v, [](int a, int b) { return a < b ? a : b; });
 }
 
 typedef int cudaError_t;
