@@ -13,7 +13,11 @@ Needs one CUDA card, nvcc and this repository around the script. Phases:
      exact ties, clouds whose points coincide, ragged shapes, one adv row
      and the dense [16,1024] x [16,10000]; PointNet++ SSG's sampling,
      grouping and grouped MLPs at its three set-abstraction shapes, with
-     empty, over-full and larger-than-the-cloud balls and duplicated rows;
+     empty, over-full and larger-than-the-cloud balls and duplicated rows,
+     the ball query + grouping also at MSG SA1's three scales, a ragged
+     n = 1000, n = 8192 (past its shared-memory plan) and the uniform
+     loss's five index-only queries, its backward also at cf = 3 and
+     with empty balls;
      the MSG victim's whole-scale kernel at SA2's three scales and SA1's
      three with normals (cf=3), at cf=0, with empty and over-full balls and
      at widths of 1024, its grouped MLPs at SA1's three scales and at
@@ -86,18 +90,21 @@ Needs one CUDA card, nvcc and this repository around the script. Phases:
 Every path runs with the kernels' launch counts set to 0 just before and
 read just after, and fails if a kernel it names was not launched; together
 the paths must cover every kernel. `--kernels-only` stops after phase 2.
-`--group-mlp-times [--tree DIR]` only builds the kernels and times the
-grouped-MLP kernels on phase 2's inputs, with their plain versions and
-bounds, checking nothing: those of this checkout at the seven PointNet++
-shapes and the four wider GroupAll ones, or those of the checkout at DIR
-(say a `git archive` of another commit under `build/`) at the seven
-shapes, so that two commits are timed on the same inputs in one call.
-`--sa-fused-times [--tree DIR]` does the same for the whole-scale kernels
-at MSG SA2's three scales and SA1's three with normals, with the forward's
-device time by kernel (torch.profiler) and the split pair beside it; for
-this checkout it also times the backward built without its scatter
-epilogue. `--fps-times [--tree DIR]` times farthest-point sampling at its
-six path shapes (ms ten back to back, us a round, the bound).
+`--times ROW [--tree DIR]` only builds the kernels and times row ROW's
+kernels at its path shapes, with their plain versions and bounds, checking
+nothing: those of this checkout, or those of the checkout at DIR (say a
+`git archive` of another commit under `build/`), so that two commits are
+timed on the same inputs in one call. Row 16, the grouped MLP: the seven
+PointNet++ shapes, and for this checkout the wider GroupAll ones. Row 17,
+the whole-scale kernels: MSG SA2's three scales and SA1's three with
+normals, with the forward's device time by kernel (torch.profiler) and the
+split pair beside it, and for this checkout the backward built without
+its scatter epilogue. Row 12, farthest-point sampling: its six path
+shapes (ms ten back to back, us a round, the bound). Row 15, the ball
+query + grouping: forward and backward at SSG SA1 and SA2 and MSG SA1's
+three scales, and the index-only query at the uniform loss's five shapes
+(one call and ten back to back, the plain versions' one call, the bounds
+for the run's data).
 
 Any failed check raises, and the script exits non-zero. It never falls back
 to the CPU: without a CUDA device it exits non-zero before printing results.
@@ -106,6 +113,7 @@ to the CPU: without a CUDA device it exits non-zero before printing results.
 from __future__ import annotations
 
 import json
+import math
 import re
 import statistics
 import subprocess
@@ -134,6 +142,8 @@ SPLIT_TIES = [63, 64, 127]
 # layer 1's input staged in slices), run as kernel cases beside the
 # victims' shapes
 WIDE_GROUPALL = (896, 1536, 2048, 4096)
+# a cloud past row 15's shared-memory plan (the walk reads device memory)
+BQ_PAST_N = 8192
 
 
 def _fail(msg: str) -> None:
@@ -141,7 +151,7 @@ def _fail(msg: str) -> None:
 
 
 # the checkout whose package runs: this one, or with `--tree DIR` (beside
-# `--group-mlp-times`) another one, whose kernels are timed on this script's
+# `--times`) another one, whose kernels are timed on this script's
 # inputs
 CODE = (Path(sys.argv[sys.argv.index("--tree") + 1]).resolve()
         if "--tree" in sys.argv[1:-1] else REPO)
@@ -1035,14 +1045,16 @@ def group_mlp_times_line(r_: dict) -> str:
             f"{r_['carried']} rows carry a cotangent)")
 
 
-def group_mlp_times_phase(torch, wide: bool) -> dict:
-    """`--group-mlp-times`: the checkout's grouped-MLP kernels timed at the
-    seven PointNet++ shapes (`wide`: and the two wider GroupAll ones, which
-    older checkouts refuse) on `group_mlp_inputs`' inputs, as phase 2 times
-    them, with no check run."""
-    from geoa3_tpu_torch.ops.kernels import group_mlp_kernel as gk
+def group_mlp_times_phase(torch) -> dict:
+    """`--times 16`: the checkout's grouped-MLP kernels timed at the seven
+    PointNet++ shapes (for this checkout, and not with `--tree`: the two
+    wider GroupAll ones too, which older checkouts refuse) on
+    `group_mlp_inputs`' inputs, as phase 2 times them, with no check run."""
+    from geoa3_tpu_torch.ops.kernels import _build, group_mlp_kernel as gk
 
     print(f"grouped-MLP times of {gk.__file__}")
+    _build.lib()
+    wide = CODE == REPO
     gen = torch.Generator(device="cuda").manual_seed(19)
     out = {}
     for victim in ("SSG", "MSG") + (("wide",) if wide else ()):
@@ -1059,7 +1071,6 @@ def ssg_kernel_checks(torch) -> list[dict]:
     """Phase 2, second half: the PointNet++ kernels at the SSG victim's three
     set-abstraction shapes (b=32: 1024 -> 512 centres x 64 samples, 512 -> 128
     x 64 with 128 features, GroupAll of 128 points with 256 features)."""
-    from geoa3_tpu_torch import ops
     from geoa3_tpu_torch.ops.kernels import (
         ballquery_group_kernel as bk,
         fps_kernel as fk,
@@ -1125,18 +1136,22 @@ def ssg_kernel_checks(torch) -> list[dict]:
           f"bound_ms={dense_t['bound_ms']:.4f}")
 
     # --- ball query + group, forward and backward --------------------------
-    c1 = ops.gather_points(pc, fps_idx)
-    c2 = ops.gather_points(c1, fk.fps(c1, 128))
-    f1 = randn(B, 512, 128)
+    shapes = ballquery_inputs(torch, pc, fps_idx, f1=randn(B, 512, 128))
+    c1, c2, f1 = shapes["SSG SA2 cf=128 r=0.4"][:3]
     far = c2.clone()
     far[:, ::2] += 100.0  # every other ball is empty
+    past, _, _ = make_batch(torch, 4, BQ_PAST_N, seed=6)
+    past_c = past[:, ::BQ_PAST_N // 256].contiguous()  # 256 centres
     bq_cases = {
-        "SA1 cf=0 r=0.2": (pc, c1, None, 0.2, 64),
-        "SA2 cf=128 r=0.4": (c1, c2, f1, 0.4, 64),
+        **{k: v[:5] for k, v in shapes.items() if not v[5]},
         "cf=3 (normals)": (pc, c1, nrm, 0.2, 64),
         "empty balls": (c1, far, f1, 0.4, 64),
         "over-full balls r=2": (c1, c2, None, 2.0, 64),
         "nsample 64 > n 48": (c1[:, :48].contiguous(), c2, None, 0.4, 64),
+        "ragged n=1000 cf=128": (pc[:, :1000].contiguous(), c1,
+                                 randn(B, 1000, 128), 0.2, 64),
+        f"n={BQ_PAST_N} (past the shared-memory plan) cf=8":
+            (past, past_c, randn(4, BQ_PAST_N, 8), 0.2, 64),
     }
     kept = {}
     for label, (x_, c_, f_, r_, ns_) in bq_cases.items():
@@ -1151,34 +1166,35 @@ def ssg_kernel_checks(torch) -> list[dict]:
         kept[label] = got
     if kept["empty balls"][0][:, ::2].any():
         _fail("ballquery_group_fwd: an empty ball does not hold index 0")
+    index_only = {k: v for k, v in shapes.items() if v[5]}
+    for label, (x_, c_, _, r_, ns_, _) in index_only.items():
+        require_equal(torch, f"ball_query[{label}]", bk.ball_query(x_, c_, r_, ns_),
+                      bk.ball_query_plain(x_, c_, r_, ns_), "idx")
     print("  ballquery_group_fwd: idx, gx, gf bit-equal to plain, with and "
-          f"without the gathers (required) at {list(bq_cases)}")
+          f"without the gathers (required) at {list(bq_cases)}; ball_query "
+          f"at {list(index_only)}")
 
-    def scanned(idx_, x_, c_, r_, ns_):
-        """Distance tests this data needs: a full ball stops at its last
-        slot's point, an under-full one reads the whole cloud."""
-        hits = (bk.pairwise_sqdist(c_, x_) < bk._r2(r_)).sum(-1)
-        n_ = x_.shape[1]
-        return torch.where(hits >= ns_, idx_[..., -1].long() + 1,
-                           torch.full_like(hits, n_)).sum().item()
-
-    idx1, gx1, _ = kept["SA1 cf=0 r=0.2"]
-    idx2, gx2, gf2 = kept["SA2 cf=128 r=0.4"]
-    sa1_ms = time_ms(lambda: bk.ballquery_group_fwd(pc, c1, None, 0.2, 64))
+    idx1 = kept["SSG SA1 cf=0 r=0.2"][0]
+    idx2, gx2, gf2 = kept["SSG SA2 cf=128 r=0.4"]
+    sa1 = ballquery_time(torch, bk, *shapes["SSG SA1 cf=0 r=0.2"])
+    sa2 = ballquery_time(torch, bk, *shapes["SSG SA2 cf=128 r=0.4"])
     entry("ballquery_group_fwd", "geoa3_tpu_torch/csrc/ballquery_group.cu",
           "geoa3_tpu/ops/pallas/ballquery_group_kernel.py:177", 0.0,
           time_ms(lambda: bk.ballquery_group_fwd(c1, c2, f1, 0.4, 64)),
           time_ms(lambda: bk.ballquery_group_plain(c1, c2, f1, 0.4, 64)),
-          bound_ms(nbytes(c1, c2, f1, idx2, gx2, gf2),
-                   10.0 * scanned(idx2, c1, c2, 0.4, 64)), None,
+          (sa2["fwd_bound"], sa2["fwd_by"]), None,
           "SA2 xyz [32,512,3], centres [32,128,3], feats [32,512,128], ns=64 "
-          "-> idx [32,128,64], gx [32,128,64,3], gf [32,128,64,128]; SA1 "
-          f"[32,1024,3] x [32,512,3], cf=0: ms={sa1_ms:.4f} bound_ms="
-          f"{bound_ms(nbytes(pc, c1, idx1, gx1), 10.0 * scanned(idx1, pc, c1, 0.2, 64))[0]:.4f}")
+          "-> idx [32,128,64], gx [32,128,64,3], gf [32,128,64,128] (ten back "
+          f"to back: {sa2['fwd_ten']:.4f}); SA1 [32,1024,3] x [32,512,3], "
+          f"cf=0: ms={sa1['fwd_ms']:.4f} ten={sa1['fwd_ten']:.4f} "
+          f"bound_ms={sa1['fwd_bound']:.4f}")
 
     bwd_err = 0.0
-    for label, n_ in (("SA1 cf=0 r=0.2", N), ("SA2 cf=128 r=0.4", 512),
-                      ("empty balls", 512)):
+    # MSG SA1's ns=16 scale runs the backward's several centres a warp
+    for label, n_ in (("SSG SA1 cf=0 r=0.2", N), ("SSG SA2 cf=128 r=0.4", 512),
+                      ("MSG SA1 ns=16 r=0.1", N), ("MSG SA1 ns=32 r=0.2", N),
+                      ("MSG SA1 ns=128 r=0.4", N), ("empty balls", 512),
+                      ("cf=3 (normals)", N)):
         idx_, gx_, gf_ = kept[label]
         dgx = randn(*gx_.shape)
         dgf = randn(*gf_.shape) if gf_ is not None else None
@@ -1194,20 +1210,15 @@ def ssg_kernel_checks(torch) -> list[dict]:
                   2e-5 * w_.abs().max().item(), what)
             bwd_err = max(bwd_err, err)
     dgx2, dgf2 = randn(*gx2.shape), randn(*gf2.shape)
-    dgx1 = randn(*gx1.shape)
-    sa1_bwd_ms = time_ms(lambda: bk.ballquery_group_bwd(idx1, dgx1, None, N))
-    sa1_bwd_bound = bound_ms(nbytes(idx1, dgx1, *(
-        t for t in bk.ballquery_group_bwd(idx1, dgx1, None, N) if t is not None)),
-        3.0 * idx1.numel())[0]
-    bout = bk.ballquery_group_bwd(idx2, dgx2, dgf2, 512)
     entry("ballquery_group_bwd", "geoa3_tpu_torch/csrc/ballquery_group.cu",
           "geoa3_tpu/ops/pallas/ballquery_group_kernel.py:224", bwd_err,
           time_ms(lambda: bk.ballquery_group_bwd(idx2, dgx2, dgf2, 512)),
           time_ms(lambda: bk.ballquery_group_bwd_plain(idx2, dgx2, dgf2, 512)),
-          bound_ms(nbytes(idx2, dgx2, dgf2, *bout), 131.0 * idx2.numel()), None,
+          (sa2["bwd_bound"], sa2["bwd_by"]), None,
           "SA2 idx [32,128,64], dgx [32,128,64,3], dgf [32,128,64,128] -> "
-          "dxyz [32,512,3], dcentre [32,128,3], dfeats [32,512,128]; SA1 "
-          f"(cf=0): ms={sa1_bwd_ms:.4f} bound_ms={sa1_bwd_bound:.4f}")
+          "dxyz [32,512,3], dcentre [32,128,3], dfeats [32,512,128] (ten back "
+          f"to back: {sa2['bwd_ten']:.4f}); SA1 (cf=0): ms={sa1['bwd_ms']:.4f} "
+          f"ten={sa1['bwd_ten']:.4f} bound_ms={sa1['bwd_bound']:.4f}")
 
     # --- C-channel scatter -------------------------------------------------
     flat2 = idx2.reshape(B, -1).contiguous()  # S = 8192 into 512 rows
@@ -1574,7 +1585,8 @@ def sa_fused_times(torch, sf, xyz, cen, feats, radius, ns, p_, g_all,
         fwd_proj=kernels_matching(by_kernel, r"project_kernel"),
         split_fwd=time_ms(split_fwd),
         split_ten=ten_ms(split_fwd),
-        split_query=kernels_matching(kernel_ms(torch, split_fwd), r"ballquery_kernel"),
+        split_query=kernels_matching(kernel_ms(torch, split_fwd),
+                                     r"ballquery_(kernel|fwd)"),
         split_bwd=time_ms(split_bwd),
         fwd_plain=time_ms(lambda: sf.sa_query_group_mlp_plain(
             xyz, cen, feats, radius, ns, p_), iters=5),
@@ -1650,14 +1662,18 @@ def sa_variant_entry(define: str):
     return wait
 
 
-def sa_fused_times_phase(torch, variant=None) -> dict:
-    """`--sa-fused-times`: the checkout's row 17 kernels timed at MSG SA2's
-    three scales and SA1 with normals (`sa_fused_inputs`), as phase 2 times
-    them, with no check run; with `variant`, the backward without its
-    scatter epilogue too."""
-    from geoa3_tpu_torch.ops.kernels import sa_fused_kernel as sf
+def sa_fused_times_phase(torch) -> dict:
+    """`--times 17`: the checkout's row 17 kernels timed at MSG SA2's three
+    scales and SA1 with normals (`sa_fused_inputs`), as phase 2 times them,
+    with no check run; for this checkout (not with `--tree`, whose source
+    may have no such variant) the backward built without its scatter
+    epilogue too, built beside the kernels."""
+    from geoa3_tpu_torch.ops.kernels import _build, sa_fused_kernel as sf
 
     print(f"row 17 times of {sf.__file__}")
+    variant = sa_variant_entry("GEOA3_SA_BWD_NO_SCATTER") if CODE == REPO else None
+    _build.lib()
+    variant = variant and variant()
     gen = torch.Generator(device="cuda").manual_seed(31)
     out = {}
     for label, (x_, c_, f_, r_, ns_, p_) in sa_fused_inputs(torch).items():
@@ -1666,6 +1682,96 @@ def sa_fused_times_phase(torch, variant=None) -> dict:
         out[label] = sa_fused_times(torch, sf, x_, c_, f_, r_, ns_, p_, g_all,
                                     variant)
         print(f"  sa_fused[{label}]: " + sa_fused_times_line(out[label]), flush=True)
+    return out
+
+
+def ballquery_inputs(torch, pc, fps_idx, f1) -> dict:
+    """Row 15's path shapes, label -> (xyz, centres, feats, radius, ns,
+    index_only): PointNet++ SSG SA1 and SA2, MSG SA1's three scales (the
+    fused query + grouping) and the uniform loss's five index-only queries
+    at n = 1024 (51 seeds by FPS; ns = int(n * 4p), r = sqrt(4p) for
+    p = 0.004 .. 0.012, `losses.uniform_loss`). `fps_idx` picks SA1's 512
+    centres from `pc`; `f1` are SA2's 128 features."""
+    from geoa3_tpu_torch import ops
+    from geoa3_tpu_torch.ops.kernels import fps_kernel as fk
+
+    c1 = ops.gather_points(pc, fps_idx).contiguous()
+    c2 = ops.gather_points(c1, fk.fps(c1, 128)).contiguous()
+    seeds = ops.gather_points(pc, fk.fps(pc, int(N * 0.05))).contiguous()
+    out = {"SSG SA1 cf=0 r=0.2": (pc, c1, None, 0.2, 64, False),
+           "SSG SA2 cf=128 r=0.4": (c1, c2, f1, 0.4, 64, False)}
+    for r_, ns_ in ((0.1, 16), (0.2, 32), (0.4, 128)):
+        out[f"MSG SA1 ns={ns_} r={r_}"] = (pc, c1, None, r_, ns_, False)
+    for p_ in (0.004, 0.006, 0.008, 0.010, 0.012):
+        ns_ = int(N * 4 * p_)
+        out[f"uniform loss ns={ns_}"] = (pc, seeds, None, math.sqrt(4 * p_), ns_, True)
+    return out
+
+
+def ballquery_time(torch, bk, x_, c_, f_, r_, ns_, index_only) -> dict:
+    """One row-15 shape: the forward (index-only where `index_only`) and
+    the backward, each one call (`time_ms`) and ten back to back
+    (`ten_ms`), the plain versions' one-call times, and the bounds for the
+    run's data. Forward: every input read and output written once; 10
+    operations a distance test, a full ball's walk ending at its last
+    slot's point, an under-full ball's reading the whole cloud. Backward:
+    idx, dgx and dgf read once, dxyz, dcentre and dfeats written once, one
+    add a scattered entry."""
+    fwd = ((lambda: bk.ball_query(x_, c_, r_, ns_)) if index_only else
+           (lambda: bk.ballquery_group_fwd(x_, c_, f_, r_, ns_)))
+    plain = ((lambda: bk.ball_query_plain(x_, c_, r_, ns_)) if index_only else
+             (lambda: bk.ballquery_group_plain(x_, c_, f_, r_, ns_)))
+    got = fwd()
+    idx_ = got if index_only else got[0]
+    hits = (bk.pairwise_sqdist(c_, x_) < bk._r2(r_)).sum(-1)
+    scanned = torch.where(hits >= ns_, idx_[..., -1].long() + 1,
+                          torch.full_like(hits, x_.shape[1])).sum().item()
+    outs = [idx_] if index_only else [t for t in got if t is not None]
+    fb, fby = bound_ms(nbytes(x_, c_, *outs) + (nbytes(f_) if f_ is not None
+                                                and not index_only else 0),
+                       10.0 * scanned)
+    r = {"fwd_ms": time_ms(fwd), "fwd_ten": ten_ms(fwd), "fwd_plain": time_ms(plain),
+         "fwd_bound": fb, "fwd_by": fby}
+    if index_only:
+        return r
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    dgx = torch.randn(*got[1].shape, device="cuda", generator=gen)
+    dgf = (torch.randn(*got[2].shape, device="cuda", generator=gen)
+           if got[2] is not None else None)
+    n_ = x_.shape[1]
+    bwd = lambda: bk.ballquery_group_bwd(idx_, dgx, dgf, n_)  # noqa: E731
+    cf = 0 if dgf is None else dgf.shape[-1]
+    bb, bby = bound_ms(nbytes(idx_, dgx, *[t for t in bwd() if t is not None])
+                       + (nbytes(dgf) if cf else 0), (3.0 + cf) * idx_.numel())
+    r.update(bwd_ms=time_ms(bwd), bwd_ten=ten_ms(bwd),
+             bwd_plain=time_ms(lambda: bk.ballquery_group_bwd_plain(idx_, dgx, dgf, n_)),
+             bwd_bound=bb, bwd_by=bby)
+    return r
+
+
+def ballquery_times_phase(torch) -> dict:
+    """`--times 15`: the checkout's row 15 timed at its path shapes
+    (`ballquery_inputs`), with no check run."""
+    from geoa3_tpu_torch.ops.kernels import _build, ballquery_group_kernel as bk
+    from geoa3_tpu_torch.ops.kernels import fps_kernel as fk
+
+    print(f"row 15 times of {bk.__file__}")
+    _build.lib()
+    pc, _, _ = make_batch(torch, B, N, seed=3)
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    shapes = ballquery_inputs(torch, pc, fk.fps(pc, 512),
+                              torch.randn(B, 512, 128, device="cuda", generator=gen))
+    out = {}
+    for label, args_ in shapes.items():
+        out[label] = r_ = ballquery_time(torch, bk, *args_)
+        line = (f"  {label}: fwd ms={r_['fwd_ms']:.4f} ten={r_['fwd_ten']:.4f} "
+                f"plain={r_['fwd_plain']:.4f} bound={r_['fwd_bound']:.4f} "
+                f"({r_['fwd_by']})")
+        if "bwd_ms" in r_:
+            line += (f"; bwd ms={r_['bwd_ms']:.4f} ten={r_['bwd_ten']:.4f} "
+                     f"plain={r_['bwd_plain']:.4f} bound={r_['bwd_bound']:.4f} "
+                     f"({r_['bwd_by']})")
+        print(line, flush=True)
     return out
 
 
@@ -1710,7 +1816,7 @@ def fps_time(torch, fk, x_, m_, st_, skip_) -> dict:
 
 
 def fps_times_phase(torch) -> dict:
-    """`--fps-times`: the checkout's FPS timed at its six path shapes
+    """`--times 12`: the checkout's FPS timed at its six path shapes
     (`fps_inputs`), with no check run."""
     from geoa3_tpu_torch.ops.kernels import _build, fps_kernel as fk
 
@@ -2671,6 +2777,12 @@ def cpu_agreement(torch) -> None:
         _fail("the attack on the card disagrees with the CPU run")
 
 
+# `--times ROW`: the rows with a timing mode, each phase building the
+# kernels itself and timing them at the row's path shapes
+TIMES = {"12": fps_times_phase, "15": ballquery_times_phase,
+         "16": group_mlp_times_phase, "17": sa_fused_times_phase}
+
+
 def main() -> int:
     import argparse
 
@@ -2679,26 +2791,16 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--kernels-only", action="store_true",
                     help="stop after phase 2 (a short check of a new kernel)")
-    ap.add_argument("--group-mlp-times", action="store_true",
-                    help="only time the grouped-MLP kernels at the seven "
-                         "PointNet++ shapes, on phase 2's inputs, no check")
-    ap.add_argument("--sa-fused-times", action="store_true",
-                    help="only time the whole-scale kernels at MSG SA2's three "
-                         "scales and SA1 with normals, on phase 2's inputs, "
+    ap.add_argument("--times", metavar="ROW", choices=sorted(TIMES),
+                    help="only build the kernels and time row ROW's kernels "
+                         f"({', '.join(sorted(TIMES))}) at its path shapes, "
                          "no check")
-    ap.add_argument("--fps-times", action="store_true",
-                    help="only time farthest-point sampling at its six path "
-                         "shapes, no check")
     ap.add_argument("--tree", metavar="DIR",
-                    help="with --group-mlp-times, --sa-fused-times or "
-                         "--fps-times: the checkout whose kernels run (e.g. a "
-                         "`git archive` of another commit), timed at the "
-                         "victims' shapes only")
+                    help="with --times: the checkout whose kernels run (e.g. "
+                         "a `git archive` of another commit)")
     args = ap.parse_args()
-    if args.tree and not (args.group_mlp_times or args.sa_fused_times
-                          or args.fps_times):
-        _fail("--tree goes with --group-mlp-times, --sa-fused-times or "
-              "--fps-times")
+    if args.tree and not args.times:
+        _fail("--tree goes with --times")
 
     if not torch.cuda.is_available():
         _fail("torch.cuda.is_available() is false: this script needs a CUDA card")
@@ -2713,30 +2815,19 @@ def main() -> int:
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"python {sys.version.split()[0]}")
 
+    if args.times:
+        print(json.dumps({"card": smi, "tree": str(CODE), "row": args.times,
+                          "shapes": TIMES[args.times](torch)}))
+        return 0
+
     from geoa3_tpu_torch.ops.kernels import _build
 
     t0 = time.time()
-    # this checkout's backward without its scatter epilogue, built beside
-    # the kernels (a parent tree's source has no such variant)
-    variant = (sa_variant_entry("GEOA3_SA_BWD_NO_SCATTER")
-               if args.sa_fused_times and CODE == REPO else None)
     so = _build.lib()
     print(f"phase 1: built {so} in {time.time() - t0:.1f} s")
 
     def phase(title):
         print(f"{title} (at {time.time() - t0:.1f} s)")
-
-    if args.group_mlp_times:
-        print(json.dumps({"card": smi, "tree": str(CODE), "shapes":
-                          group_mlp_times_phase(torch, CODE == REPO)}))
-        return 0
-    if args.sa_fused_times:
-        print(json.dumps({"card": smi, "tree": str(CODE), "shapes":
-                          sa_fused_times_phase(torch, variant and variant())}))
-        return 0
-    if args.fps_times:
-        print(json.dumps({"card": smi, "tree": str(CODE), "shapes": fps_times_phase(torch)}))
-        return 0
 
     phase("phase 2: kernels against their plain versions")
     kernels = kernel_checks(torch) + ssg_kernel_checks(torch)

@@ -72,7 +72,8 @@ SIGNATURES = {
     ],
     # xyz, centres, b, n, m, ns, r2, idx, stream
     "geoa3_ball_query": [_VP, _VP, _I, _I, _I, _I, _F, _VP, _VP],
-    # idx, dgx, dgf (or null), b, n, m, ns, cf, dxyz, dcentre, dfeats, stream
+    # idx, dgx, dgf (or null), b, n, m, ns, cf, dxyz, dcentre, dfeats (or
+    # null; dxyz and dfeats zeroed by the entry), stream
     "geoa3_ballquery_group_bwd": [
         _VP, _VP, _VP, _I, _I, _I, _I, _I, _VP, _VP, _VP, _VP,
     ],

@@ -13,11 +13,15 @@ select bitwise the same points. The grouped coordinates are [b, m, ns, 3]
 (the TPU's 8-row planes are a layout of that machine).
 
 Bound on the H100: bytes (the gathered feature rows written once are the
-largest term). One warp owns a centre: it walks the points 32 at a time,
-ballots the hits and places each by the popcount of the hits before it. The
-backward does not search again: the forward saved the indices, so it is the
-C-channel scatter (the device kernel of `scatter_add_nc`) over them plus
-dcentre = -sum_s dgx.
+largest term). Forward: a block of 8 warps stages its cloud in shared memory
+as float4 (x, y, z, |x|^2) where it fits (every engine path's n <= 2048; past
+that the walk reads device memory), and one warp a centre walks it 128
+points a round, ballots the hits and places each by the popcount of the
+hits before it; gf is copied by float4s. Backward: one launch (after the
+outputs' memsets), one warp a centre: dcentre = -sum_s dgx by a fixed-order
+shuffle tree, and the scatter over the saved indices, a ball's first hit
+and its padding repeats summed in registers and sent as one row, feature
+rows by float4 atomics.
 
 Limit: nsample <= 1536 (a block keeps 8 index rows in 48 KB of shared
 memory).
@@ -124,9 +128,10 @@ def ballquery_group_bwd(idx, dgx, dgf, n):
     if cf:
         _build.check_cuda(dgf, "dgf", torch.float32, (b, m, ns, cf))
     dev = idx.device
-    dxyz = torch.zeros(b, n, 3, dtype=torch.float32, device=dev)
+    # the C entry zeroes dxyz and dfeats
+    dxyz = torch.empty(b, n, 3, dtype=torch.float32, device=dev)
     dcentre = torch.empty(b, m, 3, dtype=torch.float32, device=dev)
-    dfeats = (torch.zeros(b, n, cf, dtype=torch.float32, device=dev)
+    dfeats = (torch.empty(b, n, cf, dtype=torch.float32, device=dev)
               if cf else None)
     _build.launch("geoa3_ballquery_group_bwd", idx, dgx, dgf if cf else None,
                   b, n, m, ns, cf, dxyz, dcentre, dfeats)

@@ -27,8 +27,7 @@ device kernels. Bound: bytes.
 backward of ops.group_points at C channels: one thread per (source row,
 channel), so a warp reads 32 neighbouring cotangents and adds them to 32
 neighbouring addresses of one output row. Bound: bytes (the cotangents read
-once, the output zeroed and written once). The fused ball query's backward
-(csrc/ballquery_group.cu) runs the same device kernel.
+once, the output zeroed and written once).
 """
 
 from __future__ import annotations

@@ -39,9 +39,9 @@ _GROUPS = [
     (re.compile(r"kappa_select_kernel"), "kappa select (port)"),
     (re.compile(r"scatter3_(global_)?kernel"), "scatter_add_3t (port)"),
     (re.compile(r"fps_rounds"), "fps (port)"),
-    (re.compile(r"ballquery_kernel"), "ballquery_group fwd (port)"),
-    (re.compile(r"scatter_nc_kernel|centre_grad_kernel"),
-     "ballquery_group bwd / scatter_add_nc (port)"),
+    (re.compile(r"ballquery_fwd"), "ballquery_group fwd (port)"),
+    (re.compile(r"ballquery_bwd"), "ballquery_group bwd (port)"),
+    (re.compile(r"scatter_nc_kernel"), "scatter_add_nc (port)"),
     (re.compile(r"group_mlp_fwd_(tiles|finish)"), "group_mlp_fwd (port)"),
     (re.compile(r"group_mlp_bwd_tiles"), "group_mlp_bwd (port)"),
     (re.compile(r"kappa_bwd_kernel"), "kappa_bwd (port)"),
