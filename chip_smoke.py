@@ -1404,9 +1404,10 @@ def sa_fused_case(torch, label, xyz, cen, feats, radius, ns, p_, randn,
                   timed=False, patterns=False) -> dict:
     """sa_fused_fwd/_bwd against the plain version at one shape: the ball
     query's indices bit-equal to `ball_query_plain`, pooled against the
-    float32 plain version and, on the first two clouds, pooled and cnt
-    bit-equal to an exact oracle of the kernels' fmaf chains (the tie sets
-    the backward's recompute finds again); the backward against float64
+    float32 plain version and, on the first two clouds, the projections P
+    and Yc, then pooled and cnt, bit-equal to an exact oracle of the
+    kernels' fmaf chains (the tie sets the backward's recompute finds
+    again); the backward against float64
     autograd over every row as in `group_mlp_case` (the kernel's float32
     ReLU pattern on rows with a hidden pre-activation within rounding of 0,
     read from the kernel's own projections P and Yc; the pooled cotangent
@@ -1431,6 +1432,16 @@ def sa_fused_case(torch, label, xyz, cen, feats, radius, ns, p_, randn,
     fwd_err = (pooled - want).abs().max().item()
     check(f"sa_fused_fwd[{label}]", fwd_err, 2e-5 * scale, "pooled")
     b2 = min(2, b_)
+    c1 = p_.w1.shape[1]
+    want_p = fma_chain(torch, xyz[:b2].reshape(-1, 3), p_.w1[:3])
+    if cf:  # the feats chain, added last
+        want_p = want_p + fma_chain(torch, feats[:b2].reshape(-1, cf), p_.w1[3:])
+    require_equal(torch, f"sa_fused_fwd[{label}]", proj[:b2].reshape(-1, c1), want_p,
+                  "P vs the fmaf-chain oracle")
+    require_equal(torch, f"sa_fused_fwd[{label}]", yc[:b2].reshape(-1, c1),
+                  fma_chain(torch, cen[:b2].reshape(-1, 3), p_.w1[:3]),
+                  "Yc vs the fmaf-chain oracle")
+    del want_p
     a3 = sa_fused_recompute(torch, p_, idx[:b2], proj[:b2], yc[:b2])[2]
     top = a3.amax(dim=2)
     require_equal(torch, f"sa_fused_fwd[{label}]", pooled[:b2], top,
@@ -1520,7 +1531,17 @@ def sa_fused_times(torch, sf, xyz, cen, feats, radius, ns, p_, g_all,
     each (cnt of them for each (ball, channel) whose maximum is above 0 and
     whose cotangent is not); d2 @ w2t over the rows that carry a cotangent
     (a nonzero layer-2 cotangent in the plain version's graph); one add a
-    scattered entry of dz1 (c1 a carrying row); the two back-projections.
+    scattered entry of dz1 (c1 a carrying row); the back-projections of dP
+    and dYc.
+    The projections' own rows: the device time a call of the projection
+    kernel (P and Yc) and of the back-projection kernel (dxyz, dfeats and
+    dcentres) from the profiler, their bounds for this run's inputs (2 (b n
+    (3 + cf) c1 + b m 3 c1) operations each way; the bytes of their inputs
+    and outputs), their plain versions (the matrix products of
+    `sa_query_group_mlp_plain`'s layer 1, and dP @ W1^T, dYc @ W1x^T) and
+    `torch.matmul` of [b n, 3 + cf] (pre-concatenated) by W1 and of dP [b n,
+    c1] by W1^T, the centres' rows left out (one call and ten back to back;
+    float32, TF32 off).
     `variant`: another build's C entry of the backward (the epilogue-less
     one of `sa_variant_entry`), timed ten back to back in its place."""
     from geoa3_tpu_torch.ops.kernels import (
@@ -1576,13 +1597,34 @@ def sa_fused_times(torch, sf, xyz, cen, feats, radius, ns, p_, g_all,
         return bk.ballquery_group_bwd(idx, dgx, dgf, n_)
 
     by_kernel = kernel_ms(torch, fwd)
+    w1 = p_.w1
+    xf = (torch.cat([xyz, feats], -1) if feats is not None else xyz).reshape(-1, 3 + cf)
+    dp_, dy_ = proj.reshape(-1, c1), yc.reshape(-1, c1)  # dP's, dYc's shapes
+
+    def plain_proj():
+        out = xyz @ w1[:3]
+        return (out + feats @ w1[3:] if feats is not None else out), cen @ w1[:3]
+
+    def plain_bproj():
+        return dp_ @ w1[:3].t(), dp_ @ w1[3:].t(), dy_ @ w1[:3].t()
+
     r_ = dict(
+        proj_ms=kernels_matching(by_kernel, r"(?<!back)project_kernel"),
+        proj_plain=time_ms(plain_proj),
+        proj_lib=time_ms(lambda: torch.matmul(xf, w1)),
+        proj_lib_ten=ten_ms(lambda: torch.matmul(xf, w1)),
+        proj_bound=bound_ms(nbytes(xyz, cen, proj, yc, w1) + fbytes, proj_flops),
+        bproj_ms=kernels_matching(kernel_ms(torch, bwd), r"backproject_kernel"),
+        bproj_plain=time_ms(plain_bproj),
+        bproj_lib=time_ms(lambda: torch.matmul(dp_, w1.t())),
+        bproj_lib_ten=ten_ms(lambda: torch.matmul(dp_, w1.t())),
+        bproj_bound=bound_ms(nbytes(proj, yc, p_.w1t) + 4 * (b_ * n_ * (3 + cf)
+                                                            + b_ * m_ * 3), proj_flops),
         hits=hits, carried=carried,
         fwd_ms=time_ms(fwd),
         fwd_ten=ten_ms(fwd),
         fwd_query=kernels_matching(by_kernel, r"sa_query_kernel"),
         fwd_tiles=kernels_matching(by_kernel, r"sa_fwd_(tiles|finish|kernel)"),
-        fwd_proj=kernels_matching(by_kernel, r"project_kernel"),
         split_fwd=time_ms(split_fwd),
         split_ten=ten_ms(split_fwd),
         split_query=kernels_matching(kernel_ms(torch, split_fwd),
@@ -1601,7 +1643,7 @@ def sa_fused_times(torch, sf, xyz, cen, feats, radius, ns, p_, g_all,
             mlp_flops + 2.0 * (hits * c2 + carried * c2 * c1)
             + 2.0 * (b_ * n_ * c1 * (3 + cf) + b_ * m_ * c1 * 3) + carried * c1),
     )
-    del sgx, sgf, spooled, scnt
+    del sgx, sgf, spooled, scnt, xf
     if variant is not None:
         name = "geoa3_sa_fused_bwd"
         entry, _build._entries[name] = _build._entries[name], variant
@@ -1627,10 +1669,20 @@ def sa_fused_times_line(r_: dict) -> str:
                  f"{(r_['bwd_ten'] - ns_) / r_['bwd_ten']:.3f} of the backward)")
     line += (f"; fwd by kernel (profiler, ms a call): query pass "
              f"{r_['fwd_query']:.4f}, tiles + finish {r_['fwd_tiles']:.4f}, "
-             f"projections {r_['fwd_proj']:.4f}; split pair fwd={r_['split_fwd']:.4f} "
+             f"projections {r_['proj_ms']:.4f}; split pair fwd={r_['split_fwd']:.4f} "
              f"(ten back to back: {r_['split_ten']:.4f}; its query + grouping "
-             f"{r_['split_query']:.4f}) bwd={r_['split_bwd']:.4f}")
+             f"{r_['split_query']:.4f}) bwd={r_['split_bwd']:.4f}; "
+             + projection_line(r_))
     return line
+
+
+def projection_line(r_: dict) -> str:
+    """Row 17's projection and back-projection kernels at one shape."""
+    return "; ".join(
+        f"{what} kernel_ms={r_[k + '_ms']:.4f} bound={r_[k + '_bound'][0]:.4f} "
+        f"({r_[k + '_bound'][1]}) plain={r_[k + '_plain']:.4f} torch.matmul "
+        f"one call={r_[k + '_lib']:.4f} ten={r_[k + '_lib_ten']:.4f}"
+        for what, k in (("projection", "proj"), ("back-projection", "bproj")))
 
 
 def sa_variant_entry(define: str):
@@ -1893,7 +1945,7 @@ def msg_kernel_checks(torch, kernels: list) -> list[dict]:
           head["fwd_plain"], head["fwd_bound"], None,
           "MSG SA2 r=0.8 ns=128: xyz [32,512,3], centres [32,128,3], feats "
           "[32,512,320], (323->128->128->256) -> [32,128,256] (projections, "
-          "query pass, tiles: gather, MLP, pool; four device kernels and a "
+          "query pass, tiles: gather, MLP, pool; three device kernels and a "
           "finishing one where balls are split; ten back to back: "
           f"{head['fwd_ten']:.4f}); split pair "
           f"(ballquery_group + group_mlp) ms={head['split_fwd']:.4f}; "
@@ -1903,7 +1955,7 @@ def msg_kernel_checks(torch, kernels: list) -> list[dict]:
           max(r["bwd_err"] for r in rows.values()), head["bwd_ms"],
           head["bwd_plain"], head["bwd_bound"], None,
           "MSG SA2 r=0.8 ns=128 -> dxyz [32,512,3], dnew_xyz [32,128,3], "
-          "dfeats [32,512,320] (recompute + scatter, two back-projections; "
+          "dfeats [32,512,320] (recompute + scatter, back-projection; "
           f"ten back to back: {head['bwd_ten']:.4f}; bound: what the function "
           "needs on this run's data; plain: autograd through the plain "
           "forward, forward included; max_abs_err against float64 autograd "
@@ -1911,6 +1963,18 @@ def msg_kernel_checks(torch, kernels: list) -> list[dict]:
           "pre-activation is within rounding of 0); split pair "
           f"ms={head['split_bwd']:.4f}; "
           + rest("bwd_ms", "bwd_bound", "split_bwd"))
+    # the projection kernels' own rows, by shape (inside the two entries'
+    # launches: one projection a sa_fused_fwd, one back-projection a
+    # sa_fused_bwd)
+    for k_, key in zip(out[-2:], ("proj", "bproj")):
+        k_["projection" if key == "proj" else "back_projection"] = {
+            lab: {"kernel_ms": rows[lab][key + "_ms"],
+                  "bound_ms": rows[lab][key + "_bound"][0],
+                  "bound_by": rows[lab][key + "_bound"][1],
+                  "plain_ms": rows[lab][key + "_plain"],
+                  "library_ms": rows[lab][key + "_lib"],
+                  "library_ten_ms": rows[lab][key + "_lib_ten"]}
+            for lab in sa_in}
 
     # --- the grouped MLP at MSG's shapes -------------------------------------
     mshapes = {**group_mlp_inputs(torch, "MSG"), **group_mlp_inputs(torch, "wide")}

@@ -16,8 +16,8 @@
 //
 // The TPU kernel ranks hits with a triangular product and gathers with
 // one-hot products in split bf16, having neither a prefix count nor a
-// gather. Here: (a) `project_kernel` makes P and Yc with group_mlp.cuh's
-// float32 tile; (b) `sa_query_kernel` runs every ball query at once, one
+// gather. Here: (a) `project_kernel` makes P and Yc in one launch (below);
+// (b) `sa_query_kernel` runs every ball query at once, one
 // warp a centre, into idx (which the backward reads too); (c)
 // `sa_fwd_tiles` runs tile_loop.cuh's forward (row 16's: persistent
 // blocks, 8x8 register tiles, a cp.async weight ring, the pool by
@@ -35,10 +35,32 @@
 // under-full ball repeats its first hit), and the lanes of a ball's slot
 // sum dYc = -sum_s dz1 by shuffles (a ball split over tiles adds its
 // parts' sums by atomics into a zeroed dYc); (e)
-// `backproject_kernel` maps dP and dYc back once: dxyz = dP @ W1x^T,
-// dfeats = dP @ W1f^T, dcentres = dYc @ W1x^T. The forward's tiles and the
-// backward's recompute share the gather and the loop, so `a3 == pooled` is
-// exact by construction.
+// `backproject_kernel` maps dP and dYc back in one launch: dxyz = dP @
+// W1x^T, dfeats = dP @ W1f^T, dcentres = dYc @ W1x^T. The forward's tiles
+// and the backward's recompute share the gather and the loop, so `a3 ==
+// pooled` is exact by construction.
+//
+// The projections (a, e) are dense products with no gather: a block takes
+// an output tile of BM rows x TQ column quads (4 columns a quad), each of
+// 256 threads TM rows x QT quads in registers (8 x 8 where the layer is
+// wide), each output one fmaf chain from 0, k ascending. The rows' inputs
+// stay row-major in shared memory ([BM][kPK + 4], read 4 k at a time as
+// float4; the padding puts consecutive rows on distinct bank groups) and
+// the weights [kPK][4 TQ] beside them, both streamed in slices of kPK k
+// through a ring of kPStages cp.async stages (16-byte copies where the
+// rows are 16-byte aligned, 4-byte ones else), so the next slices' copies
+// overlap the FMAs and any K fits. The tile's width follows the layer's
+// (32, 16, 8 or 1 quads, the largest whose last column tile is more than
+// half busy), its height keeps 256 threads; the 8 x 8 tiles are built for
+// one block an SM (no register cap: at two they spill and ran ~17% slower
+// on the H100), the others for two. P = (x @ W1x) + (f @ W1f): the
+// feats chain on the ring, the 3-term xyz chain in the epilogue, added
+// last; Yc's tiles (the blocks past P's) run the epilogue alone. The
+// back-projection reads W1's rows as w1t's columns (w1t stays row 16's
+// layout) shifted by one: column quad 0 is (0, x, y, z), so quad 1 + q is
+// dfeats' columns 4q..4q+3 and dfeats is stored by float4 where its rows
+// are 16-byte aligned; dfeats' tiles come first, then 1-quad tiles of dP's
+// rows (dxyz) and of dYc's (dcentres).
 //
 // Bound on the H100: operations. Forward 2 (b n (3 + cf) c1 + b m 3 c1)
 // for the projections plus 2 b m ns (c1 c2 + c2 c3) for layers 2-3; the
@@ -48,12 +70,9 @@
 // outputs) are a few tens of MB at MSG SA2.
 #include "ballquery.cuh"
 #include "common.cuh"
-#include "group_mlp.cuh"
 #include "tile_loop.cuh"
 
 namespace {
-
-using geoa3::Tile;
 
 struct SADims {
   long long rows;  // b * m * ns: the flattened grouped rows
@@ -61,37 +80,244 @@ struct SADims {
   float r2;
 };
 
-// out[row, :c1] = x[row] @ w1[:3] (+ f[row] @ w1[3:]): two fmaf chains
-// (k ascending from 0), added last. x [rows, 3], f [rows, cf].
-template <int R>
-__global__ void __launch_bounds__(Tile<R>::kThreads)
-    project_kernel(const float* __restrict__ x, const float* __restrict__ f,
-                   long long rows, int cf, const float* w1, int c1,
-                   float* __restrict__ out) {
-  constexpr int LD = Tile<R>::LD;
-  extern __shared__ __align__(16) float smem[];
-  const long long row0 = (long long)blockIdx.x * R;
-  const int nrows = (int)(rows - row0 < R ? rows - row0 : R);
-  geoa3::load_input<R>(smem, x, f, row0, nrows, cf);
-  __syncthreads();
-  const int ty = threadIdx.x >> 4, tx = threadIdx.x & 15;
-  float acc[4][4], accf[4][4];
-  for (int j0 = tx * 4; j0 < c1; j0 += 64) {
-    geoa3::gemm_tile<R>(smem, 3, w1, c1, j0, acc);
-    if (cf > 0) {
-      geoa3::gemm_tile<R>(smem + 3 * LD, cf, w1 + (size_t)3 * c1, c1, j0,
-                          accf);
+// ---- The projections and back-projections ------------------------------
+
+constexpr int kPThreads = 256;
+constexpr int kPK = 16;           // k a ring stage
+constexpr int kPLD = kPK + 4;     // floats a staged input row (5 float4s)
+constexpr int kPStages = 3;       // ring depth
+
+// A tile's shape: each of the 256 threads holds TM rows x QT quads (4
+// columns a quad); CG column groups x RG row groups. A warp is 32 / CW row
+// groups x CW column groups, so its A reads cover consecutive rows (on
+// distinct bank groups) and its stores whole 32-byte sectors. A thread's
+// rows are rg + RG i, its quads cg + CG q. MB: blocks an SM the kernels
+// are built for (1 leaves a thread all the registers an 8 x 8 tile wants).
+template <int TM_, int QT_, int CG_, int MB_>
+struct PCfg {
+  static constexpr int TM = TM_, QT = QT_, CG = CG_, MB = MB_;
+  static constexpr int RG = kPThreads / CG;
+  static constexpr int BM = TM * RG;  // rows a tile
+  static constexpr int TQ = QT * CG;  // quads a tile
+  static constexpr int CW = CG < 4 ? CG : 4;
+  static constexpr int kStage = BM * kPLD + kPK * 4 * TQ;  // floats
+};
+using PWide = PCfg<8, 2, 16, 1>;   // 128 rows x 32 quads
+using PMid = PCfg<8, 1, 16, 2>;    // 128 x 16
+using PNarrow = PCfg<8, 1, 8, 2>;  // 256 x 8
+using POne = PCfg<1, 1, 1, 2>;     // 256 x 1
+
+// The quads a tile takes for a layer of nq quads: the largest of 32, 16 and
+// 8 that divides nq or whose last column tile is more than half busy, else
+// 1. Tiles past the layer's end compute on zeros and store nothing.
+int tile_quads(int nq) {
+  const int tq[3] = {32, 16, 8};
+  for (int t : tq)
+    if (nq % t == 0 || nq % t > t / 2) return t;
+  return 1;
+}
+
+// A thread's row and column groups in its tile.
+struct PLane {
+  int rg, cg;
+};
+
+template <class C>
+__device__ __forceinline__ PLane plane() {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  constexpr int WC = C::CG / C::CW;  // warps across the columns
+  PLane t;
+  t.cg = (warp % WC) * C::CW + lane % C::CW;
+  t.rg = (warp / WC) * (32 / C::CW) + lane / C::CW;
+  return t;
+}
+
+#ifndef GEOA3_EMU
+__device__ __forceinline__ void cp_async4(void* smem, const void* gmem) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s),
+               "l"(gmem));
+}
+#endif
+
+// Slice k0 of A [M][lda] (rows row0 .. row0 + BM, k < K) into As
+// [BM][kPLD], zeros outside: 16-byte copies where `vec` (lda, K and A's
+// address multiples of 4), 4-byte ones else.
+template <class C>
+__device__ __forceinline__ void stage_rows(float* As, const float* A,
+                                           long long lda, long long row0,
+                                           long long M, int K, int k0,
+                                           bool vec) {
+  if (vec) {
+    for (int e = threadIdx.x; e < C::BM * (kPK / 4); e += kPThreads) {
+      const int r = e / (kPK / 4), k = k0 + 4 * (e % (kPK / 4));
+      float* d = As + r * kPLD + (k - k0);
+      if (row0 + r < M && k < K)
+        cp_async16(d, A + (row0 + r) * lda + k);
+      else
+        *reinterpret_cast<float4*>(d) = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    }
+  } else {
+    for (int e = threadIdx.x; e < C::BM * kPK; e += kPThreads) {
+      const int r = e / kPK, k = k0 + e % kPK;
+      float* d = As + r * kPLD + (k - k0);
+      if (row0 + r < M && k < K)
+        cp_async4(d, A + (row0 + r) * lda + k);
+      else
+        *d = 0.0f;
+    }
+  }
+}
+
+// acc[i][4q + j] = fmaf(A[row i][k], B[k][quad q, column j], acc) for the
+// slice's nk steps of k, ascending (whole quads of k: the staged zeros past
+// K leave a chain as it is). kFull: nk = kPK, no branch between the steps.
+template <class C, bool kFull>
+__device__ __forceinline__ void proj_fma(const float* As, const float* Bs,
+                                         int nk, const PLane& t,
+                                         float (&acc)[C::TM][4 * C::QT]) {
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
+  for (int k4 = 0; k4 < kPK; k4 += 4) {
+    if (!kFull && k4 >= nk) break;
+    float a[C::TM][4];
 #pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] += accf[i][j];
+    for (int i = 0; i < C::TM; ++i) {
+      const float4 v = *reinterpret_cast<const float4*>(
+          As + (t.rg + C::RG * i) * kPLD + k4);
+      a[i][0] = v.x;
+      a[i][1] = v.y;
+      a[i][2] = v.z;
+      a[i][3] = v.w;
     }
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int r = ty * 4 + i;
-      if (r < nrows)
-        *reinterpret_cast<float4*>(out + (row0 + r) * c1 + j0) =
-            make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
+    for (int kk = 0; kk < 4; ++kk) {
+      float b[4 * C::QT];
+#pragma unroll
+      for (int q = 0; q < C::QT; ++q) {
+        const float4 w = *reinterpret_cast<const float4*>(
+            Bs + (k4 + kk) * 4 * C::TQ + 4 * (t.cg + C::CG * q));
+        b[4 * q] = w.x;
+        b[4 * q + 1] = w.y;
+        b[4 * q + 2] = w.z;
+        b[4 * q + 3] = w.w;
+      }
+#pragma unroll
+      for (int i = 0; i < C::TM; ++i)
+#pragma unroll
+        for (int j = 0; j < 4 * C::QT; ++j)
+          acc[i][j] = fmaf(a[i][kk], b[j], acc[i][j]);
+    }
+  }
+}
+
+// The chains of one tile over K: rows row0 .. of A, weight slices staged by
+// stage_w(Bs, k0) (kPK rows of the tile's 4 TQ columns, zeros outside),
+// through the ring at smem[0 ..). One barrier a slice.
+template <class C, class StageW>
+__device__ __forceinline__ void proj_chains(const float* A, long long lda,
+                                            long long row0, long long M,
+                                            int K, bool vec, StageW stage_w,
+                                            const PLane& t,
+                                            float (&acc)[C::TM][4 * C::QT]) {
+  extern __shared__ __align__(16) float smem[];
+#pragma unroll
+  for (int i = 0; i < C::TM; ++i)
+#pragma unroll
+    for (int j = 0; j < 4 * C::QT; ++j) acc[i][j] = 0.0f;
+  const int slices = (K + kPK - 1) / kPK;
+  auto load = [&](int sl) {
+    float* As = smem + (sl % kPStages) * C::kStage;
+    stage_rows<C>(As, A, lda, row0, M, K, sl * kPK, vec);
+    stage_w(As + C::BM * kPLD, sl * kPK);
+  };
+  for (int sl = 0; sl < kPStages - 1; ++sl) {
+    if (sl < slices) load(sl);
+    cp_async_commit();
+  }
+  for (int sl = 0; sl < slices; ++sl) {
+    cp_async_wait<kPStages - 2>();
+    __syncthreads();  // slice sl is whole; slice sl - 1's stage is free
+    if (sl + kPStages - 1 < slices) load(sl + kPStages - 1);
+    cp_async_commit();
+    const float* As = smem + (sl % kPStages) * C::kStage;
+    const int nk = K - sl * kPK < kPK ? K - sl * kPK : kPK;
+    if (nk == kPK)
+      proj_fma<C, true>(As, As + C::BM * kPLD, nk, t, acc);
+    else
+      proj_fma<C, false>(As, As + C::BM * kPLD, nk, t, acc);
+  }
+}
+
+// P [rows, c1] = (x @ W1x) + (f @ W1f) (x [rows, 3], f [rows, cf]; cf = 0:
+// x @ W1x alone) and Yc [crows, c1] = c @ W1x: the feats chain on the
+// ring, each xyz chain (3 fmaf from 0) in the epilogue, added last. P's
+// tiles first (column tiles fastest), then Yc's.
+template <class C>
+__global__ void __launch_bounds__(kPThreads, C::MB)
+    project_kernel(const float* __restrict__ x, const float* __restrict__ f,
+                   long long rows, int cf, const float* __restrict__ c,
+                   long long crows, const float* __restrict__ w1, int c1,
+                   float* __restrict__ P, float* __restrict__ Yc) {
+  extern __shared__ __align__(16) float smem[];
+  constexpr int NC = 4 * C::TQ;
+  const int ct = (c1 / 4 + C::TQ - 1) / C::TQ;
+  const long long ptiles = (rows + C::BM - 1) / C::BM * ct;
+  const bool isP = blockIdx.x < ptiles;
+  const long long tile = isP ? blockIdx.x : blockIdx.x - ptiles;
+  const long long row0 = tile / ct * C::BM;
+  const int col0 = (int)(tile % ct) * NC;
+  const float* in = isP ? x : c;
+  const long long M = isP ? rows : crows;
+  float* out = isP ? P : Yc;
+  const PLane t = plane<C>();
+
+  // the xyz rows [BM][3] and W1x's tile columns [3][NC] past the ring
+  float* xs = smem + kPStages * C::kStage;
+  float* wx = xs + 3 * C::BM;
+  for (int e = threadIdx.x; e < 3 * C::BM; e += kPThreads)
+    xs[e] = row0 * 3 + e < M * 3 ? __ldg(in + row0 * 3 + e) : 0.0f;
+  for (int e = threadIdx.x; e < 3 * NC; e += kPThreads) {
+    const int k = e / NC, col = col0 + e % NC;
+    wx[e] = col < c1 ? __ldg(w1 + (size_t)k * c1 + col) : 0.0f;
+  }
+
+  float acc[C::TM][4 * C::QT];
+  const int K = isP ? cf : 0;
+  const float* wf = w1 + (size_t)3 * c1;
+  proj_chains<C>(
+      f, cf, row0, M, K,
+      cf % 4 == 0 && reinterpret_cast<uintptr_t>(f) % 16 == 0,
+      [&](float* Bs, int k0) {
+        for (int e = threadIdx.x; e < kPK * C::TQ; e += kPThreads) {
+          const int kk = e / C::TQ, col = col0 + 4 * (e % C::TQ);
+          float* d = Bs + kk * NC + (col - col0);
+          if (k0 + kk < K && col < c1)
+            cp_async16(d, wf + (size_t)(k0 + kk) * c1 + col);
+          else
+            *reinterpret_cast<float4*>(d) = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+        }
+      },
+      t, acc);
+  __syncthreads();  // xs and wx (where K = 0 no slice barrier ran)
+#pragma unroll
+  for (int i = 0; i < C::TM; ++i) {
+    const int r = t.rg + C::RG * i;
+    if (row0 + r >= M) continue;
+    const float x0 = xs[3 * r], x1 = xs[3 * r + 1], x2 = xs[3 * r + 2];
+#pragma unroll
+    for (int q = 0; q < C::QT; ++q) {
+      const int u = 4 * (t.cg + C::CG * q);
+      if (col0 + u >= c1) continue;
+      float o[4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        float v = fmaf(x0, wx[u + j], 0.0f);
+        v = fmaf(x1, wx[NC + u + j], v);
+        v = fmaf(x2, wx[2 * NC + u + j], v);
+        o[j] = K > 0 ? __fadd_rn(v, acc[i][4 * q + j]) : v;
+      }
+      *reinterpret_cast<float4*>(out + (row0 + r) * c1 + col0 + u) =
+          make_float4(o[0], o[1], o[2], o[3]);
     }
   }
 }
@@ -394,40 +620,85 @@ __global__ void __launch_bounds__(kThreads, 1)
       });
 }
 
-// dv [rows, c1] @ w1t [c1, c0p], its first `cols` columns (a multiple of
-// 4): columns 0..2 into dx [rows, 3], 3..3+cf into df [rows, cf].
-template <int R>
-__global__ void __launch_bounds__(Tile<R>::kThreads)
-    backproject_kernel(const float* __restrict__ dv, long long rows, int c1,
-                       const float* w1t, int c0p, int cols, int cf,
-                       float* __restrict__ dx, float* __restrict__ df) {
-  constexpr int LD = Tile<R>::LD, T = Tile<R>::kThreads;
-  extern __shared__ __align__(16) float smem[];
-  const long long row0 = (long long)blockIdx.x * R;
-  const int nrows = (int)(rows - row0 < R ? rows - row0 : R);
-  for (int e = threadIdx.x; e < R * c1; e += T) {
-    const int r = e / c1, k = e - r * c1;
-    smem[(size_t)k * LD + r] = r < nrows ? dv[(row0 + r) * c1 + k] : 0.0f;
-  }
-  __syncthreads();
-  const int ty = threadIdx.x >> 4, tx = threadIdx.x & 15;
-  float acc[4][4];
-  for (int jx = tx * 4; jx < cols; jx += 64) {
-    geoa3::gemm_tile<R>(smem, c1, w1t, c0p, jx, acc);
+// The chains of a back-projection tile: rows row0 .. of dv [M, c1] times
+// the columns u0 .. u0 + 4 TQ of W1^T shifted by one (u = 0: zeros; u >= 1:
+// W1's row u - 1, read as w1t's column u - 1 by 4-byte copies, so the
+// quads past quad 0 start on dfeats' quads).
+template <class C>
+__device__ __forceinline__ void backproject_chains(
+    const float* dv, long long row0, long long M, int c1, const float* w1t,
+    int c0p, int u0, const PLane& t, float (&acc)[C::TM][4 * C::QT]) {
+  constexpr int NC = 4 * C::TQ;
+  proj_chains<C>(
+      dv, c1, row0, M, c1, reinterpret_cast<uintptr_t>(dv) % 16 == 0,
+      [&](float* Bs, int k0) {
+        for (int e = threadIdx.x; e < kPK * NC; e += kPThreads) {
+          const int kk = e / NC, u = u0 + e % NC;
+          float* d = Bs + kk * NC + (u - u0);
+          if (k0 + kk < c1 && u >= 1 && u <= c0p)
+            cp_async4(d, w1t + (size_t)(k0 + kk) * c0p + (u - 1));
+          else
+            *d = 0.0f;
+        }
+      },
+      t, acc);
+}
+
+// dfeats [rows, cf] = dv @ W1f^T in tiles of C (cf's quads, column tiles
+// fastest; by float4 where dfeats' rows are 16-byte aligned), then dxyz
+// [rows, 3] = dv @ W1x^T and dcentres [crows, 3] = dyc @ W1x^T in 1-quad
+// tiles (quad 0: (0, x, y, z)). w1t [c1, c0p].
+template <class C>
+__global__ void __launch_bounds__(kPThreads, C::MB)
+    backproject_kernel(const float* __restrict__ dv, long long rows,
+                       const float* __restrict__ dyc, long long crows, int c1,
+                       const float* __restrict__ w1t, int c0p, int cf,
+                       float* __restrict__ dx, float* __restrict__ df,
+                       float* __restrict__ dc) {
+  const int ct = (cf + 4 * C::TQ - 1) / (4 * C::TQ);
+  const long long ftiles = (rows + C::BM - 1) / C::BM * ct;
+  if (blockIdx.x < ftiles) {
+    const PLane t = plane<C>();
+    const long long row0 = blockIdx.x / ct * C::BM;
+    const int q0 = (int)(blockIdx.x % ct) * C::TQ;  // the tile's first quad
+    float acc[C::TM][4 * C::QT];
+    backproject_chains<C>(dv, row0, rows, c1, w1t, c0p, 4 + 4 * q0, t, acc);
+    const bool vec = cf % 4 == 0 && reinterpret_cast<uintptr_t>(df) % 16 == 0;
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int r = ty * 4 + i;
-      if (r >= nrows) continue;
-      const long long row = row0 + r;
+    for (int i = 0; i < C::TM; ++i) {
+      const long long r = row0 + t.rg + C::RG * i;
+      if (r >= rows) continue;
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int c = jx + j;
-        if (c < 3)
-          dx[row * 3 + c] = acc[i][j];
-        else if (c < 3 + cf)
-          df[row * cf + (c - 3)] = acc[i][j];
+      for (int q = 0; q < C::QT; ++q) {
+        const int col = 4 * (q0 + t.cg + C::CG * q);
+        if (col >= cf) continue;
+        float* o = df + r * cf + col;
+        if (vec) {
+          *reinterpret_cast<float4*>(o) = make_float4(
+              acc[i][4 * q], acc[i][4 * q + 1], acc[i][4 * q + 2],
+              acc[i][4 * q + 3]);
+        } else {
+#pragma unroll
+          for (int j = 0; j < 4; ++j)
+            if (col + j < cf) o[j] = acc[i][4 * q + j];
+        }
       }
     }
+    return;
+  }
+  const long long tile = blockIdx.x - ftiles;
+  const long long ptiles = (rows + POne::BM - 1) / POne::BM;
+  const bool isP = tile < ptiles;
+  const long long row0 = (isP ? tile : tile - ptiles) * POne::BM;
+  const long long M = isP ? rows : crows;
+  const PLane t = plane<POne>();
+  float acc[1][4];
+  backproject_chains<POne>(isP ? dv : dyc, row0, M, c1, w1t, c0p, 0, t, acc);
+  if (row0 + t.rg < M) {
+    float* o = (isP ? dx : dc) + (row0 + t.rg) * 3;
+    o[0] = acc[0][1];
+    o[1] = acc[0][2];
+    o[2] = acc[0][3];
   }
 }
 
@@ -437,60 +708,109 @@ cudaError_t allow_smem(Kernel kernel, size_t smem) {
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
 }
 
-template <int R>
+// A projection launch: quads and rows a tile, blocks, shared memory.
+struct ProjPlan {
+  int quads, rows;
+  long long tiles;
+  size_t smem;
+};
+
+// Calls f(C{}) with the tile of a layer of nq > 0 quads (tile_quads).
+template <class F>
+auto with_tile(int nq, F&& f) {
+  switch (tile_quads(nq)) {
+    case 32: return f(PWide{});
+    case 16: return f(PMid{});
+    case 8: return f(PNarrow{});
+  }
+  return f(POne{});
+}
+
+template <class C>
+size_t ring_bytes() {
+  return (size_t)kPStages * C::kStage * sizeof(float);
+}
+
+// P's tiles and Yc's over c1's quads; the ring and the xyz region.
+template <class C>
+ProjPlan project_plan(long long rows, long long crows, int c1) {
+  const long long ct = (c1 / 4 + C::TQ - 1) / C::TQ;
+  return {C::TQ, C::BM,
+          ((rows + C::BM - 1) / C::BM + (crows + C::BM - 1) / C::BM) * ct,
+          ring_bytes<C>() + (size_t)(3 * C::BM + 12 * C::TQ) * sizeof(float)};
+}
+
+// dfeats' tiles over cf's quads (none where cf = 0), then the 1-quad tiles
+// of dxyz and dcentres; the wider of the two rings.
+template <class C>
+ProjPlan backproject_plan(long long rows, long long crows, int cf) {
+  const long long ct = ((cf + 3) / 4 + C::TQ - 1) / C::TQ;
+  const size_t own = ring_bytes<C>(), one = ring_bytes<POne>();
+  return {C::TQ, C::BM,
+          (rows + C::BM - 1) / C::BM * ct + (rows + POne::BM - 1) / POne::BM +
+              (crows + POne::BM - 1) / POne::BM,
+          own > one ? own : one};
+}
+
+ProjPlan project_plan(long long rows, long long crows, int c1) {
+  return with_tile(c1 / 4, [&](auto c) {
+    return project_plan<decltype(c)>(rows, crows, c1);
+  });
+}
+
+ProjPlan backproject_plan(long long rows, long long crows, int cf) {
+  return with_tile(cf > 0 ? (cf + 3) / 4 : 1, [&](auto c) {
+    return backproject_plan<decltype(c)>(rows, crows, cf);
+  });
+}
+
+template <class C>
 int launch_project(const float* x, const float* f, long long rows, int cf,
-                   const float* w1, int c1, float* out, cudaStream_t s) {
-  const size_t smem = (size_t)(3 + cf) * Tile<R>::LD * sizeof(float);
-  cudaError_t e = allow_smem(project_kernel<R>, smem);
+                   const float* c, long long crows, const float* w1, int c1,
+                   float* P, float* Yc, cudaStream_t s) {
+  const ProjPlan p = project_plan<C>(rows, crows, c1);
+  if (p.tiles == 0) return 0;
+  cudaError_t e = allow_smem(project_kernel<C>, p.smem);
   if (e != cudaSuccess) return (int)e;
-  project_kernel<R><<<(unsigned)((rows + R - 1) / R), Tile<R>::kThreads, smem,
-                      s>>>(x, f, rows, cf, w1, c1, out);
+  project_kernel<C><<<(unsigned)p.tiles, kPThreads, p.smem, s>>>(
+      x, f, rows, cf, c, crows, w1, c1, P, Yc);
   return (int)cudaGetLastError();
 }
 
+// P [rows, c1] from x [rows, 3] and f [rows, cf] (null where cf = 0), and
+// Yc [crows, c1] from c [crows, 3]: one launch.
 int project(const float* x, const float* f, long long rows, int cf,
-            const float* w1, int c1, float* out, cudaStream_t s) {
-  if (rows == 0) return 0;
-  const size_t per = (size_t)(3 + cf) * sizeof(float);
-  switch (geoa3::pick_rows(per * Tile<64>::LD, per * Tile<32>::LD,
-                           per * Tile<16>::LD)) {
-    case 64: return launch_project<64>(x, f, rows, cf, w1, c1, out, s);
-    case 32: return launch_project<32>(x, f, rows, cf, w1, c1, out, s);
-    case 16: return launch_project<16>(x, f, rows, cf, w1, c1, out, s);
-  }
-  return (int)cudaErrorInvalidConfiguration;
+            const float* c, long long crows, const float* w1, int c1,
+            float* P, float* Yc, cudaStream_t s) {
+  return with_tile(c1 / 4, [&](auto cfg) {
+    return launch_project<decltype(cfg)>(x, f, rows, cf, c, crows, w1, c1, P,
+                                         Yc, s);
+  });
 }
 
-template <int R>
-int launch_backproject(const float* dv, long long rows, int c1,
-                       const float* w1t, int c0p, int cols, int cf, float* dx,
-                       float* df, cudaStream_t s) {
-  const size_t smem = (size_t)c1 * Tile<R>::LD * sizeof(float);
-  cudaError_t e = allow_smem(backproject_kernel<R>, smem);
+template <class C>
+int launch_backproject(const float* dv, long long rows, const float* dyc,
+                       long long crows, int c1, const float* w1t, int c0p,
+                       int cf, float* dx, float* df, float* dc,
+                       cudaStream_t s) {
+  const ProjPlan p = backproject_plan<C>(rows, crows, cf);
+  if (p.tiles == 0) return 0;
+  cudaError_t e = allow_smem(backproject_kernel<C>, p.smem);
   if (e != cudaSuccess) return (int)e;
-  backproject_kernel<R><<<(unsigned)((rows + R - 1) / R), Tile<R>::kThreads,
-                          smem, s>>>(dv, rows, c1, w1t, c0p, cols, cf, dx, df);
+  backproject_kernel<C><<<(unsigned)p.tiles, kPThreads, p.smem, s>>>(
+      dv, rows, dyc, crows, c1, w1t, c0p, cf, dx, df, dc);
   return (int)cudaGetLastError();
 }
 
-int backproject(const float* dv, long long rows, int c1, const float* w1t,
-                int c0p, int cols, int cf, float* dx, float* df,
-                cudaStream_t s) {
-  if (rows == 0) return 0;
-  const size_t per = (size_t)c1 * sizeof(float);
-  switch (geoa3::pick_rows(per * Tile<64>::LD, per * Tile<32>::LD,
-                           per * Tile<16>::LD)) {
-    case 64:
-      return launch_backproject<64>(dv, rows, c1, w1t, c0p, cols, cf, dx, df,
-                                    s);
-    case 32:
-      return launch_backproject<32>(dv, rows, c1, w1t, c0p, cols, cf, dx, df,
-                                    s);
-    case 16:
-      return launch_backproject<16>(dv, rows, c1, w1t, c0p, cols, cf, dx, df,
-                                    s);
-  }
-  return (int)cudaErrorInvalidConfiguration;
+// dx [rows, 3] and df [rows, cf] (null where cf = 0) from dv [rows, c1],
+// and dc [crows, 3] from dyc [crows, c1], by w1t [c1, c0p]: one launch.
+int backproject(const float* dv, long long rows, const float* dyc,
+                long long crows, int c1, const float* w1t, int c0p, int cf,
+                float* dx, float* df, float* dc, cudaStream_t s) {
+  return with_tile(cf > 0 ? (cf + 3) / 4 : 1, [&](auto cfg) {
+    return launch_backproject<decltype(cfg)>(dv, rows, dyc, crows, c1, w1t,
+                                             c0p, cf, dx, df, dc, s);
+  });
 }
 
 // The tiles, then, where balls are split, the finishing kernel.
@@ -589,9 +909,8 @@ extern "C" int geoa3_sa_fused_fwd(const float* xyz, const float* centres,
   if (!dims_ok(sd) || n <= 0) return (int)cudaErrorInvalidValue;
   if (sd.rows == 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  int e = project(xyz, feats, (long long)b * n, cf, w1, c1, P, s);
-  if (e) return e;
-  e = project(centres, nullptr, (long long)b * m, 0, w1, c1, Yc, s);
+  int e = project(xyz, feats, (long long)b * n, cf, centres, (long long)b * m,
+                  w1, c1, P, Yc, s);
   if (e) return e;
   const long long balls = (long long)b * m;
   sa_query_kernel<<<(unsigned)((balls + kThreads / 32 - 1) / (kThreads / 32)),
@@ -671,9 +990,6 @@ extern "C" int geoa3_sa_fused_bwd(
     }
     if (e) return e;
   }
-  int e = backproject(dP, (long long)b * n, c1, w1t, sd.c0p, sd.c0p, cf, dxyz,
-                      dfeats, s);
-  if (e) return e;
-  return backproject(dYc, (long long)b * m, c1, w1t, sd.c0p, 4, 0, dcentres,
-                     nullptr, s);
+  return backproject(dP, (long long)b * n, dYc, (long long)b * m, c1, w1t,
+                     sd.c0p, cf, dxyz, dfeats, dcentres, s);
 }

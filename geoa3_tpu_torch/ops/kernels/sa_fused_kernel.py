@@ -2,10 +2,10 @@
 and the max over each ball): CUDA kernel wrappers and their plain version.
 
 Replaces geoa3_tpu/ops/pallas/sa_fused_kernel.py:_fwd_kernel and
-:_bwd_kernel (`sa_query_group_mlp`). Source: csrc/sa_fused.cu, with the ball
-query of csrc/ballquery.cuh, the projections' tile of csrc/group_mlp.cuh
-and the tile loop of csrc/tile_loop.cuh (row 16's) for the forward's and
-the backward's layers.
+:_bwd_kernel (`sa_query_group_mlp`). Source: csrc/sa_fused.cu (its own
+projection tiles), with the ball query of csrc/ballquery.cuh and the tile
+loop of csrc/tile_loop.cuh (row 16's) for the forward's and the backward's
+layers.
 
 Layer 1 is linear, so it is projected once a point and once a centre:
 P = xyz @ W1x + feats @ W1f [b, n, c1], Yc = new_xyz @ W1x [b, m, c1], and a
@@ -34,20 +34,21 @@ Bound on the H100: operations (the projections, 2 b m ns (c1 c2 + c2 c3)
 forward; backward the recompute of layers 2-3, dz3 @ w3t over dz3's nonzero
 entries and d2 @ w2t over the rows that carry a cotangent, the
 back-projections). The kernels are float32 (no TF32): the victim's numerics
-stay those of the CPU reference. One launch of `sa_fused_fwd` runs four
-device kernels (the point and centre projections, the ball queries, the
-tiles), and a finishing kernel where balls are split; one of `sa_fused_bwd`
-runs three (the recompute + scatter, then the two back-projections), and a
-memset of dYc where balls are split.
+stay those of the CPU reference. One launch of `sa_fused_fwd` runs three
+device kernels (the point and centre projections together, the ball
+queries, the tiles), and a finishing kernel where balls are split; one of
+`sa_fused_bwd` runs two (the recompute + scatter, then the
+back-projections of dP and dYc together), and a memset of dYc where balls
+are split. The projections stream their input through a ring of k-slices,
+so they take any cf.
 
-Limits: the three widths are multiples of 4; n >= 1; ns is any size. The
-forward's tiles (`fwd_plan`) need (c1 + c2) 64 + 98,368 bytes of shared
-memory at 16 rows, so c1 + c2 <= 2095; the projections' and
-back-projections' 16-row tiles (3 + cf) 80 and c1 80 bytes, so cf <= 2902;
-the backward's plan (`bwd_plan`) takes every shape whose widths are at most
-1024, on 16-row tiles with 8-row ring stages and dz3 as hit bits where
-nothing else fits. Every shape the JAX package's gate admits (widths and cf
-of at most 1024) runs.
+Limits: the three widths are multiples of 4; n >= 1; ns and cf are any
+size. The forward's tiles (`fwd_plan`) need (c1 + c2) 64 + 98,368 bytes of
+shared memory at 16 rows, so c1 + c2 <= 2095; the backward's plan
+(`bwd_plan`) takes every shape whose widths are at most 1024, on 16-row
+tiles with 8-row ring stages and dz3 as hit bits where nothing else fits.
+Every shape the JAX package's gate admits (widths and cf of at most 1024)
+runs.
 """
 
 from __future__ import annotations
@@ -89,9 +90,6 @@ def sa_query_group_mlp_plain(xyz, new_xyz, feats, radius, nsample, p: FoldedMLP)
     return torch.amax(a, dim=2)
 
 
-_PROJ_LD = 20  # csrc group_mlp.cuh Tile<16>::LD: floats a channel at 16 rows
-
-
 def _fwd_smem(widths, rows) -> int:
     """csrc/sa_fused.cu sa_fwd_make's shared memory: a2 and a1 [channel][row],
     the weight ring (16 weight rows a stage, w2's or w3's round, the wider)
@@ -102,22 +100,21 @@ def _fwd_smem(widths, rows) -> int:
 
 
 @lru_cache(maxsize=64)
-def fwd_plan(ns, cf, widths):
+def fwd_plan(ns, widths):
     """(tile rows, parts a ball is split into, shared memory) of the
     forward's tiles as its C entry picks them (tile_loop.cuh pick_fwd at one
     level: the largest of 128, 64 and 32 rows that leaves room for two
     blocks an SM, else the largest of 128 .. 16 that fits one); a ball of
     more rows than the tile is split into ceil(ns / rows) parts. Raises
-    where nothing fits, or where the projections' or back-projections'
-    16-row tiles (csrc/sa_fused.cu project, backproject) do not."""
+    where nothing fits. The tiles gather projected rows, so cf does not
+    enter it (the projections take any cf)."""
     widths = tuple(widths)
-    proj = max(3 + cf, widths[0]) * _PROJ_LD * 4
     found = _pick_fwd(lambda rows, level, limit: (_fwd_smem(widths, rows),), 1)
-    if found is None or proj > _SMEM_MAX:
+    if found is None:
         raise ValueError(
             f"the sa_fused forward's 16-row tiles need "
-            f"{max(_fwd_smem(widths, 16), proj)} bytes of shared memory for "
-            f"cf={cf}, widths {widths}; a block has {_SMEM_MAX}")
+            f"{_fwd_smem(widths, 16)} bytes of shared memory for widths "
+            f"{widths}; a block has {_SMEM_MAX}")
     rows, (smem,) = found
     return rows, (ns + rows - 1) // rows if ns > rows else 1, smem
 
@@ -177,7 +174,7 @@ def _check(xyz, new_xyz, feats, nsample, p: FoldedMLP):
         raise ValueError(f"sa_fused: needs n >= 1 and nsample >= 1, got "
                          f"n={n}, nsample={nsample}")
     # raise where either pass cannot fit
-    fwd_plan(nsample, cf, (c1, c2, c3))
+    fwd_plan(nsample, (c1, c2, c3))
     bwd_plan(nsample, (c1, c2, c3))
     _build.check_cuda(xyz, "xyz", torch.float32, (b, n, 3))
     _build.check_cuda(new_xyz, "new_xyz", torch.float32, (b, m, 3))
@@ -206,7 +203,7 @@ def sa_fused_fwd(xyz, new_xyz, feats, radius, nsample, p: FoldedMLP):
     pooled = torch.empty(b, m, c3, dtype=torch.float32, device=dev)
     cnt = torch.empty(b, m, c3, dtype=torch.int32, device=dev)
     # a split ball's partial maxima and counts, one pair a part
-    parts = fwd_plan(nsample, cf, (c1, c2, c3))[1]
+    parts = fwd_plan(nsample, (c1, c2, c3))[1]
     scratch = (torch.empty(2 * b * m * parts * c3, dtype=torch.int32, device=dev)
                if parts > 1 else None)
     _build.launch("geoa3_sa_fused_fwd", xyz, new_xyz, feats if cf else None,

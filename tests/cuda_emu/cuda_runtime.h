@@ -2,7 +2,7 @@
 // geoa3_tpu_torch/csrc with g++ and run it: one std::thread a CUDA thread,
 // std::barrier for __syncthreads and for the warp shuffles, plain loads for
 // __ldg. It defines GEOA3_EMU, under which a source leaves out its inline
-// PTX: cp.async is the synchronous 16-byte copy below. A kernel's
+// PTX: cp.async is the synchronous 16- or 4-byte copy below. A kernel's
 // `extern __shared__ float smem[]` names the `smem` array below, which each
 // block finds filled with NaN. The test that uses it rewrites each
 // `kernel<<<grid, block, bytes, stream>>>(args)` of the source into an
@@ -176,6 +176,7 @@ alignas(16) float smem[kEmuSmemMax / sizeof(float)];
 }
 
 inline void cp_async16(void* dst, const void* src) { memcpy(dst, src, 16); }
+inline void cp_async4(void* dst, const void* src) { memcpy(dst, src, 4); }
 inline void cp_async_commit() {}
 template <int N>
 void cp_async_wait() {}

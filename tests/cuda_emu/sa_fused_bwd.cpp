@@ -5,8 +5,10 @@
 // features relu(normal) [b, n, cf] and a He-like folded MLP, and a random
 // pooled cotangent g. Holds
 //  - idx bit-equal to a serial ball query in the kernels' rounding order;
-//  - pooled and cnt bit-equal to a serial oracle: P and Yc as two fmaf
-//    chains (x's 3 channels, the features) added, a1 = relu((P[idx] - Yc) +
+//  - the projections P and Yc bit-equal to a serial oracle: two fmaf chains
+//    from 0, k ascending (x's 3 channels, the features), added; Yc the first
+//    alone;
+//  - pooled and cnt bit-equal to a serial oracle: a1 = relu((P[idx] - Yc) +
 //    b1), each later activation one fmaf chain from 0, k ascending, + bias,
 //    ReLU; each ball's maximum and its tie count (the tie sets the
 //    backward's recompute must find again);
@@ -16,13 +18,17 @@
 //    is the ball's maximum and > 0, then through w3 and w2 with the masks
 //    a2 > 0 and a1 > 0, scattered into dP by idx, -summed into dYc, and
 //    projected back by w1;
-// and fails on a write past the end of an output (the forward's idx, pooled
-// and cnt among them).
+//  - the back-projections dxyz, dfeats and dcentres bit-equal to one fmaf
+//    chain an output over the kernel's own dP and dYc (c1 steps from 0, k
+//    ascending, by W1's rows);
+// and fails on a write past the end of an output (the forward's P, Yc, idx,
+// pooled and cnt among them).
 //
 //   sa_fused_bwd b n m ns cf c1 c2 c3 radius seed sms far
 //
-// Prints the forward's and the backward's tile plans, the largest errors
-// and the entries past the tolerance, and exits 1 if any is.
+// Prints the forward's and the backward's tile plans, the projections'
+// plans, the largest errors and the entries past the tolerance, and exits
+// 1 if any is.
 #include "sa_fused_emu.cpp"  // the kernel source, rewritten by the test
 
 #include <algorithm>
@@ -96,8 +102,8 @@ int main(int argc, char** argv) {
   int fR = 0;
   const Plan fp = sa_fwd_plan(d, &fR);
   std::vector<int> scratch(fp.parts > 1 ? 2 * balls * fp.parts * c3 : 0);
-  std::vector<float> P((size_t)b * n * c1), Yc(balls * c1),
-      pooled(balls * c3 + kGuard, kSentinel);
+  std::vector<float> P((size_t)b * n * c1 + kGuard, kSentinel),
+      Yc(balls * c1 + kGuard, kSentinel), pooled(balls * c3 + kGuard, kSentinel);
   std::vector<int> idx(rows + kGuard, (int)kSentinel),
       cnt(balls * c3 + kGuard, (int)kSentinel);
   int err = geoa3_sa_fused_fwd(xyz.data(), cen.data(), cf ? feats.data() : nullptr,
@@ -110,7 +116,8 @@ int main(int argc, char** argv) {
     printf("forward refused: %d\n", err);
     return 1;
   }
-  if (!untouched(idx, rows, "idx") || !untouched(pooled, balls * c3, "pooled") ||
+  if (!untouched(P, (size_t)b * n * c1, "P") || !untouched(Yc, balls * c1, "Yc") ||
+      !untouched(idx, rows, "idx") || !untouched(pooled, balls * c3, "pooled") ||
       !untouched(cnt, balls * c3, "cnt"))
     return 1;
 
@@ -146,6 +153,17 @@ int main(int argc, char** argv) {
     }
   for (size_t g = 0; g < balls; ++g)
     for (int c = 0; c < c1; ++c) oY[g * c1 + c] = chain(&cen[g * 3], 3, w1.data(), c1, c);
+  auto same = [](const char* name, const std::vector<float>& got,
+                 const std::vector<float>& want) {
+    for (size_t i = 0; i < want.size(); ++i)
+      if (memcmp(&got[i], &want[i], 4) != 0) {
+        printf("%s[%zu] got %.9g want %.9g: the projection differs from the oracle\n",
+               name, i, got[i], want[i]);
+        return false;
+      }
+    return true;
+  };
+  if (!same("P", P, oP) || !same("Yc", Yc, oY)) return 1;
   std::vector<float> a1(rows * c1), a2(rows * c2), a3(rows * c3);
   std::vector<float> opool(balls * c3, -1.0f);
   std::vector<int> ocnt(balls * c3, 0);
@@ -214,6 +232,26 @@ int main(int argc, char** argv) {
       !untouched(dxyz, np * 3, "dxyz") || !untouched(dcen, balls * 3, "dcentres") ||
       !untouched(dfeats, np * cf, "dfeats"))
     return 1;
+
+  // the back-projections: one fmaf chain an output over the kernel's own dP
+  // and dYc, c1 steps by W1's rows
+  long long unchained = 0;
+  auto hold_chain = [&](const char* name, const float* got, const float* dv, size_t nrows,
+                        int q0, int nq) {
+    for (size_t r = 0; r < nrows; ++r)
+      for (int q = 0; q < nq; ++q) {
+        const float want = chain(dv + r * c1, c1, w1.data() + (size_t)(q0 + q) * c1, 1, 0);
+        if (memcmp(&got[r * nq + q], &want, 4) != 0) {
+          if (unchained < 3)
+            printf("%s[%zu][%d] got %.9g want the chain's %.9g\n", name, r, q,
+                   got[r * nq + q], want);
+          ++unchained;
+        }
+      }
+  };
+  hold_chain("dxyz", dxyz.data(), dP.data(), np, 0, 3);
+  hold_chain("dfeats", dfeats.data(), dP.data(), np, 3, cf);
+  hold_chain("dcentres", dcen.data(), dYc.data(), balls, 0, 3);
 
   // the float64 backward through the oracle's patterns and tie sets
   std::vector<double> wP(np * c1, 0.0), wY(balls * c1, 0.0);
@@ -290,5 +328,11 @@ int main(int argc, char** argv) {
          carried);
   printf("fwd_rows=%d fwd_slot=%d fwd_parts=%d fwd_tiles=%lld fwd_smem=%zu\n", fR,
          fp.P, fp.parts, fp.tiles, fp.smem);
-  return bad != 0;
+  const ProjPlan pp = project_plan((long long)b * n, (long long)balls, c1),
+                 bp = backproject_plan((long long)b * n, (long long)balls, cf);
+  printf("proj_quads=%d proj_rows=%d proj_tiles=%lld proj_smem=%zu bproj_quads=%d "
+         "bproj_rows=%d bproj_tiles=%lld bproj_smem=%zu unchained=%lld\n",
+         pp.quads, pp.rows, pp.tiles, pp.smem, bp.quads, bp.rows, bp.tiles, bp.smem,
+         unchained);
+  return bad != 0 || unchained != 0;
 }

@@ -175,7 +175,7 @@ def test_balls_the_card_splits_match_pallas_kernel():
     second half padding, whose partials a finishing kernel merges. On the
     CPU the port's plain version, held as the shapes above."""
     widths = (128, 128, 256)
-    assert sf.fwd_plan(96, 320, widths)[:2] == (64, 2)
+    assert sf.fwd_plan(96, widths)[:2] == (64, 2)
     xyz, cen, feats, rng = _scene(85, 256, 16, 320)
     p = _random_mlp(rng, 320, widths)
     tgt = rng.randn(B, 16, widths[-1]).astype(np.float32)
@@ -183,40 +183,55 @@ def test_balls_the_card_splits_match_pallas_kernel():
              _jax(0.8, 96, xyz, cen, feats, p, tgt))
 
 
+def test_features_past_2902_channels_match_the_split_pair():
+    """cf = 3000, past the 2902 channels the projections' old whole-input
+    tile took: the wrapper's plan takes it, and the port's op agrees with
+    the split pair (ball query + grouping, then the grouped MLP) as at cf = 5
+    above. The JAX package's gate stops at cf = 1024, so the split pair is
+    the reference here; the emulated kernel test runs the CUDA source at
+    this cf."""
+    xyz, cen, feats, rng = _scene(86, 128, 16, 3000)
+    p = _random_mlp(rng, 3000, (32, 32, 64))
+    x, c, f = _t(xyz), _t(cen), _t(feats)
+    _, gx, gf = tops.ball_query_group(x, c, f, 0.5, 16)
+    want = tops.group_mlp_maxpool(gx, gf, p)
+    got = tops.sa_query_group_mlp(x, c, f, 0.5, 16, p)
+    assert want.abs().max() > 0
+    torch.testing.assert_close(got, want, rtol=0, atol=1e-5 * want.abs().max().item())
+
+
 def test_shared_memory_check_follows_the_kernels():
     """The wrapper's check takes the forward's plan (csrc/sa_fused.cu
-    sa_fwd_plan: tile_loop.cuh pick_fwd, with the projections' 16-row tiles)
-    and the backward's (sa_bwd_plan): MSG SA2's scales
+    sa_fwd_plan: tile_loop.cuh pick_fwd) and the backward's (sa_bwd_plan):
+    MSG SA2's scales
     and SA1 with normals fit, and so does every shape the JAX package's
     gate admits, up to widths of 1024 and cf = 1024 (the forward on 16-row
     tiles, each ball in ns / 16 parts; the backward on 16-row tiles with
     8-row ring stages and hit bits). No nsample is refused: a ball of 60000
-    rows is 469 parts of 128. The forward refuses c1 + c2 > 2095 and the
-    projections cf > 2902."""
+    rows is 469 parts of 128. The forward refuses c1 + c2 > 2095; the
+    projections stream their input in k-slices, so no cf is refused."""
     # the forward: 64-row tiles (two blocks an SM) past 64 channels at MSG
     # SA2, ns = 128 in two parts; 128-row tiles at SA1 with normals
-    assert sf.fwd_plan(32, 320, (64, 64, 128)) == (128, 1, 90624)
-    assert sf.fwd_plan(64, 320, (128, 128, 256)) == (64, 1, 114944)
-    assert sf.fwd_plan(128, 320, (128, 128, 256)) == (64, 2, 114944)
-    assert sf.fwd_plan(16, 3, (32, 32, 64)) == (128, 1, 45568)
-    assert sf.fwd_plan(32, 3, (64, 64, 128)) == (128, 1, 90624)
-    assert sf.fwd_plan(128, 3, (64, 96, 128)) == (128, 1, 107008)
-    assert sf.fwd_plan(60000, 0, (32, 32, 64)) == (128, 469, 45568)
+    assert sf.fwd_plan(32, (64, 64, 128)) == (128, 1, 90624)
+    assert sf.fwd_plan(64, (128, 128, 256)) == (64, 1, 114944)
+    assert sf.fwd_plan(128, (128, 128, 256)) == (64, 2, 114944)
+    assert sf.fwd_plan(16, (32, 32, 64)) == (128, 1, 45568)
+    assert sf.fwd_plan(32, (64, 64, 128)) == (128, 1, 90624)
+    assert sf.fwd_plan(128, (64, 96, 128)) == (128, 1, 107008)
+    assert sf.fwd_plan(60000, (32, 32, 64)) == (128, 469, 45568)
     assert sf.bwd_plan(60000, (32, 32, 64))[4] <= sf._SMEM_MAX
-    # the limits: 16-row tiles take c1 + c2 <= 2095, the projections cf <= 2902
-    assert sf.fwd_plan(16, 0, (1044, 1048, 64)) == (16, 1, 232256)
+    # the limits: 16-row tiles take c1 + c2 <= 2095; cf does not enter (the
+    # projections take any cf: the cf = 3000 tests here and emulated)
+    assert sf.fwd_plan(16, (1044, 1048, 64)) == (16, 1, 232256)
     with pytest.raises(ValueError, match="shared memory"):
-        sf.fwd_plan(16, 0, (1048, 1048, 64))
-    assert sf.fwd_plan(16, 2902, (32, 32, 64))[0] == 128
-    with pytest.raises(ValueError, match="shared memory"):
-        sf.fwd_plan(16, 2903, (32, 32, 64))
+        sf.fwd_plan(16, (1048, 1048, 64))
     # MSG SA2's scales: 128-row tiles, 32-row ring stages, hit bits at 64+
     assert sf.bwd_plan(32, (64, 64, 128)) == (128, 1, 32, False, 180736)
     assert sf.bwd_plan(64, (128, 128, 256)) == (128, 1, 32, True, 186880)
     assert sf.bwd_plan(128, (128, 128, 256)) == (128, 1, 32, True, 185856)
     widths = (1024, 1024, 1024)
     for ns in (16, 32, 64, 128):
-        assert sf.fwd_plan(ns, 1024, widths) == (16, max(1, ns // 16), 229440)
+        assert sf.fwd_plan(ns, widths) == (16, max(1, ns // 16), 229440)
         rows, parts, depth, sparse, smem = sf.bwd_plan(ns, widths)
         assert (rows, depth, sparse) == (16, 8, True) and smem <= sf._SMEM_MAX
         assert parts == max(1, ns // 16)

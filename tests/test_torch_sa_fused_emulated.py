@@ -2,20 +2,25 @@
 sa_fused.cu), compiled with g++ against tests/cuda_emu/cuda_runtime.h and
 run on the CPU: its forward, then its backward, on the same inputs
 (tests/cuda_emu/sa_fused_bwd.cpp). The forward's ball query pass is held
-bit-equal to a serial one, its tiles' pooled maxima and tie counts to a
-serial fmaf-chain oracle (the tie sets the backward's recompute must find
-again), balls split over tiles merged by the finishing kernel;
-the backward's dP, dYc and the three input cotangents to the backward taken
-in float64 through that oracle's float32 ReLU patterns and tie sets, at 2e-5
-of each output's largest entry. The cases: MSG SA2's three scales at a few
-balls (dz3 on the ring at ns = 32, hit bits at 64 and 128), cf = 0 and 3,
-padded slots, empty and over-full balls, balls split over tiles, and widths
-of 1024 at cf = 1024 (16-row tiles, 8-row ring stages), and the forward's
-own layouts at MSG SA2's widths (64-row tiles): balls of 128 and of 96
-rows in two parts (the second part of a 96-row ball half padding), two
-balls of 24 in a tile's 32-row slots. Each case's tile plans, as the C
-entries pick them, must be the ones the wrapper's `fwd_plan` and
-`bwd_plan` predict. The program fails on a write past the end of an
+bit-equal to a serial one, its projections P and Yc and its tiles' pooled
+maxima and tie counts to a serial fmaf-chain oracle (the tie sets the
+backward's recompute must find again), balls split over tiles merged by the
+finishing kernel; the backward's dP, dYc and the three input cotangents to
+the backward taken in float64 through that oracle's float32 ReLU patterns
+and tie sets, at 2e-5 of each output's largest entry, and the three
+cotangents bit-equal to one fmaf chain an output over the kernel's own dP
+and dYc. The cases: MSG SA2's three scales at a few balls (dz3 on the ring
+at ns = 32, hit bits at 64 and 128), cf = 0, 1, 3 and 5 (feature rows not
+16-byte aligned), padded slots, empty and over-full balls, balls split over
+tiles, widths of 1024 at cf = 1024 (16-row tiles, 8-row ring stages), the
+forward's own layouts at MSG SA2's widths (64-row tiles): balls of 128 and
+of 96 rows in two parts (the second part of a 96-row ball half padding), two
+balls of 24 in a tile's 32-row slots; and the projections' tiles: 32, 16, 8
+and 1 quads, a row count that is no multiple of the tile's, cf = 3000 (past
+the 2902 the projections' old whole-input tile took). Each case's tile
+plans, as the C entries pick them, must be the ones the wrapper's
+`fwd_plan` and `bwd_plan` predict, and the projections' the ones their rule
+gives (`_proj_tile`). The program fails on a write past the end of an
 output.
 
 The emulation runs the kernels' own index arithmetic, barriers, shuffles,
@@ -52,7 +57,27 @@ CASES = {
     "ns=128 in two forward parts (64-row tiles)": (2, 256, 5, 128, 64, (128, 128, 256), 0.8, 3, 0),
     "ns=96 in two forward parts, the second padded": (2, 256, 4, 96, 64, (128, 128, 256), 0.7, 2, 0),
     "ns=24, two balls a 64-row forward tile": (2, 256, 5, 24, 64, (128, 128, 256), 0.5, 2, 0),
+    # the projections' tiles: 32-quad P, 8-quad dfeats, 500 rows
+    "b n = 2 x 250, cf=32": (2, 250, 5, 24, 32, (128, 64, 128), 0.4, 2, 0),
+    "cf=1, c1=32 (unaligned feature rows)": (2, 256, 6, 16, 1, (32, 32, 64), 0.3, 1, 0),
+    "c1=4 (1-quad projection tiles), cf=5, b n = 2 x 250": (2, 250, 4, 16, 5, (4, 8, 8), 0.4, 1, 0),
+    "cf=3000 (past the old projection limit)": (1, 64, 4, 16, 3000, (32, 32, 64), 0.5, 2, 0),
 }
+
+
+def _proj_tile(nq):
+    """csrc/sa_fused.cu tile_quads and the rows of the tile it picks: the
+    largest of 32, 16 and 8 quads that divides a layer's nq quads or leaves
+    its last column tile more than half busy, else 1; 128 rows at 32 and 16
+    quads (PWide, PMid), else 256 (PNarrow, POne)."""
+    for t in (32, 16, 8):
+        if nq % t == 0 or nq % t > t // 2:
+            return t, 128 if t >= 16 else 256
+    return 1, 256
+
+
+def _tiles(rows, tile_rows):
+    return -(-rows // tile_rows)
 
 
 @pytest.fixture(scope="module")
@@ -95,12 +120,24 @@ def test_sa_fused_bwd_source_matches_the_float64_oracle(emulated, case):
     fplan = re.search(r"fwd_rows=(\d+) fwd_slot=(\d+) fwd_parts=(\d+) fwd_tiles=\d+ "
                       r"fwd_smem=(\d+)", out)
     frows, fslot, fparts, fsmem = map(int, fplan.groups())
-    assert (frows, fparts, fsmem) == sf.fwd_plan(ns, cf, widths), out
+    assert (frows, fparts, fsmem) == sf.fwd_plan(ns, widths), out
     if "forward parts" in case:
         assert (frows, fparts) == (64, 2), out
     if "64-row forward tile" in case:
         assert (frows, fslot, fparts) == (64, 32, 1), out
     assert int(re.search(r"carried=(\d+)", out).group(1)) > 0, out
+    # the projections: P and Yc in one launch, dfeats then dxyz and dcentres
+    proj = re.search(r"proj_quads=(\d+) proj_rows=(\d+) proj_tiles=(\d+) .*"
+                     r"bproj_quads=(\d+) bproj_rows=(\d+) bproj_tiles=(\d+) ", out)
+    pq, pr, pt, bq, br, bt = map(int, proj.groups())
+    nq, nf = widths[0] // 4, -(-cf // 4)
+    assert (pq, pr) == _proj_tile(nq), out
+    assert pt == (_tiles(b * n, pr) + _tiles(b * m, pr)) * _tiles(nq, pq), out
+    assert (bq, br) == (_proj_tile(nf) if cf else (1, 256)), out
+    assert bt == (_tiles(b * n, br) * _tiles(nf, bq) + _tiles(b * n, 256)
+                  + _tiles(b * m, 256)), out
+    if case.startswith("MSG SA2"):  # c1 = 64 or 128; cf's 80 quads in 5 tiles
+        assert (pq, bq, _tiles(nf, bq)) == (nq if nq <= 32 else 32, 16, 5), out
     if "split" in case:
         assert parts > 1, out
     if "over-full" in case or "padded" in case or "ns=16" in case:
