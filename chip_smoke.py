@@ -23,7 +23,11 @@ Needs one CUDA card, nvcc and this repository around the script. Phases:
      at widths of 1024, its grouped MLPs at SA1's three scales and at
      GroupAll with 640 features, the grouped MLPs also at GroupAll with 896
      and 1536 features (16-row tiles) and 2048 and 4096 (layer 1's input in
-     slices), and the k-neighbour scatter; FPS at the paths' shapes (the
+     slices), and the k-neighbour scatter; the C-channel scatter at its
+     path shapes (SSG SA1 and SA2 ball indices, a kNN's and
+     three_interpolate's), at C = 1, 5 and 130, on a flat index whose S is
+     not a multiple of the group, on empty balls, every slot into point 0,
+     and with out-of-range indices; FPS at the paths' shapes (the
      vote's [96, 2048] -> 1024 among them), at a ragged n = 1000, at the
      limit n = 14336, at m > n and with skipped points and a fully skipped
      cloud), with the tolerance stated, and time both (CUDA events, warm,
@@ -104,7 +108,9 @@ shapes (ms ten back to back, us a round, the bound). Row 15, the ball
 query + grouping: forward and backward at SSG SA1 and SA2 and MSG SA1's
 three scales, and the index-only query at the uniform loss's five shapes
 (one call and ten back to back, the plain versions' one call, the bounds
-for the run's data).
+for the run's data). Row 13, the C-channel scatter: its four path shapes
+(one call and ten back to back, the plain version, `scatter_add_` and
+`index_add_` one call each, the bound).
 
 Any failed check raises, and the script exits non-zero. It never falls back
 to the CPU: without a CUDA device it exits non-zero before printing results.
@@ -1174,7 +1180,6 @@ def ssg_kernel_checks(torch) -> list[dict]:
           f"without the gathers (required) at {list(bq_cases)}; ball_query "
           f"at {list(index_only)}")
 
-    idx1 = kept["SSG SA1 cf=0 r=0.2"][0]
     idx2, gx2, gf2 = kept["SSG SA2 cf=128 r=0.4"]
     sa1 = ballquery_time(torch, bk, *shapes["SSG SA1 cf=0 r=0.2"])
     sa2 = ballquery_time(torch, bk, *shapes["SSG SA2 cf=128 r=0.4"])
@@ -1221,35 +1226,49 @@ def ssg_kernel_checks(torch) -> list[dict]:
           f"ten={sa1['bwd_ten']:.4f} bound_ms={sa1['bwd_bound']:.4f}")
 
     # --- C-channel scatter -------------------------------------------------
-    flat2 = idx2.reshape(B, -1).contiguous()  # S = 8192 into 512 rows
-    ct2 = dgf2.reshape(B, -1, 128)
-    flat1 = idx1.reshape(B, -1).contiguous()  # S = 32768 into 1024 rows
-    ct1 = randn(B, flat1.shape[1], 128)
+    sc_shapes = scatter_inputs(torch, pc)
+    sa1_idx, sa2_idx = (sc_shapes[k][0] for k in SCATTER_BALLS)
+    outside = sa2_idx.clone()
+    outside[:, ::3, ::5] = 512  # n itself
+    outside[:, 1::3, ::7] = -1
+    outside[:, ::11] = outside[:, ::11, :1]  # repeats of the first index
+    outside[:, ::13, :4] = 10**6  # a group whose first index is outside
+    sc_cases = {
+        **sc_shapes,
+        "SSG SA2 ball idx, C=1": (sa2_idx, 512, 1),
+        "SSG SA2 ball idx, C=5": (sa2_idx, 512, 5),
+        "SSG SA2 ball idx, C=130 (rows not of float4s)": (sa2_idx, 512, 130),
+        "flat S=1000, not a multiple of the group": (
+            torch.randint(0, 300, (B, 1000), device="cuda", generator=gen,
+                          dtype=torch.int32), 300, 128),
+        "empty balls (every other ball into point 0)": (kept["empty balls"][0], 512, 128),
+        "every slot into point 0": (torch.zeros_like(sa2_idx), 512, 128),
+        "out-of-range indices (dropped)": (outside, 512, 128),
+    }
     sc_err = 0.0
-    for label, (i_, c_, n_) in {"S=8192 n=512 C=128": (flat2, ct2, 512),
-                                "S=32768 n=1024 C=128": (flat1, ct1, N),
-                                "C=5": (flat2, ct2[..., :5].contiguous(), 512)}.items():
-        g_ = sk.scatter_add_nc(i_, c_, n_)
-        w_ = sk.scatter_add_nc_plain(i_, c_, n_)
+    for label, (i_, n_, c_) in sc_cases.items():
+        flat_ = i_.reshape(B, -1).contiguous()
+        ct_ = randn(B, flat_.shape[1], c_)
+        # a gather's last dimension, or 64 for the flat call (short last group)
+        g_ = sk.scatter_add_nc(flat_, ct_, n_, i_.shape[-1] if i_.dim() > 2 else 64)
+        w_ = sk.scatter_add_nc_plain(flat_, ct_, n_)
         # float32 sums of the rows that collide (tens to hundreds: ball
-        # neighbourhoods overlap), in atomic order
+        # neighbourhoods overlap; 8192 where every slot is point 0), in
+        # atomic order
         err = (g_ - w_).abs().max().item()
         check(f"scatter_add_nc[{label}]", err, 2e-5 * w_.abs().max().item(), "out")
         sc_err = max(sc_err, err)
-    lib_idx = (flat1.long() + N * torch.arange(B, device="cuda")[:, None]).reshape(-1)
-    lib_ct = ct1.reshape(-1, 128)
-    lib_out = torch.zeros(B * N, 128, device="cuda")
-    sc_out = sk.scatter_add_nc(flat1, ct1, N)
+    gen13 = torch.Generator(device="cuda").manual_seed(13)
+    t1, t2 = (scatter_time(torch, sk, *sc_shapes[k], gen13) for k in SCATTER_BALLS)
     entry("scatter_add_nc", "geoa3_tpu_torch/csrc/scatter.cu",
-          "geoa3_tpu/ops/pallas/scatter_kernel.py:94", sc_err,
-          time_ms(lambda: sk.scatter_add_nc(flat1, ct1, N)),
-          time_ms(lambda: sk.scatter_add_nc_plain(flat1, ct1, N)),
-          bound_ms(nbytes(flat1, ct1, sc_out), 1.0 * ct1.numel()),
-          time_ms(lambda: lib_out.index_add_(0, lib_idx, lib_ct)),
-          "idx [32,32768], ct [32,32768,128] -> [32,1024,128] (library: "
-          "index_add_ on the flattened batch); S=8192 into 512 rows: ms="
-          f"{time_ms(lambda: sk.scatter_add_nc(flat2, ct2, 512)):.4f}")
-    del ct1, lib_ct, lib_out, sc_out
+          "geoa3_tpu/ops/pallas/scatter_kernel.py:94", sc_err, t1["ms"],
+          t1["plain"], (t1["bound"], t1["by"]), t1["index_add_"],
+          "SSG SA1 ball idx [32,512,64] -> [32,1024,128], group 64 (ten back "
+          f"to back: {t1['ten']:.4f}; scatter_add_: {t1['scatter_']:.4f}; "
+          "library: index_add_ on the flattened batch); SSG SA2 [32,128,64] "
+          f"-> 512: ms={t2['ms']:.4f} ten={t2['ten']:.4f} "
+          f"plain={t2['plain']:.4f} index_add_={t2['index_add_']:.4f} "
+          f"bound_ms={t2['bound']:.4f}")
 
     # --- grouped MLP + max-pool, forward and backward ----------------------
     shapes = group_mlp_inputs(torch, "SSG")
@@ -1734,6 +1753,75 @@ def sa_fused_times_phase(torch) -> dict:
         out[label] = sa_fused_times(torch, sf, x_, c_, f_, r_, ns_, p_, g_all,
                                     variant)
         print(f"  sa_fused[{label}]: " + sa_fused_times_line(out[label]), flush=True)
+    return out
+
+
+# row 13's two ball shapes, the first one phase 2's kernel entry
+SCATTER_BALLS = ("SSG SA1 ball idx [32,512,64] -> 1024, C=128",
+                 "SSG SA2 ball idx [32,128,64] -> 512, C=128")
+
+
+def scatter_inputs(torch, pc) -> dict:
+    """Row 13's path shapes, label -> (idx [b, ..., g] int32, rows, C): the
+    backward of `group_points` at SSG SA1's and SA2's ball indices (128
+    channels), of `knn_gather` at the self-kNN's k = 17 (64 channels) and
+    of `three_interpolate` from 1024 points into SA1's 512 centres (128
+    channels, PointNet++'s first feature propagation)."""
+    from geoa3_tpu_torch import ops
+
+    c1 = ops.gather_points(pc, ops.furthest_point_sampling(pc, 512)).contiguous()
+    c2 = ops.gather_points(c1, ops.furthest_point_sampling(c1, 128)).contiguous()
+    sa1, sa2 = SCATTER_BALLS
+    return {sa1: (ops.ball_query(0.2, 64, pc, c1), N, 128),
+            sa2: (ops.ball_query(0.4, 64, c1, c2), 512, 128),
+            f"knn_gather idx [32,1024,{K + 1}] -> 1024, C=64":
+                (ops.knn_points(pc, pc, K + 1).idx, N, 64),
+            "three_interpolate idx [32,1024,3] -> 512, C=128":
+                (ops.three_nn(pc, c1)[1], 512, 128)}
+
+
+def scatter_time(torch, sk, idx, n, c, gen) -> dict:
+    """One row-13 shape: the kernel (grouped by idx's last dimension where
+    the checkout's wrapper takes a group) one call (`time_ms`) and ten back
+    to back (`ten_ms`); its plain version, `scatter_add_` and `index_add_`
+    (on the flattened batch), one call each; and the bound: idx and the
+    cotangents read once, the output written once, one add an entry."""
+    import inspect
+
+    b = idx.shape[0]
+    flat = idx.reshape(b, -1).contiguous()
+    ct = torch.randn(b, flat.shape[1], c, device="cuda", generator=gen)
+    grouped = "group" in inspect.signature(sk.scatter_add_nc).parameters
+    kw = {"group": idx.shape[-1]} if grouped else {}
+    run = lambda: sk.scatter_add_nc(flat, ct, n, **kw)  # noqa: E731
+    lidx = flat.long()
+    sc_idx, sc_out = lidx[..., None].expand(-1, -1, c), torch.zeros(b, n, c, device="cuda")
+    lib_idx = (lidx + n * torch.arange(b, device="cuda")[:, None]).reshape(-1)
+    lib_ct, lib_out = ct.reshape(-1, c), torch.zeros(b * n, c, device="cuda")
+    bound, by = bound_ms(nbytes(flat, ct, run()), 1.0 * ct.numel())
+    return {"ms": time_ms(run), "ten": ten_ms(run),
+            "plain": time_ms(lambda: sk.scatter_add_nc_plain(flat, ct, n)),
+            "scatter_": time_ms(lambda: sc_out.scatter_add_(1, sc_idx, ct)),
+            "index_add_": time_ms(lambda: lib_out.index_add_(0, lib_idx, lib_ct)),
+            "bound": bound, "by": by}
+
+
+def scatter_times_phase(torch) -> dict:
+    """`--times 13`: the checkout's row 13 timed at its path shapes
+    (`scatter_inputs`), with no check run."""
+    from geoa3_tpu_torch.ops.kernels import _build, scatter_kernel as sk
+
+    print(f"row 13 times of {sk.__file__}")
+    _build.lib()
+    pc, _, _ = make_batch(torch, B, N, seed=3)
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    out = {}
+    for label, (idx, n, c) in scatter_inputs(torch, pc).items():
+        out[label] = r_ = scatter_time(torch, sk, idx, n, c, gen)
+        print(f"  {label}: ms={r_['ms']:.4f} ten={r_['ten']:.4f} "
+              f"plain={r_['plain']:.4f} scatter_={r_['scatter_']:.4f} "
+              f"index_add_={r_['index_add_']:.4f} bound={r_['bound']:.4f} "
+              f"({r_['by']})", flush=True)
     return out
 
 
@@ -2843,8 +2931,9 @@ def cpu_agreement(torch) -> None:
 
 # `--times ROW`: the rows with a timing mode, each phase building the
 # kernels itself and timing them at the row's path shapes
-TIMES = {"12": fps_times_phase, "15": ballquery_times_phase,
-         "16": group_mlp_times_phase, "17": sa_fused_times_phase}
+TIMES = {"12": fps_times_phase, "13": scatter_times_phase,
+         "15": ballquery_times_phase, "16": group_mlp_times_phase,
+         "17": sa_fused_times_phase}
 
 
 def main() -> int:

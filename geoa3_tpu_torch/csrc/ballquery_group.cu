@@ -44,17 +44,18 @@
 // sends its own row: scalar atomics into dxyz from the same lanes (a warp
 // instruction covers ~11 neighbouring rows), and for the features the
 // lanes span the channels, a 128-channel row being one float4 atomicAdd a
-// lane (scalar atomics where cf % 4 != 0). An empty ball is one row into
-// point 0. Indices outside [0, n) are dropped.
+// lane (scalar atomics where cf % 4 != 0; `scatter_rows`, scatter_rows.cuh,
+// which row 13 runs too). An empty ball is one row into point 0. Indices
+// outside [0, n) are dropped.
 #include <stdint.h>
 
 #include "ball_walk.cuh"
 #include "common.cuh"
+#include "scatter_rows.cuh"  // kRows, scatter_rows (shared with row 13)
 
 namespace {
 
-constexpr int kWarps = 8;    // a block: 8 warps, 8 centres (forward)
-constexpr int kRows = 4;     // loads in flight a lane (copies, backward)
+constexpr int kWarps = 8;  // a block: 8 warps, 8 centres (forward)
 
 struct BqPlan {
   bool shared;  // the cloud staged in shared memory
@@ -68,14 +69,6 @@ BqPlan bq_plan(int n, int ns) {
   const size_t cloud = (size_t)n * sizeof(float4);
   if (rows + cloud <= geoa3::kSmemHalf) return {true, rows + cloud};
   return {false, rows};
-}
-
-__device__ __forceinline__ void add_to(float& a, float v) { a += v; }
-__device__ __forceinline__ void add_to(float4& a, const float4& v) {
-  a.x += v.x;
-  a.y += v.y;
-  a.z += v.z;
-  a.w += v.w;
 }
 
 // G[s, :] = F[sidx[s], :] for the warp's ns rows of w elements (float4 or
@@ -100,38 +93,6 @@ __device__ __forceinline__ void copy_rows(const T* __restrict__ F,
       const int t = t0 + u * 32 + lane;
       if (t < total) G[t] = v[u];
     }
-  }
-}
-
-// out[I[s], :] += D[s, :] for one ball's ns rows of w elements (float4 or
-// float): the lanes span the row, the slots in turn; the rows of `first`
-// (slot 0 and its repeats) are summed in registers and added once.
-template <class T>
-__device__ __forceinline__ void scatter_rows(const int* __restrict__ I,
-                                             const T* __restrict__ D, int ns,
-                                             int w, int n, int first,
-                                             T* __restrict__ out, int lane) {
-  for (int q = lane; q - lane < w; q += 32) {
-    const bool on = q < w;
-    T acc{};
-    for (int s0 = 0; s0 < ns; s0 += kRows) {
-      int id[kRows];
-      T v[kRows];
-#pragma unroll
-      for (int u = 0; u < kRows; ++u) {
-        const int s = s0 + u;
-        id[u] = s < ns ? __ldg(I + s) : first;
-        v[u] = s < ns && on ? __ldg(D + (size_t)s * w + q) : T{};
-      }
-#pragma unroll
-      for (int u = 0; u < kRows; ++u) {
-        if (id[u] == first)
-          add_to(acc, v[u]);
-        else if (on && id[u] >= 0 && id[u] < n)
-          atomicAdd(out + (size_t)id[u] * w + q, v[u]);
-      }
-    }
-    if (on && first >= 0 && first < n) atomicAdd(out + (size_t)first * w + q, acc);
   }
 }
 

@@ -32,11 +32,21 @@
 //
 // geoa3_scatter_add_nc replaces scatter_kernel.py:_scatter_nc_kernel, the
 // backward of ops.group_points at C channels (the TPU tiles a one-hot product
-// over source chunks). Its device kernel lives in scatter.cuh, one thread per
-// (source row, channel). Bound on the H100: bytes (the cotangents read once,
-// the output zeroed and written once); the atomics resolve in L2.
+// over source chunks), and of every other row gather with C != 3. Bound on
+// the H100: bytes (the cotangents read once, the output zeroed and written
+// once); the adds resolve in L2. The entry zeroes the output on the stream
+// (cudaMemsetAsync) and launches `scatter_nc_rows`: a warp owns a
+// group of g consecutive sources of one cloud (g the gather's last
+// dimension: a ball's ns, a kNN's k, three_interpolate's 3) and runs row
+// 15's `scatter_rows` (scatter_rows.cuh) on it: the lanes span the
+// channels, float4 atomics where C % 4 == 0 and the pointers are 16-byte
+// aligned, scalars otherwise; the group's first index and its repeats (an
+// under-full ball's padding) are summed in registers and added once. S need
+// not be a multiple of g: a cloud's last group is short. A row narrower
+// than a warp leaves lanes idle: two groups a warp at C = 64 ran within 1%
+// of this on the H100 (`chip_smoke.py --times 13`), so a warp owns one.
 #include "common.cuh"
-#include "scatter.cuh"
+#include "scatter_rows.cuh"
 
 namespace {
 
@@ -51,9 +61,9 @@ struct CtStrides {
 __global__ void __launch_bounds__(kSharedThreads)
 scatter3_kernel(const int* __restrict__ idx, const float* __restrict__ ct,
                 CtStrides st, int S, int n, float* __restrict__ out) {
-  extern __shared__ float sums[];  // [n, 3]
+  extern __shared__ float smem[];  // [n, 3] sums
   const int bb = blockIdx.x;
-  for (int j = threadIdx.x; j < 3 * n; j += blockDim.x) sums[j] = 0.0f;
+  for (int j = threadIdx.x; j < 3 * n; j += blockDim.x) smem[j] = 0.0f;
   __syncthreads();
   const int* I = idx + (size_t)bb * S;
   const float* C = ct + bb * st.b;
@@ -61,13 +71,13 @@ scatter3_kernel(const int* __restrict__ idx, const float* __restrict__ ct,
     const int i = I[s];
     if (i < 0 || i >= n) continue;
     const float* c = C + s * st.s;
-    atomicAdd(&sums[3 * i], c[0]);
-    atomicAdd(&sums[3 * i + 1], c[st.c]);
-    atomicAdd(&sums[3 * i + 2], c[2 * st.c]);
+    atomicAdd(&smem[3 * i], c[0]);
+    atomicAdd(&smem[3 * i + 1], c[st.c]);
+    atomicAdd(&smem[3 * i + 2], c[2 * st.c]);
   }
   __syncthreads();
   float* O = out + (size_t)bb * n * 3;
-  for (int j = threadIdx.x; j < 3 * n; j += blockDim.x) O[j] = sums[j];
+  for (int j = threadIdx.x; j < 3 * n; j += blockDim.x) O[j] = smem[j];
 }
 
 __global__ void scatter3_global_kernel(const int* __restrict__ idx,
@@ -111,6 +121,39 @@ cudaError_t launch_scatter3(const int* idx, const float* ct, CtStrides st,
   return cudaGetLastError();
 }
 
+constexpr int kNcThreads = 256;
+
+// float4 rows where C allows and ct and out are 16-byte aligned
+bool nc_vec(int C, bool aligned) { return C % 4 == 0 && aligned; }
+
+// out[b, idx[b, s], :] += ct[b, s, :] (rows of w elements of T): warp t
+// owns sources [s0, s0 + g) of cloud t / groups, cut at S.
+template <class T>
+__global__ void __launch_bounds__(kNcThreads)
+    scatter_nc_rows(const int* __restrict__ idx, const T* __restrict__ ct,
+                    int S, int n, int w, int g, long long warps,
+                    T* __restrict__ out) {
+  const long long warp = ((long long)blockIdx.x * kNcThreads + threadIdx.x) / 32;
+  if (warp >= warps) return;
+  const int groups = (S + g - 1) / g;  // a cloud's groups
+  const long long bb = warp / groups;
+  const int s0 = (int)(warp - bb * groups) * g;
+  const int len = S - s0 < g ? S - s0 : g;
+  const int* I = idx + (size_t)bb * S + s0;
+  scatter_rows(I, ct + ((size_t)bb * S + s0) * w, len, w, n, __ldg(I),
+               out + (size_t)bb * n * w, threadIdx.x & 31);
+}
+
+template <class T>
+cudaError_t launch_nc(const int* idx, const T* ct, int b, int S, int n, int w,
+                      int g, T* out, cudaStream_t stream) {
+  const long long warps = (long long)b * ((S + g - 1) / g);
+  const long long blocks = (warps * 32 + kNcThreads - 1) / kNcThreads;
+  scatter_nc_rows<<<(unsigned)blocks, kNcThreads, 0, stream>>>(
+      idx, ct, S, n, w, g, warps, out);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 // idx [b, S], ct [b, S, 3] read at element strides (sb, ss, sc) -> out
@@ -131,9 +174,18 @@ extern "C" int geoa3_scatter_add_3(const int* idx, const float* ct, int b,
                               out, static_cast<cudaStream_t>(stream));
 }
 
+// idx [b, S], ct [b, S, C] contiguous -> out [b, n, C], zeroed here; g
+// (>= 1) the sources a warp owns.
 extern "C" int geoa3_scatter_add_nc(const int* idx, const float* ct, int b,
-                                    int S, int n, int C, float* out,
+                                    int S, int n, int C, int g, float* out,
                                     void* stream) {
-  return (int)geoa3_launch_scatter_nc(idx, ct, b, S, n, C, out,
-                                      static_cast<cudaStream_t>(stream));
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (g < 1) return (int)cudaErrorInvalidValue;
+  const cudaError_t e =
+      cudaMemsetAsync(out, 0, (size_t)b * n * C * sizeof(float), s);
+  if (e != cudaSuccess || b == 0 || S == 0 || n == 0 || C == 0) return (int)e;
+  if (nc_vec(C, (((uintptr_t)ct | (uintptr_t)out) & 15) == 0))
+    return (int)launch_nc(idx, reinterpret_cast<const float4*>(ct), b, S, n,
+                          C / 4, g, reinterpret_cast<float4*>(out), s);
+  return (int)launch_nc(idx, ct, b, S, n, C, g, out, s);
 }

@@ -49,8 +49,9 @@ SIGNATURES = {
     "geoa3_scatter_add_3t": [_VP, _VP, _I, _I, _I, _LL, _LL, _LL, _VP, _VP],
     # idx, ct, b, n, k, m, out, stream
     "geoa3_scatter_add_3": [_VP, _VP, _I, _I, _I, _I, _VP, _VP],
-    # idx, ct, b, S, n, C, out, stream
-    "geoa3_scatter_add_nc": [_VP, _VP, _I, _I, _I, _I, _VP, _VP],
+    # idx, ct, b, S, n, C, g (sources a team owns), out (zeroed by the
+    # entry), stream
+    "geoa3_scatter_add_nc": [_VP, _VP, _I, _I, _I, _I, _I, _VP, _VP],
     # xyz, centres, feats (or null), w1, b1, w2, b2, w3, b3, b, n, m, ns, cf,
     # c1, c2, c3, r2, P, Yc, idx, pooled, cnt, scratch (or null: split
     # balls' partials), stream

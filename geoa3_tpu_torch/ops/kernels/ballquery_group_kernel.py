@@ -35,7 +35,7 @@ import torch
 from geoa3_tpu_torch.ops.distance import pairwise_sqdist
 from geoa3_tpu_torch.ops.kernels import _build
 from geoa3_tpu_torch.ops.kernels.knn_kernel import gather_nbrs
-from geoa3_tpu_torch.ops.kernels.scatter_kernel import scatter_add_nc_plain
+from geoa3_tpu_torch.ops.kernels.scatter_kernel import scatter_add_rows_plain
 
 MAX_NSAMPLE = 1536
 
@@ -75,11 +75,11 @@ def ballquery_group_bwd_plain(idx, dgx, dgf, n):
     """Plain PyTorch version of `ballquery_group_bwd`."""
     b, m, ns = idx.shape
     flat = idx.reshape(b, m * ns)
-    dxyz = scatter_add_nc_plain(flat, dgx.reshape(b, m * ns, 3), n)
+    dxyz = scatter_add_rows_plain(flat, dgx.reshape(b, m * ns, 3), n)
     dcentre = -dgx.sum(dim=2)
     dfeats = None
     if dgf is not None:
-        dfeats = scatter_add_nc_plain(flat, dgf.reshape(b, m * ns, -1), n)
+        dfeats = scatter_add_rows_plain(flat, dgf.reshape(b, m * ns, -1), n)
     return dxyz, dcentre, dfeats
 
 

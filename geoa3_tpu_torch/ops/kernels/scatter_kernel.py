@@ -24,10 +24,17 @@ are `scatter_add_3t`'s [b, S] rows with S = n * k, so it launches the same
 device kernels. Bound: bytes.
 
 `scatter_add_nc` replaces :_scatter_nc_kernel (`scatter_add_nc_pallas`), the
-backward of ops.group_points at C channels: one thread per (source row,
-channel), so a warp reads 32 neighbouring cotangents and adds them to 32
-neighbouring addresses of one output row. Bound: bytes (the cotangents read
-once, the output zeroed and written once).
+backward of ops.group_points at C channels and of every other row gather
+with C != 3. The C entry zeroes the output on the stream (so it comes from
+torch.empty) and launches one kernel on row 15's `scatter_rows`
+(csrc/scatter_rows.cuh): a warp owns `group` consecutive sources
+of a cloud, its lanes span the channels (float4 atomics where C % 4 == 0
+and the pointers are 16-byte aligned), and the group's first index and its
+repeats are summed in registers and added once, which saves the atomics of
+an under-full ball's padding. `scatter_rows` passes a gather's last
+dimension as the group (a ball's ns, a kNN's k, three_interpolate's 3); a
+flat call takes groups of 1. Bound: bytes (the cotangents read once, the
+output zeroed and written once).
 """
 
 from __future__ import annotations
@@ -88,25 +95,42 @@ def scatter_add_3(idx, ct, m):
     return out
 
 
-def scatter_add_nc_plain(idx, ct, n):
-    """Plain PyTorch version of `scatter_add_nc`."""
+def scatter_add_rows_plain(idx, ct, n):
+    """out[b, idx[b, s]] += ct[b, s] by one `scatter_add_`, for indices in
+    [0, n) only: the plain version of a scatter whose indices are in range
+    by construction (row 15's backward)."""
     c = ct.shape[-1]
     out = ct.new_zeros(ct.shape[0], n, c)
     return out.scatter_add_(1, idx.long()[..., None].expand(-1, -1, c), ct)
 
 
-def scatter_add_nc(idx, ct, n):
+def scatter_add_nc_plain(idx, ct, n):
+    """Plain PyTorch version of `scatter_add_nc` (out-of-range rows dropped,
+    as the kernel and the TPU's one-hot product drop them)."""
+    idx = idx.long()
+    spare = torch.where((idx >= 0) & (idx < n), idx, n)  # a row cut off after
+    return scatter_add_rows_plain(spare, ct, n + 1)[:, :n].contiguous()
+
+
+def scatter_add_nc(idx, ct, n, group=1):
     """idx [b, S] int32, ct [b, S, C] -> [b, n, C] with
-    out[b, idx[b, s]] += ct[b, s]. CPU tensors take the plain version; CUDA
-    tensors launch the kernel."""
+    out[b, idx[b, s]] += ct[b, s]; indices outside [0, n) are dropped.
+    `group` (>= 1): the consecutive sources a warp owns, whose
+    first index and its repeats are summed before they are added; it changes
+    the order of the float32 sums only. The default, 1, merges nothing: a
+    flat call has no gather's last dimension to group by, and no path of the
+    port makes one. CPU tensors take the plain version; CUDA tensors launch
+    the kernel."""
     if not ct.is_cuda:
         return scatter_add_nc_plain(idx, ct, n)
     b, S = idx.shape
     c = ct.shape[-1]
     _build.check_cuda(idx, "idx", torch.int32, (b, S))
     _build.check_cuda(ct, "ct", torch.float32, (b, S, c))
-    out = torch.zeros(b, n, c, dtype=torch.float32, device=ct.device)
-    _build.launch("geoa3_scatter_add_nc", idx, ct, b, S, n, c, out)
+    if group < 1:
+        raise ValueError(f"scatter_add_nc: group must be >= 1, got {group}")
+    out = torch.empty(b, n, c, dtype=torch.float32, device=ct.device)
+    _build.launch("geoa3_scatter_add_nc", idx, ct, b, S, n, c, group, out)
     scatter_add_nc.launches += 1
     return out
 
@@ -114,11 +138,15 @@ def scatter_add_nc(idx, ct, n):
 def scatter_rows(idx, ct, m):
     """The backward of a row gather: idx [b, ...] into m rows, ct [b, ..., c]
     -> [b, m, c]. Coordinates (c == 3) take the 3-channel kernel, as the JAX
-    package's backward chooses (geoa3_tpu/ops/grouping.py:56-77)."""
+    package's backward chooses (geoa3_tpu/ops/grouping.py:56-77); other
+    widths the C-channel kernel, grouped by the gather's last dimension
+    where idx has more than [b, s]."""
     b, c = ct.shape[0], ct.shape[-1]
     flat = idx.reshape(b, -1).to(torch.int32).contiguous()
     ct = ct.reshape(b, -1, c).contiguous()
-    return (scatter_add_3t if c == 3 else scatter_add_nc)(flat, ct, m)
+    if c == 3:
+        return scatter_add_3t(flat, ct, m)
+    return scatter_add_nc(flat, ct, m, idx.shape[-1] if idx.dim() > 2 else 1)
 
 
 scatter_add_3t.launches = 0

@@ -41,7 +41,7 @@ _GROUPS = [
     (re.compile(r"fps_rounds"), "fps (port)"),
     (re.compile(r"ballquery_fwd"), "ballquery_group fwd (port)"),
     (re.compile(r"ballquery_bwd"), "ballquery_group bwd (port)"),
-    (re.compile(r"scatter_nc_kernel"), "scatter_add_nc (port)"),
+    (re.compile(r"scatter_nc_rows"), "scatter_add_nc (port)"),
     (re.compile(r"group_mlp_fwd_(tiles|finish)"), "group_mlp_fwd (port)"),
     (re.compile(r"group_mlp_bwd_tiles"), "group_mlp_bwd (port)"),
     (re.compile(r"kappa_bwd_kernel"), "kappa_bwd (port)"),

@@ -157,8 +157,9 @@ def test_the_launch_rewrite_keeps_every_launch():
 
 
 def test_the_source_includes_neither_shared_walk_nor_scatter():
-    """Row 17 keeps ballquery.cuh's walk and row 13 scatter.cuh's kernel;
-    row 15 runs its own."""
+    """Row 17 keeps ballquery.cuh's walk; row 15 runs its own walk, and the
+    row scatter of scatter_rows.cuh, which row 13 shares (scatter.cuh, the
+    old C-channel kernel, is gone)."""
     src = (CSRC / "ballquery_group.cu").read_text()
     assert '#include "ballquery.cuh"' not in src
     assert '#include "scatter.cuh"' not in src

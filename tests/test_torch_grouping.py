@@ -122,6 +122,38 @@ def test_scatter_add_nc_plain_matches_pallas_kernel():
     assert sk.scatter_add_nc.launches == 0  # CPU tensors never launch
 
 
+# where the out-of-range entries go: label -> (the entries, their value)
+OUTSIDE = {"n itself": (np.s_[:, ::7], 256), "negative": (np.s_[:, 3::11], -1),
+           "far past n": (np.s_[:, 5::9], 10**6), "a whole cloud": (np.s_[1], 256)}
+
+
+@pytest.mark.parametrize("outside", sorted(OUTSIDE))
+def test_scatter_add_nc_drops_out_of_range_rows_as_the_pallas_kernel(outside):
+    """Indices outside [0, n) are dropped by the wrapper (its plain version,
+    on the CPU) as by the Pallas kernel's one-hot product and the CUDA
+    kernel."""
+    from geoa3_tpu.ops.pallas.scatter_kernel import scatter_add_nc_pallas
+
+    rng = np.random.RandomState(len(outside))
+    S, C, n = 500, 16, 256
+    idx = rng.randint(0, 40, (B, S)).astype(np.int32)
+    where, value = OUTSIDE[outside]
+    idx[where] = value
+    ct = rng.randn(B, S, C).astype(np.float32)
+    with pltpu.force_tpu_interpret_mode():
+        want = np.asarray(scatter_add_nc_pallas(jnp.asarray(idx), jnp.asarray(ct), n))
+    got = sk.scatter_add_nc(_t(idx), _t(ct), n)
+    ok = (idx >= 0) & (idx < n)
+    exact = np.zeros((B, n, C))
+    np.add.at(exact, (np.arange(B)[:, None].repeat(S, 1)[ok], idx[ok]),
+              ct[ok].astype(np.float64))
+    np.testing.assert_allclose(got.numpy(), exact, rtol=1e-5, atol=1e-5)
+    # as above: split-bf16 one-hot products
+    np.testing.assert_allclose(got.numpy(), want, rtol=HILO,
+                               atol=16 * HILO * np.abs(ct).max())
+    assert sk.scatter_add_nc.launches == 0
+
+
 # ------------------------------------------------- ball query + grouping ----
 
 
