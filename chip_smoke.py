@@ -89,7 +89,18 @@ Needs one CUDA card, nvcc and this repository around the script. Phases:
      plain versions, then 1 x 20 steps in subsample mode and 1 x 20 steps
      (two phases) in partial-variable mode, each with its launch counts
      checked, its ms/step and its peak device memory;
-  10. print one JSON line listing the kernels, then the result line.
+  10. the defense CLI with its three types (random drop, fixed-count and
+     variance outlier removal) on phase 5's outputs and the PointNet
+     victim, beside 8 synthetic clouds of 2048 points that FPS resamples,
+     each run with its launch counts read from the code; every defended
+     batch against the CPU (kept points, and PointNet's logits at float32's
+     tolerance; the masked forward with TF32 allowed is printed beside it);
+     PointNet's forward timed unmasked and masked; the PointNet++ SSG
+     victim on the variance defense's padded clouds against the shrunken
+     ones; the smoothness CLI, and its point values against the CPU; the
+     attack-set distillation CLI on synthetic shapes; two eval forwards of
+     each victim bit-equal;
+  11. print one JSON line listing the kernels, then the result line.
 
 Every path runs with the kernels' launch counts set to 0 just before and
 read just after, and fails if a kernel it names was not launched; together
@@ -2478,7 +2489,7 @@ def cli_phase(torch, paths) -> dict:
     print(f"  CLI: {total} clouds in {done} batches, 1x{steps} steps, "
           f"{len(mats)} saved ({rate:.2f}%), {secs:.1f} s; outputs and the "
           "stale-file clearing check out")
-    return dict(saved=len(mats), total=total, seconds=secs)
+    return dict(saved=len(mats), total=total, seconds=secs, dir=str(saved))
 
 
 def cli_more_runs(torch, paths) -> dict:
@@ -2929,6 +2940,324 @@ def cpu_agreement(torch) -> None:
         _fail("the attack on the card disagrees with the CPU run")
 
 
+# the defense CLI's three types, with the kernels each launches a batch
+DEFENSE_LAUNCHES = {"rand_drop": {"pool_fwd": 3},
+                    "outliers_fixNum": {"knn": 1, "pool_fwd": 3},
+                    "outliers_variance": {"knn": 1}}
+DENSE_MATS = 8  # synthetic clouds of 2 N points beside phase 5's, so FPS runs
+NEAR = 1e-5  # relative distance to a defense's threshold set aside
+
+
+def defense_dir(torch, cli_dir: Path) -> Path:
+    """build/chip_smoke/defense/Mat: phase 5's adversarial .mat files and
+    DENSE_MATS synthetic clouds of 2 N points, which the defense resamples
+    to N by FPS."""
+    import shutil
+
+    from geoa3_tpu_torch.data import io as gio
+    from geoa3_tpu_torch.data.synthetic import TEN_LABEL_INDEXES
+    from geoa3_tpu_torch.workload import synthetic_batch
+
+    root = REPO / "build" / "chip_smoke" / "defense"
+    shutil.rmtree(root, ignore_errors=True)
+    shutil.copytree(cli_dir / "Mat", root / "Mat")
+    pc, _ = synthetic_batch(DENSE_MATS, 2 * N, seed=7, device="cpu")
+    for i in range(DENSE_MATS):
+        gio.save_adversarial_mat(str(root / "Mat" / f"dense_{i}.mat"), pc[i].numpy(),
+                                 TEN_LABEL_INDEXES[i % 10],
+                                 TEN_LABEL_INDEXES[(i + 1) % 10])
+    return root
+
+
+def defense_batches(torch, mat_dir: Path):
+    """The defense and smoothness CLIs' batches: (clouds [B, n, 3] on the
+    CPU, the number of real clouds)."""
+    from geoa3_tpu_torch.data.modelnet import (
+        DefenseMatDataset,
+        pad_batch,
+        size_batches,
+    )
+
+    ds = DefenseMatDataset(str(mat_dir))
+    pcs = [ds[i][0] for i in range(len(ds))]
+    for chunk in size_batches([pc.shape[0] for pc in pcs], B):
+        yield torch.from_numpy(pad_batch([pcs[i] for i in chunk], B)), len(chunk)
+
+
+def near_cut(dis, keep: int) -> bool:
+    """Whether the fixed-count keep of a cloud cuts between two mean
+    distances within NEAR of each other."""
+    s = np.sort(dis)
+    return bool(s[keep] - s[keep - 1] <= NEAR * s[keep])
+
+
+def near_threshold(dis, alpha: float) -> int:
+    """Points whose mean distance lies within NEAR of the variance
+    defense's threshold (either side of it is right)."""
+    thr = dis.mean() + alpha * dis.std(ddof=1)
+    return int((np.abs(dis - thr) <= NEAR * abs(thr)).sum())
+
+
+def defense_cpu_agreement(torch, mat_dir: Path, model_g, model_c, drop_num,
+                          alpha, knn) -> dict:
+    """Each defended batch on the card against the same batch on the CPU
+    (the kernels' plain versions): FPS from the same starts, the random drop
+    from the same draws, then the kept points (a cloud whose keep is cut
+    within NEAR of a threshold is set aside and counted) and PointNet's
+    logits, within 1e-5 of the largest (float32 sums in other orders move
+    them ~6e-7, TF32 in conv5 ~3e-5)."""
+    from geoa3_tpu_torch import defense as gdef
+    from geoa3_tpu_torch.cli.defense import classify
+    from geoa3_tpu_torch.ops import farthest_points_sample
+    from geoa3_tpu_torch.ops.sampling import random_start
+
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    worst = {t: 0.0 for t in DEFENSE_LAUNCHES}
+    aside = {t: 0 for t in DEFENSE_LAUNCHES}
+    tf32 = 0.0
+    for pc_c, real in defense_batches(torch, mat_dir):
+        pc_g = pc_c.cuda()
+        if pc_c.shape[1] > N:
+            start = random_start(B, pc_c.shape[1], gen, "cuda")
+            pc_g = farthest_points_sample(pc_g, N, start=start)
+            pc_c = farthest_points_sample(pc_c, N, start=start.cpu())
+            if not torch.equal(pc_g.cpu(), pc_c):
+                _fail("defense: FPS on the card picked other points than on the CPU")
+        dis = gdef._mean_knn_dist(pc_c, knn).numpy().astype(np.float64)
+        noise = gdef.random_drop_noise(pc_g, gen)
+        for dtype in DEFENSE_LAUNCHES:
+            if dtype == "rand_drop":
+                res_g = gdef.drop_by_noise(pc_g, noise, drop_num)
+                res_c = gdef.drop_by_noise(pc_c, noise.cpu(), drop_num)
+            else:
+                res_g = gdef.point_removal(pc_g, dtype, drop_num, alpha, knn)
+                res_c = gdef.point_removal(pc_c, dtype, drop_num, alpha, knn)
+            agree = []
+            for b in range(real):
+                same = torch.equal(res_g.pc[b].cpu(), res_c.pc[b])
+                if res_c.keep_mask is not None:
+                    same = same and torch.equal(res_g.keep_mask[b].cpu(),
+                                                res_c.keep_mask[b])
+                if same:
+                    agree.append(b)
+                elif dtype == "outliers_fixNum" and near_cut(dis[b], N - drop_num):
+                    aside[dtype] += 1
+                elif dtype == "outliers_variance" and near_threshold(dis[b], alpha):
+                    aside[dtype] += 1
+                else:
+                    _fail(f"defense {dtype}: cloud {b} keeps other points on "
+                          "the card than on the CPU, away from any threshold")
+            with torch.no_grad():
+                lg = classify(model_g, "PointNet", res_g).cpu()[agree]
+                lc = classify(model_c, "PointNet", res_c)[agree]
+                if dtype == "outliers_variance":
+                    # the same forward with TF32 allowed in cuDNN: what the
+                    # check stands guard against
+                    torch.backends.cudnn.allow_tf32 = True
+                    lt = classify(model_g, "PointNet", res_g).cpu()[agree]
+                    torch.backends.cudnn.allow_tf32 = False
+                    tf32 = max(tf32, (lt - lc).abs().max().item()
+                               / lc.abs().max().item())
+            worst[dtype] = max(worst[dtype], (lg - lc).abs().max().item()
+                               / lc.abs().max().item())
+    for dtype in DEFENSE_LAUNCHES:
+        check(f"defense {dtype}, card vs CPU (PointNet logits, {aside[dtype]} "
+              "clouds set aside at a threshold)", worst[dtype], 1e-5,
+              "rel to max|logit|")
+    print(f"  the masked forward with TF32 in cuDNN: max err {tf32:.3e} rel to "
+          "max|logit| (float32 kernels: "
+          f"{worst['outliers_variance']:.3e})")
+    return dict(max_rel_err=worst, set_aside=aside, tf32_masked_rel_err=tf32)
+
+
+def smoothness_cpu_agreement(torch, mat_dir: Path, k: int) -> dict:
+    """Each point's value on the card against the CPU, within 1e-4 of its
+    cloud's smoothness (the largest value); a point whose two smallest
+    eigenvalues lie within 1e-3 of the largest has no well-defined normal
+    and is set aside and counted. Relative to its own value a point cannot
+    be held so: on a flat stretch a value is ~5e-6, and normals that differ
+    by float32 rounding (~1e-7 rad) move it by ~1e-7 x its offsets (~0.05),
+    so the largest error relative to the point's own value is printed
+    beside, with the points past 1e-4 of it."""
+    from geoa3_tpu_torch.measurement import point_smoothness
+
+    worst, own, past, aside, total = 0.0, 0.0, 0, 0, 0
+    for pc_c, real in defense_batches(torch, mat_dir):
+        v_g, _ = point_smoothness(pc_c.cuda(), k, k)
+        v_c, ev = point_smoothness(pc_c, k, k)
+        v_g, v_c, ev = v_g.cpu()[:real], v_c[:real], ev[:real]
+        ok = (ev[..., 1] - ev[..., 0]) >= 1e-3 * ev[..., 2]
+        aside += int((~ok).sum())
+        total += ok.numel()
+        diff = (v_g - v_c).abs()
+        worst = max(worst, (diff / v_c.amax(-1, keepdim=True))[ok].max().item())
+        rel = torch.where(diff == 0, 0.0, diff / v_c.abs())[ok]
+        own = max(own, rel.max().item())
+        past += int((rel > 1e-4).sum())
+    print(f"  smoothness, card vs CPU: largest error relative to the point's "
+          f"own value {own:.3e} ({past} points past 1e-4 of it)")
+    check(f"smoothness, card vs CPU per point ({aside} of {total} points set "
+          "aside, no well-defined normal)", worst, 1e-4,
+          "rel to the cloud's smoothness")
+    return dict(max_err_rel_cloud=worst, max_err_rel_point=own,
+                points_past_1e4_of_own=past, set_aside=aside, points=total)
+
+
+def pointnet_forward_ms(torch, model, mat_dir: Path) -> dict:
+    """PointNet's forward at [B, N]: unmasked (the fused pool, row 6) and
+    under the variance defense's keep mask (conv, BatchNorm, ReLU and a
+    masked max, as in the JAX model), CUDA events: one call (the host's
+    launches included) and ten back to back behind a spacer (the device's
+    time)."""
+    from geoa3_tpu_torch import defense as gdef
+
+    pc = next(defense_batches(torch, mat_dir))[0].cuda()
+    res = gdef.outliers_variance(pc, 1.1, 2)
+    out = {}
+    with torch.no_grad():
+        for tag, fn in (("unmasked", lambda: model(pc)),
+                        ("masked", lambda: model(res.pc, point_mask=res.keep_mask))):
+            out[f"{tag}_ms"], out[f"{tag}_ten_ms"] = time_ms(fn), ten_ms(fn)
+    print(f"  PointNet forward [{B}, {N}]: unmasked (pool kernel) "
+          f"{out['unmasked_ms']:.4f} ms, ten back to back {out['unmasked_ten_ms']:.4f}; "
+          f"masked (unfused) {out['masked_ms']:.4f}, ten "
+          f"{out['masked_ten_ms']:.4f}")
+    return out
+
+
+def defense_tools_phase(torch, paths, cli_dir: Path) -> dict:
+    """Phase 10: the defense CLI (three types), the smoothness CLI and the
+    attack-set distillation CLI on the card, on phase 5's Mat/ directory
+    and victim plus DENSE_MATS clouds of 2 N points, each with its exact
+    launch counts; the defended batches and the point values against the
+    CPU; the PointNet++ SSG victim's padded-variance logits against the
+    shrunken clouds'; two eval forwards of each victim bit-equal."""
+    from geoa3_tpu_torch import defense as gdef
+    from geoa3_tpu_torch.cli import defense as defense_cli
+    from geoa3_tpu_torch.cli import gen_data_mat as gen_cli
+    from geoa3_tpu_torch.cli import smoothness as smooth_cli
+    from geoa3_tpu_torch.data.synthetic import TEN_LABEL_INDEXES
+    from geoa3_tpu_torch.ops.kernels import KERNELS
+    from geoa3_tpu_torch.workload import random_victim, synthetic_batch
+
+    import scipy.io as sio
+
+    victims = REPO / "build" / "chip_smoke"
+    root = defense_dir(torch, cli_dir)
+    n_files = len(list((root / "Mat").iterdir()))
+    batches = sum(1 for _ in defense_batches(torch, root / "Mat"))
+    dense_batches = -(-DENSE_MATS // B)
+    out: dict = {"clouds": n_files, "batches": batches}
+    drop_num, alpha, knn = 128, 1.1, 2
+    for dtype, per_batch in DEFENSE_LAUNCHES.items():
+        argv = ["--datadir", str(root / "Mat"), "--npoint", str(N),
+                "--defense_type", dtype, "--drop_num", str(drop_num),
+                "--alpha", str(alpha), "--outlier_knn", str(knn),
+                "--checkpoint", str(victims / "victim.pt")]
+        want = dict.fromkeys(KERNELS, 0)
+        want.update({k: v * batches for k, v in per_batch.items()},
+                    fps=dense_batches)
+        t0 = time.time()
+        rates, counts = paths.run(
+            f"defense {dtype}", tuple(k for k, v in want.items() if v),
+            lambda: defense_cli.main(defense_cli.build_parser().parse_args(argv)))
+        secs = time.time() - t0
+        if counts != want:
+            _fail(f"defense {dtype} launches {counts}, expected {want}")
+        if not all(np.isfinite(v) for v in rates.values()) or (
+                dtype != "outliers_variance" and rates["avg_drop_point"] != drop_num):
+            _fail(f"defense {dtype}: rates {rates}")
+        print(f"  defense {dtype}: {batches} batches, {secs:.2f} s, {rates}")
+        out[dtype] = dict(seconds=secs, **rates)
+    lines = (root / "defense_result.txt").read_text().splitlines()
+    if len(lines) != 3:
+        _fail(f"defense_result.txt holds {len(lines)} lines, not 3")
+
+    model_c, _ = random_victim("PointNet", seed=0, device="cpu")
+    model_g, _ = random_victim("PointNet", seed=0)
+    model_c.requires_grad_(False)
+    model_g.requires_grad_(False)
+    out["card_vs_cpu"] = defense_cpu_agreement(torch, root / "Mat", model_g, model_c,
+                                               drop_num, alpha, knn)
+    out["pointnet_forward"] = pointnet_forward_ms(torch, model_g, root / "Mat")
+
+    # PointNet++ SSG takes the variance defense's padded cloud as it is
+    ssg, _ = random_victim("PointNetPP", seed=0)
+    ssg.requires_grad_(False)
+    pc = next(defense_batches(torch, root / "Mat"))[0].cuda()
+    res = gdef.outliers_variance(pc, alpha, knn)
+    worst = 0.0
+    with torch.no_grad():
+        padded = ssg(res.pc)
+        for b in range(B):
+            kept = int(res.keep_mask[b].sum())
+            shrunk = ssg(res.pc[b:b + 1, :kept])[0]
+            err = ((padded[b] - shrunk).abs() - 1e-4 * shrunk.abs()).max().item()
+            worst = max(worst, err)
+    check("SSG on the padded variance defense vs the shrunken clouds (card)",
+          worst, 1e-4, "|diff| - 1e-4 |shrunk|")
+    out["ssg_padded_vs_shrunk"] = worst
+
+    k = 16
+    t0 = time.time()
+    want = dict.fromkeys(KERNELS, 0)
+    want["knn"] = 2 * batches
+    avg, counts = paths.run(
+        "smoothness", ("knn",),
+        lambda: smooth_cli.main(smooth_cli.build_parser().parse_args(
+            ["--datadir", str(root), "--k", str(k), "--k2", str(k)])))
+    secs = time.time() - t0
+    if counts != want:
+        _fail(f"smoothness launches {counts}, expected {want}")
+    vals = sio.loadmat(root / "metric" / f"k{k}.mat")["smoothness"]
+    if vals.shape != (1, n_files) or not (np.isfinite(vals).all()
+                                          and (vals > 0).all()):
+        _fail(f"smoothness: k{k}.mat holds {vals.shape} values for {n_files} clouds")
+    print(f"  smoothness: {n_files} clouds, {secs:.2f} s, avg {avg:.4f}")
+    out["smoothness"] = dict(seconds=secs, avg=avg,
+                             card_vs_cpu=smoothness_cpu_agreement(torch, root / "Mat", k))
+
+    # distillation: a victim that favours the first attacked class keeps
+    # `max_out_num` of its instances
+    gen_model, _ = random_victim("PointNet", seed=0, device="cpu")
+    with torch.no_grad():
+        gen_model.fc3.bias[TEN_LABEL_INDEXES[0]] += 10.0
+    torch.save(gen_model.state_dict(), root / "victim_gen.pt")
+    per_class = 8
+    candidates = 10 * 2 * per_class
+    want = dict.fromkeys(KERNELS, 0)
+    want["pool_fwd"] = 3 * -(-candidates // 64)
+    t0 = time.time()
+    path, counts = paths.run(
+        "gen_data_mat", ("pool_fwd",),
+        lambda: gen_cli.main(gen_cli.build_parser().parse_args(
+            ["--datadir", "synthetic", "--npoint", str(N), "--max_out_num",
+             str(per_class), "--checkpoint", str(root / "victim_gen.pt"),
+             "--outdir", str(root / "Data")])))
+    secs = time.time() - t0
+    if counts != want:
+        _fail(f"gen_data_mat launches {counts}, expected {want}")
+    d = sio.loadmat(path)
+    if d["data"].shape != (per_class, 3, N) or not np.isfinite(d["data"]).all() or (
+            d["label"].ravel() != TEN_LABEL_INDEXES[0]).any():
+        _fail(f"gen_data_mat: {path} holds {d['data'].shape}, labels "
+              f"{set(d['label'].ravel())}")
+    print(f"  gen_data_mat: {candidates} candidates, {per_class} kept, {secs:.2f} s")
+    out["gen_data_mat"] = dict(seconds=secs, kept=per_class)
+
+    # the filter's selection cannot move: two eval forwards are bit-equal
+    x, _ = synthetic_batch(64, N, seed=12)
+    for arch in ("PointNet", "PointNetPP", "PointNetPP_MSG"):
+        m, _ = random_victim(arch, seed=0)
+        with torch.no_grad():
+            a, b_ = m(x), m(x)
+        if not torch.equal(a, b_):
+            _fail(f"two eval forwards of the {arch} victim differ by "
+                  f"{(a - b_).abs().max().item():.3e}")
+    print("  two eval forwards of each victim at [64, 1024]: bit-equal")
+    return out
+
+
 # `--times ROW`: the rows with a timing mode, each phase building the
 # kernels itself and timing them at the row's path shapes
 TIMES = {"12": fps_times_phase, "13": scatter_times_phase,
@@ -3018,7 +3347,10 @@ def main() -> int:
     phase("phase 9: dense clouds (n = 10000) in subsample and partial-variable mode")
     dense = dense_phase(torch, paths)
 
-    phase("phase 10: the result")
+    phase("phase 10: defense, smoothness and the attack-set tools on the card")
+    tools = defense_tools_phase(torch, paths, Path(cli["dir"]))
+
+    phase("phase 11: the result")
     paths.check_union()
     for k in kernels:
         k["launches"], k["launches_by_path"] = paths.launches(k["name"])
@@ -3029,7 +3361,7 @@ def main() -> int:
                    "launches_exact": run["counts_exact"],
                    "success": run["success"], "batch": B, "card": smi},
         "side_modes": side, "cli": cli, "ssg": ssg, "msg": msg,
-        "subsample_uniform": sub, "dense": dense,
+        "subsample_uniform": sub, "dense": dense, "defense_tools": tools,
     }))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

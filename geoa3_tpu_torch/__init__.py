@@ -11,10 +11,16 @@ Layout:
              with its plain PyTorch version (taken for CPU tensors)
   models/    the PointNet victim and weight converters
   losses.py  geometric losses
-  attack/    the GeoA3 attack engine, projection and tangent jitter
-  data/      synthetic point clouds, .mat datasets, file writers (numpy)
+  defense.py point-removal defenses; measurement.py the smoothness metric
+  attack/    the GeoA3 attack engine, projection, tangent jitter and the
+             alpha-shape reconstruction
+  data/      synthetic point clouds, .mat datasets, file writers,
+             augmentations, the training-set reader, attack-set distillation
+             (numpy)
   utils/     experiment naming, meters, records, victim checkpoints
-  cli/       the attack command line (python -m geoa3_tpu_torch.cli.main_attack)
+  cli/       the command lines (python -m geoa3_tpu_torch.cli.<name>):
+             main_attack, defense, smoothness, gen_data_mat, resample_mat,
+             save_ori_obj
 
 Entry points run on the card (device="cuda") unless the caller passes
 device="cpu".
@@ -24,6 +30,7 @@ __version__ = "0.1.0"
 
 from geoa3_tpu_torch.attack import AttackConfig, attack, make_attack_fn  # noqa: E402
 from geoa3_tpu_torch.models import build_model, make_eval_fn  # noqa: E402
+from geoa3_tpu_torch import defense, measurement  # noqa: E402
 
 __all__ = [
     "AttackConfig",
@@ -31,4 +38,6 @@ __all__ = [
     "make_attack_fn",
     "build_model",
     "make_eval_fn",
+    "defense",
+    "measurement",
 ]

@@ -7,6 +7,10 @@ from geoa3_tpu_torch.attack.engine import (
     forward_losses,
     make_attack_fn,
 )
+from geoa3_tpu_torch.attack.reconstruct import (
+    alpha_shape_mesh,
+    resample_reconstruct_from_pc,
+)
 from geoa3_tpu_torch.attack.project import (
     estimate_normal,
     estimate_normal_via_ori_normal,
@@ -32,4 +36,6 @@ __all__ = [
     "estimate_normal_via_ori_normal",
     "get_perpendicular_jitter",
     "jitter_input",
+    "alpha_shape_mesh",
+    "resample_reconstruct_from_pc",
 ]

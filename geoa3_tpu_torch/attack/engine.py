@@ -56,6 +56,7 @@ from geoa3_tpu_torch.attack.project import (
     lp_clip,
     offset_proj,
 )
+from geoa3_tpu_torch.device import float32_exact
 from geoa3_tpu_torch.ops.sampling import random_start
 
 _INF = 1e10
@@ -368,8 +369,7 @@ def make_attack_fn(
             "iter_max_steps must be a multiple of partial_reinit_every in "
             "partial-var mode"
         )
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
+    float32_exact()
     targeted = cfg.targeted
     curv = cfg.curv_loss_weight != 0
     K = cfg.curv_knn_refresh_every

@@ -54,10 +54,9 @@ from geoa3_tpu_torch import losses as L
 from geoa3_tpu_torch.attack import AttackConfig, estimate_normal_via_ori_normal
 from geoa3_tpu_torch.attack.engine import make_attack_fn
 from geoa3_tpu_torch.data import io as gio
-from geoa3_tpu_torch.models.convert import load_reference_state_dict
-from geoa3_tpu_torch.models.registry import build_model, make_eval_fn
+from geoa3_tpu_torch.models.registry import make_eval_fn
 from geoa3_tpu_torch.ops import farthest_points_sample
-from geoa3_tpu_torch.utils.checkpoint import load_victim_state
+from geoa3_tpu_torch.utils.checkpoint import load_victim
 from geoa3_tpu_torch.utils.meters import AverageMeter, format_time
 from geoa3_tpu_torch.utils.naming import attack_exp_dirname, make_output_dirs
 from geoa3_tpu_torch.utils.records import ConvergeIterRecorder, LossIterRecorder
@@ -322,17 +321,6 @@ def load_dataset(args):
     )
 
 
-def load_victim(args):
-    """The victim in eval mode on `--device`, with its weights loaded."""
-    model = build_model(args.arch, args.classes, args.npoint, device=args.device)
-    ckpt = args.checkpoint or os.path.join(
-        "Pretrained", args.arch, str(args.npoint)
-    )
-    load_reference_state_dict(model, load_victim_state(ckpt, arch=args.arch))
-    print(f"==>Successfully load pretrained-model from {ckpt}")
-    return model
-
-
 def _clear_stale_outputs(saved_dir: str) -> None:
     """A fresh (non-resumed) run into an existing experiment dir clears stale
     per-instance outputs. The save names embed the attack's final PREDICTED
@@ -374,7 +362,9 @@ def main(args) -> str:
     generator = torch.Generator(device=device).manual_seed(seed)
 
     dataset = load_dataset(args)
-    model = load_victim(args)
+    model, ckpt = load_victim(args.arch, args.classes, args.npoint,
+                              args.checkpoint, args.device)
+    print(f"==>Successfully load pretrained-model from {ckpt}")
     victim = make_eval_fn(model)
 
     def to_dev(x, dtype=torch.float32):

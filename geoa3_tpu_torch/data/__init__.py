@@ -1,6 +1,6 @@
 """Numpy-only data providers of the port (counterpart of geoa3_tpu/data)."""
 
-from geoa3_tpu_torch.data import io
+from geoa3_tpu_torch.data import augment, io
 from geoa3_tpu_torch.data.modelnet import (
     TEN_LABEL_INDEXES,
     TEN_LABEL_NAMES,
@@ -25,5 +25,6 @@ __all__ = [
     "SYNTHETIC_CLASS_NAMES",
     "make_synthetic_attack_set",
     "sample_shape",
+    "augment",
     "io",
 ]

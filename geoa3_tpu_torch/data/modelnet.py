@@ -203,6 +203,25 @@ def batched(
         yield pc, normal, gt, target
 
 
+def size_batches(sizes, batch_size: int) -> Iterator[List[int]]:
+    """Indices of clouds of `sizes` points, grouped by size (smallest size
+    first, file order within a size) into batches of at most `batch_size`,
+    so that each batch stacks into one shape (the defense and smoothness
+    CLIs; pad a short batch with `pad_batch`)."""
+    by_n: dict = {}
+    for i, n in enumerate(sizes):
+        by_n.setdefault(n, []).append(i)
+    for _, idxs in sorted(by_n.items()):
+        for start in range(0, len(idxs), batch_size):
+            yield idxs[start : start + batch_size]
+
+
+def pad_batch(pcs: List[np.ndarray], batch_size: int) -> np.ndarray:
+    """Stack clouds of one size into [batch_size, n, c], repeating the first
+    in the rows past the last cloud."""
+    return np.stack(list(pcs) + [pcs[0]] * (batch_size - len(pcs)))
+
+
 class PureMatDataset:
     """Plain .mat loader for dense clouds (reference Provider/modelnet_pure.py)."""
 

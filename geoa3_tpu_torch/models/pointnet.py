@@ -18,6 +18,15 @@ T-Net conv3, conv5) run through the fused pool kernel with the BatchNorm
 folded into the weights and the ReLU applied after the pool, as
 geoa3_tpu/models/pointnet.py:_fused_pool does. Train mode is queued in
 ROADMAP.md.
+
+`point_mask` [b, n] bool excludes padded points from the three global max
+pools, for clouds that a defense shrank and padded back to n (defense.py).
+As in the JAX model (`_pool_fusable` is False under a mask), a masked
+forward does not take the fused pool: it runs the conv, the BatchNorm and
+the ReLU, then a max over the kept points. conv5's padded rows are zeroed
+first, so its kernel of 3 sees the boundary a shrunken cloud would. The JAX
+model's `return_idx` (the critical-point indices) is used nowhere outside
+that model and is not ported.
 """
 
 from __future__ import annotations
@@ -75,6 +84,20 @@ def _fused_pool(x: torch.Tensor, conv: nn.Conv1d, bn: nn.BatchNorm1d):
     return torch.relu(pool_affine_max(x, w3, b, w3t))
 
 
+def _masked_pool(x, conv, bn, point_mask):
+    """relu(bn(conv(x))) from x [b, n, cin], max-pooled over the points
+    where point_mask [b, n] is True -> [b, cout]: the unfused form of
+    `_fused_pool`. A kernel-3 conv runs over the point axis with padding 1
+    (F.conv1d)."""
+    if conv.kernel_size[0] == 1:
+        h = _dense(x, conv)
+    else:
+        h = F.conv1d(x.transpose(1, 2), conv.weight, conv.bias,
+                     padding=conv.padding).transpose(1, 2)
+    h = torch.relu(_bn(h, bn))
+    return torch.where(point_mask[..., None], h, torch.finfo(h.dtype).min).amax(dim=1)
+
+
 def _check_eval(module: nn.Module) -> None:
     if module.training:
         raise NotImplementedError(
@@ -100,12 +123,16 @@ class TransformNet(nn.Module):
             self.fc3.weight.zero_()
             self.fc3.bias.copy_(torch.eye(K).reshape(-1))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        """x [b, n, K] -> [b, K, K]."""
+    def forward(self, x: torch.Tensor, point_mask=None) -> torch.Tensor:
+        """x [b, n, K] -> [b, K, K]; the pool skips the points where
+        `point_mask` [b, n] is False."""
         _check_eval(self)
         h = torch.relu(_bn(_dense(x, self.conv1), self.bn1))
         h = torch.relu(_bn(_dense(h, self.conv2), self.bn2))
-        h = _fused_pool(h, self.conv3, self.bn3)
+        if point_mask is None:
+            h = _fused_pool(h, self.conv3, self.bn3)
+        else:
+            h = _masked_pool(h, self.conv3, self.bn3, point_mask)
         h = torch.relu(_bn(_dense(h, self.fc1), self.bn4))
         h = torch.relu(_bn(_dense(h, self.fc2), self.bn5))
         h = _dense(h, self.fc3)
@@ -135,17 +162,27 @@ class PointNet(nn.Module):
         self.bn7 = nn.BatchNorm1d(256, eps=FC_BN_EPS)
         self.dropout = nn.Dropout(0.3)
 
-    def forward(self, pc: torch.Tensor) -> torch.Tensor:
+    def forward(self, pc: torch.Tensor, point_mask=None) -> torch.Tensor:
+        """pc [b, n, 3] -> logits [b, classes]. With `point_mask` [b, n]
+        bool, the points where it is False are left out of every global
+        pool (and zeroed before conv5)."""
         _check_eval(self)
         if pc.shape[-1] != 3:
             raise ValueError(f"expected channel-last [b, n, 3], got {tuple(pc.shape)}")
-        feat = pc @ self.input_transform(pc)
+        if point_mask is not None and point_mask.shape != pc.shape[:2]:
+            raise ValueError(f"point_mask {tuple(point_mask.shape)} does not "
+                             f"match the cloud {tuple(pc.shape)}")
+        feat = pc @ self.input_transform(pc, point_mask)
         feat = torch.relu(_bn(_dense(feat, self.conv1), self.bn1))
         feat = torch.relu(_bn(_dense(feat, self.conv2), self.bn2))
-        feat = feat @ self.feature_transform(feat)
+        feat = feat @ self.feature_transform(feat, point_mask)
         feat = torch.relu(_bn(_dense(feat, self.conv3), self.bn3))
         feat = torch.relu(_bn(_dense(feat, self.conv4), self.bn4))
-        feat = _fused_pool(feat, self.conv5, self.bn5)
+        if point_mask is None:
+            feat = _fused_pool(feat, self.conv5, self.bn5)
+        else:
+            feat = torch.where(point_mask[..., None], feat, 0.0)
+            feat = _masked_pool(feat, self.conv5, self.bn5, point_mask)
         feat = self.dropout(torch.relu(_bn(_dense(feat, self.fc1), self.bn6)))
         feat = self.dropout(torch.relu(_bn(_dense(feat, self.fc2), self.bn7)))
         return _dense(feat, self.fc3)

@@ -7,6 +7,7 @@ from typing import Callable
 
 import torch
 
+from geoa3_tpu_torch.device import float32_exact
 from geoa3_tpu_torch.models.pointnet import PointNet
 from geoa3_tpu_torch.models.pointnetpp import (
     PointNet2ClassificationMSG,
@@ -20,7 +21,8 @@ def build_model(
     arch: str, classes: int = 40, npoint: int = 1024, device="cuda"
 ) -> torch.nn.Module:
     """Build a victim by reference arch name (reference main_attack.py:135-142),
-    in eval mode, on `device`."""
+    in eval mode, on `device`. TF32 is turned off (device.float32_exact)."""
+    float32_exact()
     if arch == "PointNet":
         return PointNet(classes=classes, npoint=npoint).to(device).eval()
     if arch in ("PointNetPP", "PointNetPP_MSG"):

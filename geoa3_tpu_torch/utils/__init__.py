@@ -1,7 +1,7 @@
 """Shared utilities of the port: meters, experiment naming, records, victim
 checkpoints."""
 
-from geoa3_tpu_torch.utils.checkpoint import load_victim_state
+from geoa3_tpu_torch.utils.checkpoint import load_victim, load_victim_state
 from geoa3_tpu_torch.utils.meters import AverageMeter, StepTimer, format_time, natural_sort
 from geoa3_tpu_torch.utils.naming import attack_exp_dirname, make_output_dirs
 from geoa3_tpu_torch.utils.records import ConvergeIterRecorder, LossIterRecorder
@@ -15,5 +15,6 @@ __all__ = [
     "make_output_dirs",
     "ConvergeIterRecorder",
     "LossIterRecorder",
+    "load_victim",
     "load_victim_state",
 ]

@@ -15,7 +15,8 @@ from typing import Dict
 
 import torch
 
-from geoa3_tpu_torch.models.registry import ARCHS
+from geoa3_tpu_torch.models.convert import load_reference_state_dict
+from geoa3_tpu_torch.models.registry import ARCHS, build_model
 
 CANDIDATES = ("model_best.pth.tar", "checkpoint.pth.tar", "model_best.pt",
               "checkpoint.pt")
@@ -63,3 +64,14 @@ def load_victim_state(path_or_dir: str, arch: str = "PointNet") -> Dict[str, tor
             "state_dict, or a dict with a 'state_dict' entry)"
         )
     return {k.removeprefix("module."): v for k, v in state.items()}
+
+
+def load_victim(arch: str, classes: int, npoint: int, checkpoint=None,
+                device="cuda"):
+    """(the victim `arch` in eval mode on `device` with its weights loaded,
+    the checkpoint path): `checkpoint`, or Pretrained/{arch}/{npoint}/ as in
+    the reference CLIs."""
+    model = build_model(arch, classes, npoint, device=device)
+    ckpt = checkpoint or os.path.join("Pretrained", arch, str(npoint))
+    load_reference_state_dict(model, load_victim_state(ckpt, arch=arch))
+    return model, ckpt

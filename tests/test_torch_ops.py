@@ -476,7 +476,14 @@ class TestPoolTies:
 
 def test_import_leaves_jax_out():
     code = (
-        "import sys, geoa3_tpu_torch, geoa3_tpu_torch.ops.kernels; "
+        "import sys, geoa3_tpu_torch, geoa3_tpu_torch.ops.kernels, "
+        "geoa3_tpu_torch.defense, geoa3_tpu_torch.measurement, "
+        "geoa3_tpu_torch.device, geoa3_tpu_torch.data.augment, "
+        "geoa3_tpu_torch.data.modelnet_train, "
+        "geoa3_tpu_torch.data.gen_data_mat, "
+        "geoa3_tpu_torch.attack.reconstruct, geoa3_tpu_torch.cli.defense, "
+        "geoa3_tpu_torch.cli.smoothness, geoa3_tpu_torch.cli.gen_data_mat, "
+        "geoa3_tpu_torch.cli.resample_mat, geoa3_tpu_torch.cli.save_ori_obj; "
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
         "or m == 'geoa3_tpu' or m.startswith('geoa3_tpu.')]; "
         "assert not bad, bad"
