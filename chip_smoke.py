@@ -100,7 +100,22 @@ Needs one CUDA card, nvcc and this repository around the script. Phases:
      ones; the smoothness CLI, and its point values against the CPU; the
      attack-set distillation CLI on synthetic shapes; two eval forwards of
      each victim bit-equal;
-  11. print one JSON line listing the kernels, then the result line.
+  11. victim training on the card: the training CLI in process for
+     PointNet, PointNet++ SSG and MSG at full width (40 classes, 1024
+     points, b = 32, 120 synthetic training clouds and 40 test clouds, 2
+     epochs, no epoch retry) into build/chip_smoke/train/, with the launch
+     counts of the whole run, of one train step and of one eval batch read
+     from the code (a train step: FPS, the index-only ball query and the
+     C-channel scatter on PointNet++, no kernel on PointNet; an eval batch:
+     the eval kernels); result.txt and both checkpoints; two evaluations
+     of each trained model bit-equal; the checkpoints loaded by
+     `load_victim` bit-equal to the trained model; a train step's and an
+     eval batch's times and the peak device memory; a resume of PointNet to
+     epoch 3; readiness on PointNet's model_best.pth.tar with phase 10's
+     distilled set (exit 0); one train step of each arch on the card
+     against the same step on the CPU in float64 with the card's
+     selections (PointNet at b = 32, PointNet++ at b = 4);
+  12. print one JSON line listing the kernels, then the result line.
 
 Every path runs with the kernels' launch counts set to 0 just before and
 read just after, and fails if a kernel it names was not launched; together
@@ -1271,6 +1286,11 @@ def ssg_kernel_checks(torch) -> list[dict]:
         sc_err = max(sc_err, err)
     gen13 = torch.Generator(device="cuda").manual_seed(13)
     t1, t2 = (scatter_time(torch, sk, *sc_shapes[k], gen13) for k in SCATTER_BALLS)
+    msg_t = {k: scatter_time(torch, sk, *sc_shapes[k], gen13) for k in MSG_SA2_BALLS}
+    msg_line = "; ".join(
+        f"{k}: ms={t['ms']:.4f} ten={t['ten']:.4f} plain={t['plain']:.4f} "
+        f"scatter_={t['scatter_']:.4f} index_add_={t['index_add_']:.4f} "
+        f"bound_ms={t['bound']:.4f} ({t['by']})" for k, t in msg_t.items())
     entry("scatter_add_nc", "geoa3_tpu_torch/csrc/scatter.cu",
           "geoa3_tpu/ops/pallas/scatter_kernel.py:94", sc_err, t1["ms"],
           t1["plain"], (t1["bound"], t1["by"]), t1["index_add_"],
@@ -1279,7 +1299,7 @@ def ssg_kernel_checks(torch) -> list[dict]:
           "library: index_add_ on the flattened batch); SSG SA2 [32,128,64] "
           f"-> 512: ms={t2['ms']:.4f} ten={t2['ten']:.4f} "
           f"plain={t2['plain']:.4f} index_add_={t2['index_add_']:.4f} "
-          f"bound_ms={t2['bound']:.4f}")
+          f"bound_ms={t2['bound']:.4f}; the training path's {msg_line}")
 
     # --- grouped MLP + max-pool, forward and backward ----------------------
     shapes = group_mlp_inputs(torch, "SSG")
@@ -1770,14 +1790,19 @@ def sa_fused_times_phase(torch) -> dict:
 # row 13's two ball shapes, the first one phase 2's kernel entry
 SCATTER_BALLS = ("SSG SA1 ball idx [32,512,64] -> 1024, C=128",
                  "SSG SA2 ball idx [32,128,64] -> 512, C=128")
+# row 13 on the training path at MSG SA2 (label -> radius, nsample)
+MSG_SA2_BALLS = {f"MSG SA2 ball idx [32,128,{ns}] -> 512, C=320": (r, ns)
+                 for r, ns in ((0.2, 32), (0.4, 64), (0.8, 128))}
 
 
 def scatter_inputs(torch, pc) -> dict:
     """Row 13's path shapes, label -> (idx [b, ..., g] int32, rows, C): the
     backward of `group_points` at SSG SA1's and SA2's ball indices (128
-    channels), of `knn_gather` at the self-kNN's k = 17 (64 channels) and
-    of `three_interpolate` from 1024 points into SA1's 512 centres (128
-    channels, PointNet++'s first feature propagation)."""
+    channels), of `knn_gather` at the self-kNN's k = 17 (64 channels), of
+    `three_interpolate` from 1024 points into SA1's 512 centres (128
+    channels, PointNet++'s first feature propagation), and the training
+    path's: the backward of MSG SA2's feature gathers at its three scales
+    (320 channels, groups of 32, 64 and 128; SSG SA2's is the second)."""
     from geoa3_tpu_torch import ops
 
     c1 = ops.gather_points(pc, ops.furthest_point_sampling(pc, 512)).contiguous()
@@ -1788,7 +1813,9 @@ def scatter_inputs(torch, pc) -> dict:
             f"knn_gather idx [32,1024,{K + 1}] -> 1024, C=64":
                 (ops.knn_points(pc, pc, K + 1).idx, N, 64),
             "three_interpolate idx [32,1024,3] -> 512, C=128":
-                (ops.three_nn(pc, c1)[1], 512, 128)}
+                (ops.three_nn(pc, c1)[1], 512, 128),
+            **{label: (ops.ball_query(r, ns, c1, c2), 512, 320)
+               for label, (r, ns) in MSG_SA2_BALLS.items()}}
 
 
 def scatter_time(torch, sk, idx, n, c, gen) -> dict:
@@ -2233,6 +2260,10 @@ SSG_PATH = ("nn1_payload", "scatter_add_3t", "kappa_selmask", "curv_term",
             "kappa_fwd", "fps", "ballquery_group_fwd", "ballquery_group_bwd",
             "group_mlp_fwd", "group_mlp_bwd")
 MSG_PATH = SSG_PATH + ("sa_fused_fwd", "sa_fused_bwd")
+# a kernel whose main path is not the first path that names it: row 13's is
+# training (the backward of PointNet++ SA2's feature gathers), not the
+# public ops
+MAIN_PATH_OF = {"scatter_add_nc": "train PointNetPP"}
 
 
 def msg_launches(steps: int, refresh: int) -> dict:
@@ -2286,11 +2317,11 @@ class Paths:
             _fail(f"no path launches {sorted(set(KERNELS) - covered)}")
 
     def launches(self, kernel):
-        """The count of the first path that names the kernel, and the counts
-        of every path."""
+        """The count of the kernel's main path (`MAIN_PATH_OF`, else the
+        first path that names it), and the counts of every path."""
         by_path = {label: c[kernel] for label, c in self.counts.items()}
-        first = next(label for label, req in self.required.items()
-                     if kernel in req)
+        first = MAIN_PATH_OF.get(kernel) or next(
+            label for label, req in self.required.items() if kernel in req)
         return by_path[first], by_path
 
 
@@ -3243,7 +3274,7 @@ def defense_tools_phase(torch, paths, cli_dir: Path) -> dict:
         _fail(f"gen_data_mat: {path} holds {d['data'].shape}, labels "
               f"{set(d['label'].ravel())}")
     print(f"  gen_data_mat: {candidates} candidates, {per_class} kept, {secs:.2f} s")
-    out["gen_data_mat"] = dict(seconds=secs, kept=per_class)
+    out["gen_data_mat"] = dict(seconds=secs, kept=per_class, path=str(path))
 
     # the filter's selection cannot move: two eval forwards are bit-equal
     x, _ = synthetic_batch(64, N, seed=12)
@@ -3255,6 +3286,352 @@ def defense_tools_phase(torch, paths, cli_dir: Path) -> dict:
             _fail(f"two eval forwards of the {arch} victim differ by "
                   f"{(a - b_).abs().max().item():.3e}")
     print("  two eval forwards of each victim at [64, 1024]: bit-equal")
+    return out
+
+
+TRAIN_ARCHS = ("PointNet", "PointNetPP", "PointNetPP_MSG")
+TRAIN_EPOCHS = 2
+# --datadir synthetic:12:10 at -b 32: 120 training clouds (3 batches of 32
+# and one of 24) and 40 test clouds (a batch of 32 and one of 8) an epoch
+TRAIN_DATA = "synthetic:12:10"
+TRAIN_STEPS, EVAL_BATCHES = 4, 2
+
+
+def train_launches(arch: str) -> tuple[dict, dict]:
+    """({kernel: launches} of one train step, of one eval batch), read from
+    the code. A train step runs the models' unfused route: PointNet no
+    kernel of ours; PointNet++ FPS at SA1 and SA2, the index-only ball query
+    (row 15's forward) at each scale, and the C-channel scatter as the
+    backward of SA2's feature gathers (SA1's gathers read the input cloud,
+    which takes no gradient). An eval batch runs the eval kernels: PointNet's
+    three pools; SSG FPS 2, the query + grouping 2, the grouped MLP 3; MSG
+    FPS 2, the query + grouping at SA1's three scales, the grouped MLP at
+    those and GroupAll, the whole-scale kernel at SA2's three."""
+    from geoa3_tpu_torch.ops.kernels import KERNELS
+
+    step, batch = dict.fromkeys(KERNELS, 0), dict.fromkeys(KERNELS, 0)
+    if arch == "PointNet":
+        batch["pool_fwd"] = 3
+    elif arch == "PointNetPP":
+        step.update(fps=2, ballquery_group_fwd=2, scatter_add_nc=1)
+        batch.update(fps=2, ballquery_group_fwd=2, group_mlp_fwd=3)
+    else:
+        step.update(fps=2, ballquery_group_fwd=6, scatter_add_nc=3)
+        batch.update(fps=2, ballquery_group_fwd=3, group_mlp_fwd=4, sa_fused_fwd=3)
+    return step, batch
+
+
+def _nonzero(d: dict) -> dict:
+    return {k: v for k, v in d.items() if v}
+
+
+def _expect(label: str, counts: dict, want: dict) -> None:
+    if counts != want:
+        _fail(f"{label} launches {counts}, expected {want}")
+
+
+def _same_selection(torch):
+    """Within the block, the CPU's FPS and ball query select on float32
+    coordinates whatever the model's dtype, so a float64 step on the CPU
+    takes the card's selections (the kernels are bit-equal to their plain
+    float32 versions, phase 2) and differs from it by arithmetic alone."""
+    import contextlib
+
+    from geoa3_tpu_torch.ops.kernels import ballquery_group_kernel as bk
+    from geoa3_tpu_torch.ops.kernels import fps_kernel as fk
+
+    @contextlib.contextmanager
+    def block():
+        fps, bq = fk.fps, bk.ball_query
+        fk.fps = lambda xyz, m, **kw: fps(xyz.float(), m, **kw)
+        bk.ball_query = lambda xyz, c, r, ns: bq(xyz.float(), c.float(), r, ns)
+        try:
+            yield
+        finally:
+            fk.fps, bk.ball_query = fps, bq
+
+    return block()
+
+
+def _train_step_once(torch, T, tcfg, model, pc, target, keep):
+    """One train loss and backward of `model` (epoch 1's BatchNorm
+    momentum) -> (loss, {name: grad}, {name: running statistic})."""
+    state = T.TrainState(model, T.make_optimizer(tcfg, model))
+    T.set_epoch(tcfg, state, 1)
+    model.zero_grad(set_to_none=True)
+    loss, _ = T.train_loss(tcfg, model, pc, target, keep=keep)
+    loss.backward()
+    grads = {n: p.grad.detach().double().cpu() for n, p in model.named_parameters()}
+    stats = {n: b.detach().double().cpu() for n, b in model.named_buffers()
+             if n.endswith(("running_mean", "running_var"))}
+    return loss.detach().double().cpu(), grads, stats
+
+
+def _vanishing(name: str) -> bool:
+    """Gradients that are 0 in exact arithmetic, or nearly (as
+    tests/test_torch_train.py names them): the biases a BatchNorm follows,
+    and the BatchNorm biases before a max pool whose output meets a
+    BatchNorm."""
+    if name.startswith("fc_layer"):
+        return False
+    if name.startswith("SA_modules"):
+        return name.endswith(".7.bias")
+    if name in ("bn5.bias", "input_transform.bn3.bias", "feature_transform.bn3.bias"):
+        return True
+    return name.endswith(".bias") and "bn" not in name and "fc3" not in name
+
+
+def train_step_cpu_agreement(torch, arch: str, b: int) -> dict:
+    """One train step on the card against the same step on the CPU, from the
+    same weights (workload.random_victim; PointNet's T-Nets off the
+    identity), clouds and dropout masks. The CPU runs it in float64 with the
+    card's selections (`_same_selection`): the reference; and in float32:
+    the yardstick of float32 rounding on this step. At these batches a
+    float32 step is ill-conditioned (the heads' BatchNorms over few rows,
+    tests/test_torch_train.py), and a ReLU or a maximum within rounding of a
+    tie may switch (phase 7), which moves single gradient entries by up to
+    ~1e-2 of their tensor's largest on the CPU too, in whichever tensor it
+    falls. So each quantity of the card's step is held against the float64
+    step at the tests' tolerance or at 4x the CPU float32 step's largest
+    error of the same kind, whichever is larger: the loss, the running
+    statistics by their largest entry (1e-5 relative), each gradient by its
+    Frobenius norm (1e-4 relative), a vanishing gradient by its largest
+    entry against 1e-2 of the model's largest gradient entry (1e-4). The
+    largest entry errors of the gradients are printed beside them."""
+    import copy
+
+    from geoa3_tpu_torch import train as T
+    from geoa3_tpu_torch.workload import random_victim, synthetic_batch
+
+    tcfg = T.TrainConfig(arch=arch, classes=40, npoint=N, batch_size=b)
+    base, _ = random_victim(arch, seed=4, device="cpu")
+    base.requires_grad_(True)
+    pc, _ = synthetic_batch(b, N, seed=21, device="cpu")
+    target = torch.arange(b) % 40
+    g = torch.Generator().manual_seed(5)
+    if arch == "PointNet":  # T-Nets off the identity, so they take gradients
+        with torch.no_grad():
+            for tnet in (base.input_transform, base.feature_transform):
+                tnet.fc3.weight.copy_(0.01 * torch.randn(tnet.fc3.weight.shape,
+                                                         generator=g))
+        keep = (torch.rand(b, 512, generator=g) < 0.7, torch.rand(b, 256, generator=g) < 0.7)
+    else:
+        keep = torch.rand(b, 256, generator=g) < 0.5
+    on = lambda k, dev: tuple(x.to(dev) for x in k) if isinstance(k, tuple) else k.to(dev)  # noqa: E731
+    t0 = time.time()
+    card = _train_step_once(torch, T, tcfg, copy.deepcopy(base).cuda(), pc.cuda(),
+                            target.cuda(), on(keep, "cuda"))
+    t1 = time.time()
+    cpu32 = _train_step_once(torch, T, tcfg, copy.deepcopy(base), pc, target, keep)
+    t2 = time.time()
+    with _same_selection(torch):
+        cpu64 = _train_step_once(torch, T, tcfg, copy.deepcopy(base).double(),
+                                 pc.double(), target, keep)
+    secs = {"card": t1 - t0, "cpu32": t2 - t1, "cpu64": time.time() - t2}
+    gmax = max(v.abs().max().item() for v in cpu64[1].values())
+
+    def rel_errors(side) -> dict:
+        """{(kind, name): error relative to its scale} of one side's step
+        against the float64 one."""
+        out = {("loss", "loss"): ((side[0] - cpu64[0]).abs() / cpu64[0].abs()).item()}
+        for name, ref in cpu64[2].items():
+            out["stats", name] = ((side[2][name] - ref).abs().max()
+                                  / ref.abs().max()).item()
+        for name, ref in cpu64[1].items():
+            d = side[1][name] - ref
+            if _vanishing(name):
+                out["vanishing", name] = d.abs().max().item() / (1e-2 * gmax)
+            else:
+                out["grad", name] = (d.norm() / max(ref.norm().item(), 1e-30)).item()
+                out["grad_entry", name] = (d.abs().max()
+                                           / max(ref.abs().max().item(), 1e-30)).item()
+        return out
+
+    got, cpu = rel_errors(card), rel_errors(cpu32)
+    tols = {"loss": 1e-5, "stats": 1e-5, "grad": 1e-4, "vanishing": 1e-4}
+    kinds = {k: max(v for (kk, _), v in cpu.items() if kk == k) for k in tols}
+    limits = {k: max(tols[k], 4 * kinds[k]) for k in tols}
+    for (kind, name), err in got.items():
+        if kind in limits and not err <= limits[kind]:
+            _fail(f"{arch} train step card vs CPU: {kind} {name} err {err:.3e} "
+                  f"> {limits[kind]:.3e} (the tests' {tols[kind]:.0e}, or 4x the "
+                  f"CPU float32 step's largest {kinds[kind]:.3e})")
+    worst, where = {}, {}
+    for k in ("loss", "stats", "grad", "vanishing", "grad_entry"):
+        where[k], worst[k] = max(((n, v) for (kk, n), v in got.items() if kk == k),
+                                 key=lambda nv: nv[1])
+    print(f"  {arch} train step at b={b}, card vs CPU float64 (the card's "
+          f"selections), relative errors: loss {worst['loss']:.3e}, running "
+          f"statistics {worst['stats']:.3e}, gradients {worst['grad']:.3e} "
+          f"(Frobenius; largest entry {worst['grad_entry']:.3e}), vanishing "
+          f"gradients {worst['vanishing']:.3e}; limits {limits} (CPU float32: "
+          f"{kinds}); the card's worst tensors {where}; seconds {secs}")
+    return dict(b=b, card_rel_err=worst, worst_tensor=where, cpu_float32_rel_err=kinds,
+                limits=limits, seconds=secs)
+
+
+def _eval_logits(torch, T, tcfg, state, dataset) -> list:
+    """The eval-mode logits of every test batch (the epoch's evaluation's
+    forwards)."""
+    out = []
+    dataset.reset()
+    state.model.eval()
+    while dataset.has_next_batch():
+        points, _ = dataset.next_batch(False)
+        pc = torch.from_numpy(T._prep_batch(tcfg, points)).cuda()
+        with torch.no_grad():
+            out.append(state.model(pc))
+    return out
+
+
+def _event_ms(torch, fn, calls: int) -> list:
+    """ms of each of `calls` calls of fn (CUDA events)."""
+    times = []
+    for _ in range(calls):
+        s = torch.cuda.Event(enable_timing=True)
+        e = torch.cuda.Event(enable_timing=True)
+        s.record()
+        fn()
+        e.record()
+        e.synchronize()
+        times.append(s.elapsed_time(e))
+    return times
+
+
+def train_arch(torch, paths, arch: str) -> dict:
+    """Phase 11 for one arch: the training CLI in process, its files, two
+    evaluations bit-equal, the checkpoint against the trained model, one
+    train step's and one eval batch's exact launches, their times and the
+    peak device memory."""
+    import shutil
+
+    from geoa3_tpu_torch import train as T
+    from geoa3_tpu_torch.cli import main_train
+    from geoa3_tpu_torch.utils.checkpoint import (
+        BEST_NAME,
+        CKPT_NAME,
+        load_checkpoint,
+        load_victim,
+    )
+
+    model_dir = REPO / "build" / "chip_smoke" / "train" / arch
+    shutil.rmtree(model_dir, ignore_errors=True)
+    argv = ["--arch", arch, "--datadir", TRAIN_DATA, "-c", "40", "--npoint",
+            str(N), "-b", str(B), "--epochs", str(TRAIN_EPOCHS),
+            "--max_epoch_retries", "0", "--modeldir", str(model_dir)]
+    args = main_train.build_parser().parse_args(argv)
+    step_want, batch_want = train_launches(arch)
+    runs = TRAIN_EPOCHS * TRAIN_STEPS, TRAIN_EPOCHS * EVAL_BATCHES
+    want = {k: runs[0] * step_want[k] + runs[1] * batch_want[k] for k in step_want}
+    t0 = time.time()
+    (state, _), counts = paths.run(f"train {arch}", tuple(_nonzero(want)),
+                                        lambda: main_train.run(args))
+    secs = time.time() - t0
+    _expect(f"train {arch} (CLI, {runs[0]} steps, {runs[1]} eval batches)",
+            counts, want)
+    lines = (model_dir / "result.txt").read_text().splitlines()
+    if len(lines) != TRAIN_EPOCHS or not all("train-acc" in x and "test:" in x
+                                             for x in lines):
+        _fail(f"train {arch}: result.txt holds {lines}")
+    ckpt = load_checkpoint(str(model_dir))
+    best = load_checkpoint(str(model_dir), best=True)
+    if ckpt is None or best is None or ckpt["epoch"] != TRAIN_EPOCHS:
+        _fail(f"train {arch}: {CKPT_NAME} / {BEST_NAME} missing or at the wrong epoch")
+    for name, p in state.model.named_parameters():
+        if not torch.isfinite(p).all():
+            _fail(f"train {arch}: {name} is not finite after training")
+    print(f"  train {arch}: {TRAIN_EPOCHS} epochs in {secs:.2f} s; {lines[-1]}")
+
+    # selection: the epoch's evaluation is deterministic on the card
+    tcfg = T.TrainConfig(arch=arch, classes=40, npoint=N, batch_size=B)
+    _, test_ds = main_train.datasets(args, tcfg)
+    first = _eval_logits(torch, T, tcfg, state, test_ds)
+    second = _eval_logits(torch, T, tcfg, state, test_ds)
+    if not all(torch.equal(a, b_) for a, b_ in zip(first, second)):
+        _fail(f"train {arch}: two evaluations of the trained model differ")
+
+    # the checkpoints load into the victim the attack CLI builds
+    test_ds.reset()
+    pts, tgt = test_ds.next_batch(False)
+    pc = torch.from_numpy(T._prep_batch(tcfg, pts)).cuda()
+    checked = [CKPT_NAME] + ([BEST_NAME] if best["epoch"] == ckpt["epoch"] else [])
+    for fname in checked:
+        victim, _ = load_victim(arch, 40, N, str(model_dir / fname))
+        with torch.no_grad():
+            if not torch.equal(victim(pc), first[0]):
+                _fail(f"train {arch}: {fname} loaded by load_victim gives other logits")
+
+    # one train step and one eval batch: exact launches, then times
+    target = torch.from_numpy(np.asarray(tgt, np.int64)).cuda()
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    step = T.make_train_step(tcfg, TRAIN_EPOCHS + 1)
+    ev = T.make_eval_step(tcfg)
+    _, c_step = paths.run(f"train step {arch}", tuple(_nonzero(step_want)),
+                          lambda: step(state, pc, target, gen))
+    _expect(f"train step {arch}", c_step, step_want)
+    _, c_eval = paths.run(f"eval batch {arch}", tuple(_nonzero(batch_want)),
+                          lambda: ev(state, pc, target))
+    _expect(f"eval batch {arch}", c_eval, batch_want)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    step_ms = _event_ms(torch, lambda: step(state, pc, target, gen), 6)[1:]
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    eval_ms = _event_ms(torch, lambda: ev(state, pc, target), 6)[1:]
+    out = dict(seconds=secs, result=lines[-1], best_epoch=int(best["epoch"]),
+               bit_equal_checkpoints=checked,
+               step_ms=statistics.median(step_ms), step_ms_all=step_ms,
+               eval_batch_ms=statistics.median(eval_ms), peak_gib=peak,
+               launches_step=_nonzero(c_step), launches_eval_batch=_nonzero(c_eval))
+    print(f"  train {arch}: a step {out['step_ms']:.4f} ms (median of "
+          f"{len(step_ms)} after the first, CUDA events), an eval batch "
+          f"{out['eval_batch_ms']:.4f} ms, peak {peak:.2f} GiB; launches a "
+          f"step {out['launches_step']}, an eval batch {out['launches_eval_batch']}")
+    return out
+
+
+def train_phase(torch, paths, gen_mat: str, card: str) -> dict:
+    """Phase 11: victim training on the card. The training CLI in process
+    for each arch at full width (40 classes, 1024 points, b = 32, synthetic
+    data, 2 epochs, no epoch retry), a resume of PointNet to epoch 3,
+    readiness on PointNet's model_best.pth.tar with phase 10's distilled
+    set, and one train step of each arch card vs CPU."""
+    from geoa3_tpu_torch.cli import main_train, readiness
+    from geoa3_tpu_torch.utils.checkpoint import BEST_NAME, load_checkpoint
+
+    out = {"card": card}
+    for arch in TRAIN_ARCHS:
+        out[arch] = train_arch(torch, paths, arch)
+
+    model_dir = REPO / "build" / "chip_smoke" / "train" / "PointNet"
+    argv = ["--arch", "PointNet", "--datadir", TRAIN_DATA, "-c", "40", "--npoint",
+            str(N), "-b", str(B), "--epochs", str(TRAIN_EPOCHS + 1),
+            "--max_epoch_retries", "0", "--modeldir", str(model_dir),
+            "--resume", str(model_dir)]
+    _, counts = paths.run("train PointNet --resume", ("pool_fwd",),
+                          lambda: main_train.main(main_train.build_parser().parse_args(argv)))
+    lines = (model_dir / "result.txt").read_text().splitlines()
+    if len(lines) != TRAIN_EPOCHS + 1 or load_checkpoint(str(model_dir))["epoch"] != TRAIN_EPOCHS + 1:
+        _fail(f"the resumed run did not add epoch {TRAIN_EPOCHS + 1}: {lines}")
+    if counts["pool_fwd"] != 3 * EVAL_BATCHES:
+        _fail(f"the resumed run evaluated {counts['pool_fwd'] // 3} batches, "
+              f"not {EVAL_BATCHES}")
+    print(f"  train PointNet --resume: epoch {TRAIN_EPOCHS + 1}; {lines[-1]}")
+
+    report = REPO / "build" / "chip_smoke" / "train" / "readiness.json"
+    rargs = readiness.build_parser().parse_args(
+        ["--checkpoint", str(model_dir / BEST_NAME), "--data_dir_file", gen_mat,
+         "--out", str(report)])
+    rc, _ = paths.run("readiness", ("nn1_payload", "curv_term", "pool_fwd", "pool_bwd"),
+                      lambda: readiness.main(rargs))
+    steps = json.loads(report.read_text())["steps"]
+    status = {k: v["status"] for k, v in steps.items()}
+    if rc != 0 or status["convert"] != "PASS" or status["attack_smoke"] != "PASS":
+        _fail(f"readiness exited {rc}: {status}")
+    print(f"  readiness: exit {rc}, {status}")
+    out["readiness"] = status
+
+    for arch, b in (("PointNet", B), ("PointNetPP", 4), ("PointNetPP_MSG", 4)):
+        out[arch]["card_vs_cpu"] = train_step_cpu_agreement(torch, arch, b)
     return out
 
 
@@ -3350,7 +3727,10 @@ def main() -> int:
     phase("phase 10: defense, smoothness and the attack-set tools on the card")
     tools = defense_tools_phase(torch, paths, Path(cli["dir"]))
 
-    phase("phase 11: the result")
+    phase("phase 11: victim training on the card")
+    trained = train_phase(torch, paths, tools["gen_data_mat"]["path"], smi)
+
+    phase("phase 12: the result")
     paths.check_union()
     for k in kernels:
         k["launches"], k["launches_by_path"] = paths.launches(k["name"])
@@ -3362,6 +3742,7 @@ def main() -> int:
                    "success": run["success"], "batch": B, "card": smi},
         "side_modes": side, "cli": cli, "ssg": ssg, "msg": msg,
         "subsample_uniform": sub, "dense": dense, "defense_tools": tools,
+        "train": trained,
     }))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

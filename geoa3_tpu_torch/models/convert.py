@@ -9,6 +9,9 @@ Two sources:
   * `load_reference_state_dict`: a reference PyTorch state_dict (the key
     names that geoa3_tpu/models/convert.py:82-163 reads), which the port's
     module names match one for one.
+
+`adam_state_from_optax` carries the JAX trainer's optimiser state (optax's
+Adam moments and count) across by the same name map.
 """
 
 from __future__ import annotations
@@ -120,3 +123,56 @@ def load_reference_state_dict(model: torch.nn.Module, sd: Mapping[str, Any]) -> 
         raise KeyError(
             f"state_dict mismatch: missing {missing}, unexpected {unexpected}"
         )
+
+
+def _stats_like(params: Mapping[str, Any]) -> dict:
+    """A batch_stats tree for a params tree: zero mean and var beside every
+    BatchNorm's scale (only to drive the name map of `from_flax_variables`)."""
+    out = {}
+    for k, v in params.items():
+        if isinstance(v, Mapping) and "scale" in v:
+            z = np.zeros_like(np.asarray(v["scale"]))
+            out[k] = {"mean": z, "var": z}
+        elif isinstance(v, Mapping):
+            out[k] = _stats_like(v)
+    return out
+
+
+def _find_adam(state):
+    """optax's ScaleByAdamState (count, mu, nu) inside a chain's state."""
+    if all(hasattr(state, a) for a in ("count", "mu", "nu")):
+        return state
+    if isinstance(state, (tuple, list)):
+        for s in state:
+            found = _find_adam(s)
+            if found is not None:
+                return found
+    return None
+
+
+def adam_state_from_optax(opt_state, model: torch.nn.Module) -> Dict[int, dict]:
+    """The JAX trainer's optax state (`add_decayed_weights` + `adam`, numpy
+    or jax leaves) -> torch Adam's per-parameter state for `model`: optax's
+    `mu`, `nu` and `count` become `exp_avg`, `exp_avg_sq` and `step`, by the
+    name map of `from_flax_variables`. Keyed by the index of each parameter
+    in `model.parameters()`, the order of an optimiser built on them, so
+    `opt.load_state_dict({"state": ..., "param_groups":
+    opt.state_dict()["param_groups"]})` takes it."""
+    adam = _find_adam(opt_state)
+    if adam is None:
+        raise ValueError("no Adam state (count, mu, nu) in the optax state")
+    step = torch.tensor(float(np.asarray(adam.count)), dtype=torch.float32)
+    moments = []
+    for tree in (adam.mu, adam.nu):
+        tree = {k: v for k, v in tree.items()}
+        sd = from_flax_variables({"params": tree, "batch_stats": _stats_like(tree)})
+        moments.append(sd)
+    out = {}
+    for i, (name, p) in enumerate(model.named_parameters()):
+        mu, nu = moments[0][name], moments[1][name]
+        if mu.shape != p.shape:
+            raise ValueError(f"{name}: optax moment {tuple(mu.shape)} does not "
+                             f"match the parameter {tuple(p.shape)}")
+        out[i] = {"step": step.clone(), "exp_avg": mu.to(p.device),
+                  "exp_avg_sq": nu.to(p.device)}
+    return out

@@ -22,14 +22,30 @@ pointnet2_modules.py):
   * the shared-MLP convs and the head's first two Linears carry no bias; every
     BatchNorm has eps 1e-5.
 
-Only eval mode is ported (train mode is queued in ROADMAP.md). Each
-set-abstraction level is farthest-point sampling, then per scale either the
-fused ball query + grouping and the grouped three-layer MLP with its max
-over nsample (ops/kernels/{ballquery_group,group_mlp}_kernel), or the whole
-scale in one (ops/kernels/sa_fused_kernel), chosen by the JAX package's
-shape rule (PointnetSAModuleMSG); the eval BatchNorms are folded into the
-layers' weights. GroupAll feeds the whole cloud to the grouped-MLP kernel as
-one group.
+In eval mode each set-abstraction level is farthest-point sampling, then
+per scale either the fused ball query + grouping and the grouped three-layer
+MLP with its max over nsample (ops/kernels/{ballquery_group,group_mlp}_kernel),
+or the whole scale in one (ops/kernels/sa_fused_kernel), chosen by the JAX
+package's shape rule (PointnetSAModuleMSG); the eval BatchNorms are folded
+into the layers' weights. GroupAll feeds the whole cloud to the grouped-MLP
+kernel as one group.
+
+In train mode (`model.train()`, the trainer's), and wherever `use_xyz` is
+False, a scale takes the JAX package's unfused route
+(geoa3_tpu/models/pointnetpp.py:279-323, 369-391): FPS (row 12), the ball
+query alone (row 15's forward with its gathers compiled out),
+`ops.group_points` of the coordinates minus the centres and of the features
+(a gather whose backward is the C-channel scatter kernel, row 13), then the
+shared MLP's layers one by one (1x1 conv as a product, the first one split
+over coordinates and features as the JAX `_SplitDense` is, the train-mode
+BatchNorm of models/layers.py, ReLU) and `amax` over nsample. GroupAll
+broadcasts the whole cloud as one group. The head's dropout (0.5) draws from
+the `generator` passed to `forward`, or takes the `keep` mask given. The
+grouped-MLP kernels take the three-layer MLPs of eval mode only.
+
+The JAX model's eval route at use_xyz=False sends GroupAll's last layer
+through its pool kernel; the port runs that layer unfused (the same
+function). No classifier of either package uses use_xyz=False.
 """
 
 from __future__ import annotations
@@ -40,10 +56,11 @@ import torch
 from torch import nn
 
 from geoa3_tpu_torch import ops
-from geoa3_tpu_torch.models.pointnet import _check_eval
+from geoa3_tpu_torch.models.layers import batch_norm, dropout
 from geoa3_tpu_torch.ops.kernels.group_mlp_kernel import FoldedMLP
 
 BN_EPS = 1e-5
+DROPOUT = 0.5
 
 
 class SharedMLP(nn.Sequential):
@@ -84,7 +101,10 @@ class SharedMLP(nn.Sequential):
         return cached[1]
 
     def _kernel_fold(self) -> FoldedMLP:
-        _check_eval(self)
+        if self.training:
+            raise NotImplementedError(
+                "the grouped-MLP kernels fold the eval BatchNorm: call .eval(), "
+                "or run the layers unfused (SharedMLP.unfused)")
         if len(self.widths) != 3:
             raise NotImplementedError(
                 f"the grouped-MLP kernel takes three layers, got {self.widths}")
@@ -101,18 +121,37 @@ class SharedMLP(nn.Sequential):
         return ops.sa_query_group_mlp(xyz, new_xyz, features, radius, nsample,
                                       self._kernel_fold())
 
-    def rows(self, x: torch.Tensor) -> torch.Tensor:
+    def rows(self, x: torch.Tensor, gf: Optional[torch.Tensor] = None) -> torch.Tensor:
         """The layers applied to rows, not pooled, any number of them:
-        x [..., cin] -> [..., widths[-1]]. Plain PyTorch (the JAX package runs
-        this path unfused too); eval BatchNorm as flax computes it."""
-        _check_eval(self)
+        x [..., cin] -> [..., widths[-1]]; with `gf` [..., cf], x holds the
+        first cin - cf inputs and gf the rest, and the first layer is split
+        over the two (the JAX `_SplitDense`: no concatenation). Plain
+        PyTorch (the JAX package runs this path unfused too); the eval
+        BatchNorm as flax computes it, the train-mode one of
+        models/layers.py in training."""
         for i in range(0, len(self), 3):
             conv, bn = self[i], self[i + 1]
-            x = x @ conv.weight[:, :, 0, 0].t()
-            x = (x - bn.running_mean) * (torch.rsqrt(bn.running_var + bn.eps)
-                                         * bn.weight) + bn.bias
+            w = conv.weight[:, :, 0, 0]
+            if i == 0 and gf is not None:
+                wa = x.shape[-1]
+                x = x @ w[:, :wa].t() + gf @ w[:, wa:].t()
+            else:
+                x = x @ w.t()
+            if self.training:
+                x = batch_norm(x, bn, True)
+            else:
+                x = (x - bn.running_mean) * (torch.rsqrt(bn.running_var + bn.eps)
+                                             * bn.weight) + bn.bias
             x = torch.relu(x)
         return x
+
+    def unfused(self, gx: Optional[torch.Tensor],
+                gf: Optional[torch.Tensor]) -> torch.Tensor:
+        """The layers on grouped rows and the max over nsample, unfused:
+        gx [b, m, ns, 3] or None (use_xyz=False), gf [b, m, ns, cf] or None
+        -> [b, m, widths[-1]] (geoa3_tpu/models/pointnetpp.py:279-323)."""
+        x = self.rows(gf) if gx is None else self.rows(gx, gf)
+        return x.amax(dim=2)
 
 
 class PointnetSAModuleMSG(nn.Module):
@@ -128,30 +167,37 @@ class PointnetSAModuleMSG(nn.Module):
         super().__init__()
         if not len(radii) == len(nsamples) == len(mlps):
             raise ValueError("radii, nsamples and mlps must have one entry a scale")
-        if not use_xyz:
-            raise NotImplementedError(
-                "use_xyz=False is not ported: the grouping and MLP kernels "
-                "take the relative coordinates as the first three inputs")
+        if not use_xyz and not in_features:
+            raise ValueError("cannot have no features and not use xyz")
         self.npoint = npoint
         self.radii = tuple(radii)
         self.nsamples = tuple(nsamples)
-        self.mlps = nn.ModuleList(
-            SharedMLP(3 + in_features, widths) for widths in mlps)
+        self.use_xyz = use_xyz
+        cin = (3 if use_xyz else 0) + in_features
+        self.mlps = nn.ModuleList(SharedMLP(cin, widths) for widths in mlps)
 
     def forward(self, xyz: torch.Tensor, features: Optional[torch.Tensor]):
-        _check_eval(self)
         outs = []
+        unfused = self.training or not self.use_xyz
         if self.npoint is not None:
             fps_idx = ops.furthest_point_sampling(xyz, self.npoint)
             new_xyz = ops.gather_points(xyz, fps_idx)
             cf = 0 if features is None else features.shape[-1]
             for radius, ns, mlp in zip(self.radii, self.nsamples, self.mlps):
+                if unfused:
+                    # geoa3_tpu/models/pointnetpp.py:_query_and_group
+                    idx = ops.ball_query(radius, ns, xyz, new_xyz)
+                    gx = (ops.group_points(xyz, idx) - new_xyz[:, :, None]
+                          if self.use_xyz else None)
+                    gf = (ops.group_points(features, idx)
+                          if features is not None else None)
+                    outs.append(mlp.unfused(gx, gf))
                 # the JAX package's route (geoa3_tpu/models/pointnetpp.py:
                 # 441-465, gated by group_mlp_available and
                 # ball_query_group_available): the split pair where cf is 0
                 # or a multiple of 128, the whole-scale kernel otherwise
                 # (MSG's SA2 at cf = 320, and SA1 with normals at cf = 3)
-                if cf % 128 == 0:
+                elif cf % 128 == 0:
                     _, gx, gf = ops.ball_query_group(xyz, new_xyz, features,
                                                      radius, ns)
                     outs.append(mlp(gx, gf))
@@ -160,8 +206,10 @@ class PointnetSAModuleMSG(nn.Module):
                                                 radius, ns))
         else:
             new_xyz = None
+            gx = xyz[:, None] if self.use_xyz else None
             gf = features[:, None] if features is not None else None
-            outs.append(self.mlps[0](xyz[:, None], gf))
+            mlp = self.mlps[0]
+            outs.append(mlp.unfused(gx, gf) if unfused else mlp(gx, gf))
         return new_xyz, outs[0] if len(outs) == 1 else torch.cat(outs, dim=-1)
 
 
@@ -183,7 +231,7 @@ def _ClsHead(classes: int) -> nn.Sequential:
         nn.ReLU(True),
         nn.Linear(512, 256, bias=False), nn.BatchNorm1d(256, eps=BN_EPS),
         nn.ReLU(True),
-        nn.Dropout(0.5), nn.Linear(256, classes),
+        nn.Dropout(DROPOUT), nn.Linear(256, classes),
     )
 
 
@@ -214,8 +262,12 @@ class PointNet2ClassificationSSG(nn.Module):
         self.SA_modules = nn.ModuleList(mods)
         self.fc_layer = _ClsHead(classes)
 
-    def forward(self, pc: torch.Tensor) -> torch.Tensor:
-        _check_eval(self)
+    def forward(self, pc: torch.Tensor,
+                generator: Optional[torch.Generator] = None,
+                keep: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """pc [b, n, 3] ([b, n, 6] with use_normal) -> logits [b, classes].
+        In train mode the head's dropout keep mask [b, 256] is drawn from
+        `generator` or given as `keep`."""
         want = 6 if self.use_normal else 3
         if pc.shape[-1] != want:
             raise ValueError(
@@ -224,7 +276,17 @@ class PointNet2ClassificationSSG(nn.Module):
         features = pc[..., 3:].contiguous() if self.use_normal else None
         for sa in self.SA_modules:
             xyz, features = sa(xyz, features)
-        return self.fc_layer(features[:, 0, :])
+        return self._head(features[:, 0, :], generator, keep)
+
+    def _head(self, x, generator, keep):
+        """The FC head; in training with the train-mode BatchNorms and the
+        dropout written out (geoa3_tpu/models/pointnetpp.py:_ClsHead)."""
+        fc = self.fc_layer
+        if not self.training:
+            return fc(x)
+        x = torch.relu(batch_norm(x @ fc[0].weight.t(), fc[1], True))
+        x = torch.relu(batch_norm(x @ fc[3].weight.t(), fc[4], True))
+        return fc[7](dropout(x, fc[6].p, True, generator, keep))
 
 
 class PointNet2ClassificationMSG(PointNet2ClassificationSSG):
@@ -247,7 +309,8 @@ class PointnetFPModule(nn.Module):
     None, known_feats [b, m, c2] -> [b, n, mlp[-1]]. `mlp` lists the input
     width (c2, + c1 with unknown features) and then the layers' widths, as
     the reference's build_shared_mlp takes it; the layers are plain PyTorch
-    (`SharedMLP.rows`). No shipped classifier uses it."""
+    (`SharedMLP.rows`, train-mode BatchNorm in training). No shipped
+    classifier uses it."""
 
     def __init__(self, mlp: Sequence[int]):
         super().__init__()
@@ -256,7 +319,6 @@ class PointnetFPModule(nn.Module):
     def forward(self, unknown: torch.Tensor, known: Optional[torch.Tensor],
                 unknow_feats: Optional[torch.Tensor],
                 known_feats: torch.Tensor) -> torch.Tensor:
-        _check_eval(self)
         if known is not None:
             dist, idx = ops.three_nn(unknown, known)
             dist_recip = 1.0 / (dist + 1e-8)

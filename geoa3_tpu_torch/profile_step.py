@@ -1,12 +1,14 @@
-"""Where an attack step spends its time on the card.
+"""Where an attack step, or a victim's train step, spends its time on the card.
 
     python -m geoa3_tpu_torch.profile_step [--steps 20] [--refresh 10]
-        [--arch PointNet|PointNetPP|PointNetPP_MSG]
+        [--arch PointNet|PointNetPP|PointNetPP_MSG] [--train]
 
 Runs the default attack (geoa3_tpu_torch/workload.py, b=32, n=1024) on the
-victim `--arch` for one
-binary step of `--steps` Adam steps under torch.profiler, after a warm-up,
-and prints the step time (CUDA events), the device's busy and idle shares,
+victim `--arch` for one binary step of `--steps` Adam steps, or with
+`--train` `--steps` train steps of the victim (train.py, b=32, synthetic
+clouds, the trainer's initial weights and dropout), under torch.profiler
+after a warm-up, and prints the step time (CUDA events), the device's busy
+and idle shares,
 the time by group (the port's kernels, matrix products, the rest), the top
 kernels by device time and the top host-side ops by self CPU time. The last
 line is a JSON summary. Needs a CUDA card; it never runs on the CPU.
@@ -23,6 +25,7 @@ import torch
 from torch.profiler import ProfilerActivity, profile
 
 from geoa3_tpu_torch import make_attack_fn
+from geoa3_tpu_torch import train as T
 from geoa3_tpu_torch.workload import (
     BATCH,
     main_path_config,
@@ -71,16 +74,8 @@ def _device_us(evt) -> float:
     return 0.0
 
 
-def main() -> int:
-    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--steps", type=int, default=20)
-    ap.add_argument("--refresh", type=int, default=10)
-    ap.add_argument("--arch", default="PointNet",
-                    choices=("PointNet", "PointNetPP", "PointNetPP_MSG"))
-    args = ap.parse_args()
-    if not torch.cuda.is_available():
-        raise SystemExit("profile_step: needs a CUDA card")
-
+def _attack_window(args):
+    """The attack's `--steps` steps, after a warm-up block."""
     _, logits_fn = random_victim(args.arch, seed=0)
     pc, nrm = synthetic_batch(seed=1)
     with torch.no_grad():
@@ -91,13 +86,46 @@ def main() -> int:
     fn = make_attack_fn(logits_fn, main_path_config(
         1, args.steps, args.refresh, arch=args.arch))
     gen = torch.Generator(device="cuda").manual_seed(0)
+    return lambda: fn(pc, nrm, gt, gt, gen)
 
+
+def _train_window(args):
+    """`--steps` train steps of the victim on one synthetic batch, after
+    three warm-up steps."""
+    cfg = T.TrainConfig(arch=args.arch, batch_size=BATCH)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    state = T.init_state(cfg, gen)
+    step = T.make_train_step(cfg)
+    pc, _ = synthetic_batch(seed=1)
+    target = torch.arange(BATCH, device="cuda") % cfg.classes
+
+    def run(n):
+        for _ in range(n):
+            step(state, pc, target, gen)
+
+    run(3)
+    return lambda: run(args.steps)
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--steps", type=int, default=20)
+    ap.add_argument("--refresh", type=int, default=10)
+    ap.add_argument("--arch", default="PointNet",
+                    choices=("PointNet", "PointNetPP", "PointNetPP_MSG"))
+    ap.add_argument("--train", action="store_true",
+                    help="profile the victim's train steps instead")
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        raise SystemExit("profile_step: needs a CUDA card")
+
+    window = _train_window(args) if args.train else _attack_window(args)
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         start.record()
-        fn(pc, nrm, gt, gt, gen)
+        window()
         end.record()
         end.synchronize()
     wall_ms = start.elapsed_time(end)
@@ -114,8 +142,9 @@ def main() -> int:
     for name, (us, _) in kernels.items():
         groups[_group(name)] += us / 1e3 / args.steps
 
-    print(f"ms/step {per_step:.4f} (CUDA events, {args.steps} steps, "
-          f"K={args.refresh}, b={BATCH}, {args.arch}); device busy "
+    what = "train steps" if args.train else f"attack steps, K={args.refresh}"
+    print(f"ms/step {per_step:.4f} (CUDA events, {args.steps} {what}, "
+          f"b={BATCH}, {args.arch}); device busy "
           f"{busy_ms / args.steps:.4f} ms/step = {busy_ms / wall_ms:.3f} of "
           f"the wall time (idle {1 - busy_ms / wall_ms:.3f})")
     print("by group (ms/step):")
@@ -147,6 +176,7 @@ def main() -> int:
         "device_kernels_per_step": device_kernels,
         "groups_ms_per_step": dict(groups), "steps": args.steps,
         "refresh": args.refresh, "batch": BATCH, "arch": args.arch,
+        "train": args.train,
         "card": torch.cuda.get_device_name(0),
     }))
     return 0

@@ -187,6 +187,15 @@ def test_unported_modes_raise():
     assert build_model("PointNetPP", device="cpu").SA_modules[0].npoint == 512
     assert build_model("PointNetPP_MSG", device="cpu").SA_modules[0].nsamples == (
         16, 32, 128)
-    model = PointNet(classes=CLASSES)  # a fresh module is in train mode
-    with pytest.raises(NotImplementedError, match="train mode"):
-        model(torch.zeros(1, N, 3))
+    # train mode is ported: a fresh module trains and returns the logits
+    # and the feature transform, also on one cloud (flax's BatchNorm of one
+    # row); the dropout draws from the generator given
+    model = PointNet(classes=CLASSES)
+    pc = torch.from_numpy(_clouds(3))
+    g = torch.Generator().manual_seed(0)
+    logits, transform = model(pc, generator=g)
+    assert logits.shape == (B, CLASSES) and transform.shape == (B, 64, 64)
+    again, _ = model(pc, generator=torch.Generator().manual_seed(0))
+    assert torch.equal(logits, again)
+    one, _ = model(pc[:1], generator=g)
+    assert one.shape == (1, CLASSES) and torch.isfinite(one).all()

@@ -104,6 +104,43 @@ def test_normals_as_features_match_jax():
         model(torch.from_numpy(pc[..., :3]))
 
 
+@pytest.mark.parametrize("train", [False, True], ids=["eval", "train"])
+def test_without_xyz_matches_jax(train):
+    """use_xyz=False (features only in every grouping, normals as the first
+    level's features), in eval and in train mode, against the JAX model; the
+    train step in float64 on both sides (tests/test_torch_train.py says
+    why), with the dropout mask read from the JAX apply."""
+    from flax import linen as fnn
+
+    jmodel = JSSG(classes=CLASSES, use_xyz=False, use_normal=True)
+    variables = _variables(jmodel, 6, 8)
+    rng = np.random.RandomState(9)
+    nrm = rng.randn(B, N, 3).astype(np.float32)
+    pc = np.concatenate([_clouds(10), nrm / np.linalg.norm(nrm, axis=-1, keepdims=True)], -1)
+    model = PointNet2ClassificationSSG(classes=CLASSES, use_xyz=False, use_normal=True)
+    model.load_state_dict(from_flax_variables(variables))
+    assert model.SA_modules[0].mlps[0][0].weight.shape == (64, 3, 1, 1)
+    if not train:
+        want = np.asarray(jmodel.apply(variables, jnp.asarray(pc), train=False))
+        with torch.no_grad():
+            got = model.eval()(torch.from_numpy(pc)).numpy()
+        np.testing.assert_allclose(got, want, rtol=0, atol=1e-5 * np.abs(want).max())
+        return
+    with jax.enable_x64(True):
+        v64 = jax.tree.map(lambda a: jnp.asarray(a, jnp.float64), variables)
+        want, mutated = jmodel.apply(
+            v64, jnp.asarray(pc, jnp.float64), train=True,
+            mutable=["batch_stats", "intermediates"],
+            rngs={"dropout": jax.random.PRNGKey(2)},
+            capture_intermediates=lambda mdl, _: isinstance(mdl, fnn.Dropout))
+        keep = np.asarray(mutated["intermediates"]["head"]["Dropout_0"]["__call__"][0]) != 0
+        want = np.asarray(want)
+    got = model.double().train()(torch.from_numpy(pc).double(),
+                                 keep=torch.from_numpy(keep))
+    np.testing.assert_allclose(got.detach().numpy(), want, rtol=0,
+                               atol=1e-5 * np.abs(want).max())
+
+
 def test_reference_state_dict_round_trip(jax_victim, tmp_path):
     """from_flax_variables writes the reference's names: the JAX package's
     own converter reads them back into the same tree, and they load into the
@@ -166,16 +203,24 @@ def test_structure_mirrors_reference():
 
 
 def test_unported_modes_raise():
-    model = PointNet2ClassificationSSG(classes=CLASSES)  # a fresh module trains
-    with pytest.raises(NotImplementedError, match="train mode"):
-        model(torch.zeros(1, N, 3))
-    with pytest.raises(NotImplementedError, match="train mode"):
-        build_model("PointNetPP_MSG", device="cpu").train()(torch.zeros(1, N, 3))
+    # train mode is ported: a fresh module trains, also on a batch of one
+    # cloud (the heads' BatchNorms normalise one row to 0, as flax does)
+    model = PointNet2ClassificationSSG(classes=CLASSES)
+    pc = torch.from_numpy(_clouds(6))[:1]
+    logits = model(pc, generator=torch.Generator().manual_seed(0))
+    assert logits.shape == (1, CLASSES) and torch.isfinite(logits).all()
+    assert not torch.equal(model.fc_layer[1].running_mean, torch.zeros(512))
+    msg = build_model("PointNetPP_MSG", device="cpu").train()
+    logits = msg(torch.from_numpy(_clouds(7)))
+    assert logits.shape == (B, 40) and torch.isfinite(logits).all()
+    with pytest.raises(NotImplementedError, match="eval"):
+        SharedMLP(3, [8, 8, 16])(torch.zeros(1, 2, 4, 3), None)
     with pytest.raises(FileNotFoundError):  # the MSG victim is ported now
         load_victim_state("nowhere", "PointNetPP_MSG")
     with pytest.raises(ValueError, match="Not support such arch"):
         load_victim_state("nowhere", "PointNetPP_SSG")
-    with pytest.raises(NotImplementedError, match="use_xyz"):
+    # use_xyz=False is ported (the JAX package's unfused route); it needs features
+    with pytest.raises(ValueError, match="not use xyz"):
         PointnetSAModule([8, 8, 16], npoint=4, radius=0.5, nsample=4, use_xyz=False)
     with pytest.raises(NotImplementedError, match="three layers"):
         SharedMLP(3, [8, 16]).eval()(torch.zeros(1, 2, 4, 3), None)
