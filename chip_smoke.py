@@ -115,7 +115,23 @@ Needs one CUDA card, nvcc and this repository around the script. Phases:
      distilled set (exit 0); one train step of each arch on the card
      against the same step on the CPU in float64 with the card's
      selections (PointNet at b = 32, PointNet++ at b = 4);
-  12. print one JSON line listing the kernels, then the result line.
+  12. multi-GPU (parallel/mesh.py) on the one card: (a) a one-rank NCCL
+     group in process: the sharded attack on PointNet at full width (b=32,
+     1 x 20 steps, K=10) against make_attack_fn at the same seed (success
+     and best steps equal, clouds within 1e-4, the losses within 1e-3 mean
+     relative; launches read from the code), one sharded train step of
+     PointNet at b = 32 against the plain step, a NaN planted in a kernel's
+     input caught by utils.profiling.debug_nans at the launch path, and
+     phase 3's step as a share of the float32 peak (utils.flops.mfu);
+     (b) two ranks sharing the card over gloo, spawned (this script with
+     --rank) with a FileStore under build/chip_smoke/mgpu/ and a time limit:
+     the attack CLI with --mesh_data_parallel on phase 5's 40 clouds (20
+     rows a rank) against one process's CLI (the same Mat/ names, clouds
+     within 1e-4; rank 1 writes nothing), and one train step each of
+     PointNet at data 2 and at data 1 x model 2 (conv5 512 rows a rank) and
+     of PointNet++ SSG at data 2 against one process's step, each rank's
+     launches as read from the code;
+  13. print one JSON line listing the kernels, then the result line.
 
 Every path runs with the kernels' launch counts set to 0 just before and
 read just after, and fails if a kernel it names was not launched; together
@@ -136,7 +152,8 @@ three scales, and the index-only query at the uniform loss's five shapes
 (one call and ten back to back, the plain versions' one call, the bounds
 for the run's data). Row 13, the C-channel scatter: its four path shapes
 (one call and ten back to back, the plain version, `scatter_add_` and
-`index_add_` one call each, the bound).
+`index_add_` one call each, the bound). `--times step`: the attack step
+of phases 3, 6 and 8 (PointNet, SSG, MSG), three runs each.
 
 Any failed check raises, and the script exits non-zero. It never falls back
 to the CPU: without a CUDA device it exits non-zero before printing results.
@@ -156,7 +173,7 @@ from pathlib import Path
 import numpy as np
 
 REPO = Path(__file__).resolve().parent
-PEAK_F32_FLOPS = 67e12  # H100 SXM, float32 outside the tensor cores
+PEAK_F32_FLOPS = None  # the card's float32 peak, set by main (card_peak_flops)
 PEAK_BYTES = 3.35e12  # H100 SXM HBM3
 CIN, COUT = 128, 1024  # conv5's channels, the largest pool
 DENSE_B, DENSE_N = 16, 10000  # runs/bench_dense.py's batch and cloud size
@@ -191,6 +208,24 @@ if not (CODE / "geoa3_tpu_torch" / "csrc").is_dir():
     _fail(f"geoa3_tpu_torch/ not found in {CODE}")
 sys.path.insert(0, str(CODE))
 from geoa3_tpu_torch.workload import BATCH as B, KNN as K, NPOINT as N  # noqa: E402
+
+
+def card_peak_flops() -> float:
+    """The card's float32 peak outside the tensor cores, from the
+    geoa3_tpu_torch/utils/flops.py beside this script, so that the kernels'
+    bounds and utils.flops.mfu share one figure. It is loaded by its path,
+    not from the package that runs: with `--tree`, an older checkout may
+    have no utils/flops.py, and its times keep this checkout's figure."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        "geoa3_card_flops", REPO / "geoa3_tpu_torch" / "utils" / "flops.py")
+    flops = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(flops)
+    peak = flops.device_peak_flops()
+    if peak is None:
+        _fail("utils/flops.py knows no float32 peak for this card")
+    return peak
 
 
 def time_ms(fn, iters: int = 20, warm: int = 3) -> float:
@@ -3635,11 +3670,461 @@ def train_phase(torch, paths, gen_mat: str, card: str) -> dict:
     return out
 
 
+# ---------------------------------------------------------------- phase 12
+
+MGPU_DIR = REPO / "build" / "chip_smoke" / "mgpu"
+MGPU_TIMEOUT = 300  # seconds a spawned rank may take, its collectives too
+MGPU_STEPS = 20  # attack steps (1 binary step, K = 10)
+MGPU_CLI_B = 40  # phase 5's 40 synthetic clouds, one padded batch: 20 a rank
+# the two-rank train steps: name -> (arch, (n_data, n_model))
+MGPU_TRAIN = {"PointNet dp2": ("PointNet", (2, 1)),
+              "PointNet tp2": ("PointNet", (1, 2)),
+              "PointNetPP dp2": ("PointNetPP", (2, 1))}
+
+
+def pointnet_attack_launches(steps: int, refresh: int, batches: int = 1,
+                             reevaluate: bool = False) -> dict:
+    """Every kernel's launches of the default attack on PointNet (one binary
+    step of `steps` steps a batch), read from the code: per step one victim
+    forward (three pools) and backward (three pool backwards), the 1-NN
+    payload, the o2a Chamfer term's 3-channel scatter and the curvature
+    term; a selection mask every `refresh` steps; the kappa prologue once a
+    batch; the CLI's re-evaluation of each batch's result (three pools)."""
+    from geoa3_tpu_torch.ops.kernels import KERNELS
+
+    want = dict.fromkeys(KERNELS, 0)
+    want.update(nn1_payload=batches * steps, scatter_add_3t=batches * steps,
+                kappa_selmask=batches * (steps // refresh),
+                curv_term=batches * steps, kappa_fwd=batches,
+                pool_fwd=batches * 3 * (steps + int(reevaluate)),
+                pool_bwd=batches * 3 * steps)
+    return want
+
+
+def train_inputs(torch, arch: str, b: int):
+    """(state_dict, clouds, targets, dropout keep masks) on the host: the
+    weights of workload.random_victim (PointNet's T-Nets off the identity,
+    so that they take gradients), as phase 11's card-vs-CPU step."""
+    from geoa3_tpu_torch.workload import random_victim, synthetic_batch
+
+    base, _ = random_victim(arch, seed=4, device="cpu")
+    pc, _ = synthetic_batch(b, N, seed=21, device="cpu")
+    g = torch.Generator().manual_seed(5)
+    if arch == "PointNet":
+        with torch.no_grad():
+            for tnet in (base.input_transform, base.feature_transform):
+                tnet.fc3.weight.copy_(0.01 * torch.randn(tnet.fc3.weight.shape,
+                                                         generator=g))
+        keep = (torch.rand(b, 512, generator=g) < 0.7,
+                torch.rand(b, 256, generator=g) < 0.7)
+    else:
+        keep = torch.rand(b, 256, generator=g) < 0.5
+    return base.state_dict(), pc, torch.arange(b) % 40, keep
+
+
+def step_record(torch, model, loss) -> dict:
+    """The loss, parameters, gradients and running statistics after a train
+    step, in float64 on the host."""
+    host = lambda t: t.detach().double().cpu()  # noqa: E731
+    return dict(loss=float(loss),
+                params={n: host(p) for n, p in model.named_parameters()},
+                grads={n: host(p.grad) for n, p in model.named_parameters()},
+                stats={n: host(t) for n, t in model.named_buffers()
+                       if n.endswith(("running_mean", "running_var"))})
+
+
+def single_train_step(torch, arch: str, inputs, reorder: bool = False
+                      ) -> tuple[dict, dict]:
+    """One train step of one process on the card -> (record, launches);
+    with `reorder`, on the batch's rows in a seeded random order (the same
+    step in other float32 reduction orders)."""
+    from geoa3_tpu_torch import train as T
+    from geoa3_tpu_torch.models import build_model
+    from geoa3_tpu_torch.ops.kernels import launch_counts, reset_launch_counts
+
+    sd, pc, target, keep = inputs
+    if reorder:
+        perm = torch.randperm(len(pc), generator=torch.Generator().manual_seed(0))
+        pc, target = pc[perm], target[perm]
+        keep = tuple(k[perm] for k in keep) if isinstance(keep, tuple) else keep[perm]
+    tcfg = T.TrainConfig(arch=arch, classes=40, npoint=N, batch_size=len(pc))
+    model = build_model(arch, 40, N)
+    model.load_state_dict(sd)
+    state = T.TrainState(model.train(), T.make_optimizer(tcfg, model))
+    keep = tuple(k.cuda() for k in keep) if isinstance(keep, tuple) else keep.cuda()
+    reset_launch_counts()
+    state, metrics = T.make_train_step(tcfg, 1)(state, pc.cuda(), target.cuda(),
+                                                keep=keep)
+    torch.cuda.synchronize()
+    return step_record(torch, state.model, metrics["loss"]), launch_counts()
+
+
+def sharded_train_step(torch, arch: str, inputs, mesh_shape) -> tuple[dict, dict]:
+    """One train step of this rank of `parallel.make_sharded_train_step` on
+    the global batch -> (record of its slices, launches)."""
+    from geoa3_tpu_torch import parallel
+    from geoa3_tpu_torch import train as T
+    from geoa3_tpu_torch.models import build_model
+    from geoa3_tpu_torch.ops.kernels import launch_counts, reset_launch_counts
+
+    sd, pc, target, keep = inputs
+    tcfg = T.TrainConfig(arch=arch, classes=40, npoint=N, batch_size=len(pc))
+    model = build_model(arch, 40, N)
+    model.load_state_dict(sd)
+    state = T.TrainState(model.train(), T.make_optimizer(tcfg, model))
+    mesh = parallel.make_mesh(*mesh_shape)
+    step, place = parallel.make_sharded_train_step(
+        tcfg, mesh, tensor_parallel=mesh_shape[1] > 1)
+    local = place(state)
+    reset_launch_counts()
+    local, metrics = step(local, pc, target, keep=keep)
+    torch.cuda.synchronize()
+    rec = step_record(torch, local.model, metrics["loss"])
+    rec["coords"] = (mesh.get_local_rank("data"), mesh.get_local_rank("model"))
+    rec["moments"] = {n: tuple(local.optimizer.state[p]["exp_avg"].shape)
+                      for n, p in local.model.named_parameters()}
+    return rec, launch_counts()
+
+
+TRAIN_TOLS = {"loss": 1e-5, "stats": 1e-5, "grad": 1e-4, "vanishing": 1e-4,
+              "params": 1e-4}
+
+
+def train_step_errors(torch, label: str, ref: dict, ranks: dict, lr: float) -> dict:
+    """{kind: (largest error, tensor)} of a sharded step's ranks ({(data,
+    model): record}) against one process's step, split tensors put back
+    together from the model ranks: the loss (relative) on every rank; the
+    running statistics (relative to the largest entry); each gradient by
+    its Frobenius norm (relative), a vanishing one (as tests/
+    test_torch_train.py names them) by its largest entry against 1e-2 of
+    the model's largest gradient entry; the parameters after Adam's first
+    step by the share of all their entries that moved other than in one
+    process's step by more than 1e-2 of the step's size (lr): the first
+    step is lr * sign(g), so an entry differs by 2 lr where its gradient's
+    sign differs, or by float32's rounding of the parameter. Replicated
+    tensors must be equal on every rank."""
+    n_model = 1 + max(m for _, m in ranks)
+    first = ranks[(0, 0)]
+
+    def full(kind, name):
+        parts = [ranks[(0, m)][kind][name] for m in range(n_model)]
+        if parts[0].shape == ref[kind][name].shape:
+            return parts[0]
+        return torch.cat(parts)
+
+    worst = dict.fromkeys(TRAIN_TOLS, (0.0, None))
+
+    def note(kind, name, err):
+        if err >= worst[kind][0]:
+            worst[kind] = (err, name)
+
+    for r in ranks.values():
+        note("loss", "loss", abs(r["loss"] - ref["loss"]) / abs(ref["loss"]))
+    for name, s_ref in ref["stats"].items():
+        note("stats", name, ((first["stats"][name] - s_ref).abs().max()
+                             / s_ref.abs().max()).item())
+        if not all(torch.equal(r["stats"][name], first["stats"][name])
+                   for r in ranks.values()):
+            _fail(f"{label}: the ranks' {name} differ")
+    gmax = max(g.abs().max().item() for g in ref["grads"].values())
+    moved = entries = 0
+    for name, g_ref in ref["grads"].items():
+        g, p, p_ref = full("grads", name), full("params", name), ref["params"][name]
+        if first["params"][name].shape == p_ref.shape and not all(
+                torch.equal(r["params"][name], first["params"][name])
+                for r in ranks.values()):
+            _fail(f"{label}: the ranks' replicas of {name} differ")
+        if _vanishing(name):
+            note("vanishing", name, (g - g_ref).abs().max().item() / (1e-2 * gmax))
+        else:
+            note("grad", name, ((g - g_ref).norm() / g_ref.norm()).item())
+        moved += int(((p - p_ref).abs() > 1e-2 * lr).sum())
+        entries += p.numel()
+    note("params", "share moved otherwise", moved / entries)
+    return worst
+
+
+def hold_train_step(torch, label: str, ref: dict, ranks: dict, yard: dict,
+                    lr: float) -> dict:
+    """A sharded step against one process's step on the card
+    (`train_step_errors`), each kind of error held at its tolerance
+    (TRAIN_TOLS) or at 4x the error of the same one-process step on the
+    batch's rows reordered (`yard`: the same function, other float32
+    reduction orders), whichever is larger: at b = 32 a float32 PointNet
+    step is ill-conditioned (the heads' BatchNorms, a maximum or a ReLU
+    within rounding of a switch; phase 11 finds the card's float32
+    gradients 3e-3 from float64 and the CPU's 1e-2), so any change of
+    reduction order moves single gradients by more than 1e-4."""
+    got = train_step_errors(torch, label, ref, ranks, lr)
+    noise = train_step_errors(torch, label + " (rows reordered)", ref,
+                              {(0, 0): yard}, lr)
+    limits = {k: max(TRAIN_TOLS[k], 4 * noise[k][0]) for k in TRAIN_TOLS}
+    for kind, (err, name) in got.items():
+        if not err <= limits[kind]:
+            _fail(f"{label}: {kind} {name} err {err:.3e} > {limits[kind]:.3e} (the "
+                  f"tolerance {TRAIN_TOLS[kind]:.0e}, or 4x the reordered step's "
+                  f"{noise[kind][0]:.3e} at {noise[kind][1]})")
+    return dict(rel_err={k: v[0] for k, v in got.items()},
+                worst_tensor={k: v[1] for k, v in got.items()},
+                reordered_rel_err={k: v[0] for k, v in noise.items()}, limits=limits)
+
+
+def mgpu_rank(torch, rank: int) -> None:
+    """One of phase 12(b)'s two ranks, both on the one card, over gloo: the
+    attack CLI with --mesh_data_parallel, then MGPU_TRAIN's train steps;
+    writes MGPU_DIR/out_<rank>.pt."""
+    import os
+
+    os.environ.update(RANK=str(rank), WORLD_SIZE="2", LOCAL_RANK="0")
+    from geoa3_tpu_torch import parallel
+    from geoa3_tpu_torch.cli.main_attack import build_parser, main as cli_main
+    from geoa3_tpu_torch.ops.kernels import launch_counts, reset_launch_counts
+
+    parallel.init_distributed("gloo", "cuda", init_method=f"file://{MGPU_DIR}/store",
+                              timeout=MGPU_TIMEOUT)
+    inp = torch.load(MGPU_DIR / "inputs.pt", weights_only=False)
+    root = MGPU_DIR / ("ranks" if rank == 0 else "rank1_must_stay_empty")
+    reset_launch_counts()
+    t0 = time.time()
+    saved = cli_main(build_parser().parse_args(
+        inp["cli_argv"] + ["--exps_root", str(root), "--mesh_data_parallel"]))
+    torch.cuda.synchronize()
+    out = {"cli": dict(saved=saved, launches=launch_counts(), seconds=time.time() - t0)}
+    for name, (arch, mesh_shape) in MGPU_TRAIN.items():
+        out[name] = sharded_train_step(torch, arch, inp["train"][arch], mesh_shape)
+    torch.save(out, MGPU_DIR / f"out_{rank}.pt")
+    torch.distributed.destroy_process_group()
+
+
+def mgpu_inprocess(torch, paths, ms_step: float) -> dict:
+    """Phase 12(a): a one-rank NCCL group in this process. The sharded
+    attack on PointNet at full width against make_attack_fn at the same
+    seed; one sharded train step of PointNet at b = 32 against the plain
+    step; a NaN planted in a kernel's input caught by the guard of the
+    launch path; and phase 3's step as a share of the card's float32 peak."""
+    from geoa3_tpu_torch import make_attack_fn, parallel
+    from geoa3_tpu_torch.ops.kernels import nn1_kernel
+    from geoa3_tpu_torch.utils import flops
+    from geoa3_tpu_torch.utils.profiling import debug_nans
+    from geoa3_tpu_torch.workload import main_path_config, random_victim
+
+    t0 = time.time()
+    parallel.init_distributed(device="cuda")  # no torchrun: a world of one
+    if torch.distributed.get_backend() != "nccl" or torch.distributed.get_world_size() != 1:
+        _fail("phase 12(a) expected a one-rank NCCL group")
+    mesh = parallel.make_mesh()
+    _, logits_fn = random_victim("PointNet", seed=0)
+    pc, nrm, _ = make_batch(torch, B, N, seed=1)
+    with torch.no_grad():
+        # even rows the victim's label (not reached in 20 steps), odd rows
+        # the synthetic shape's (reached at once)
+        gt = torch.where(torch.arange(B, device="cuda") % 2 == 0,
+                         logits_fn(pc).argmax(-1), synthetic_labels(torch))
+    cfg = main_path_config(1, MGPU_STEPS)
+    gen = lambda: torch.Generator(device="cuda").manual_seed(11)  # noqa: E731
+    one = make_attack_fn(logits_fn, cfg)(pc, nrm, gt, gt, gen())
+    want = pointnet_attack_launches(MGPU_STEPS, cfg.curv_knn_refresh_every)
+    fn = parallel.make_sharded_attack_fn(logits_fn, cfg, mesh)
+    res, counts = paths.run("sharded attack, one NCCL rank", tuple(_nonzero(want)),
+                            lambda: fn(pc, nrm, gt, gt, gen()))
+    _expect("sharded attack, one NCCL rank", counts, want)
+    check_result(torch, res, MGPU_STEPS, "sharded attack")
+    errs = attack_agreement(torch, "sharded attack, one NCCL rank", res, one)
+
+    inputs = train_inputs(torch, "PointNet", B)
+    ref, c_ref = single_train_step(torch, "PointNet", inputs)
+    yard, _ = single_train_step(torch, "PointNet", inputs, reorder=True)
+    rec, c_rec = sharded_train_step(torch, "PointNet", inputs, (1, 1))
+    _expect("sharded train step, one NCCL rank", c_rec, c_ref)
+    train_err = hold_train_step(torch, "sharded train step, one NCCL rank", ref,
+                                {rec["coords"]: rec}, yard, 1e-3)
+
+    adv, ori = pc[:2, :64].contiguous(), pc[:2, 64:128].contiguous()
+    payload = torch.zeros(2, 8, 64, device="cuda")
+    # once unguarded, so that the guarded call's outputs reuse these blocks,
+    # which hold no NaN; then a NaN planted before the guard
+    nn1_kernel.nn1_dual_payload(adv, ori, payload)
+    payload[:, 3] = float("nan")
+    caught = None
+    with debug_nans(True):
+        try:
+            nn1_kernel.nn1_dual_payload(adv, ori, payload)
+        except FloatingPointError as e:
+            caught = str(e)
+    if caught is None:
+        _fail("debug_nans let a kernel's NaN output through the launch path")
+    torch.distributed.destroy_process_group()
+    secs = time.time() - t0
+    mfu = flops.mfu(ms_step, B, N, K)
+    print(f"  sharded attack, one NCCL rank, 1x{MGPU_STEPS} steps against "
+          f"make_attack_fn: {errs}")
+    print(f"  sharded train step, one NCCL rank, PointNet b={B} against the "
+          f"plain step: {train_err}")
+    print(f"  debug_nans on the card: {caught}")
+    print(f"  phase 3's step ({ms_step:.4f} ms, b={B}, n={N}) as a share of the "
+          f"float32 peak: {mfu}")
+    print(f"  phase 12(a) seconds: {secs:.2f}")
+    return dict(attack=errs, train=train_err, nan_guard=caught, mfu=mfu, seconds=secs)
+
+
+def attack_agreement(torch, label: str, got, want) -> dict:
+    """A sharded attack's result against one process's on the card: success
+    and the best steps equal; the clouds within 1e-4 (tests/test_parallel.
+    py's tolerance) and the loss trajectory within 1e-3 mean relative
+    (phase 3's card-vs-CPU tolerance): float atomics in the kernels vary in
+    the last bits from run to run, and Adam carries them."""
+    for name in ("success", "best_attack_step", "best_attack_bs_idx"):
+        if not torch.equal(getattr(got, name), getattr(want, name)):
+            _fail(f"{label}: {name} differs from one process's")
+    err = (got.best_attack - want.best_attack).abs().max().item()
+    rel = ((got.all_loss - want.all_loss).abs().mean()
+           / want.all_loss.abs().mean()).item()
+    if not (err <= 1e-4 and rel <= 1e-3):
+        _fail(f"{label}: best_attack err {err:.3e} (tol 1e-4), all_loss mean rel "
+              f"{rel:.3e} (tol 1e-3)")
+    return dict(best_attack_max_abs_err=err, all_loss_mean_rel_err=rel,
+                success=int(got.success.sum()))
+
+
+def mgpu_two_ranks(torch, paths) -> dict:
+    """Phase 12(b): two ranks sharing the one card over gloo (NCCL refuses
+    two ranks on one device), spawned with a FileStore under MGPU_DIR and a
+    time limit: the attack CLI with --mesh_data_parallel on phase 5's 40
+    clouds against one process's CLI, and one train step each of PointNet
+    at data 2 and at data 1 x model 2 and of PointNet++ SSG at data 2
+    against one process's step, with each rank's exact launches."""
+    import os
+    import shutil
+
+    import scipy.io as sio
+
+    from geoa3_tpu_torch.cli.main_attack import build_parser, main as cli_main
+
+    t0 = time.time()
+    shutil.rmtree(MGPU_DIR, ignore_errors=True)
+    MGPU_DIR.mkdir(parents=True)
+    argv = ["--attack", "GeoA3", "--attack_label", "Untarget",
+            "--data_dir_file", f"synthetic:4:{N}", "-b", str(MGPU_CLI_B),
+            "--binary_max_steps", "1", "--iter_max_steps", str(MGPU_STEPS),
+            "--checkpoint", str(REPO / "build" / "chip_smoke" / "victim.pt")]
+    train = {arch: train_inputs(torch, arch, B) for arch in ("PointNet", "PointNetPP")}
+    torch.save({"cli_argv": argv, "train": train}, MGPU_DIR / "inputs.pt")
+    env = dict(os.environ, PYTHONPATH=str(CODE))
+    procs = [subprocess.Popen([sys.executable, str(REPO / "chip_smoke.py"), "--rank",
+                               str(r)], env=env, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT) for r in range(2)]
+
+    # one process's runs, on the card beside the ranks
+    want_cli = pointnet_attack_launches(MGPU_STEPS, 10, reevaluate=True)
+    single, c_single = paths.run(
+        "CLI, one process, -b 40", tuple(_nonzero(want_cli)),
+        lambda: cli_main(build_parser().parse_args(
+            argv + ["--exps_root", str(MGPU_DIR / "single")])))
+    _expect("CLI, one process, -b 40", c_single, want_cli)
+    refs = {arch: single_train_step(torch, arch, train[arch]) for arch in train}
+    yards = {arch: single_train_step(torch, arch, train[arch], reorder=True)[0]
+             for arch in train}
+    for arch, (_, c) in refs.items():
+        _expect(f"train step {arch}, one process", c, train_launches(arch)[0])
+
+    logs = []
+    deadline = time.time() + MGPU_TIMEOUT
+    try:
+        for p in procs:
+            logs.append(p.communicate(timeout=max(1.0, deadline - time.time()))[0])
+    except subprocess.TimeoutExpired:
+        _fail(f"a phase 12 rank outlasted {MGPU_TIMEOUT} s")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for r, (p, log) in enumerate(zip(procs, logs)):
+        if p.returncode != 0:
+            _fail(f"phase 12 rank {r} exited {p.returncode}:\n{log.decode()[-4000:]}")
+    outs = [torch.load(MGPU_DIR / f"out_{r}.pt", weights_only=False) for r in range(2)]
+
+    # the CLI: rank 0 writes one process's Mat/ names, rank 1 nothing
+    if (MGPU_DIR / "rank1_must_stay_empty").exists():
+        _fail("rank 1 of the sharded CLI wrote into its experiment root")
+    for r, out in enumerate(outs):
+        _expect(f"sharded CLI rank {r}", out["cli"]["launches"], want_cli)
+    sharded = Path(outs[0]["cli"]["saved"])
+    mats = sorted(p.name for p in (Path(single) / "Mat").iterdir())
+    if not mats or sorted(p.name for p in (sharded / "Mat").iterdir()) != mats:
+        _fail("the sharded CLI's Mat/ names differ from one process's")
+    cli_err = max(float(np.abs(
+        sio.loadmat(sharded / "Mat" / f)["adversary_point_clouds"]
+        - sio.loadmat(Path(single) / "Mat" / f)["adversary_point_clouds"]).max())
+        for f in mats)
+    if not cli_err <= 1e-4:
+        _fail(f"the sharded CLI's clouds differ from one process's by {cli_err:.3e}")
+    for f in ("attack_result.txt", "batches_done.txt"):
+        if (sharded / f).read_text() != (Path(single) / f).read_text():
+            _fail(f"the sharded CLI's {f} differs from one process's")
+    print(f"  CLI --mesh_data_parallel, 2 ranks x 20 rows: {len(mats)} Mat/ files "
+          f"as one process's, clouds max abs err {cli_err:.3e} (tol 1e-4), rank 1 "
+          f"wrote nothing; {outs[0]['cli']['seconds']:.2f} s on rank 0")
+
+    train_errs = {}
+    for name, (arch, mesh_shape) in MGPU_TRAIN.items():
+        ranks = {}
+        for r, out in enumerate(outs):
+            rec, counts = out[name]
+            _expect(f"{name} rank {r}", counts, train_launches(arch)[0])
+            ranks[rec["coords"]] = rec
+        train_errs[name] = hold_train_step(torch, name, refs[arch][0], ranks,
+                                           yards[arch], 1e-3)
+        if mesh_shape[1] > 1:
+            for rec in ranks.values():
+                if (rec["params"]["conv5.weight"].shape != (512, 128, 3)
+                        or rec["moments"]["conv5.weight"] != (512, 128, 3)):
+                    _fail(f"{name}: conv5 is not 512 rows a rank with its moments")
+        print(f"  {name}: loss {ranks[(0, 0)]['loss']:.6f}; against one process "
+              f"{train_errs[name]}")
+    secs = time.time() - t0
+    print(f"  phase 12(b) seconds: {secs:.2f}")
+    return dict(cli=dict(mats=len(mats), max_abs_err=cli_err), train=train_errs,
+                seconds=secs)
+
+
+def step_times_phase(torch) -> dict:
+    """`--times step`: the checkout's attack step on the three victims, as
+    phases 3, 6 and 8 drive it (b=32, n=1024, K=10; PointNet 1x50 steps,
+    SSG and MSG 1x30), ms a step by CUDA events over the whole attack,
+    three runs each after a warm-up, with no check run. The step is
+    host-bound, so this times the host code of the whole path."""
+    from geoa3_tpu_torch import make_attack_fn
+    from geoa3_tpu_torch.ops.kernels import _build
+    from geoa3_tpu_torch.workload import main_path_config, random_victim
+
+    print(f"attack step times of {CODE}")
+    _build.lib()
+    pc, nrm, _ = make_batch(torch, B, N, seed=1)
+    out = {}
+    for arch, steps in (("PointNet", 50), ("PointNetPP", 30), ("PointNetPP_MSG", 30)):
+        _, logits_fn = random_victim(arch, seed=0)
+        with torch.no_grad():
+            gt = logits_fn(pc).argmax(-1)
+
+        def run(cfg, seed):
+            gen = torch.Generator(device="cuda").manual_seed(seed)
+            return timed_attack(torch, make_attack_fn(logits_fn, cfg),
+                                (pc, nrm, gt, gt, gen), cfg.iter_max_steps)[1]
+
+        run(main_path_config(1, 10, arch=arch), 99)  # warm-up
+        cfg = main_path_config(1, steps, arch=arch)
+        out[arch] = [run(cfg, 0) for _ in range(3)]
+        print(f"  {arch}: ms/step {out[arch]}", flush=True)
+    return out
+
+
 # `--times ROW`: the rows with a timing mode, each phase building the
-# kernels itself and timing them at the row's path shapes
+# kernels itself and timing them at the row's path shapes; `step`, the
+# attack step of the three victims
 TIMES = {"12": fps_times_phase, "13": scatter_times_phase,
          "15": ballquery_times_phase, "16": group_mlp_times_phase,
-         "17": sa_fused_times_phase}
+         "17": sa_fused_times_phase, "step": step_times_phase}
 
 
 def main() -> int:
@@ -3652,11 +4137,13 @@ def main() -> int:
                     help="stop after phase 2 (a short check of a new kernel)")
     ap.add_argument("--times", metavar="ROW", choices=sorted(TIMES),
                     help="only build the kernels and time row ROW's kernels "
-                         f"({', '.join(sorted(TIMES))}) at its path shapes, "
-                         "no check")
+                         f"({', '.join(sorted(TIMES))}) at its path shapes "
+                         "(step: the three victims' attack step), no check")
     ap.add_argument("--tree", metavar="DIR",
                     help="with --times: the checkout whose kernels run (e.g. "
                          "a `git archive` of another commit)")
+    ap.add_argument("--rank", type=int, choices=(0, 1),
+                    help="run as that rank of phase 12's two (started by phase 12)")
     args = ap.parse_args()
     if args.tree and not args.times:
         _fail("--tree goes with --times")
@@ -3665,6 +4152,11 @@ def main() -> int:
         _fail("torch.cuda.is_available() is false: this script needs a CUDA card")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    if args.rank is not None:
+        mgpu_rank(torch, args.rank)
+        return 0
+    global PEAK_F32_FLOPS
+    PEAK_F32_FLOPS = card_peak_flops()
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -3730,7 +4222,12 @@ def main() -> int:
     phase("phase 11: victim training on the card")
     trained = train_phase(torch, paths, tools["gen_data_mat"]["path"], smi)
 
-    phase("phase 12: the result")
+    phase("phase 12: multi-GPU: a one-rank NCCL group in process, then two "
+          "ranks sharing the card over gloo")
+    mgpu = mgpu_inprocess(torch, paths, run["ms_step"])
+    mgpu.update(mgpu_two_ranks(torch, paths))
+
+    phase("phase 13: the result")
     paths.check_union()
     for k in kernels:
         k["launches"], k["launches_by_path"] = paths.launches(k["name"])
@@ -3742,7 +4239,7 @@ def main() -> int:
                    "success": run["success"], "batch": B, "card": smi},
         "side_modes": side, "cli": cli, "ssg": ssg, "msg": msg,
         "subsample_uniform": sub, "dense": dense, "defense_tools": tools,
-        "train": trained,
+        "train": trained, "multi_gpu": mgpu,
     }))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

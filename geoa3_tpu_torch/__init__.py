@@ -17,10 +17,13 @@ Layout:
   data/      synthetic point clouds, .mat datasets, file writers,
              augmentations, the training-set reader, attack-set distillation
              (numpy)
-  utils/     experiment naming, meters, records, victim checkpoints
+  parallel/  data and tensor parallel over torch.distributed (one process
+             per GPU): the sharded attack and the dp x tp train step
+  utils/     experiment naming, meters, records, victim checkpoints, the
+             FLOP model, profiling and the NaN guard
   cli/       the command lines (python -m geoa3_tpu_torch.cli.<name>):
-             main_attack, defense, smoothness, gen_data_mat, resample_mat,
-             save_ori_obj
+             main_attack, main_train, readiness, defense, smoothness,
+             gen_data_mat, resample_mat, save_ori_obj
 
 Entry points run on the card (device="cuda") unless the caller passes
 device="cpu".

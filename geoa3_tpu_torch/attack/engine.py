@@ -55,6 +55,7 @@ from geoa3_tpu_torch.attack.project import (
     find_offset,
     lp_clip,
     offset_proj,
+    perpendicular_gauss,
 )
 from geoa3_tpu_torch.device import float32_exact
 from geoa3_tpu_torch.ops.sampling import random_start
@@ -119,8 +120,13 @@ def forward_losses(
     scale_const: torch.Tensor,
     cfg: AttackConfig,
     kappa_mask: Optional[torch.Tensor] = None,
+    loss_batch: Optional[int] = None,
 ) -> tuple[torch.Tensor, Aux]:
     """One loss evaluation (reference `_forward_step`, geoA3_attack.py:100-180).
+
+    The loss is the mean of `loss_n` over the batch, or, with `loss_batch`,
+    its sum over these rows divided by `loss_batch`: a data-parallel rank's
+    share of the global batch's mean (parallel/mesh.py).
 
     One dual 1-NN pass feeds Chamfer, Hausdorff and the curvature term's
     borrowed normals and ori kappa (payload copies). With a self-kNN
@@ -201,7 +207,8 @@ def forward_losses(
 
     loss_n = cls_loss + scale_const * constrain
     aux = Aux(logits, loss_n, cls_loss, dis_loss, hd_loss, curv_loss, constrain)
-    return loss_n.mean(), aux
+    loss = loss_n.mean() if loss_batch is None else loss_n.sum() / loss_batch
+    return loss, aux
 
 
 def _ensemble_eval(logits_fn, input_all, target, gt_target, cfg: AttackConfig,
@@ -324,6 +331,7 @@ def make_attack_fn(
     eval_logits_fn: Optional[Callable[[torch.Tensor], torch.Tensor]] = None,
     debug_callback: Optional[Callable] = None,
     draws=None,
+    shard: Optional[tuple[int, int]] = None,
 ) -> Callable[..., AttackResult]:
     """Build the whole attack for a fixed config.
 
@@ -352,6 +360,14 @@ def make_attack_fn(
     `eval_logits_fn` replaces `logits_fn` for the success test and
     best-tracking only; the gradient pass keeps `logits_fn`.
 
+    `shard=(index, size)` makes this one of `size` data-parallel ranks
+    (parallel.make_sharded_attack_fn): it is given rank `index`'s b rows of a
+    global batch of size * b. It draws every random number above at the
+    global shape, at the same sites and in the same order, and keeps its
+    rows; its loss is its rows' sum over the global batch. Its result is
+    then its rows of the one-process attack's at the same seed. `init_offset`
+    and `draws` give this rank's rows.
+
     The binary search is always driven from the host here, so
     `host_binary_loop=True` changes nothing; `debug_callback(bs_idx,
     best_attack, loss_ys)` is called after each search step and, as in the
@@ -377,6 +393,11 @@ def make_attack_fn(
     jitter_on = cfg.is_pre_jitter_input and not cfg.is_partial_var
     separate_eval = eval_logits_fn is not None
     tx = _Optimizer(cfg)
+    index, size = shard or (0, 1)
+
+    def own(x: torch.Tensor, b: int, dim: int = 0) -> torch.Tensor:
+        """This rank's b rows of a draw at the global batch's shape."""
+        return x if shard is None else x.narrow(dim, index * b, b)
 
     def judge(aux, input_all, gt_target, target, eval_starts=None):
         """(success [b], predicted label [b]) for best-tracking: from the
@@ -397,6 +418,8 @@ def make_attack_fn(
     def run_inner(pc_ori, normal_ori, gt_target, target, kappa_ori, const,
                   bs_idx, offset, best, generator):
         b, n, _ = pc_ori.shape
+        B = b * size
+        loss_batch = None if shard is None else B
         dev = pc_ori.device
         subsample = cfg.is_subsample_opt and n > cfg.npoint
         opt_state = tx.init(offset)
@@ -414,10 +437,10 @@ def make_attack_fn(
                     eval_starts = torch.as_tensor(
                         draws.eval_starts(bs_idx, step)).to(dev, torch.int32)
                 else:
-                    fps_start = random_start(b, n, generator, dev)
-                    eval_starts = random_start(
-                        cfg.eval_num * b, n, generator, dev
-                    ).reshape(cfg.eval_num, b)
+                    fps_start = own(random_start(B, n, generator, dev), b)
+                    eval_starts = own(random_start(
+                        cfg.eval_num * B, n, generator, dev
+                    ).reshape(cfg.eval_num, B), b, dim=1)
             if jitter_on and step % cfg.calculate_project_jitter_noise_iter == 0:
                 # from the current cloud, held until the next refresh
                 # (reference :312-317)
@@ -428,7 +451,9 @@ def make_attack_fn(
                 jitter = estimate_perpendicular(
                     generator, cloud, cfg.jitter_k, cfg.jitter_sigma,
                     cfg.jitter_clip,
-                    gauss=draws.jitter_gauss(bs_idx, step, cloud) if draws else None,
+                    gauss=draws.jitter_gauss(bs_idx, step, cloud) if draws else
+                    tuple(own(g, b) for g in perpendicular_gauss(
+                        generator, B, cloud.shape[1], cloud)),
                 )
             if curv and not subsample and step % K == 0:
                 # deviation #7: rebuilt from the stop-gradient cloud per
@@ -447,7 +472,7 @@ def make_attack_fn(
                 input_curr = input_curr + jitter
             loss, aux = forward_losses(
                 logits_fn, pc_ori, input_curr, normal_ori, kappa_ori, target,
-                const, cfg, kappa_mask=mask,
+                const, cfg, kappa_mask=mask, loss_batch=loss_batch,
             )
             (grad,) = torch.autograd.grad(loss, off)
             input_all = input_all.detach()
@@ -479,6 +504,8 @@ def make_attack_fn(
         projection and clip writes are dead in this mode, so they are not
         applied."""
         b, n, _ = pc_ori.shape
+        B = b * size
+        loss_batch = None if shard is None else B
         dev = pc_ori.device
         kr, reinit = cfg.knn_range, cfg.partial_reinit_every
         loss_ys = pc_ori.new_empty(cfg.iter_max_steps, b)
@@ -497,8 +524,8 @@ def make_attack_fn(
                 part = draws.patch_offset(bs_idx, phase).to(
                     device=dev, dtype=pc_ori.dtype).detach().clone()
             else:
-                part = 1e-3 * torch.randn(b, kr, 3, generator=generator,
-                                          device=dev, dtype=pc_ori.dtype)
+                part = own(1e-3 * torch.randn(B, kr, 3, generator=generator,
+                                               device=dev, dtype=pc_ori.dtype), b)
             opt_state = tx.init(part)
             for i in range(reinit):
                 step = phase * reinit + i
@@ -507,7 +534,7 @@ def make_attack_fn(
                     1, rows, part)
                 loss, aux = forward_losses(
                     logits_fn, pc_ori, input_all, normal_ori, kappa_ori,
-                    target, const, cfg,
+                    target, const, cfg, loss_batch=loss_batch,
                 )
                 (grad,) = torch.autograd.grad(loss, part)
                 input_all = input_all.detach()
@@ -543,10 +570,10 @@ def make_attack_fn(
                     offset0 = init_offset(bs_idx).to(device=dev, dtype=pc_ori.dtype)
                     offset0 = offset0.detach().clone()
                 else:
-                    offset0 = 1e-3 * torch.randn(
-                        b, n, 3, generator=generator, device=dev,
+                    offset0 = own(1e-3 * torch.randn(
+                        b * size, n, 3, generator=generator, device=dev,
                         dtype=pc_ori.dtype,
-                    )
+                    ), b)
                 loss_ys = run_inner(
                     pc_ori, normal_ori, gt_target, target, kappa_ori,
                     search.const, bs_idx, offset0, best, generator,

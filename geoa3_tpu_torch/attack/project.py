@@ -127,6 +127,12 @@ def get_perpendicular_jitter(generator, vector, sigma: float = 0.01,
     ).clamp(-clip, clip)
 
 
+def perpendicular_gauss(generator, b: int, n: int, like: torch.Tensor) -> tuple:
+    """The tangent jitter's two standard normal draws, [b, n, 1] each, in
+    order."""
+    return _randn((b, n, 1), like, generator), _randn((b, n, 1), like, generator)
+
+
 def estimate_perpendicular(generator, pc, k: int, sigma: float = 0.01,
                            clip: float = 0.05, gauss=None):
     """Tangent-plane jitter -> [b, n, 3]: the two largest eigenvectors of the
@@ -139,6 +145,6 @@ def estimate_perpendicular(generator, pc, k: int, sigma: float = 0.01,
     v2 = eigvec[..., :, 1]  # second largest
     b, n, _ = pc.shape
     if gauss is None:
-        gauss = (_randn((b, n, 1), pc, generator), _randn((b, n, 1), pc, generator))
+        gauss = perpendicular_gauss(generator, b, n, pc)
     a1, a2 = (sigma * g.to(device=pc.device, dtype=pc.dtype) for g in gauss)
     return (v1 * a1).clamp(-clip, clip) + (v2 * a2).clamp(-clip, clip)

@@ -41,7 +41,10 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--arch", default="PointNet", type=str, metavar="ARCH")
     # ========================= Training ==========================
     parser.add_argument("-g", "--mGPU", default=1, type=int, metavar="N",
-                        help="kept for flag parity; one device")
+                        help="kept for flag parity; the CLI trains on one "
+                        "device (data x tensor parallel training is the API "
+                        "parallel.make_sharded_train_step, as in the JAX "
+                        "package)")
     parser.add_argument("-j", "--num_workers", default=8, type=int, metavar="N")
     parser.add_argument("-b", "--batch_size", default=32, type=int, metavar="N")
     parser.add_argument("--epochs", default=250, type=int, metavar="N")

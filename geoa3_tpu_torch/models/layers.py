@@ -26,6 +26,14 @@ which lose ~1e-2 of a gradient over the 10^5 rows of a set-abstraction
 level; in float64 all of them agree to rounding (tests/test_torch_train.py).
 The running buffers are updated in place under no_grad, so their version
 counters move and the models' eval-mode fold caches are made again.
+
+Inside `parallel.collectives.data_shard` (the sharded train step of
+parallel/mesh.py) each rank holds its rows of the global batch: the
+statistics are the global batch's, both passes summed over the data group by
+a differentiable all-reduce (so every rank's running statistics agree), and
+the dropout masks are drawn at the global batch's shape, or given at it,
+and cut to this rank's rows, so that a sharded step computes what one
+device computes on the whole batch.
 """
 
 from __future__ import annotations
@@ -35,6 +43,8 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from geoa3_tpu_torch.parallel.collectives import active_shard, all_reduce_sum
 
 
 def batch_norm(x: torch.Tensor, bn: nn.modules.batchnorm._BatchNorm,
@@ -50,9 +60,16 @@ def batch_norm(x: torch.Tensor, bn: nn.modules.batchnorm._BatchNorm,
         return y.reshape(x.shape)
     # two passes: the mean, then the mean square of the centred rows (one
     # row gives exactly 0, as in flax)
-    mean = x2.mean(0)
-    xc = x2 - mean
-    var = (xc * xc).mean(0)
+    shard = active_shard()
+    if shard is None:
+        mean = x2.mean(0)
+        xc = x2 - mean
+        var = (xc * xc).mean(0)
+    else:
+        rows = x2.shape[0] * shard.size
+        mean = all_reduce_sum(x2.sum(0), shard.group) / rows
+        xc = x2 - mean
+        var = all_reduce_sum((xc * xc).sum(0), shard.group) / rows
     y = xc * (torch.rsqrt(var + bn.eps) * bn.weight) + bn.bias
     m = 1.0 - bn.momentum  # flax's momentum
     with torch.no_grad():
@@ -67,12 +84,17 @@ def dropout(x: torch.Tensor, p: float, training: bool,
     """flax's `nn.Dropout(p)`: in training, x / (1 - p) where kept, else 0.
     The keep mask is `keep` (bool, x's shape: a test feeds another engine's
     draw) or drawn from `generator` (on x's device; None: torch's default
-    generator). Outside training, x."""
+    generator). Outside training, x. In a data shard, `keep` and the draw
+    have the global batch's rows, of which this rank keeps its own."""
     if not training:
         return x
+    shard = active_shard()
+    shape = x.shape if shard is None else (x.shape[0] * shard.size,) + x.shape[1:]
     if keep is None:
-        keep = torch.rand(x.shape, generator=generator, device=x.device) < 1.0 - p
-    elif keep.shape != x.shape:
+        keep = torch.rand(shape, generator=generator, device=x.device) < 1.0 - p
+    elif keep.shape != shape:
         raise ValueError(f"dropout keep mask {tuple(keep.shape)} does not match "
-                         f"{tuple(x.shape)}")
+                         f"{tuple(shape)}")
+    if shard is not None:
+        keep = shard.rows(keep).to(x.device)
     return torch.where(keep, x / (1.0 - p), 0.0)

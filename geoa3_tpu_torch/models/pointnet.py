@@ -33,9 +33,18 @@ pools, for clouds that a defense shrank and padded back to n (defense.py).
 As in the JAX model (`_pool_fusable` is False under a mask), a masked
 forward does not take the fused pool: it runs the conv, the BatchNorm and
 the ReLU, then a max over the kept points. conv5's padded rows are zeroed
-first, so its kernel of 3 sees the boundary a shrunken cloud would. The JAX
-model's `return_idx` (the critical-point indices) is used nowhere outside
-that model and is not ported.
+first, so its kernel of 3 sees the boundary a shrunken cloud would.
+
+`return_idx=True` in eval mode also returns conv5's max-pool argmax
+[b, 1024] (the critical points; the JAX model's `return_idx`): the pool
+then runs unfused, as the JAX model's does, and a masked point is never
+chosen.
+
+In training, a layer whose output features `parallel.make_sharded_train_step`
+split over the model group (`model_group`: the wide layers, >= 512
+outputs) computes its own features, which are all-gathered before its
+bias, its BatchNorm and its ReLU (parallel/collectives.py). The eval route
+never looks: a split model refuses eval mode.
 """
 
 from __future__ import annotations
@@ -47,6 +56,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from geoa3_tpu_torch.models.layers import batch_norm, dropout
+from geoa3_tpu_torch.parallel.collectives import model_group, split_features
 from geoa3_tpu_torch.ops.kernels.pool_matmul_kernel import pool_affine_max
 
 CONV_BN_EPS = 1e-3
@@ -54,12 +64,16 @@ FC_BN_EPS = 1e-5
 DROPOUT = 0.3
 
 
-def _dense(x: torch.Tensor, layer: nn.Module) -> torch.Tensor:
-    """Channel-last application of a Linear or kernel-1 Conv1d."""
+def _dense(x: torch.Tensor, layer: nn.Module, training: bool = False) -> torch.Tensor:
+    """Channel-last application of a Linear or kernel-1 Conv1d; in training,
+    of this rank's features of a split layer, gathered (module docstring)."""
     w = layer.weight
     if w.dim() == 3:
         w = w[..., 0]
-    return F.linear(x, w, layer.bias)
+    group = model_group(layer) if training else None
+    if group is None:
+        return F.linear(x, w, layer.bias)
+    return split_features(x, group, lambda x: F.linear(x, w)) + layer.bias
 
 
 def _folded(conv: nn.Conv1d, bn: nn.BatchNorm1d):
@@ -90,22 +104,30 @@ def _fused_pool(x: torch.Tensor, conv: nn.Conv1d, bn: nn.BatchNorm1d):
     return torch.relu(pool_affine_max(x, w3, b, w3t))
 
 
-def _pool(x, conv, bn, training: bool, point_mask=None):
+def _pool(x, conv, bn, training: bool, point_mask=None, return_idx=False):
     """relu(bn(conv(x))) from x [b, n, cin], max-pooled over the points ->
-    [b, cout]. In eval mode without a mask, the fused pool kernel. Otherwise
-    unfused: a kernel-3 conv runs over the point axis with padding 1
-    (F.conv1d), the BatchNorm is train-mode in training, and the max skips
-    the points where point_mask [b, n] is False."""
-    if not training and point_mask is None:
+    [b, cout] (and with `return_idx` the first point of each maximum,
+    [b, cout]). In eval mode without a mask or the index, the fused pool
+    kernel. Otherwise unfused: a kernel-3 conv runs over the point axis with
+    padding 1 (F.conv1d), the BatchNorm is train-mode in training, and the
+    max skips the points where point_mask [b, n] is False."""
+    if not (training or return_idx) and point_mask is None:
         return _fused_pool(x, conv, bn)
+    group = model_group(conv) if training else None
     if conv.kernel_size[0] == 1:
-        h = _dense(x, conv)
-    else:
+        h = _dense(x, conv, training)
+    elif group is None:
         h = F.conv1d(x.transpose(1, 2), conv.weight, conv.bias,
                      padding=conv.padding).transpose(1, 2)
+    else:
+        h = split_features(x, group, lambda x: F.conv1d(
+            x.transpose(1, 2), conv.weight, padding=conv.padding
+        ).transpose(1, 2)) + conv.bias
     h = torch.relu(batch_norm(h, bn, training))
     if point_mask is not None:
         h = torch.where(point_mask[..., None], h, torch.finfo(h.dtype).min)
+    if return_idx:
+        return h.max(dim=1)
     return h.amax(dim=1)
 
 
@@ -136,12 +158,12 @@ class TransformNet(nn.Module):
         """x [b, n, K] -> [b, K, K]; the pool skips the points where
         `point_mask` [b, n] is False."""
         t = self.training
-        h = torch.relu(batch_norm(_dense(x, self.conv1), self.bn1, t))
-        h = torch.relu(batch_norm(_dense(h, self.conv2), self.bn2, t))
+        h = torch.relu(batch_norm(_dense(x, self.conv1, t), self.bn1, t))
+        h = torch.relu(batch_norm(_dense(h, self.conv2, t), self.bn2, t))
         h = _pool(h, self.conv3, self.bn3, t, point_mask)
-        h = torch.relu(batch_norm(_dense(h, self.fc1), self.bn4, t))
-        h = torch.relu(batch_norm(_dense(h, self.fc2), self.bn5, t))
-        h = _dense(h, self.fc3)
+        h = torch.relu(batch_norm(_dense(h, self.fc1, t), self.bn4, t))
+        h = torch.relu(batch_norm(_dense(h, self.fc2, t), self.bn5, t))
+        h = _dense(h, self.fc3, t)
         return h.reshape(h.shape[0], self.K, self.K)
 
 
@@ -171,32 +193,41 @@ class PointNet(nn.Module):
 
     def forward(self, pc: torch.Tensor, point_mask=None,
                 generator: Optional[torch.Generator] = None,
-                keep: Optional[Sequence[torch.Tensor]] = None):
+                keep: Optional[Sequence[torch.Tensor]] = None,
+                return_idx: bool = False):
         """pc [b, n, 3] -> logits [b, classes]. With `point_mask` [b, n]
         bool, the points where it is False are left out of every global
         pool (and zeroed before conv5). In train mode -> (logits, feature
         transform [b, 64, 64]), the two dropouts' keep masks ([b, 512],
-        [b, 256]) drawn from `generator` or given as `keep`."""
+        [b, 256]) drawn from `generator` or given as `keep`. With
+        `return_idx` (eval mode) -> (logits, conv5's pool argmax [b, 1024]
+        int64: the first point of each feature's maximum)."""
         if pc.shape[-1] != 3:
             raise ValueError(f"expected channel-last [b, n, 3], got {tuple(pc.shape)}")
         if point_mask is not None and point_mask.shape != pc.shape[:2]:
             raise ValueError(f"point_mask {tuple(point_mask.shape)} does not "
                              f"match the cloud {tuple(pc.shape)}")
         t = self.training
+        if return_idx and t:
+            raise ValueError("return_idx is an eval-mode output")
         keep1, keep2 = keep if keep is not None else (None, None)
         feat = pc @ self.input_transform(pc, point_mask)
-        feat = torch.relu(batch_norm(_dense(feat, self.conv1), self.bn1, t))
-        feat = torch.relu(batch_norm(_dense(feat, self.conv2), self.bn2, t))
+        feat = torch.relu(batch_norm(_dense(feat, self.conv1, t), self.bn1, t))
+        feat = torch.relu(batch_norm(_dense(feat, self.conv2, t), self.bn2, t))
         t_feat = self.feature_transform(feat, point_mask)
         feat = feat @ t_feat
-        feat = torch.relu(batch_norm(_dense(feat, self.conv3), self.bn3, t))
-        feat = torch.relu(batch_norm(_dense(feat, self.conv4), self.bn4, t))
+        feat = torch.relu(batch_norm(_dense(feat, self.conv3, t), self.bn3, t))
+        feat = torch.relu(batch_norm(_dense(feat, self.conv4, t), self.bn4, t))
         if point_mask is not None:
             feat = torch.where(point_mask[..., None], feat, 0.0)
-        feat = _pool(feat, self.conv5, self.bn5, t, point_mask)
-        feat = torch.relu(batch_norm(_dense(feat, self.fc1), self.bn6, t))
+        feat = _pool(feat, self.conv5, self.bn5, t, point_mask, return_idx)
+        if return_idx:
+            feat, idx = feat
+        feat = torch.relu(batch_norm(_dense(feat, self.fc1, t), self.bn6, t))
         feat = dropout(feat, DROPOUT, t, generator, keep1)
-        feat = torch.relu(batch_norm(_dense(feat, self.fc2), self.bn7, t))
+        feat = torch.relu(batch_norm(_dense(feat, self.fc2, t), self.bn7, t))
         feat = dropout(feat, DROPOUT, t, generator, keep2)
-        logits = _dense(feat, self.fc3)
+        logits = _dense(feat, self.fc3, t)
+        if return_idx:
+            return logits, idx
         return (logits, t_feat) if t else logits

@@ -46,6 +46,12 @@ grouped-MLP kernels take the three-layer MLPs of eval mode only.
 The JAX model's eval route at use_xyz=False sends GroupAll's last layer
 through its pool kernel; the port runs that layer unfused (the same
 function). No classifier of either package uses use_xyz=False.
+
+In training, a layer whose output features `parallel.make_sharded_train_step`
+split over the model group (`model_group`: GroupAll's 512- and 1024-wide
+layers and the head's first) computes its own features, all-gathered
+before its BatchNorm (parallel/collectives.py). The eval route never looks:
+a split model refuses eval mode.
 """
 
 from __future__ import annotations
@@ -58,6 +64,7 @@ from torch import nn
 from geoa3_tpu_torch import ops
 from geoa3_tpu_torch.models.layers import batch_norm, dropout
 from geoa3_tpu_torch.ops.kernels.group_mlp_kernel import FoldedMLP
+from geoa3_tpu_torch.parallel.collectives import model_group, split_features
 
 BN_EPS = 1e-5
 DROPOUT = 0.5
@@ -132,11 +139,14 @@ class SharedMLP(nn.Sequential):
         for i in range(0, len(self), 3):
             conv, bn = self[i], self[i + 1]
             w = conv.weight[:, :, 0, 0]
+            group = model_group(conv) if self.training else None
             if i == 0 and gf is not None:
+                if group is not None:
+                    raise NotImplementedError("a split first layer over split inputs")
                 wa = x.shape[-1]
                 x = x @ w[:, :wa].t() + gf @ w[:, wa:].t()
             else:
-                x = x @ w.t()
+                x = split_features(x, group, lambda x: x @ w.t())
             if self.training:
                 x = batch_norm(x, bn, True)
             else:
@@ -284,7 +294,8 @@ class PointNet2ClassificationSSG(nn.Module):
         fc = self.fc_layer
         if not self.training:
             return fc(x)
-        x = torch.relu(batch_norm(x @ fc[0].weight.t(), fc[1], True))
+        x = split_features(x, model_group(fc[0]), lambda x: x @ fc[0].weight.t())
+        x = torch.relu(batch_norm(x, fc[1], True))
         x = torch.relu(batch_norm(x @ fc[3].weight.t(), fc[4], True))
         return fc[7](dropout(x, fc[6].p, True, generator, keep))
 

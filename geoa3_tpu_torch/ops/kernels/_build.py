@@ -193,6 +193,16 @@ def lib() -> ctypes.CDLL:
     return _lib
 
 
+# set by utils.profiling.debug_nans: each launch then raises if it wrote a
+# NaN into a floating-point argument that held none before it
+check_nans = False
+
+
+def _nan_free(args) -> list:
+    return [isinstance(a, torch.Tensor) and a.is_floating_point()
+            and not bool(torch.isnan(a).any()) for a in args]
+
+
 def launch(name: str, *args) -> None:
     """Call C entry `name` with tensors (passed by data pointer; None is a
     null pointer), ints and floats, on the current CUDA stream; raise if the
@@ -203,19 +213,29 @@ def launch(name: str, *args) -> None:
     if fn is None:
         lib()
         fn = _entries[name]
+    clean = _nan_free(args) if check_nans else None
     err = fn(*[a.data_ptr() if isinstance(a, torch.Tensor) else a
                for a in args], torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"{name}: CUDA launch failed with error {err}")
+    if clean is not None:
+        made = [i for i, (was, now) in enumerate(zip(clean, _nan_free(args)))
+                if was and not now]
+        if made:
+            raise FloatingPointError(f"{name} wrote a NaN into argument(s) {made}")
 
 
 def check_cuda(t: torch.Tensor, name: str, dtype: torch.dtype, shape,
                contiguous: bool = True) -> None:
-    """Validate what a kernel takes: a CUDA tensor of this dtype and shape
-    (None in `shape` matches any size), contiguous unless the kernel reads it
-    through its strides."""
+    """Validate what a kernel takes: a CUDA tensor on the current card (the
+    kernels run on its stream), of this dtype and shape (None in `shape`
+    matches any size), contiguous unless the kernel reads it through its
+    strides."""
     if not t.is_cuda:
         raise ValueError(f"{name}: expected a CUDA tensor, got {t.device}")
+    if t.get_device() != torch.cuda.current_device():
+        raise ValueError(f"{name}: a tensor on {t.device} while "
+                         f"cuda:{torch.cuda.current_device()} is the current device")
     if t.dtype != dtype:
         raise ValueError(f"{name}: expected {dtype}, got {t.dtype}")
     if t.dim() != len(shape) or any(

@@ -152,17 +152,24 @@ def set_epoch(cfg: TrainConfig, state: TrainState, epoch: int) -> None:
 
 def train_loss(cfg: TrainConfig, model: nn.Module, pc: torch.Tensor,
                target: torch.Tensor, generator: Optional[torch.Generator] = None,
-               keep=None) -> Tuple[torch.Tensor, torch.Tensor]:
+               keep=None, global_batch: Optional[int] = None,
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(loss, logits) of the train-mode forward (geoa3_tpu/train.py:126-150):
     smoothing CE, plus for PointNet 0.001 * sum((T T^t - I)^2) / 2 of its
     feature transform. Updates the running statistics. `keep` is the
     dropout masks (PointNet: a pair; PointNet++: one), else drawn from
-    `generator`."""
+    `generator`. With `global_batch`, the CE is summed over these rows and
+    divided by it: a data-parallel rank's share of the global batch's loss
+    (the penalty is a sum over the batch already; parallel/mesh.py)."""
     model.train()
     out = model(pc, generator=generator, keep=keep)
     logits, transform = out if cfg.arch == "PointNet" else (out, None)
-    loss = smoothing_cross_entropy(logits, target, cfg.classes,
-                                   cfg.label_smoothing)
+    if global_batch is None:
+        loss = smoothing_cross_entropy(logits, target, cfg.classes,
+                                       cfg.label_smoothing)
+    else:
+        loss = F.cross_entropy(logits, target.long(), reduction="sum",
+                               label_smoothing=cfg.label_smoothing) / global_batch
     if transform is not None:
         eye = torch.eye(transform.shape[1], dtype=transform.dtype,
                         device=transform.device)
@@ -171,21 +178,29 @@ def train_loss(cfg: TrainConfig, model: nn.Module, pc: torch.Tensor,
     return loss, logits
 
 
-def make_train_step(cfg: TrainConfig, epoch: int = 1) -> Callable:
+def make_train_step(cfg: TrainConfig, epoch: int = 1,
+                    global_batch: Optional[int] = None,
+                    reduce_grads: Optional[Callable] = None) -> Callable:
     """The train step for one epoch's lr and BatchNorm momentum:
     train_step(state, pc [b, n, 3], target [b], generator, keep=None) ->
-    (state, {"loss", "acc"}), updating the state in place."""
+    (state, {"loss", "acc"}), updating the state in place. A data-parallel
+    rank (parallel/mesh.py) passes the global batch size (`train_loss`) and
+    `reduce_grads(params)`, which sums the gradients over the ranks before
+    the optimiser steps; its metrics are then its rows'."""
 
     def train_step(state: TrainState, pc, target, generator=None, keep=None):
         set_epoch(cfg, state, epoch)
         opt = state.optimizer
         opt.zero_grad(set_to_none=True)
-        loss, logits = train_loss(cfg, state.model, pc, target, generator, keep)
+        loss, logits = train_loss(cfg, state.model, pc, target, generator, keep,
+                                  global_batch)
         loss.backward()
-        for group in opt.param_groups:
-            for p in group["params"]:
-                if p.grad is None:  # optax steps every leaf, on a zero gradient
-                    p.grad = torch.zeros_like(p)
+        params = [p for group in opt.param_groups for p in group["params"]]
+        for p in params:
+            if p.grad is None:  # optax steps every leaf, on a zero gradient
+                p.grad = torch.zeros_like(p)
+        if reduce_grads is not None:
+            reduce_grads(params)
         opt.step()
         state.step += 1
         with torch.no_grad():

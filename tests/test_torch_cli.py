@@ -221,7 +221,8 @@ def test_refresh_falls_back_to_the_largest_divisor():
 
 
 LIFTED = {("--is_subsample_opt",), ("--uniform_loss_weight", "1"),
-          ("--arch", "PointNetPP"), ("--arch", "PointNetPP_MSG")}
+          ("--arch", "PointNetPP"), ("--arch", "PointNetPP_MSG"),
+          ("--mesh_data_parallel",)}
 
 
 @pytest.mark.parametrize("flags", [
@@ -231,8 +232,9 @@ LIFTED = {("--is_subsample_opt",), ("--uniform_loss_weight", "1"),
 ])
 def test_refused_switches_raise(work, flags):
     """The switches that are still refused raise with their ROADMAP message
-    before any output; the ones lifted since (farthest-point sampling and the
-    single- and multi-scale PointNet++ victims are ported) pass the gate."""
+    before any output; the ones lifted since (farthest-point sampling, the
+    single- and multi-scale PointNet++ victims and data parallel are
+    ported) pass the gate."""
     args = build_parser().parse_args(_args(work, "refused", *flags))
     if flags in LIFTED:
         _refuse_unported(args)

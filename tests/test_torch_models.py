@@ -91,6 +91,34 @@ def test_logits_and_input_grad_match_jax(jax_victim):
                                atol=1e-4 * np.abs(wgrad).max())
 
 
+
+@pytest.mark.parametrize("masked", [False, True])
+def test_return_idx_matches_jax(jax_victim, masked):
+    """conv5's max-pool argmax (the critical points) of the JAX model's
+    `return_idx`, with and without a point mask; a masked point is never
+    chosen, and the logits are those of the plain forward."""
+    _, variables = jax_victim
+    jmodel = JPointNet(classes=CLASSES, npoint=N, return_idx=True)
+    pc = _clouds(4)
+    mask = np.random.RandomState(5).rand(B, N) > 0.3 if masked else None
+    jlogits, jidx = jmodel.apply(
+        variables, jnp.asarray(pc), train=False,
+        point_mask=None if mask is None else jnp.asarray(mask))
+    model = _port(variables)
+    tmask = None if mask is None else torch.from_numpy(mask)
+    logits, idx = model(torch.from_numpy(pc), point_mask=tmask, return_idx=True)
+    assert idx.shape == (B, 1024)
+    np.testing.assert_array_equal(idx.numpy(), np.asarray(jidx))
+    if mask is not None:
+        assert np.take_along_axis(mask, idx.numpy(), axis=1).all()
+    np.testing.assert_allclose(logits.detach().numpy(), np.asarray(jlogits),
+                               rtol=1e-4, atol=1e-4 * np.abs(jlogits).max())
+    plain = model(torch.from_numpy(pc), point_mask=tmask)
+    np.testing.assert_allclose(logits.detach().numpy(), plain.detach().numpy(),
+                               rtol=1e-5, atol=1e-6)
+    with pytest.raises(ValueError, match="eval-mode"):
+        model.train()(torch.from_numpy(pc), return_idx=True)
+
 def _reference_state_dict(rng):
     """A state_dict with the reference PyTorch PointNet's names and shapes."""
     sd = {}
