@@ -17,7 +17,9 @@ Needs one CUDA card, nvcc and this repository around the script. Phases:
      the ball query + grouping also at MSG SA1's three scales, a ragged
      n = 1000, n = 8192 (past its shared-memory plan) and the uniform
      loss's five index-only queries, its backward also at cf = 3 and
-     with empty balls;
+     with empty balls; kappa from a mask and the kappa backward (both
+     radii) also at k = 40, on coincident points and at n = 1000, 2048,
+     10000 and 12288 (the last two reading the cloud through L2);
      the MSG victim's whole-scale kernel at SA2's three scales and SA1's
      three with normals (cf=3), at cf=0, with empty and over-full balls and
      at widths of 1024, its grouped MLPs at SA1's three scales and at
@@ -152,7 +154,11 @@ three scales, and the index-only query at the uniform loss's five shapes
 (one call and ten back to back, the plain versions' one call, the bounds
 for the run's data). Row 13, the C-channel scatter: its four path shapes
 (one call and ten back to back, the plain version, `scatter_add_` and
-`index_add_` one call each, the bound). `--times step`: the attack step
+`index_add_` one call each, the bound). Row 8, the kappa backward, with
+row 9 (kappa from a mask) and row 4 (the curvature term) beside it: rows
+9, 8 (both radii) and 4 at [32,1024] and row 8 (direct) at [16,1024] and
+[2,10000] (one call and ten back to back, the plain version's one call,
+the bound). `--times step`: the attack step
 of phases 3, 6 and 8 (PointNet, SSG, MSG), three runs each.
 
 Any failed check raises, and the script exits non-zero. It never falls back
@@ -636,6 +642,32 @@ def kernel_checks(torch) -> list[dict]:
           f"[32,1024,3]; max_abs_err is the expansion radius's, against a "
           f"largest entry of {bwd_max:.1f}; expansion radius: ms="
           f"{time_ms(lambda: kk.kappa_bwd(adv, normal_b, mask, gk, K, 'expansion')):.4f}")
+
+    # rows 9 and 8 at k = 40 (two member slots a lane), on a cloud with
+    # coincident points (a duplicated point in every cloud, a run of six in
+    # one), and at [2,2048] (8 rows a stage, fewer than the warps), each on
+    # its own mask; the tolerances above
+    dup = adv.clone()
+    dup[:, 5] = dup[:, 900]
+    dup[0, 6:12] = dup[0, 6]
+    pc2k, nrm2k, rng2k = make_batch(torch, 2, 2 * N, seed=21)
+    g2k = torch.from_numpy(rng2k.randn(2, 2 * N).astype(np.float32)).cuda()
+    for label, cloud_c, nrm_c, g_c, k_ in (
+            ("k=40", adv, normal_b, gk, 40), ("coincident points", dup, normal_b, gk, K),
+            (f"[2,{2 * N}]", pc2k, nrm2k, g2k, K)):
+        mask_c = kk.kappa_selmask(cloud_c, k_)
+        kf = kk.kappa_frommask(cloud_c, nrm_c, mask_c, k_)
+        kf_p = kk.kappa_from_mask_plain(cloud_c, nrm_c, mask_c, k_)
+        check(f"kappa_frommask[{label}]", (kf - kf_p).abs().max().item(),
+              1e-5 * kf_p.abs().max().item(), "kappa")
+        for radius in kk.RADII:
+            gb = kk.kappa_bwd(cloud_c, nrm_c, mask_c, g_c, k_, radius)
+            gb_p = kk.kappa_bwd_plain(cloud_c, nrm_c, mask_c, g_c, k_, radius)
+            if not torch.isfinite(gb).all():
+                _fail(f"kappa_bwd[{radius}][{label}] is not finite")
+            check(f"kappa_bwd[{radius}][{label}]", (gb - gb_p).abs().max().item(),
+                  2e-4 * gb_p.abs().max().item(), "grad")
+    del dup, pc2k, nrm2k, g2k, mask_c, kf_p, gb_p
 
     # --- bare dual 1-NN ----------------------------------------------------
     d_a2o, d_o2a = nk.nn1_dual(adv, pc)
@@ -1628,7 +1660,7 @@ def sa_fused_times(torch, sf, xyz, cen, feats, radius, ns, p_, g_all,
     c1] by W1^T, the centres' rows left out (one call and ten back to back;
     float32, TF32 off).
     `variant`: another build's C entry of the backward (the epilogue-less
-    one of `sa_variant_entry`), timed ten back to back in its place."""
+    one of `variant_entry`), timed ten back to back in its place."""
     from geoa3_tpu_torch.ops.kernels import (
         _build,
         ballquery_group_kernel as bk,
@@ -1770,31 +1802,35 @@ def projection_line(r_: dict) -> str:
         for what, k in (("projection", "proj"), ("back-projection", "bproj")))
 
 
-def sa_variant_entry(define: str):
-    """Starts building csrc/sa_fused.cu alone with `define` set (a timing
+def variant_entry(source: str, define: str, names: tuple):
+    """Starts building csrc/`source` alone with `define` set (a timing
     variant, never the package's) into build/variants/ (named by the
     sources' digest, so a built one is reused); returns a function that
-    waits for the build and returns the variant's geoa3_sa_fused_bwd, bound
-    as _build binds the package's."""
+    waits for the build and returns the variant's C entries `names` (name
+    -> function), bound as _build binds the package's."""
     import ctypes
 
     from geoa3_tpu_torch.ops.kernels import _build
 
-    out = REPO / "build" / "variants" / f"sa_fused_{define}_{_build._digest()}.so"
+    stem = Path(source).stem
+    out = REPO / "build" / "variants" / f"{stem}_{define}_{_build._digest()}.so"
     out.parent.mkdir(parents=True, exist_ok=True)
     proc = None if out.exists() else subprocess.Popen(
         [_build._nvcc(), *_build.NVCC_FLAGS, f"-D{define}", "-I", str(_build.CSRC),
-         "-shared", str(_build.CSRC / "sa_fused.cu"), "-o", str(out)],
+         "-shared", str(_build.CSRC / source), "-o", str(out)],
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
 
     def wait():
         log, _ = proc.communicate(timeout=900) if proc else ("", None)
         if proc and proc.returncode != 0:
-            _fail(f"the {define} variant of sa_fused.cu did not build:\n{log}")
-        fn = ctypes.CDLL(str(out)).geoa3_sa_fused_bwd
-        fn.argtypes = _build.SIGNATURES["geoa3_sa_fused_bwd"]
-        fn.restype = ctypes.c_int
-        return fn
+            _fail(f"the {define} variant of {source} did not build:\n{log}")
+        so = ctypes.CDLL(str(out))
+        fns = {}
+        for name in names:
+            fns[name] = getattr(so, name)
+            fns[name].argtypes = _build.SIGNATURES[name]
+            fns[name].restype = ctypes.c_int
+        return fns
 
     return wait
 
@@ -1808,9 +1844,10 @@ def sa_fused_times_phase(torch) -> dict:
     from geoa3_tpu_torch.ops.kernels import _build, sa_fused_kernel as sf
 
     print(f"row 17 times of {sf.__file__}")
-    variant = sa_variant_entry("GEOA3_SA_BWD_NO_SCATTER") if CODE == REPO else None
+    variant = (variant_entry("sa_fused.cu", "GEOA3_SA_BWD_NO_SCATTER",
+                             ("geoa3_sa_fused_bwd",)) if CODE == REPO else None)
     _build.lib()
-    variant = variant and variant()
+    variant = variant and variant()["geoa3_sa_fused_bwd"]
     gen = torch.Generator(device="cuda").manual_seed(31)
     out = {}
     for label, (x_, c_, f_, r_, ns_, p_) in sa_fused_inputs(torch).items():
@@ -1985,6 +2022,94 @@ def ballquery_times_phase(torch) -> dict:
                      f"plain={r_['bwd_plain']:.4f} bound={r_['bwd_bound']:.4f} "
                      f"({r_['bwd_by']})")
         print(line, flush=True)
+    return out
+
+
+def kappa_inputs(torch) -> dict:
+    """Rows 9, 8 and 4's path shapes, label -> (kernel, inputs): at the
+    main path's [32,1024] (k = 16), row 9 and row 8 with both radii on a
+    moved cloud and its stale mask (the public ops' and the partial-variable
+    step's inputs), row 4 (the control) on the same inputs; row 8 with the
+    direct radius also at the dense runs' [16,1024] (after FPS) and
+    [16,10000] (the dense partial-variable step) and at the dense cloud
+    [2,10000]. Masks by the checkout's own selection."""
+    from geoa3_tpu_torch.ops.kernels import kappa_kernel as kk
+
+    pc, nrm, rng = make_batch(torch, B, N, seed=8)
+    adv = (pc + 0.01 * torch.from_numpy(
+        rng.randn(B, N, 3).astype(np.float32)).cuda()).contiguous()
+    mask = kk.kappa_selmask(pc, K)
+    g = torch.from_numpy(rng.randn(B, N).astype(np.float32)).cuda()
+    ref = torch.from_numpy(np.abs(rng.randn(B, N)).astype(np.float32)).cuda()
+    out = {f"kappa_frommask [{B},{N}]": ("frommask", (adv, nrm, mask)),
+           f"kappa_bwd direct [{B},{N}]": ("direct", (adv, nrm, mask, g)),
+           f"kappa_bwd expansion [{B},{N}]": ("expansion", (adv, nrm, mask, g)),
+           f"curv_term [{B},{N}] (control)": ("curv", (adv, nrm, ref, mask))}
+    for b_, n_ in ((DENSE_B, N), (DENSE_B, DENSE_N), (2, DENSE_N)):
+        pc_, nrm_, rng_ = make_batch(torch, b_, n_, seed=80 + b_)
+        g_ = torch.from_numpy(rng_.randn(b_, n_).astype(np.float32)).cuda()
+        out[f"kappa_bwd direct [{b_},{n_}]"] = (
+            "direct", (pc_, nrm_, kk.kappa_selmask(pc_, K), g_))
+    return out
+
+
+def kappa_time(torch, kk, kind, args, stream_only=None) -> dict:
+    """One shape of rows 9, 8 or 4: one call (`time_ms`), ten back to back
+    (`ten_ms`), the plain version's one call, and the bound as phase 2
+    counts it (inputs read and outputs written once; 30 operations a
+    member pair for kappa, 60 with the gradient). `stream_only`: the C
+    entries of kappa.cu built with GEOA3_KAPPA_STREAM_ONLY (rows 9 and 8
+    stream the mask through the ring and do no row's work), timed ten back
+    to back in place of the real ones (`stream_ten`): the stream's share."""
+    b_, n_, _ = args[0].shape
+    pairs = b_ * n_ * (K + 1)
+    if kind == "frommask":
+        fn, plain, ops_ = (lambda: kk.kappa_frommask(*args, K),
+                           lambda: kk.kappa_from_mask_plain(*args, K), 30.0)
+    elif kind == "curv":
+        fn, plain, ops_ = (lambda: kk.curv_term(*args, K),
+                           lambda: kk.curv_term_plain(*args, K), 60.0)
+    else:
+        fn, plain, ops_ = (lambda: kk.kappa_bwd(*args, K, kind),
+                           lambda: kk.kappa_bwd_plain(*args, K, kind), 60.0)
+    got = fn()
+    bound = bound_ms(nbytes(*args, *(got if isinstance(got, tuple) else (got,))),
+                     ops_ * pairs)
+    r_ = {"ms": time_ms(fn), "ten": ten_ms(fn),
+          "plain": time_ms(plain, iters=5, warm=1),
+          "bound": bound[0], "by": bound[1]}
+    name = {"frommask": "geoa3_kappa_frommask", "curv": None}.get(kind, "geoa3_kappa_bwd")
+    if stream_only is not None and name is not None:
+        from geoa3_tpu_torch.ops.kernels import _build
+
+        entry, _build._entries[name] = _build._entries[name], stream_only[name]
+        try:
+            r_["stream_ten"] = ten_ms(fn)
+        finally:
+            _build._entries[name] = entry
+    return r_
+
+
+def kappa_times_phase(torch) -> dict:
+    """`--times 8`: the checkout's rows 9 and 8 (and row 4, their control)
+    timed at their path shapes (`kappa_inputs`), with no check run; for this
+    checkout (not with `--tree`) rows 9 and 8 also with the stream alone
+    (`kappa_time`'s `stream_only`), built beside the kernels."""
+    from geoa3_tpu_torch.ops.kernels import _build, kappa_kernel as kk
+
+    print(f"rows 9, 8 and 4 times of {kk.__file__}")
+    variant = (variant_entry("kappa.cu", "GEOA3_KAPPA_STREAM_ONLY",
+                             ("geoa3_kappa_frommask", "geoa3_kappa_bwd"))
+               if CODE == REPO else None)
+    _build.lib()
+    variant = variant and variant()
+    out = {}
+    for label, (kind, args_) in kappa_inputs(torch).items():
+        out[label] = r_ = kappa_time(torch, kk, kind, args_, variant)
+        print(f"  {label}: ms={r_['ms']:.4f} ten={r_['ten']:.4f} "
+              f"plain={r_['plain']:.4f} bound={r_['bound']:.4f} ({r_['by']})"
+              + (f" stream alone ten={r_['stream_ten']:.4f}" if "stream_ten" in r_ else ""),
+              flush=True)
     return out
 
 
@@ -2191,15 +2316,74 @@ def msg_kernel_checks(torch, kernels: list) -> list[dict]:
     return out
 
 
+def dense_hold(torch, name, got, want, rel, what, planted) -> None:
+    """Holds `got` against its plain version `want` entry by entry:
+    |got - want| <= rel * max(|want|, the median of |want|). Never looser
+    than rel * max |want|, the bound at [32,1024]: at n = 10000 and 12288
+    the expansion radius blows a handful of entries up to ~1e11 (near-
+    coincident neighbours, cancellation in |p_j|^2 - 2 p_i.p_j + |p_i|^2),
+    which would make that bound hold nothing; here they are held relative
+    to themselves. `planted` (index, terms): `got` less one pair's term in
+    each of a few rows (`dropped_terms`) must fail the hold, or the hold
+    could not see a kernel that drops them."""
+    a = want.abs()
+    scale = a.clamp_min(a.median())
+
+    def worst(x):
+        return ((x - want).abs() / scale).max().item()
+
+    ratio, bad = worst(got), worst(got.index_put(planted[0], -planted[1],
+                                                 accumulate=True))
+    ok = ratio <= rel and bad > rel
+    print(f"  {name}: {what} max |err| / max(|plain|, median)={ratio:.3e} "
+          f"tol={rel:.0e} (max_abs_err={(got - want).abs().max().item():.3e}); "
+          f"one pair's term dropped in {len(planted[1])} rows: {bad:.3e} "
+          f"{'ok' if ok else 'FAIL'}")
+    if ratio > rel:
+        _fail(f"{name} disagrees with its plain version ({what})")
+    if bad <= rel:
+        _fail(f"{name}'s hold misses dropped pair terms ({what})")
+
+
+def dropped_terms(torch, kk, kind, pc, nrm, mask, g, seed, rows=64):
+    """A fault to plant in a dense hold: in `rows` seeded rows i, one pair
+    (i, j), j a member other than i, and the term that the pair adds to
+    the output, from the plain version on the two points alone: for row 9
+    (kind "frommask") its share of kappa_i; for row 8 (kind a radius) the
+    neighbour-side gradient g_i d kappa_i / d p_j, which one atomic adds.
+    Returns (index into the output, the terms)."""
+    b_, n_, _ = pc.shape
+    rng = np.random.RandomState(seed)
+    bi = torch.from_numpy(rng.randint(b_, size=rows)).to(pc.device)
+    i = torch.from_numpy(rng.randint(n_, size=rows)).to(pc.device)
+    member = mask[bi, i] != 0
+    member[torch.arange(rows, device=pc.device), i] = False
+    j = member.float().argmax(-1)
+    two_p = torch.stack([pc[bi, i], pc[bi, j]], 1)
+    two_n = torch.stack([nrm[bi, i], nrm[bi, j]], 1)
+    if kind == "frommask":
+        pair = torch.tensor([[0, 1], [0, 0]], dtype=torch.int8,
+                            device=pc.device).expand(rows, 2, 2)
+        return (bi, i), kk.kappa_from_mask_plain(two_p, two_n, pair, K)[:, 0]
+    # k = 1 with both rows full (the direct radius wants k+1 members a
+    # row) and row j's cotangent 0: row i's pair alone, g_i / K its weight
+    pair = torch.ones(rows, 2, 2, dtype=torch.int8, device=pc.device)
+    two_g = torch.stack([g[bi, i] / K, torch.zeros_like(g[bi, i])], 1)
+    return (bi, j), kk.kappa_bwd_plain(two_p, two_n, pair, two_g, 1, kind)[:, 1]
+
+
 def dense_kernel_checks(torch, kernels: list) -> None:
     """Phase 2, last part: the streaming selection and the mask readers past
     the main path's shapes. Rows 3, 5 and 11 bit-equal to their plain
     versions at a ragged n = 1000 (b=2: most mask rows start off a 16-byte
     boundary), at the reference's dense n = 10000 (b=2) and at 12288 (one
     cloud), the kNN also at one query row against m = 10000 (the partial-
-    variable patch query); rows 8 and 9 at n = 1000 and row 8 at 10000;
-    row 4 at n = 1000 and 12288. The dense shapes' times and bounds join
-    the `shape` notes of `kernels`."""
+    variable patch query); rows 8 (both radii) and 9 at all three, held
+    by `dense_hold` with a planted fault (at 10000 and 12288 on the plan
+    that reads the cloud through L2), and row 8 with the direct radius
+    at the dense runs' [16,10000] (its plan at b = 16: more rows a block,
+    one row a stage); row 4 at n = 1000 and 12288. The dense shapes' times
+    and bounds join the `shape` notes of `kernels`."""
     from geoa3_tpu_torch.ops.kernels import kappa_kernel as kk, knn_kernel as qk
 
     notes = {k_["name"]: [] for k_ in kernels}
@@ -2248,18 +2432,18 @@ def dense_kernel_checks(torch, kernels: list) -> None:
         print(f"  {label}: kappa_selmask, kappa_fwd's mask, knn at "
               f"{list(knn_cases)} bit-equal to plain (required)")
         g = torch.from_numpy(rng.randn(b_, n_).astype(np.float32)).cuda()
-        for radius in {ragged: ("direct", "expansion"), dense: ("direct",)}.get((b_, n_), ()):
+        for radius in kk.RADII:
             gb = kk.kappa_bwd(pc, nrm, km, g, K, radius)
             gb_p = kk.kappa_bwd_plain(pc, nrm, km, g, K, radius)
-            # as at [32,1024]
-            check(f"kappa_bwd[{radius}]{label}", (gb - gb_p).abs().max().item(),
-                  2e-4 * gb_p.abs().max().item(), "grad")
+            # [32,1024]'s 2e-4, entry by entry
+            dense_hold(torch, f"kappa_bwd[{radius}]{label}", gb, gb_p, 2e-4, "grad",
+                       dropped_terms(torch, kk, radius, pc, nrm, km, g, n_))
             del gb_p
-        if (b_, n_) == ragged:
-            kf = kk.kappa_frommask(pc, nrm, km, K)
-            kf_p = kk.kappa_from_mask_plain(pc, nrm, km, K)
-            check(f"kappa_frommask{label}", (kf - kf_p).abs().max().item(),
-                  1e-5 * kf_p.abs().max().item(), "kappa")
+        kf = kk.kappa_frommask(pc, nrm, km, K)
+        kf_p = kk.kappa_from_mask_plain(pc, nrm, km, K)
+        dense_hold(torch, f"kappa_frommask{label}", kf, kf_p, 1e-5, "kappa",
+                   dropped_terms(torch, kk, "frommask", pc, nrm, km, g, n_ + 1))
+        del kf_p
         if (b_, n_) != dense:
             curv_case(label, pc, nrm, rng)
         pairs_d = b_ * n_ * n_
@@ -2279,6 +2463,22 @@ def dense_kernel_checks(torch, kernels: list) -> None:
                 f"bound_ms={bound_ms(nbytes(pc, nrm, km, g, gb), 60.0 * b_ * n_ * (K + 1))[0]:.4f}")
             del kres
         del pc, nrm, mask, kp, km, g
+    # the dense runs' shape: row 8, direct radius, on the selection's mask
+    # (held bit-equal above); the plain version a cloud at a time
+    b_, n_ = DENSE_B, DENSE_N
+    pc, nrm, rng = make_batch(torch, b_, n_, seed=30 + b_ + n_)
+    label = f"[{b_},{n_}]"
+    mask = kk.kappa_selmask(pc, K)
+    g = torch.from_numpy(rng.randn(b_, n_).astype(np.float32)).cuda()
+    gb = kk.kappa_bwd(pc, nrm, mask, g, K, "direct")
+    gb_p = torch.cat([kk.kappa_bwd_plain(pc[c:c + 1], nrm[c:c + 1], mask[c:c + 1],
+                                         g[c:c + 1], K, "direct") for c in range(b_)])
+    dense_hold(torch, f"kappa_bwd[direct]{label}", gb, gb_p, 2e-4, "grad",
+               dropped_terms(torch, kk, "direct", pc, nrm, mask, g, n_ + b_))
+    notes["kappa_bwd"].append(
+        f"{label} direct: ms={time_ms(lambda: kk.kappa_bwd(pc, nrm, mask, g, K, 'direct'), iters=5):.4f} "
+        f"bound_ms={bound_ms(nbytes(pc, nrm, mask, g, gb), 60.0 * b_ * n_ * (K + 1))[0]:.4f}")
+    del pc, nrm, mask, g, gb, gb_p
     torch.cuda.empty_cache()
     for k_ in kernels:
         if notes[k_["name"]]:
@@ -4122,7 +4322,7 @@ def step_times_phase(torch) -> dict:
 # `--times ROW`: the rows with a timing mode, each phase building the
 # kernels itself and timing them at the row's path shapes; `step`, the
 # attack step of the three victims
-TIMES = {"12": fps_times_phase, "13": scatter_times_phase,
+TIMES = {"8": kappa_times_phase, "12": fps_times_phase, "13": scatter_times_phase,
          "15": ballquery_times_phase, "16": group_mlp_times_phase,
          "17": sa_fused_times_phase, "step": step_times_phase}
 

@@ -5,8 +5,8 @@
 //   _kappa_selmask_kernel      -> kappa_select_kernel<false>
 //   _kappa_fwd_kernel          -> kappa_select_kernel<true>
 //   _curv_term_frommask_kernel -> curv_term_kernel
-//   _kappa_frommask_kernel     -> kappa_frommask_kernel
-//   _kappa_bwd_kernel          -> kappa_bwd_kernel<Radius>
+//   _kappa_frommask_kernel     -> kappa_frommask_stream_kernel<kStaged>
+//   _kappa_bwd_kernel          -> kappa_bwd_stream_kernel<Radius, kStaged>
 //
 // Selection (the first two; select.cuh, shared with knn.cu): row i takes
 // itself plus the k nearest other points by
@@ -32,20 +32,43 @@
 // Each backward is the gradient of its own forward: |x|'(0) = 0, and the
 // radius carries no gradient at or below the 1e-12 clamp.
 //
-// The mask consumers (curv_term, kappa_frommask, kappa_bwd) stage the
-// instance's cloud as three planes in shared memory, read each mask row once
-// in 16-byte loads (the next row's first 1024 bytes in flight while a warp
-// works on the current one), compact the row's members into a per-warp list
-// and give each member one lane. curv_term computes
-// curv = mean_i (kappa_i - ref_i)^2 and its gradient in one pass (the
-// cotangent of kappa_i is row-local). The gradients are summed with global
-// atomics into an output zeroed on the stream, each pair's three components
-// as one float2 and one float atomic (Hopper's vector atomics: a point's
-// (x, y) or (y, z) pair is 8-byte aligned by its index's parity). Summing
-// in shared memory instead (a cluster of 8 blocks a cloud, with atomics on
-// distributed shared memory, or per-block sums reduced across the cluster)
-// measured slower on the H100 (PERF.md). Atomic sums vary in the last bits
-// between runs.
+// The curvature term (curv_term_kernel) stages the instance's cloud as three
+// planes in shared memory, reads each mask row once in 16-byte loads (the
+// next row's first 1024 bytes in flight while a warp works on the current
+// one), compacts the row's members into a per-warp list and gives each
+// member one lane. It computes curv = mean_i (kappa_i - ref_i)^2 and its
+// gradient in one pass (the cotangent of kappa_i is row-local).
+//
+// kappa from a mask and the kappa backward (rows 9 and 8) share one mask
+// stream (stream_rows): a block owns a contiguous range of one cloud's rows,
+// whose mask bytes are one contiguous span. One thread of a producer warp
+// streams the span into a ring of shared-memory stages of whole rows by the
+// 1D bulk copy (TMA), each stage completed on an mbarrier, the first stages
+// asked for before the block stages anything else, so the mask stream
+// overlaps the staging of the cloud (float4 (x, y, z, |p|^2), where it fits
+// beside the ring; its points are read through L2 past that), the share's
+// normals and cotangents. Sixteen consumer warps take rows two at a time,
+// one a half-warp, out of the stages and release each stage on an empty
+// mbarrier for the producer to refill. A row then runs from shared memory
+// and registers alone: members by a prefix sum of the lanes' nonzero bytes
+// over its 16-byte words (its own column left out: its term is exactly 0,
+// and k = 16 members then fill the sixteen lanes), one lane a member's pair
+// term, half-warp sums, one store (row 9) or the atomics (row 8). Copies
+// start and end on 16-byte boundaries, so a share whose rows are not
+// 16-byte aligned (n % 16 != 0) is copied from the boundary at or below its
+// start; its last < 16 bytes, past the boundary at or below its end, are
+// read with plain loads. Row 4's reading (above) leaves each row's chain
+// with dependent device loads (its normal, its cotangent) and asks for no
+// mask byte before the cloud is staged; the stream alone runs at the byte
+// bound on the H100, and the rows' instructions are what remains.
+//
+// The gradients are summed with global atomics into an output zeroed on the
+// stream, each pair's three components as one float2 and one float atomic
+// (Hopper's vector atomics: a point's (x, y) or (y, z) pair is 8-byte
+// aligned by its index's parity). Summing in shared memory instead (a
+// cluster of 8 blocks a cloud, with atomics on distributed shared memory, or
+// per-block sums reduced across the cluster) measured slower on the H100
+// (PERF.md). Atomic sums vary in the last bits between runs.
 //
 // Bound on the H100: bytes, the [b,n,n] int8 mask written (selection) or read
 // (consumers): 32 MB at the main path's [32,1024,1024].
@@ -401,67 +424,429 @@ __device__ __forceinline__ void for_mask_rows(const int8_t* __restrict__ mask,
   }
 }
 
-// kappa from a cached mask: the expansion form (row 9).
-__global__ void __launch_bounds__(kMaskWarps * 32)
-    kappa_frommask_kernel(const float* __restrict__ cloud,
-                          const float* __restrict__ normal,
-                          const int8_t* __restrict__ mask, int n, int k,
-                          float* __restrict__ kappa, int S) {
-  extern __shared__ float smem[];
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int b = blockIdx.y;
-  const Staged s = stage_planes(cloud + (size_t)b * n * 3, n, smem);
-  int* list = s.lists + warp * kMaxMembers;
-  __syncthreads();
-  for_mask_rows(mask, b, n, row_range(n, S), list, [&](int i, int cnt) {
-    const RowCtx c =
-        load_row(s.sx[i], s.sy[i], s.sz[i], normal + ((size_t)b * n + i) * 3);
-    float acc = 0.0f;
-    for (int p = lane; p < cnt; p += 32) {
-      const int j = list[p];
-      acc += pair_term_expansion(c, s.sx[j], s.sy[j], s.sz[j]).a;
-    }
-    acc = geoa3_warp_sum(acc);
-    if (lane == 0) kappa[(size_t)b * n + i] = acc / (float)k;
-  });
+// ---- rows 9 and 8: one bulk-copied mask stream ----------------------------
+
+constexpr int kStreamWarps = 16;  // consumer warps a block
+constexpr int kStreamThreads = (kStreamWarps + 1) * 32;  // and a producer warp
+constexpr int kStageTarget = 16384;  // mask bytes a stage, about: whole rows
+constexpr int kInFlight = 49152;     // mask bytes a block keeps in flight
+constexpr int kMinStages = 4, kMaxStages = 16;
+constexpr int kMinRows = 32, kMaxRows = 256;  // rows a block
+
+// mbarriers and the 1D bulk copy (TMA). The CPU emulation of the source
+// (tests/cuda_emu/cuda_runtime.h, which defines GEOA3_EMU) supplies a
+// synchronous copy and barriers that count arrivals and bytes.
+#ifndef GEOA3_EMU
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
 }
 
-// grad[b, :, :] += sum_i g[b, i] d kappa_i / d cloud, from the mask; the
-// launcher zeroes grad.
-template <Radius kRadius>
-__global__ void __launch_bounds__(kMaskWarps * 32)
-    kappa_bwd_kernel(const float* __restrict__ cloud,
-                     const float* __restrict__ normal,
-                     const int8_t* __restrict__ mask,
-                     const float* __restrict__ g, int n, int k,
-                     float* __restrict__ grad, int S) {
-  extern __shared__ float smem[];
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int b = blockIdx.y;
-  const Staged s = stage_planes(cloud + (size_t)b * n * 3, n, smem);
-  int* list = s.lists + warp * kMaxMembers;
-  const size_t row0 = (size_t)b * n;  // the instance's first row of grad
-  __syncthreads();
-  for_mask_rows(mask, b, n, row_range(n, S), list, [&](int i, int cnt) {
-    const RowCtx c =
-        load_row(s.sx[i], s.sy[i], s.sz[i], normal + ((size_t)b * n + i) * 3);
-    const float w = g[(size_t)b * n + i] / (float)k;
-    float cx = 0.0f, cy = 0.0f, cz = 0.0f;
-    for (int p = lane; p < cnt; p += 32) {
-      const int j = list[p];
-      const float qx = s.sx[j], qy = s.sy[j], qz = s.sz[j];
-      const float3 v =
-          pair_grad(c, pair_term<kRadius>(c, qx, qy, qz), qx, qy, qz, w);
-      if (j != i) add3(grad, row0 + j, v);
-      cx -= v.x;
-      cy -= v.y;
-      cz -= v.z;
+__device__ __forceinline__ void mbar_init(uint64_t* bar, unsigned count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_addr(bar)),
+               "r"(count)
+               : "memory");
+}
+
+// the initialised barriers visible to the bulk copies (the async proxy)
+__device__ __forceinline__ void mbar_fence_init() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_addr(bar))
+               : "memory");
+}
+
+// arrive, and expect `bytes` more of the barrier's bulk copies
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, unsigned bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+                   smem_addr(bar)),
+               "r"(bytes)
+               : "memory");
+}
+
+// until the barrier's phase of this parity has completed
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, unsigned parity) {
+  const unsigned a = smem_addr(bar);
+  unsigned done;
+  do {
+    asm volatile(
+        "{\n .reg .pred p;\n"
+        " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        " selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(a), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+// bytes (a multiple of 16) from 16-byte aligned device memory into 16-byte
+// aligned shared memory, completed on bar
+__device__ __forceinline__ void bulk_copy(void* dst, const void* src,
+                                          unsigned bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(smem_addr(dst)),
+      "l"(src), "r"(bytes), "r"(smem_addr(bar))
+      : "memory");
+}
+#endif
+
+// A launch's plan (stream_plan): each block owns S consecutive rows of one
+// cloud, streamed through a ring of `depth` stages of `stage` bytes, R whole
+// rows a stage (R and depth powers of two: stages and slots by shifts and
+// masks).
+struct StreamPlan {
+  int S, R, depth, stage, per_cloud;
+  size_t smem;
+};
+
+// A block's share of the mask: rows [r0, r0 + rows) of one cloud, whose
+// bytes [lo, lo + rows n) are contiguous. Stage s holds rows [s R, s R + R)
+// of the share, copied from the 16-byte boundary at or below its first byte
+// to the boundary at or above its last, but never past `tail`, the share's
+// end rounded down to 16 bytes: the bytes from there are read with plain
+// loads, so nothing outside the share's 16-byte lines is read.
+struct Share {
+  uintptr_t lo, tail;
+  int n, rows, R;
+
+  __device__ __forceinline__ uintptr_t row_at(int t) const {
+    return lo + (size_t)t * n;
+  }
+  __device__ __forceinline__ uintptr_t copy_from(int s) const {
+    return row_at(s * R) & ~(uintptr_t)15;
+  }
+  __device__ __forceinline__ unsigned copy_bytes(int s) const {
+    uintptr_t end = (row_at(min(rows, (s + 1) * R)) + 15) & ~(uintptr_t)15;
+    end = end < tail ? end : tail;
+    const uintptr_t from = copy_from(s);
+    return end > from ? (unsigned)(end - from) : 0u;
+  }
+  // columns of row t that lie in its stage (the rest from device memory)
+  __device__ __forceinline__ int staged_cols(int t) const {
+    const uintptr_t at = row_at(t);
+    return at >= tail ? 0 : (tail - at < (uintptr_t)n ? (int)(tail - at) : n);
+  }
+};
+
+constexpr int kScan = 4;  // 16-byte words a lane reads a round of a row's scan
+
+// The nonzero bytes of a 16-byte word as bits, bit 8 b + w for byte b of its
+// 32-bit word w: a byte's high bit, or'ed with its low seven bits plus 0x7f
+// (no carry leaves the byte), is set iff the byte is nonzero.
+__device__ __forceinline__ unsigned nonzero16(uint4 v) {
+  auto nz = [](unsigned x) {
+    return (((x & 0x7f7f7f7fu) + 0x7f7f7f7fu) | x) & 0x80808080u;
+  };
+  return (nz(v.x) >> 7) | (nz(v.y) >> 6) | (nz(v.z) >> 5) | (nz(v.w) >> 4);
+}
+
+// The members of a row staged in shared memory (srow [n]), column `self`
+// left out (its pair term and gradient are exactly 0), into the half-warp's
+// list (at most kMaxMembers; returns how many). Each half of the warp (lane
+// hl of half `half`) reads its own row of n columns: a scalar head and tail
+// where the row is not 16-byte aligned, placed by ballot, then kScan 16-byte
+// words a lane a round, each lane writing its nonzero bytes' columns from
+// its place in a prefix sum of the half's counts. Columns from `from` on
+// are read from the row in device memory (grow), where the share's last
+// bytes were not copied.
+__device__ int staged_members(const int8_t* srow, const int8_t* __restrict__ grow,
+                              int n, int from, int self, int hl, int half,
+                              int* list) {
+  int count = 0;
+  auto emit = [&](bool hit, int col) {
+    const unsigned bal =
+        (__ballot_sync(GEOA3_FULL_MASK, hit) >> (16 * half)) & 0xffffu;
+    if (hit) {
+      const int pos = count + __popc(bal & ((1u << hl) - 1u));
+      if (pos < kMaxMembers) list[pos] = col;
     }
-    cx = geoa3_warp_sum(cx);
-    cy = geoa3_warp_sum(cy);
-    cz = geoa3_warp_sum(cz);
-    if (lane == 0) add3(grad, row0 + i, make_float3(cx, cy, cz));
-  });
+    count += __popc(bal);
+  };
+  auto byte = [&](int c) { return c < from ? srow[c] : __ldg(grow + c); };
+  const int head = head_bytes(srow, n);
+  const int body = (n - head) & ~15;
+  const int tail = n - head - body;
+  if (__any_sync(GEOA3_FULL_MASK, (head | tail) != 0)) {  // head, tail < 16
+    emit(hl < head && hl != self && byte(hl) != 0, hl);
+    const int ct = head + body + hl;
+    emit(hl < tail && ct != self && byte(ct) != 0, ct);
+  }
+  const uint4* src = reinterpret_cast<const uint4*>(srow + head);
+  const int chunks = body >> 4;
+  const int so = self - head;  // self's byte in the body, and its bit
+  const int self_chunk = so >= 0 && so < body ? so >> 4 : -1;
+  const unsigned self_bit = 1u << (8 * (so & 3) + ((so >> 2) & 3));
+  // rounds counted from n, the same for both halves (chunks <= n / 16)
+  for (int g = hl; g < (n >> 4) + hl; g += kScan * 16) {
+    unsigned bits[kScan];
+    int mine = 0;
+#pragma unroll
+    for (int u = 0; u < kScan; ++u) {
+      const int c = g + 16 * u;
+      bits[u] = c < chunks ? nonzero16(src[c]) : 0u;
+      if (c == self_chunk) bits[u] &= ~self_bit;
+      mine += __popc(bits[u]);
+    }
+    int upto = mine;  // inclusive prefix sum over the half's lanes
+#pragma unroll
+    for (int d = 1; d < 16; d <<= 1) {
+      const int o = __shfl_up_sync(GEOA3_FULL_MASK, upto, d, 16);
+      if (hl >= d) upto += o;
+    }
+    int pos = count + upto - mine;
+#pragma unroll
+    for (int u = 0; u < kScan; ++u) {
+      for (unsigned w = bits[u]; w != 0u; w &= w - 1u, ++pos) {
+        const int q = __ffs(w) - 1;
+        if (pos < kMaxMembers)
+          list[pos] = head + 16 * (g + 16 * u) + 4 * (q & 7) + (q >> 3);
+      }
+    }
+    count += __shfl_sync(GEOA3_FULL_MASK, upto, 15, 16);
+  }
+  __syncwarp();  // the lists are complete for every lane
+  return min(count, kMaxMembers);
+}
+
+// The sum of v over the lane's half-warp, on every lane of it.
+__device__ __forceinline__ float half_sum(float v) {
+  for (int off = 8; off > 0; off >>= 1)
+    v += __shfl_xor_sync(GEOA3_FULL_MASK, v, off);
+  return v;
+}
+
+// (a, b, c) summed over the lane's half-warp in five shuffles (each level
+// keeps half the values a lane holds and adds its partner's copy of them):
+// half-lane 0 gets a's sum, 4 b's, 8 c's.
+__device__ __forceinline__ float half_sum3(float a, float b, float c, int hl) {
+  const unsigned all = GEOA3_FULL_MASK;
+  const bool lo = (hl & 8) == 0;
+  const float k0 = (lo ? a : c) + __shfl_xor_sync(all, lo ? c : a, 8);
+  const float k1 = (lo ? b : 0.0f) + __shfl_xor_sync(all, lo ? 0.0f : b, 8);
+  const bool lo4 = (hl & 4) == 0;
+  float k = (lo4 ? k0 : k1) + __shfl_xor_sync(all, lo4 ? k1 : k0, 4);
+  for (int off = 2; off > 0; off >>= 1) k += __shfl_xor_sync(all, k, off);
+  return k;
+}
+
+// The cloud's points as (x, y, z, |p|^2): staged in shared memory, or read
+// from device memory (through L2) where the cloud does not fit beside the
+// ring.
+template <bool kStaged>
+struct Points {
+  const float4* staged;
+  const float* __restrict__ P;
+
+  __device__ __forceinline__ float4 operator[](int j) const {
+    if constexpr (kStaged) {
+      return staged[j];
+    } else {
+      const float x = __ldg(P + (size_t)j * 3), y = __ldg(P + (size_t)j * 3 + 1),
+                  z = __ldg(P + (size_t)j * 3 + 2);
+      return make_float4(x, y, z, geoa3_sq3(x, y, z));
+    }
+  }
+};
+
+// The stream's shared memory, in this order: the ring, the cloud (where
+// staged), the full and empty barriers, the share's normals [S, 3] and
+// cotangents [S], one member list a consumer half-warp.
+size_t stream_smem(int n, bool staged, int S, int depth, int stage) {
+  return (size_t)depth * stage + (staged ? (size_t)n * sizeof(float4) : 0) +
+         (size_t)depth * 2 * sizeof(uint64_t) + (size_t)S * 4 * sizeof(float) +
+         (size_t)kStreamWarps * 2 * kMaxMembers * sizeof(int);
+}
+
+// row(i, t, c, cnt, list, pts, gs, hl, valid) for each row i = r0 + t of the
+// block's share, run by a half-warp (hl its lane): c the row's constants,
+// its cnt members (itself left out) in the half's list, gs the share's
+// staged cotangents; `valid` is false on a half that repeats the share's
+// last row (an odd count of rows), which must write nothing. One elected
+// thread of the producer warp streams the share's mask bytes through the
+// ring by bulk copies, each stage completed on its full barrier, the first
+// `depth` stages asked for before anything else; meanwhile every thread
+// stages the cloud (float4, where it fits), the share's normals and, for
+// row 8, its cotangents. Consumer warp w takes the row pairs (2 q, 2 q + 1)
+// with q = w, w + 16, ..., one row a half-warp, from shared memory alone.
+// Every consumer warp waits for every stage in order and releases it on its
+// empty barrier once it has no row in it left, whether or not it held one
+// (where a stage holds fewer rows than there are warps): a warp that skipped
+// stages could find a barrier two phases behind its own, which a phase's
+// parity does not tell apart. The producer refills a stage once all sixteen
+// have released it. A warp holds at most the two stages of its pair, and
+// the ring holds at least two, so the slowest warp can always go on.
+template <bool kStaged, typename Row>
+__device__ __forceinline__ void stream_rows(const float* __restrict__ cloud,
+                                            const float* __restrict__ normal,
+                                            const float* __restrict__ g,
+                                            const int8_t* __restrict__ mask,
+                                            int n, const StreamPlan& p,
+                                            float* smem, Row&& row) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int b = blockIdx.y, r0 = blockIdx.x * p.S;
+  const int rs = __ffs(p.R) - 1, slots = p.depth - 1;  // log2 R; slot mask
+  const int rows = min(p.S, n - r0), stages = (rows + p.R - 1) >> rs;
+  int8_t* ring = reinterpret_cast<int8_t*>(smem);
+  float4* staged = reinterpret_cast<float4*>(ring + (size_t)p.depth * p.stage);
+  uint64_t* full =
+      reinterpret_cast<uint64_t*>(staged + (kStaged ? n : 0));
+  uint64_t* empty = full + p.depth;
+  float* ns = reinterpret_cast<float*>(empty + p.depth);
+  float* gs = ns + 3 * p.S;
+  int* lists = reinterpret_cast<int*>(gs + p.S) + warp * 2 * kMaxMembers;
+  const uintptr_t lo =
+      reinterpret_cast<uintptr_t>(mask + ((size_t)b * n + r0) * n);
+  const Share sh{lo, (lo + (size_t)rows * n) & ~(uintptr_t)15, n, rows, p.R};
+  auto issue = [&](int s) {
+    uint64_t* bar = full + (s & slots);
+    const unsigned bytes = sh.copy_bytes(s);
+    mbar_expect_tx(bar, bytes);
+    if (bytes)
+      bulk_copy(ring + (size_t)(s & slots) * p.stage,
+                reinterpret_cast<const void*>(sh.copy_from(s)), bytes, bar);
+  };
+  if (threadIdx.x == kStreamWarps * 32) {
+    for (int s = 0; s < p.depth; ++s) {
+      mbar_init(full + s, 1);
+      mbar_init(empty + s, kStreamWarps);
+    }
+    mbar_fence_init();
+    for (int s = 0; s < min(stages, p.depth); ++s) issue(s);
+  }
+  const float* P = cloud + (size_t)b * n * 3;
+  if constexpr (kStaged) {
+    for (int j = threadIdx.x; j < n; j += kStreamThreads) {
+      const float x = __ldg(P + (size_t)j * 3), y = __ldg(P + (size_t)j * 3 + 1),
+                  z = __ldg(P + (size_t)j * 3 + 2);
+      staged[j] = make_float4(x, y, z, geoa3_sq3(x, y, z));
+    }
+  }
+  const float* N = normal + ((size_t)b * n + r0) * 3;
+  for (int e = threadIdx.x; e < 3 * rows; e += kStreamThreads)
+    ns[e] = __ldg(N + e);
+  if (g != nullptr)
+    for (int t = threadIdx.x; t < rows; t += kStreamThreads)
+      gs[t] = __ldg(g + (size_t)b * n + r0 + t);
+  __syncthreads();  // the block's only barrier: barriers and staging ready
+
+  // stage s sits in ring slot s % depth, its round's phase parity is
+  // (s / depth) & 1: both kept as counters
+  if (warp == kStreamWarps) {  // the producer: refill released stages
+    if (lane == 0)
+      for (int s = p.depth, slot = 0, phase = 0; s < stages; ++s) {
+        mbar_wait(empty + slot, phase);
+        issue(s);
+        if (++slot == p.depth) slot = 0, phase ^= 1;
+      }
+    return;
+  }
+  int waited = 0, wslot = 0, wphase = 0, released = 0, rslot = 0;
+  auto wait_to = [&](int s) {  // every stage up to s has landed
+    for (; waited <= s; ++waited) {
+      mbar_wait(full + wslot, wphase);
+      if (++wslot == p.depth) wslot = 0, wphase ^= 1;
+    }
+  };
+  auto release_to = [&](int s) {  // every stage below s released, in order
+    for (; released < s; ++released) {
+      wait_to(released);
+      __syncwarp();  // every lane is past the wait and done with the stage
+      if (lane == 0) mbar_arrive(empty + rslot);
+      if (++rslot == p.depth) rslot = 0;
+    }
+  };
+  const int hl = lane & 15, half = lane >> 4;
+  int* list = lists + half * kMaxMembers;
+  const Points<kStaged> pts{staged, P};
+  for (int a = 2 * warp; a < rows; a += 2 * kStreamWarps) {
+    const bool valid = a + half < rows;
+    const int t = valid ? a + half : a;
+    release_to(a >> rs);  // the stages before the pair's, none of its rows
+    wait_to(min(a + 1, rows - 1) >> rs);
+#ifndef GEOA3_KAPPA_STREAM_ONLY  // a timing variant: the stream alone
+    __syncwarp();  // the last pair's lists are read
+    const int s = t >> rs;
+    const uintptr_t at = sh.row_at(t);
+    const int8_t* srow =
+        ring + (size_t)(s & slots) * p.stage + (at - sh.copy_from(s));
+    const int cnt = staged_members(srow, reinterpret_cast<const int8_t*>(at), n,
+                                   sh.staged_cols(t), r0 + t, hl, half, list);
+    const float4 q = pts[r0 + t];
+    RowCtx c;
+    c.px = q.x;
+    c.py = q.y;
+    c.pz = q.z;
+    c.p2 = q.w;
+    c.nx = ns[3 * t];
+    c.ny = ns[3 * t + 1];
+    c.nz = ns[3 * t + 2];
+    c.sdiag = geoa3_dot3(c.nx, c.ny, c.nz, q.x, q.y, q.z);
+    row(r0 + t, t, c, cnt, list, pts, gs, hl, valid);
+#endif
+  }
+  release_to(stages);
+}
+
+// kappa from a cached mask: the expansion form (row 9).
+template <bool kStaged>
+__global__ void __launch_bounds__(kStreamThreads, 2)
+    kappa_frommask_stream_kernel(const float* __restrict__ cloud,
+                                 const float* __restrict__ normal,
+                                 const int8_t* __restrict__ mask, int n, int k,
+                                 float* __restrict__ kappa, StreamPlan p) {
+  extern __shared__ float smem[];  // no static shared memory: 16-byte aligned
+  float* out = kappa + (size_t)blockIdx.y * n;
+  stream_rows<kStaged>(
+      cloud, normal, nullptr, mask, n, p, smem,
+      [&](int i, int, const RowCtx& c, int cnt, const int* list,
+          const Points<kStaged>& pts, const float*, int hl, bool valid) {
+        float acc = 0.0f;
+        for (int q = hl; q < cnt; q += 16) {
+          const float4 pj = pts[list[q]];
+          acc += pair_term_expansion(c, pj.x, pj.y, pj.z).a;
+        }
+        acc = half_sum(acc);
+        if (hl == 0 && valid) out[i] = acc / (float)k;
+      });
+}
+
+// grad[b, :, :] += sum_i g[b, i] d kappa_i / d cloud, from the mask (row 8);
+// the C entry zeroes grad. No register cap for two blocks an SM: at 56
+// registers the gradient spilled, and one block an SM without spills
+// measured faster.
+template <Radius kRadius, bool kStaged>
+__global__ void __launch_bounds__(kStreamThreads, 1)
+    kappa_bwd_stream_kernel(const float* __restrict__ cloud,
+                            const float* __restrict__ normal,
+                            const int8_t* __restrict__ mask,
+                            const float* __restrict__ g, int n, int k,
+                            float* __restrict__ grad, StreamPlan p) {
+  extern __shared__ float smem[];
+  const size_t row0 = (size_t)blockIdx.y * n;  // the cloud's first row of grad
+  stream_rows<kStaged>(
+      cloud, normal, g, mask, n, p, smem,
+      [&](int i, int t, const RowCtx& c, int cnt, const int* list,
+          const Points<kStaged>& pts, const float* gs, int hl, bool valid) {
+        const float w = gs[t] / (float)k;
+        float cx = 0.0f, cy = 0.0f, cz = 0.0f;
+        for (int q = hl; q < cnt; q += 16) {
+          const int j = list[q];
+          const float4 pj = pts[j];
+          const float3 v = pair_grad(c, pair_term<kRadius>(c, pj.x, pj.y, pj.z),
+                                     pj.x, pj.y, pj.z, w);
+          if (valid) add3(grad, row0 + j, v);
+          cx -= v.x;
+          cy -= v.y;
+          cz -= v.z;
+        }
+        // row i's own term, one component from each of half-lanes 0, 4, 8
+        const float own = half_sum3(cx, cy, cz, hl);
+        if ((hl & 3) == 0 && hl < 12 && valid)
+          atomicAdd(grad + 3 * (row0 + i) + (hl >> 2), own);
+      });
 }
 
 // The curvature term and its gradient (direct form), added into curv and
@@ -578,6 +963,103 @@ int launch_rows(Kernel kernel, int b, int n, size_t smem, cudaStream_t stream,
   return (int)cudaGetLastError();
 }
 
+int pow2_floor(int x) {
+  int p = 1;
+  while (2 * p <= x) p *= 2;
+  return p;
+}
+
+int pow2_ceil(int x) {
+  int p = 1;
+  while (p < x) p *= 2;
+  return p;
+}
+
+// Rows a stage: whole rows, a power of two, at most kStageTarget bytes.
+int stage_rows(int n) { return pow2_floor(max(1, kStageTarget / n)); }
+
+// A stage's bytes: R rows and the 16-byte lines around them.
+int stage_bytes(int R, int n) {
+  return (int)(((size_t)R * n + 32 + 15) & ~(size_t)15);
+}
+
+// Stages in the ring: at least kInFlight bytes, and a row for each consumer
+// warp (kMinStages to kMaxStages, a power of two).
+int stream_depth(int R, int stage) {
+  const int bytes = (kInFlight + stage - 1) / stage;
+  const int warps = (kStreamWarps + R - 1) / R;
+  return min(kMaxStages, pow2_ceil(max(kMinStages, max(bytes, warps))));
+}
+
+// The cloud is staged where it fits beside the full ring and the largest
+// share's rows (n <= 6,864); past that its points are read through L2, and
+// the ring takes the room.
+bool stream_staged(int n) {
+  const int R = stage_rows(n), stage = stage_bytes(R, n);
+  return stream_smem(n, true, kMaxRows, stream_depth(R, stage), stage) <=
+         kSmemLimit;
+}
+
+// The stream's plan for b clouds of n points, `resident` blocks an SM as
+// registers and threads allow: as many blocks as one wave holds (two an SM
+// where a block takes at most half an SM's shared memory), kMinRows to
+// kMaxRows rows a block, the ring of stream_depth stages (fewer where they
+// do not fit, or where the share has fewer).
+StreamPlan stream_plan(int b, int n, bool staged, int sms, int resident) {
+  const int R0 = stage_rows(n), st0 = stage_bytes(R0, n);
+  const size_t largest =
+      stream_smem(n, staged, min(n, kMaxRows), stream_depth(R0, st0), st0);
+  const int per_sm = max(1, min(resident, largest <= geoa3::kSmemHalf ? 2 : 1));
+  const int per_cloud =
+      max(1, max((n + kMaxRows - 1) / kMaxRows,
+                 min((n + kMinRows - 1) / kMinRows, per_sm * sms / max(b, 1))));
+  StreamPlan p;
+  p.S = (n + per_cloud - 1) / per_cloud;
+  p.per_cloud = (n + p.S - 1) / p.S;
+  p.R = min(R0, pow2_floor(p.S));
+  p.stage = stage_bytes(p.R, n);
+  p.depth = min(pow2_ceil((p.S + p.R - 1) / p.R), stream_depth(p.R, p.stage));
+  while (p.depth > 1 &&
+         stream_smem(n, staged, p.S, p.depth, p.stage) > kSmemLimit)
+    p.depth /= 2;
+  p.smem = stream_smem(n, staged, p.S, p.depth, p.stage);
+  return p;
+}
+
+// Launch a stream kernel on plan p: grid (blocks a cloud, b).
+template <typename Kernel, typename... Args>
+int run_stream(Kernel kernel, const StreamPlan& p, int b, cudaStream_t stream,
+               Args... args) {
+  if (p.smem > kSmemLimit) return (int)cudaErrorInvalidValue;
+  dim3 grid(p.per_cloud, b);
+  kernel<<<grid, kStreamThreads, p.smem, stream>>>(args..., p);
+  return (int)cudaGetLastError();
+}
+
+// Launch a stream kernel on its plan for b clouds of n points.
+template <typename Kernel, typename... Args>
+int launch_stream(Kernel kernel, int b, int n, bool staged, cudaStream_t stream,
+                  Args... args) {
+  cudaError_t e = set_smem(kernel, kSmemLimit);
+  int resident = 0;
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&resident, kernel,
+                                                      kStreamThreads, 0);
+  if (e != cudaSuccess) return (int)e;
+  return run_stream(kernel, stream_plan(b, n, staged, sm_count(), resident), b,
+                    stream, args...);
+}
+
+template <Radius kRadius>
+int launch_bwd(const float* cloud, const float* normal, const int8_t* mask,
+               const float* g, int b, int n, int k, float* grad, cudaStream_t s) {
+  if (stream_staged(n))
+    return launch_stream(kappa_bwd_stream_kernel<kRadius, true>, b, n, true, s,
+                         cloud, normal, mask, g, n, k, grad);
+  return launch_stream(kappa_bwd_stream_kernel<kRadius, false>, b, n, false, s,
+                       cloud, normal, mask, g, n, k, grad);
+}
+
 }  // namespace
 
 extern "C" int geoa3_kappa_selmask(const float* cloud, int b, int n, int k,
@@ -611,20 +1093,26 @@ extern "C" int geoa3_curv_term(const float* cloud, const float* normal,
 extern "C" int geoa3_kappa_frommask(const float* cloud, const float* normal,
                                     const int8_t* mask, int b, int n, int k,
                                     float* kappa, void* stream) {
-  return launch_rows(kappa_frommask_kernel, b, n, consumer_smem(n),
-                     static_cast<cudaStream_t>(stream), cloud, normal, mask, n,
-                     k, kappa);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (k > kMaxK) return (int)cudaErrorInvalidValue;
+  if (stream_staged(n))
+    return launch_stream(kappa_frommask_stream_kernel<true>, b, n, true, s,
+                         cloud, normal, mask, n, k, kappa);
+  return launch_stream(kappa_frommask_stream_kernel<false>, b, n, false, s,
+                       cloud, normal, mask, n, k, kappa);
 }
 
 // direct != 0: the gradient of geoa3_kappa_fwd's kappa; else the gradient of
-// geoa3_kappa_frommask's. The wrapper zeroes grad.
+// geoa3_kappa_frommask's. grad is zeroed here, on the stream.
 extern "C" int geoa3_kappa_bwd(const float* cloud, const float* normal,
                                const int8_t* mask, const float* g, int b, int n,
                                int k, int direct, float* grad, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (k > kMaxK) return (int)cudaErrorInvalidValue;
+  const cudaError_t e =
+      cudaMemsetAsync(grad, 0, (size_t)b * n * 3 * sizeof(float), s);
+  if (e != cudaSuccess) return (int)e;
   if (direct)
-    return launch_rows(kappa_bwd_kernel<Radius::kDirect>, b, n,
-                       consumer_smem(n), s, cloud, normal, mask, g, n, k, grad);
-  return launch_rows(kappa_bwd_kernel<Radius::kExpansion>, b, n,
-                     consumer_smem(n), s, cloud, normal, mask, g, n, k, grad);
+    return launch_bwd<Radius::kDirect>(cloud, normal, mask, g, b, n, k, grad, s);
+  return launch_bwd<Radius::kExpansion>(cloud, normal, mask, g, b, n, k, grad, s);
 }

@@ -13,13 +13,19 @@ selection; the packed mode is a TPU layout option left for later):
 Source: csrc/kappa.cu (+ csrc/select.cuh, the selection it shares with the
 kNN). Bound on the H100: bytes, the [b, n, n] int8 mask written by the
 selection or read by the other three (32 MB at the main path's
-[32, 1024, 1024]). The selection streams the cloud through shared memory
-and keeps each row's k best keys in a warp's registers, so it takes any n
-the output fits; its distances are rounded step by step like
+[32,1024,1024]). The selection streams the cloud through shared memory and
+keeps each row's k best keys in a warp's registers, so it takes any n the
+output fits; its distances are rounded step by step like
 `pairwise_sqdist`, so masks are bitwise the plain version's. The mask
-consumers stage the cloud (12 n bytes of shared memory: n <= MASK_MAX_N),
-read each mask row once and give each of its k+1 members a lane; the
-gradients are summed with global atomics.
+readers read each mask row once and give each of its members a lane
+(`kappa_frommask` and `kappa_bwd`: a half-warp a row, the row's own
+column, whose term is 0, left out); the gradients are summed with global
+atomics. `curv_term` stages the cloud (12 n bytes of shared memory: n <=
+MASK_MAX_N). `kappa_frommask` and `kappa_bwd` share one mask stream: each
+block bulk-copies (TMA) its contiguous range of mask rows through a ring
+of shared-memory stages while it stages the cloud (as float4, where it
+fits; through L2 past n = 6,864), its normals and cotangents, and runs
+each row from shared memory; they take the same n as `curv_term`.
 
 Two forms of the pair term. The direct one, |unit(p_j - p_i) . n_i| with
 unit(v) = v / max(|v|, 1e-12), is what the reference's normalize computes,
@@ -41,9 +47,9 @@ from geoa3_tpu_torch.ops.kernels import _build
 
 EPS = 1e-12  # the reference normalisation clamp (Lib/loss_utils.py:79)
 MAX_K = 64  # the selection keeps a row's k best keys in two registers a lane
-# The mask consumers stage the cloud as three float planes beside one list
-# of k+1 members and one partial sum for each of 16 warps in a block's
-# 232,448 bytes of shared memory.
+# curv_term stages the cloud as three float planes beside one list of k+1
+# members and one partial sum for each of 16 warps in a block's 232,448
+# bytes of shared memory; the other two mask readers take the same n.
 MASK_MAX_N = (232448 - 16 * (MAX_K + 1) * 4 - 16 * 4) // 12  # 19,018
 
 
@@ -253,9 +259,9 @@ def kappa_bwd(cloud, normal, mask, g, k, radius):
     expansion.) One device function, templated on the radius, serves both.
     |x|'(0) = 0 on the self column and on coincident points, and the radius
     passes no gradient at or below the 1e-12 clamp. Neighbour-side terms are
-    added with atomics, so sums vary in the last bits from run to run. n <=
-    MASK_MAX_N. CPU tensors take the plain version; CUDA tensors launch the
-    kernel."""
+    added with atomics into an output the C entry zeroes on the stream, so
+    sums vary in the last bits from run to run. n <= MASK_MAX_N. CPU tensors
+    take the plain version; CUDA tensors launch the kernel."""
     if radius not in RADII:
         raise ValueError(f"radius must be one of {RADII}, got {radius!r}")
     if not cloud.is_cuda:
@@ -266,7 +272,7 @@ def kappa_bwd(cloud, normal, mask, g, k, radius):
     _build.check_cuda(normal, "normal", torch.float32, (b, n, 3))
     _build.check_cuda(mask, "mask", torch.int8, (b, n, n))
     _build.check_cuda(g, "g", torch.float32, (b, n))
-    grad = torch.zeros(b, n, 3, dtype=torch.float32, device=cloud.device)
+    grad = torch.empty(b, n, 3, dtype=torch.float32, device=cloud.device)
     _build.launch("geoa3_kappa_bwd", cloud, normal, mask, g, b, n, k,
                   int(radius == "direct"), grad)
     kappa_bwd.launches += 1

@@ -47,7 +47,8 @@ _GROUPS = [
     (re.compile(r"scatter_nc_rows"), "scatter_add_nc (port)"),
     (re.compile(r"group_mlp_fwd_(tiles|finish)"), "group_mlp_fwd (port)"),
     (re.compile(r"group_mlp_bwd_tiles"), "group_mlp_bwd (port)"),
-    (re.compile(r"kappa_bwd_kernel"), "kappa_bwd (port)"),
+    (re.compile(r"kappa_bwd_stream_kernel"), "kappa_bwd (port)"),
+    (re.compile(r"kappa_frommask_stream_kernel"), "kappa_frommask (port)"),
     (re.compile(r"sa_(query_kernel|fwd_tiles|fwd_finish)"),
      "sa_fused_fwd query + MLP + pool (port)"),
     (re.compile(r"sa_bwd_tiles"), "sa_fused_bwd recompute+scatter (port)"),

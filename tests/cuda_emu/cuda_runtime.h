@@ -7,21 +7,30 @@
 // block finds filled with NaN. The test that uses it rewrites each
 // `kernel<<<grid, block, bytes, stream>>>(args)` of the source into an
 // emu_launch of the blocks one after another, since g++ cannot parse the
-// launch syntax. Timing and the memory model are not emulated; the index
-// arithmetic, the barriers' placement, the shuffles, ballots and redux
-// reductions, the atomics (under one lock) and the floating-point
-// operations are (fmaf is the C library's, exact).
+// launch syntax (a grid may be a dim3 of x and y blocks). Timing and the
+// memory model are not emulated; the index arithmetic, the barriers'
+// placement, the shuffles, ballots and redux reductions, the atomics (under
+// one lock) and the floating-point operations are (fmaf is the C library's,
+// exact). The 1D bulk copy (TMA) is a synchronous copy that checks its
+// alignment, stays inside the launch's dynamic shared memory and, where a
+// test program sets g_bulk_lo / g_bulk_hi, reads nothing outside them; mbarriers
+// count arrivals and bytes under one lock, and a wait sleeps until its phase
+// has completed.
 #pragma once
 
 #define GEOA3_EMU 1
 
+#include <algorithm>
 #include <barrier>
+#include <condition_variable>
 #include <cmath>
 #include <cstddef>
 #include <cstdint>
 #include <cstdlib>
 #include <cstring>
+#include <cstdio>
 #include <functional>
+#include <map>
 #include <mutex>
 #include <thread>
 #include <tuple>
@@ -36,6 +45,17 @@
 #define __shared__
 #define __align__(x)
 
+using std::max;
+using std::min;
+
+struct float2 {
+  float x, y;
+};
+inline float2 make_float2(float a, float b) { return {a, b}; }
+struct float3 {
+  float x, y, z;
+};
+inline float3 make_float3(float a, float b, float c) { return {a, b, c}; }
 struct float4 {
   float x, y, z, w;
 };
@@ -53,6 +73,8 @@ struct int4 {
 };
 struct dim3 {
   unsigned x = 0, y = 0, z = 0;
+  dim3() = default;
+  dim3(unsigned a, unsigned b = 1, unsigned c = 1) : x(a), y(b), z(c) {}
 };
 inline thread_local dim3 threadIdx;
 inline dim3 blockIdx, blockDim, gridDim;
@@ -68,6 +90,18 @@ T __ldg(const T* p) {
 inline float __fadd_rn(float a, float b) { return a + b; }
 inline float __fmul_rn(float a, float b) { return a * b; }
 inline float __fsub_rn(float a, float b) { return a - b; }
+inline float __uint_as_float(unsigned u) {
+  float f;
+  memcpy(&f, &u, 4);
+  return f;
+}
+// 0xff in each byte where a and b differ
+inline unsigned __vcmpne4(unsigned a, unsigned b) {
+  unsigned r = 0;
+  for (int i = 0; i < 32; i += 8)
+    if (((a >> i) & 255u) != ((b >> i) & 255u)) r |= 255u << i;
+  return r;
+}
 inline unsigned __float_as_uint(float f) {
   unsigned u;
   memcpy(&u, &f, 4);
@@ -94,6 +128,12 @@ inline float atomicAdd(float* p, float v) {
   *p = old + v;
   return old;
 }
+inline float2 atomicAdd(float2* p, float2 v) {
+  std::lock_guard<std::mutex> hold(g_atomic_mu);
+  const float2 old = *p;
+  *p = {old.x + v.x, old.y + v.y};
+  return old;
+}
 inline float4 atomicAdd(float4* p, float4 v) {
   std::lock_guard<std::mutex> hold(g_atomic_mu);
   const float4 old = *p;
@@ -116,6 +156,32 @@ T __shfl_xor_sync(unsigned, T v, int lane_mask) {
   return out;
 }
 
+// every lane of the warp must call them: lane `src`'s v, and lane
+// (lane - delta)'s (a lane's own below delta)
+template <class T>
+T emu_shfl_from(T v, int from) {
+  const int t = threadIdx.x;
+  uint64_t u = 0;
+  memcpy(&u, &v, sizeof(T));
+  g_lanes[t] = u;
+  g_warp_barrier[t / 32]->arrive_and_wait();
+  const uint64_t r = g_lanes[(t & ~31) + from];
+  g_warp_barrier[t / 32]->arrive_and_wait();
+  T out;
+  memcpy(&out, &r, sizeof(T));
+  return out;
+}
+// (within segments of `width` lanes, as on the card)
+template <class T>
+T __shfl_sync(unsigned, T v, int src, int width = 32) {
+  return emu_shfl_from(v, ((int)(threadIdx.x & 31) & ~(width - 1)) + (src & (width - 1)));
+}
+template <class T>
+T __shfl_up_sync(unsigned, T v, unsigned delta, int width = 32) {
+  const int lane = threadIdx.x & 31;
+  return emu_shfl_from(v, (lane & (width - 1)) < (int)delta ? lane : lane - (int)delta);
+}
+
 // every lane of the warp must call it
 inline unsigned __ballot_sync(unsigned, bool pred) {
   const int t = threadIdx.x;
@@ -126,6 +192,8 @@ inline unsigned __ballot_sync(unsigned, bool pred) {
   g_warp_barrier[t / 32]->arrive_and_wait();
   return m;
 }
+
+inline bool __any_sync(unsigned m, bool pred) { return __ballot_sync(m, pred) != 0; }
 
 // redux.sync: every lane of the warp must call it, as the kernels do
 template <class T, class Op>
@@ -175,6 +243,72 @@ namespace {
 alignas(16) float smem[kEmuSmemMax / sizeof(float)];
 }
 
+inline size_t g_smem_bytes = 0;  // the running launch's dynamic shared memory
+
+// mbarriers (see the header); a phase completes when its arrivals and its
+// expected bytes have all come in
+struct EmuBarrier {
+  unsigned count, pending;
+  long long tx;
+  unsigned phase;
+};
+inline std::mutex g_bar_mu;
+inline std::condition_variable g_bar_cv;  // notified when a phase completes
+inline std::map<const void*, EmuBarrier> g_bars;
+inline void emu_bar_step(EmuBarrier& b) {
+  if (b.pending == 0 && b.tx == 0) {
+    b.phase ^= 1u;
+    b.pending = b.count;
+    g_bar_cv.notify_all();
+  }
+}
+inline void mbar_init(uint64_t* bar, unsigned count) {
+  std::lock_guard<std::mutex> hold(g_bar_mu);
+  g_bars[bar] = {count, count, 0, 0};
+}
+inline void mbar_fence_init() {}
+inline void mbar_arrive(uint64_t* bar) {
+  std::lock_guard<std::mutex> hold(g_bar_mu);
+  EmuBarrier& b = g_bars.at(bar);
+  --b.pending;
+  emu_bar_step(b);
+}
+inline void mbar_expect_tx(uint64_t* bar, unsigned bytes) {
+  std::lock_guard<std::mutex> hold(g_bar_mu);
+  EmuBarrier& b = g_bars.at(bar);
+  b.tx += bytes;
+  --b.pending;
+  emu_bar_step(b);
+}
+inline void mbar_wait(uint64_t* bar, unsigned parity) {
+  std::unique_lock<std::mutex> hold(g_bar_mu);
+  EmuBarrier& b = g_bars.at(bar);
+  g_bar_cv.wait(hold, [&] { return b.phase != parity; });
+}
+
+// the device bytes a bulk copy may read, where a test program sets them
+inline const char* g_bulk_lo = nullptr;
+inline const char* g_bulk_hi = nullptr;
+
+inline void bulk_copy(void* dst, const void* src, unsigned bytes, uint64_t* bar) {
+  const char* s = static_cast<const char*>(src);
+  char* d = static_cast<char*>(dst);
+  const char* base = reinterpret_cast<const char*>(smem);
+  if (bytes % 16 || reinterpret_cast<uintptr_t>(s) % 16 ||
+      reinterpret_cast<uintptr_t>(d) % 16 || d < base ||
+      d + bytes > base + g_smem_bytes ||
+      (g_bulk_lo != nullptr && (s < g_bulk_lo || s + bytes > g_bulk_hi))) {
+    fprintf(stderr, "bulk copy out of bounds or misaligned: %u bytes at +%zu\n",
+            bytes, (size_t)(d - base));
+    std::abort();
+  }
+  memcpy(d, s, bytes);
+  std::lock_guard<std::mutex> hold(g_bar_mu);
+  EmuBarrier& b = g_bars.at(bar);
+  b.tx -= bytes;
+  emu_bar_step(b);
+}
+
 inline void cp_async16(void* dst, const void* src) { memcpy(dst, src, 16); }
 inline void cp_async4(void* dst, const void* src) { memcpy(dst, src, 4); }
 inline void cp_async_commit() {}
@@ -210,12 +344,17 @@ inline cudaError_t cudaDeviceGetAttribute(int* v, cudaDeviceAttr, int) {
 // Runs `kernel` as grid x threads CUDA threads, one block after another.
 template <class Config>
 void emu_launch(Config cfg, const std::function<void()>& kernel) {
-  const unsigned grid = (unsigned)std::get<0>(cfg);
+  const dim3 grid = std::get<0>(cfg);
   const unsigned threads = (unsigned)std::get<1>(cfg);
-  gridDim.x = grid;
+  if constexpr (std::tuple_size_v<Config> > 2)
+    g_smem_bytes = (size_t)std::get<2>(cfg);
+  else
+    g_smem_bytes = 0;
+  gridDim = grid;
   blockDim.x = threads;
-  for (unsigned b = 0; b < grid; ++b) {
-    blockIdx.x = b;
+  for (unsigned b = 0; b < grid.x * grid.y; ++b) {
+    blockIdx.x = b % grid.x;
+    blockIdx.y = b / grid.x;
     std::fill(std::begin(smem), std::end(smem), NAN);  // unwritten reads show
     std::barrier<> block(threads);
     g_block_barrier = &block;

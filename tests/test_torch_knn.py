@@ -262,8 +262,8 @@ def _without_self(mask):
 
 
 class TestKappaFromMask:
-    def _inputs(self, seed):
-        c, nrm, rng = _cloud(seed)
+    def _inputs(self, seed, n=N):
+        c, nrm, rng = _cloud(seed, B, n)
         mask = kk.kappa_selmask_plain(_t(c), K).numpy()
         moved = (c + 1e-3 * rng.randn(*c.shape)).astype(np.float32)  # stale mask
         return moved, nrm, mask, rng
@@ -283,8 +283,16 @@ class TestKappaFromMask:
                                    rtol=1e-3, atol=1e-5)
 
     def test_op_value_and_grad_match_composed(self):
-        c, nrm, mask, rng = self._inputs(33)
-        w = rng.randn(B, N).astype(np.float32)
+        self._op_value_and_grad_match_composed(33, N)
+
+    def test_op_value_and_grad_match_composed_at_a_ragged_n(self):
+        """n % 16 != 0: mask rows off 16-byte lines, where the card's
+        stream reads a row's head and tail on their own."""
+        self._op_value_and_grad_match_composed(39, 100)
+
+    def _op_value_and_grad_match_composed(self, seed, n):
+        c, nrm, mask, rng = self._inputs(seed, n)
+        w = rng.randn(B, n).astype(np.float32)
         jn = jnp.asarray(nrm)
         want = jops.knn_kappa_from_mask(jnp.asarray(c), jn, jnp.asarray(mask), K)
         mask_ns = jnp.asarray(_without_self(mask))
