@@ -32,7 +32,11 @@ Needs one CUDA card, nvcc and this repository around the script. Phases:
      and with out-of-range indices; FPS at the paths' shapes (the
      vote's [96, 2048] -> 1024 among them), at a ragged n = 1000, at the
      limit n = 14336, at m > n and with skipped points and a fully skipped
-     cloud), with the tolerance stated, and time both (CUDA events, warm,
+     cloud; the single-pass bf16 pools of the bf16 victim at its three
+     pool shapes (taps 3 on float32 x, taps 1 on bf16 and on float32 x), at
+     a ragged n = 1000 and on runs of duplicated rows that send columns
+     down the backward's recompute), with the tolerance stated, and time
+     both (CUDA events, warm,
      median of 20), plus one PyTorch library call where one computes the same
      function, and for the whole-scale kernel the split pair it stands in for.
      The pool forward's whole output (maximum, tie count, first tied rows) is
@@ -133,7 +137,16 @@ Needs one CUDA card, nvcc and this repository around the script. Phases:
      PointNet at data 2 and at data 1 x model 2 (conv5 512 rows a rank) and
      of PointNet++ SSG at data 2 against one process's step, each rank's
      launches as read from the code;
-  13. print one JSON line listing the kernels, then the result line.
+  13. the bf16 PointNet victim (`--victim_dtype bfloat16`) at full width:
+     the health check at [32, 1024, 3], the default attack 1 x 50 (K=10)
+     with the bf16 twin's gradient and the float32 victim judging, its
+     launch counts read from the code (three single-pass bf16 pool
+     launches forward and three backward a step, three float32 pools a
+     step for the judge), its ms/step beside the float32 attack's in turns,
+     the twin's logits and input gradient card vs CPU, and the attack CLI
+     with --victim_dtype bfloat16 on phase 5's 40 clouds and victim
+     (build/chip_smoke/bf16/);
+  14. print one JSON line listing the kernels, then the result line.
 
 Every path runs with the kernels' launch counts set to 0 just before and
 read just after, and fails if a kernel it names was not launched; together
@@ -158,7 +171,10 @@ for the run's data). Row 13, the C-channel scatter: its four path shapes
 row 9 (kappa from a mask) and row 4 (the curvature term) beside it: rows
 9, 8 (both radii) and 4 at [32,1024] and row 8 (direct) at [16,1024] and
 [2,10000] (one call and ten back to back, the plain version's one call,
-the bound). `--times step`: the attack step
+the bound). Row 6 and 7, the pool kernels (`--times 6`): both
+precisions at the bf16 victim's three pool shapes (one call and ten back
+to back, the plain versions, the bounds; the bf16 library yardsticks).
+`--times step`: the attack step
 of phases 3, 6 and 8 (PointNet, SSG, MSG), three runs each.
 
 Any failed check raises, and the script exits non-zero. It never falls back
@@ -181,6 +197,7 @@ import numpy as np
 REPO = Path(__file__).resolve().parent
 PEAK_F32_FLOPS = None  # the card's float32 peak, set by main (card_peak_flops)
 PEAK_BYTES = 3.35e12  # H100 SXM HBM3
+PEAK_BF16_FLOPS = 989e12  # H100 SXM tensor cores, dense bf16
 CIN, COUT = 128, 1024  # conv5's channels, the largest pool
 DENSE_B, DENSE_N = 16, 10000  # runs/bench_dense.py's batch and cloud size
 # (b, n) of the selection's checks past the main path: a ragged n, the
@@ -277,9 +294,12 @@ def ten_ms(fn, iters: int = 20) -> float:
     return statistics.median(times)
 
 
-def bound_ms(nbytes: float, flops: float) -> tuple[float, str]:
+def bound_ms(nbytes: float, flops: float, peak: float = None) -> tuple[float, str]:
+    """The larger of bytes over the memory rate and operations over `peak`
+    (the card's float32 rate unless given: the bf16 kernels' products run
+    on the tensor cores at PEAK_BF16_FLOPS)."""
     tb = nbytes / PEAK_BYTES * 1e3
-    tf = flops / PEAK_F32_FLOPS * 1e3
+    tf = flops / (peak or PEAK_F32_FLOPS) * 1e3
     return (tb, "bytes") if tb >= tf else (tf, "operations")
 
 
@@ -848,6 +868,214 @@ def kernel_checks(torch) -> list[dict]:
           "conv5 taps=3 dx [32,1024,128] (plain: autograd through the plain "
           f"forward); taps=1: ms={b1['ms']:.4f} plain_ms={b1['plain_ms']:.4f} "
           f"bound_ms={b1['bound'][0]:.4f}")
+
+    # --- pool forward / backward, single-pass bf16 (the bf16 victim) ------
+    bf = pool_bf16_checks(torch, pk, gen)
+    c5, ti, tf = (bf[label] for label, _, _ in BF16_POOLS)
+    others = "; ".join(
+        f"{label}: ms={r_['ms']:.4f} ten={r_['ten']:.4f} plain_ms={r_['plain_ms']:.4f} "
+        f"library_ms={r_['library_ms']:.4f} (ten {r_['lib_ten']:.4f}) "
+        f"bound_ms={r_['bound'][0]:.4f}" for label, r_ in ((BF16_POOLS[1][0], ti),
+                                                          (BF16_POOLS[2][0], tf)))
+    entry("pool_fwd_bf16", "geoa3_tpu_torch/csrc/pool_matmul_bf16.cu",
+          "geoa3_tpu/ops/pallas/pool_matmul_kernel.py:73", c5["err"], c5["ms"],
+          c5["plain_ms"], c5["bound"], c5["library_ms"],
+          f"{BF16_POOLS[0][0]} [32,1024,128]->[32,1024] (library: F.conv1d in "
+          f"bf16 alone, no pool; taps=1 torch.matmul in bf16); ten calls back to "
+          f"back: ms={c5['ten']:.4f} library {c5['lib_ten']:.4f}; {others}")
+    entry("pool_bwd_bf16", "geoa3_tpu_torch/csrc/pool_matmul_bf16.cu",
+          "geoa3_tpu/ops/pallas/pool_matmul_kernel.py:79", c5["dx_err"],
+          c5["bwd_ms"], c5["bwd_plain_ms"], c5["bwd_bound"], None,
+          f"{BF16_POOLS[0][0]} dx [32,1024,128] (plain: pool_bwd_bf16_plain, "
+          f"recompute included); ten calls back to back: ms={c5['bwd_ten']:.4f}; "
+          + "; ".join(f"{label}: ms={r_['bwd_ms']:.4f} ten={r_['bwd_ten']:.4f} "
+                      f"plain_ms={r_['bwd_plain_ms']:.4f} bound_ms="
+                      f"{r_['bwd_bound'][0]:.4f}"
+                      for label, r_ in ((BF16_POOLS[1][0], ti), (BF16_POOLS[2][0], tf))))
+    return out
+
+
+# the bf16 victim's three pools: (label, taps, x's type)
+BF16_POOLS = (("conv5 taps=3, float32 x", 3, "float32"),
+              ("input T-Net taps=1, bf16 x", 1, "bfloat16"),
+              ("feature T-Net taps=1, float32 x", 1, "float32"))
+
+
+def pool_bf16_inputs(torch, taps: int, xdt: str, gen, b: int = B, n: int = N):
+    """(x, w3, bias, w3t) of a bf16 victim's pool: x (xdt) after a ReLU,
+    w3 and w3t in bf16, bias float32 holding bf16 values."""
+    x = torch.relu(torch.randn(b, n, CIN, device="cuda", generator=gen))
+    w3 = (torch.randn(taps, CIN, COUT, device="cuda", generator=gen)
+          / (taps * CIN) ** 0.5).to(torch.bfloat16).contiguous()
+    bias = (0.1 * torch.randn(COUT, device="cuda", generator=gen)).to(
+        torch.bfloat16).float()
+    return (x.to(getattr(torch, xdt)).contiguous(), w3, bias,
+            w3.transpose(1, 2).contiguous())
+
+
+def pool_bf16_hold(torch, pk, label, x, w3, bias, w3t, gen) -> dict:
+    """pool_fwd_bf16 and pool_bwd_bf16 against their plain versions: pooled
+    within 2e-5 of max |z| (the tensor cores' float32 sums against cuBLAS's,
+    of the same exact bf16 products); tie counts and rows equal to
+    `pool_ties_bf16_plain`'s on the columns whose maximum stands clear of
+    every other value by 1e-4 of max |z| in float64 (identical rows tie in
+    both); dx within 1e-5 of max |dx| of a float64 backward through those
+    ties (2^-8 where x, and so dx, is bf16: one bf16 step at the largest
+    entry), the cotangent g / cnt rounded to bf16, with the pooled
+    cotangent kept off the other columns."""
+    taps = w3.shape[0]
+    pooled, cnt, rows = pk.pool_fwd_bf16(x, w3, bias)
+    want = pk.pool_affine_max_bf16_plain(x, w3, bias)
+    scale = want.abs().max().item()
+    err = (pooled - want).abs().max().item()
+    check(f"pool_fwd_bf16[{label}]", err, 2e-5 * scale, "pooled")
+    z64 = pk.affine_plain(x.to(torch.bfloat16).double(),
+                          w3.double(), bias.double())
+    mx64 = z64.amax(1)
+    tied = z64 == mx64[:, None]
+    runner_up = torch.where(tied, -torch.inf, z64).amax(1)
+    held = (mx64 - runner_up) > 1e-4 * scale
+    _, cnt_p, rows_p = pk.pool_ties_bf16_plain(x, w3, bias)
+    require_equal(torch, f"pool_fwd_bf16[{label}]", cnt[held], cnt_p[held],
+                  "cnt vs pool_ties_bf16_plain")
+    require_equal(torch, f"pool_fwd_bf16[{label}]", rows[held], rows_p[held],
+                  "rows vs pool_ties_bf16_plain")
+    gcot = torch.randn(*pooled.shape, device="cuda", generator=gen) * held
+    coef = (gcot.double()[:, None] / tied.sum(1, keepdim=True)).to(
+        torch.bfloat16).double()
+    m = torch.where(tied, coef, 0.0)
+    w64 = w3.double()
+    dx_p = m @ w64[1 if taps == 3 else 0].T
+    if taps == 3:
+        dx_p[:, :-1] += m[:, 1:] @ w64[0].T
+        dx_p[:, 1:] += m[:, :-1] @ w64[2].T
+    del z64, tied, m
+    dx = pk.pool_bwd_bf16(gcot.contiguous(), x, w3, w3t, bias, pooled, cnt, rows)
+    if dx.dtype != x.dtype:
+        _fail(f"pool_bwd_bf16[{label}] returned {dx.dtype} for {x.dtype} x")
+    dx_err = (dx.double() - dx_p).abs().max().item()
+    # a bf16 x takes its dx in bf16: one bf16 step at the largest entry
+    rel = 2.0 ** -8 if x.dtype == torch.bfloat16 else 1e-5
+    check(f"pool_bwd_bf16[{label}]", dx_err, rel * dx_p.abs().max().item(), "dx")
+    print(f"  pool_bf16[{label}]: pooled err / max |z| {err / scale:.3e}; cnt, "
+          f"rows equal to pool_ties_bf16_plain on {int(held.sum())}/{held.numel()} "
+          f"columns ({int((cnt_p[held] > 1).sum())} tied, "
+          f"{int((cnt[held] > pk.MAX_TIES).sum())} past {pk.MAX_TIES} rows: the "
+          f"backward's recompute); dx err / max |dx| "
+          f"{dx_err / dx_p.abs().max().item():.3e}")
+    return dict(err=err, dx_err=dx_err, pooled=pooled, cnt=cnt, rows=rows,
+                recomputed=int((cnt[held] > pk.MAX_TIES).sum()))
+
+
+def pool_bf16_times(torch, pk, x, w3, bias, w3t, gen, pooled, cnt, rows) -> dict:
+    """The bf16 pool kernels' times at one path shape: one call and ten back
+    to back, their plain versions, the bounds (the forward's operations at
+    the tensor cores' bf16 rate; the backward's bytes), and the library's
+    bf16 product without the pool (F.conv1d for taps 3, torch.matmul for
+    taps 1)."""
+    import torch.nn.functional as F
+
+    b_, n_, _ = x.shape
+    taps = w3.shape[0]
+    xb = x.to(torch.bfloat16)
+    if taps == 3:
+        xs, wt = xb.transpose(1, 2).contiguous(), w3.permute(2, 1, 0).contiguous()
+        bb = bias.to(torch.bfloat16)
+
+        def lib():
+            return F.conv1d(xs, wt, bb, padding=1)
+    else:
+        w0 = w3[0].contiguous()
+
+        def lib():
+            return torch.matmul(xb, w0)
+    g_all = torch.randn(b_, COUT, device="cuda", generator=gen)
+    tied_rows = int(cnt.sum().item())
+    return dict(
+        ms=time_ms(lambda: pk.pool_fwd_bf16(x, w3, bias)),
+        ten=ten_ms(lambda: pk.pool_fwd_bf16(x, w3, bias)),
+        plain_ms=time_ms(lambda: pk.pool_affine_max_bf16_plain(x, w3, bias), iters=5),
+        bound=bound_ms(nbytes(x, w3, bias, pooled, cnt, rows),
+                       2.0 * b_ * n_ * CIN * COUT * taps, PEAK_BF16_FLOPS),
+        library_ms=time_ms(lib), lib_ten=ten_ms(lib),
+        bwd_ms=time_ms(lambda: pk.pool_bwd_bf16(g_all, x, w3, w3t, bias, pooled, cnt, rows)),
+        bwd_ten=ten_ms(lambda: pk.pool_bwd_bf16(g_all, x, w3, w3t, bias, pooled, cnt, rows)),
+        bwd_plain_ms=time_ms(lambda: pk.pool_bwd_bf16_plain(g_all, x, w3, bias, pooled),
+                             iters=5),
+        # g, cnt, rows and w3t read once, dx written as float32
+        bwd_bound=bound_ms(nbytes(g_all, cnt, rows, w3t) + 4 * x.numel(),
+                           2.0 * tied_rows * taps * CIN),
+    )
+
+
+def pool_bf16_checks(torch, pk, gen) -> dict:
+    """Phase 2's single-pass bf16 pool kernels: held (`pool_bf16_hold`) and
+    timed at the bf16 victim's three pool shapes, then held at a ragged
+    n = 1000 and on runs of duplicated rows (more than four ties: the
+    backward's recompute, which must find the forward's ties: identical
+    rows give identical z)."""
+    out = {}
+    for label, taps, xdt in BF16_POOLS:
+        x, w3, bias, w3t = pool_bf16_inputs(torch, taps, xdt, gen)
+        h = pool_bf16_hold(torch, pk, label, x, w3, bias, w3t, gen)
+        out[label] = dict(err=h["err"], dx_err=h["dx_err"], **pool_bf16_times(
+            torch, pk, x, w3, bias, w3t, gen, h["pooled"], h["cnt"], h["rows"]))
+        r_ = out[label]
+        flops = 2.0 * B * N * CIN * COUT * taps
+        print(f"  pool_fwd_bf16[{label}]: ms={r_['ms']:.4f} ten={r_['ten']:.4f} "
+              f"({flops / r_['ten'] / 1e9:.1f} TFLOP/s) plain_ms={r_['plain_ms']:.4f} "
+              f"library_ms={r_['library_ms']:.4f} (ten {r_['lib_ten']:.4f}) "
+              f"bound_ms={r_['bound'][0]:.4f}; pool_bwd_bf16 ms={r_['bwd_ms']:.4f} "
+              f"ten={r_['bwd_ten']:.4f} plain_ms={r_['bwd_plain_ms']:.4f} "
+              f"bound_ms={r_['bwd_bound'][0]:.4f}")
+    for label, taps, xdt, n_, runs in (
+            ("conv5 taps=3, float32 x, n=1000", 3, "float32", 1000, ()),
+            ("conv5 taps=3, float32 x, duplicated rows", 3, "float32", N,
+             ((0, 100, 10), (1, 27, 9), (2, 120, 12))),
+            ("input T-Net taps=1, bf16 x, duplicated rows", 1, "bfloat16", N,
+             ((0, 124, 9), (3, 500, 6)))):
+        x, w3, bias, w3t = pool_bf16_inputs(torch, taps, xdt, gen, n=n_)
+        for b_, r0, length in runs:  # rows in a warp, across warps, across tiles
+            x[b_, r0:r0 + length] = 3.0 * x[b_, r0]
+        h = pool_bf16_hold(torch, pk, label, x, w3, bias, w3t, gen)
+        if runs and not h["recomputed"]:
+            _fail(f"pool_bf16[{label}]: no column took the backward's recompute")
+    return out
+
+
+def pool_times_phase(torch) -> dict:
+    """`--times 6`: rows 6 and 7 in both precisions at the bf16 victim's
+    three pool shapes (the float32 kernels on the same x in float32 and w3
+    lifted to float32), one call and ten back to back, with the plain
+    versions and bounds, checking nothing. A checkout without the bf16
+    kernels (`--tree`) times the float32 ones only."""
+    from geoa3_tpu_torch.ops.kernels import _build, pool_matmul_kernel as pk
+
+    print(f"pool kernel times of {CODE}")
+    _build.lib()
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    out = {}
+    for label, taps, xdt in BF16_POOLS:
+        x, w3, bias, w3t = pool_bf16_inputs(torch, taps, xdt, gen)
+        x32, w32 = x.float(), w3.float().contiguous()
+        w32t = w32.transpose(1, 2).contiguous()
+        pooled, cnt, rows = pk.pool_fwd(x32, w32, bias)
+        g_all = torch.randn(B, COUT, device="cuda", generator=gen)
+        flops = 2.0 * B * N * CIN * COUT * taps
+        r_ = dict(
+            f32_ms=time_ms(lambda: pk.pool_fwd(x32, w32, bias)),
+            f32_ten=ten_ms(lambda: pk.pool_fwd(x32, w32, bias)),
+            f32_bound=bound_ms(nbytes(x32, w32, bias, pooled, cnt, rows), flops),
+            f32_bwd_ten=ten_ms(lambda: pk.pool_bwd(g_all, x32, w32, w32t, bias,
+                                                   pooled, cnt, rows)))
+        if hasattr(pk, "pool_fwd_bf16"):
+            pb, cb, rb = pk.pool_fwd_bf16(x, w3, bias)
+            r_.update({f"bf16_{k}": v for k, v in pool_bf16_times(
+                torch, pk, x, w3, bias, w3t, gen, pb, cb, rb).items()})
+        out[label] = r_
+        print(f"  {label}: " + " ".join(
+            f"{k}={v[0] if isinstance(v, tuple) else v:.4f}" for k, v in r_.items()),
+            flush=True)
     return out
 
 
@@ -3901,6 +4129,144 @@ def pointnet_attack_launches(steps: int, refresh: int, batches: int = 1,
     return want
 
 
+BF16_PATH = ("nn1_payload", "scatter_add_3t", "kappa_selmask", "curv_term",
+             "kappa_fwd", "pool_fwd", "pool_fwd_bf16", "pool_bwd_bf16")
+
+
+def bf16_attack_launches(steps: int, refresh: int, batches: int = 1,
+                         reevaluate: bool = False, healthchecks: int = 0) -> dict:
+    """`pointnet_attack_launches` with the bf16 victim's gradient pass: its
+    three pools run the single-pass bf16 kernels forward and backward each
+    step (and once each a health check), and the float32 victim judges each
+    step by a forward of its own (three float32 pools, as many as the
+    float32 attack's gradient pass launches), and no float32 backward."""
+    want = pointnet_attack_launches(steps, refresh, batches, reevaluate)
+    want.update(pool_bwd=0,
+                pool_fwd_bf16=batches * 3 * steps + 3 * healthchecks,
+                pool_bwd_bf16=batches * 3 * steps + 3 * healthchecks)
+    return want
+
+
+def bf16_cpu_agreement(torch) -> dict:
+    """The bf16 victim's logits and input gradient (of sum(logits^2)) on the
+    card against the same twin on the CPU (the kernels' plain versions),
+    at tests/test_torch_bf16.py's tolerances: 1e-3 of max |logit| and 3e-2
+    of max |g| (the tensor cores' float32 sums against the CPU's, of the
+    same exact bf16 products, and bf16 roundings in the small bf16 layers
+    where they fall differently)."""
+    from geoa3_tpu_torch.models import make_eval_fn
+    from geoa3_tpu_torch.workload import random_victim
+
+    b, n = 4, N
+    model, _ = random_victim("PointNet", 40, n, seed=2, device="cpu")
+    pc, _, _ = make_batch(torch, b, n, seed=2)
+    got = {}
+    for dev in ("cuda", "cpu"):
+        fn = make_eval_fn(model.to(dev), dtype=torch.bfloat16)
+        x = pc.to(dev).requires_grad_(True)
+        logits = fn(x)
+        (g,) = torch.autograd.grad((logits ** 2).sum(), x)
+        got[dev] = (logits.detach().cpu(), g.cpu())
+    (lg, gg), (lc, gc) = got["cuda"], got["cpu"]
+    lerr = ((lg - lc).abs().max() / lc.abs().max()).item()
+    gerr = ((gg - gc).abs().max() / gc.abs().max()).item()
+    print(f"  bf16 victim card vs CPU ([{b},{n}]): logits err / max |logit| "
+          f"{lerr:.3e} (tol 1e-3), input gradient err / max |g| {gerr:.3e} (tol 3e-2)")
+    if not (lerr <= 1e-3 and gerr <= 3e-2):
+        _fail("the bf16 victim on the card disagrees with the CPU")
+    return dict(logits_err=lerr, grad_err=gerr)
+
+
+def bf16_victim_phase(torch, paths) -> dict:
+    """Phase 13: the bf16 PointNet victim (`--victim_dtype bfloat16`) at
+    full width: the health check at the run's shape, the default attack 1 x
+    50 (K=10) with the bf16 twin's gradient and the float32 victim as judge,
+    its launch counts read from the code, its ms/step beside the float32
+    attack's in this call (twice each, in turns), the twin card vs CPU, and
+    the attack CLI in process with --victim_dtype bfloat16 on phase 5's 40
+    clouds and victim into build/chip_smoke/bf16/."""
+    import scipy.io as sio
+
+    from geoa3_tpu_torch import make_attack_fn
+    from geoa3_tpu_torch.cli.main_attack import build_parser, main as cli_main
+    from geoa3_tpu_torch.models import bf16_grad_healthcheck, make_eval_fn
+    from geoa3_tpu_torch.ops.kernels import launch_counts, reset_launch_counts
+    from geoa3_tpu_torch.workload import main_path_config, random_victim
+
+    model, logits_fn = random_victim("PointNet", seed=0)
+    grad_fn = make_eval_fn(model, dtype=torch.bfloat16)
+    reset_launch_counts()
+    healthy = bf16_grad_healthcheck(grad_fn, B, N, "cuda")
+    hc = launch_counts()
+    if not healthy or hc["pool_fwd_bf16"] != 3 or hc["pool_bwd_bf16"] != 3:
+        _fail(f"the bf16 health check at [{B},{N},3]: healthy={healthy}, "
+              f"launches {hc}")
+    pc, nrm, _ = make_batch(torch, B, N, seed=1)
+    with torch.no_grad():
+        gt = logits_fn(pc).argmax(-1)
+
+    def run(cfg, seed, bf16):
+        fn = make_attack_fn(grad_fn if bf16 else logits_fn, cfg,
+                            eval_logits_fn=logits_fn if bf16 else None)
+        gen = torch.Generator(device="cuda").manual_seed(seed)
+        return timed_attack(torch, fn, (pc, nrm, gt, gt, gen),
+                            cfg.binary_max_steps * cfg.iter_max_steps)
+
+    run(main_path_config(1, 10), 99, True)  # warm-up
+    steps = 50
+    cfg = main_path_config(1, steps)
+    (res, ms_bf16), counts = paths.run("bf16 K=10", BF16_PATH,
+                                       lambda: run(cfg, 0, True))
+    check_result(torch, res, steps, "bf16 K=10")
+    want = bf16_attack_launches(steps, cfg.curv_knn_refresh_every)
+    if counts != want:
+        _fail(f"the bf16 attack launched {counts}, expected {want}")
+    times = {"bf16": [ms_bf16], "float32": []}
+    for bf16 in (False, False, True):  # bf16, f32, f32, bf16
+        times["bf16" if bf16 else "float32"].append(run(cfg, 0, bf16)[1])
+    print(f"  bf16 K=10 attack: 1x{steps} steps, success {int(res.success.sum())}/{B}, "
+          f"ms/step bf16 {times['bf16']} float32 {times['float32']} (in turns: "
+          "bf16, f32, f32, bf16; CUDA events); launches as read from the code")
+    agreement = bf16_cpu_agreement(torch)
+
+    root = REPO / "build" / "chip_smoke"
+    per_class, cli_steps = 4, 20
+    total = 10 * per_class
+    argv = ["--attack", "GeoA3", "--attack_label", "Untarget",
+            "--data_dir_file", f"synthetic:{per_class}:{N}", "-b", str(B),
+            "--binary_max_steps", "1", "--iter_max_steps", str(cli_steps),
+            "--checkpoint", str(root / "victim.pt"), "--victim_dtype", "bfloat16",
+            "--exps_root", str(root / "bf16" / "Exps")]
+    t0 = time.time()
+    saved, cli_counts = paths.run("CLI bf16", BF16_PATH,
+                                  lambda: cli_main(build_parser().parse_args(argv)))
+    torch.cuda.synchronize()
+    secs = time.time() - t0
+    batches = -(-total // B)
+    want = bf16_attack_launches(cli_steps, 10, batches, reevaluate=True,
+                                healthchecks=1)
+    if cli_counts != want:
+        _fail(f"the bf16 CLI launched {cli_counts}, expected {want}")
+    saved = Path(saved)
+    mats = sorted(p.name for p in (saved / "Mat").iterdir())
+    objs = sorted(p.name for p in (saved / "PC").iterdir())
+    if not mats or [m[:-4] for m in mats] != [o[:-4] for o in objs]:
+        _fail(f"bf16 CLI: Mat/ and PC/ do not hold the same instances")
+    cloud = sio.loadmat(saved / "Mat" / mats[0])["adversary_point_clouds"]
+    if cloud.shape != (3, N) or not np.isfinite(cloud).all():
+        _fail(f"bf16 CLI: saved cloud has shape {cloud.shape} or is not finite")
+    rate = float((saved / "attack_result.txt").read_text().strip()
+                 .splitlines()[-1].split(":")[1])
+    if abs(rate - 100.0 * len(mats) / total) > 0.01:
+        _fail(f"bf16 CLI: attack_result.txt says {rate}% but {len(mats)} of "
+              f"{total} instances were saved")
+    print(f"  CLI --victim_dtype bfloat16: {total} clouds in {batches} batches, "
+          f"1x{cli_steps} steps, {len(mats)} saved ({rate:.2f}%), {secs:.1f} s, "
+          "launches as read from the code (the health check's included)")
+    return dict(ms_per_step=times, success=int(res.success.sum()),
+                cpu_agreement=agreement, cli_saved=len(mats), cli_seconds=secs)
+
+
 def train_inputs(torch, arch: str, b: int):
     """(state_dict, clouds, targets, dropout keep masks) on the host: the
     weights of workload.random_victim (PointNet's T-Nets off the identity,
@@ -4322,7 +4688,8 @@ def step_times_phase(torch) -> dict:
 # `--times ROW`: the rows with a timing mode, each phase building the
 # kernels itself and timing them at the row's path shapes; `step`, the
 # attack step of the three victims
-TIMES = {"8": kappa_times_phase, "12": fps_times_phase, "13": scatter_times_phase,
+TIMES = {"6": pool_times_phase, "8": kappa_times_phase, "12": fps_times_phase,
+         "13": scatter_times_phase,
          "15": ballquery_times_phase, "16": group_mlp_times_phase,
          "17": sa_fused_times_phase, "step": step_times_phase}
 
@@ -4427,7 +4794,10 @@ def main() -> int:
     mgpu = mgpu_inprocess(torch, paths, run["ms_step"])
     mgpu.update(mgpu_two_ranks(torch, paths))
 
-    phase("phase 13: the result")
+    phase("phase 13: the bf16 PointNet victim at full width")
+    bf16 = bf16_victim_phase(torch, paths)
+
+    phase("phase 14: the result")
     paths.check_union()
     for k in kernels:
         k["launches"], k["launches_by_path"] = paths.launches(k["name"])
@@ -4439,7 +4809,7 @@ def main() -> int:
                    "success": run["success"], "batch": B, "card": smi},
         "side_modes": side, "cli": cli, "ssg": ssg, "msg": msg,
         "subsample_uniform": sub, "dense": dense, "defense_tools": tools,
-        "train": trained, "multi_gpu": mgpu,
+        "train": trained, "multi_gpu": mgpu, "bf16": bf16,
     }))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -27,6 +27,10 @@ level; in float64 all of them agree to rounding (tests/test_torch_train.py).
 The running buffers are updated in place under no_grad, so their version
 counters move and the models' eval-mode fold caches are made again.
 
+A bf16 victim's eval-mode BatchNorm (its statistics in bf16) is not
+`F.batch_norm`, which rounds once: it is flax's op order with each op
+rounded to its promoted type (`_eval_bf16`).
+
 Inside `parallel.collectives.data_shard` (the sharded train step of
 parallel/mesh.py) each rank holds its rows of the global batch: the
 statistics are the global batch's, both passes summed over the data group by
@@ -54,6 +58,8 @@ def batch_norm(x: torch.Tensor, bn: nn.modules.batchnorm._BatchNorm,
     the running statistics."""
     c = x.shape[-1]
     x2 = x.reshape(-1, c)
+    if not training and bn.running_var.dtype == torch.bfloat16:
+        return _eval_bf16(x, bn)
     if not training:
         y = F.batch_norm(x2, bn.running_mean, bn.running_var, bn.weight,
                          bn.bias, False, 0.0, bn.eps)
@@ -76,6 +82,27 @@ def batch_norm(x: torch.Tensor, bn: nn.modules.batchnorm._BatchNorm,
         bn.running_mean.mul_(m).add_(mean.detach(), alpha=1.0 - m)
         bn.running_var.mul_(m).add_(var.detach(), alpha=1.0 - m)
     return y.reshape(x.shape)
+
+
+def _eval_bf16(x: torch.Tensor, bn) -> torch.Tensor:
+    """Eval-mode BatchNorm of a bf16 victim (models.registry.make_eval_fn's
+    twin: statistics, scale and bias in bf16), op by op in flax 0.12.3's
+    order and type promotion (`_normalize`): y = x - mean; mul = rsqrt(var
+    + eps) * scale in bf16 (eps taken as bf16, as jnp takes a Python
+    scalar); y * mul + bias, each op rounded to its promoted type (bf16 for
+    a bf16 x, float32 for a float32 one), as the JAX package's bf16 victim
+    runs it op by op. The victim is frozen, so mul is kept on the BatchNorm
+    and made again only when its sources were moved or changed in place
+    (as models/pointnet.py keeps its folds)."""
+    key = tuple((t.data_ptr(), t._version) for t in (bn.weight, bn.running_var))
+    cached = getattr(bn, "_bf16_mul", None)
+    if cached is None or cached[0] != key:
+        with torch.no_grad():
+            eps = torch.tensor(bn.eps, dtype=bn.running_var.dtype,
+                               device=bn.running_var.device)
+            cached = (key, torch.rsqrt(bn.running_var + eps) * bn.weight)
+        bn._bf16_mul = cached
+    return (x - bn.running_mean) * cached[1] + bn.bias
 
 
 def dropout(x: torch.Tensor, p: float, training: bool,

@@ -40,6 +40,19 @@ first, so its kernel of 3 sees the boundary a shrunken cloud would.
 then runs unfused, as the JAX model's does, and a masked point is never
 chosen.
 
+A bf16 twin of the victim (models.registry.make_eval_fn with
+`dtype=torch.bfloat16`: every parameter and statistic in bf16, the cloud cast
+to bf16) computes what the JAX package's bf16 victim computes: types follow
+flax's promotion (a bf16 layer on a bf16 input stays bf16, its product a
+float32 one rounded once to bf16, as XLA's CPU dot is; a float32 input
+lifts the bf16 weights to float32), its BatchNorms are flax's op order
+(models/layers.py), its folds are made in bf16 arithmetic in
+`_fused_pool`'s order, and its three pools run the pool kernel's
+single-pass bf16 mode (`pool_affine_max_bf16`), which returns float32: so
+from the input T-Net's pool on, the activations are float32. It serves the
+attack's gradient pass in eval mode only: training, a `point_mask` and
+`return_idx` raise.
+
 In training, a layer whose output features `parallel.make_sharded_train_step`
 split over the model group (`model_group`: the wide layers, >= 512
 outputs) computes its own features, which are all-gathered before its
@@ -57,7 +70,10 @@ from torch import nn
 
 from geoa3_tpu_torch.models.layers import batch_norm, dropout
 from geoa3_tpu_torch.parallel.collectives import model_group, split_features
-from geoa3_tpu_torch.ops.kernels.pool_matmul_kernel import pool_affine_max
+from geoa3_tpu_torch.ops.kernels.pool_matmul_kernel import (
+    pool_affine_max,
+    pool_affine_max_bf16,
+)
 
 CONV_BN_EPS = 1e-3
 FC_BN_EPS = 1e-5
@@ -70,27 +86,61 @@ def _dense(x: torch.Tensor, layer: nn.Module, training: bool = False) -> torch.T
     w = layer.weight
     if w.dim() == 3:
         w = w[..., 0]
+    if w.dtype == torch.bfloat16:
+        return _promoted(x, layer, w)
     group = model_group(layer) if training else None
     if group is None:
         return F.linear(x, w, layer.bias)
     return split_features(x, group, lambda x: F.linear(x, w)) + layer.bias
 
 
+def _promoted(x: torch.Tensor, layer: nn.Module, w: torch.Tensor) -> torch.Tensor:
+    """x @ w.T + bias of a bf16 twin's layer (w its bf16 weight [cout, cin])
+    in flax's promoted type: for a bf16 x, the float32 product rounded once
+    to bf16, then the bf16 bias added; for a float32 x, in float32 with the
+    weights lifted exactly. The lifted weights are kept on the layer (the
+    victim is frozen) and made again only when their sources were moved or
+    changed in place."""
+    key = tuple((t.data_ptr(), t._version) for t in (w, layer.bias))
+    cached = getattr(layer, "_lift", None)
+    if cached is None or cached[0] != key:
+        with torch.no_grad():
+            cached = (key, w.float(), layer.bias.float())
+        layer._lift = cached
+    _, w32, b32 = cached
+    if x.dtype == torch.bfloat16:
+        return (x.float() @ w32.T).to(x.dtype) + layer.bias
+    return F.linear(x, w32, b32)
+
+
+def _matmul(a: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
+    """a @ t in the promoted type (jnp.einsum's): a bf16 twin's cloud meets
+    its float32 transform in float32."""
+    dt = torch.promote_types(a.dtype, t.dtype)
+    return a.to(dt) @ t.to(dt)
+
+
 def _folded(conv: nn.Conv1d, bn: nn.BatchNorm1d):
-    """(w3 [taps, cin, cout], bias [cout], w3t [taps, cout, cin]): the eval
-    BatchNorm folded into the conv. The victim is frozen, so the fold is kept
-    on the conv and made again only when one of its sources was moved or
-    changed in place (a new storage or a new version counter: the
+    """(w3 [taps, cin, cout], bias [cout] float32, w3t [taps, cout, cin]):
+    the eval BatchNorm folded into the conv, in the weights' type (a bf16
+    twin's fold rounds each op to bf16, in geoa3_tpu/models/pointnet.py:
+    _fused_pool's order, eps taken as bf16; its bias, bf16 values, is handed
+    to the kernel as float32). The victim is frozen, so the fold is kept on
+    the conv and made again only when one of its sources was moved, cast or
+    changed in place (a new storage, type or version counter: the
     optimiser's step and the train-mode BatchNorm update in place)."""
     srcs = (conv.weight, conv.bias, bn.weight, bn.bias, bn.running_mean,
             bn.running_var)
-    key = (conv.weight.device,) + tuple((t.data_ptr(), t._version) for t in srcs)
+    key = (conv.weight.device, conv.weight.dtype) + tuple(
+        (t.data_ptr(), t._version) for t in srcs)
     cached = getattr(conv, "_fold", None)
     if cached is None or cached[0] != key:
         with torch.no_grad():
-            s = bn.weight * torch.rsqrt(bn.running_var + bn.eps)
+            eps = torch.tensor(bn.eps, dtype=bn.running_var.dtype,
+                               device=bn.running_var.device)
+            s = bn.weight * torch.rsqrt(bn.running_var + eps)
             w3 = (conv.weight.permute(2, 1, 0) * s).contiguous()
-            b = ((conv.bias - bn.running_mean) * s + bn.bias).contiguous()
+            b = ((conv.bias - bn.running_mean) * s + bn.bias).float().contiguous()
             cached = (key, w3, b, w3.transpose(1, 2).contiguous())
         conv._fold = cached
     return cached[1:]
@@ -98,9 +148,12 @@ def _folded(conv: nn.Conv1d, bn: nn.BatchNorm1d):
 
 def _fused_pool(x: torch.Tensor, conv: nn.Conv1d, bn: nn.BatchNorm1d):
     """relu(max_n(bn(conv(x)))) through the pool kernel: x [b, n, cin] ->
-    [b, cout]. The eval BatchNorm folds into the conv; ReLU commutes with the
-    max and is applied after it."""
+    [b, cout] float32. The eval BatchNorm folds into the conv; ReLU commutes
+    with the max and is applied after it. A bf16 twin's folds take the
+    kernel's single-pass bf16 mode."""
     w3, b, w3t = _folded(conv, bn)
+    if w3.dtype == torch.bfloat16:
+        return torch.relu(pool_affine_max_bf16(x, w3, b, w3t))
     return torch.relu(pool_affine_max(x, w3, b, w3t))
 
 
@@ -210,12 +263,16 @@ class PointNet(nn.Module):
         t = self.training
         if return_idx and t:
             raise ValueError("return_idx is an eval-mode output")
+        if self.conv1.weight.dtype == torch.bfloat16 and (
+                t or point_mask is not None or return_idx):
+            raise ValueError("a bf16 victim serves the attack's gradient pass "
+                             "only: eval mode, no point_mask, no return_idx")
         keep1, keep2 = keep if keep is not None else (None, None)
-        feat = pc @ self.input_transform(pc, point_mask)
+        feat = _matmul(pc, self.input_transform(pc, point_mask))
         feat = torch.relu(batch_norm(_dense(feat, self.conv1, t), self.bn1, t))
         feat = torch.relu(batch_norm(_dense(feat, self.conv2, t), self.bn2, t))
         t_feat = self.feature_transform(feat, point_mask)
-        feat = feat @ t_feat
+        feat = _matmul(feat, t_feat)
         feat = torch.relu(batch_norm(_dense(feat, self.conv3, t), self.bn3, t))
         feat = torch.relu(batch_norm(_dense(feat, self.conv4, t), self.bn4, t))
         if point_mask is not None:

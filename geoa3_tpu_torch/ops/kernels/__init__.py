@@ -42,6 +42,8 @@ KERNELS = {
     "scatter_add_3": scatter_kernel.scatter_add_3,
     "sa_fused_fwd": sa_fused_kernel.sa_fused_fwd,
     "sa_fused_bwd": sa_fused_kernel.sa_fused_bwd,
+    "pool_fwd_bf16": pool_matmul_kernel.pool_fwd_bf16,
+    "pool_bwd_bf16": pool_matmul_kernel.pool_bwd_bf16,
 }
 
 

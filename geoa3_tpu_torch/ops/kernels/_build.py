@@ -107,6 +107,16 @@ SIGNATURES = {
     "geoa3_pool_bwd": [
         _VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _I, _I, _I, _I, _I, _VP, _VP,
     ],
+    # x, w3, bias, B, n, cin, cout, taps, x_bf16, pooled, cnt, rows, stream
+    "geoa3_pool_fwd_bf16": [
+        _VP, _VP, _VP, _I, _I, _I, _I, _I, _I, _VP, _VP, _VP, _VP,
+    ],
+    # w3t, pooled_g, cnt, rows, x, bias, pooled, w3, B, n, cin, cout, taps,
+    # x_bf16, dx (zeroed by the entry), stream
+    "geoa3_pool_bwd_bf16": [
+        _VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _I, _I, _I, _I, _I, _I, _VP,
+        _VP,
+    ],
 }
 
 _lock = threading.Lock()

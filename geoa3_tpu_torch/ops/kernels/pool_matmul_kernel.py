@@ -17,6 +17,18 @@ adds g/cnt * w3[t, :, c] at those rows (shifted by tap) and needs no second
 product. Each output is one fmaf chain from 0 in (tap, k) order plus the
 bias, which the backward's recompute of a column with more ties repeats. The
 TPU kernel runs split-bf16 products; this one stays float32 like the victim.
+
+The bf16 victim (`models.registry.make_eval_fn(..., dtype=torch.bfloat16)`)
+runs the TPU kernel's single-pass mode (`f32_exact=False`) instead:
+`pool_fwd_bf16` / `pool_bwd_bf16` (csrc/pool_matmul_bf16.cu) on the tensor
+cores. x (bf16 or float32) and w3 are rounded to bf16, the products are
+exact and the sums float32; the backward rounds the cotangent g / cnt to
+bf16 before its product with w3, and returns dx in x's type. Bound:
+operations at 989 TFLOP/s of bf16. A block stages its 128 channels' weights
+once and each 128-row tile's x as a bf16 slab, and runs mma.sync m16n8k16
+from ldmatrix fragments; the epilogue keeps the float32 kernel's output
+(maximum, tie count, first `MAX_TIES` tied rows), and the backward's
+recompute of a column with more ties replays the forward's mma chain.
 """
 
 from __future__ import annotations
@@ -31,6 +43,7 @@ BLOCK_CIN = 16  # BK in csrc/pool_matmul.cu
 # the x slab (130 rows of cin + 4 floats) beside the weight ring and the
 # column states must fit a block's 232,448 bytes of shared memory
 MAX_CIN = 368
+SMEM_MAX = 232448  # a block's opt-in shared memory on the H100
 
 
 def affine_plain(x, w3, bias):
@@ -153,5 +166,148 @@ def pool_affine_max(x, w3, bias, w3t=None):
     return _PoolAffineMax.apply(x, w3, w3t, bias)
 
 
+def affine_bf16_plain(x, w3, bias):
+    """The single-pass bf16 mode's pre-pool activations [B, n, cout]:
+    `affine_plain` of x and w3 rounded to bf16 (their products are exact in
+    float32), with float32 sums and the float32 bias."""
+    return affine_plain(x.to(torch.bfloat16).float(),
+                        w3.to(torch.bfloat16).float(), bias.float())
+
+
+def pool_affine_max_bf16_plain(x, w3, bias):
+    """Plain PyTorch version of the single-pass bf16 pool: the max over
+    points of `affine_bf16_plain` [B, cout], float32."""
+    return torch.amax(affine_bf16_plain(x, w3, bias), dim=1)
+
+
+def pool_ties_bf16_plain(x, w3, bias):
+    """Plain PyTorch version of `pool_fwd_bf16`'s whole output: (pooled,
+    cnt, rows) of `affine_bf16_plain`."""
+    return max_ties(affine_bf16_plain(x, w3, bias))
+
+
+def pool_bwd_bf16_plain(g, x, w3, bias, pooled):
+    """Plain PyTorch version of `pool_bwd_bf16`: dx [B, n, cin] in x's type
+    for the pooled cotangent g [B, cout], as the TPU kernel's backward takes
+    it in the single-pass mode: the rows tied at `pooled` share g / cnt,
+    rounded to bf16, whose product with the bf16 weights is exact; float32
+    sums, shifted by tap."""
+    z = affine_bf16_plain(x, w3, bias)
+    eq = z == pooled[:, None]
+    cnt = eq.sum(1, keepdim=True, dtype=torch.float32)
+    m = torch.where(eq, g[:, None] / cnt, 0.0).to(torch.bfloat16).float()
+    w = w3.to(torch.bfloat16).float()
+    if w.shape[0] == 1:
+        dx = m @ w[0].T
+    else:
+        # z[p] read x[p - 1] through tap 0 and x[p + 1] through tap 2
+        dx = m @ w[1].T
+        dx[:, :-1] += m[:, 1:] @ w[0].T
+        dx[:, 1:] += m[:, :-1] @ w[2].T
+    return dx.to(x.dtype)
+
+
+def bf16_smem_bytes(cin: int, taps: int, xbytes: int) -> int:
+    """The forward block's shared memory (csrc/pool_matmul_bf16.cu
+    `pool_bf16_smem`): the weights, the bf16 slab, the staging buffer of x's
+    type, the warps' partials and the columns' states."""
+    return (taps * cin * (BLOCK_COUT + 8) * 2 + 130 * (cin + 8) * 2
+            + 130 * cin * xbytes + 4 * BLOCK_COUT * 12 + BLOCK_COUT * (2 + MAX_TIES) * 4)
+
+
+def _check_bf16(x, w3, bias):
+    B, n, cin = x.shape
+    taps, _, cout = w3.shape
+    if x.dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"x: expected float32 or bfloat16, got {x.dtype}")
+    _build.check_cuda(x, "x", x.dtype, (B, n, cin))
+    _build.check_cuda(w3, "w3", torch.bfloat16, (taps, cin, cout))
+    _build.check_cuda(bias, "bias", torch.float32, (cout,))
+    if taps not in (1, 3):
+        raise ValueError(f"taps must be 1 or 3, got {taps}")
+    if cin % BLOCK_CIN or cout % BLOCK_COUT or (
+            bf16_smem_bytes(cin, taps, x.element_size()) > SMEM_MAX):
+        raise ValueError(
+            f"the bf16 pool kernel takes cin % {BLOCK_CIN} == 0, cout % "
+            f"{BLOCK_COUT} == 0 and a block within {SMEM_MAX} bytes of shared "
+            f"memory, got cin={cin}, cout={cout}, taps={taps}, x {x.dtype}")
+    if x.data_ptr() % 16 or w3.data_ptr() % 16:
+        raise ValueError("the bf16 pool kernel copies x and w3 in 16-byte "
+                         "pieces: both must start on a 16-byte boundary")
+    return B, n, cin, cout, taps
+
+
+def pool_fwd_bf16(x, w3, bias):
+    """CUDA kernel, the single-pass bf16 mode: x [B, n, cin] (bf16 or
+    float32), w3 [taps, cin, cout] bf16, bias [cout] float32 -> (pooled
+    [B, cout] float32, tie count [B, cout] int32, first tied rows
+    [B, cout, MAX_TIES] int32)."""
+    B, n, cin, cout, taps = _check_bf16(x, w3, bias)
+    dev = x.device
+    pooled = torch.empty(B, cout, dtype=torch.float32, device=dev)
+    cnt = torch.empty(B, cout, dtype=torch.int32, device=dev)
+    rows = torch.empty(B, cout, MAX_TIES, dtype=torch.int32, device=dev)
+    _build.launch("geoa3_pool_fwd_bf16", x, w3, bias, B, n, cin, cout, taps,
+                  int(x.dtype == torch.bfloat16), pooled, cnt, rows)
+    pool_fwd_bf16.launches += 1
+    return pooled, cnt, rows
+
+
+def pool_bwd_bf16(g, x, w3, w3t, bias, pooled, cnt, rows):
+    """CUDA kernel: the input cotangent of `pool_fwd_bf16` for the pooled
+    cotangent g [B, cout] -> dx [B, n, cin] in x's type (summed in float32).
+    w3t is w3 as [taps, cout, cin] bf16."""
+    B, n, cin, cout, taps = _check_bf16(x, w3, bias)
+    _build.check_cuda(w3t, "w3t", torch.bfloat16, (taps, cout, cin))
+    _build.check_cuda(g, "g", torch.float32, (B, cout))
+    _build.check_cuda(pooled, "pooled", torch.float32, (B, cout))
+    _build.check_cuda(cnt, "cnt", torch.int32, (B, cout))
+    _build.check_cuda(rows, "rows", torch.int32, (B, cout, MAX_TIES))
+    dx = torch.empty(B, n, cin, dtype=torch.float32, device=x.device)
+    _build.launch("geoa3_pool_bwd_bf16", w3t, g, cnt, rows, x, bias, pooled,
+                  w3, B, n, cin, cout, taps, int(x.dtype == torch.bfloat16), dx)
+    pool_bwd_bf16.launches += 1
+    return dx.to(x.dtype)
+
+
+class _PoolAffineMaxBf16(torch.autograd.Function):
+    """The single-pass bf16 pool: the kernels on CUDA tensors, the plain
+    versions on CPU ones."""
+
+    @staticmethod
+    def forward(ctx, x, w3, w3t, bias):
+        if x.is_cuda:
+            pooled, cnt, rows = pool_fwd_bf16(x, w3, bias)
+        else:
+            pooled, cnt, rows = pool_affine_max_bf16_plain(x, w3, bias), None, None
+        ctx.save_for_backward(x, w3, w3t, bias, pooled, cnt, rows)
+        return pooled
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w3, w3t, bias, pooled, cnt, rows = ctx.saved_tensors
+        g = g.contiguous()
+        if x.is_cuda:
+            dx = pool_bwd_bf16(g, x, w3, w3t, bias, pooled, cnt, rows)
+        else:
+            dx = pool_bwd_bf16_plain(g, x, w3, bias, pooled)
+        return dx, None, None, None
+
+
+def pool_affine_max_bf16(x, w3, bias, w3t=None):
+    """`pool_affine_max` in the TPU kernel's single-pass bf16 mode: x
+    [B, n, cin] bf16 or float32, w3 [taps, cin, cout] bf16, bias [cout]
+    float32 holding bf16 values -> max over points [B, cout] float32.
+    Differentiable in x only; dx comes back in x's type. w3t (w3 as
+    [taps, cout, cin]) is made here for a CUDA tensor unless the caller
+    keeps one. CPU tensors take the plain versions; CUDA tensors launch the
+    kernels."""
+    if x.is_cuda and w3t is None:
+        w3t = w3.transpose(1, 2).contiguous()
+    return _PoolAffineMaxBf16.apply(x, w3, w3t, bias)
+
+
 pool_fwd.launches = 0
 pool_bwd.launches = 0
+pool_fwd_bf16.launches = 0
+pool_bwd_bf16.launches = 0

@@ -2,9 +2,13 @@
 
     python -m geoa3_tpu_torch.profile_step [--steps 20] [--refresh 10]
         [--arch PointNet|PointNetPP|PointNetPP_MSG] [--train]
+        [--victim_dtype float32|bfloat16]
 
 Runs the default attack (geoa3_tpu_torch/workload.py, b=32, n=1024) on the
-victim `--arch` for one binary step of `--steps` Adam steps, or with
+victim `--arch` for one binary step of `--steps` Adam steps (with
+`--victim_dtype bfloat16`, PointNet only, the gradient pass through the bf16
+twin and the float32 victim judging each step, as the attack CLI runs it),
+or with
 `--train` `--steps` train steps of the victim (train.py, b=32, synthetic
 clouds, the trainer's initial weights and dropout), under torch.profiler
 after a warm-up, and prints the step time (CUDA events), the device's busy
@@ -26,6 +30,7 @@ from torch.profiler import ProfilerActivity, profile
 
 from geoa3_tpu_torch import make_attack_fn
 from geoa3_tpu_torch import train as T
+from geoa3_tpu_torch.models import make_eval_fn
 from geoa3_tpu_torch.workload import (
     BATCH,
     main_path_config,
@@ -35,6 +40,8 @@ from geoa3_tpu_torch.workload import (
 
 # kernel-name pattern -> group
 _GROUPS = [
+    (re.compile(r"pool_fwd_bf16_kernel"), "pool_fwd_bf16 (port)"),
+    (re.compile(r"pool_bwd_bf16_kernel"), "pool_bwd_bf16 (port)"),
     (re.compile(r"pool_fwd_kernel"), "pool_fwd (port)"),
     (re.compile(r"pool_bwd_kernel"), "pool_bwd (port)"),
     (re.compile(r"nn1_(tile|finish)_kernel"), "nn1_payload (port)"),
@@ -77,15 +84,18 @@ def _device_us(evt) -> float:
 
 def _attack_window(args):
     """The attack's `--steps` steps, after a warm-up block."""
-    _, logits_fn = random_victim(args.arch, seed=0)
+    model, logits_fn = random_victim(args.arch, seed=0)
     pc, nrm = synthetic_batch(seed=1)
     with torch.no_grad():
         gt = logits_fn(pc).argmax(-1)
-    warm = make_attack_fn(logits_fn, main_path_config(
-        1, args.refresh, args.refresh, arch=args.arch))
+    grad_fn, judge = logits_fn, None
+    if args.victim_dtype == "bfloat16":
+        grad_fn, judge = make_eval_fn(model, dtype=torch.bfloat16), logits_fn
+    warm = make_attack_fn(grad_fn, main_path_config(
+        1, args.refresh, args.refresh, arch=args.arch), eval_logits_fn=judge)
     warm(pc, nrm, gt, gt, torch.Generator(device="cuda").manual_seed(9))
-    fn = make_attack_fn(logits_fn, main_path_config(
-        1, args.steps, args.refresh, arch=args.arch))
+    fn = make_attack_fn(grad_fn, main_path_config(
+        1, args.steps, args.refresh, arch=args.arch), eval_logits_fn=judge)
     gen = torch.Generator(device="cuda").manual_seed(0)
     return lambda: fn(pc, nrm, gt, gt, gen)
 
@@ -116,7 +126,13 @@ def main() -> int:
                     choices=("PointNet", "PointNetPP", "PointNetPP_MSG"))
     ap.add_argument("--train", action="store_true",
                     help="profile the victim's train steps instead")
+    ap.add_argument("--victim_dtype", default="float32",
+                    choices=("float32", "bfloat16"),
+                    help="the attack's gradient pass in bf16 (PointNet)")
     args = ap.parse_args()
+    if args.victim_dtype == "bfloat16" and (args.train or args.arch != "PointNet"):
+        raise SystemExit("profile_step: --victim_dtype bfloat16 profiles the "
+                         "PointNet attack only")
     if not torch.cuda.is_available():
         raise SystemExit("profile_step: needs a CUDA card")
 
@@ -143,7 +159,8 @@ def main() -> int:
     for name, (us, _) in kernels.items():
         groups[_group(name)] += us / 1e3 / args.steps
 
-    what = "train steps" if args.train else f"attack steps, K={args.refresh}"
+    what = "train steps" if args.train else (
+        f"attack steps, K={args.refresh}, {args.victim_dtype} gradient pass")
     print(f"ms/step {per_step:.4f} (CUDA events, {args.steps} {what}, "
           f"b={BATCH}, {args.arch}); device busy "
           f"{busy_ms / args.steps:.4f} ms/step = {busy_ms / wall_ms:.3f} of "
@@ -177,7 +194,7 @@ def main() -> int:
         "device_kernels_per_step": device_kernels,
         "groups_ms_per_step": dict(groups), "steps": args.steps,
         "refresh": args.refresh, "batch": BATCH, "arch": args.arch,
-        "train": args.train,
+        "train": args.train, "victim_dtype": args.victim_dtype,
         "card": torch.cuda.get_device_name(0),
     }))
     return 0

@@ -16,6 +16,9 @@
 // test program sets g_bulk_lo / g_bulk_hi, reads nothing outside them; mbarriers
 // count arrivals and bytes under one lock, and a wait sleeps until its phase
 // has completed.
+// ldmatrix, mma.sync m16n8k16 bf16 and the bf16 conversions are stand-ins
+// with the PTX ISA's fragment layouts: they check the fragments' indices,
+// not the tensor cores' rounding (the mma sums its terms k ascending).
 #pragma once
 
 #define GEOA3_EMU 1
@@ -194,6 +197,7 @@ inline unsigned __ballot_sync(unsigned, bool pred) {
 }
 
 inline bool __any_sync(unsigned m, bool pred) { return __ballot_sync(m, pred) != 0; }
+inline bool __all_sync(unsigned m, bool pred) { return __ballot_sync(m, pred) == ~0u; }
 
 // redux.sync: every lane of the warp must call it, as the kernels do
 template <class T, class Op>
@@ -244,6 +248,97 @@ alignas(16) float smem[kEmuSmemMax / sizeof(float)];
 }
 
 inline size_t g_smem_bytes = 0;  // the running launch's dynamic shared memory
+
+// bf16 as its 16 bits: float -> bf16 rounds to nearest even (NaN stays a
+// quiet NaN), as cvt.rn.bf16x2.f32 does; the pair packs lo in the low half
+inline uint32_t emu_bf16_bits(float f) {
+  uint32_t u;
+  memcpy(&u, &f, 4);
+  if ((u & 0x7fffffffu) > 0x7f800000u) return (u >> 16) | 0x40u;
+  return (u + 0x7fffu + ((u >> 16) & 1u)) >> 16;
+}
+inline uint32_t cvt_rn_bf16x2(float lo, float hi) {
+  return emu_bf16_bits(lo) | (emu_bf16_bits(hi) << 16);
+}
+inline float emu_bf16_half(uint32_t v, int hi) {
+  const uint32_t u = hi ? (v & 0xffff0000u) : (v << 16);
+  float f;
+  memcpy(&f, &u, 4);
+  return f;
+}
+
+// ldmatrix.sync.aligned.m8n8.x4[.trans].shared.b16: every lane of the warp
+// must call it, as the kernels do. Lanes 8 i .. 8 i + 7 give the rows of
+// matrix i (16 bytes each, 16-byte aligned, inside the launch's dynamic
+// shared memory, else the program aborts); lane l receives in r[i] matrix
+// i's row l / 4, columns 2 (l % 4) and 2 (l % 4) + 1 (low half first), or
+// with .trans its rows 2 (l % 4) and 2 (l % 4) + 1 of column l / 4.
+inline void emu_ldmatrix(uint32_t (&r)[4], const void* p, bool trans) {
+  const int t = threadIdx.x, base = t & ~31, lane = t & 31;
+  const char* lo = reinterpret_cast<const char*>(smem);
+  const char* row = static_cast<const char*>(p);
+  if (reinterpret_cast<uintptr_t>(row) % 16 || row < lo ||
+      row + 16 > lo + g_smem_bytes) {
+    fprintf(stderr, "ldmatrix row out of shared memory or misaligned: +%td\n",
+            row - lo);
+    std::abort();
+  }
+  g_lanes[t] = reinterpret_cast<uintptr_t>(p);
+  g_warp_barrier[t / 32]->arrive_and_wait();
+  for (int i = 0; i < 4; ++i) {
+    const uint16_t* a;
+    const uint16_t* b;
+    int col;
+    if (trans) {
+      a = reinterpret_cast<const uint16_t*>(g_lanes[base + 8 * i + 2 * (lane % 4)]);
+      b = reinterpret_cast<const uint16_t*>(g_lanes[base + 8 * i + 2 * (lane % 4) + 1]);
+      col = lane / 4;
+      r[i] = a[col] | ((uint32_t)b[col] << 16);
+    } else {
+      a = reinterpret_cast<const uint16_t*>(g_lanes[base + 8 * i + lane / 4]);
+      col = 2 * (lane % 4);
+      r[i] = a[col] | ((uint32_t)a[col + 1] << 16);
+    }
+  }
+  g_warp_barrier[t / 32]->arrive_and_wait();
+}
+inline void ldmatrix_x4(uint32_t (&r)[4], const void* p) { emu_ldmatrix(r, p, false); }
+inline void ldmatrix_x4_trans(uint32_t (&r)[4], const void* p) { emu_ldmatrix(r, p, true); }
+
+// mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32, d += a b: every lane
+// of the warp must call it. The PTX ISA's fragments, g = lane / 4, q = lane
+// % 4: a0 = A[g][2q..2q+1], a1 = A[g+8][2q..], a2 = A[g][2q+8..], a3 =
+// A[g+8][2q+8..]; b0 = B[2q..2q+1][g], b1 = B[2q+8..2q+9][g]; d0, d1 =
+// D[g][2q..2q+1], d2, d3 = D[g+8][2q..]. Each output is summed from its
+// accumulator with k ascending, one fmaf a term (the products of bf16
+// values are exact): an order of this emulation, not the tensor cores'
+// rounding, which no CPU oracle reproduces.
+inline uint32_t g_mma[1024][6];
+inline void mma_m16n8k16_bf16(float (&d)[4], const uint32_t (&a)[4],
+                              uint32_t b0, uint32_t b1) {
+  const int t = threadIdx.x, base = t & ~31, lane = t & 31;
+  for (int i = 0; i < 4; ++i) g_mma[t][i] = a[i];
+  g_mma[t][4] = b0;
+  g_mma[t][5] = b1;
+  g_warp_barrier[t / 32]->arrive_and_wait();
+  auto A = [&](int r, int k) {
+    const int src = base + (r % 8) * 4 + (k % 8) / 2;
+    return emu_bf16_half(g_mma[src][(r >= 8 ? 1 : 0) + (k >= 8 ? 2 : 0)], k & 1);
+  };
+  auto B = [&](int k, int n) {
+    const int src = base + n * 4 + (k % 8) / 2;
+    return emu_bf16_half(g_mma[src][k >= 8 ? 5 : 4], k & 1);
+  };
+  float out[4];
+  for (int i = 0; i < 4; ++i) {
+    const int r = lane / 4 + (i >= 2 ? 8 : 0), n = 2 * (lane % 4) + (i & 1);
+    float acc = d[i];
+    for (int k = 0; k < 16; ++k) acc = fmaf(A(r, k), B(k, n), acc);
+    out[i] = acc;
+  }
+  g_warp_barrier[t / 32]->arrive_and_wait();
+  for (int i = 0; i < 4; ++i) d[i] = out[i];
+}
 
 // mbarriers (see the header); a phase completes when its arrivals and its
 // expected bytes have all come in

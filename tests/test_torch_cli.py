@@ -222,19 +222,22 @@ def test_refresh_falls_back_to_the_largest_divisor():
 
 LIFTED = {("--is_subsample_opt",), ("--uniform_loss_weight", "1"),
           ("--arch", "PointNetPP"), ("--arch", "PointNetPP_MSG"),
-          ("--mesh_data_parallel",)}
+          ("--mesh_data_parallel",), ("--victim_dtype", "bfloat16")}
 
 
 @pytest.mark.parametrize("flags", [
     ("--is_subsample_opt",), ("--uniform_loss_weight", "1"),
     ("--arch", "PointNetPP"), ("--arch", "PointNetPP_MSG"),
     ("--mesh_data_parallel",), ("--victim_dtype", "bfloat16"),
+    ("--victim_dtype", "bfloat16", "--arch", "PointNetPP"),
+    ("--victim_dtype", "bfloat16", "--arch", "PointNetPP_MSG"),
 ])
 def test_refused_switches_raise(work, flags):
     """The switches that are still refused raise with their ROADMAP message
     before any output; the ones lifted since (farthest-point sampling, the
-    single- and multi-scale PointNet++ victims and data parallel are
-    ported) pass the gate."""
+    single- and multi-scale PointNet++ victims, data parallel and the bf16
+    PointNet victim are ported) pass the gate. bf16 stays refused on both
+    PointNet++ victims."""
     args = build_parser().parse_args(_args(work, "refused", *flags))
     if flags in LIFTED:
         _refuse_unported(args)
