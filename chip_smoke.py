@@ -1376,7 +1376,9 @@ def group_mlp_times_phase(torch) -> dict:
     """`--times 16`: the checkout's grouped-MLP kernels timed at the seven
     PointNet++ shapes (for this checkout, and not with `--tree`: the two
     wider GroupAll ones too, which older checkouts refuse) on
-    `group_mlp_inputs`' inputs, as phase 2 times them, with no check run."""
+    `group_mlp_inputs`' inputs, as phase 2 times them, with no check run;
+    then, where the checkout has them, the single-pass bf16 kernels at the
+    seven shapes (`group_mlp_bf16_inputs`)."""
     from geoa3_tpu_torch.ops.kernels import _build, group_mlp_kernel as gk
 
     print(f"grouped-MLP times of {gk.__file__}")
@@ -1391,6 +1393,212 @@ def group_mlp_times_phase(torch) -> dict:
             out[label] = group_mlp_times(torch, gk, gx_, gf_, p_, pooled, cnt, g_all)
             print(f"  group_mlp[{label}]: " + group_mlp_times_line(out[label]),
                   flush=True)
+    if not hasattr(gk, "group_mlp_fwd_bf16"):
+        return out
+    for victim in ("SSG", "MSG"):  # the single-pass bf16 mode
+        for label, (gx_, gf_, p_) in group_mlp_bf16_inputs(torch, victim).items():
+            pooled, cnt = gk.group_mlp_fwd_bf16(gx_, gf_, p_)
+            g_all = torch.randn(*pooled.shape, device="cuda", generator=gen)
+            out[label + " bf16"] = group_mlp_bf16_times(torch, gk, gx_, gf_, p_,
+                                                        pooled, cnt, g_all)
+            print(f"  group_mlp_bf16[{label}]: "
+                  + group_mlp_times_line(out[label + " bf16"]), flush=True)
+    return out
+
+
+# ------------------------------------------- row 16 in the single-pass bf16 mode
+
+
+def group_mlp_bf16_inputs(torch, victim: str) -> dict:
+    """`group_mlp_inputs` as the bf16 victims' grouped MLPs take them: gx and
+    gf rounded to bf16 and the folded MLP to bf16 (`fold_mlp_bf16`, which
+    pads it for the kernels). Under-full balls and GroupAll's repeated rows
+    keep their exact ties; GroupAll's rows at `SPLIT_TIES` tie across the
+    tiles a cloud is split over."""
+    from geoa3_tpu_torch.ops.kernels import group_mlp_kernel as gk
+
+    return {label: (gx_.to(torch.bfloat16).contiguous(),
+                    None if gf_ is None else gf_.to(torch.bfloat16).contiguous(),
+                    gk.fold_mlp_bf16(*p_[:6]))
+            for label, (gx_, gf_, p_) in group_mlp_inputs(torch, victim).items()}
+
+
+def group_mlp_bf16_hold(torch, gk, label, gx_, gf_, p_, randn) -> dict:
+    """group_mlp_fwd_bf16 and group_mlp_bwd_bf16 against their plain
+    versions at one shape. The tensor cores sum the same exact bf16 products
+    in another order than cuBLAS, so a bf16 rounding of a1 or a2 may fall
+    the other way: pooled within 2^-8 of max |pooled| (one bf16 step at the
+    largest maximum); the tie counts equal to the plain version's on the
+    (group, channel)s whose maximum stands clear of 0 and of every other
+    row's value by 2^-8 of max |pooled|, or ties it exactly with rows of
+    the same inputs (repeated rows give identical z in both; distinct rows
+    whose bf16 activations coincide in one order of the sums need not in
+    another); for a pooled cotangent kept on those (group,
+    channel)s, dgx and dgf at a relative L2 distance of at most 2^-7, with
+    at least 99% of their rows within 2^-7 of the largest entry: where the
+    other order moves a hidden pre-activation across 0, a ReLU switches
+    and the row's cotangent moves by a whole term (a1 and a2 that round to
+    the next bf16 value move only the forward's sums)."""
+    pooled, cnt = gk.group_mlp_fwd_bf16(gx_, gf_, p_)
+    z1, z2, z3 = gk.mlp_bf16_plain(gx_, gf_, p_)
+    a3 = torch.relu(z3)
+    del z3
+    want = a3.amax(dim=2)
+    scale = want.abs().max().item()
+    fwd_err = (pooled - want).abs().max().item()
+    check(f"group_mlp_fwd_bf16[{label}]", fwd_err, 2.0 ** -8 * scale, "pooled")
+    tied = a3 == want[:, :, None]
+    cnt_p = tied.sum(dim=2, dtype=torch.int32)
+    runner_up = torch.where(tied, -1.0, a3).amax(dim=2)
+    held = ((want - runner_up) > 2.0 ** -8 * scale) & (want > 2.0 ** -8 * scale)
+    # a tie held only where the tied rows have the same inputs (an exact
+    # repeat ties in any order of the sums; distinct rows whose bf16
+    # activations happen to coincide need not): a random float64 key a row
+    key = gx_.double() @ randn(3).double()
+    if gf_ is not None:
+        key = key + gf_.double() @ randn(gf_.shape[-1]).double()
+    key = key[..., None]
+    repeats = (torch.where(tied, key, -torch.inf).amax(dim=2)
+               == torch.where(tied, key, torch.inf).amin(dim=2))
+    coincident = int((held & ~repeats).sum())
+    held &= repeats
+    del key, repeats
+    require_equal(torch, f"group_mlp_fwd_bf16[{label}]", cnt[held], cnt_p[held],
+                  "cnt where the maximum stands clear")
+    _, _, ns_, _ = gx_.shape
+    cf = 0 if gf_ is None else gf_.shape[-1]
+    rows, parts = gk.bf16_plan(ns_, cf, (p_.w1.shape[1], p_.w2.shape[1],
+                                         p_.w3.shape[1]), False)[:2]
+    across = 0
+    if parts > 1:
+        part = torch.arange(ns_, device=tied.device) // rows  # a row's tile
+        hit = torch.stack([tied[:, :, part == q].any(dim=2) for q in range(parts)])
+        across = int(((hit.sum(dim=0) > 1) & held).sum())
+    del a3, tied, runner_up, z1, z2
+    g = (randn(*pooled.shape) * held).to(torch.bfloat16).float().contiguous()
+    got = gk.group_mlp_bwd_bf16(g, gx_, gf_, p_, pooled, cnt)
+    wants = gk.group_mlp_bwd_bf16_plain(g, gx_, gf_, p_, want, cnt_p)
+    bwd_errs, moved = [], []
+    for g_, w_, what in zip(got, wants, ("dgx", "dgf")):
+        if w_ is None:
+            continue
+        top = w_.abs().max().item()
+        rel = ((g_ - w_).norm() / w_.norm()).item()
+        check(f"group_mlp_bwd_bf16[{label}]", rel, 2.0 ** -7,
+              f"{what} relative L2 distance")
+        row_err = (g_ - w_).abs().amax(dim=-1)
+        moved.append(int((row_err > 2.0 ** -7 * top).sum()))
+        if moved[-1] > 0.01 * row_err.numel():
+            _fail(f"group_mlp_bwd_bf16[{label}]: {moved[-1]} of {row_err.numel()} "
+                  f"rows of {what} are more than 2^-7 of its largest entry off")
+        bwd_errs.append(row_err.max().item())
+    print(f"  group_mlp_bf16[{label}]: pooled err / max {fwd_err / scale:.3e}, "
+          f"{int((pooled == want).sum())}/{want.numel()} maxima bit-equal to "
+          f"plain; cnt equal on {int(held.sum())}/{held.numel()} clear maxima "
+          f"({coincident} more tie distinct rows: not held) "
+          f"({int((cnt_p[held] > 1).sum())} tied, {across} tied across the "
+          f"{parts} tile(s) a group; {rows}-row tiles); rows of dgx / dgf "
+          f"more than 2^-7 of the largest entry off: {moved} of "
+          f"{got[0].shape[:3].numel()}; largest row errors {bwd_errs}")
+    return dict(fwd_err=fwd_err, bwd_err=max(bwd_errs), pooled=pooled, cnt=cnt,
+                tied=int((cnt_p[held] > 1).sum()), across=across)
+
+
+def group_mlp_bf16_times(torch, gk, gx_, gf_, p_, pooled, cnt, g_all) -> dict:
+    """The bf16 kernels' times at one shape, as `group_mlp_times` takes the
+    float32 ones (one call, ten back to back, the plain versions), and the
+    bounds for this run's data at the tensor cores' bf16 rate: the forward's
+    products over every row; the backward's recompute, dz3 @ w3t over dz3's
+    nonzero entries and d2 @ w2t, d1 @ w1t over the rows that carry a
+    cotangent; bytes: the bf16 inputs and weights read once, the outputs
+    written once (dgx and dgf as float32)."""
+    b_, m_, ns_, _ = gx_.shape
+    c0, c1 = p_.w1.shape
+    c2, c3 = p_.w3.shape
+    flops = 2.0 * b_ * m_ * ns_ * (c0 * c1 + c1 * c2 + c2 * c3)
+    dx, df = gk.group_mlp_bwd_bf16_plain(
+        g_all, gx_, gf_, p_, *gk.group_mlp_fwd_bf16_plain(gx_, gf_, p_))
+    carried = (dx != 0).any(-1)
+    if df is not None:
+        carried |= (df != 0).any(-1)
+    carried = carried.sum().item()
+    del dx, df
+    hits = (cnt * ((pooled > 0) & (g_all != 0))).sum().item()
+    wbytes = nbytes(p_.kw1, p_.kb1, p_.kw2, p_.kb2, p_.kw3, p_.kb3)
+    fbytes = nbytes(gf_) if gf_ is not None else 0
+    return dict(
+        flops=flops, hits=hits, carried=carried,
+        fwd_ms=time_ms(lambda: gk.group_mlp_fwd_bf16(gx_, gf_, p_)),
+        fwd_ten=ten_ms(lambda: gk.group_mlp_fwd_bf16(gx_, gf_, p_)),
+        fwd_plain=time_ms(lambda: gk.group_mlp_fwd_bf16_plain(gx_, gf_, p_), iters=5),
+        fwd_bound=bound_ms(nbytes(gx_, pooled, cnt) + wbytes + fbytes, flops,
+                           PEAK_BF16_FLOPS),
+        bwd_ms=time_ms(lambda: gk.group_mlp_bwd_bf16(g_all, gx_, gf_, p_, pooled, cnt)),
+        bwd_ten=ten_ms(lambda: gk.group_mlp_bwd_bf16(g_all, gx_, gf_, p_, pooled, cnt)),
+        bwd_plain=time_ms(lambda: gk.group_mlp_bwd_bf16_plain(
+            g_all, gx_, gf_, p_, pooled, cnt), iters=5),
+        bwd_plain_ten=ten_ms(lambda: gk.group_mlp_bwd_bf16_plain(
+            g_all, gx_, gf_, p_, pooled, cnt), iters=5),
+        bwd_bound=bound_ms(
+            3 * nbytes(gx_) + nbytes(g_all, pooled, cnt) + nbytes(
+                p_.kw1t, p_.kw2t, p_.kw3t) + wbytes + 3 * fbytes,
+            flops + 2.0 * (hits * c2 + carried * (c2 * c1 + c1 * c0)),
+            PEAK_BF16_FLOPS),
+    )
+
+
+def group_mlp_bf16_checks(torch) -> list[dict]:
+    """Phase 2's row 16 in the single-pass bf16 mode: both kernels held
+    (`group_mlp_bf16_hold`) and timed at the SSG victim's three shapes and
+    the MSG victim's SA1 scales and GroupAll (cf = 640), GroupAll's clouds
+    split over tiles with maxima tied across them."""
+    from geoa3_tpu_torch.ops.kernels import group_mlp_kernel as gk
+
+    out = []
+    entry = entry_into(out)
+    gen = torch.Generator(device="cuda").manual_seed(23)
+
+    def randn(*shape):
+        return torch.randn(*shape, device="cuda", generator=gen)
+
+    rows = {}
+    for victim in ("SSG", "MSG"):
+        for label, (gx_, gf_, p_) in group_mlp_bf16_inputs(torch, victim).items():
+            r_ = group_mlp_bf16_hold(torch, gk, label, gx_, gf_, p_, randn)
+            r_.update(group_mlp_bf16_times(torch, gk, gx_, gf_, p_, r_.pop("pooled"),
+                                           r_.pop("cnt"), randn(*gx_.shape[:2],
+                                                                p_.w3.shape[1])))
+            rows[label] = r_
+            print(f"  group_mlp_bf16[{label}]: " + group_mlp_times_line(r_), flush=True)
+    for label in ("SSG SA3", "MSG GroupAll cf=640"):
+        if rows[label]["across"] == 0:
+            _fail(f"group_mlp_fwd_bf16[{label}]: no maximum is tied across two "
+                  "tiles, the split's merge is unchecked")
+    if rows["SSG SA1"]["tied"] == 0:
+        _fail("group_mlp_bf16: no tied maxima, the tie split is unchecked")
+    r2_ = rows["SSG SA2"]
+
+    def others(k1, k2):
+        return "; ".join(
+            f"{lab}: ms={r[k1]:.4f} ten={r[k1[:3] + '_ten']:.4f} "
+            f"plain={r[k1[:3] + '_plain']:.4f} bound_ms={r[k2][0]:.4f}"
+            for lab, r in rows.items() if lab != "SSG SA2")
+
+    entry("group_mlp_fwd_bf16", "geoa3_tpu_torch/csrc/group_mlp_bf16.cu",
+          "geoa3_tpu/ops/pallas/group_mlp_kernel.py:158",
+          max(r["fwd_err"] for r in rows.values()), r2_["fwd_ms"],
+          r2_["fwd_plain"], r2_["fwd_bound"], None,
+          "single-pass bf16: SSG SA2 rows 32*128*64 x (131->128->128->256) -> "
+          f"[32,128,256] (ten back to back: {r2_['fwd_ten']:.4f}); "
+          + others("fwd_ms", "fwd_bound"))
+    entry("group_mlp_bwd_bf16", "geoa3_tpu_torch/csrc/group_mlp_bf16.cu",
+          "geoa3_tpu/ops/pallas/group_mlp_kernel.py:177",
+          max(r["bwd_err"] for r in rows.values()), r2_["bwd_ms"],
+          r2_["bwd_plain"], r2_["bwd_bound"], None,
+          "single-pass bf16: SSG SA2 -> dgx [32,128,64,3], dgf [32,128,64,128] "
+          f"float32 (ten back to back: {r2_['bwd_ten']:.4f}; max_abs_err: the "
+          "largest row error, on a row where another order of the sums switched "
+          "a ReLU; relative L2 within 2^-7); " + others("bwd_ms", "bwd_bound"))
     return out
 
 
@@ -4267,6 +4475,192 @@ def bf16_victim_phase(torch, paths) -> dict:
                 cpu_agreement=agreement, cli_saved=len(mats), cli_seconds=secs)
 
 
+# ---------------------------------------------------------------- phase 14
+
+# the bf16 PointNet++ attacks' launches, read from the code: one float32
+# forward of the victim (the judge of each step, and the CLI's
+# re-evaluation of each batch), and one pass of the bf16 twin, forward and
+# backward (FPS at SA1 and SA2; the single-pass grouped MLP where the JAX
+# gate fuses: SSG's three levels, MSG's SA1 scales and GroupAll; the
+# backward of the two FPS gathers and of each scale's coordinate gather by
+# the 3-channel scatter, of each feature gather by the C-channel one)
+PP_F32_FORWARD = {
+    "PointNetPP": dict(fps=2, ballquery_group_fwd=2, group_mlp_fwd=3),
+    "PointNetPP_MSG": dict(fps=2, ballquery_group_fwd=3, group_mlp_fwd=4,
+                           sa_fused_fwd=3),
+}
+PP_BF16_PASS = {
+    "PointNetPP": dict(fps=2, group_mlp_fwd_bf16=3, group_mlp_bwd_bf16=3,
+                       scatter_add_3t=4, scatter_add_nc=1),
+    "PointNetPP_MSG": dict(fps=2, group_mlp_fwd_bf16=4, group_mlp_bwd_bf16=4,
+                           scatter_add_3t=8, scatter_add_nc=3),
+}
+PP_BF16_PATH = ("nn1_payload", "scatter_add_3t", "kappa_selmask", "curv_term",
+                "kappa_fwd", "fps", "ballquery_group_fwd", "group_mlp_fwd",
+                "group_mlp_fwd_bf16", "group_mlp_bwd_bf16", "scatter_add_nc")
+
+
+def bf16_pp_launches(arch: str, steps: int, refresh: int, batches: int = 1,
+                     reevaluate: bool = False, healthchecks: int = 0) -> dict:
+    """Every kernel's launches of the default attack on a bf16 PointNet++
+    twin (one binary step of `steps` steps a batch): per step the loss's
+    kernels (1-NN payload, the o2a Chamfer term's scatter, the curvature
+    term; a selection mask every `refresh` steps; the kappa prologue once a
+    batch), one twin pass and one float32 forward (`PP_F32_FORWARD`,
+    `PP_BF16_PASS`); one float32 forward more a batch where the CLI
+    re-evaluates it, one twin pass a health check."""
+    from geoa3_tpu_torch.ops.kernels import KERNELS
+
+    want = dict.fromkeys(KERNELS, 0)
+    want.update(nn1_payload=batches * steps, scatter_add_3t=batches * steps,
+                kappa_selmask=batches * (steps // refresh),
+                curv_term=batches * steps, kappa_fwd=batches)
+    for k, v in PP_F32_FORWARD[arch].items():
+        want[k] += batches * (steps + int(reevaluate)) * v
+    for k, v in PP_BF16_PASS[arch].items():
+        want[k] += (batches * steps + healthchecks) * v
+    return want
+
+
+def bf16_pp_cpu_agreement(torch, arch: str) -> dict:
+    """A bf16 PointNet++ twin's logits and input gradient (of
+    sum(logits^2)) on the card against the same twin on the CPU (the
+    kernels' plain versions) at [2, 1024]. The tensor cores sum the grouped
+    MLP's exact bf16 products in another order than the CPU, and that order
+    alone moves the bf16 victims a long way (JAX against JAX,
+    tests/test_torch_pointnetpp_bf16.py::test_summation_order_yardstick:
+    MSG's logits by 3.2e-3 of max |logit|, its gradient by 0.15 of max |g|,
+    relative L2 0.09): logits within 1e-2 of max |logit|, the gradient's
+    relative L2 distance within 0.3 (its max |err| / max |g| and cosine
+    printed beside it)."""
+    from geoa3_tpu_torch.models import make_eval_fn
+    from geoa3_tpu_torch.workload import random_victim
+
+    b = 2
+    model, _ = random_victim(arch, seed=2, device="cpu")
+    pc, _, _ = make_batch(torch, b, N, seed=2)
+    got = {}
+    for dev in ("cuda", "cpu"):
+        fn = make_eval_fn(model.to(dev), dtype=torch.bfloat16)
+        x = pc.to(dev).requires_grad_(True)
+        logits = fn(x)
+        (g,) = torch.autograd.grad((logits ** 2).sum(), x)
+        got[dev] = (logits.detach().cpu().double(), g.cpu().double())
+    (lg, gg), (lc, gc) = got["cuda"], got["cpu"]
+    lerr = ((lg - lc).abs().max() / lc.abs().max()).item()
+    gerr = ((gg - gc).abs().max() / gc.abs().max()).item()
+    rel = ((gg - gc).norm() / gc.norm()).item()
+    cos = (gg * gc).sum().item() / (gg.norm() * gc.norm()).item()
+    print(f"  bf16 {arch} twin card vs CPU ([{b},{N}]): logits err / max |logit| "
+          f"{lerr:.3e} (tol 1e-2); input gradient relative L2 {rel:.3e} (tol "
+          f"0.3), err / max |g| {gerr:.3e}, cosine {cos:.6f}, "
+          f"{(gg == gc).double().mean().item():.4f} bit-equal")
+    if not (lerr <= 1e-2 and rel <= 0.3):
+        _fail(f"the bf16 {arch} twin on the card disagrees with the CPU")
+    return dict(logits_err=lerr, grad_err=gerr, grad_rel_l2=rel, grad_cos=cos)
+
+
+def bf16_pointnetpp_phase(torch, paths) -> dict:
+    """Phase 14: the bf16 PointNet++ victims (`--victim_dtype bfloat16
+    --arch PointNetPP | PointNetPP_MSG`) at full width: for each, the
+    health check at [32, 1024, 3], the default attack 1 x 30 (K=10) with
+    the bf16 twin's gradient and the float32 victim as judge, its launch
+    counts read from the code, its ms/step beside the float32 attack's in
+    this call (twice each, in turns), the twin card vs CPU, and the attack
+    CLI in process with --victim_dtype bfloat16 on phase 5's 40 clouds and
+    phase 8's victims into build/chip_smoke/bf16_pp/."""
+    import scipy.io as sio
+
+    from geoa3_tpu_torch import make_attack_fn
+    from geoa3_tpu_torch.cli.main_attack import build_parser, main as cli_main
+    from geoa3_tpu_torch.models import bf16_grad_healthcheck, make_eval_fn
+    from geoa3_tpu_torch.ops.kernels import launch_counts, reset_launch_counts
+    from geoa3_tpu_torch.workload import main_path_config, random_victim
+
+    root = REPO / "build" / "chip_smoke"
+    out = {}
+    for arch, tag, ckpt in (("PointNetPP", "SSG", "victim_ssg.pt"),
+                            ("PointNetPP_MSG", "MSG", "victim_msg.pt")):
+        required = PP_BF16_PATH + (("sa_fused_fwd",) if tag == "MSG" else ())
+        model, logits_fn = random_victim(arch, seed=0)
+        grad_fn = make_eval_fn(model, dtype=torch.bfloat16)
+        reset_launch_counts()
+        healthy = bf16_grad_healthcheck(grad_fn, B, N, "cuda")
+        hc = launch_counts()
+        want = bf16_pp_launches(arch, 0, 1, batches=0, healthchecks=1)
+        if not healthy or hc != want:
+            _fail(f"the bf16 {tag} health check at [{B},{N},3]: healthy={healthy}, "
+                  f"launches {hc}, expected {want}")
+        pc, nrm, _ = make_batch(torch, B, N, seed=1)
+        with torch.no_grad():
+            gt = logits_fn(pc).argmax(-1)
+
+        def run(cfg, seed, bf16):
+            fn = make_attack_fn(grad_fn if bf16 else logits_fn, cfg,
+                                eval_logits_fn=logits_fn if bf16 else None)
+            gen = torch.Generator(device="cuda").manual_seed(seed)
+            return timed_attack(torch, fn, (pc, nrm, gt, gt, gen),
+                                cfg.binary_max_steps * cfg.iter_max_steps)
+
+        run(main_path_config(1, 10, arch=arch), 99, True)  # warm-up
+        steps = 30
+        cfg = main_path_config(1, steps, arch=arch)
+        label = f"bf16 {tag} K=10"
+        (res, ms_bf16), counts = paths.run(label, required,
+                                           lambda: run(cfg, 0, True))
+        check_result(torch, res, steps, label)
+        want = bf16_pp_launches(arch, steps, cfg.curv_knn_refresh_every)
+        if counts != want:
+            _fail(f"the {label} attack launched {counts}, expected {want}")
+        times = {"bf16": [ms_bf16], "float32": []}
+        for bf16 in (False, False, True):  # bf16, f32, f32, bf16
+            times["bf16" if bf16 else "float32"].append(run(cfg, 0, bf16)[1])
+        print(f"  {label} attack: 1x{steps} steps, success "
+              f"{int(res.success.sum())}/{B}, ms/step bf16 {times['bf16']} "
+              f"float32 {times['float32']} (in turns: bf16, f32, f32, bf16; "
+              "CUDA events); launches as read from the code")
+        agreement = bf16_pp_cpu_agreement(torch, arch)
+
+        per_class, cli_steps = 4, 10
+        total = 10 * per_class
+        argv = ["--attack", "GeoA3", "--attack_label", "Untarget", "--arch", arch,
+                "--data_dir_file", f"synthetic:{per_class}:{N}", "-b", str(B),
+                "--binary_max_steps", "1", "--iter_max_steps", str(cli_steps),
+                "--checkpoint", str(root / ckpt), "--victim_dtype", "bfloat16",
+                "--exps_root", str(root / "bf16_pp" / "Exps")]
+        t0 = time.time()
+        saved, cli_counts = paths.run(f"CLI bf16 {tag}", required,
+                                      lambda: cli_main(build_parser().parse_args(argv)))
+        torch.cuda.synchronize()
+        secs = time.time() - t0
+        batches = -(-total // B)
+        want = bf16_pp_launches(arch, cli_steps, 10, batches, reevaluate=True,
+                                healthchecks=1)
+        if cli_counts != want:
+            _fail(f"the bf16 {tag} CLI launched {cli_counts}, expected {want}")
+        saved = Path(saved)
+        mats = sorted(p.name for p in (saved / "Mat").iterdir())
+        objs = sorted(p.name for p in (saved / "PC").iterdir())
+        if not mats or [m[:-4] for m in mats] != [o[:-4] for o in objs]:
+            _fail(f"bf16 {tag} CLI: Mat/ and PC/ do not hold the same instances")
+        cloud = sio.loadmat(saved / "Mat" / mats[0])["adversary_point_clouds"]
+        if cloud.shape != (3, N) or not np.isfinite(cloud).all():
+            _fail(f"bf16 {tag} CLI: saved cloud has shape {cloud.shape} or is not finite")
+        rate = float((saved / "attack_result.txt").read_text().strip()
+                     .splitlines()[-1].split(":")[1])
+        if abs(rate - 100.0 * len(mats) / total) > 0.01:
+            _fail(f"bf16 {tag} CLI: attack_result.txt says {rate}% but {len(mats)} "
+                  f"of {total} instances were saved")
+        print(f"  CLI --arch {arch} --victim_dtype bfloat16: {total} clouds in "
+              f"{batches} batches, 1x{cli_steps} steps, {len(mats)} saved "
+              f"({rate:.2f}%), {secs:.1f} s, launches as read from the code (the "
+              "health check's included)")
+        out[tag] = dict(ms_per_step=times, success=int(res.success.sum()),
+                        cpu_agreement=agreement, cli_saved=len(mats),
+                        cli_seconds=secs)
+    return out
+
+
 def train_inputs(torch, arch: str, b: int):
     """(state_dict, clouds, targets, dropout keep masks) on the host: the
     weights of workload.random_victim (PointNet's T-Nets off the identity,
@@ -4750,6 +5144,7 @@ def main() -> int:
     phase("phase 2: kernels against their plain versions")
     kernels = kernel_checks(torch) + ssg_kernel_checks(torch)
     kernels += msg_kernel_checks(torch, kernels)
+    kernels += group_mlp_bf16_checks(torch)
     dense_kernel_checks(torch, kernels)
     if args.kernels_only:
         print(json.dumps({"kernels": kernels}))
@@ -4797,7 +5192,10 @@ def main() -> int:
     phase("phase 13: the bf16 PointNet victim at full width")
     bf16 = bf16_victim_phase(torch, paths)
 
-    phase("phase 14: the result")
+    phase("phase 14: the bf16 PointNet++ victims at full width")
+    bf16_pp = bf16_pointnetpp_phase(torch, paths)
+
+    phase("phase 15: the result")
     paths.check_union()
     for k in kernels:
         k["launches"], k["launches_by_path"] = paths.launches(k["name"])
@@ -4809,7 +5207,7 @@ def main() -> int:
                    "success": run["success"], "batch": B, "card": smi},
         "side_modes": side, "cli": cli, "ssg": ssg, "msg": msg,
         "subsample_uniform": sub, "dense": dense, "defense_tools": tools,
-        "train": trained, "multi_gpu": mgpu, "bf16": bf16,
+        "train": trained, "multi_gpu": mgpu, "bf16": bf16, "bf16_pointnetpp": bf16_pp,
     }))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

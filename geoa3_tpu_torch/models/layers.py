@@ -105,6 +105,34 @@ def _eval_bf16(x: torch.Tensor, bn) -> torch.Tensor:
     return (x - bn.running_mean) * cached[1] + bn.bias
 
 
+def promoted(x: torch.Tensor, layer: nn.Module,
+             cols: slice = slice(None)) -> torch.Tensor:
+    """x @ w[:, cols].T (+ bias) of a bf16 twin's Linear or kernel-1 conv
+    (w its bf16 weight as [cout, cin]) in flax's promoted type: for a bf16
+    x, the float32 product rounded once to bf16 (XLA's CPU dot on bf16
+    operands sums in float32 and rounds once), then the bf16 bias added;
+    for a float32 x, in float32 with the weights lifted exactly. `cols`
+    takes some of the inputs (a first layer split over coordinates and
+    features, the JAX `_SplitDense`; such a layer has no bias). The lifted
+    weights are kept on the layer (the victim is frozen) and made again
+    only when their sources were moved or changed in place."""
+    srcs = [t for t in (layer.weight, layer.bias) if t is not None]
+    key = tuple((t.data_ptr(), t._version) for t in srcs)
+    cached = getattr(layer, "_lift", None)
+    if cached is None or cached[0] != key:
+        with torch.no_grad():
+            w = layer.weight
+            cached = (key, w.reshape(w.shape[0], -1).float(),
+                      None if layer.bias is None else layer.bias.float())
+        layer._lift = cached
+    _, w32, b32 = cached
+    w32 = w32[:, cols]
+    if x.dtype == torch.bfloat16:
+        y = (x.float() @ w32.T).to(x.dtype)
+        return y if layer.bias is None else y + layer.bias
+    return F.linear(x, w32, b32)
+
+
 def dropout(x: torch.Tensor, p: float, training: bool,
             generator: Optional[torch.Generator] = None,
             keep: Optional[torch.Tensor] = None) -> torch.Tensor:

@@ -43,15 +43,15 @@ chosen.
 A bf16 twin of the victim (models.registry.make_eval_fn with
 `dtype=torch.bfloat16`: every parameter and statistic in bf16, the cloud cast
 to bf16) computes what the JAX package's bf16 victim computes: types follow
-flax's promotion (a bf16 layer on a bf16 input stays bf16, its product a
-float32 one rounded once to bf16, as XLA's CPU dot is; a float32 input
-lifts the bf16 weights to float32), its BatchNorms are flax's op order
-(models/layers.py), its folds are made in bf16 arithmetic in
-`_fused_pool`'s order, and its three pools run the pool kernel's
-single-pass bf16 mode (`pool_affine_max_bf16`), which returns float32: so
-from the input T-Net's pool on, the activations are float32. It serves the
-attack's gradient pass in eval mode only: training, a `point_mask` and
-`return_idx` raise.
+flax's promotion (models/layers.py `promoted`: a bf16 layer on a bf16
+input stays bf16, its product a float32 one rounded once to bf16, as XLA's
+CPU dot is; a float32 input lifts the bf16 weights to float32), its
+BatchNorms are flax's op order (models/layers.py), its folds are made in
+bf16 arithmetic in `_fused_pool`'s order, and its three pools run the pool
+kernel's single-pass bf16 mode (`pool_affine_max_bf16`), which returns
+float32: so from the input T-Net's pool on, the activations are float32.
+It serves the attack's gradient pass in eval mode only: training, a
+`point_mask` and `return_idx` raise.
 
 In training, a layer whose output features `parallel.make_sharded_train_step`
 split over the model group (`model_group`: the wide layers, >= 512
@@ -68,7 +68,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from geoa3_tpu_torch.models.layers import batch_norm, dropout
+from geoa3_tpu_torch.models.layers import batch_norm, dropout, promoted
 from geoa3_tpu_torch.parallel.collectives import model_group, split_features
 from geoa3_tpu_torch.ops.kernels.pool_matmul_kernel import (
     pool_affine_max,
@@ -87,30 +87,11 @@ def _dense(x: torch.Tensor, layer: nn.Module, training: bool = False) -> torch.T
     if w.dim() == 3:
         w = w[..., 0]
     if w.dtype == torch.bfloat16:
-        return _promoted(x, layer, w)
+        return promoted(x, layer)
     group = model_group(layer) if training else None
     if group is None:
         return F.linear(x, w, layer.bias)
     return split_features(x, group, lambda x: F.linear(x, w)) + layer.bias
-
-
-def _promoted(x: torch.Tensor, layer: nn.Module, w: torch.Tensor) -> torch.Tensor:
-    """x @ w.T + bias of a bf16 twin's layer (w its bf16 weight [cout, cin])
-    in flax's promoted type: for a bf16 x, the float32 product rounded once
-    to bf16, then the bf16 bias added; for a float32 x, in float32 with the
-    weights lifted exactly. The lifted weights are kept on the layer (the
-    victim is frozen) and made again only when their sources were moved or
-    changed in place."""
-    key = tuple((t.data_ptr(), t._version) for t in (w, layer.bias))
-    cached = getattr(layer, "_lift", None)
-    if cached is None or cached[0] != key:
-        with torch.no_grad():
-            cached = (key, w.float(), layer.bias.float())
-        layer._lift = cached
-    _, w32, b32 = cached
-    if x.dtype == torch.bfloat16:
-        return (x.float() @ w32.T).to(x.dtype) + layer.bias
-    return F.linear(x, w32, b32)
 
 
 def _matmul(a: torch.Tensor, t: torch.Tensor) -> torch.Tensor:

@@ -47,6 +47,25 @@ The JAX model's eval route at use_xyz=False sends GroupAll's last layer
 through its pool kernel; the port runs that layer unfused (the same
 function). No classifier of either package uses use_xyz=False.
 
+A bf16 twin of the victim (models.registry.make_eval_fn with
+`dtype=torch.bfloat16`: every parameter and statistic in bf16, the cloud
+cast to bf16) computes what the JAX package's bf16 victim computes on the
+TPU (geoa3_tpu/models/pointnetpp.py with `dtype=jnp.bfloat16`). The JAX
+package's fused ball query and whole-scale kernel refuse bf16 coordinates,
+so every grouped level is FPS on the coordinates in float32 (as the TPU's
+FPS kernel takes them), `ops.ball_query`'s composed bf16 query,
+`ops.group_points` of the coordinates minus the centres and of the
+features in bf16 (gathers whose backward sums in float32 and rounds once),
+then per scale the route the JAX gate picks (`group_mlp_available`): the
+grouped MLP's single-pass bf16 kernels (`group_mlp_maxpool_bf16`; SSG's
+three levels, MSG's SA1 and GroupAll), or, where the gate refuses (MSG's
+SA2 at cf = 320), the layers one by one in bf16 (`SharedMLP.rows`: flax's
+promoted products, its eval BatchNorm op by op, ReLU) and `amax`, whose
+backward splits a tie as `jnp.max`'s does (g / count rounded to bf16, then
+the mask). The folds are made in bf16 arithmetic in `_folded_params`'
+order; the head is promoted products and bf16 BatchNorms. It serves the
+attack's gradient pass in eval mode only: training raises.
+
 In training, a layer whose output features `parallel.make_sharded_train_step`
 split over the model group (`model_group`: GroupAll's 512- and 1024-wide
 layers and the head's first) computes its own features, all-gathered
@@ -62,8 +81,8 @@ import torch
 from torch import nn
 
 from geoa3_tpu_torch import ops
-from geoa3_tpu_torch.models.layers import batch_norm, dropout
-from geoa3_tpu_torch.ops.kernels.group_mlp_kernel import FoldedMLP
+from geoa3_tpu_torch.models.layers import batch_norm, dropout, promoted
+from geoa3_tpu_torch.ops.kernels import group_mlp_kernel as gk
 from geoa3_tpu_torch.parallel.collectives import model_group, split_features
 
 BN_EPS = 1e-5
@@ -85,29 +104,37 @@ class SharedMLP(nn.Sequential):
         super().__init__(*layers)
         self.widths = tuple(widths)
 
-    def folded(self) -> FoldedMLP:
+    def folded(self):
         """The eval BatchNorms folded into the convs (w_i * s_i, beta_i -
-        mean_i * s_i with s_i = gamma_i / sqrt(var_i + eps)). The victim is
-        frozen, so the fold is kept and made again only when one of its
-        sources was moved or changed in place."""
+        mean_i * s_i with s_i = gamma_i / sqrt(var_i + eps)), op by op in the
+        weights' type (geoa3_tpu/models/pointnetpp.py:_folded_params; eps
+        taken in that type, as jnp takes a Python scalar): a `FoldedMLP`, or
+        for a bf16 twin a `FoldedMLPBf16`. The victim is frozen, so the fold
+        is kept and made again only when one of its sources was moved, cast
+        or changed in place."""
         srcs = [t for i in range(0, len(self), 3)
                 for t in (self[i].weight, self[i + 1].weight, self[i + 1].bias,
                           self[i + 1].running_mean, self[i + 1].running_var)]
-        key = (srcs[0].device,) + tuple((t.data_ptr(), t._version) for t in srcs)
+        key = (srcs[0].device, srcs[0].dtype) + tuple(
+            (t.data_ptr(), t._version) for t in srcs)
         cached = getattr(self, "_fold", None)
         if cached is None or cached[0] != key:
             parts = []
             with torch.no_grad():
                 for i in range(0, len(self), 3):
                     conv, bn = self[i], self[i + 1]
-                    s = bn.weight / torch.sqrt(bn.running_var + bn.eps)
+                    eps = torch.tensor(bn.eps, dtype=bn.running_var.dtype,
+                                       device=bn.running_var.device)
+                    s = bn.weight / torch.sqrt(bn.running_var + eps)
                     parts.append(conv.weight[:, :, 0, 0].t() * s[None, :])
                     parts.append(bn.bias - bn.running_mean * s)
-                cached = (key, ops.fold_mlp(*parts))
+                fold = (gk.fold_mlp_bf16 if srcs[0].dtype == torch.bfloat16
+                        else ops.fold_mlp)
+                cached = (key, fold(*parts))
             self._fold = cached
         return cached[1]
 
-    def _kernel_fold(self) -> FoldedMLP:
+    def _kernel_fold(self) -> gk.FoldedMLP:
         if self.training:
             raise NotImplementedError(
                 "the grouped-MLP kernels fold the eval BatchNorm: call .eval(), "
@@ -128,6 +155,22 @@ class SharedMLP(nn.Sequential):
         return ops.sa_query_group_mlp(xyz, new_xyz, features, radius, nsample,
                                       self._kernel_fold())
 
+    def bf16_pooled(self, gx: Optional[torch.Tensor],
+                    gf: Optional[torch.Tensor]) -> torch.Tensor:
+        """A bf16 twin's grouped rows max-pooled over nsample, by the JAX
+        package's route (SharedMLP._can_fuse): the single-pass bf16 kernels
+        where `group_mlp_available` admits the shape, else the layers one by
+        one in bf16 (`unfused`). gx [b, m, ns, 3] or None, gf [b, m, ns, cf]
+        or None, bf16 -> [b, m, widths[-1]] bf16."""
+        if self.training:
+            raise ValueError("a bf16 victim serves the attack's gradient pass "
+                             "only: eval mode")
+        if gx is not None and gk.group_mlp_available(
+                gx.shape[2], gx.shape[1], self.widths,
+                0 if gf is None else gf.shape[-1]):
+            return gk.group_mlp_maxpool_bf16(gx, gf, self.folded())
+        return self.unfused(gx, gf)
+
     def rows(self, x: torch.Tensor, gf: Optional[torch.Tensor] = None) -> torch.Tensor:
         """The layers applied to rows, not pooled, any number of them:
         x [..., cin] -> [..., widths[-1]]; with `gf` [..., cf], x holds the
@@ -135,9 +178,19 @@ class SharedMLP(nn.Sequential):
         over the two (the JAX `_SplitDense`: no concatenation). Plain
         PyTorch (the JAX package runs this path unfused too); the eval
         BatchNorm as flax computes it, the train-mode one of
-        models/layers.py in training."""
+        models/layers.py in training; a bf16 twin's in flax's promoted types
+        (models/layers.py `promoted`, its eval BatchNorm op by op)."""
         for i in range(0, len(self), 3):
             conv, bn = self[i], self[i + 1]
+            if conv.weight.dtype == torch.bfloat16:
+                if i == 0 and gf is not None:
+                    wa = x.shape[-1]
+                    x = (promoted(x, conv, slice(0, wa))
+                         + promoted(gf, conv, slice(wa, None)))
+                else:
+                    x = promoted(x, conv)
+                x = torch.relu(batch_norm(x, bn, False))
+                continue
             w = conv.weight[:, :, 0, 0]
             group = model_group(conv) if self.training else None
             if i == 0 and gf is not None:
@@ -188,20 +241,22 @@ class PointnetSAModuleMSG(nn.Module):
 
     def forward(self, xyz: torch.Tensor, features: Optional[torch.Tensor]):
         outs = []
+        bf16 = xyz.dtype == torch.bfloat16  # a bf16 twin (module docstring)
         unfused = self.training or not self.use_xyz
         if self.npoint is not None:
             fps_idx = ops.furthest_point_sampling(xyz, self.npoint)
             new_xyz = ops.gather_points(xyz, fps_idx)
             cf = 0 if features is None else features.shape[-1]
             for radius, ns, mlp in zip(self.radii, self.nsamples, self.mlps):
-                if unfused:
+                if unfused or bf16:
                     # geoa3_tpu/models/pointnetpp.py:_query_and_group
                     idx = ops.ball_query(radius, ns, xyz, new_xyz)
                     gx = (ops.group_points(xyz, idx) - new_xyz[:, :, None]
                           if self.use_xyz else None)
                     gf = (ops.group_points(features, idx)
                           if features is not None else None)
-                    outs.append(mlp.unfused(gx, gf))
+                    outs.append(mlp.bf16_pooled(gx, gf) if bf16
+                                else mlp.unfused(gx, gf))
                 # the JAX package's route (geoa3_tpu/models/pointnetpp.py:
                 # 441-465, gated by group_mlp_available and
                 # ball_query_group_available): the split pair where cf is 0
@@ -219,7 +274,10 @@ class PointnetSAModuleMSG(nn.Module):
             gx = xyz[:, None] if self.use_xyz else None
             gf = features[:, None] if features is not None else None
             mlp = self.mlps[0]
-            outs.append(mlp.unfused(gx, gf) if unfused else mlp(gx, gf))
+            if bf16:
+                outs.append(mlp.bf16_pooled(gx, gf))
+            else:
+                outs.append(mlp.unfused(gx, gf) if unfused else mlp(gx, gf))
         return new_xyz, outs[0] if len(outs) == 1 else torch.cat(outs, dim=-1)
 
 
@@ -282,6 +340,11 @@ class PointNet2ClassificationSSG(nn.Module):
         if pc.shape[-1] != want:
             raise ValueError(
                 f"expected channel-last [b, n, {want}], got {tuple(pc.shape)}")
+        if self.fc_layer[0].weight.dtype == torch.bfloat16:  # a bf16 twin
+            if self.training:
+                raise ValueError("a bf16 victim serves the attack's gradient "
+                                 "pass only: eval mode")
+            pc = pc.to(torch.bfloat16)
         xyz = pc[..., :3].contiguous()
         features = pc[..., 3:].contiguous() if self.use_normal else None
         for sa in self.SA_modules:
@@ -292,6 +355,10 @@ class PointNet2ClassificationSSG(nn.Module):
         """The FC head; in training with the train-mode BatchNorms and the
         dropout written out (geoa3_tpu/models/pointnetpp.py:_ClsHead)."""
         fc = self.fc_layer
+        if not self.training and x.dtype == torch.bfloat16:
+            x = torch.relu(batch_norm(promoted(x, fc[0]), fc[1], False))
+            x = torch.relu(batch_norm(promoted(x, fc[3]), fc[4], False))
+            return promoted(x, fc[7])
         if not self.training:
             return fc(x)
         x = split_features(x, model_group(fc[0]), lambda x: x @ fc[0].weight.t())

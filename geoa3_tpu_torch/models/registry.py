@@ -43,10 +43,9 @@ def make_eval_fn(model: torch.nn.Module, dtype: Optional[torch.dtype] = None
     JAX package's `make_eval_fn(..., dtype=jnp.bfloat16)` does: a frozen
     copy with every floating parameter and BatchNorm statistic cast to
     bf16, fed the cloud cast to bf16, its logits returned as float32
-    (models/pointnet.py says what it computes). `model` itself is left as
-    it is, so a float32 judge beside it keeps its weights and fold caches.
-    PointNet only: the PointNet++ victims' bf16 route (the grouped MLP's
-    single-pass mode) is ROADMAP.md's "PointNet++ bf16" item."""
+    (models/pointnet.py and models/pointnetpp.py say what it computes).
+    `model` itself is left as it is, so a float32 judge beside it keeps its
+    weights and fold caches."""
     model.eval()
     model.requires_grad_(False)
     if dtype is None:
@@ -56,10 +55,6 @@ def make_eval_fn(model: torch.nn.Module, dtype: Optional[torch.dtype] = None
         return logits_fn
     if dtype != torch.bfloat16:
         raise ValueError(f"a victim runs in float32 or bfloat16, not {dtype}")
-    if not isinstance(model, PointNet):
-        raise NotImplementedError(
-            f"a bf16 {type(model).__name__} is not ported yet (see ROADMAP.md, "
-            "PointNet++ bf16)")
     twin = copy.deepcopy(model).to(dtype).eval().requires_grad_(False)
 
     def logits_bf16(pc: torch.Tensor) -> torch.Tensor:

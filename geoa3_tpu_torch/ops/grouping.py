@@ -13,8 +13,9 @@ def group_points(features: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     `grouping_operation`, group_points_gpu.cu:8-75). Differentiable in
     `features`: the backward is the scatter-add kernel over idx (the
     3-channel kernel for coordinates, the C-channel kernel otherwise, as
-    geoa3_tpu/ops/grouping.py:56-77 chooses). The same gather as
-    `knn_gather`, under the reference's name."""
+    geoa3_tpu/ops/grouping.py:56-77 chooses), on the float32 cotangent:
+    bf16 features (the bf16 victim's) get it rounded once to bf16. The same
+    gather as `knn_gather`, under the reference's name."""
     return knn_gather(features, idx)
 
 

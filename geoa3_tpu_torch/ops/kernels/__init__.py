@@ -44,6 +44,8 @@ KERNELS = {
     "sa_fused_bwd": sa_fused_kernel.sa_fused_bwd,
     "pool_fwd_bf16": pool_matmul_kernel.pool_fwd_bf16,
     "pool_bwd_bf16": pool_matmul_kernel.pool_bwd_bf16,
+    "group_mlp_fwd_bf16": group_mlp_kernel.group_mlp_fwd_bf16,
+    "group_mlp_bwd_bf16": group_mlp_kernel.group_mlp_bwd_bf16,
 }
 
 

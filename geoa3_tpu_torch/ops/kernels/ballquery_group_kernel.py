@@ -49,9 +49,15 @@ def ball_query_plain(xyz, centres, radius, nsample):
     """Plain PyTorch version of the index search -> idx [b, m, nsample]
     int32: the nsample smallest of where(hit, index, n), padded with the
     first (geoa3_tpu/ops/ball_query.py)."""
-    n = xyz.shape[1]
-    hit = pairwise_sqdist(centres, xyz) < _r2(radius)  # [b, m, n]
-    key = torch.where(hit, torch.arange(n, device=xyz.device), n)
+    return first_hits(pairwise_sqdist(centres, xyz) < _r2(radius), nsample)
+
+
+def first_hits(hit, nsample):
+    """hit [b, m, n] bool -> idx [b, m, nsample] int32: the nsample smallest
+    of where(hit, index, n), padded with the first hit; a centre without a
+    hit gets index 0 in every slot."""
+    n = hit.shape[-1]
+    key = torch.where(hit, torch.arange(n, device=hit.device), n)
     k_eff = min(nsample, n)
     idx = torch.topk(key, k_eff, dim=-1, largest=False, sorted=True).values
     if k_eff < nsample:

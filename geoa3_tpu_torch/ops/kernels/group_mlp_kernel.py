@@ -48,6 +48,19 @@ forward (32 rows) and 221,696 backward (32 rows), its whole input in shared
 memory; from cf = 1838 on the forward, 1742 on the backward, the input is
 sliced (32-row tiles at cf = 2048: 784 channels a slice forward, 720
 backward).
+
+A bf16 victim (`--victim_dtype bfloat16`) runs the TPU kernel's single-pass
+mode (`f32_exact=False`) instead, wherever the JAX package's gate
+(`group_mlp_available`, ported below, since whether JAX fuses decides the
+numbers) admits the shape: `group_mlp_fwd_bf16` / `group_mlp_bwd_bf16`
+(csrc/group_mlp_bf16.cu, on the tensor cores). Every product's operands are
+bf16 (the bf16 inputs and weights, a1 and a2 rounded after their ReLU), the
+products exact and the sums float32; layer 1 is (gx @ w1[:3] + gf @ w1[3:])
++ b1. The maxima are float32; the model takes them rounded to bf16. The
+backward splits g evenly among the tied rows and rounds each layer's
+cotangent to bf16 before its product (g / cnt, then d2 and d1 after their
+ReLU masks); dgx and dgf come back float32 and the model takes them rounded
+to bf16. Bound: operations at 989 TFLOP/s of bf16.
 """
 
 from __future__ import annotations
@@ -363,3 +376,284 @@ def group_mlp_maxpool(gx, gf: Optional[torch.Tensor], p: FoldedMLP):
 
 group_mlp_fwd.launches = 0
 group_mlp_bwd.launches = 0
+
+
+# ------------------------------------------------ the single-pass bf16 mode
+
+# csrc/group_mlp_bf16.cu: k rows of a weight stage, output columns a pass,
+# tile heights largest first
+_BF16_KS, _BF16_NCH = 32, 128
+_BF16_ROWS = (128, 64, 32, 16)
+
+
+def _pad16(c: int) -> int:
+    return (c + 15) // 16 * 16
+
+
+class FoldedMLPBf16(NamedTuple):
+    """A bf16 victim's frozen three-layer MLP with BatchNorm folded in: the
+    plain version's w_i [c_{i-1}, c_i] and b_i [c_i] (bf16, as the fold made
+    them), and the kernels' copies: kw1 [16 + cf, c1p] (rows 0-2 the
+    coordinates', 3-15 zero, then the features'), kw2 [c1p, c2p], kw3
+    [c2p, c3p] in bf16 with every width zero-padded to a multiple of 16,
+    their transposes kw1t, kw2t, kw3t for the backward, and kb_i [c_ip]
+    float32 (bf16 values, zero-padded)."""
+
+    w1: torch.Tensor
+    b1: torch.Tensor
+    w2: torch.Tensor
+    b2: torch.Tensor
+    w3: torch.Tensor
+    b3: torch.Tensor
+    kw1: torch.Tensor
+    kb1: torch.Tensor
+    kw2: torch.Tensor
+    kb2: torch.Tensor
+    kw3: torch.Tensor
+    kb3: torch.Tensor
+    kw1t: torch.Tensor
+    kw2t: torch.Tensor
+    kw3t: torch.Tensor
+
+
+def fold_mlp_bf16(w1, b1, w2, b2, w3, b3) -> FoldedMLPBf16:
+    """The bf16 tensors both versions take, from a bf16 fold: w_i [c_{i-1},
+    c_i], b_i [c_i]."""
+    ws = [t.detach().to(torch.bfloat16).contiguous() for t in (w1, b1, w2, b2, w3, b3)]
+    c0, c1 = ws[0].shape
+    c2, c3 = ws[4].shape
+    c1p, c2p, c3p = _pad16(c1), _pad16(c2), _pad16(c3)
+    kw1 = ws[0].new_zeros(16 + c0 - 3, c1p)
+    kw1[:3, :c1] = ws[0][:3]
+    kw1[16:, :c1] = ws[0][3:]
+    kw2 = ws[2].new_zeros(c1p, c2p)
+    kw2[:c1, :c2] = ws[2]
+    kw3 = ws[4].new_zeros(c2p, c3p)
+    kw3[:c2, :c3] = ws[4]
+
+    def bias(b, cp):
+        out = b.new_zeros(cp, dtype=torch.float32)
+        out[:b.shape[0]] = b.float()
+        return out
+
+    return FoldedMLPBf16(*ws, kw1, bias(ws[1], c1p), kw2, bias(ws[3], c2p), kw3,
+                         bias(ws[5], c3p), kw1.t().contiguous(), kw2.t().contiguous(),
+                         kw3.t().contiguous())
+
+
+def _bf16(t: torch.Tensor) -> torch.Tensor:
+    """t rounded to bf16 (to nearest even), held as float32."""
+    return t.to(torch.bfloat16).float()
+
+
+def mlp_bf16_plain(gx, gf, p: FoldedMLPBf16):
+    """z1, z2, z3 of the single-pass mode, as the TPU kernel's
+    `_tile_forward` computes them: bf16 operands, exact products, float32
+    sums, layer 1 (x part + feature part) + b1, each layer's ReLU output
+    rounded to bf16 before the next product."""
+    z1 = _bf16(gx) @ p.w1[:3].float()
+    if gf is not None:
+        z1 = z1 + _bf16(gf) @ p.w1[3:].float()
+    z1 = z1 + p.b1.float()
+    z2 = _bf16(torch.relu(z1)) @ p.w2.float() + p.b2.float()
+    z3 = _bf16(torch.relu(z2)) @ p.w3.float() + p.b3.float()
+    return z1, z2, z3
+
+
+def group_mlp_fwd_bf16_plain(gx, gf, p: FoldedMLPBf16):
+    """Plain PyTorch version of `group_mlp_fwd_bf16`: (pooled [b, m, c3]
+    float32, the tie count of each maximum [b, m, c3] int32)."""
+    a3 = torch.relu(mlp_bf16_plain(gx, gf, p)[2])
+    pooled = a3.amax(dim=2)
+    return pooled, (a3 == pooled[:, :, None]).sum(dim=2, dtype=torch.int32)
+
+
+def group_mlp_bwd_bf16_plain(g, gx, gf, p: FoldedMLPBf16, pooled, cnt):
+    """Plain PyTorch version of `group_mlp_bwd_bf16`: (dgx, dgf or None),
+    float32, for the pooled cotangent g [b, m, c3] float32, as the TPU
+    kernel's `_bwd_kernel` takes them in the single-pass mode: dz3 = g /
+    cnt on the rows tied at the maximum where z3 > 0, each layer's
+    cotangent rounded to bf16 before its product with the bf16 weights."""
+    z1, z2, z3 = mlp_bf16_plain(gx, gf, p)
+    eq = (torch.relu(z3) == pooled[:, :, None]) & (z3 > 0)
+    dz = _bf16(torch.where(eq, (g / cnt)[:, :, None], 0.0))
+    dz = _bf16(torch.where(z2 > 0, dz @ p.w3.float().T, 0.0))
+    dz = _bf16(torch.where(z1 > 0, dz @ p.w2.float().T, 0.0))
+    w1 = p.w1.float()
+    dgf = dz @ w1[3:].T if gf is not None else None
+    return dz @ w1[:3].T, dgf
+
+
+def _check_bf16(gx, gf, p: FoldedMLPBf16):
+    b, m, ns, _ = gx.shape
+    cf = 0 if gf is None else gf.shape[-1]
+    c0, c1 = p.w1.shape
+    c2, c3 = p.w3.shape
+    if c0 != 3 + cf or p.w2.shape != (c1, c2):
+        raise ValueError(
+            f"group_mlp_bf16: weights {tuple(p.w1.shape)}, {tuple(p.w2.shape)}, "
+            f"{tuple(p.w3.shape)} do not chain from 3 + cf = {3 + cf} inputs")
+    if cf % 16:
+        raise ValueError(f"the bf16 group_mlp kernel copies features in 16-byte "
+                         f"pieces and takes cf % 16 == 0, got cf={cf}")
+    bf16_plan(ns, cf, (c1, c2, c3), False)  # raise where a kernel cannot fit
+    bf16_plan(ns, cf, (c1, c2, c3), True)
+    _build.check_cuda(gx, "gx", torch.bfloat16, (b, m, ns, 3))
+    if gf is not None:
+        _build.check_cuda(gf, "gf", torch.bfloat16, (b, m, ns, cf))
+        if gf.data_ptr() % 16:
+            raise ValueError("group_mlp_bf16: gf is not 16-byte aligned")
+    c1p, c2p, c3p = _pad16(c1), _pad16(c2), _pad16(c3)
+    shapes = {"kw1": (16 + cf, c1p), "kb1": (c1p,), "kw2": (c1p, c2p), "kb2": (c2p,),
+              "kw3": (c2p, c3p), "kb3": (c3p,), "kw1t": (c1p, 16 + cf),
+              "kw2t": (c2p, c1p), "kw3t": (c3p, c2p)}
+    for name, shape in shapes.items():
+        t = getattr(p, name)
+        _build.check_cuda(t, name, torch.float32 if name.startswith("kb")
+                          else torch.bfloat16, shape)
+        if t.data_ptr() % 16:
+            raise ValueError(f"group_mlp_bf16: {name} is not 16-byte aligned")
+    return b * m, ns, cf, c1, c2, c3
+
+
+def bf16_smem_bytes(widths, rows: int, bwd: bool) -> int:
+    """Shared memory of a bf16 kernel's block at tiles of `rows` rows
+    (csrc/group_mlp_bf16.cu `fwd_smem` / `bwd_smem`): a1 and a2 (and in
+    the backward dz3) as bf16 rows of the padded width + 8, the forward's
+    float32 rows of a pass's output for the pool, and two stages of layer
+    1's streamed input ([rows][32 + 8] bf16) and of the weights ([32][128 +
+    8] bf16)."""
+    c1p, c2p, c3p = (_pad16(c) for c in widths)
+    stages = 2 * (rows * (_BF16_KS + 8) * 2 + _BF16_KS * (_BF16_NCH + 8) * 2)
+    if bwd:
+        return rows * (c1p + c2p + c3p + 24) * 2 + stages
+    return rows * (c1p + c2p + 16) * 2 + rows * (_BF16_NCH + 4) * 4 + stages
+
+
+@lru_cache(maxsize=256)
+def bf16_plan(ns: int, cf: int, widths, bwd: bool) -> TilePlan:
+    """A bf16 kernel's plan as its C entry picks it: the largest of 128, 64
+    and 32 rows whose block leaves room for two an SM, else the largest of
+    128 .. 16 that fits one; a group of more rows than the tile is split
+    into ceil(ns / rows) parts (the forward merges their maxima in a
+    finishing kernel). Layer 1's input is streamed in slices, so cf sets
+    no limit. Raises where no height fits (widths past ~2000)."""
+    widths = tuple(widths)
+    for limit, heights in ((_SMEM_HALF, _BF16_ROWS[:-1]), (_SMEM_MAX, _BF16_ROWS)):
+        for rows in heights:
+            smem = bf16_smem_bytes(widths, rows, bwd)
+            if smem <= limit:
+                return TilePlan(rows, (ns + rows - 1) // rows if ns > rows else 1,
+                                _BF16_KS, 0, smem)
+    raise ValueError(
+        f"the bf16 group_mlp {'backward' if bwd else 'forward'}'s 16-row tile "
+        f"needs {bf16_smem_bytes(widths, 16, bwd)} bytes of shared memory for "
+        f"widths {widths}; a block has {_SMEM_MAX}")
+
+
+def group_mlp_fwd_bf16(gx, gf, p: FoldedMLPBf16):
+    """CUDA kernel, the single-pass bf16 mode: gx [b, m, ns, 3] bf16, gf
+    [b, m, ns, cf] bf16 or None -> (pooled [b, m, c3] float32, tie count of
+    each maximum [b, m, c3] int32)."""
+    groups, ns, cf, c1, c2, c3 = _check_bf16(gx, gf, p)
+    b, m = gx.shape[:2]
+    pooled = torch.empty(b, m, c3, dtype=torch.float32, device=gx.device)
+    cnt = torch.empty(b, m, c3, dtype=torch.int32, device=gx.device)
+    # a split group's partial maxima and counts, one pair a part
+    parts = bf16_plan(ns, cf, (c1, c2, c3), False).parts
+    scratch = (torch.empty(2 * groups * parts * c3, dtype=torch.int32,
+                           device=gx.device) if parts > 1 else None)
+    _build.launch("geoa3_group_mlp_fwd_bf16", gx, gf, p.kw1, p.kb1, p.kw2, p.kb2,
+                  p.kw3, p.kb3, groups, ns, cf, c1, c2, c3, pooled, cnt, scratch)
+    group_mlp_fwd_bf16.launches += 1
+    return pooled, cnt
+
+
+def group_mlp_bwd_bf16(g, gx, gf, p: FoldedMLPBf16, pooled, cnt):
+    """CUDA kernel: the cotangents of gx and gf for the pooled cotangent g
+    [b, m, c3] float32 -> (dgx [b, m, ns, 3], dgf [b, m, ns, cf] or None),
+    float32."""
+    groups, ns, cf, c1, c2, c3 = _check_bf16(gx, gf, p)
+    b, m = gx.shape[:2]
+    _build.check_cuda(g, "g", torch.float32, (b, m, c3))
+    _build.check_cuda(pooled, "pooled", torch.float32, (b, m, c3))
+    _build.check_cuda(cnt, "cnt", torch.int32, (b, m, c3))
+    dgx = torch.empty(b, m, ns, 3, dtype=torch.float32, device=gx.device)
+    dgf = (torch.empty(b, m, ns, cf, dtype=torch.float32, device=gx.device)
+           if gf is not None else None)
+    _build.launch("geoa3_group_mlp_bwd_bf16", gx, gf, p.kw1, p.kb1, p.kw2, p.kb2,
+                  p.kw3, p.kb3, p.kw1t, p.kw2t, p.kw3t, pooled, cnt, g, groups, ns,
+                  cf, c1, c2, c3, dgx, dgf)
+    group_mlp_bwd_bf16.launches += 1
+    return dgx, dgf
+
+
+class _GroupMLPMaxPoolBf16(torch.autograd.Function):
+    """The single-pass bf16 grouped MLP: the kernels on CUDA tensors, the
+    plain versions on CPU ones. The forward returns the maxima rounded to
+    bf16 and keeps the float32 ones and their tie counts for the
+    backward."""
+
+    @staticmethod
+    def forward(ctx, gx, gf, p):
+        if gx.is_cuda:
+            pooled, cnt = group_mlp_fwd_bf16(gx, gf, p)
+        else:
+            pooled, cnt = group_mlp_fwd_bf16_plain(gx, gf, p)
+        ctx.save_for_backward(gx, gf, pooled, cnt)
+        ctx.p = p
+        return pooled.to(torch.bfloat16)
+
+    @staticmethod
+    def backward(ctx, g):
+        gx, gf, pooled, cnt = ctx.saved_tensors
+        g = g.float().contiguous()
+        if gx.is_cuda:
+            dgx, dgf = group_mlp_bwd_bf16(g, gx, gf, ctx.p, pooled, cnt)
+        else:
+            dgx, dgf = group_mlp_bwd_bf16_plain(g, gx, gf, ctx.p, pooled, cnt)
+        return dgx.to(gx.dtype), None if dgf is None else dgf.to(gf.dtype), None
+
+
+def group_mlp_maxpool_bf16(gx, gf: Optional[torch.Tensor], p: FoldedMLPBf16):
+    """`group_mlp_maxpool` in the TPU kernel's single-pass bf16 mode: gx
+    [b, m, ns, 3] and gf [b, m, ns, cf] (or None) in bf16, p from
+    `fold_mlp_bf16` -> [b, m, c3] bf16. Differentiable in gx and gf only,
+    whose cotangents come back in bf16. CPU tensors take the plain
+    versions; CUDA tensors launch the kernels."""
+    return _GroupMLPMaxPoolBf16.apply(
+        gx.contiguous(), None if gf is None else gf.contiguous(), p)
+
+
+def _pick_gpt(m: int, ns: int, cf: int, widths) -> int:
+    """Groups a tile of the TPU kernel (geoa3_tpu/ops/pallas/
+    group_mlp_kernel.py:_pick_gpt): a VMEM budget of rows, at most 8192,
+    down to a divisor of m."""
+    per_row = 4 * (8 + cf + 2 * sum(widths))
+    r_target = min((24 << 20) // per_row, 8192)
+    gpt = max(1, min(m, r_target // ns))
+    while m % gpt:
+        gpt -= 1
+    return max(gpt, 1)
+
+
+def group_mlp_available(ns: int, m: int, widths, cf: int) -> bool:
+    """The JAX package's gate for its fused grouped MLP
+    (geoa3_tpu/ops/pallas/group_mlp_kernel.py:group_mlp_available, with
+    SharedMLP._can_fuse's ns > 1), which decides the bf16 victim's route:
+    fused (this module's single-pass kernels) or the layers one by one in
+    bf16. Three widths of at most 1024, a tile of at most 8192 rows that is
+    a multiple of 128 unless it holds all of m, cf 0 or a multiple of
+    128."""
+    if len(widths) != 3 or ns <= 1:
+        return False
+    gpt = _pick_gpt(m, ns, cf, widths)
+    if ns * gpt > 8192 or ((ns * gpt) % 128 and m != gpt):
+        return False
+    if cf % 128:
+        return False
+    return all(w <= 1024 for w in widths)
+
+
+group_mlp_fwd_bf16.launches = 0
+group_mlp_bwd_bf16.launches = 0

@@ -91,13 +91,24 @@ class _KNNGather(torch.autograd.Function):
     @staticmethod
     def backward(ctx, ct):
         (idx,) = ctx.saved_tensors
-        return scatter_kernel.scatter_rows(idx, ct, ctx.m), None
+        return _scatter_back(idx, ct, ctx.m), None
+
+
+def _scatter_back(idx, ct, m):
+    """A row gather's backward: the scatter-add kernel; a bf16 cotangent (a
+    bf16 victim's) is summed in float32 and rounded once, as the JAX
+    package's TPU route sums it (geoa3_tpu/ops/grouping.py:56-77; bf16
+    autograd through index_add_ would round at every add)."""
+    if ct.dtype == torch.bfloat16:
+        return scatter_kernel.scatter_rows(idx, ct.float(), m).to(ct.dtype)
+    return scatter_kernel.scatter_rows(idx, ct, m)
 
 
 def knn_gather(points, idx):
     """Gather neighbour features: points [b, m, c], idx [b, n, k] ->
     [b, n, k, c] (pytorch3d's `knn_gather`, reference Lib/loss_utils.py:58).
-    The backward is the scatter-add kernel (3-channel or C-channel)."""
+    The backward is the scatter-add kernel (3-channel or C-channel), summed
+    in float32."""
     return _KNNGather.apply(points, idx)
 
 
@@ -147,7 +158,7 @@ class _GatherRows(torch.autograd.Function):
     @staticmethod
     def backward(ctx, ct):
         (idx,) = ctx.saved_tensors
-        return scatter_kernel.scatter_rows(idx, ct, ctx.n), None
+        return _scatter_back(idx, ct, ctx.n), None
 
 
 def gather_rows(points, idx):

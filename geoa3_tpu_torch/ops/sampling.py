@@ -25,7 +25,11 @@ from geoa3_tpu_torch.ops.knn import gather_rows
 
 def furthest_point_sampling(xyz: torch.Tensor, npoint: int) -> torch.Tensor:
     """Greedy FPS, CUDA-kernel semantics: xyz [b, n, 3] -> idx [b, npoint]
-    int32. Not differentiable."""
+    int32. Not differentiable. bf16 coordinates (the bf16 victim's) are
+    sampled in float32, as the TPU's FPS kernel takes them
+    (geoa3_tpu/ops/pallas/fps_kernel.py casts its input to float32)."""
+    if xyz.dtype == torch.bfloat16:
+        xyz = xyz.float()
     return fps_kernel.fps(xyz.detach().contiguous(), npoint,
                           skip_near_origin=True)
 

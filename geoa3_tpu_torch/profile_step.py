@@ -6,8 +6,8 @@
 
 Runs the default attack (geoa3_tpu_torch/workload.py, b=32, n=1024) on the
 victim `--arch` for one binary step of `--steps` Adam steps (with
-`--victim_dtype bfloat16`, PointNet only, the gradient pass through the bf16
-twin and the float32 victim judging each step, as the attack CLI runs it),
+`--victim_dtype bfloat16` the gradient pass through the bf16 twin and the
+float32 victim judging each step, as the attack CLI runs it),
 or with
 `--train` `--steps` train steps of the victim (train.py, b=32, synthetic
 clouds, the trainer's initial weights and dropout), under torch.profiler
@@ -41,6 +41,8 @@ from geoa3_tpu_torch.workload import (
 # kernel-name pattern -> group
 _GROUPS = [
     (re.compile(r"pool_fwd_bf16_kernel"), "pool_fwd_bf16 (port)"),
+    (re.compile(r"gmlp_bf16_fwd_(tiles|finish)"), "group_mlp_fwd_bf16 (port)"),
+    (re.compile(r"gmlp_bf16_bwd_tiles"), "group_mlp_bwd_bf16 (port)"),
     (re.compile(r"pool_bwd_bf16_kernel"), "pool_bwd_bf16 (port)"),
     (re.compile(r"pool_fwd_kernel"), "pool_fwd (port)"),
     (re.compile(r"pool_bwd_kernel"), "pool_bwd (port)"),
@@ -128,11 +130,11 @@ def main() -> int:
                     help="profile the victim's train steps instead")
     ap.add_argument("--victim_dtype", default="float32",
                     choices=("float32", "bfloat16"),
-                    help="the attack's gradient pass in bf16 (PointNet)")
+                    help="the attack's gradient pass in bf16")
     args = ap.parse_args()
-    if args.victim_dtype == "bfloat16" and (args.train or args.arch != "PointNet"):
+    if args.victim_dtype == "bfloat16" and args.train:
         raise SystemExit("profile_step: --victim_dtype bfloat16 profiles the "
-                         "PointNet attack only")
+                         "attack only")
     if not torch.cuda.is_available():
         raise SystemExit("profile_step: needs a CUDA card")
 

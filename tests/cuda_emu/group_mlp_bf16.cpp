@@ -1,0 +1,117 @@
+// Runs csrc/group_mlp_bf16.cu's kernels on the CPU (through cuda_runtime.h)
+// on inputs read from a file, and writes their outputs to another:
+//
+//   group_mlp_bf16 in.bin out.bin groups ns cf c1 c2 c3
+//   group_mlp_bf16 plan - groups ns cf c1 c2 c3   (prints the plans only)
+//
+// in.bin holds gx [groups, ns, 3] and gf [groups, ns, cf] (bf16 as uint16),
+// then the padded weights as the wrapper makes them: w1 [16 + cf, c1p], b1
+// [c1p] (float32), w2 [c1p, c2p], b2, w3 [c2p, c3p], b3, w1t, w2t, w3t (the
+// transposes), then the pooled cotangent g [groups, c3] (float32). The
+// program runs geoa3_group_mlp_fwd_bf16, then geoa3_group_mlp_bwd_bf16 on
+// its outputs, and writes pooled [groups, c3] (float32), cnt (int32), dgx
+// [groups, ns, 3] and dgf [groups, ns, cf] (float32). It prints each plan as
+// "fwd rows=R parts=P smem=S" and "bwd ...". The outputs start as NaN (or
+// -1), so an element left unwritten shows, and the 16 guard values past
+// each must stay as they were. Exits 1 if an entry refused the call or
+// wrote past an output.
+#include "group_mlp_bf16_emu.cpp"  // the kernel source, rewritten by the test
+
+#include <string>
+
+namespace {
+
+constexpr int kGuard = 16;
+constexpr int kGuardBits = 0x7eadbeef;
+
+template <class T>
+T* guarded(size_t count, T fill) {
+  T* p = new T[count + kGuard];
+  for (size_t i = 0; i < count; ++i) p[i] = fill;
+  for (size_t i = count; i < count + kGuard; ++i) memcpy(&p[i], &kGuardBits, 4);
+  return p;
+}
+
+template <class T>
+bool intact(const T* p, size_t count, const char* what) {
+  for (size_t i = count; i < count + kGuard; ++i)
+    if (memcmp(&p[i], &kGuardBits, 4) != 0) {
+      printf("wrote past %s's end at [%zu]\n", what, i);
+      return false;
+    }
+  return true;
+}
+
+template <class T>
+bool read(FILE* f, std::vector<T>& v, size_t n) {
+  v.resize(n);
+  return fread(v.data(), sizeof(T), n, f) == n;
+}
+
+}  // namespace
+
+int main(int argc, char** argv) {
+  if (argc < 9) return 2;
+  const int groups = atoi(argv[3]), ns = atoi(argv[4]), cf = atoi(argv[5]);
+  const int c1 = atoi(argv[6]), c2 = atoi(argv[7]), c3 = atoi(argv[8]);
+  Shape pf, pb;
+  if (!make_shape(pf, groups, ns, cf, c1, c2, c3, false) ||
+      !make_shape(pb, groups, ns, cf, c1, c2, c3, true)) {
+    printf("no plan fits\n");
+    return 1;
+  }
+  printf("fwd rows=%d parts=%d smem=%zu\n", pf.rows, pf.parts,
+         fwd_smem(pf.rows, pf.c1p, pf.c2p));
+  printf("bwd rows=%d parts=%d smem=%zu\n", pb.rows, pb.parts,
+         bwd_smem(pb.rows, pb.c1p, pb.c2p, pb.c3p));
+  if (std::string(argv[1]) == "plan") return 0;
+
+  const int k1 = 16 + cf, c1p = pf.c1p, c2p = pf.c2p, c3p = pf.c3p;
+  const size_t rows = (size_t)groups * ns, no = (size_t)groups * c3;
+  std::vector<uint16_t> gx, gf, w1, w2, w3, w1t, w2t, w3t;
+  std::vector<float> b1, b2, b3, g;
+  FILE* in = fopen(argv[1], "rb");
+  if (!in || !read(in, gx, rows * 3) || !read(in, gf, rows * cf) ||
+      !read(in, w1, (size_t)k1 * c1p) || !read(in, b1, c1p) ||
+      !read(in, w2, (size_t)c1p * c2p) || !read(in, b2, c2p) ||
+      !read(in, w3, (size_t)c2p * c3p) || !read(in, b3, c3p) ||
+      !read(in, w1t, (size_t)c1p * k1) || !read(in, w2t, (size_t)c2p * c1p) ||
+      !read(in, w3t, (size_t)c3p * c2p) || !read(in, g, no))
+    return 2;
+  fclose(in);
+  const void* gfp = cf ? static_cast<const void*>(gf.data()) : nullptr;
+
+  float* pooled = guarded<float>(no, NAN);
+  int* cnt = guarded<int>(no, -1);
+  float* dgx = guarded<float>(rows * 3, NAN);
+  float* dgf = guarded<float>(rows * cf, NAN);
+  const size_t nscratch = pf.parts > 1 ? 2 * no * pf.parts : 0;
+  int* scratch = nscratch ? guarded<int>(nscratch, -1) : nullptr;
+  int err = geoa3_group_mlp_fwd_bf16(gx.data(), gfp, w1.data(), b1.data(), w2.data(),
+                                     b2.data(), w3.data(), b3.data(), groups, ns, cf,
+                                     c1, c2, c3, pooled, cnt, scratch, nullptr);
+  if (err != 0) {
+    printf("geoa3_group_mlp_fwd_bf16 refused the call: %d\n", err);
+    return 1;
+  }
+  err = geoa3_group_mlp_bwd_bf16(gx.data(), gfp, w1.data(), b1.data(), w2.data(),
+                                 b2.data(), w3.data(), b3.data(), w1t.data(),
+                                 w2t.data(), w3t.data(), pooled, cnt, g.data(),
+                                 groups, ns, cf, c1, c2, c3, dgx, cf ? dgf : nullptr,
+                                 nullptr);
+  if (err != 0) {
+    printf("geoa3_group_mlp_bwd_bf16 refused the call: %d\n", err);
+    return 1;
+  }
+  if (!intact(pooled, no, "pooled") || !intact(cnt, no, "cnt") ||
+      !intact(dgx, rows * 3, "dgx") || !intact(dgf, rows * cf, "dgf") ||
+      (scratch && !intact(scratch, nscratch, "scratch")))
+    return 1;
+  FILE* out = fopen(argv[2], "wb");
+  if (!out || fwrite(pooled, 4, no, out) != no || fwrite(cnt, 4, no, out) != no ||
+      fwrite(dgx, 4, rows * 3, out) != rows * 3 ||
+      fwrite(dgf, 4, rows * cf, out) != rows * cf)
+    return 2;
+  fclose(out);
+  return 0;
+}

@@ -173,13 +173,6 @@ def test_bf16_twin_serves_eval_only(victim):
         twin.train()(pc)
 
 
-@pytest.mark.parametrize("arch", ["PointNetPP", "PointNetPP_MSG"])
-def test_bf16_pointnetpp_is_refused(arch):
-    model = build_model(arch, classes=CLASSES, npoint=N, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        make_eval_fn(model, dtype=torch.bfloat16)
-
-
 def test_healthcheck_passes_a_live_victim(victim):
     _, _, model = victim
     assert bf16_grad_healthcheck(make_eval_fn(model, dtype=torch.bfloat16),

@@ -26,7 +26,6 @@ from geoa3_tpu.models.pointnet import PointNet as JPointNet
 from geoa3_tpu.utils.checkpoint import save_checkpoint
 from geoa3_tpu_torch.cli.main_attack import (
     _attack_config,
-    _refuse_unported,
     build_parser,
     main,
 )
@@ -218,33 +217,6 @@ def test_refresh_falls_back_to_the_largest_divisor():
     args = build_parser().parse_args(
         ["--iter_max_steps", "16", "--curv_knn_refresh_every", "6"])
     assert _attack_config(args).curv_knn_refresh_every == 4
-
-
-LIFTED = {("--is_subsample_opt",), ("--uniform_loss_weight", "1"),
-          ("--arch", "PointNetPP"), ("--arch", "PointNetPP_MSG"),
-          ("--mesh_data_parallel",), ("--victim_dtype", "bfloat16")}
-
-
-@pytest.mark.parametrize("flags", [
-    ("--is_subsample_opt",), ("--uniform_loss_weight", "1"),
-    ("--arch", "PointNetPP"), ("--arch", "PointNetPP_MSG"),
-    ("--mesh_data_parallel",), ("--victim_dtype", "bfloat16"),
-    ("--victim_dtype", "bfloat16", "--arch", "PointNetPP"),
-    ("--victim_dtype", "bfloat16", "--arch", "PointNetPP_MSG"),
-])
-def test_refused_switches_raise(work, flags):
-    """The switches that are still refused raise with their ROADMAP message
-    before any output; the ones lifted since (farthest-point sampling, the
-    single- and multi-scale PointNet++ victims, data parallel and the bf16
-    PointNet victim are ported) pass the gate. bf16 stays refused on both
-    PointNet++ victims."""
-    args = build_parser().parse_args(_args(work, "refused", *flags))
-    if flags in LIFTED:
-        _refuse_unported(args)
-        return
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        _run(work, "refused", *flags)
-    assert not (work["dir"] / "refused").exists()  # refused before any output
 
 
 def test_oversized_clouds_are_refused_at_reevaluation(work):

@@ -1,0 +1,224 @@
+"""The single-pass bf16 grouped-MLP kernels (geoa3_tpu_torch/csrc/
+group_mlp_bf16.cu, row 16 in the bf16 victims' mode), compiled with g++
+against tests/cuda_emu/cuda_runtime.h and run on the CPU
+(tests/cuda_emu/group_mlp_bf16.cpp).
+
+The header's ldmatrix and mma.sync m16n8k16 stand-ins keep the PTX ISA's
+fragment layouts and sum each output's 16 products k ascending, one fmaf a
+term: so each emulated layer is one float32 chain over its (padded) input
+channels from 0, then + bias, which an oracle here repeats exactly, through
+the bf16 roundings of a1, a2 and the cotangents. The forward's maxima and
+tie counts and the backward's dgx and dgf are held bit-equal to that
+oracle, and the maxima also within one bf16 step of the plain version
+(`group_mlp_fwd_bf16_plain`, whose float32 sums run in another order). The
+cases: the victims' shapes at a few groups (SSG SA1, SA2 and GroupAll, MSG
+SA1's three scales and GroupAll at cf = 640), groups split over tiles
+(GroupAll, ns = 200) with rows tied across the parts, widths that are not
+multiples of 16, and duplicated rows. Outputs start as NaN or -1 and the
+program fails on a write past one; each plan (tile rows, parts, shared
+memory) must be the one `group_mlp_kernel.bf16_plan` predicts, also at the
+victims' full shapes.
+
+The emulation checks the kernels' indices, fragment layouts, staging and
+barriers, not the tensor cores' rounding nor speed: `chip_smoke.py` holds
+the kernels against their plain versions on the card.
+"""
+
+from __future__ import annotations
+
+import re
+import shutil
+import subprocess
+
+import numpy as np
+import pytest
+import torch
+
+from geoa3_tpu_torch.ops.kernels import group_mlp_kernel as gk
+from tests.test_torch_group_mlp_emulated import CSRC, EMU, _rewrite
+
+# label -> (groups, ns, cf, widths, rows of each group that repeat its row 0)
+CASES = {
+    "SSG SA1 (one group a tile)": (3, 64, 0, (64, 64, 128), (1, 9, 40)),
+    "SSG SA2 (cf=128)": (2, 64, 128, (128, 128, 256), (1, 2)),
+    "SSG GroupAll (cf=256, split over tiles, ties across the parts)":
+        (1, 128, 256, (256, 512, 1024), (1, 31, 32, 63, 64, 127)),
+    "MSG SA1 ns=16 (groups a tile, a ragged last tile)": (13, 16, 0, (32, 32, 64), (3,)),
+    "MSG SA1 ns=32": (5, 32, 0, (64, 64, 128), (31,)),
+    "MSG SA1 ns=128 (a 96-column layer)": (2, 128, 0, (64, 96, 128), (5, 127)),
+    "MSG GroupAll cf=640": (1, 128, 640, (256, 512, 1024), (1, 64, 100)),
+    "widths 24/40/36, ns=24, cf=16": (5, 24, 16, (24, 40, 36), (5, 23)),
+    "ns=200 split in two, cf=32": (2, 200, 32, (32, 32, 64), (0, 127, 128, 199)),
+}
+
+# the victims' full shapes (groups at b = 32), planned only
+PLANS = {
+    "SSG SA1": (16384, 64, 0, (64, 64, 128)),
+    "SSG SA2": (4096, 64, 128, (128, 128, 256)),
+    "SSG GroupAll": (32, 128, 256, (256, 512, 1024)),
+    "MSG SA1 ns=16": (16384, 16, 0, (32, 32, 64)),
+    "MSG SA1 ns=32": (16384, 32, 0, (64, 64, 128)),
+    "MSG SA1 ns=128": (16384, 128, 0, (64, 96, 128)),
+    "MSG GroupAll": (32, 128, 640, (256, 512, 1024)),
+    "widths 1024, cf=4096": (32, 128, 4096, (1024, 1024, 1024)),
+}
+
+
+@pytest.fixture(scope="module")
+def emulated(tmp_path_factory):
+    """The test program, built from the rewritten source."""
+    gxx = shutil.which("g++")
+    if gxx is None:
+        pytest.skip("no g++ to compile the emulated kernel")
+    build = tmp_path_factory.mktemp("group_mlp_bf16_emu")
+    (build / "group_mlp_bf16_emu.cpp").write_text(
+        _rewrite((CSRC / "group_mlp_bf16.cu").read_text()))
+    exe = build / "group_mlp_bf16"
+    res = subprocess.run(
+        [gxx, "-std=c++20", "-O2", "-ffp-contract=off", "-pthread",
+         "-Wno-unknown-pragmas", "-I", str(build), "-I", str(CSRC), "-I", str(EMU),
+         str(EMU / "group_mlp_bf16.cpp"), "-o", str(exe)],
+        capture_output=True, text=True, timeout=300)
+    assert res.returncode == 0, (res.stdout + res.stderr)[-4000:]
+    return exe, build, {}
+
+
+def _inputs(case):
+    """gx, gf (bf16; the tied rows repeat their group's row 0), the fold
+    (bf16 weights at He-like scale, bf16 biases) and g (float32 holding bf16
+    values, some entries 0)."""
+    groups, ns, cf, widths, tied = CASES[case]
+    rng = np.random.RandomState(len(case))
+    gx = torch.from_numpy(0.3 * rng.randn(groups, 1, ns, 3).astype(np.float32))
+    gf = (torch.from_numpy(np.maximum(rng.randn(groups, 1, ns, cf), 0).astype(np.float32))
+          if cf else None)
+    for t in (gx, gf):
+        if t is not None and tied:
+            t[:, :, list(tied)] = t[:, :, :1].clone()
+    parts, cin = [], 3 + cf
+    for w in widths:
+        parts.append(torch.from_numpy((rng.randn(cin, w) * np.sqrt(2.0 / cin))
+                                      .astype(np.float32)))
+        parts.append(torch.from_numpy(0.1 * rng.randn(w).astype(np.float32)))
+        cin = w
+    p = gk.fold_mlp_bf16(*parts)
+    g = torch.from_numpy(rng.randn(groups, 1, widths[-1]).astype(np.float32))
+    g[..., ::5] = 0.0
+    g = g.to(torch.bfloat16).float()
+    return (gx.to(torch.bfloat16), None if gf is None else gf.to(torch.bfloat16), p, g)
+
+
+def _run(emulated, case):
+    exe, build, cache = emulated
+    if case in cache:
+        return cache[case]
+    groups, ns, cf, (c1, c2, c3), _ = CASES[case]
+    gx, gf, p, g = _inputs(case)
+    bits = lambda t: t.contiguous().view(torch.int16).numpy().tobytes()  # noqa: E731
+    blob = [bits(gx), bits(gf) if gf is not None else b""]
+    for name in ("kw1", "kb1", "kw2", "kb2", "kw3", "kb3", "kw1t", "kw2t", "kw3t"):
+        t = getattr(p, name)
+        blob.append(t.numpy().tobytes() if t.dtype == torch.float32 else bits(t))
+    blob.append(g.numpy().tobytes())
+    tag = re.sub(r"\W+", "_", case)
+    src, dst = build / f"in_{tag}.bin", build / f"out_{tag}.bin"
+    src.write_bytes(b"".join(blob))
+    res = subprocess.run([str(exe), str(src), str(dst), str(groups), str(ns),
+                          str(cf), str(c1), str(c2), str(c3)],
+                         capture_output=True, text=True, timeout=600)
+    assert res.returncode == 0, res.stdout + res.stderr
+    raw = dst.read_bytes()
+    no, rows = groups * c3, groups * ns
+    f = np.frombuffer(raw, np.float32)
+    i = np.frombuffer(raw, np.int32)
+    assert f.size == 2 * no + rows * (3 + cf)
+    out = dict(
+        pooled=torch.from_numpy(f[:no].reshape(groups, 1, c3).copy()),
+        cnt=torch.from_numpy(i[no:2 * no].reshape(groups, 1, c3).copy()),
+        dgx=torch.from_numpy(f[2 * no:2 * no + rows * 3].reshape(groups, 1, ns, 3).copy()),
+        dgf=torch.from_numpy(f[2 * no + rows * 3:].reshape(groups, 1, ns, cf).copy()),
+        plans=res.stdout)
+    cache[case] = out
+    return out
+
+
+def _chain(a, w):
+    """a [R, K] @ w [K, N] as one float32 chain from 0, k ascending (the
+    emulated mma's order; the products of bf16 values are exact)."""
+    acc = torch.zeros(a.shape[0], w.shape[1])
+    for k in range(a.shape[1]):
+        acc = acc + a[:, k:k + 1] * w[k]
+    return acc
+
+
+def _oracle(case):
+    """The emulated kernels' outputs, step by step: the padded layers as
+    fmaf chains, the pool, and the backward through the same roundings."""
+    groups, ns, cf, (c1, c2, c3), _ = CASES[case]
+    gx, gf, p, g = _inputs(case)
+    x = torch.zeros(groups * ns, 16 + cf)
+    x[:, :3] = gx.float().reshape(-1, 3)
+    if gf is not None:
+        x[:, 16:] = gf.float().reshape(-1, cf)
+    r = lambda t: t.to(torch.bfloat16).float()  # noqa: E731
+    a1 = r(torch.relu(_chain(x, p.kw1.float()) + p.kb1))
+    a2 = r(torch.relu(_chain(a1, p.kw2.float()) + p.kb2))
+    a3 = torch.relu(_chain(a2, p.kw3.float()) + p.kb3)[:, :c3].reshape(groups, 1, ns, c3)
+    pooled = a3.amax(dim=2)
+    eq = (a3 == pooled[:, :, None]) & (a3 > 0)
+    cnt = (a3 == pooled[:, :, None]).sum(dim=2, dtype=torch.int32)
+    d3 = torch.zeros(groups * ns, p.kw3.shape[1])
+    d3[:, :c3] = r(torch.where(eq, (g / cnt)[:, :, None], 0.0)).reshape(-1, c3)
+    d2 = r(torch.where(a2 > 0, _chain(d3, p.kw3t.float()), 0.0))
+    d1 = r(torch.where(a1 > 0, _chain(d2, p.kw2t.float()), 0.0))
+    d0 = _chain(d1, p.kw1t.float())
+    return dict(pooled=pooled, cnt=cnt, dgx=d0[:, :3].reshape(groups, 1, ns, 3),
+                dgf=d0[:, 16:].reshape(groups, 1, ns, cf))
+
+
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_forward_source_matches_the_oracle(emulated, case):
+    got, want = _run(emulated, case), _oracle(case)
+    for what in ("pooled", "cnt"):
+        assert torch.equal(got[what], want[what]), (
+            f"{what}: {(got[what] != want[what]).sum().item()} entries differ")
+    gx, gf, p, _ = _inputs(case)
+    plain, _ = gk.group_mlp_fwd_bf16_plain(gx, gf, p)
+    assert (got["pooled"] - plain).abs().max() <= 2.0 ** -8 * plain.abs().max()
+    if CASES[case][4]:
+        assert (got["cnt"] > 1).any()  # the repeated rows tie
+
+
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_backward_source_matches_the_oracle(emulated, case):
+    got, want = _run(emulated, case), _oracle(case)
+    for what in ("dgx", "dgf"):
+        assert torch.equal(got[what], want[what]), (
+            f"{what}: {(got[what] != want[what]).sum().item()} entries differ")
+    assert got["dgx"].abs().max() > 0  # some cotangent reached the rows
+
+
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_plans_match_the_wrapper(emulated, case):
+    _, ns, cf, widths, _ = CASES[case]
+    out = _run(emulated, case)["plans"]
+    for kind, bwd in (("fwd", False), ("bwd", True)):
+        rows, parts, smem = map(int, re.search(
+            rf"{kind} rows=(\d+) parts=(\d+) smem=(\d+)", out).groups())
+        plan = gk.bf16_plan(ns, cf, widths, bwd)
+        assert (rows, parts, smem) == (plan.rows, plan.parts, plan.smem), out
+
+
+@pytest.mark.parametrize("shape", sorted(PLANS))
+def test_full_shapes_plan_as_the_wrapper(emulated, shape):
+    exe, _, _ = emulated
+    groups, ns, cf, widths = PLANS[shape]
+    res = subprocess.run([str(exe), "plan", "-", str(groups), str(ns), str(cf),
+                          *map(str, widths)], capture_output=True, text=True, timeout=60)
+    assert res.returncode == 0, res.stdout + res.stderr
+    for kind, bwd in (("fwd", False), ("bwd", True)):
+        rows, parts, smem = map(int, re.search(
+            rf"{kind} rows=(\d+) parts=(\d+) smem=(\d+)", res.stdout).groups())
+        plan = gk.bf16_plan(ns, cf, widths, bwd)
+        assert (rows, parts, smem) == (plan.rows, plan.parts, plan.smem) and \
+            smem <= 232448, res.stdout
