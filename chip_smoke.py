@@ -1033,9 +1033,14 @@ def pool_bf16_checks(torch, pk, gen) -> dict:
             ("conv5 taps=3, float32 x, duplicated rows", 3, "float32", N,
              ((0, 100, 10), (1, 27, 9), (2, 120, 12))),
             ("input T-Net taps=1, bf16 x, duplicated rows", 1, "bfloat16", N,
-             ((0, 124, 9), (3, 500, 6)))):
+             ((0, 124, 9), (3, 500, 6))),
+            # rows 60-69 cross a 64-row stage of the wgmma forward
+            ("feature T-Net taps=1, float32 x, duplicated rows across a stage", 1,
+             "float32", N, ((1, 60, 10), (5, 1020, 4))),
+            ("conv5 taps=3, float32 x, duplicated rows across a stage", 3, "float32",
+             N, ((2, 60, 10), (4, 956, 8)))):
         x, w3, bias, w3t = pool_bf16_inputs(torch, taps, xdt, gen, n=n_)
-        for b_, r0, length in runs:  # rows in a warp, across warps, across tiles
+        for b_, r0, length in runs:  # rows in a warp, across warps, across stages
             x[b_, r0:r0 + length] = 3.0 * x[b_, r0]
         h = pool_bf16_hold(torch, pk, label, x, w3, bias, w3t, gen)
         if runs and not h["recomputed"]:

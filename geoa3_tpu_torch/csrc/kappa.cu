@@ -73,6 +73,7 @@
 // Bound on the H100: bytes, the [b,n,n] int8 mask written (selection) or read
 // (consumers): 32 MB at the main path's [32,1024,1024].
 #include "select.cuh"
+#include "tma.cuh"
 
 namespace {
 
@@ -432,66 +433,6 @@ constexpr int kStageTarget = 16384;  // mask bytes a stage, about: whole rows
 constexpr int kInFlight = 49152;     // mask bytes a block keeps in flight
 constexpr int kMinStages = 4, kMaxStages = 16;
 constexpr int kMinRows = 32, kMaxRows = 256;  // rows a block
-
-// mbarriers and the 1D bulk copy (TMA). The CPU emulation of the source
-// (tests/cuda_emu/cuda_runtime.h, which defines GEOA3_EMU) supplies a
-// synchronous copy and barriers that count arrivals and bytes.
-#ifndef GEOA3_EMU
-__device__ __forceinline__ unsigned smem_addr(const void* p) {
-  return static_cast<unsigned>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar, unsigned count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_addr(bar)),
-               "r"(count)
-               : "memory");
-}
-
-// the initialised barriers visible to the bulk copies (the async proxy)
-__device__ __forceinline__ void mbar_fence_init() {
-  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_addr(bar))
-               : "memory");
-}
-
-// arrive, and expect `bytes` more of the barrier's bulk copies
-__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, unsigned bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
-                   smem_addr(bar)),
-               "r"(bytes)
-               : "memory");
-}
-
-// until the barrier's phase of this parity has completed
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, unsigned parity) {
-  const unsigned a = smem_addr(bar);
-  unsigned done;
-  do {
-    asm volatile(
-        "{\n .reg .pred p;\n"
-        " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        " selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(a), "r"(parity)
-        : "memory");
-  } while (!done);
-}
-
-// bytes (a multiple of 16) from 16-byte aligned device memory into 16-byte
-// aligned shared memory, completed on bar
-__device__ __forceinline__ void bulk_copy(void* dst, const void* src,
-                                          unsigned bytes, uint64_t* bar) {
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1], %2, [%3];\n" ::"r"(smem_addr(dst)),
-      "l"(src), "r"(bytes), "r"(smem_addr(bar))
-      : "memory");
-}
-#endif
 
 // A launch's plan (stream_plan): each block owns S consecutive rows of one
 // cloud, streamed through a ring of `depth` stages of `stage` bytes, R whole

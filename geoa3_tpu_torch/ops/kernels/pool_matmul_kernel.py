@@ -24,11 +24,16 @@ runs the TPU kernel's single-pass mode (`f32_exact=False`) instead:
 cores. x (bf16 or float32) and w3 are rounded to bf16, the products are
 exact and the sums float32; the backward rounds the cotangent g / cnt to
 bf16 before its product with w3, and returns dx in x's type. Bound:
-operations at 989 TFLOP/s of bf16. A block stages its 128 channels' weights
-once and each 128-row tile's x as a bf16 slab, and runs mma.sync m16n8k16
-from ldmatrix fragments; the epilogue keeps the float32 kernel's output
-(maximum, tie count, first `MAX_TIES` tied rows), and the backward's
-recompute of a column with more ties replays the forward's mma chain.
+operations at 989 TFLOP/s of bf16. The forward is warp-specialised and
+swaps the operands (z^T = W^T x^T): each consumer warp keeps its channels'
+weights in registers (wgmma's A), the producer warpgroup bulk-copies
+(TMA) the cloud's 64-point tiles and writes them as bf16 (float32 x
+rounded by cvt.rn) in wgmma's K-major layout (B), two or four consumer
+warpgroups of 64 channels run wgmma on each tile, then find each
+channel's maximum, tie count and first `MAX_TIES` tied rows in registers,
+with no block-wide barrier past the weights (`bf16_plan` mirrors the
+plan); the backward's recompute of a column with more ties replays the
+chain with mma.sync on the same operands.
 """
 
 from __future__ import annotations
@@ -207,12 +212,22 @@ def pool_bwd_bf16_plain(g, x, w3, bias, pooled):
     return dx.to(x.dtype)
 
 
-def bf16_smem_bytes(cin: int, taps: int, xbytes: int) -> int:
-    """The forward block's shared memory (csrc/pool_matmul_bf16.cu
-    `pool_bf16_smem`): the weights, the bf16 slab, the staging buffer of x's
-    type, the warps' partials and the columns' states."""
-    return (taps * cin * (BLOCK_COUT + 8) * 2 + 130 * (cin + 8) * 2
-            + 130 * cin * xbytes + 4 * BLOCK_COUT * 12 + BLOCK_COUT * (2 + MAX_TIES) * 4)
+def bf16_plan(cin: int, cout: int, taps: int, xbytes: int):
+    """The forward's plan (csrc/pool_matmul_bf16.cu `pool_bf16_plan`):
+    (consumer warpgroups of 64 channels a block, shared memory in bytes),
+    or None where no plan fits a block. Four (256 channels) at taps 1
+    where cout >= 256 and it fits (the last block takes 128 where cout %
+    256 == 128), else two; the mbarriers, the block's weights (rows of its
+    channels + 8), and two landing buffers of a tile's 64 rows (66 at taps
+    3) in x's type beside two operand buffers of the same rows in bf16."""
+    rows = 64 + (2 if taps == 3 else 0)
+    for nwg in (4, 2):
+        if nwg == 4 and (taps != 1 or cout < 256):
+            continue
+        smem = 64 + taps * cin * (128 * nwg + 16) + 2 * rows * cin * (xbytes + 2)
+        if smem <= SMEM_MAX:
+            return nwg, smem
+    return None
 
 
 def _check_bf16(x, w3, bias):
@@ -226,7 +241,7 @@ def _check_bf16(x, w3, bias):
     if taps not in (1, 3):
         raise ValueError(f"taps must be 1 or 3, got {taps}")
     if cin % BLOCK_CIN or cout % BLOCK_COUT or (
-            bf16_smem_bytes(cin, taps, x.element_size()) > SMEM_MAX):
+            bf16_plan(cin, cout, taps, x.element_size()) is None):
         raise ValueError(
             f"the bf16 pool kernel takes cin % {BLOCK_CIN} == 0, cout % "
             f"{BLOCK_COUT} == 0 and a block within {SMEM_MAX} bytes of shared "

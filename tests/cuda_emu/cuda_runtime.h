@@ -19,6 +19,11 @@
 // ldmatrix, mma.sync m16n8k16 bf16 and the bf16 conversions are stand-ins
 // with the PTX ISA's fragment layouts: they check the fragments' indices,
 // not the tensor cores' rounding (the mma sums its terms k ascending).
+// wgmma.mma_async (A from registers, B from shared memory by descriptor) is
+// asynchronous as on the card: an op reads A and B and writes D when
+// wgmma_wait retires its group, so a fragment rewritten or an accumulator
+// read before then shows; named barriers count their own threads, and
+// setmaxnreg and the operand fences are no-ops.
 #pragma once
 
 #define GEOA3_EMU 1
@@ -340,6 +345,125 @@ inline void mma_m16n8k16_bf16(float (&d)[4], const uint32_t (&a)[4],
   for (int i = 0; i < 4; ++i) d[i] = out[i];
 }
 
+// wgmma.mma_async.sync.aligned.m64nNk16.f32.bf16.bf16 with A from
+// registers and B from shared memory (wgmma_m64n64k16_bf16): each of the
+// warpgroup's 128 threads queues the op with its A fragment and its
+// accumulators (by address), wgmma_commit closes a group, and
+// wgmma_wait<K> runs the oldest groups until at most K remain, every thread
+// of the warpgroup in step (the kernels call them warpgroup-uniformly).
+// Warp w of the warpgroup holds A rows 16 w .. 16 w + 15 as mma.sync's A
+// fragment; thread (w, lane) holds D[16 w + g + 8 h][8 j + 2 q + e] in
+// d[4 j + 2 h + e] (g = lane / 4, q = lane % 4). B is decoded from the
+// descriptor by the PTX ISA's canonical no-swizzle layouts (bits 0-13 the
+// start >> 4, 16-29 the leading byte offset >> 4, 32-45 the stride byte
+// offset >> 4; base offset and swizzle must be 0), K-major (imm-trans-b 0):
+// B[k][n] at start + (n / 8) SBO + (k / 8) LBO + (n % 8) 16 + (k % 8) 2,
+// every byte inside the launch's dynamic shared memory. The
+// descriptor must be the same on every thread. Each output is summed from
+// its accumulator (0 where scale-d is 0) with k ascending, one fmaf a term,
+// as the mma.sync stand-in sums.
+inline std::barrier<>* g_wg_barrier[8];
+inline uint32_t g_wga[1024][4];
+inline uint64_t g_wgdesc[1024];
+struct EmuWgmma {
+  float* d;
+  const uint32_t* a;
+  uint64_t desc;
+  int n;
+  bool scale_d;
+};
+inline thread_local std::vector<EmuWgmma> g_wg_open;
+inline thread_local std::vector<std::vector<EmuWgmma>> g_wg_groups;
+
+inline unsigned smem_addr(const void* p) {
+  return (unsigned)(static_cast<const char*>(p) - reinterpret_cast<const char*>(smem));
+}
+
+inline void emu_wgmma_run(const EmuWgmma& op) {
+  const int t = threadIdx.x, base = t & ~127, w = (t & 127) / 32, lane = t & 31;
+  for (int i = 0; i < 4; ++i) g_wga[t][i] = op.a[i];
+  g_wgdesc[t] = op.desc;
+  std::barrier<>* bar = g_wg_barrier[t / 128];
+  bar->arrive_and_wait();
+  const uint64_t desc = g_wgdesc[base];
+  for (int u = base; u < base + 128; ++u)
+    if (g_wgdesc[u] != desc) {
+      fprintf(stderr, "wgmma descriptor differs across the warpgroup\n");
+      std::abort();
+    }
+  const size_t start = (desc & 0x3FFF) << 4, lbo = ((desc >> 16) & 0x3FFF) << 4;
+  const size_t sbo = ((desc >> 32) & 0x3FFF) << 4;
+  if ((desc >> 49) & 7 || desc >> 62) {
+    fprintf(stderr, "wgmma descriptor: only the no-swizzle layout is emulated\n");
+    std::abort();
+  }
+  const char* lo = reinterpret_cast<const char*>(smem);
+  auto B = [&](int k, int c) {
+    const size_t at = start + (c / 8) * sbo + (k / 8) * lbo + (c % 8) * 16 + (k % 8) * 2;
+    if (at + 2 > g_smem_bytes) {
+      fprintf(stderr, "wgmma B read past the launch's shared memory: +%zu\n", at);
+      std::abort();
+    }
+    uint16_t h;
+    memcpy(&h, lo + at, 2);
+    return emu_bf16_half(h, 0);
+  };
+  auto A = [&](int r, int k) {
+    const int src = base + (r / 16) * 32 + (r % 8) * 4 + (k % 8) / 2;
+    return emu_bf16_half(g_wga[src][((r % 16) >= 8 ? 1 : 0) + (k >= 8 ? 2 : 0)], k & 1);
+  };
+  std::vector<float> out(op.n / 2);
+  for (int i = 0; i < op.n / 2; ++i) {
+    const int j = i / 4, h = (i / 2) % 2, e = i % 2;
+    const int r = 16 * w + lane / 4 + 8 * h, c = 8 * j + 2 * (lane % 4) + e;
+    float acc = op.scale_d ? op.d[i] : 0.0f;
+    for (int k = 0; k < 16; ++k) acc = fmaf(A(r, k), B(k, c), acc);
+    out[i] = acc;
+  }
+  bar->arrive_and_wait();
+  for (int i = 0; i < op.n / 2; ++i) op.d[i] = out[i];
+}
+
+// wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 with B K-major
+// (imm-trans-b 0); d's old value is added where scale_d != 0
+inline void wgmma_m64n64k16_bf16(float (&d)[32], const uint32_t (&a)[4],
+                                 uint64_t desc, int scale_d) {
+  g_wg_open.push_back({d, a, desc, 64, scale_d != 0});
+}
+inline void wgmma_fence() {}
+inline void wgmma_commit() {
+  g_wg_groups.push_back(std::move(g_wg_open));
+  g_wg_open.clear();
+}
+template <int K>
+void wgmma_wait() {
+  while ((int)g_wg_groups.size() > K) {
+    for (const EmuWgmma& op : g_wg_groups.front()) emu_wgmma_run(op);
+    g_wg_groups.erase(g_wg_groups.begin());
+  }
+}
+inline void fence_operand(float&) {}
+inline void fence_operand(uint32_t&) {}
+inline void fence_proxy_async() {}
+template <int R>
+void setmaxnreg_inc() {}
+template <int R>
+void setmaxnreg_dec() {}
+
+// bar.sync id, count: the first thread to arrive sets the count
+inline std::mutex g_named_mu;
+inline std::map<int, std::barrier<>*> g_named;
+inline void named_bar_sync(int id, int count) {
+  std::barrier<>* b;
+  {
+    std::lock_guard<std::mutex> hold(g_named_mu);
+    std::barrier<>*& slot = g_named[id];
+    if (slot == nullptr) slot = new std::barrier<>(count);
+    b = slot;
+  }
+  b->arrive_and_wait();
+}
+
 // mbarriers (see the header); a phase completes when its arrivals and its
 // expected bytes have all come in
 struct EmuBarrier {
@@ -456,6 +580,8 @@ void emu_launch(Config cfg, const std::function<void()>& kernel) {
     std::vector<std::barrier<>*> warps;
     for (unsigned w = 0; w < (threads + 31) / 32; ++w)
       warps.push_back(g_warp_barrier[w] = new std::barrier<>(32));
+    for (unsigned w = 0; w < threads / 128; ++w)
+      warps.push_back(g_wg_barrier[w] = new std::barrier<>(128));
     std::vector<std::thread> ts;
     for (unsigned t = 0; t < threads; ++t)
       ts.emplace_back([t, &kernel] {
@@ -464,5 +590,7 @@ void emu_launch(Config cfg, const std::function<void()>& kernel) {
       });
     for (auto& th : ts) th.join();
     for (auto* w : warps) delete w;
+    for (auto& [id, b] : g_named) delete b;
+    g_named.clear();
   }
 }

@@ -4,7 +4,8 @@
 //
 //   pool_bf16 in.bin out.bin B n cin cout taps x_bf16
 //   pool_bf16 plan - B n cin cout taps x_bf16   (prints the forward's
-//                                               shared memory only)
+//                                               plan only: consumer
+//                                               warpgroups, shared memory)
 //
 // in.bin holds x [B, n, cin] (bf16 as uint16 where x_bf16 is 1, else
 // float32), w3 [taps, cin, cout] (bf16 as uint16), bias [cout] and the
@@ -49,7 +50,8 @@ int main(int argc, char** argv) {
   const int B = atoi(argv[3]), n = atoi(argv[4]), cin = atoi(argv[5]);
   const int cout = atoi(argv[6]), taps = atoi(argv[7]), x_bf16 = atoi(argv[8]);
   if (std::string(argv[1]) == "plan") {
-    printf("smem=%zu\n", pool_bf16_smem(cin, taps, x_bf16 ? 2 : 4));
+    const FwdPlan p = pool_bf16_plan(cin, cout, taps, x_bf16 ? 2 : 4);
+    printf("nwg=%d smem=%zu\n", p.nwg, p.smem);
     return 0;
   }
   const size_t nx = (size_t)B * n * cin, nw = (size_t)taps * cin * cout;

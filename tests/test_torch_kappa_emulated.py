@@ -165,7 +165,10 @@ def test_rows_9_and_8_share_the_stream_and_the_old_readers_are_gone():
     for kernel in ("kappa_frommask_stream_kernel", "kappa_bwd_stream_kernel"):
         body = src.split(f"    {kernel}(")[1].split("\n}\n")[0]
         assert "stream_rows<kStaged>(" in body
-    assert "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes" in src
+    # the bulk copy and the mbarriers come from the shared TMA header
+    assert '#include "tma.cuh"' in src
+    assert ("cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
+            in (CSRC / "tma.cuh").read_text())
     curv = src.split("    curv_term_kernel(")[1].split("\n}\n")[0]
     assert "for_mask_rows(" in curv and "stream_rows" not in curv
 

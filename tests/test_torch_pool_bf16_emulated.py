@@ -2,25 +2,33 @@
 rows 6 and 7 in the bf16 victim's mode), compiled with g++ against
 tests/cuda_emu/cuda_runtime.h and run on the CPU (tests/cuda_emu/pool_bf16.cpp).
 
-The header's ldmatrix and mma.sync m16n8k16 stand-ins keep the PTX ISA's
-fragment layouts and sum each output's 16 products k ascending, one fmaf a
-term: so the emulated forward is one float32 chain over (tap, k) from 0,
-then + bias, which a numpy oracle repeats exactly. The forward's whole
-output (maximum, tie count, first four tied rows) is held bit-equal to the
-oracle's; the backward within 1e-5 of the largest |dx| of a float64
+The header's tensor-core stand-ins keep the PTX ISA's fragment and canonical
+layouts and sum each output's 16 products k ascending, one fmaf a term: the
+forward's wgmma (A from registers, B from shared memory by descriptor,
+asynchronous: an op reads its operands when its group retires) and the
+backward's mma.sync. So the emulated forward is one float32 chain over (tap,
+k) from 0, then + bias, which a numpy oracle repeats exactly. The forward's
+whole output (maximum, tie count, first four tied rows) is held bit-equal to
+the oracle's; the backward within 1e-5 of the largest |dx| of a float64
 backward through the oracle's ties, with the cotangent g / cnt rounded to
 bf16 (the atomics sum in another order). The cases: conv5's taps 3 on
-float32 x, taps 1 on bf16 and float32 x, two blocks a cloud, ragged and
-one-warp clouds, the path's cin of 128, and runs of duplicated rows (more
-than four ties: the backward's recompute path) within a warp, across the
-warps of a tile and across tiles. The outputs start as NaN or -1 and the
-program fails on a write past one; the forward's shared memory at each
-case equals `pool_matmul_kernel.bf16_smem_bytes`.
+float32 x, taps 1 on bf16 and float32 x, one and two blocks a cloud, a cout
+of 384 (a 256-channel block and a 128-channel one), ragged and one-warp
+clouds and n ragged at the 64-point tile, the path's cin of 128 at both taps
+and block widths (the weights kept in registers) beside narrower ones
+(reloaded each step), and runs of duplicated rows (more than four ties: the
+backward's recompute path) within a warp, across the warps of a tile and
+across 64-point tiles at both taps. The outputs start as NaN or -1 and the
+program fails on a write past one; the forward's plan at the path's and the
+widest admitted shapes equals `pool_matmul_kernel.bf16_plan`, and no shape
+the mma.sync design admitted is refused. The wgmma stand-in alone is held
+against numpy on the operands as the kernel lays them out
+(tests/cuda_emu/wgmma.cpp).
 
-The emulation checks the kernels' indices, fragment layouts, barriers,
-ballots and atomics, not the tensor cores' rounding (no CPU oracle
-reproduces it) nor speed: `chip_smoke.py` holds the kernels against their
-plain versions on the card.
+The emulation checks the kernels' indices, layouts, barriers, ballots and
+atomics, not the tensor cores' rounding (no CPU oracle reproduces it) nor
+speed: `chip_smoke.py` holds the kernels against their plain versions on the
+card.
 """
 
 from __future__ import annotations
@@ -46,6 +54,12 @@ CASES = {
     "n=7 (one partial warp), taps 3": (2, 7, 16, 128, 3, 0, ()),
     "duplicated rows in a warp and across warps, taps 3": (2, 90, 32, 128, 3, 0, ((0, 10, 7), (1, 29, 6))),
     "duplicated rows across tiles, bf16 x, taps 1": (1, 260, 32, 128, 1, 1, ((0, 124, 9),)),
+    "taps 1, cout=384 (a 256-channel block and a 128-channel block)": (2, 90, 32, 384, 1, 1, ()),
+    "n=100 ragged at the 64-row tile, taps 1, float32 x": (2, 100, 48, 256, 1, 0, ()),
+    "duplicated rows across a 64-row stage, taps 1": (1, 150, 32, 256, 1, 1, ((0, 60, 10),)),
+    "duplicated rows across a 64-row stage, taps 3": (2, 140, 32, 128, 3, 0, ((1, 60, 10),)),
+    "float32 x, taps 1, cin=128, cout=256": (1, 80, 128, 256, 1, 0, ()),
+    "bf16 x, taps 1, cin=128, cout=128 (two warpgroups)": (1, 70, 128, 128, 1, 1, ()),
 }
 
 
@@ -58,14 +72,17 @@ def emulated(tmp_path_factory):
     build = tmp_path_factory.mktemp("pool_bf16_emu")
     (build / "pool_matmul_bf16_emu.cpp").write_text(
         _rewrite((CSRC / "pool_matmul_bf16.cu").read_text()))
-    exe = build / "pool_bf16"
-    res = subprocess.run(
-        [gxx, "-std=c++20", "-O2", "-ffp-contract=off", "-pthread",
-         "-Wno-unknown-pragmas", "-I", str(build), "-I", str(CSRC), "-I", str(EMU),
-         str(EMU / "pool_bf16.cpp"), "-o", str(exe)],
-        capture_output=True, text=True, timeout=300)
-    assert res.returncode == 0, (res.stdout + res.stderr)[-4000:]
-    return exe, build, {}
+    procs = {
+        name: subprocess.Popen(
+            [gxx, "-std=c++20", "-O2", "-ffp-contract=off", "-pthread",
+             "-Wno-unknown-pragmas", "-I", str(build), "-I", str(CSRC), "-I", str(EMU),
+             str(EMU / f"{name}.cpp"), "-o", str(build / name)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for name in ("pool_bf16", "wgmma")}
+    for proc in procs.values():
+        out, _ = proc.communicate(timeout=300)
+        assert proc.returncode == 0, out[-4000:]
+    return build / "pool_bf16", build, {}
 
 
 def _inputs(case):
@@ -134,6 +151,29 @@ def _run(emulated, case):
     return out
 
 
+@pytest.mark.parametrize("k", [16, 48, 128])
+def test_wgmma_stand_in_matches_numpy(emulated, k):
+    """The header's wgmma (A from registers, B by a K-major descriptor) on
+    the operands as the kernel lays them out (W^T's fragments from its
+    staged weights, x^T as its operand buffer), against numpy: each output
+    one float32 sum of exact bf16 products from 0, k ascending."""
+    _, build, _ = emulated
+    rng = np.random.RandomState(k)
+    w = torch.from_numpy(rng.randn(k, 128).astype(np.float32)).to(torch.bfloat16)
+    x = torch.from_numpy(rng.randn(64, k).astype(np.float32)).to(torch.bfloat16)
+    src, dst = build / f"wgmma_{k}.bin", build / f"wgmma_{k}.out"
+    src.write_bytes(w.view(torch.int16).numpy().tobytes() + x.view(torch.int16).numpy().tobytes())
+    res = subprocess.run([str(build / "wgmma"), str(src), str(dst), str(k)],
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stdout + res.stderr
+    got = np.frombuffer(dst.read_bytes(), np.float32).reshape(64, 64)
+    wf, xf = w.float().numpy()[:, 64:], x.float().numpy()
+    want = np.zeros((64, 64), np.float32)
+    for kk in range(k):
+        want = want + wf[kk][:, None] * xf[:, kk][None, :]
+    assert np.array_equal(got, want), np.abs(got - want).max()
+
+
 @pytest.mark.parametrize("case", sorted(CASES))
 def test_forward_source_matches_the_oracle(emulated, case):
     x, w3, bias, _ = _inputs(case)
@@ -165,13 +205,41 @@ def test_backward_source_matches_the_oracle(emulated, case):
     assert err <= 1e-5 * want.abs().max().item(), err
 
 
-@pytest.mark.parametrize("shape", [(128, 3, 4), (128, 1, 4), (128, 1, 2), (48, 1, 2)])
+# (cin, cout, taps, x's bytes, consumer warpgroups): the first four at one
+# 128-channel block, then the victim's three pools, a cout of 384 and the
+# widest cin the mma.sync plan admitted at each taps and x type (where 256
+# channels do not fit, 128-channel blocks)
+PLAN_SHAPES = [(128, 128, 3, 4, 2), (128, 128, 1, 4, 2), (128, 128, 1, 2, 2),
+               (48, 128, 1, 2, 2), (128, 1024, 3, 4, 2), (128, 1024, 1, 4, 4),
+               (128, 1024, 1, 2, 4), (128, 384, 1, 2, 4), (160, 1024, 3, 2, 2),
+               (208, 1024, 1, 4, 2), (272, 1024, 1, 2, 2), (208, 1024, 1, 2, 4)]
+
+
+@pytest.mark.parametrize("shape", PLAN_SHAPES)
 def test_shared_memory_plan_matches_the_wrapper(emulated, shape):
     exe, _, _ = emulated
-    cin, taps, xbytes = shape
-    res = subprocess.run([str(exe), "plan", "-", "1", "1", str(cin), "128",
+    cin, cout, taps, xbytes, nwg = shape
+    res = subprocess.run([str(exe), "plan", "-", "1", "1", str(cin), str(cout),
                           str(taps), str(int(xbytes == 2))],
                          capture_output=True, text=True, timeout=60)
     assert res.returncode == 0, res.stdout + res.stderr
-    smem = int(re.search(r"smem=(\d+)", res.stdout).group(1))
-    assert smem == pk.bf16_smem_bytes(cin, taps, xbytes) <= pk.SMEM_MAX
+    m = re.search(r"nwg=(\d+) smem=(\d+)", res.stdout)
+    plan = tuple(map(int, m.groups()))
+    assert plan == pk.bf16_plan(cin, cout, taps, xbytes)
+    assert plan[0] == nwg and plan[1] <= pk.SMEM_MAX
+
+
+def test_the_plan_admits_every_shape_the_mma_sync_plan_did():
+    """The kernel before wgmma took any block whose shared memory (weights
+    with 8 columns of padding, a 130-row bf16 slab, a 130-row staging buffer
+    of x's type, the partials and states) fit 232,448 bytes; the new plan
+    refuses none of those shapes."""
+    for taps in (1, 3):
+        for xbytes in (2, 4):
+            for cin in range(16, 417, 16):
+                old = (taps * cin * 136 * 2 + 130 * (cin + 8) * 2 + 130 * cin * xbytes
+                       + 4 * 128 * 12 + 128 * (2 + pk.MAX_TIES) * 4)
+                for cout in (128, 256, 384, 1024):
+                    if old <= pk.SMEM_MAX:
+                        assert pk.bf16_plan(cin, cout, taps, xbytes) is not None, (
+                            cin, cout, taps, xbytes)
