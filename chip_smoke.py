@@ -156,7 +156,9 @@ kernels at its path shapes, with their plain versions and bounds, checking
 nothing: those of this checkout, or those of the checkout at DIR (say a
 `git archive` of another commit under `build/`), so that two commits are
 timed on the same inputs in one call. Row 16, the grouped MLP: the seven
-PointNet++ shapes, and for this checkout the wider GroupAll ones. Row 17,
+PointNet++ shapes, and for this checkout the wider GroupAll ones; with
+`--tree`, this checkout's bf16 backward also runs beside the other's on the
+same inputs, with the count of dgx / dgf elements whose bits differ. Row 17,
 the whole-scale kernels: MSG SA2's three scales and SA1's three with
 normals, with the forward's device time by kernel (torch.profiler) and the
 split pair beside it, and for this checkout the backward built without
@@ -1383,12 +1385,19 @@ def group_mlp_times_phase(torch) -> dict:
     wider GroupAll ones too, which older checkouts refuse) on
     `group_mlp_inputs`' inputs, as phase 2 times them, with no check run;
     then, where the checkout has them, the single-pass bf16 kernels at the
-    seven shapes (`group_mlp_bf16_inputs`)."""
+    seven shapes (`group_mlp_bf16_inputs`). With `--tree`, this checkout's
+    bf16 backward (its csrc/group_mlp_bf16.cu built alone) also runs on the
+    same inputs as the other checkout's, and the elements of dgx / dgf whose
+    bits differ are counted (`differ`)."""
     from geoa3_tpu_torch.ops.kernels import _build, group_mlp_kernel as gk
 
     print(f"grouped-MLP times of {gk.__file__}")
-    _build.lib()
     wide = CODE == REPO
+    this = (None if wide else variant_entry(
+        "group_mlp_bf16.cu", None, ("geoa3_group_mlp_bwd_bf16",),
+        REPO / "geoa3_tpu_torch" / "csrc"))
+    _build.lib()
+    this = this and this()["geoa3_group_mlp_bwd_bf16"]
     gen = torch.Generator(device="cuda").manual_seed(19)
     out = {}
     for victim in ("SSG", "MSG") + (("wide",) if wide else ()):
@@ -1404,11 +1413,37 @@ def group_mlp_times_phase(torch) -> dict:
         for label, (gx_, gf_, p_) in group_mlp_bf16_inputs(torch, victim).items():
             pooled, cnt = gk.group_mlp_fwd_bf16(gx_, gf_, p_)
             g_all = torch.randn(*pooled.shape, device="cuda", generator=gen)
-            out[label + " bf16"] = group_mlp_bf16_times(torch, gk, gx_, gf_, p_,
-                                                        pooled, cnt, g_all)
-            print(f"  group_mlp_bf16[{label}]: "
-                  + group_mlp_times_line(out[label + " bf16"]), flush=True)
+            r_ = out[label + " bf16"] = group_mlp_bf16_times(torch, gk, gx_, gf_, p_,
+                                                             pooled, cnt, g_all)
+            if this:
+                r_["differ"] = bwd_bf16_differ(torch, gk, this, g_all, gx_, gf_, p_,
+                                               pooled, cnt)
+            print(f"  group_mlp_bf16[{label}]: " + group_mlp_times_line(r_)
+                  + (f"; dgx/dgf elements whose bits differ from this checkout's "
+                     f"backward: {r_['differ']}" if this else ""), flush=True)
     return out
+
+
+def bwd_bf16_differ(torch, gk, fn, g_all, gx_, gf_, p_, pooled, cnt) -> int:
+    """The elements of dgx and dgf whose bits differ between the running
+    checkout's bf16 backward and `fn` (another build's C entry
+    geoa3_group_mlp_bwd_bf16) on the same inputs; fn's outputs start as
+    NaN."""
+    want = [t for t in gk.group_mlp_bwd_bf16(g_all, gx_, gf_, p_, pooled, cnt)
+            if t is not None]
+    got = [torch.full_like(t, math.nan) for t in want]
+    b_, m_, ns_, _ = gx_.shape
+    args = (gx_, gf_, p_.kw1, p_.kb1, p_.kw2, p_.kb2, p_.kw3, p_.kb3, p_.kw1t, p_.kw2t,
+            p_.kw3t, pooled, cnt, g_all, b_ * m_, ns_,
+            0 if gf_ is None else gf_.shape[-1], p_.w1.shape[1], p_.w2.shape[1],
+            p_.w3.shape[1], got[0], got[1] if len(got) > 1 else None)
+    err = fn(*[a.data_ptr() if isinstance(a, torch.Tensor) else a for a in args],
+             torch.cuda.current_stream().cuda_stream)
+    if err:
+        _fail(f"this checkout's geoa3_group_mlp_bwd_bf16 failed with error {err}")
+    torch.cuda.synchronize()
+    return sum(int((g.view(torch.int32) != w.view(torch.int32)).sum())
+               for g, w in zip(got, want))
 
 
 # ------------------------------------------- row 16 in the single-pass bf16 mode
@@ -2243,22 +2278,29 @@ def projection_line(r_: dict) -> str:
         for what, k in (("projection", "proj"), ("back-projection", "bproj")))
 
 
-def variant_entry(source: str, define: str, names: tuple):
+def variant_entry(source: str, define, names: tuple, csrc: Path = None):
     """Starts building csrc/`source` alone with `define` set (a timing
-    variant, never the package's) into build/variants/ (named by the
-    sources' digest, so a built one is reused); returns a function that
-    waits for the build and returns the variant's C entries `names` (name
-    -> function), bound as _build binds the package's."""
+    variant, never the package's; None: no define) into build/variants/
+    (named by the sources' digest, so a built one is reused); returns a
+    function that waits for the build and returns the variant's C entries
+    `names` (name -> function), bound as _build binds the package's. The
+    sources are the running package's, or those in `csrc` (this
+    checkout's, beside another checkout's package under `--tree`)."""
     import ctypes
+    import hashlib
 
     from geoa3_tpu_torch.ops.kernels import _build
 
+    csrc = csrc or _build.CSRC
+    digest = hashlib.sha256(b"".join(
+        p.name.encode() + p.read_bytes()
+        for p in sorted(csrc.glob("*.cu")) + sorted(csrc.glob("*.cuh")))).hexdigest()[:16]
     stem = Path(source).stem
-    out = REPO / "build" / "variants" / f"{stem}_{define}_{_build._digest()}.so"
+    out = REPO / "build" / "variants" / f"{stem}_{define or 'plain'}_{digest}.so"
     out.parent.mkdir(parents=True, exist_ok=True)
     proc = None if out.exists() else subprocess.Popen(
-        [_build._nvcc(), *_build.NVCC_FLAGS, f"-D{define}", "-I", str(_build.CSRC),
-         "-shared", str(_build.CSRC / source), "-o", str(out)],
+        [_build._nvcc(), *_build.NVCC_FLAGS, *([f"-D{define}"] if define else []),
+         "-I", str(csrc), "-shared", str(csrc / source), "-o", str(out)],
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
 
     def wait():

@@ -34,16 +34,49 @@
 //    a time, from which one thread a (group, column) takes the maximum and
 //    its tie count; a split group's parts write partials that a finishing
 //    kernel merges;
-//  - the backward recomputes the tile with the forward's own code, so z1,
-//    z2, z3 and the ties are bitwise the forward's (an output's value
-//    depends only on its row, its column and the k order, not on the tile
-//    height), then runs dz3 W3^T, dz2 W2^T and dz1 W1^T on the same loop,
-//    each ReLU mask read from a1 / a2 (zero exactly where z <= 0, but for
-//    0 < z < 2^-134, which bf16 rounds to 0) and overwritten in place by
-//    the cotangent.
+//  - the staged backward (gmlp_bf16_bwd_tiles) recomputes the tile with the
+//    forward's own code, so z1, z2, z3 and the ties are bitwise the
+//    forward's (an output's value depends only on its row, its column and
+//    the k order, not on the tile height), then runs dz3 W3^T, dz2 W2^T and
+//    dz1 W1^T on the same loop, each ReLU mask read from a1 / a2 (zero
+//    exactly where z <= 0, but for 0 < z < 2^-134, which bf16 rounds to 0)
+//    and overwritten in place by the cotangent.
+//
+// The backward with the weights resident (gmlp_bf16_bwd_resident) serves
+// every shape whose weights fit in shared memory beside a tile of 16 rows
+// or more (`res_plan`): the victims' SA1 layers (SSG, and MSG's three
+// scales) and SSG's SA2 (135 KB of weights beside 64-row tiles). The
+// GroupAll layers (widths 256/512/1024 at cf = 256 and 640: 1.45-1.6 MB of
+// weights) and any other shape past that take the staged backward above.
+// Persistent blocks (as many as the SMs hold) walk the tiles; at its start
+// a block bulk-copies (TMA, csrc/tma.cuh) W1, W2, W3 and the biases into
+// shared memory once, a row a copy into rows padded by 8 (ldmatrix reads
+// them without bank conflicts), and the W^T products read the same rows
+// by ldmatrix without .trans. While a tile computes, one thread bulk-copies
+// the next tile's gx and gf rows (one copy each: a tile's rows are
+// contiguous) and its groups' pooled, cotangent and cnt into a landing
+// buffer; a piece that does not start and end on 16-byte lines is read in
+// place instead. Layer 1's input is spread from there into padded rows,
+// and g / cnt computed once a (group, column) (the staged kernel's
+// division), so the dz3 epilogue reads shared memory only and never
+// divides. Each of the six products runs its whole K from shared memory
+// with no barrier, the next k-step's fragments loaded before this one's
+// mmas, on warp tiles fitted to its width (`pick_unit`), with one block
+// barrier between layers; every epilogue is an inlined functor. dgx and
+// dgf are staged in shared memory and written as 16-byte stores of the tile's
+// contiguous rows. The
+// sums are the staged backward's: mma.sync from ldmatrix with each output's
+// k16 steps ascending from 0, then + bias by __fadd_rn, so z, a1, a2 and
+// the ties are bitwise the forward's, and dgx / dgf bitwise the staged
+// backward's.
 #include "mma_bf16.cuh"
+#include "tma.cuh"
 
 #include <math.h>
+
+#include <algorithm>
+#include <map>
+#include <mutex>
 
 namespace {
 
@@ -451,6 +484,539 @@ gmlp_bf16_bwd_tiles(const uint16_t* __restrict__ gx, const uint16_t* __restrict_
   }
 }
 
+// ------------------------------------- the backward with resident weights
+
+// warp tiles of a product: MI m16 tiles by NJ n8 tiles
+constexpr int kUnits[5][2] = {{2, 6}, {2, 4}, {1, 4}, {2, 2}, {1, 2}};
+
+// the warp tile of a rows x N product over the block's 8 warps: the least
+// units a warp runs times a unit's cost a k-step (two cycles an mma, four
+// an ldmatrix.x4), the first of kUnits on a tie
+int pick_unit(int rows, int N) {
+  int best = 4;
+  long long best_cost = 1LL << 60;
+  for (int i = 0; i < 5; ++i) {
+    const int mi = kUnits[i][0], nj = kUnits[i][1];
+    if (rows % (16 * mi) || N % (8 * nj)) continue;
+    const int units = rows / (16 * mi) * (N / (8 * nj));
+    const long long cost = (long long)((units + 7) / 8) * (2 * mi * nj + 4 * (mi + nj / 2));
+    if (cost < best_cost) {
+      best = i;
+      best_cost = cost;
+    }
+  }
+  return best;
+}
+
+int units_of(int unit, int rows, int N) {
+  return rows / (16 * kUnits[unit][0]) * (N / (8 * kUnits[unit][1]));
+}
+
+size_t round16(size_t bytes) { return (bytes + 15) / 16 * 16; }
+
+// The resident backward's plan: the tile rows, each product's warp tile
+// and the shared memory, as byte offsets: W1, W2, W3 as bf16 rows of the
+// padded width + 8, the biases (float32), a1, a2, then U (layer 1's input
+// X [rows][k1 + 8], later dz3 [rows][c3p + 8]), the landing buffer (gx's
+// rows, gf's rows, then pooled, the cotangent (overwritten by g / cnt) and
+// cnt of the tile's groups, gd bytes each) and two mbarriers (the
+// weights', the landing buffer's).
+// The float32 dgf [rows][cf + 8] and dgx [rows][3] are staged over a2 and
+// U, which are dead by then.
+struct Res {
+  int rows, gd, first6;  // first6: the warp that takes dgf's first unit
+  int gmul;              // a tile row's group: (row * gmul) >> 16
+  int unit[7];           // L1, L2, L3, dz3 W3^T, dz2 W2^T, dgx's and dgf's part of dz1 W1^T
+  size_t w1, w2, w3, bias, a1, a2, u, land, bars, smem;
+};
+
+void res_layout(Res& r, const Shape& s, int rows) {
+  const int gpt = s.ns > rows ? 1 : rows / s.ns;
+  size_t o = 0;
+  auto take = [&](size_t bytes) {
+    const size_t at = o;
+    o += round16(bytes);
+    return at;
+  };
+  r.rows = rows;
+  r.w1 = take((size_t)s.k1 * (s.c1p + 8) * 2);
+  r.w2 = take((size_t)s.c1p * (s.c2p + 8) * 2);
+  r.w3 = take((size_t)s.c2p * (s.c3p + 8) * 2);
+  r.bias = take((size_t)(s.c1p + s.c2p + s.c3p) * 4);
+  r.a1 = take((size_t)rows * (s.c1p + 8) * 2);
+  const size_t a2 = (size_t)rows * (s.c2p + 8) * 2;
+  size_t u = std::max((size_t)rows * (s.k1 + 8) * 2, (size_t)rows * (s.c3p + 8) * 2);
+  const size_t out = (size_t)rows * 12 + (s.cf ? (size_t)rows * (s.cf + 8) * 4 : 0);
+  if (out > a2 + u) u = out - a2;
+  r.a2 = take(a2);
+  r.u = take(u);
+  r.gd = (int)round16((size_t)gpt * s.c3 * 4);
+  r.land = take((size_t)rows * 6 + (size_t)rows * s.cf * 2 + 3 * (size_t)r.gd);
+  r.bars = take(16);
+  r.smem = o;
+}
+
+// the largest of 128, 64 and 32 rows whose block leaves room for two an SM,
+// else the largest of 128 .. 16 that fits one (make_shape's rule); false
+// where none does (the weights alone are too large)
+bool res_plan(Shape& s, Res& r, int groups, int ns, int cf, int c1, int c2, int c3) {
+  s = Shape{groups, ns, cf, c1, c2, c3, 16 + cf, pad16(c1), pad16(c2), pad16(c3),
+            0, 0, 0, 0};
+  const int heights[4] = {128, 64, 32, 16};
+  for (int pass = 0; pass < 2 && !s.rows; ++pass)
+    for (int i = 0; i < (pass ? 4 : 3) && !s.rows; ++i) {
+      res_layout(r, s, heights[i]);
+      if (r.smem <= (pass ? geoa3::kSmemMax : geoa3::kSmemHalf)) s.rows = heights[i];
+    }
+  if (!s.rows) return false;
+  if (ns > s.rows) {
+    s.parts = (ns + s.rows - 1) / s.rows;
+    s.gpt = 1;
+    s.tiles = groups * s.parts;
+  } else {
+    s.parts = 1;
+    s.gpt = s.rows / ns;
+    s.tiles = (groups + s.gpt - 1) / s.gpt;
+  }
+  const int widths[7] = {s.c1p, s.c2p, s.c3p, s.c2p, s.c1p, 16, cf};
+  for (int i = 0; i < 7; ++i) r.unit[i] = pick_unit(s.rows, widths[i]);
+  r.first6 = units_of(r.unit[5], s.rows, 16) % 8;
+  r.gmul = s.parts > 1 ? 0 : ((1 << 16) + ns - 1) / ns;
+  return true;
+}
+
+// the fragments of k-step kk of a unit at rows r0, columns c0 into (a, b):
+// A's by ldmatrix; kT, W [K][N] as stored (ldmatrix .trans), else W^T read
+// from W's rows c0 .. by ldmatrix without .trans, which gives W^T's B
+// fragments
+template <int MI, int NJ, bool kT>
+__device__ __forceinline__ void res_frags(uint32_t (&a)[MI][4], uint32_t (&b)[NJ][2],
+                                          const uint16_t* A, int lda, const uint16_t* W,
+                                          int ldw, int r0, int c0, int kk, int lane) {
+#pragma unroll
+  for (int mi = 0; mi < MI; ++mi)
+    ldmatrix_x4(a[mi], A + (size_t)(r0 + mi * 16 + (lane & 15)) * lda + kk + (lane >> 4) * 8);
+#pragma unroll
+  for (int jj = 0; jj < NJ / 2; ++jj) {
+    uint32_t r4[4];
+    if (kT)
+      ldmatrix_x4_trans(r4, W + (size_t)(kk + ((lane >> 3) & 1) * 8 + (lane & 7)) * ldw + c0 +
+                                jj * 16 + (lane >> 4) * 8);
+    else
+      ldmatrix_x4(r4, W + (size_t)(c0 + jj * 16 + (lane >> 4) * 8 + (lane & 7)) * ldw + kk +
+                          ((lane >> 3) & 1) * 8);
+    b[2 * jj][0] = r4[0];
+    b[2 * jj][1] = r4[1];
+    b[2 * jj + 1][0] = r4[2];
+    b[2 * jj + 1][1] = r4[3];
+  }
+}
+
+template <int MI, int NJ>
+__device__ __forceinline__ void res_mma(float (&acc)[MI][NJ][4], const uint32_t (&a)[MI][4],
+                                        const uint32_t (&b)[NJ][2]) {
+#pragma unroll
+  for (int mi = 0; mi < MI; ++mi)
+#pragma unroll
+    for (int j = 0; j < NJ; ++j) mma_m16n8k16_bf16(acc[mi][j], a[mi], b[j][0], b[j][1]);
+}
+
+// acc = A (rows x K, bf16, lda a row) W for output columns [n0, n0 + N)
+// (`res_frags`), each output the chain of mma k-steps from 0 in ascending
+// k, with no barrier. Warp w runs units w - first, w - first + 8, ...
+// (mod 8) and hands each pair of accumulators to epi(row, column, value,
+// value at the next column).
+template <int MI, int NJ, bool kT, class Epi>
+__device__ __forceinline__ void res_product(const uint16_t* A, int lda, const uint16_t* W,
+                                            int ldw, int K, int n0, int N, int rows,
+                                            int first, const Epi& epi) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int ur = rows / (16 * MI), units = ur * (N / (8 * NJ));
+  for (int u = (warp - first) & 7; u < units; u += 8) {
+    const int r0 = (u % ur) * 16 * MI, c0 = n0 + (u / ur) * 8 * NJ;
+    float acc[MI][NJ][4];
+#pragma unroll
+    for (int mi = 0; mi < MI; ++mi)
+#pragma unroll
+      for (int j = 0; j < NJ; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[mi][j][e] = 0.0f;
+    for (int kk = 0; kk < K; kk += 16) {
+      uint32_t a[MI][4], b[NJ][2];
+      res_frags<MI, NJ, kT>(a, b, A, lda, W, ldw, r0, c0, kk, lane);
+      res_mma<MI, NJ>(acc, a, b);
+    }
+    const int g = lane >> 2, q = lane & 3;
+#pragma unroll
+    for (int mi = 0; mi < MI; ++mi)
+#pragma unroll
+      for (int j = 0; j < NJ; ++j)
+#pragma unroll
+        for (int h = 0; h < 2; ++h)
+          epi(r0 + mi * 16 + g + 8 * h, c0 + j * 8 + 2 * q, acc[mi][j][2 * h],
+              acc[mi][j][2 * h + 1]);
+  }
+}
+
+// res_product at the warp tile kUnits[unit]
+template <bool kT, class Epi>
+__device__ __forceinline__ void res_gemm(int unit, const uint16_t* A, int lda,
+                                         const uint16_t* W, int ldw, int K, int n0, int N,
+                                         int rows, int first, const Epi& epi) {
+  switch (unit) {
+    case 0: res_product<2, 6, kT>(A, lda, W, ldw, K, n0, N, rows, first, epi); break;
+    case 1: res_product<2, 4, kT>(A, lda, W, ldw, K, n0, N, rows, first, epi); break;
+    case 2: res_product<1, 4, kT>(A, lda, W, ldw, K, n0, N, rows, first, epi); break;
+    case 3: res_product<2, 2, kT>(A, lda, W, ldw, K, n0, N, rows, first, epi); break;
+    default: res_product<1, 2, kT>(A, lda, W, ldw, K, n0, N, rows, first, epi); break;
+  }
+}
+
+// The epilogues, each for a pair of accumulators at (row, column, column +
+// 1): functors whose calls are inlined.
+// a1 or a2: bf16(relu(acc + bias))
+struct ReluInto {
+  uint16_t* dst;
+  int ld;
+  const float* bias;
+  __device__ __forceinline__ void operator()(int rr, int c, float v0, float v1) const {
+    *reinterpret_cast<uint32_t*>(dst + (size_t)rr * ld + c) =
+        cvt_rn_bf16x2(fmaxf(__fadd_rn(v0, bias[c]), 0.0f),
+                      fmaxf(__fadd_rn(v1, bias[c + 1]), 0.0f));
+  }
+};
+
+// layer 3 again: dz3 = bf16(g / cnt) (Q) on the rows tied at the maximum
+// (P) where z3 > 0, else 0; 0 past the tile's rows and c3. Branch-free: P
+// and Q are read at clamped indices inside the landing buffer whatever the
+// outcome, and a row's group is (row * gmul) >> 16 (gmul = ceil(2^16 /
+// ns), exact while row * ns < 2^16: both are at most 128 where a tile
+// holds whole groups; 0 where a group is split).
+struct Dz3Into {
+  uint16_t* d3;
+  int ld;
+  const float *b3, *P, *Q;
+  int nrows, c3, gmul;
+  __device__ __forceinline__ void operator()(int rr, int c, float v0, float v1) const {
+    const int o = ((rr * gmul) >> 16) * c3;
+    const int o0 = o + min(c, c3 - 1), o1 = o + min(c + 1, c3 - 1);
+    const float p0 = P[o0], p1 = P[o1], q0 = Q[o0], q1 = Q[o1];
+    const float a0 = fmaxf(__fadd_rn(v0, b3[c]), 0.0f);
+    const float a1 = fmaxf(__fadd_rn(v1, b3[c + 1]), 0.0f);
+    const bool in = rr < nrows;
+    const float d0 = in && c < c3 && a0 > 0.0f && a0 == p0 ? q0 : 0.0f;
+    const float d1 = in && c + 1 < c3 && a1 > 0.0f && a1 == p1 ? q1 : 0.0f;
+    *reinterpret_cast<uint32_t*>(d3 + (size_t)rr * ld + c) = cvt_rn_bf16x2(d0, d1);
+  }
+};
+
+// in place: bf16(acc) where the ReLU mask (the bf16 activation there) is
+// nonzero, else 0
+struct MaskedInto {
+  uint16_t* act;
+  int ld;
+  __device__ __forceinline__ void operator()(int rr, int c, float v0, float v1) const {
+    uint32_t* p = reinterpret_cast<uint32_t*>(act + (size_t)rr * ld + c);
+    const uint32_t on = *p;
+    *p = cvt_rn_bf16x2((on & 0x7fffu) ? v0 : 0.0f, (on & 0x7fff0000u) ? v1 : 0.0f);
+  }
+};
+
+// dgx's staged rows: columns 0-2 of the first 16
+struct DgxInto {
+  float* sx;
+  __device__ __forceinline__ void operator()(int rr, int c, float v0, float v1) const {
+    if (c >= 3) return;
+    sx[rr * 3 + c] = v0;
+    if (c + 1 < 3) sx[rr * 3 + c + 1] = v1;
+  }
+};
+
+// dgf's staged rows: columns 16 ..
+struct DgfInto {
+  float* sf;
+  int ld;
+  __device__ __forceinline__ void operator()(int rr, int c, float v0, float v1) const {
+    *reinterpret_cast<float2*>(sf + (size_t)rr * ld + c - 16) = make_float2(v0, v1);
+  }
+};
+
+// A tile's inputs as they lie in device memory: gx's rows, gf's rows, and
+// pooled, the cotangent and cnt of its groups, each contiguous. A piece is
+// bulk-copied into the landing buffer where it starts and ends on 16-byte
+// lines (`bulk_ok`), else read in place.
+struct Pieces {
+  const void* src[5];
+  unsigned bytes[5];
+};
+
+__device__ __forceinline__ Pieces pieces_of(const Shape& s, const Tile& t,
+                                            const uint16_t* gx, const uint16_t* gf,
+                                            const float* pooled, const float* gout,
+                                            const int* cnt) {
+  const size_t row0 = (size_t)t.g0 * s.ns + t.slot0, o = (size_t)t.g0 * s.c3;
+  const unsigned gb = (unsigned)t.ngroups * s.c3 * 4;
+  Pieces p;
+  p.src[0] = gx + row0 * 3;
+  p.bytes[0] = (unsigned)t.nrows * 6;
+  p.src[1] = gf != nullptr ? gf + row0 * s.cf : nullptr;
+  p.bytes[1] = gf != nullptr ? (unsigned)t.nrows * s.cf * 2 : 0u;
+  p.src[2] = pooled + o;
+  p.src[3] = gout + o;
+  p.src[4] = cnt + o;
+  p.bytes[2] = p.bytes[3] = p.bytes[4] = gb;
+  return p;
+}
+
+__device__ __forceinline__ bool bulk_ok(const Pieces& p, int i) {
+  return p.bytes[i] != 0 && p.bytes[i] % 16 == 0 &&
+         reinterpret_cast<uintptr_t>(p.src[i]) % 16 == 0;
+}
+
+// the landing buffer's offsets of the five pieces
+struct Landing {
+  size_t off[5];
+};
+
+__device__ __forceinline__ Landing landing_of(const Shape& s, const Res& r) {
+  Landing l;
+  l.off[0] = 0;
+  l.off[1] = (size_t)r.rows * 6;
+  l.off[2] = l.off[1] + (size_t)r.rows * s.cf * 2;
+  l.off[3] = l.off[2] + r.gd;
+  l.off[4] = l.off[3] + r.gd;
+  return l;
+}
+
+// one thread: a tile's bulk-copyable pieces into the landing buffer on bar
+// (a plain arrival where there are none)
+__device__ __forceinline__ void land_tile(const Pieces& p, const Landing& l, char* land,
+                                          uint64_t* bar) {
+  unsigned total = 0;
+  for (int i = 0; i < 5; ++i)
+    if (bulk_ok(p, i)) total += p.bytes[i];
+  if (total == 0) {
+    mbar_arrive(bar);
+    return;
+  }
+  mbar_expect_tx(bar, total);
+  for (int i = 0; i < 5; ++i)
+    if (bulk_ok(p, i)) bulk_copy(land + l.off[i], p.src[i], p.bytes[i], bar);
+}
+
+// n floats from shared memory (16-byte aligned) to device memory: 16-byte
+// stores where dst is 16-byte aligned
+__device__ __forceinline__ void store_rows(float* dst, const float* src, int n) {
+  int i0 = 0;
+  if (reinterpret_cast<uintptr_t>(dst) % 16 == 0) {
+    for (int i = threadIdx.x; i < n / 4; i += kThreads)
+      reinterpret_cast<float4*>(dst)[i] = reinterpret_cast<const float4*>(src)[i];
+    i0 = n / 4 * 4;
+  }
+  for (int i = i0 + threadIdx.x; i < n; i += kThreads) dst[i] = src[i];
+}
+
+__global__ void __launch_bounds__(kThreads, 2)
+gmlp_bf16_bwd_resident(const uint16_t* __restrict__ gx, const uint16_t* __restrict__ gf,
+                       const uint16_t* __restrict__ w1, const float* __restrict__ b1,
+                       const uint16_t* __restrict__ w2, const float* __restrict__ b2,
+                       const uint16_t* __restrict__ w3, const float* __restrict__ b3,
+                       const float* __restrict__ pooled, const int* __restrict__ cnt,
+                       const float* __restrict__ gout, Shape s, Res r,
+                       float* __restrict__ dgx, float* __restrict__ dgf) {
+  extern __shared__ __align__(16) float smem[];
+  char* base = reinterpret_cast<char*>(smem);
+  uint16_t* W1 = reinterpret_cast<uint16_t*>(base + r.w1);
+  uint16_t* W2 = reinterpret_cast<uint16_t*>(base + r.w2);
+  uint16_t* W3 = reinterpret_cast<uint16_t*>(base + r.w3);
+  float* B1 = reinterpret_cast<float*>(base + r.bias);
+  float* B2 = B1 + s.c1p;
+  float* B3 = B2 + s.c2p;
+  uint16_t* a1 = reinterpret_cast<uint16_t*>(base + r.a1);
+  uint16_t* a2 = reinterpret_cast<uint16_t*>(base + r.a2);
+  uint16_t* X = reinterpret_cast<uint16_t*>(base + r.u);  // layer 1's input,
+  uint16_t* d3 = X;                                       // then dz3
+  float* SF = reinterpret_cast<float*>(base + r.a2);      // dgf's staged rows,
+  float* SX = SF + (s.cf ? (size_t)r.rows * (s.cf + 8) : 0);  // then dgx's
+  char* land = base + r.land;
+  uint64_t* bars = reinterpret_cast<uint64_t*>(base + r.bars);
+  const Landing l = landing_of(s, r);
+  const int tid = threadIdx.x, rows = r.rows;
+  const int ld1 = s.c1p + 8, ld2 = s.c2p + 8, ld3 = s.c3p + 8, ldx = s.k1 + 8;
+  const int ldf = s.cf + 8;
+
+  if (tid == 0) {
+    mbar_init(&bars[0], 1);
+    mbar_init(&bars[1], 1);
+    mbar_fence_init();
+  }
+  __syncthreads();
+  if (tid < 32) {  // the weights and biases, once: a bulk copy a row
+    if (tid == 0)
+      mbar_expect_tx(&bars[0], (unsigned)((s.k1 * s.c1p + s.c1p * s.c2p + s.c2p * s.c3p) * 2 +
+                                          (s.c1p + s.c2p + s.c3p) * 4));
+    __syncwarp();
+    for (int i = tid; i < s.k1 + s.c1p + s.c2p; i += 32) {
+      if (i < s.k1)
+        bulk_copy(W1 + (size_t)i * ld1, w1 + (size_t)i * s.c1p, s.c1p * 2, &bars[0]);
+      else if (i < s.k1 + s.c1p)
+        bulk_copy(W2 + (size_t)(i - s.k1) * ld2, w2 + (size_t)(i - s.k1) * s.c2p,
+                  s.c2p * 2, &bars[0]);
+      else
+        bulk_copy(W3 + (size_t)(i - s.k1 - s.c1p) * ld3,
+                  w3 + (size_t)(i - s.k1 - s.c1p) * s.c3p, s.c3p * 2, &bars[0]);
+    }
+    if (tid == 0) {
+      bulk_copy(B1, b1, s.c1p * 4, &bars[0]);
+      bulk_copy(B2, b2, s.c2p * 4, &bars[0]);
+      bulk_copy(B3, b3, s.c3p * 4, &bars[0]);
+    }
+  }
+  if (tid == 0 && (int)blockIdx.x < s.tiles)
+    land_tile(pieces_of(s, tile_of(s, blockIdx.x), gx, gf, pooled, gout, cnt), l, land,
+              &bars[1]);
+  mbar_wait(&bars[0], 0);
+
+  unsigned it = 0;
+  for (int tn = blockIdx.x; tn < s.tiles; tn += gridDim.x, ++it) {
+    const Tile t = tile_of(s, tn);
+    const Pieces pc = pieces_of(s, t, gx, gf, pooled, gout, cnt);
+    mbar_wait(&bars[1], it & 1);
+    // layer 1's input: x in channels 0-2, zeros to 16, the features; zero
+    // rows past the tile's
+    const uint16_t* xs = bulk_ok(pc, 0) ? reinterpret_cast<const uint16_t*>(land + l.off[0])
+                                        : static_cast<const uint16_t*>(pc.src[0]);
+    const uint16_t* fs = bulk_ok(pc, 1) ? reinterpret_cast<const uint16_t*>(land + l.off[1])
+                                        : static_cast<const uint16_t*>(pc.src[1]);
+    const int chunks = s.k1 / 8;
+    for (int i = tid; i < rows * chunks; i += kThreads) {
+      const int rr = i / chunks, j = i % chunks;
+      uint4 v = make_uint4(0u, 0u, 0u, 0u);
+      if (rr < t.nrows) {
+        if (j == 0) {
+          const uint16_t* p = xs + rr * 3;
+          v.x = p[0] | (static_cast<uint32_t>(p[1]) << 16);
+          v.y = p[2];
+        } else if (j >= 2) {
+          v = *reinterpret_cast<const uint4*>(fs + (size_t)rr * s.cf + (j - 2) * 8);
+        }
+      }
+      *reinterpret_cast<uint4*>(X + (size_t)rr * ldx + j * 8) = v;
+    }
+    // the tile's groups' maxima into P (where not bulk-copied) and g / cnt
+    // into Q, over the landing buffer's cotangent
+    float* P = reinterpret_cast<float*>(land + l.off[2]);
+    float* Q = reinterpret_cast<float*>(land + l.off[3]);
+    {
+      const float* ps = bulk_ok(pc, 2) ? P : static_cast<const float*>(pc.src[2]);
+      const float* gs = bulk_ok(pc, 3) ? Q : static_cast<const float*>(pc.src[3]);
+      const int* cs = bulk_ok(pc, 4) ? reinterpret_cast<const int*>(land + l.off[4])
+                                     : static_cast<const int*>(pc.src[4]);
+      for (int o = tid; o < t.ngroups * s.c3; o += kThreads) {
+        P[o] = ps[o];
+        Q[o] = gs[o] / (float)cs[o];
+      }
+    }
+    __syncthreads();  // X, P and Q are in
+    res_gemm<true>(r.unit[0], X, ldx, W1, ld1, s.k1, 0, s.c1p, rows, 0,
+                   ReluInto{a1, ld1, B1});
+    __syncthreads();
+    res_gemm<true>(r.unit[1], a1, ld1, W2, ld2, s.c1p, 0, s.c2p, rows, 0,
+                   ReluInto{a2, ld2, B2});
+    __syncthreads();
+    res_gemm<true>(r.unit[2], a2, ld2, W3, ld3, s.c2p, 0, s.c3p, rows, 0,
+                   Dz3Into{d3, ld3, B3, P, Q, t.nrows, s.c3, r.gmul});
+    __syncthreads();  // dz3 is in; the landing buffer is free for the next tile
+    if (tid == 0 && tn + (int)gridDim.x < s.tiles)
+      land_tile(pieces_of(s, tile_of(s, tn + gridDim.x), gx, gf, pooled, gout, cnt), l,
+                land, &bars[1]);
+    res_gemm<false>(r.unit[3], d3, ld3, W3, ld3, s.c3p, 0, s.c2p, rows, 0,
+                    MaskedInto{a2, ld2});  // dz2 over a2
+    __syncthreads();
+    res_gemm<false>(r.unit[4], a2, ld2, W2, ld2, s.c2p, 0, s.c1p, rows, 0,
+                    MaskedInto{a1, ld1});  // dz1 over a1
+    __syncthreads();
+    // dgx (columns 0-2 of the first 16) and dgf (columns 16 ..) staged
+    res_gemm<false>(r.unit[5], a1, ld1, W1, ld1, s.c1p, 0, 16, rows, 0, DgxInto{SX});
+    if (s.cf)
+      res_gemm<false>(r.unit[6], a1, ld1, W1, ld1, s.c1p, 16, s.cf, rows, r.first6,
+                      DgfInto{SF, ldf});
+    __syncthreads();  // the tile's outputs are staged
+    const size_t row0 = (size_t)t.g0 * s.ns + t.slot0;
+    store_rows(dgx + row0 * 3, SX, t.nrows * 3);
+    if (s.cf) {  // dgf is 16-byte aligned and cf % 16 == 0: float4 rows
+      float* df = dgf + row0 * s.cf;
+      const int q = s.cf / 4;
+      for (int i = tid; i < t.nrows * q; i += kThreads) {
+        const int rr = i / q, c = (i % q) * 4;
+        *reinterpret_cast<float4*>(df + (size_t)rr * s.cf + c) =
+            *reinterpret_cast<const float4*>(SF + (size_t)rr * ldf + c);
+      }
+    }
+    __syncthreads();  // the staging is read before the next tile's X overwrites it
+  }
+}
+
+int res_sms() {
+  static int sms = 0;
+  if (sms == 0) {
+    int dev = 0, v = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&v, cudaDevAttrMultiProcessorCount, dev);
+    sms = v > 0 ? v : 1;
+  }
+  return sms;
+}
+
+// persistent blocks: as many as the SMs hold at once, at most one a tile
+// (the blocks an SM holds read once for each shared-memory size)
+unsigned res_grid(const Shape& s, const Res& r) {
+  static std::mutex mu;
+  static std::map<size_t, int> per_sm;
+  int n;
+  {
+    std::lock_guard<std::mutex> hold(mu);
+    int& seen = per_sm[r.smem];
+    if (seen == 0) {
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&seen, gmlp_bf16_bwd_resident,
+                                                    kThreads, r.smem);
+      seen = seen > 0 ? seen : 1;
+    }
+    n = seen;
+  }
+  const long long grid = (long long)n * res_sms();
+  return (unsigned)(grid < s.tiles ? grid : s.tiles);
+}
+
+cudaError_t launch_res(const Shape& s, const Res& r, const void* gx, const void* gf,
+                       const void* w1, const float* b1, const void* w2, const float* b2,
+                       const void* w3, const float* b3, const float* pooled,
+                       const int* cnt, const float* g, float* dgx, float* dgf,
+                       cudaStream_t st) {
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      gmlp_bf16_bwd_resident, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)geoa3::kSmemMax);
+  if (attr != cudaSuccess) return attr;
+  gmlp_bf16_bwd_resident<<<res_grid(s, r), kThreads, r.smem, st>>>(
+      static_cast<const uint16_t*>(gx), static_cast<const uint16_t*>(gf),
+      static_cast<const uint16_t*>(w1), b1, static_cast<const uint16_t*>(w2), b2,
+      static_cast<const uint16_t*>(w3), b3, pooled, cnt, g, s, r, dgx, dgf);
+  return cudaGetLastError();
+}
+
+// the backward's plan as its C entry picks it: the resident kernel where
+// res_plan fits, else the staged one
+struct BwdPlan {
+  Shape s;
+  Res r;
+  bool resident;
+};
+
+bool bwd_plan(BwdPlan& p, int groups, int ns, int cf, int c1, int c2, int c3) {
+  p.resident = res_plan(p.s, p.r, groups, ns, cf, c1, c2, c3);
+  return p.resident || make_shape(p.s, groups, ns, cf, c1, c2, c3, true);
+}
+
 template <int BM>
 cudaError_t launch_fwd(const Shape& s, const void* gx, const void* gf, const void* w1,
                        const float* b1, const void* w2, const float* b2,
@@ -525,8 +1091,10 @@ extern "C" int geoa3_group_mlp_fwd_bf16(const void* gx, const void* gf, const vo
 
 // The cotangents of geoa3_group_mlp_fwd_bf16's inputs for the pooled
 // cotangent g [groups, c3] float32, given its pooled and cnt -> dgx
-// [groups, ns, 3] and dgf [groups, ns, cf] (or null) float32. w1t, w2t,
-// w3t: the padded weights transposed.
+// [groups, ns, 3] and dgf [groups, ns, cf] (or null; 16-byte aligned)
+// float32. w1t, w2t,
+// w3t: the padded weights transposed (read by the staged kernel only).
+// One launch: the resident kernel where its plan fits, else the staged one.
 extern "C" int geoa3_group_mlp_bwd_bf16(const void* gx, const void* gf, const void* w1,
                                         const float* b1, const void* w2,
                                         const float* b2, const void* w3,
@@ -536,11 +1104,16 @@ extern "C" int geoa3_group_mlp_bwd_bf16(const void* gx, const void* gf, const vo
                                         const float* g, int groups, int ns, int cf,
                                         int c1, int c2, int c3, float* dgx,
                                         float* dgf, void* stream) {
-  Shape s;
-  if (!make_shape(s, groups, ns, cf, c1, c2, c3, true) || cf % 16)
+  BwdPlan p;
+  if (cf % 16 || reinterpret_cast<uintptr_t>(dgf) % 16 ||
+      !bwd_plan(p, groups, ns, cf, c1, c2, c3))
     return (int)cudaErrorInvalidValue;
+  const Shape& s = p.s;
   if (s.tiles == 0) return 0;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (p.resident)
+    return (int)launch_res(s, p.r, gx, gf, w1, b1, w2, b2, w3, b3, pooled, cnt, g, dgx,
+                           dgf, st);
   switch (s.rows) {
     case 128: return (int)launch_bwd<128>(s, gx, gf, w1, b1, w2, b2, w3, b3, w1t, w2t, w3t, pooled, cnt, g, dgx, dgf, st);
     case 64: return (int)launch_bwd<64>(s, gx, gf, w1, b1, w2, b2, w3, b3, w1t, w2t, w3t, pooled, cnt, g, dgx, dgf, st);

@@ -530,21 +530,49 @@ def bf16_smem_bytes(widths, rows: int, bwd: bool) -> int:
     return rows * (c1p + c2p + 16) * 2 + rows * (_BF16_NCH + 4) * 4 + stages
 
 
+def bf16_resident_bytes(ns: int, cf: int, widths, rows: int) -> int:
+    """Shared memory of the backward with resident weights at tiles of
+    `rows` rows (csrc/group_mlp_bf16.cu `res_layout`), each region rounded
+    up to 16 bytes: W1, W2, W3 as bf16 rows of the padded width + 8, the
+    float32 biases, a1 and a2 (bf16 rows of the padded width + 8), U (the
+    larger of layer 1's input [rows][16 + cf + 8] and dz3 [rows][c3p + 8],
+    grown where dgf's and dgx's float32 rows, [rows][cf + 8] and [rows][3],
+    staged over a2 and U, need more), the landing buffer (gx's and gf's
+    rows, then pooled, the cotangent and cnt of the tile's groups) and two
+    mbarriers."""
+    c1p, c2p, c3p = (_pad16(c) for c in widths)
+    k1, gpt = 16 + cf, 1 if ns > rows else rows // ns
+    a2 = rows * (c2p + 8) * 2
+    u = max(rows * (k1 + 8) * 2, rows * (c3p + 8) * 2,
+            rows * 12 + (rows * (cf + 8) * 4 if cf else 0) - a2)
+    gd = _pad16(gpt * widths[2] * 4)
+    regions = (k1 * (c1p + 8) * 2, c1p * (c2p + 8) * 2, c2p * (c3p + 8) * 2,
+               (c1p + c2p + c3p) * 4, rows * (c1p + 8) * 2, a2, u,
+               rows * 6 + rows * cf * 2 + 3 * gd, 16)
+    return sum(_pad16(b) for b in regions)
+
+
 @lru_cache(maxsize=256)
 def bf16_plan(ns: int, cf: int, widths, bwd: bool) -> TilePlan:
     """A bf16 kernel's plan as its C entry picks it: the largest of 128, 64
     and 32 rows whose block leaves room for two an SM, else the largest of
     128 .. 16 that fits one; a group of more rows than the tile is split
     into ceil(ns / rows) parts (the forward merges their maxima in a
-    finishing kernel). Layer 1's input is streamed in slices, so cf sets
-    no limit. Raises where no height fits (widths past ~2000)."""
+    finishing kernel). The backward takes its kernel with resident weights
+    where that rule finds a height for it (`bf16_resident_bytes`; depth 0:
+    no weight stages), else the staged one (`bf16_smem_bytes`), as the
+    forward always does. Layer 1's input is streamed in slices there, so
+    cf sets no limit. Raises where no height fits (widths past ~2000)."""
     widths = tuple(widths)
-    for limit, heights in ((_SMEM_HALF, _BF16_ROWS[:-1]), (_SMEM_MAX, _BF16_ROWS)):
-        for rows in heights:
-            smem = bf16_smem_bytes(widths, rows, bwd)
-            if smem <= limit:
-                return TilePlan(rows, (ns + rows - 1) // rows if ns > rows else 1,
-                                _BF16_KS, 0, smem)
+    fits = ([(0, lambda rows: bf16_resident_bytes(ns, cf, widths, rows))] if bwd else []) \
+        + [(_BF16_KS, lambda rows: bf16_smem_bytes(widths, rows, bwd))]
+    for depth, need in fits:
+        for limit, heights in ((_SMEM_HALF, _BF16_ROWS[:-1]), (_SMEM_MAX, _BF16_ROWS)):
+            for rows in heights:
+                smem = need(rows)
+                if smem <= limit:
+                    return TilePlan(rows, (ns + rows - 1) // rows if ns > rows else 1,
+                                    depth, 0, smem)
     raise ValueError(
         f"the bf16 group_mlp {'backward' if bwd else 'forward'}'s 16-row tile "
         f"needs {bf16_smem_bytes(widths, 16, bwd)} bytes of shared memory for "

@@ -13,7 +13,8 @@
 // one lock) and the floating-point operations are (fmaf is the C library's,
 // exact). The 1D bulk copy (TMA) is a synchronous copy that checks its
 // alignment, stays inside the launch's dynamic shared memory and, where a
-// test program sets g_bulk_lo / g_bulk_hi, reads nothing outside them; mbarriers
+// test program sets g_bulk_lo / g_bulk_hi or g_bulk_ranges, reads nothing
+// outside them; mbarriers
 // count arrivals and bytes under one lock, and a wait sleeps until its phase
 // has completed.
 // ldmatrix, mma.sync m16n8k16 bf16 and the bf16 conversions are stand-ins
@@ -42,6 +43,7 @@
 #include <mutex>
 #include <thread>
 #include <tuple>
+#include <utility>
 #include <vector>
 
 #define __global__
@@ -505,9 +507,19 @@ inline void mbar_wait(uint64_t* bar, unsigned parity) {
   g_bar_cv.wait(hold, [&] { return b.phase != parity; });
 }
 
-// the device bytes a bulk copy may read, where a test program sets them
+// the device bytes a bulk copy may read, where a test program sets them:
+// one range, or a list of ranges (a copy inside one of them)
 inline const char* g_bulk_lo = nullptr;
 inline const char* g_bulk_hi = nullptr;
+inline std::vector<std::pair<const char*, const char*>> g_bulk_ranges;
+
+inline bool emu_bulk_src_ok(const char* s, unsigned bytes) {
+  if (g_bulk_lo != nullptr && (s < g_bulk_lo || s + bytes > g_bulk_hi)) return false;
+  if (g_bulk_ranges.empty()) return true;
+  for (const auto& [lo, hi] : g_bulk_ranges)
+    if (s >= lo && s + bytes <= hi) return true;
+  return false;
+}
 
 inline void bulk_copy(void* dst, const void* src, unsigned bytes, uint64_t* bar) {
   const char* s = static_cast<const char*>(src);
@@ -515,8 +527,7 @@ inline void bulk_copy(void* dst, const void* src, unsigned bytes, uint64_t* bar)
   const char* base = reinterpret_cast<const char*>(smem);
   if (bytes % 16 || reinterpret_cast<uintptr_t>(s) % 16 ||
       reinterpret_cast<uintptr_t>(d) % 16 || d < base ||
-      d + bytes > base + g_smem_bytes ||
-      (g_bulk_lo != nullptr && (s < g_bulk_lo || s + bytes > g_bulk_hi))) {
+      d + bytes > base + g_smem_bytes || !emu_bulk_src_ok(s, bytes)) {
     fprintf(stderr, "bulk copy out of bounds or misaligned: %u bytes at +%zu\n",
             bytes, (size_t)(d - base));
     std::abort();

@@ -1,7 +1,7 @@
 // Runs csrc/group_mlp_bf16.cu's kernels on the CPU (through cuda_runtime.h)
 // on inputs read from a file, and writes their outputs to another:
 //
-//   group_mlp_bf16 in.bin out.bin groups ns cf c1 c2 c3
+//   group_mlp_bf16 in.bin out.bin groups ns cf c1 c2 c3 [sms]
 //   group_mlp_bf16 plan - groups ns cf c1 c2 c3   (prints the plans only)
 //
 // in.bin holds gx [groups, ns, 3] and gf [groups, ns, cf] (bf16 as uint16),
@@ -11,10 +11,13 @@
 // program runs geoa3_group_mlp_fwd_bf16, then geoa3_group_mlp_bwd_bf16 on
 // its outputs, and writes pooled [groups, c3] (float32), cnt (int32), dgx
 // [groups, ns, 3] and dgf [groups, ns, cf] (float32). It prints each plan as
-// "fwd rows=R parts=P smem=S" and "bwd ...". The outputs start as NaN (or
-// -1), so an element left unwritten shows, and the 16 guard values past
-// each must stay as they were. Exits 1 if an entry refused the call or
-// wrote past an output.
+// "fwd rows=R parts=P smem=S" and "bwd rows=R parts=P smem=S depth=D
+// tiles=T grid=B" (depth 0: the backward with resident weights, on B
+// persistent blocks for `sms` SMs, 1 unless given; else the staged one,
+// a block a tile). The outputs start as NaN (or -1), so an element left
+// unwritten shows, and the 16 guard values past each must stay as they
+// were; a bulk copy must read inside one input tensor. Exits 1 if an
+// entry refused the call or wrote past an output.
 #include "group_mlp_bf16_emu.cpp"  // the kernel source, rewritten by the test
 
 #include <string>
@@ -54,16 +57,21 @@ int main(int argc, char** argv) {
   if (argc < 9) return 2;
   const int groups = atoi(argv[3]), ns = atoi(argv[4]), cf = atoi(argv[5]);
   const int c1 = atoi(argv[6]), c2 = atoi(argv[7]), c3 = atoi(argv[8]);
-  Shape pf, pb;
+  if (argc > 9) g_sms = atoi(argv[9]);
+  Shape pf;
+  BwdPlan pb;
   if (!make_shape(pf, groups, ns, cf, c1, c2, c3, false) ||
-      !make_shape(pb, groups, ns, cf, c1, c2, c3, true)) {
+      !bwd_plan(pb, groups, ns, cf, c1, c2, c3)) {
     printf("no plan fits\n");
     return 1;
   }
   printf("fwd rows=%d parts=%d smem=%zu\n", pf.rows, pf.parts,
          fwd_smem(pf.rows, pf.c1p, pf.c2p));
-  printf("bwd rows=%d parts=%d smem=%zu\n", pb.rows, pb.parts,
-         bwd_smem(pb.rows, pb.c1p, pb.c2p, pb.c3p));
+  const Shape& sb = pb.s;
+  printf("bwd rows=%d parts=%d smem=%zu depth=%d tiles=%d grid=%u\n", sb.rows, sb.parts,
+         pb.resident ? pb.r.smem : bwd_smem(sb.rows, sb.c1p, sb.c2p, sb.c3p),
+         pb.resident ? 0 : KS, sb.tiles,
+         pb.resident ? res_grid(sb, pb.r) : (unsigned)sb.tiles);
   if (std::string(argv[1]) == "plan") return 0;
 
   const int k1 = 16 + cf, c1p = pf.c1p, c2p = pf.c2p, c3p = pf.c3p;
@@ -80,6 +88,19 @@ int main(int argc, char** argv) {
     return 2;
   fclose(in);
   const void* gfp = cf ? static_cast<const void*>(gf.data()) : nullptr;
+  auto allow = [](const auto& v) {
+    const char* p = reinterpret_cast<const char*>(v.data());
+    g_bulk_ranges.emplace_back(p, p + v.size() * sizeof(v[0]));
+  };
+  allow(gx);
+  allow(gf);
+  allow(w1);
+  allow(b1);
+  allow(w2);
+  allow(b2);
+  allow(w3);
+  allow(b3);
+  allow(g);
 
   float* pooled = guarded<float>(no, NAN);
   int* cnt = guarded<int>(no, -1);
@@ -87,6 +108,10 @@ int main(int argc, char** argv) {
   float* dgf = guarded<float>(rows * cf, NAN);
   const size_t nscratch = pf.parts > 1 ? 2 * no * pf.parts : 0;
   int* scratch = nscratch ? guarded<int>(nscratch, -1) : nullptr;
+  g_bulk_ranges.emplace_back(reinterpret_cast<const char*>(pooled),
+                             reinterpret_cast<const char*>(pooled + no));
+  g_bulk_ranges.emplace_back(reinterpret_cast<const char*>(cnt),
+                             reinterpret_cast<const char*>(cnt + no));
   int err = geoa3_group_mlp_fwd_bf16(gx.data(), gfp, w1.data(), b1.data(), w2.data(),
                                      b2.data(), w3.data(), b3.data(), groups, ns, cf,
                                      c1, c2, c3, pooled, cnt, scratch, nullptr);

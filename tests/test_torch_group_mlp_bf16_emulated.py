@@ -11,13 +11,19 @@ the bf16 roundings of a1, a2 and the cotangents. The forward's maxima and
 tie counts and the backward's dgx and dgf are held bit-equal to that
 oracle, and the maxima also within one bf16 step of the plain version
 (`group_mlp_fwd_bf16_plain`, whose float32 sums run in another order). The
-cases: the victims' shapes at a few groups (SSG SA1, SA2 and GroupAll, MSG
-SA1's three scales and GroupAll at cf = 640), groups split over tiles
-(GroupAll, ns = 200) with rows tied across the parts, widths that are not
-multiples of 16, and duplicated rows. Outputs start as NaN or -1 and the
-program fails on a write past one; each plan (tile rows, parts, shared
-memory) must be the one `group_mlp_kernel.bf16_plan` predicts, also at the
-victims' full shapes.
+backward runs its kernel with resident weights wherever its plan fits (the
+staged one at the GroupAll widths), on persistent blocks for the case's
+SM count; every bulk copy must read inside one input tensor. The cases:
+the victims' shapes at a few groups (SSG SA1, SA2 and GroupAll, MSG SA1's
+three scales and GroupAll at cf = 640), groups split over tiles (GroupAll,
+ns = 200, and SA2's widths at the shared-memory limit with ns = 300 in five
+parts on one block) with rows tied across the parts, more tiles than
+persistent blocks with a ragged last tile, tiles whose rows or group values
+do not start and end on 16-byte lines, widths past the resident plan,
+widths that are not multiples of 16, and duplicated rows. Outputs start as
+NaN or -1 and the program fails on a write past one; each plan (tile rows,
+parts, weight stages, shared memory) must be the one
+`group_mlp_kernel.bf16_plan` predicts, also at the victims' full shapes.
 
 The emulation checks the kernels' indices, fragment layouts, staging and
 barriers, not the tensor cores' rounding nor speed: `chip_smoke.py` holds
@@ -37,19 +43,34 @@ import torch
 from geoa3_tpu_torch.ops.kernels import group_mlp_kernel as gk
 from tests.test_torch_group_mlp_emulated import CSRC, EMU, _rewrite
 
-# label -> (groups, ns, cf, widths, rows of each group that repeat its row 0)
+# label -> (groups, ns, cf, widths, rows of each group that repeat its row 0,
+# SMs the persistent grid is sized for)
 CASES = {
-    "SSG SA1 (one group a tile)": (3, 64, 0, (64, 64, 128), (1, 9, 40)),
-    "SSG SA2 (cf=128)": (2, 64, 128, (128, 128, 256), (1, 2)),
+    "SSG SA1 (one group a tile)": (3, 64, 0, (64, 64, 128), (1, 9, 40), 1),
+    "SSG SA2 (cf=128)": (2, 64, 128, (128, 128, 256), (1, 2), 1),
     "SSG GroupAll (cf=256, split over tiles, ties across the parts)":
-        (1, 128, 256, (256, 512, 1024), (1, 31, 32, 63, 64, 127)),
-    "MSG SA1 ns=16 (groups a tile, a ragged last tile)": (13, 16, 0, (32, 32, 64), (3,)),
-    "MSG SA1 ns=32": (5, 32, 0, (64, 64, 128), (31,)),
-    "MSG SA1 ns=128 (a 96-column layer)": (2, 128, 0, (64, 96, 128), (5, 127)),
-    "MSG GroupAll cf=640": (1, 128, 640, (256, 512, 1024), (1, 64, 100)),
-    "widths 24/40/36, ns=24, cf=16": (5, 24, 16, (24, 40, 36), (5, 23)),
-    "ns=200 split in two, cf=32": (2, 200, 32, (32, 32, 64), (0, 127, 128, 199)),
+        (1, 128, 256, (256, 512, 1024), (1, 31, 32, 63, 64, 127), 1),
+    "MSG SA1 ns=16 (groups a tile, a ragged last tile)":
+        (13, 16, 0, (32, 32, 64), (3,), 1),
+    "MSG SA1 ns=32": (5, 32, 0, (64, 64, 128), (31,), 1),
+    "MSG SA1 ns=128 (a 96-column layer)": (2, 128, 0, (64, 96, 128), (5, 127), 1),
+    "MSG GroupAll cf=640": (1, 128, 640, (256, 512, 1024), (1, 64, 100), 1),
+    "widths 24/40/36, ns=24, cf=16": (5, 24, 16, (24, 40, 36), (5, 23), 1),
+    "ns=200 split in two, cf=32": (2, 200, 32, (32, 32, 64), (0, 127, 128, 199), 1),
+    "5 tiles on 4 persistent blocks (2 SMs), a ragged last tile":
+        (37, 16, 0, (32, 32, 64), (7,), 2),
+    "SA2 widths at the shared-memory limit, ns=300 in 5 parts on one block":
+        (2, 300, 128, (128, 128, 256), (0, 63, 64, 299), 1),
+    "widths 128/256/512 at cf=128 (past the resident plan: staged)":
+        (1, 32, 128, (128, 256, 512), (1, 31), 1),
+    "ns=33, c3=37 (gx, group values and dgx off 16-byte lines: read and "
+    "stored in place)": (7, 33, 0, (32, 32, 37), (4, 32), 1),
 }
+
+# the cases whose backward runs the staged kernel (weights past the plan)
+STAGED = {"SSG GroupAll (cf=256, split over tiles, ties across the parts)",
+          "MSG GroupAll cf=640",
+          "widths 128/256/512 at cf=128 (past the resident plan: staged)"}
 
 # the victims' full shapes (groups at b = 32), planned only
 PLANS = {
@@ -87,7 +108,7 @@ def _inputs(case):
     """gx, gf (bf16; the tied rows repeat their group's row 0), the fold
     (bf16 weights at He-like scale, bf16 biases) and g (float32 holding bf16
     values, some entries 0)."""
-    groups, ns, cf, widths, tied = CASES[case]
+    groups, ns, cf, widths, tied, _ = CASES[case]
     rng = np.random.RandomState(len(case))
     gx = torch.from_numpy(0.3 * rng.randn(groups, 1, ns, 3).astype(np.float32))
     gf = (torch.from_numpy(np.maximum(rng.randn(groups, 1, ns, cf), 0).astype(np.float32))
@@ -112,7 +133,7 @@ def _run(emulated, case):
     exe, build, cache = emulated
     if case in cache:
         return cache[case]
-    groups, ns, cf, (c1, c2, c3), _ = CASES[case]
+    groups, ns, cf, (c1, c2, c3), _, sms = CASES[case]
     gx, gf, p, g = _inputs(case)
     bits = lambda t: t.contiguous().view(torch.int16).numpy().tobytes()  # noqa: E731
     blob = [bits(gx), bits(gf) if gf is not None else b""]
@@ -124,7 +145,7 @@ def _run(emulated, case):
     src, dst = build / f"in_{tag}.bin", build / f"out_{tag}.bin"
     src.write_bytes(b"".join(blob))
     res = subprocess.run([str(exe), str(src), str(dst), str(groups), str(ns),
-                          str(cf), str(c1), str(c2), str(c3)],
+                          str(cf), str(c1), str(c2), str(c3), str(sms)],
                          capture_output=True, text=True, timeout=600)
     assert res.returncode == 0, res.stdout + res.stderr
     raw = dst.read_bytes()
@@ -154,7 +175,7 @@ def _chain(a, w):
 def _oracle(case):
     """The emulated kernels' outputs, step by step: the padded layers as
     fmaf chains, the pool, and the backward through the same roundings."""
-    groups, ns, cf, (c1, c2, c3), _ = CASES[case]
+    groups, ns, cf, (c1, c2, c3), _, _ = CASES[case]
     gx, gf, p, g = _inputs(case)
     x = torch.zeros(groups * ns, 16 + cf)
     x[:, :3] = gx.float().reshape(-1, 3)
@@ -198,15 +219,29 @@ def test_backward_source_matches_the_oracle(emulated, case):
     assert got["dgx"].abs().max() > 0  # some cotangent reached the rows
 
 
+def _bwd_plan(out):
+    """The backward's printed plan: rows, parts, smem, depth, tiles, grid."""
+    return tuple(map(int, re.search(
+        r"bwd rows=(\d+) parts=(\d+) smem=(\d+) depth=(\d+) tiles=(\d+) grid=(\d+)",
+        out).groups()))
+
+
 @pytest.mark.parametrize("case", sorted(CASES))
 def test_plans_match_the_wrapper(emulated, case):
-    _, ns, cf, widths, _ = CASES[case]
+    groups, ns, cf, widths, _, sms = CASES[case]
     out = _run(emulated, case)["plans"]
-    for kind, bwd in (("fwd", False), ("bwd", True)):
-        rows, parts, smem = map(int, re.search(
-            rf"{kind} rows=(\d+) parts=(\d+) smem=(\d+)", out).groups())
-        plan = gk.bf16_plan(ns, cf, widths, bwd)
-        assert (rows, parts, smem) == (plan.rows, plan.parts, plan.smem), out
+    rows, parts, smem = map(int, re.search(
+        r"fwd rows=(\d+) parts=(\d+) smem=(\d+)", out).groups())
+    plan = gk.bf16_plan(ns, cf, widths, False)
+    assert (rows, parts, smem) == (plan.rows, plan.parts, plan.smem), out
+    rows, parts, smem, depth, tiles, grid = _bwd_plan(out)
+    plan = gk.bf16_plan(ns, cf, widths, True)
+    assert (rows, parts, smem, depth) == (plan.rows, plan.parts, plan.smem,
+                                          plan.depth), out
+    assert (depth > 0) == (case in STAGED), out
+    assert tiles == (groups * parts if parts > 1 else -(-groups // (rows // ns)))
+    if depth == 0:  # persistent: as many blocks as 1-2 an SM, at most one a tile
+        assert grid == min(tiles, sms * (2 if smem <= 113 * 1024 else 1)), out
 
 
 @pytest.mark.parametrize("shape", sorted(PLANS))
@@ -216,9 +251,14 @@ def test_full_shapes_plan_as_the_wrapper(emulated, shape):
     res = subprocess.run([str(exe), "plan", "-", str(groups), str(ns), str(cf),
                           *map(str, widths)], capture_output=True, text=True, timeout=60)
     assert res.returncode == 0, res.stdout + res.stderr
-    for kind, bwd in (("fwd", False), ("bwd", True)):
-        rows, parts, smem = map(int, re.search(
-            rf"{kind} rows=(\d+) parts=(\d+) smem=(\d+)", res.stdout).groups())
-        plan = gk.bf16_plan(ns, cf, widths, bwd)
-        assert (rows, parts, smem) == (plan.rows, plan.parts, plan.smem) and \
-            smem <= 232448, res.stdout
+    rows, parts, smem = map(int, re.search(
+        r"fwd rows=(\d+) parts=(\d+) smem=(\d+)", res.stdout).groups())
+    plan = gk.bf16_plan(ns, cf, widths, False)
+    assert (rows, parts, smem) == (plan.rows, plan.parts, plan.smem) and \
+        smem <= 232448, res.stdout
+    rows, parts, smem, depth = _bwd_plan(res.stdout)[:4]
+    plan = gk.bf16_plan(ns, cf, widths, True)
+    assert (rows, parts, smem, depth) == (plan.rows, plan.parts, plan.smem,
+                                          plan.depth) and smem <= 232448, res.stdout
+    # the resident weights serve every victim shape but GroupAll's
+    assert (depth == 0) == ("GroupAll" not in shape and "1024" not in shape), res.stdout
