@@ -157,8 +157,11 @@ nothing: those of this checkout, or those of the checkout at DIR (say a
 `git archive` of another commit under `build/`), so that two commits are
 timed on the same inputs in one call. Row 16, the grouped MLP: the seven
 PointNet++ shapes, and for this checkout the wider GroupAll ones; with
-`--tree`, this checkout's bf16 backward also runs beside the other's on the
-same inputs, with the count of dgx / dgf elements whose bits differ. Row 17,
+`--tree`, this checkout's bf16 forward also runs beside the other's on the
+same inputs, with the count of pooled / cnt elements whose bits differ, and
+this checkout's bf16 backward on this forward's outputs beside the other's
+backward on its own, with the count of dgx / dgf elements whose bits
+differ. Row 17,
 the whole-scale kernels: MSG SA2's three scales and SA1's three with
 normals, with the forward's device time by kernel (torch.profiler) and the
 split pair beside it, and for this checkout the backward built without
@@ -1386,18 +1389,20 @@ def group_mlp_times_phase(torch) -> dict:
     `group_mlp_inputs`' inputs, as phase 2 times them, with no check run;
     then, where the checkout has them, the single-pass bf16 kernels at the
     seven shapes (`group_mlp_bf16_inputs`). With `--tree`, this checkout's
-    bf16 backward (its csrc/group_mlp_bf16.cu built alone) also runs on the
-    same inputs as the other checkout's, and the elements of dgx / dgf whose
-    bits differ are counted (`differ`)."""
+    bf16 kernels (its csrc/group_mlp_bf16.cu built alone) also run on the
+    same inputs as the other checkout's: the elements of pooled / cnt whose
+    bits differ between the two forwards are counted (`fwd_differ`), and
+    those of dgx / dgf between this checkout's backward on this forward's
+    outputs and the other's backward on its own (`differ`)."""
     from geoa3_tpu_torch.ops.kernels import _build, group_mlp_kernel as gk
 
     print(f"grouped-MLP times of {gk.__file__}")
     wide = CODE == REPO
     this = (None if wide else variant_entry(
-        "group_mlp_bf16.cu", None, ("geoa3_group_mlp_bwd_bf16",),
+        "group_mlp_bf16.cu", None, ("geoa3_group_mlp_fwd_bf16", "geoa3_group_mlp_bwd_bf16"),
         REPO / "geoa3_tpu_torch" / "csrc"))
     _build.lib()
-    this = this and this()["geoa3_group_mlp_bwd_bf16"]
+    this = this and this()
     gen = torch.Generator(device="cuda").manual_seed(19)
     out = {}
     for victim in ("SSG", "MSG") + (("wide",) if wide else ()):
@@ -1416,32 +1421,60 @@ def group_mlp_times_phase(torch) -> dict:
             r_ = out[label + " bf16"] = group_mlp_bf16_times(torch, gk, gx_, gf_, p_,
                                                              pooled, cnt, g_all)
             if this:
-                r_["differ"] = bwd_bf16_differ(torch, gk, this, g_all, gx_, gf_, p_,
-                                               pooled, cnt)
+                r_["fwd_differ"], ours = fwd_bf16_differ(
+                    torch, this["geoa3_group_mlp_fwd_bf16"], gx_, gf_, p_, pooled, cnt)
+                r_["differ"] = bwd_bf16_differ(
+                    torch, gk, this["geoa3_group_mlp_bwd_bf16"], g_all, gx_, gf_, p_,
+                    (pooled, cnt), ours)
             print(f"  group_mlp_bf16[{label}]: " + group_mlp_times_line(r_)
-                  + (f"; dgx/dgf elements whose bits differ from this checkout's "
-                     f"backward: {r_['differ']}" if this else ""), flush=True)
+                  + (f"; pooled/cnt elements whose bits differ from this checkout's "
+                     f"forward: {r_['fwd_differ']}; dgx/dgf elements whose bits differ "
+                     f"from this checkout's backward on its forward's outputs: "
+                     f"{r_['differ']}" if this else ""), flush=True)
     return out
 
 
-def bwd_bf16_differ(torch, gk, fn, g_all, gx_, gf_, p_, pooled, cnt) -> int:
-    """The elements of dgx and dgf whose bits differ between the running
-    checkout's bf16 backward and `fn` (another build's C entry
-    geoa3_group_mlp_bwd_bf16) on the same inputs; fn's outputs start as
-    NaN."""
-    want = [t for t in gk.group_mlp_bwd_bf16(g_all, gx_, gf_, p_, pooled, cnt)
-            if t is not None]
-    got = [torch.full_like(t, math.nan) for t in want]
-    b_, m_, ns_, _ = gx_.shape
-    args = (gx_, gf_, p_.kw1, p_.kb1, p_.kw2, p_.kb2, p_.kw3, p_.kb3, p_.kw1t, p_.kw2t,
-            p_.kw3t, pooled, cnt, g_all, b_ * m_, ns_,
-            0 if gf_ is None else gf_.shape[-1], p_.w1.shape[1], p_.w2.shape[1],
-            p_.w3.shape[1], got[0], got[1] if len(got) > 1 else None)
+def _call_entry(torch, fn, name, *args) -> None:
+    """Another build's C entry `fn` on the current stream (tensors by their
+    pointers), synchronised; fails on its error code."""
     err = fn(*[a.data_ptr() if isinstance(a, torch.Tensor) else a for a in args],
              torch.cuda.current_stream().cuda_stream)
     if err:
-        _fail(f"this checkout's geoa3_group_mlp_bwd_bf16 failed with error {err}")
+        _fail(f"this checkout's {name} failed with error {err}")
     torch.cuda.synchronize()
+
+
+def fwd_bf16_differ(torch, fn, gx_, gf_, p_, pooled, cnt):
+    """The elements of pooled and cnt whose bits differ between the running
+    checkout's bf16 forward (pooled, cnt) and `fn` (another build's C entry
+    geoa3_group_mlp_fwd_bf16) on the same inputs, and fn's (pooled, cnt),
+    which start as NaN and -1. fn's scratch has room for a split group at
+    any tile height."""
+    got = torch.full_like(pooled, math.nan), torch.full_like(cnt, -1)
+    b_, m_, ns_, _ = gx_.shape
+    c3 = p_.w3.shape[1]
+    scratch = torch.empty(2 * b_ * m_ * -(-ns_ // 16) * c3, dtype=torch.int32,
+                          device="cuda")
+    _call_entry(torch, fn, "geoa3_group_mlp_fwd_bf16", gx_, gf_, p_.kw1, p_.kb1, p_.kw2,
+                p_.kb2, p_.kw3, p_.kb3, b_ * m_, ns_, 0 if gf_ is None else gf_.shape[-1],
+                p_.w1.shape[1], p_.w2.shape[1], c3, got[0], got[1], scratch)
+    return (int((got[0].view(torch.int32) != pooled.view(torch.int32)).sum())
+            + int((got[1] != cnt).sum())), got
+
+
+def bwd_bf16_differ(torch, gk, fn, g_all, gx_, gf_, p_, theirs, ours) -> int:
+    """The elements of dgx and dgf whose bits differ between the running
+    checkout's bf16 backward on its forward's (pooled, cnt) `theirs` and
+    `fn` (another build's C entry geoa3_group_mlp_bwd_bf16) on `ours`;
+    fn's outputs start as NaN."""
+    want = [t for t in gk.group_mlp_bwd_bf16(g_all, gx_, gf_, p_, *theirs)
+            if t is not None]
+    got = [torch.full_like(t, math.nan) for t in want]
+    b_, m_, ns_, _ = gx_.shape
+    _call_entry(torch, fn, "geoa3_group_mlp_bwd_bf16", gx_, gf_, p_.kw1, p_.kb1, p_.kw2,
+                p_.kb2, p_.kw3, p_.kb3, p_.kw1t, p_.kw2t, p_.kw3t, *ours, g_all,
+                b_ * m_, ns_, 0 if gf_ is None else gf_.shape[-1], p_.w1.shape[1],
+                p_.w2.shape[1], p_.w3.shape[1], got[0], got[1] if len(got) > 1 else None)
     return sum(int((g.view(torch.int32) != w.view(torch.int32)).sum())
                for g, w in zip(got, want))
 
@@ -1608,8 +1641,15 @@ def group_mlp_bf16_checks(torch) -> list[dict]:
             r_.update(group_mlp_bf16_times(torch, gk, gx_, gf_, p_, r_.pop("pooled"),
                                            r_.pop("cnt"), randn(*gx_.shape[:2],
                                                                 p_.w3.shape[1])))
+            widths = (p_.w1.shape[1], p_.w2.shape[1], p_.w3.shape[1])
+            for k in ("fwd", "bwd"):  # the device kernel the C entry's plan picks
+                plan = gk.bf16_plan(gx_.shape[2], 0 if gf_ is None else gf_.shape[-1],
+                                    widths, k == "bwd")
+                r_[k + "_kernel"] = f"gmlp_bf16_{k}_" + (
+                    "resident" if plan.depth == 0 else "tiles")
             rows[label] = r_
-            print(f"  group_mlp_bf16[{label}]: " + group_mlp_times_line(r_), flush=True)
+            print(f"  group_mlp_bf16[{label}] ({r_['fwd_kernel']}, {r_['bwd_kernel']}): "
+                  + group_mlp_times_line(r_), flush=True)
     for label in ("SSG SA3", "MSG GroupAll cf=640"):
         if rows[label]["across"] == 0:
             _fail(f"group_mlp_fwd_bf16[{label}]: no maximum is tied across two "
@@ -1620,7 +1660,7 @@ def group_mlp_bf16_checks(torch) -> list[dict]:
 
     def others(k1, k2):
         return "; ".join(
-            f"{lab}: ms={r[k1]:.4f} ten={r[k1[:3] + '_ten']:.4f} "
+            f"{lab} ({r[k1[:3] + '_kernel']}): ms={r[k1]:.4f} ten={r[k1[:3] + '_ten']:.4f} "
             f"plain={r[k1[:3] + '_plain']:.4f} bound_ms={r[k2][0]:.4f}"
             for lab, r in rows.items() if lab != "SSG SA2")
 
@@ -1628,14 +1668,16 @@ def group_mlp_bf16_checks(torch) -> list[dict]:
           "geoa3_tpu/ops/pallas/group_mlp_kernel.py:158",
           max(r["fwd_err"] for r in rows.values()), r2_["fwd_ms"],
           r2_["fwd_plain"], r2_["fwd_bound"], None,
-          "single-pass bf16: SSG SA2 rows 32*128*64 x (131->128->128->256) -> "
-          f"[32,128,256] (ten back to back: {r2_['fwd_ten']:.4f}); "
+          f"single-pass bf16 ({r2_['fwd_kernel']} where the weights fit beside a "
+          "tile, else gmlp_bf16_fwd_tiles): SSG SA2 rows 32*128*64 x "
+          f"(131->128->128->256) -> [32,128,256] (ten back to back: {r2_['fwd_ten']:.4f}); "
           + others("fwd_ms", "fwd_bound"))
     entry("group_mlp_bwd_bf16", "geoa3_tpu_torch/csrc/group_mlp_bf16.cu",
           "geoa3_tpu/ops/pallas/group_mlp_kernel.py:177",
           max(r["bwd_err"] for r in rows.values()), r2_["bwd_ms"],
           r2_["bwd_plain"], r2_["bwd_bound"], None,
-          "single-pass bf16: SSG SA2 -> dgx [32,128,64,3], dgf [32,128,64,128] "
+          f"single-pass bf16 ({r2_['bwd_kernel']} where the weights fit beside a "
+          "tile, else gmlp_bf16_bwd_tiles): SSG SA2 -> dgx [32,128,64,3], dgf [32,128,64,128] "
           f"float32 (ten back to back: {r2_['bwd_ten']:.4f}; max_abs_err: the "
           "largest row error, on a row where another order of the sums switched "
           "a ReLU; relative L2 within 2^-7); " + others("bwd_ms", "bwd_bound"))

@@ -42,33 +42,47 @@
 //    exactly where z <= 0, but for 0 < z < 2^-134, which bf16 rounds to 0)
 //    and overwritten in place by the cotangent.
 //
-// The backward with the weights resident (gmlp_bf16_bwd_resident) serves
-// every shape whose weights fit in shared memory beside a tile of 16 rows
-// or more (`res_plan`): the victims' SA1 layers (SSG, and MSG's three
-// scales) and SSG's SA2 (135 KB of weights beside 64-row tiles). The
-// GroupAll layers (widths 256/512/1024 at cf = 256 and 640: 1.45-1.6 MB of
-// weights) and any other shape past that take the staged backward above.
-// Persistent blocks (as many as the SMs hold) walk the tiles; at its start
-// a block bulk-copies (TMA, csrc/tma.cuh) W1, W2, W3 and the biases into
-// shared memory once, a row a copy into rows padded by 8 (ldmatrix reads
-// them without bank conflicts), and the W^T products read the same rows
-// by ldmatrix without .trans. While a tile computes, one thread bulk-copies
-// the next tile's gx and gf rows (one copy each: a tile's rows are
-// contiguous) and its groups' pooled, cotangent and cnt into a landing
-// buffer; a piece that does not start and end on 16-byte lines is read in
-// place instead. Layer 1's input is spread from there into padded rows,
-// and g / cnt computed once a (group, column) (the staged kernel's
-// division), so the dz3 epilogue reads shared memory only and never
-// divides. Each of the six products runs its whole K from shared memory
-// with no barrier, the next k-step's fragments loaded before this one's
-// mmas, on warp tiles fitted to its width (`pick_unit`), with one block
-// barrier between layers; every epilogue is an inlined functor. dgx and
-// dgf are staged in shared memory and written as 16-byte stores of the tile's
-// contiguous rows. The
-// sums are the staged backward's: mma.sync from ldmatrix with each output's
-// k16 steps ascending from 0, then + bias by __fadd_rn, so z, a1, a2 and
-// the ties are bitwise the forward's, and dgx / dgf bitwise the staged
-// backward's.
+// The kernels with the weights resident (gmlp_bf16_fwd_resident,
+// gmlp_bf16_bwd_resident) serve every shape whose weights fit in shared
+// memory beside a tile of 16 rows or more (`res_plan`): the victims' SA1
+// layers (SSG, and MSG's three scales) and SSG's SA2 (135 KB of weights
+// beside 64-row tiles). The GroupAll layers (widths 256/512/1024 at cf =
+// 256 and 640: 1.45-1.6 MB of weights) and any other shape past that take
+// the staged kernels above. Persistent blocks (as many as the SMs hold)
+// walk the tiles; at its start a block bulk-copies (TMA, csrc/tma.cuh) W1,
+// W2, W3 and the biases into shared memory once, a row a copy into rows
+// padded by 8 (ldmatrix reads them without bank conflicts), and the
+// backward's W^T products read the same rows by ldmatrix without .trans.
+// While a tile computes, one thread bulk-copies the next tile's gx and gf
+// rows (one copy each: a tile's rows are contiguous), and for the backward
+// its groups' pooled, cotangent and cnt, into a landing buffer; a piece
+// that does not start and end on 16-byte lines is read in place instead.
+// Layer 1's input is spread from there into padded rows. Each product runs
+// its whole K from shared memory with no barrier, on warp tiles fitted to
+// its width (`pick_unit`), with one block barrier between layers; every
+// epilogue is an inlined functor.
+//  - The forward's pool stays in registers: layer 3's epilogue takes each
+//    thread's maximum of relu(z3 + b3) and its ties over its rows of a
+//    segment (the unit's rows where they lie in one group, else an m16
+//    tile's), merges them over the 8 lanes that hold the same columns by
+//    shuffles (lanes swap halves of their columns, so each shuffle carries
+//    one that its receiver keeps) and writes one (maximum, ties) partial a
+//    segment and column over a1, which is dead after layer 2. After one
+//    barrier each (group, column) merges its group's partials, in any order
+//    the same (the maximum is exact, counts add), and stores them as
+//    16-byte stores (pooled and cnt of a tile's groups are contiguous).
+//    Where groups do not lie on m16 tiles (ns % 16 != 0), the epilogue
+//    writes each row's value and 8 lanes an entry merge its rows; a split
+//    group's parts write pmax / pcnt for gmlp_bf16_fwd_finish, as the staged
+//    forward does.
+//  - The backward computes g / cnt once a (group, column) (the staged
+//    kernel's division), so the dz3 epilogue reads shared memory only and
+//    never divides; dgx and dgf are staged in shared memory and written as
+//    16-byte stores of the tile's contiguous rows.
+// The sums are the staged kernels': mma.sync from ldmatrix with each
+// output's k16 steps ascending from 0, then + bias by __fadd_rn, so z, a1,
+// a2, the maxima and the ties are bitwise the staged forward's, and dgx /
+// dgf bitwise the staged backward's.
 #include "mma_bf16.cuh"
 #include "tma.cuh"
 
@@ -484,7 +498,7 @@ gmlp_bf16_bwd_tiles(const uint16_t* __restrict__ gx, const uint16_t* __restrict_
   }
 }
 
-// ------------------------------------- the backward with resident weights
+// ------------------------------------------- the kernels with resident weights
 
 // warp tiles of a product: MI m16 tiles by NJ n8 tiles
 constexpr int kUnits[5][2] = {{2, 6}, {2, 4}, {1, 4}, {2, 2}, {1, 2}};
@@ -514,23 +528,28 @@ int units_of(int unit, int rows, int N) {
 
 size_t round16(size_t bytes) { return (bytes + 15) / 16 * 16; }
 
-// The resident backward's plan: the tile rows, each product's warp tile
-// and the shared memory, as byte offsets: W1, W2, W3 as bf16 rows of the
-// padded width + 8, the biases (float32), a1, a2, then U (layer 1's input
-// X [rows][k1 + 8], later dz3 [rows][c3p + 8]), the landing buffer (gx's
-// rows, gf's rows, then pooled, the cotangent (overwritten by g / cnt) and
-// cnt of the tile's groups, gd bytes each) and two mbarriers (the
-// weights', the landing buffer's).
-// The float32 dgf [rows][cf + 8] and dgx [rows][3] are staged over a2 and
-// U, which are dead by then.
+// The resident kernels' plan: the tile rows, each product's warp tile and
+// the shared memory, as byte offsets: W1, W2, W3 as bf16 rows of the padded
+// width + 8, the biases (float32), a1, a2, then U, the landing buffer and
+// two mbarriers (the weights', the landing buffer's).
+// The backward: U holds layer 1's input X [rows][k1 + 8], later dz3
+// [rows][c3p + 8]; the landing buffer gx's rows, gf's rows, then pooled,
+// the cotangent (overwritten by g / cnt) and cnt of the tile's groups, gd
+// bytes each. The float32 dgf [rows][cf + 8] and dgx [rows][3] are staged
+// over a2 and U, which are dead by then.
+// The forward: U holds X, the landing buffer gx's and gf's rows; the pool's
+// partials (`PoolInto`: [rows / 16][lp] maxima, then as many tie counts;
+// where groups are off m16 tiles, [rows][lp] row values) lie over a1, dead
+// after layer 2, whose region grows to hold them.
 struct Res {
   int rows, gd, first6;  // first6: the warp that takes dgf's first unit
   int gmul;              // a tile row's group: (row * gmul) >> 16
+  int seg, lp;           // the forward's rows a pool partial (1: a row's value), their row
   int unit[7];           // L1, L2, L3, dz3 W3^T, dz2 W2^T, dgx's and dgf's part of dz1 W1^T
   size_t w1, w2, w3, bias, a1, a2, u, land, bars, smem;
 };
 
-void res_layout(Res& r, const Shape& s, int rows) {
+void res_layout(Res& r, const Shape& s, int rows, bool bwd) {
   const int gpt = s.ns > rows ? 1 : rows / s.ns;
   size_t o = 0;
   auto take = [&](size_t bytes) {
@@ -539,19 +558,30 @@ void res_layout(Res& r, const Shape& s, int rows) {
     return at;
   };
   r.rows = rows;
+  r.lp = s.c3p + 4;
   r.w1 = take((size_t)s.k1 * (s.c1p + 8) * 2);
   r.w2 = take((size_t)s.c1p * (s.c2p + 8) * 2);
   r.w3 = take((size_t)s.c2p * (s.c3p + 8) * 2);
   r.bias = take((size_t)(s.c1p + s.c2p + s.c3p) * 4);
-  r.a1 = take((size_t)rows * (s.c1p + 8) * 2);
-  const size_t a2 = (size_t)rows * (s.c2p + 8) * 2;
-  size_t u = std::max((size_t)rows * (s.k1 + 8) * 2, (size_t)rows * (s.c3p + 8) * 2);
-  const size_t out = (size_t)rows * 12 + (s.cf ? (size_t)rows * (s.cf + 8) * 4 : 0);
-  if (out > a2 + u) u = out - a2;
-  r.a2 = take(a2);
-  r.u = take(u);
-  r.gd = (int)round16((size_t)gpt * s.c3 * 4);
-  r.land = take((size_t)rows * 6 + (size_t)rows * s.cf * 2 + 3 * (size_t)r.gd);
+  const size_t a1 = (size_t)rows * (s.c1p + 8) * 2, a2 = (size_t)rows * (s.c2p + 8) * 2;
+  const size_t x = (size_t)rows * (s.k1 + 8) * 2;
+  if (bwd) {
+    r.a1 = take(a1);
+    size_t u = std::max(x, (size_t)rows * (s.c3p + 8) * 2);
+    const size_t out = (size_t)rows * 12 + (s.cf ? (size_t)rows * (s.cf + 8) * 4 : 0);
+    if (out > a2 + u) u = out - a2;
+    r.a2 = take(a2);
+    r.u = take(u);
+    r.gd = (int)round16((size_t)gpt * s.c3 * 4);
+    r.land = take((size_t)rows * 6 + (size_t)rows * s.cf * 2 + 3 * (size_t)r.gd);
+  } else {
+    const size_t pool = s.ns > rows || s.ns % 16 == 0 ? (size_t)rows / 16 * r.lp * 8
+                                                      : (size_t)rows * r.lp * 4;
+    r.a1 = take(std::max(a1, pool));
+    r.a2 = take(a2);
+    r.u = take(x);
+    r.land = take((size_t)rows * 6 + (size_t)rows * s.cf * 2);
+  }
   r.bars = take(16);
   r.smem = o;
 }
@@ -559,13 +589,15 @@ void res_layout(Res& r, const Shape& s, int rows) {
 // the largest of 128, 64 and 32 rows whose block leaves room for two an SM,
 // else the largest of 128 .. 16 that fits one (make_shape's rule); false
 // where none does (the weights alone are too large)
-bool res_plan(Shape& s, Res& r, int groups, int ns, int cf, int c1, int c2, int c3) {
+bool res_plan(Shape& s, Res& r, int groups, int ns, int cf, int c1, int c2, int c3,
+              bool bwd) {
   s = Shape{groups, ns, cf, c1, c2, c3, 16 + cf, pad16(c1), pad16(c2), pad16(c3),
             0, 0, 0, 0};
+  r = Res{};
   const int heights[4] = {128, 64, 32, 16};
   for (int pass = 0; pass < 2 && !s.rows; ++pass)
     for (int i = 0; i < (pass ? 4 : 3) && !s.rows; ++i) {
-      res_layout(r, s, heights[i]);
+      res_layout(r, s, heights[i], bwd);
       if (r.smem <= (pass ? geoa3::kSmemMax : geoa3::kSmemHalf)) s.rows = heights[i];
     }
   if (!s.rows) return false;
@@ -577,6 +609,15 @@ bool res_plan(Shape& s, Res& r, int groups, int ns, int cf, int c1, int c2, int 
     s.parts = 1;
     s.gpt = s.rows / ns;
     s.tiles = (groups + s.gpt - 1) / s.gpt;
+  }
+  if (!bwd) {
+    const int widths[3] = {s.c1p, s.c2p, s.c3p};
+    for (int i = 0; i < 3; ++i) r.unit[i] = pick_unit(s.rows, widths[i]);
+    // a segment: a unit's rows of layer 3 where they lie in one group, else
+    // an m16 tile's (groups on m16 tiles), else a row
+    const int mi = kUnits[r.unit[2]][0];
+    r.seg = s.parts > 1 || ns % (16 * mi) == 0 ? 16 * mi : ns % 16 == 0 ? 16 : 1;
+    return true;
   }
   const int widths[7] = {s.c1p, s.c2p, s.c3p, s.c2p, s.c1p, 16, cf};
   for (int i = 0; i < 7; ++i) r.unit[i] = pick_unit(s.rows, widths[i]);
@@ -621,11 +662,174 @@ __device__ __forceinline__ void res_mma(float (&acc)[MI][NJ][4], const uint32_t 
     for (int j = 0; j < NJ; ++j) mma_m16n8k16_bf16(acc[mi][j], a[mi], b[j][0], b[j][1]);
 }
 
+// A unit's epilogue: epi(row, column, value, value at the next column) for
+// each pair of the thread's accumulators (rows g and g + 8 of each m16
+// tile, columns 2q and 2q + 1 of each n8 tile); `PoolInto` has its own.
+template <int MI, int NJ, class Epi>
+__device__ __forceinline__ void unit_epi(const Epi& epi, float (&acc)[MI][NJ][4], int r0,
+                                         int c0, int lane) {
+  const int g = lane >> 2, q = lane & 3;
+#pragma unroll
+  for (int mi = 0; mi < MI; ++mi)
+#pragma unroll
+    for (int j = 0; j < NJ; ++j)
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+        epi(r0 + mi * 16 + g + 8 * h, c0 + j * 8 + 2 * q, acc[mi][j][2 * h],
+            acc[mi][j][2 * h + 1]);
+}
+
+// the larger of two (maximum, tie count) pairs with the ties of both where
+// they are equal: the same in any order (the maximum is exact, counts add)
+__device__ __forceinline__ void merge_max(float& m, int& k, float m2, int k2) {
+  const float mx = fmaxf(m, m2);
+  k = (m == mx ? k : 0) + (m2 == mx ? k2 : 0);
+  m = mx;
+}
+
+// The forward's layer 3: the pool's partials of relu(z3 + b3), with -1
+// (below every relu output) on rows past the tile's. Where seg > 1, the
+// (maximum, ties) of each segment of seg rows (16 MI: the unit's rows,
+// where they lie in one group; 16: an m16 tile's) and column, merged in
+// registers over the thread's rows, then over the lanes by shuffles, into
+// pm / pc [segment][ld]; where seg is 1 (groups off m16 tiles) each row's
+// value into pm [row][ld].
+struct PoolInto {
+  float* pm;
+  int* pc;
+  int ld;
+  const float* b3;
+  int nrows, seg;
+};
+
+// the entries a lane keeps once lanes_pool has merged V over 8 lanes
+__host__ __device__ constexpr int pool_left(int n, int mask = 4) {
+  return mask > 16 ? n : pool_left(n % 2 ? n : n / 2, mask * 2);
+}
+
+// The 8 lanes that share lane % 4 hold the same columns of other rows
+// (entry e = 2 j + e' of a unit: column 8 j + 2 (lane % 4) + e'). While a
+// lane's entries are even in number, lanes MASK apart swap halves (the lane
+// with the bit set keeps the upper half) and merge what they receive, so
+// each shuffle carries an entry that its receiver keeps; an odd number is
+// merged in place, both lanes keeping all. On return a lane holds entries
+// idx + [0, pool_left(V)) merged over the 8 lanes; lanes with a bit of dup
+// set hold copies.
+template <int N, int MASK, int V>
+__device__ __forceinline__ void lanes_pool(float (&m)[V], int (&k)[V], int lane, int& idx,
+                                           int& dup) {
+  if constexpr (MASK <= 16) {
+    if constexpr (N % 2 == 0) {
+      constexpr int H = N / 2;
+      const bool up = lane & MASK;
+#pragma unroll
+      for (int i = 0; i < H; ++i) {
+        const float om = __shfl_xor_sync(0xffffffffu, up ? m[i] : m[i + H], MASK);
+        const int ok = __shfl_xor_sync(0xffffffffu, up ? k[i] : k[i + H], MASK);
+        if (up) {
+          m[i] = m[i + H];
+          k[i] = k[i + H];
+        }
+        merge_max(m[i], k[i], om, ok);
+      }
+      if (up) idx += H;
+      lanes_pool<H, MASK * 2>(m, k, lane, idx, dup);
+    } else {
+#pragma unroll
+      for (int i = 0; i < N; ++i) {
+        const float om = __shfl_xor_sync(0xffffffffu, m[i], MASK);
+        const int ok = __shfl_xor_sync(0xffffffffu, k[i], MASK);
+        merge_max(m[i], k[i], om, ok);
+      }
+      dup |= MASK;
+      lanes_pool<N, MASK * 2>(m, k, lane, idx, dup);
+    }
+  }
+}
+
+// a segment's partials, merged over the lanes, into row sg of pm / pc
+template <int V>
+__device__ __forceinline__ void pool_segment(float (&m)[V], int (&k)[V], const PoolInto& p,
+                                             int sg, int c0, int lane) {
+  int idx = 0, dup = 0;
+  lanes_pool<V, 4>(m, k, lane, idx, dup);
+  if (lane & dup) return;
+  constexpr int kLeft = pool_left(V);
+#pragma unroll
+  for (int i = 0; i < kLeft; ++i) {
+    const int e = idx + i, c = c0 + (e >> 1) * 8 + 2 * (lane & 3) + (e & 1);
+    p.pm[(size_t)sg * p.ld + c] = m[i];
+    p.pc[(size_t)sg * p.ld + c] = k[i];
+  }
+}
+
+template <int MI, int NJ>
+__device__ __forceinline__ void unit_epi(const PoolInto& p, float (&acc)[MI][NJ][4], int r0,
+                                         int c0, int lane) {
+  const int g = lane >> 2, q = lane & 3;
+  // relu(z3 + b3) in place, -1 on rows past the tile's
+#pragma unroll
+  for (int mi = 0; mi < MI; ++mi) {
+    const bool in0 = r0 + mi * 16 + g < p.nrows, in1 = r0 + mi * 16 + g + 8 < p.nrows;
+#pragma unroll
+    for (int j = 0; j < NJ; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const float b = p.b3[c0 + j * 8 + 2 * q + e];
+        acc[mi][j][e] = in0 ? fmaxf(__fadd_rn(acc[mi][j][e], b), 0.0f) : -1.0f;
+        acc[mi][j][2 + e] = in1 ? fmaxf(__fadd_rn(acc[mi][j][2 + e], b), 0.0f) : -1.0f;
+      }
+  }
+  if (p.seg == 1) {  // each row's values
+#pragma unroll
+    for (int mi = 0; mi < MI; ++mi)
+#pragma unroll
+      for (int j = 0; j < NJ; ++j)
+#pragma unroll
+        for (int h = 0; h < 2; ++h)
+          *reinterpret_cast<float2*>(p.pm + (size_t)(r0 + mi * 16 + g + 8 * h) * p.ld + c0 +
+                                     j * 8 + 2 * q) =
+              make_float2(acc[mi][j][2 * h], acc[mi][j][2 * h + 1]);
+    return;
+  }
+  // each entry's maximum and ties over the thread's rows of the segment:
+  // m16 tiles [mi0, mi1)
+  constexpr int V = 2 * NJ;
+  float m[V];
+  int k[V];
+  auto entries = [&](int mi0, int mi1) {
+#pragma unroll
+    for (int i = 0; i < V; ++i) {
+      float mx = -1.0f;
+#pragma unroll
+      for (int mi = 0; mi < MI; ++mi)
+        if (mi >= mi0 && mi < mi1)
+          mx = fmaxf(mx, fmaxf(acc[mi][i >> 1][i & 1], acc[mi][i >> 1][2 + (i & 1)]));
+      int kx = 0;
+#pragma unroll
+      for (int mi = 0; mi < MI; ++mi)
+        if (mi >= mi0 && mi < mi1)
+          kx += (acc[mi][i >> 1][i & 1] == mx) + (acc[mi][i >> 1][2 + (i & 1)] == mx);
+      m[i] = mx;
+      k[i] = kx;
+    }
+  };
+  if (MI > 1 && p.seg == 16 * MI) {  // the unit's rows lie in one group
+    entries(0, MI);
+    pool_segment(m, k, p, r0 / p.seg, c0, lane);
+  } else {
+#pragma unroll
+    for (int mi = 0; mi < MI; ++mi) {  // an m16 tile's
+      entries(mi, mi + 1);
+      pool_segment(m, k, p, r0 / 16 + mi, c0, lane);
+    }
+  }
+}
+
 // acc = A (rows x K, bf16, lda a row) W for output columns [n0, n0 + N)
 // (`res_frags`), each output the chain of mma k-steps from 0 in ascending
 // k, with no barrier. Warp w runs units w - first, w - first + 8, ...
-// (mod 8) and hands each pair of accumulators to epi(row, column, value,
-// value at the next column).
+// (mod 8) and hands each unit's accumulators to its epilogue (`unit_epi`).
 template <int MI, int NJ, bool kT, class Epi>
 __device__ __forceinline__ void res_product(const uint16_t* A, int lda, const uint16_t* W,
                                             int ldw, int K, int n0, int N, int rows,
@@ -641,20 +845,13 @@ __device__ __forceinline__ void res_product(const uint16_t* A, int lda, const ui
       for (int j = 0; j < NJ; ++j)
 #pragma unroll
         for (int e = 0; e < 4; ++e) acc[mi][j][e] = 0.0f;
+#pragma unroll 2
     for (int kk = 0; kk < K; kk += 16) {
       uint32_t a[MI][4], b[NJ][2];
       res_frags<MI, NJ, kT>(a, b, A, lda, W, ldw, r0, c0, kk, lane);
       res_mma<MI, NJ>(acc, a, b);
     }
-    const int g = lane >> 2, q = lane & 3;
-#pragma unroll
-    for (int mi = 0; mi < MI; ++mi)
-#pragma unroll
-      for (int j = 0; j < NJ; ++j)
-#pragma unroll
-        for (int h = 0; h < 2; ++h)
-          epi(r0 + mi * 16 + g + 8 * h, c0 + j * 8 + 2 * q, acc[mi][j][2 * h],
-              acc[mi][j][2 * h + 1]);
+    unit_epi(epi, acc, r0, c0, lane);
   }
 }
 
@@ -742,28 +939,29 @@ struct DgfInto {
 };
 
 // A tile's inputs as they lie in device memory: gx's rows, gf's rows, and
-// pooled, the cotangent and cnt of its groups, each contiguous. A piece is
-// bulk-copied into the landing buffer where it starts and ends on 16-byte
-// lines (`bulk_ok`), else read in place.
+// (the backward's, kBwd) pooled, the cotangent and cnt of its groups, each
+// contiguous. A piece is bulk-copied into the landing buffer where it starts
+// and ends on 16-byte lines (`bulk_ok`), else read in place.
 struct Pieces {
   const void* src[5];
   unsigned bytes[5];
 };
 
+template <bool kBwd>
 __device__ __forceinline__ Pieces pieces_of(const Shape& s, const Tile& t,
                                             const uint16_t* gx, const uint16_t* gf,
                                             const float* pooled, const float* gout,
                                             const int* cnt) {
   const size_t row0 = (size_t)t.g0 * s.ns + t.slot0, o = (size_t)t.g0 * s.c3;
-  const unsigned gb = (unsigned)t.ngroups * s.c3 * 4;
+  const unsigned gb = kBwd ? (unsigned)t.ngroups * s.c3 * 4 : 0u;
   Pieces p;
   p.src[0] = gx + row0 * 3;
   p.bytes[0] = (unsigned)t.nrows * 6;
   p.src[1] = gf != nullptr ? gf + row0 * s.cf : nullptr;
   p.bytes[1] = gf != nullptr ? (unsigned)t.nrows * s.cf * 2 : 0u;
-  p.src[2] = pooled + o;
-  p.src[3] = gout + o;
-  p.src[4] = cnt + o;
+  p.src[2] = kBwd ? pooled + o : nullptr;
+  p.src[3] = kBwd ? gout + o : nullptr;
+  p.src[4] = kBwd ? cnt + o : nullptr;
   p.bytes[2] = p.bytes[3] = p.bytes[4] = gb;
   return p;
 }
@@ -816,6 +1014,211 @@ __device__ __forceinline__ void store_rows(float* dst, const float* src, int n) 
   for (int i = i0 + threadIdx.x; i < n; i += kThreads) dst[i] = src[i];
 }
 
+// the resident kernels' regions of shared memory (`Res`)
+struct Regions {
+  uint16_t *W1, *W2, *W3, *a1, *a2, *X;
+  float *B1, *B2, *B3;
+  char* land;
+  uint64_t* bars;
+};
+
+__device__ __forceinline__ Regions regions_of(char* base, const Shape& s, const Res& r) {
+  Regions m;
+  m.W1 = reinterpret_cast<uint16_t*>(base + r.w1);
+  m.W2 = reinterpret_cast<uint16_t*>(base + r.w2);
+  m.W3 = reinterpret_cast<uint16_t*>(base + r.w3);
+  m.B1 = reinterpret_cast<float*>(base + r.bias);
+  m.B2 = m.B1 + s.c1p;
+  m.B3 = m.B2 + s.c2p;
+  m.a1 = reinterpret_cast<uint16_t*>(base + r.a1);
+  m.a2 = reinterpret_cast<uint16_t*>(base + r.a2);
+  m.X = reinterpret_cast<uint16_t*>(base + r.u);
+  m.land = base + r.land;
+  m.bars = reinterpret_cast<uint64_t*>(base + r.bars);
+  return m;
+}
+
+// A resident block's start: both mbarriers initialised, then warp 0
+// bulk-copies W1, W2, W3 (a copy a row, into rows padded by 8) and the
+// biases once on bars[0], and thread 0 the block's first tile's pieces on
+// bars[1]; returns when the weights are in.
+template <bool kBwd>
+__device__ __forceinline__ void res_start(const Shape& s, const Regions& m, const Landing& l,
+                                          const uint16_t* w1, const float* b1,
+                                          const uint16_t* w2, const float* b2,
+                                          const uint16_t* w3, const float* b3,
+                                          const uint16_t* gx, const uint16_t* gf,
+                                          const float* pooled, const float* gout,
+                                          const int* cnt) {
+  const int tid = threadIdx.x;
+  const int ld1 = s.c1p + 8, ld2 = s.c2p + 8, ld3 = s.c3p + 8;
+  if (tid == 0) {
+    mbar_init(&m.bars[0], 1);
+    mbar_init(&m.bars[1], 1);
+    mbar_fence_init();
+  }
+  __syncthreads();
+  if (tid < 32) {
+    if (tid == 0)
+      mbar_expect_tx(&m.bars[0],
+                     (unsigned)((s.k1 * s.c1p + s.c1p * s.c2p + s.c2p * s.c3p) * 2 +
+                                (s.c1p + s.c2p + s.c3p) * 4));
+    __syncwarp();
+    for (int i = tid; i < s.k1 + s.c1p + s.c2p; i += 32) {
+      if (i < s.k1)
+        bulk_copy(m.W1 + (size_t)i * ld1, w1 + (size_t)i * s.c1p, s.c1p * 2, &m.bars[0]);
+      else if (i < s.k1 + s.c1p)
+        bulk_copy(m.W2 + (size_t)(i - s.k1) * ld2, w2 + (size_t)(i - s.k1) * s.c2p,
+                  s.c2p * 2, &m.bars[0]);
+      else
+        bulk_copy(m.W3 + (size_t)(i - s.k1 - s.c1p) * ld3,
+                  w3 + (size_t)(i - s.k1 - s.c1p) * s.c3p, s.c3p * 2, &m.bars[0]);
+    }
+    if (tid == 0) {
+      bulk_copy(m.B1, b1, s.c1p * 4, &m.bars[0]);
+      bulk_copy(m.B2, b2, s.c2p * 4, &m.bars[0]);
+      bulk_copy(m.B3, b3, s.c3p * 4, &m.bars[0]);
+    }
+  }
+  if (tid == 0 && (int)blockIdx.x < s.tiles)
+    land_tile(pieces_of<kBwd>(s, tile_of(s, blockIdx.x), gx, gf, pooled, gout, cnt), l,
+              m.land, &m.bars[1]);
+  mbar_wait(&m.bars[0], 0);
+}
+
+// layer 1's input of a tile into X [rows][k1 + 8]: x in channels 0-2, zeros
+// to 16, the features; zero rows past the tile's (from the landing buffer
+// where a piece was bulk-copied, else from device memory)
+__device__ __forceinline__ void spread_input(const Shape& s, const Tile& t, const Pieces& pc,
+                                             const Landing& l, const char* land, uint16_t* X,
+                                             int rows) {
+  const uint16_t* xs = bulk_ok(pc, 0) ? reinterpret_cast<const uint16_t*>(land + l.off[0])
+                                      : static_cast<const uint16_t*>(pc.src[0]);
+  const uint16_t* fs = bulk_ok(pc, 1) ? reinterpret_cast<const uint16_t*>(land + l.off[1])
+                                      : static_cast<const uint16_t*>(pc.src[1]);
+  const int chunks = s.k1 / 8, ldx = s.k1 + 8;
+  for (int i = threadIdx.x; i < rows * chunks; i += kThreads) {
+    const int rr = i / chunks, j = i % chunks;
+    uint4 v = make_uint4(0u, 0u, 0u, 0u);
+    if (rr < t.nrows) {
+      if (j == 0) {
+        const uint16_t* p = xs + rr * 3;
+        v.x = p[0] | (static_cast<uint32_t>(p[1]) << 16);
+        v.y = p[2];
+      } else if (j >= 2) {
+        v = *reinterpret_cast<const uint4*>(fs + (size_t)rr * s.cf + (j - 2) * 8);
+      }
+    }
+    *reinterpret_cast<uint4*>(X + (size_t)rr * ldx + j * 8) = v;
+  }
+}
+
+// The tile's (group, column) maxima and tie counts from the pool's
+// partials into dm / dk (pooled and cnt of its groups, or a split group's
+// part of pmax / pcnt: contiguous either way). A group's segments merge in
+// ascending order, four entries a thread by 16-byte loads and stores where
+// c3 % 4 == 0 and the outputs are 16-byte aligned, else one a thread; where
+// groups are off m16 tiles (seg 1) 8 lanes an entry walk its rows and merge
+// by shuffles.
+__device__ __forceinline__ void pool_tile(const Shape& s, const Res& r, const Tile& t,
+                                          const float* PM, const int* PC, float* dm, int* dk) {
+  const int tid = threadIdx.x, n = t.ngroups * s.c3, lp = r.lp;
+  if (r.seg == 1) {
+    const int lane = tid & 31, sub = lane & 7;
+    for (int e0 = (tid >> 5) * 4; e0 < n; e0 += kThreads / 8) {  // warp-uniform
+      const int o = min(e0 + (lane >> 3), n - 1), gi = o / s.c3, c = o - gi * s.c3;
+      float m = -1.0f;
+      int k = 0;
+      for (int rr = gi * s.ns + sub; rr < (gi + 1) * s.ns; rr += 8)
+        merge_max(m, k, PM[(size_t)rr * lp + c], 1);
+#pragma unroll
+      for (int mask = 1; mask < 8; mask <<= 1) {
+        const float om = __shfl_xor_sync(0xffffffffu, m, mask);
+        const int ok = __shfl_xor_sync(0xffffffffu, k, mask);
+        merge_max(m, k, om, ok);
+      }
+      if (sub == 0 && e0 + (lane >> 3) < n) {
+        dm[o] = m;
+        dk[o] = k;
+      }
+    }
+    return;
+  }
+  const int nseg = s.parts > 1 ? (t.nrows + r.seg - 1) / r.seg : s.ns / r.seg;
+  if (s.c3 % 4 == 0 &&
+      (reinterpret_cast<uintptr_t>(dm) | reinterpret_cast<uintptr_t>(dk)) % 16 == 0) {
+    for (int i = tid; i < n / 4; i += kThreads) {
+      const int o = 4 * i, gi = o / s.c3, c = o - gi * s.c3;
+      float4 m = make_float4(-1.0f, -1.0f, -1.0f, -1.0f);
+      int4 k;
+      k.x = k.y = k.z = k.w = 0;
+      for (int q = gi * nseg; q < (gi + 1) * nseg; ++q) {
+        const float4 pm = *reinterpret_cast<const float4*>(PM + (size_t)q * lp + c);
+        const int4 pk = *reinterpret_cast<const int4*>(PC + (size_t)q * lp + c);
+        merge_max(m.x, k.x, pm.x, pk.x);
+        merge_max(m.y, k.y, pm.y, pk.y);
+        merge_max(m.z, k.z, pm.z, pk.z);
+        merge_max(m.w, k.w, pm.w, pk.w);
+      }
+      *reinterpret_cast<float4*>(dm + o) = m;
+      *reinterpret_cast<int4*>(dk + o) = k;
+    }
+    return;
+  }
+  for (int o = tid; o < n; o += kThreads) {
+    const int gi = o / s.c3, c = o - gi * s.c3;
+    float m = -1.0f;
+    int k = 0;
+    for (int q = gi * nseg; q < (gi + 1) * nseg; ++q)
+      merge_max(m, k, PM[(size_t)q * lp + c], PC[(size_t)q * lp + c]);
+    dm[o] = m;
+    dk[o] = k;
+  }
+}
+
+__global__ void __launch_bounds__(kThreads, 2)
+gmlp_bf16_fwd_resident(const uint16_t* __restrict__ gx, const uint16_t* __restrict__ gf,
+                       const uint16_t* __restrict__ w1, const float* __restrict__ b1,
+                       const uint16_t* __restrict__ w2, const float* __restrict__ b2,
+                       const uint16_t* __restrict__ w3, const float* __restrict__ b3,
+                       Shape s, Res r, float* __restrict__ pooled, int* __restrict__ cnt,
+                       float* __restrict__ pmax, int* __restrict__ pcnt) {
+  extern __shared__ __align__(16) float smem[];
+  char* base = reinterpret_cast<char*>(smem);
+  const Regions m = regions_of(base, s, r);
+  float* PM = reinterpret_cast<float*>(base + r.a1);  // the pool's partials, over a1
+  int* PC = reinterpret_cast<int*>(PM + (size_t)(r.rows / 16) * r.lp);
+  const Landing l = landing_of(s, r);
+  const int tid = threadIdx.x, rows = r.rows;
+  const int ld1 = s.c1p + 8, ld2 = s.c2p + 8, ld3 = s.c3p + 8, ldx = s.k1 + 8;
+  res_start<false>(s, m, l, w1, b1, w2, b2, w3, b3, gx, gf, nullptr, nullptr, nullptr);
+
+  unsigned it = 0;
+  for (int tn = blockIdx.x; tn < s.tiles; tn += gridDim.x, ++it) {
+    const Tile t = tile_of(s, tn);
+    mbar_wait(&m.bars[1], it & 1);
+    spread_input(s, t, pieces_of<false>(s, t, gx, gf, nullptr, nullptr, nullptr), l, m.land,
+                 m.X, rows);
+    __syncthreads();  // X is in; the landing buffer is free for the next tile
+    if (tid == 0 && tn + (int)gridDim.x < s.tiles)
+      land_tile(pieces_of<false>(s, tile_of(s, tn + gridDim.x), gx, gf, nullptr, nullptr,
+                                 nullptr),
+                l, m.land, &m.bars[1]);
+    res_gemm<true>(r.unit[0], m.X, ldx, m.W1, ld1, s.k1, 0, s.c1p, rows, 0,
+                   ReluInto{m.a1, ld1, m.B1});
+    __syncthreads();
+    res_gemm<true>(r.unit[1], m.a1, ld1, m.W2, ld2, s.c1p, 0, s.c2p, rows, 0,
+                   ReluInto{m.a2, ld2, m.B2});
+    __syncthreads();  // a1 is dead: the pool's partials go over it
+    res_gemm<true>(r.unit[2], m.a2, ld2, m.W3, ld3, s.c2p, 0, s.c3p, rows, 0,
+                   PoolInto{PM, PC, r.lp, m.B3, t.nrows, r.seg});
+    __syncthreads();  // the partials are in (read before the next tile's layer 1)
+    const bool split = s.parts > 1;
+    const size_t o = split ? ((size_t)t.g0 * s.parts + t.part) * s.c3 : (size_t)t.g0 * s.c3;
+    pool_tile(s, r, t, PM, PC, (split ? pmax : pooled) + o, (split ? pcnt : cnt) + o);
+  }
+}
+
 __global__ void __launch_bounds__(kThreads, 2)
 gmlp_bf16_bwd_resident(const uint16_t* __restrict__ gx, const uint16_t* __restrict__ gf,
                        const uint16_t* __restrict__ w1, const float* __restrict__ b1,
@@ -826,91 +1229,30 @@ gmlp_bf16_bwd_resident(const uint16_t* __restrict__ gx, const uint16_t* __restri
                        float* __restrict__ dgx, float* __restrict__ dgf) {
   extern __shared__ __align__(16) float smem[];
   char* base = reinterpret_cast<char*>(smem);
-  uint16_t* W1 = reinterpret_cast<uint16_t*>(base + r.w1);
-  uint16_t* W2 = reinterpret_cast<uint16_t*>(base + r.w2);
-  uint16_t* W3 = reinterpret_cast<uint16_t*>(base + r.w3);
-  float* B1 = reinterpret_cast<float*>(base + r.bias);
-  float* B2 = B1 + s.c1p;
-  float* B3 = B2 + s.c2p;
-  uint16_t* a1 = reinterpret_cast<uint16_t*>(base + r.a1);
-  uint16_t* a2 = reinterpret_cast<uint16_t*>(base + r.a2);
-  uint16_t* X = reinterpret_cast<uint16_t*>(base + r.u);  // layer 1's input,
-  uint16_t* d3 = X;                                       // then dz3
+  const Regions m = regions_of(base, s, r);
+  uint16_t* d3 = m.X;                                     // dz3, over layer 1's input
   float* SF = reinterpret_cast<float*>(base + r.a2);      // dgf's staged rows,
   float* SX = SF + (s.cf ? (size_t)r.rows * (s.cf + 8) : 0);  // then dgx's
-  char* land = base + r.land;
-  uint64_t* bars = reinterpret_cast<uint64_t*>(base + r.bars);
   const Landing l = landing_of(s, r);
   const int tid = threadIdx.x, rows = r.rows;
   const int ld1 = s.c1p + 8, ld2 = s.c2p + 8, ld3 = s.c3p + 8, ldx = s.k1 + 8;
   const int ldf = s.cf + 8;
-
-  if (tid == 0) {
-    mbar_init(&bars[0], 1);
-    mbar_init(&bars[1], 1);
-    mbar_fence_init();
-  }
-  __syncthreads();
-  if (tid < 32) {  // the weights and biases, once: a bulk copy a row
-    if (tid == 0)
-      mbar_expect_tx(&bars[0], (unsigned)((s.k1 * s.c1p + s.c1p * s.c2p + s.c2p * s.c3p) * 2 +
-                                          (s.c1p + s.c2p + s.c3p) * 4));
-    __syncwarp();
-    for (int i = tid; i < s.k1 + s.c1p + s.c2p; i += 32) {
-      if (i < s.k1)
-        bulk_copy(W1 + (size_t)i * ld1, w1 + (size_t)i * s.c1p, s.c1p * 2, &bars[0]);
-      else if (i < s.k1 + s.c1p)
-        bulk_copy(W2 + (size_t)(i - s.k1) * ld2, w2 + (size_t)(i - s.k1) * s.c2p,
-                  s.c2p * 2, &bars[0]);
-      else
-        bulk_copy(W3 + (size_t)(i - s.k1 - s.c1p) * ld3,
-                  w3 + (size_t)(i - s.k1 - s.c1p) * s.c3p, s.c3p * 2, &bars[0]);
-    }
-    if (tid == 0) {
-      bulk_copy(B1, b1, s.c1p * 4, &bars[0]);
-      bulk_copy(B2, b2, s.c2p * 4, &bars[0]);
-      bulk_copy(B3, b3, s.c3p * 4, &bars[0]);
-    }
-  }
-  if (tid == 0 && (int)blockIdx.x < s.tiles)
-    land_tile(pieces_of(s, tile_of(s, blockIdx.x), gx, gf, pooled, gout, cnt), l, land,
-              &bars[1]);
-  mbar_wait(&bars[0], 0);
+  res_start<true>(s, m, l, w1, b1, w2, b2, w3, b3, gx, gf, pooled, gout, cnt);
 
   unsigned it = 0;
   for (int tn = blockIdx.x; tn < s.tiles; tn += gridDim.x, ++it) {
     const Tile t = tile_of(s, tn);
-    const Pieces pc = pieces_of(s, t, gx, gf, pooled, gout, cnt);
-    mbar_wait(&bars[1], it & 1);
-    // layer 1's input: x in channels 0-2, zeros to 16, the features; zero
-    // rows past the tile's
-    const uint16_t* xs = bulk_ok(pc, 0) ? reinterpret_cast<const uint16_t*>(land + l.off[0])
-                                        : static_cast<const uint16_t*>(pc.src[0]);
-    const uint16_t* fs = bulk_ok(pc, 1) ? reinterpret_cast<const uint16_t*>(land + l.off[1])
-                                        : static_cast<const uint16_t*>(pc.src[1]);
-    const int chunks = s.k1 / 8;
-    for (int i = tid; i < rows * chunks; i += kThreads) {
-      const int rr = i / chunks, j = i % chunks;
-      uint4 v = make_uint4(0u, 0u, 0u, 0u);
-      if (rr < t.nrows) {
-        if (j == 0) {
-          const uint16_t* p = xs + rr * 3;
-          v.x = p[0] | (static_cast<uint32_t>(p[1]) << 16);
-          v.y = p[2];
-        } else if (j >= 2) {
-          v = *reinterpret_cast<const uint4*>(fs + (size_t)rr * s.cf + (j - 2) * 8);
-        }
-      }
-      *reinterpret_cast<uint4*>(X + (size_t)rr * ldx + j * 8) = v;
-    }
+    const Pieces pc = pieces_of<true>(s, t, gx, gf, pooled, gout, cnt);
+    mbar_wait(&m.bars[1], it & 1);
+    spread_input(s, t, pc, l, m.land, m.X, rows);
     // the tile's groups' maxima into P (where not bulk-copied) and g / cnt
     // into Q, over the landing buffer's cotangent
-    float* P = reinterpret_cast<float*>(land + l.off[2]);
-    float* Q = reinterpret_cast<float*>(land + l.off[3]);
+    float* P = reinterpret_cast<float*>(m.land + l.off[2]);
+    float* Q = reinterpret_cast<float*>(m.land + l.off[3]);
     {
       const float* ps = bulk_ok(pc, 2) ? P : static_cast<const float*>(pc.src[2]);
       const float* gs = bulk_ok(pc, 3) ? Q : static_cast<const float*>(pc.src[3]);
-      const int* cs = bulk_ok(pc, 4) ? reinterpret_cast<const int*>(land + l.off[4])
+      const int* cs = bulk_ok(pc, 4) ? reinterpret_cast<const int*>(m.land + l.off[4])
                                      : static_cast<const int*>(pc.src[4]);
       for (int o = tid; o < t.ngroups * s.c3; o += kThreads) {
         P[o] = ps[o];
@@ -918,28 +1260,28 @@ gmlp_bf16_bwd_resident(const uint16_t* __restrict__ gx, const uint16_t* __restri
       }
     }
     __syncthreads();  // X, P and Q are in
-    res_gemm<true>(r.unit[0], X, ldx, W1, ld1, s.k1, 0, s.c1p, rows, 0,
-                   ReluInto{a1, ld1, B1});
+    res_gemm<true>(r.unit[0], m.X, ldx, m.W1, ld1, s.k1, 0, s.c1p, rows, 0,
+                   ReluInto{m.a1, ld1, m.B1});
     __syncthreads();
-    res_gemm<true>(r.unit[1], a1, ld1, W2, ld2, s.c1p, 0, s.c2p, rows, 0,
-                   ReluInto{a2, ld2, B2});
+    res_gemm<true>(r.unit[1], m.a1, ld1, m.W2, ld2, s.c1p, 0, s.c2p, rows, 0,
+                   ReluInto{m.a2, ld2, m.B2});
     __syncthreads();
-    res_gemm<true>(r.unit[2], a2, ld2, W3, ld3, s.c2p, 0, s.c3p, rows, 0,
-                   Dz3Into{d3, ld3, B3, P, Q, t.nrows, s.c3, r.gmul});
+    res_gemm<true>(r.unit[2], m.a2, ld2, m.W3, ld3, s.c2p, 0, s.c3p, rows, 0,
+                   Dz3Into{d3, ld3, m.B3, P, Q, t.nrows, s.c3, r.gmul});
     __syncthreads();  // dz3 is in; the landing buffer is free for the next tile
     if (tid == 0 && tn + (int)gridDim.x < s.tiles)
-      land_tile(pieces_of(s, tile_of(s, tn + gridDim.x), gx, gf, pooled, gout, cnt), l,
-                land, &bars[1]);
-    res_gemm<false>(r.unit[3], d3, ld3, W3, ld3, s.c3p, 0, s.c2p, rows, 0,
-                    MaskedInto{a2, ld2});  // dz2 over a2
+      land_tile(pieces_of<true>(s, tile_of(s, tn + gridDim.x), gx, gf, pooled, gout, cnt), l,
+                m.land, &m.bars[1]);
+    res_gemm<false>(r.unit[3], d3, ld3, m.W3, ld3, s.c3p, 0, s.c2p, rows, 0,
+                    MaskedInto{m.a2, ld2});  // dz2 over a2
     __syncthreads();
-    res_gemm<false>(r.unit[4], a2, ld2, W2, ld2, s.c2p, 0, s.c1p, rows, 0,
-                    MaskedInto{a1, ld1});  // dz1 over a1
+    res_gemm<false>(r.unit[4], m.a2, ld2, m.W2, ld2, s.c2p, 0, s.c1p, rows, 0,
+                    MaskedInto{m.a1, ld1});  // dz1 over a1
     __syncthreads();
     // dgx (columns 0-2 of the first 16) and dgf (columns 16 ..) staged
-    res_gemm<false>(r.unit[5], a1, ld1, W1, ld1, s.c1p, 0, 16, rows, 0, DgxInto{SX});
+    res_gemm<false>(r.unit[5], m.a1, ld1, m.W1, ld1, s.c1p, 0, 16, rows, 0, DgxInto{SX});
     if (s.cf)
-      res_gemm<false>(r.unit[6], a1, ld1, W1, ld1, s.c1p, 16, s.cf, rows, r.first6,
+      res_gemm<false>(r.unit[6], m.a1, ld1, m.W1, ld1, s.c1p, 16, s.cf, rows, r.first6,
                       DgfInto{SF, ldf});
     __syncthreads();  // the tile's outputs are staged
     const size_t row0 = (size_t)t.g0 * s.ns + t.slot0;
@@ -968,18 +1310,18 @@ int res_sms() {
   return sms;
 }
 
-// persistent blocks: as many as the SMs hold at once, at most one a tile
-// (the blocks an SM holds read once for each shared-memory size)
-unsigned res_grid(const Shape& s, const Res& r) {
+// persistent blocks of a resident kernel: as many as the SMs hold at once,
+// at most one a tile (the blocks an SM holds read once for each kernel and
+// shared-memory size)
+unsigned res_grid(const void* kernel, const Shape& s, const Res& r) {
   static std::mutex mu;
-  static std::map<size_t, int> per_sm;
+  static std::map<std::pair<const void*, size_t>, int> per_sm;
   int n;
   {
     std::lock_guard<std::mutex> hold(mu);
-    int& seen = per_sm[r.smem];
+    int& seen = per_sm[{kernel, r.smem}];
     if (seen == 0) {
-      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&seen, gmlp_bf16_bwd_resident,
-                                                    kThreads, r.smem);
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&seen, kernel, kThreads, r.smem);
       seen = seen > 0 ? seen : 1;
     }
     n = seen;
@@ -988,33 +1330,53 @@ unsigned res_grid(const Shape& s, const Res& r) {
   return (unsigned)(grid < s.tiles ? grid : s.tiles);
 }
 
-cudaError_t launch_res(const Shape& s, const Res& r, const void* gx, const void* gf,
-                       const void* w1, const float* b1, const void* w2, const float* b2,
-                       const void* w3, const float* b3, const float* pooled,
-                       const int* cnt, const float* g, float* dgx, float* dgf,
-                       cudaStream_t st) {
+const void* res_kernel(bool bwd) {
+  return bwd ? reinterpret_cast<const void*>(gmlp_bf16_bwd_resident)
+             : reinterpret_cast<const void*>(gmlp_bf16_fwd_resident);
+}
+
+cudaError_t launch_res_fwd(const Shape& s, const Res& r, const void* gx, const void* gf,
+                           const void* w1, const float* b1, const void* w2, const float* b2,
+                           const void* w3, const float* b3, float* pooled, int* cnt,
+                           float* pmax, int* pcnt, cudaStream_t st) {
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      gmlp_bf16_fwd_resident, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)geoa3::kSmemMax);
+  if (attr != cudaSuccess) return attr;
+  gmlp_bf16_fwd_resident<<<res_grid(res_kernel(false), s, r), kThreads, r.smem, st>>>(
+      static_cast<const uint16_t*>(gx), static_cast<const uint16_t*>(gf),
+      static_cast<const uint16_t*>(w1), b1, static_cast<const uint16_t*>(w2), b2,
+      static_cast<const uint16_t*>(w3), b3, s, r, pooled, cnt, pmax, pcnt);
+  return cudaGetLastError();
+}
+
+cudaError_t launch_res_bwd(const Shape& s, const Res& r, const void* gx, const void* gf,
+                           const void* w1, const float* b1, const void* w2, const float* b2,
+                           const void* w3, const float* b3, const float* pooled,
+                           const int* cnt, const float* g, float* dgx, float* dgf,
+                           cudaStream_t st) {
   static const cudaError_t attr = cudaFuncSetAttribute(
       gmlp_bf16_bwd_resident, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)geoa3::kSmemMax);
   if (attr != cudaSuccess) return attr;
-  gmlp_bf16_bwd_resident<<<res_grid(s, r), kThreads, r.smem, st>>>(
+  gmlp_bf16_bwd_resident<<<res_grid(res_kernel(true), s, r), kThreads, r.smem, st>>>(
       static_cast<const uint16_t*>(gx), static_cast<const uint16_t*>(gf),
       static_cast<const uint16_t*>(w1), b1, static_cast<const uint16_t*>(w2), b2,
       static_cast<const uint16_t*>(w3), b3, pooled, cnt, g, s, r, dgx, dgf);
   return cudaGetLastError();
 }
 
-// the backward's plan as its C entry picks it: the resident kernel where
+// a direction's plan as its C entry picks it: the resident kernel where
 // res_plan fits, else the staged one
-struct BwdPlan {
+struct Plan {
   Shape s;
   Res r;
   bool resident;
 };
 
-bool bwd_plan(BwdPlan& p, int groups, int ns, int cf, int c1, int c2, int c3) {
-  p.resident = res_plan(p.s, p.r, groups, ns, cf, c1, c2, c3);
-  return p.resident || make_shape(p.s, groups, ns, cf, c1, c2, c3, true);
+bool plan_of(Plan& p, int groups, int ns, int cf, int c1, int c2, int c3, bool bwd) {
+  p.resident = res_plan(p.s, p.r, groups, ns, cf, c1, c2, c3, bwd);
+  return p.resident || make_shape(p.s, groups, ns, cf, c1, c2, c3, bwd);
 }
 
 template <int BM>
@@ -1059,16 +1421,19 @@ cudaError_t launch_bwd(const Shape& s, const void* gx, const void* gf, const voi
 // 16-byte aligned), w1 [16 + cf, c1p], w2 [c1p, c2p], w3 [c2p, c3p] bf16
 // and b_i [c_ip] float32, zero-padded (c_ip: c_i rounded up to 16) ->
 // pooled, cnt [groups, c3]. scratch: 2 groups parts c3 ints where a group
-// is split (ns above the tile's rows), else unused.
+// is split (ns above the tile's rows), else unused. One launch (and the
+// finishing kernel's where a group is split): the resident kernel where its
+// plan fits, else the staged one.
 extern "C" int geoa3_group_mlp_fwd_bf16(const void* gx, const void* gf, const void* w1,
                                         const float* b1, const void* w2,
                                         const float* b2, const void* w3,
                                         const float* b3, int groups, int ns, int cf,
                                         int c1, int c2, int c3, float* pooled,
                                         int* cnt, void* scratch, void* stream) {
-  Shape s;
-  if (!make_shape(s, groups, ns, cf, c1, c2, c3, false) || cf % 16)
+  Plan p;
+  if (cf % 16 || !plan_of(p, groups, ns, cf, c1, c2, c3, false))
     return (int)cudaErrorInvalidValue;
+  const Shape& s = p.s;
   if (s.tiles == 0) return 0;
   if (s.parts > 1 && scratch == nullptr) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -1076,11 +1441,15 @@ extern "C" int geoa3_group_mlp_fwd_bf16(const void* gx, const void* gf, const vo
   int* pcnt = s.parts > 1 ? reinterpret_cast<int*>(pmax + (size_t)groups * s.parts * c3)
                           : nullptr;
   cudaError_t e;
-  switch (s.rows) {
-    case 128: e = launch_fwd<128>(s, gx, gf, w1, b1, w2, b2, w3, b3, pooled, cnt, pmax, pcnt, st); break;
-    case 64: e = launch_fwd<64>(s, gx, gf, w1, b1, w2, b2, w3, b3, pooled, cnt, pmax, pcnt, st); break;
-    case 32: e = launch_fwd<32>(s, gx, gf, w1, b1, w2, b2, w3, b3, pooled, cnt, pmax, pcnt, st); break;
-    default: e = launch_fwd<16>(s, gx, gf, w1, b1, w2, b2, w3, b3, pooled, cnt, pmax, pcnt, st); break;
+  if (p.resident) {
+    e = launch_res_fwd(s, p.r, gx, gf, w1, b1, w2, b2, w3, b3, pooled, cnt, pmax, pcnt, st);
+  } else {
+    switch (s.rows) {
+      case 128: e = launch_fwd<128>(s, gx, gf, w1, b1, w2, b2, w3, b3, pooled, cnt, pmax, pcnt, st); break;
+      case 64: e = launch_fwd<64>(s, gx, gf, w1, b1, w2, b2, w3, b3, pooled, cnt, pmax, pcnt, st); break;
+      case 32: e = launch_fwd<32>(s, gx, gf, w1, b1, w2, b2, w3, b3, pooled, cnt, pmax, pcnt, st); break;
+      default: e = launch_fwd<16>(s, gx, gf, w1, b1, w2, b2, w3, b3, pooled, cnt, pmax, pcnt, st); break;
+    }
   }
   if (e != cudaSuccess || s.parts == 1) return (int)e;
   const size_t n = (size_t)groups * c3;
@@ -1104,16 +1473,16 @@ extern "C" int geoa3_group_mlp_bwd_bf16(const void* gx, const void* gf, const vo
                                         const float* g, int groups, int ns, int cf,
                                         int c1, int c2, int c3, float* dgx,
                                         float* dgf, void* stream) {
-  BwdPlan p;
+  Plan p;
   if (cf % 16 || reinterpret_cast<uintptr_t>(dgf) % 16 ||
-      !bwd_plan(p, groups, ns, cf, c1, c2, c3))
+      !plan_of(p, groups, ns, cf, c1, c2, c3, true))
     return (int)cudaErrorInvalidValue;
   const Shape& s = p.s;
   if (s.tiles == 0) return 0;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (p.resident)
-    return (int)launch_res(s, p.r, gx, gf, w1, b1, w2, b2, w3, b3, pooled, cnt, g, dgx,
-                           dgf, st);
+    return (int)launch_res_bwd(s, p.r, gx, gf, w1, b1, w2, b2, w3, b3, pooled, cnt, g, dgx,
+                               dgf, st);
   switch (s.rows) {
     case 128: return (int)launch_bwd<128>(s, gx, gf, w1, b1, w2, b2, w3, b3, w1t, w2t, w3t, pooled, cnt, g, dgx, dgf, st);
     case 64: return (int)launch_bwd<64>(s, gx, gf, w1, b1, w2, b2, w3, b3, w1t, w2t, w3t, pooled, cnt, g, dgx, dgf, st);

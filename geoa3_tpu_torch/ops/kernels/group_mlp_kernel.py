@@ -552,20 +552,39 @@ def bf16_resident_bytes(ns: int, cf: int, widths, rows: int) -> int:
     return sum(_pad16(b) for b in regions)
 
 
+def bf16_resident_fwd_bytes(ns: int, cf: int, widths, rows: int) -> int:
+    """Shared memory of the forward with resident weights at tiles of
+    `rows` rows (csrc/group_mlp_bf16.cu `res_layout`), each region rounded
+    up to 16 bytes: W1, W2, W3 and the biases as the backward holds them,
+    a1 (grown where the pool's partials, laid over it, need more: [rows /
+    16][c3p + 4] float32 maxima and int32 counts where groups lie on m16
+    tiles or are split, else [rows][c3p + 4] float32 row values), a2,
+    layer 1's input [rows][16 + cf + 8] (bf16), the landing buffer (gx's and
+    gf's rows) and two mbarriers."""
+    c1p, c2p, c3p = (_pad16(c) for c in widths)
+    k1, lp = 16 + cf, c3p + 4
+    pool = rows // 16 * lp * 8 if ns > rows or ns % 16 == 0 else rows * lp * 4
+    regions = (k1 * (c1p + 8) * 2, c1p * (c2p + 8) * 2, c2p * (c3p + 8) * 2,
+               (c1p + c2p + c3p) * 4, max(rows * (c1p + 8) * 2, pool),
+               rows * (c2p + 8) * 2, rows * (k1 + 8) * 2, rows * 6 + rows * cf * 2, 16)
+    return sum(_pad16(b) for b in regions)
+
+
 @lru_cache(maxsize=256)
 def bf16_plan(ns: int, cf: int, widths, bwd: bool) -> TilePlan:
     """A bf16 kernel's plan as its C entry picks it: the largest of 128, 64
     and 32 rows whose block leaves room for two an SM, else the largest of
     128 .. 16 that fits one; a group of more rows than the tile is split
     into ceil(ns / rows) parts (the forward merges their maxima in a
-    finishing kernel). The backward takes its kernel with resident weights
-    where that rule finds a height for it (`bf16_resident_bytes`; depth 0:
-    no weight stages), else the staged one (`bf16_smem_bytes`), as the
-    forward always does. Layer 1's input is streamed in slices there, so
-    cf sets no limit. Raises where no height fits (widths past ~2000)."""
+    finishing kernel). Each direction takes its kernel with resident
+    weights where that rule finds a height for it (`bf16_resident_bytes`,
+    `bf16_resident_fwd_bytes`; depth 0: no weight stages), else the staged
+    one (`bf16_smem_bytes`), which streams layer 1's input in slices, so cf
+    sets it no limit. Raises where no height fits (widths past ~2000)."""
     widths = tuple(widths)
-    fits = ([(0, lambda rows: bf16_resident_bytes(ns, cf, widths, rows))] if bwd else []) \
-        + [(_BF16_KS, lambda rows: bf16_smem_bytes(widths, rows, bwd))]
+    resident = bf16_resident_bytes if bwd else bf16_resident_fwd_bytes
+    fits = ((0, lambda rows: resident(ns, cf, widths, rows)),
+            (_BF16_KS, lambda rows: bf16_smem_bytes(widths, rows, bwd)))
     for depth, need in fits:
         for limit, heights in ((_SMEM_HALF, _BF16_ROWS[:-1]), (_SMEM_MAX, _BF16_ROWS)):
             for rows in heights:

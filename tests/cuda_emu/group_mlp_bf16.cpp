@@ -11,13 +11,12 @@
 // program runs geoa3_group_mlp_fwd_bf16, then geoa3_group_mlp_bwd_bf16 on
 // its outputs, and writes pooled [groups, c3] (float32), cnt (int32), dgx
 // [groups, ns, 3] and dgf [groups, ns, cf] (float32). It prints each plan as
-// "fwd rows=R parts=P smem=S" and "bwd rows=R parts=P smem=S depth=D
-// tiles=T grid=B" (depth 0: the backward with resident weights, on B
-// persistent blocks for `sms` SMs, 1 unless given; else the staged one,
-// a block a tile). The outputs start as NaN (or -1), so an element left
-// unwritten shows, and the 16 guard values past each must stay as they
-// were; a bulk copy must read inside one input tensor. Exits 1 if an
-// entry refused the call or wrote past an output.
+// "fwd|bwd rows=R parts=P smem=S depth=D tiles=T grid=B" (depth 0: the
+// kernel with resident weights, on B persistent blocks for `sms` SMs, 1
+// unless given; else the staged one, a block a tile). The outputs start as
+// NaN (or -1), so an element left unwritten shows, and the 16 guard values
+// past each must stay as they were; a bulk copy must read inside one input
+// tensor. Exits 1 if an entry refused the call or wrote past an output.
 #include "group_mlp_bf16_emu.cpp"  // the kernel source, rewritten by the test
 
 #include <string>
@@ -58,23 +57,25 @@ int main(int argc, char** argv) {
   const int groups = atoi(argv[3]), ns = atoi(argv[4]), cf = atoi(argv[5]);
   const int c1 = atoi(argv[6]), c2 = atoi(argv[7]), c3 = atoi(argv[8]);
   if (argc > 9) g_sms = atoi(argv[9]);
-  Shape pf;
-  BwdPlan pb;
-  if (!make_shape(pf, groups, ns, cf, c1, c2, c3, false) ||
-      !bwd_plan(pb, groups, ns, cf, c1, c2, c3)) {
+  Plan pf, pb;
+  if (!plan_of(pf, groups, ns, cf, c1, c2, c3, false) ||
+      !plan_of(pb, groups, ns, cf, c1, c2, c3, true)) {
     printf("no plan fits\n");
     return 1;
   }
-  printf("fwd rows=%d parts=%d smem=%zu\n", pf.rows, pf.parts,
-         fwd_smem(pf.rows, pf.c1p, pf.c2p));
-  const Shape& sb = pb.s;
-  printf("bwd rows=%d parts=%d smem=%zu depth=%d tiles=%d grid=%u\n", sb.rows, sb.parts,
-         pb.resident ? pb.r.smem : bwd_smem(sb.rows, sb.c1p, sb.c2p, sb.c3p),
-         pb.resident ? 0 : KS, sb.tiles,
-         pb.resident ? res_grid(sb, pb.r) : (unsigned)sb.tiles);
+  for (const bool bwd : {false, true}) {
+    const Plan& p = bwd ? pb : pf;
+    const Shape& s = p.s;
+    printf("%s rows=%d parts=%d smem=%zu depth=%d tiles=%d grid=%u\n", bwd ? "bwd" : "fwd",
+           s.rows, s.parts,
+           p.resident ? p.r.smem
+                      : bwd ? bwd_smem(s.rows, s.c1p, s.c2p, s.c3p) : fwd_smem(s.rows, s.c1p, s.c2p),
+           p.resident ? 0 : KS, s.tiles,
+           p.resident ? res_grid(res_kernel(bwd), s, p.r) : (unsigned)s.tiles);
+  }
   if (std::string(argv[1]) == "plan") return 0;
 
-  const int k1 = 16 + cf, c1p = pf.c1p, c2p = pf.c2p, c3p = pf.c3p;
+  const int k1 = 16 + cf, c1p = pf.s.c1p, c2p = pf.s.c2p, c3p = pf.s.c3p;
   const size_t rows = (size_t)groups * ns, no = (size_t)groups * c3;
   std::vector<uint16_t> gx, gf, w1, w2, w3, w1t, w2t, w3t;
   std::vector<float> b1, b2, b3, g;
@@ -106,7 +107,7 @@ int main(int argc, char** argv) {
   int* cnt = guarded<int>(no, -1);
   float* dgx = guarded<float>(rows * 3, NAN);
   float* dgf = guarded<float>(rows * cf, NAN);
-  const size_t nscratch = pf.parts > 1 ? 2 * no * pf.parts : 0;
+  const size_t nscratch = pf.s.parts > 1 ? 2 * no * pf.s.parts : 0;
   int* scratch = nscratch ? guarded<int>(nscratch, -1) : nullptr;
   g_bulk_ranges.emplace_back(reinterpret_cast<const char*>(pooled),
                              reinterpret_cast<const char*>(pooled + no));

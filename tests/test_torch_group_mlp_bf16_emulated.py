@@ -11,19 +11,22 @@ the bf16 roundings of a1, a2 and the cotangents. The forward's maxima and
 tie counts and the backward's dgx and dgf are held bit-equal to that
 oracle, and the maxima also within one bf16 step of the plain version
 (`group_mlp_fwd_bf16_plain`, whose float32 sums run in another order). The
-backward runs its kernel with resident weights wherever its plan fits (the
-staged one at the GroupAll widths), on persistent blocks for the case's
-SM count; every bulk copy must read inside one input tensor. The cases:
-the victims' shapes at a few groups (SSG SA1, SA2 and GroupAll, MSG SA1's
-three scales and GroupAll at cf = 640), groups split over tiles (GroupAll,
-ns = 200, and SA2's widths at the shared-memory limit with ns = 300 in five
-parts on one block) with rows tied across the parts, more tiles than
-persistent blocks with a ragged last tile, tiles whose rows or group values
-do not start and end on 16-byte lines, widths past the resident plan,
-widths that are not multiples of 16, and duplicated rows. Outputs start as
-NaN or -1 and the program fails on a write past one; each plan (tile rows,
-parts, weight stages, shared memory) must be the one
-`group_mlp_kernel.bf16_plan` predicts, also at the victims' full shapes.
+forward and the backward run their kernels with resident weights wherever
+their plans fit (the staged ones at the GroupAll widths), on persistent
+blocks for the case's SM count; every bulk copy must read inside one input
+tensor. The cases: the victims' shapes at a few groups (SSG SA1, SA2 and
+GroupAll, MSG SA1's three scales and GroupAll at cf = 640), groups split
+over tiles (GroupAll, ns = 200, and SA2's widths at the shared-memory limit
+with ns = 300 in five parts on one block) with rows tied across the parts,
+more tiles than persistent blocks with a ragged last tile, groups off the
+m16 tiles (ns = 24 and 33: the forward's pool by rows), tiles whose rows or
+group values do not start and end on 16-byte lines, widths past the
+resident plan, widths that are not multiples of 16, and duplicated rows
+that tie inside one m16 tile and across the units of a group. Outputs
+start as NaN or -1 and the program fails on a write past one; each plan
+(tile rows, parts, weight stages, shared memory, tiles, persistent blocks)
+must be the one `group_mlp_kernel.bf16_plan` predicts, also at the
+victims' full shapes.
 
 The emulation checks the kernels' indices, fragment layouts, staging and
 barriers, not the tensor cores' rounding nor speed: `chip_smoke.py` holds
@@ -65,9 +68,11 @@ CASES = {
         (1, 32, 128, (128, 256, 512), (1, 31), 1),
     "ns=33, c3=37 (gx, group values and dgx off 16-byte lines: read and "
     "stored in place)": (7, 33, 0, (32, 32, 37), (4, 32), 1),
+    "ns=24 (groups off m16 tiles), 5 tiles on 2 persistent blocks, a ragged "
+    "last tile": (23, 24, 0, (32, 32, 64), (3, 23), 1),
 }
 
-# the cases whose backward runs the staged kernel (weights past the plan)
+# the cases whose kernels are the staged ones (weights past the plan)
 STAGED = {"SSG GroupAll (cf=256, split over tiles, ties across the parts)",
           "MSG GroupAll cf=640",
           "widths 128/256/512 at cf=128 (past the resident plan: staged)"}
@@ -219,10 +224,11 @@ def test_backward_source_matches_the_oracle(emulated, case):
     assert got["dgx"].abs().max() > 0  # some cotangent reached the rows
 
 
-def _bwd_plan(out):
-    """The backward's printed plan: rows, parts, smem, depth, tiles, grid."""
+def _plan(out, which):
+    """A printed plan ("fwd" or "bwd"): rows, parts, smem, depth, tiles,
+    grid."""
     return tuple(map(int, re.search(
-        r"bwd rows=(\d+) parts=(\d+) smem=(\d+) depth=(\d+) tiles=(\d+) grid=(\d+)",
+        which + r" rows=(\d+) parts=(\d+) smem=(\d+) depth=(\d+) tiles=(\d+) grid=(\d+)",
         out).groups()))
 
 
@@ -230,18 +236,17 @@ def _bwd_plan(out):
 def test_plans_match_the_wrapper(emulated, case):
     groups, ns, cf, widths, _, sms = CASES[case]
     out = _run(emulated, case)["plans"]
-    rows, parts, smem = map(int, re.search(
-        r"fwd rows=(\d+) parts=(\d+) smem=(\d+)", out).groups())
-    plan = gk.bf16_plan(ns, cf, widths, False)
-    assert (rows, parts, smem) == (plan.rows, plan.parts, plan.smem), out
-    rows, parts, smem, depth, tiles, grid = _bwd_plan(out)
-    plan = gk.bf16_plan(ns, cf, widths, True)
-    assert (rows, parts, smem, depth) == (plan.rows, plan.parts, plan.smem,
-                                          plan.depth), out
-    assert (depth > 0) == (case in STAGED), out
-    assert tiles == (groups * parts if parts > 1 else -(-groups // (rows // ns)))
-    if depth == 0:  # persistent: as many blocks as 1-2 an SM, at most one a tile
-        assert grid == min(tiles, sms * (2 if smem <= 113 * 1024 else 1)), out
+    for which in ("fwd", "bwd"):
+        rows, parts, smem, depth, tiles, grid = _plan(out, which)
+        plan = gk.bf16_plan(ns, cf, widths, which == "bwd")
+        assert (rows, parts, smem, depth) == (plan.rows, plan.parts, plan.smem,
+                                              plan.depth), out
+        assert (depth > 0) == (case in STAGED), out
+        assert tiles == (groups * parts if parts > 1 else -(-groups // (rows // ns)))
+        if depth == 0:  # persistent: as many blocks as 1-2 an SM, at most one a tile
+            assert grid == min(tiles, sms * (2 if smem <= 113 * 1024 else 1)), out
+        else:  # a block a tile
+            assert grid == tiles, out
 
 
 @pytest.mark.parametrize("shape", sorted(PLANS))
@@ -251,14 +256,11 @@ def test_full_shapes_plan_as_the_wrapper(emulated, shape):
     res = subprocess.run([str(exe), "plan", "-", str(groups), str(ns), str(cf),
                           *map(str, widths)], capture_output=True, text=True, timeout=60)
     assert res.returncode == 0, res.stdout + res.stderr
-    rows, parts, smem = map(int, re.search(
-        r"fwd rows=(\d+) parts=(\d+) smem=(\d+)", res.stdout).groups())
-    plan = gk.bf16_plan(ns, cf, widths, False)
-    assert (rows, parts, smem) == (plan.rows, plan.parts, plan.smem) and \
-        smem <= 232448, res.stdout
-    rows, parts, smem, depth = _bwd_plan(res.stdout)[:4]
-    plan = gk.bf16_plan(ns, cf, widths, True)
-    assert (rows, parts, smem, depth) == (plan.rows, plan.parts, plan.smem,
-                                          plan.depth) and smem <= 232448, res.stdout
-    # the resident weights serve every victim shape but GroupAll's
-    assert (depth == 0) == ("GroupAll" not in shape and "1024" not in shape), res.stdout
+    for which in ("fwd", "bwd"):
+        rows, parts, smem, depth = _plan(res.stdout, which)[:4]
+        plan = gk.bf16_plan(ns, cf, widths, which == "bwd")
+        assert (rows, parts, smem, depth) == (plan.rows, plan.parts, plan.smem,
+                                              plan.depth) and smem <= 232448, res.stdout
+        # the resident weights serve every victim shape but GroupAll's
+        assert (depth == 0) == ("GroupAll" not in shape and "1024" not in shape), \
+            res.stdout
