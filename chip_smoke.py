@@ -32,7 +32,9 @@ Needs one CUDA card, nvcc and this repository around the script. Phases:
      and with out-of-range indices; FPS at the paths' shapes (the
      vote's [96, 2048] -> 1024 among them), at a ragged n = 1000, at the
      limit n = 14336, at m > n and with skipped points and a fully skipped
-     cloud; the single-pass bf16 pools of the bf16 victim at its three
+     cloud; the single-pass bf16 grouped MLP at the SSG and MSG victims'
+     shapes and at GroupAll with 1536 features (its staged kernels); the
+     single-pass bf16 pools of the bf16 victim at its three
      pool shapes (taps 3 on float32 x, taps 1 on bf16 and on float32 x), at
      a ragged n = 1000 and on runs of duplicated rows that send columns
      down the backward's recompute), with the tolerance stated, and time
@@ -208,11 +210,11 @@ DENSE_B, DENSE_N = 16, 10000  # runs/bench_dense.py's batch and cloud size
 # (b, n) of the selection's checks past the main path: a ragged n, the
 # dense n, and the JAX package's largest padded n
 DENSE_CHECKS = ((2, 1000), (2, DENSE_N), (1, 12288))
-# GroupAll rows that repeat row 0: on the 32-row tiles its 128 rows are
-# split into at the victims' widths (and past cf = 1837, where layer 1's
-# input is staged in slices), they sit in the second, third and fourth
-# block; on the 16-row tiles of cf = 896 and 1536, in the fourth, fifth and
-# eighth
+# GroupAll rows that repeat row 0: on the 32-row tiles of row 16's float32
+# kernels at the victims' widths (and past cf = 1837, where layer 1's input
+# is staged in slices), they sit in the second, third and fourth block; on
+# the 16-row tiles of cf = 896 and 1536, in the fourth, fifth and eighth; on
+# the bf16 streamed kernels' 64-row tiles, in the first and second
 SPLIT_TIES = [63, 64, 127]
 # GroupAll feature counts past the victims': past 32-row forward tiles (16
 # rows, 8 blocks a cloud), and past the whole input's limit (32-row tiles,
@@ -1393,16 +1395,25 @@ def group_mlp_times_phase(torch) -> dict:
     same inputs as the other checkout's: the elements of pooled / cnt whose
     bits differ between the two forwards are counted (`fwd_differ`), and
     those of dgx / dgf between this checkout's backward on this forward's
-    outputs and the other's backward on its own (`differ`)."""
+    outputs and the other's backward on its own (`differ`). Without
+    `--tree`, the shapes on the streamed kernels also time their weight
+    stream alone (the source built with GEOA3_GMLP_STREAM_ONLY) and print
+    the weights they read a call (`wgmma_traffic_mb`)."""
     from geoa3_tpu_torch.ops.kernels import _build, group_mlp_kernel as gk
 
     print(f"grouped-MLP times of {gk.__file__}")
     wide = CODE == REPO
+    names = ("geoa3_group_mlp_fwd_bf16", "geoa3_group_mlp_bwd_bf16")
     this = (None if wide else variant_entry(
-        "group_mlp_bf16.cu", None, ("geoa3_group_mlp_fwd_bf16", "geoa3_group_mlp_bwd_bf16"),
-        REPO / "geoa3_tpu_torch" / "csrc"))
+        "group_mlp_bf16.cu", None, names, REPO / "geoa3_tpu_torch" / "csrc"))
+    # this checkout's streamed kernels with their products left out: the
+    # weight stream alone (not with `--tree`, whose wrapper passes other
+    # arguments)
+    stream = (variant_entry("group_mlp_bf16.cu", "GEOA3_GMLP_STREAM_ONLY", names)
+              if wide else None)
     _build.lib()
     this = this and this()
+    stream = stream and stream()
     gen = torch.Generator(device="cuda").manual_seed(19)
     out = {}
     for victim in ("SSG", "MSG") + (("wide",) if wide else ()):
@@ -1421,17 +1432,96 @@ def group_mlp_times_phase(torch) -> dict:
             r_ = out[label + " bf16"] = group_mlp_bf16_times(torch, gk, gx_, gf_, p_,
                                                              pooled, cnt, g_all)
             if this:
+                mine = this_fold(p_)
                 r_["fwd_differ"], ours = fwd_bf16_differ(
-                    torch, this["geoa3_group_mlp_fwd_bf16"], gx_, gf_, p_, pooled, cnt)
+                    torch, this["geoa3_group_mlp_fwd_bf16"], gx_, gf_, mine, pooled, cnt)
                 r_["differ"] = bwd_bf16_differ(
-                    torch, gk, this["geoa3_group_mlp_bwd_bf16"], g_all, gx_, gf_, p_,
+                    torch, gk, this["geoa3_group_mlp_bwd_bf16"], g_all, gx_, gf_, p_, mine,
                     (pooled, cnt), ours)
-            print(f"  group_mlp_bf16[{label}]: " + group_mlp_times_line(r_)
+            widths = (p_.w1.shape[1], p_.w2.shape[1], p_.w3.shape[1])
+            cf = 0 if gf_ is None else gf_.shape[-1]
+            if stream and gk.bf16_kernel(gx_.shape[2], cf, widths, False).endswith("wgmma"):
+                r_["stream_fwd_ten"] = with_entry(
+                    _build, names[0], stream[names[0]],
+                    lambda: ten_ms(lambda: gk.group_mlp_fwd_bf16(gx_, gf_, p_)))
+                r_["stream_bwd_ten"] = with_entry(
+                    _build, names[1], stream[names[1]],
+                    lambda: ten_ms(lambda: gk.group_mlp_bwd_bf16(g_all, gx_, gf_, p_,
+                                                                  pooled, cnt)))
+            print(f"  group_mlp_bf16[{label}] ({gk.bf16_kernel(gx_.shape[2], cf, widths, False)}"
+                  f", {gk.bf16_kernel(gx_.shape[2], cf, widths, True)}): "
+                  if hasattr(gk, "bf16_kernel") else f"  group_mlp_bf16[{label}]: ",
+                  end="")
+            if "stream_fwd_ten" in r_:
+                r_["traffic_mb"] = wgmma_traffic_mb(
+                    gk, gx_.shape[0] * gx_.shape[1], gx_.shape[2], cf, widths, r_["hits"])
+            print(group_mlp_times_line(r_)
+                  + (f"; weight stream alone (ten back to back): fwd "
+                     f"{r_['stream_fwd_ten']:.4f} bwd {r_['stream_bwd_ten']:.4f}; weights "
+                     f"read from L2 a call (MB, from the plan): fwd {r_['traffic_mb'][0]:.1f} "
+                     f"bwd {r_['traffic_mb'][1]:.1f}" if "stream_fwd_ten" in r_ else "")
                   + (f"; pooled/cnt elements whose bits differ from this checkout's "
                      f"forward: {r_['fwd_differ']}; dgx/dgf elements whose bits differ "
                      f"from this checkout's backward on its forward's outputs: "
                      f"{r_['differ']}" if this else ""), flush=True)
     return out
+
+
+def wgmma_traffic_mb(gk, groups: int, ns: int, cf: int, widths, hits: int = 0,
+                     sms: int = 132) -> tuple[float, float]:
+    """The megabytes of packed weights the bf16 streamed kernels read from L2
+    a call (forward, backward) at a shape, from their plans: every block
+    copies its passes' slabs (the forward's split blocks share a tile's
+    layer 3), and the backward reads W3^T's row (c2 bf16) once a dz3 hit
+    and block column half; no measurement."""
+    def slabs(passes):
+        return sum(-(-ps.k // ps.ks) * ps.ks * ps.nb * 2 for ps in passes)
+
+    pf, _ = gk.bf16_wgmma_passes(cf, widths, False)
+    l12 = [ps for ps in pf if ps.src != "kw3"]
+    l3 = [ps for ps in pf if ps.src == "kw3"]
+    blocks = gk.bf16_wgmma_grid(groups, ns, cf, widths, False, sms)
+    tiles = gk.bf16_wgmma_grid(groups, ns, cf, widths, True, sms)
+    fwd = blocks * slabs(l12) + tiles * slabs(l3)
+    bwd_p = gk.bf16_wgmma_passes(cf, widths, True)
+    bwd = (tiles * (slabs(bwd_p[0]) + slabs(bwd_p[1])) + hits * widths[1] * 2
+           if bwd_p else 0)
+    return fwd / 1e6, bwd / 1e6
+
+
+def with_entry(_build, name, fn, run):
+    """run() with the package's C entry `name` bound to `fn` (another
+    build's), restored after."""
+    entry, _build._entries[name] = _build._entries[name], fn
+    try:
+        return run()
+    finally:
+        _build._entries[name] = entry
+
+
+_THIS = {}
+
+
+def this_module(name: str):
+    """This checkout's `geoa3_tpu_torch/ops/kernels/<name>.py`, loaded from
+    beside this script: under `--tree` the package that runs is another
+    checkout's, whose modules may not match this checkout's C entries."""
+    import importlib.util
+
+    if name not in _THIS:
+        spec = importlib.util.spec_from_file_location(
+            f"geoa3_tpu_torch.ops.kernels._this_{name}",
+            REPO / "geoa3_tpu_torch" / "ops" / "kernels" / f"{name}.py")
+        mod = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(mod)
+        _THIS[name] = mod
+    return _THIS[name]
+
+
+def this_fold(p_):
+    """This checkout's `fold_mlp_bf16` of a folded MLP's bf16 weights
+    (p_[:6]), with the packed weights this checkout's C entries read."""
+    return this_module("group_mlp_kernel").fold_mlp_bf16(*p_[:6])
 
 
 def _call_entry(torch, fn, name, *args) -> None:
@@ -1446,35 +1536,38 @@ def _call_entry(torch, fn, name, *args) -> None:
 
 def fwd_bf16_differ(torch, fn, gx_, gf_, p_, pooled, cnt):
     """The elements of pooled and cnt whose bits differ between the running
-    checkout's bf16 forward (pooled, cnt) and `fn` (another build's C entry
-    geoa3_group_mlp_fwd_bf16) on the same inputs, and fn's (pooled, cnt),
-    which start as NaN and -1. fn's scratch has room for a split group at
-    any tile height."""
+    checkout's bf16 forward (pooled, cnt) and `fn` (this checkout's C entry
+    geoa3_group_mlp_fwd_bf16, built alone; p_ this checkout's fold) on the
+    same inputs, and fn's (pooled, cnt), which start as NaN and -1. fn's
+    scratch has room for a split group at any tile height."""
     got = torch.full_like(pooled, math.nan), torch.full_like(cnt, -1)
     b_, m_, ns_, _ = gx_.shape
     c3 = p_.w3.shape[1]
     scratch = torch.empty(2 * b_ * m_ * -(-ns_ // 16) * c3, dtype=torch.int32,
                           device="cuda")
     _call_entry(torch, fn, "geoa3_group_mlp_fwd_bf16", gx_, gf_, p_.kw1, p_.kb1, p_.kw2,
-                p_.kb2, p_.kw3, p_.kb3, b_ * m_, ns_, 0 if gf_ is None else gf_.shape[-1],
-                p_.w1.shape[1], p_.w2.shape[1], c3, got[0], got[1], scratch)
+                p_.kb2, p_.kw3, p_.kb3, p_.kpf, b_ * m_, ns_,
+                0 if gf_ is None else gf_.shape[-1], p_.w1.shape[1], p_.w2.shape[1], c3,
+                got[0], got[1], scratch)
     return (int((got[0].view(torch.int32) != pooled.view(torch.int32)).sum())
             + int((got[1] != cnt).sum())), got
 
 
-def bwd_bf16_differ(torch, gk, fn, g_all, gx_, gf_, p_, theirs, ours) -> int:
+def bwd_bf16_differ(torch, gk, fn, g_all, gx_, gf_, p_, mine, theirs, ours) -> int:
     """The elements of dgx and dgf whose bits differ between the running
-    checkout's bf16 backward on its forward's (pooled, cnt) `theirs` and
-    `fn` (another build's C entry geoa3_group_mlp_bwd_bf16) on `ours`;
-    fn's outputs start as NaN."""
+    checkout's bf16 backward (its fold p_) on its forward's (pooled, cnt)
+    `theirs` and `fn` (this checkout's C entry geoa3_group_mlp_bwd_bf16,
+    built alone; `mine` this checkout's fold) on `ours`; fn's outputs start
+    as NaN."""
     want = [t for t in gk.group_mlp_bwd_bf16(g_all, gx_, gf_, p_, *theirs)
             if t is not None]
     got = [torch.full_like(t, math.nan) for t in want]
     b_, m_, ns_, _ = gx_.shape
-    _call_entry(torch, fn, "geoa3_group_mlp_bwd_bf16", gx_, gf_, p_.kw1, p_.kb1, p_.kw2,
-                p_.kb2, p_.kw3, p_.kb3, p_.kw1t, p_.kw2t, p_.kw3t, *ours, g_all,
-                b_ * m_, ns_, 0 if gf_ is None else gf_.shape[-1], p_.w1.shape[1],
-                p_.w2.shape[1], p_.w3.shape[1], got[0], got[1] if len(got) > 1 else None)
+    q = mine
+    _call_entry(torch, fn, "geoa3_group_mlp_bwd_bf16", gx_, gf_, q.kw1, q.kb1, q.kw2,
+                q.kb2, q.kw3, q.kb3, q.kw1t, q.kw2t, q.kw3t, q.kpf, q.kpb, *ours, g_all,
+                b_ * m_, ns_, 0 if gf_ is None else gf_.shape[-1], q.w1.shape[1],
+                q.w2.shape[1], q.w3.shape[1], got[0], got[1] if len(got) > 1 else None)
     return sum(int((g.view(torch.int32) != w.view(torch.int32)).sum())
                for g, w in zip(got, want))
 
@@ -1623,8 +1716,10 @@ def group_mlp_bf16_times(torch, gk, gx_, gf_, p_, pooled, cnt, g_all) -> dict:
 def group_mlp_bf16_checks(torch) -> list[dict]:
     """Phase 2's row 16 in the single-pass bf16 mode: both kernels held
     (`group_mlp_bf16_hold`) and timed at the SSG victim's three shapes and
-    the MSG victim's SA1 scales and GroupAll (cf = 640), GroupAll's clouds
-    split over tiles with maxima tied across them."""
+    the MSG victim's SA1 scales and GroupAll (cf = 640), and at the first of
+    the wider GroupAll shapes whose plans pick the staged kernels
+    (gmlp_bf16_*_tiles: cf = 1536, past the streamed plan's whole input),
+    GroupAll's clouds split over tiles with maxima tied across them."""
     from geoa3_tpu_torch.ops.kernels import group_mlp_kernel as gk
 
     out = []
@@ -1634,23 +1729,29 @@ def group_mlp_bf16_checks(torch) -> list[dict]:
     def randn(*shape):
         return torch.randn(*shape, device="cuda", generator=gen)
 
+    def kinds(gx_, gf_, p_):
+        widths = (p_.w1.shape[1], p_.w2.shape[1], p_.w3.shape[1])
+        return [gk.bf16_kernel(gx_.shape[2], 0 if gf_ is None else gf_.shape[-1], widths,
+                               bwd) for bwd in (False, True)]
+
+    shapes = {**group_mlp_bf16_inputs(torch, "SSG"), **group_mlp_bf16_inputs(torch, "MSG")}
+    staged = [(label, v) for label, v in group_mlp_bf16_inputs(torch, "wide").items()
+              if all(k.endswith("_tiles") for k in kinds(*v))]
+    if not staged:
+        _fail("group_mlp_bf16: no wider GroupAll shape picks the staged kernels, "
+              "which are left unheld")
+    shapes.update(staged[:1])
     rows = {}
-    for victim in ("SSG", "MSG"):
-        for label, (gx_, gf_, p_) in group_mlp_bf16_inputs(torch, victim).items():
-            r_ = group_mlp_bf16_hold(torch, gk, label, gx_, gf_, p_, randn)
-            r_.update(group_mlp_bf16_times(torch, gk, gx_, gf_, p_, r_.pop("pooled"),
-                                           r_.pop("cnt"), randn(*gx_.shape[:2],
-                                                                p_.w3.shape[1])))
-            widths = (p_.w1.shape[1], p_.w2.shape[1], p_.w3.shape[1])
-            for k in ("fwd", "bwd"):  # the device kernel the C entry's plan picks
-                plan = gk.bf16_plan(gx_.shape[2], 0 if gf_ is None else gf_.shape[-1],
-                                    widths, k == "bwd")
-                r_[k + "_kernel"] = f"gmlp_bf16_{k}_" + (
-                    "resident" if plan.depth == 0 else "tiles")
-            rows[label] = r_
-            print(f"  group_mlp_bf16[{label}] ({r_['fwd_kernel']}, {r_['bwd_kernel']}): "
-                  + group_mlp_times_line(r_), flush=True)
-    for label in ("SSG SA3", "MSG GroupAll cf=640"):
+    for label, (gx_, gf_, p_) in shapes.items():
+        r_ = group_mlp_bf16_hold(torch, gk, label, gx_, gf_, p_, randn)
+        r_.update(group_mlp_bf16_times(torch, gk, gx_, gf_, p_, r_.pop("pooled"),
+                                       r_.pop("cnt"), randn(*gx_.shape[:2], p_.w3.shape[1])))
+        # the device kernels the C entries' plans pick
+        r_["fwd_kernel"], r_["bwd_kernel"] = kinds(gx_, gf_, p_)
+        rows[label] = r_
+        print(f"  group_mlp_bf16[{label}] ({r_['fwd_kernel']}, {r_['bwd_kernel']}): "
+              + group_mlp_times_line(r_), flush=True)
+    for label in ("SSG SA3", "MSG GroupAll cf=640", staged[0][0]):
         if rows[label]["across"] == 0:
             _fail(f"group_mlp_fwd_bf16[{label}]: no maximum is tied across two "
                   "tiles, the split's merge is unchecked")
@@ -1669,7 +1770,8 @@ def group_mlp_bf16_checks(torch) -> list[dict]:
           max(r["fwd_err"] for r in rows.values()), r2_["fwd_ms"],
           r2_["fwd_plain"], r2_["fwd_bound"], None,
           f"single-pass bf16 ({r2_['fwd_kernel']} where the weights fit beside a "
-          "tile, else gmlp_bf16_fwd_tiles): SSG SA2 rows 32*128*64 x "
+          "tile, else gmlp_bf16_fwd_wgmma, streamed, past that gmlp_bf16_fwd_tiles): "
+          "SSG SA2 rows 32*128*64 x "
           f"(131->128->128->256) -> [32,128,256] (ten back to back: {r2_['fwd_ten']:.4f}); "
           + others("fwd_ms", "fwd_bound"))
     entry("group_mlp_bwd_bf16", "geoa3_tpu_torch/csrc/group_mlp_bf16.cu",
@@ -1677,7 +1779,8 @@ def group_mlp_bf16_checks(torch) -> list[dict]:
           max(r["bwd_err"] for r in rows.values()), r2_["bwd_ms"],
           r2_["bwd_plain"], r2_["bwd_bound"], None,
           f"single-pass bf16 ({r2_['bwd_kernel']} where the weights fit beside a "
-          "tile, else gmlp_bf16_bwd_tiles): SSG SA2 -> dgx [32,128,64,3], dgf [32,128,64,128] "
+          "tile, else gmlp_bf16_bwd_wgmma, streamed, past that gmlp_bf16_bwd_tiles): "
+          "SSG SA2 -> dgx [32,128,64,3], dgf [32,128,64,128] "
           f"float32 (ten back to back: {r2_['bwd_ten']:.4f}; max_abs_err: the "
           "largest row error, on a row where another order of the sums switched "
           "a ReLU; relative L2 within 2^-7); " + others("bwd_ms", "bwd_bound"))
@@ -2327,12 +2430,15 @@ def variant_entry(source: str, define, names: tuple, csrc: Path = None):
     function that waits for the build and returns the variant's C entries
     `names` (name -> function), bound as _build binds the package's. The
     sources are the running package's, or those in `csrc` (this
-    checkout's, beside another checkout's package under `--tree`)."""
+    checkout's, beside another checkout's package under `--tree`: bound by
+    this checkout's `_build.SIGNATURES`, whose entries may take other
+    arguments)."""
     import ctypes
     import hashlib
 
     from geoa3_tpu_torch.ops.kernels import _build
 
+    signatures = this_module("_build").SIGNATURES if csrc else _build.SIGNATURES
     csrc = csrc or _build.CSRC
     digest = hashlib.sha256(b"".join(
         p.name.encode() + p.read_bytes()
@@ -2353,7 +2459,7 @@ def variant_entry(source: str, define, names: tuple, csrc: Path = None):
         fns = {}
         for name in names:
             fns[name] = getattr(so, name)
-            fns[name].argtypes = _build.SIGNATURES[name]
+            fns[name].argtypes = signatures[name]
             fns[name].restype = ctypes.c_int
         return fns
 
@@ -2607,11 +2713,7 @@ def kappa_time(torch, kk, kind, args, stream_only=None) -> dict:
     if stream_only is not None and name is not None:
         from geoa3_tpu_torch.ops.kernels import _build
 
-        entry, _build._entries[name] = _build._entries[name], stream_only[name]
-        try:
-            r_["stream_ten"] = ten_ms(fn)
-        finally:
-            _build._entries[name] = entry
+        r_["stream_ten"] = with_entry(_build, name, stream_only[name], lambda: ten_ms(fn))
     return r_
 
 

@@ -18,8 +18,9 @@
 // 16), with their transposes for the backward; the biases are float32.
 //
 // Bound on the H100: operations at 989 TFLOP/s of bf16 (SSG SA1 at b = 32
-// is 26.2 GFLOP forward, 0.026 ms). A simple kernel first (mma.sync, no
-// wgmma, TMA or warp specialisation):
+// is 26.2 GFLOP forward, 0.026 ms). The staged kernels (mma.sync, no
+// wgmma, TMA or warp specialisation; the shapes past the streamed plan,
+// below):
 //  - a block owns a tile of 128, 64, 32 or 16 rows of whole groups (or one
 //    part of a group larger than the tile: GroupAll) and runs the layers
 //    back to back in shared memory: a1 and a2 are kept there as bf16 rows,
@@ -46,9 +47,7 @@
 // gmlp_bf16_bwd_resident) serve every shape whose weights fit in shared
 // memory beside a tile of 16 rows or more (`res_plan`): the victims' SA1
 // layers (SSG, and MSG's three scales) and SSG's SA2 (135 KB of weights
-// beside 64-row tiles). The GroupAll layers (widths 256/512/1024 at cf =
-// 256 and 640: 1.45-1.6 MB of weights) and any other shape past that take
-// the staged kernels above. Persistent blocks (as many as the SMs hold)
+// beside 64-row tiles). Persistent blocks (as many as the SMs hold)
 // walk the tiles; at its start a block bulk-copies (TMA, csrc/tma.cuh) W1,
 // W2, W3 and the biases into shared memory once, a row a copy into rows
 // padded by 8 (ldmatrix reads them without bank conflicts), and the
@@ -79,12 +78,54 @@
 //    kernel's division), so the dz3 epilogue reads shared memory only and
 //    never divides; dgx and dgf are staged in shared memory and written as
 //    16-byte stores of the tile's contiguous rows.
-// The sums are the staged kernels': mma.sync from ldmatrix with each
-// output's k16 steps ascending from 0, then + bias by __fadd_rn, so z, a1,
-// a2, the maxima and the ties are bitwise the staged forward's, and dgx /
-// dgf bitwise the staged backward's.
+// The kernels with the weights streamed (gmlp_bf16_fwd_wgmma,
+// gmlp_bf16_bwd_wgmma) serve the shapes past that where a1 and a2 of a
+// 64-row tile (widths padded to 128) and layer 1's whole input [64][cf] fit
+// beside a ring of two or more 32 KB stages, and, in the backward, c2 and
+// c3 padded to 128 are at most 512 and 1024 (`wgmma_plan`): the GroupAll
+// layers (widths 256/512/1024 at cf = 256 and 640: 1.45-1.6 MB of weights;
+// up to cf = 976), up to widths 512/512/1024. The staged kernels above keep
+// the rest: GroupAll's widths at cf >= 992, c1 + c2 (padded to 128) past
+// 1152 at c3 = 1024 (widths of 1024 among them), and the backward at a
+// wider c2 or c3 (tests/test_torch_group_mlp_bf16_emulated.py `KERNEL`
+// names a shape of each). Bound: the
+// weights cross L2 once for every tile (1.4-1.6 MB for 64 rows), so the
+// design cuts round trips and bytes, not operations:
+//  - a block of two consumer warpgroups owns 64 rows (wgmma's M), groups of
+//    ns rounded up to 16 rows (padding rows are masked) or one part of a
+//    group of more than 64 rows; the warpgroups split each product's
+//    columns, wgmma m64nNk16 (N = 128 or 64 a warpgroup) with A from
+//    registers (ldmatrix from a1 / a2 in shared memory, as above) and B the
+//    weights in shared memory by descriptor;
+//  - the weights come packed on the host (`fold_mlp_bf16`: kpf the
+//    forward's layers 1-3, kpb the backward's W2^T and W1^T), each pass of
+//    256 or 128 output columns as slabs of 32 KB in wgmma's K-major
+//    no-swizzle layout, so a slab is one bulk copy (TMA) into a ring of 2-4
+//    stages on mbarriers, issued by warpgroup 0 `stages` slabs ahead (its
+//    state in shared memory); no block barrier between slabs, a named
+//    barrier between layers; layer 1's input lands once a tile, one copy a
+//    group, over a2;
+//  - the forward splits layer 3's passes over two blocks a tile where the
+//    tiles leave SMs idle (128 blocks at GroupAll); its pool stays in
+//    registers (`lanes_pool` over each warp's 16 rows, which lie in one
+//    group), merged a (group, column) over the warps in shared memory, a
+//    split group's parts by gmlp_bf16_fwd_finish;
+//  - the backward replays layers 1-3 with the forward's own passes, so z3
+//    and the ties are bitwise the forward's; layer 3's epilogue marks dz3's
+//    hits as bits (z3 > 0 at its group's maximum) and dz2 = dz3 W3^T is
+//    summed from the hits (`w_dz2`: about one a (group, column) at GroupAll)
+//    with W3^T's rows read through L2, in place of a dense pass over W3^T;
+//    then dz2 W2^T and dz1 W1^T on wgmma.
+// The sums of the staged and resident kernels: mma.sync from ldmatrix with
+// each output's k16 steps ascending from 0, then + bias by __fadd_rn, so z,
+// a1, a2, the maxima and the ties are bitwise the staged forward's, and dgx
+// / dgf bitwise the staged backward's. The streamed kernels sum the same
+// chains on wgmma (its rounding inside a k16 step may differ from
+// mma.sync's on the card; in the CPU emulation both add k ascending, one
+// fmaf a term), their dz2 by fmaf.
 #include "mma_bf16.cuh"
 #include "tma.cuh"
+#include "wgmma.cuh"
 
 #include <math.h>
 
@@ -1366,17 +1407,775 @@ cudaError_t launch_res_bwd(const Shape& s, const Res& r, const void* gx, const v
   return cudaGetLastError();
 }
 
+// ------------------------------ the kernels with the weights streamed (wgmma)
+
+constexpr int kWRows = 64;       // a tile's rows: wgmma's M
+// two consumer warpgroups, the first also feeding the ring: with a producer
+// warp or warpgroup besides (288 or 384 threads) ptxas held every thread to
+// 168 registers, setmaxnreg or not, and the products spilled
+constexpr int kWThreads = 256;
+constexpr int kWStage = 32768;   // a ring stage: one weight slab
+constexpr int kMaxPasses = 48;
+constexpr int kWBars = 128;      // the mbarriers (`WRing`), then the feed's state
+
+__host__ __device__ inline int pad128(int c) { return (c + 127) / 128 * 128; }
+
+// A pass: output columns [n0, n0 + nb) of a product over k rows. Its
+// weights [k][nb] come as slabs of ks rows (the last zero-padded to ks),
+// each in wgmma's K-major no-swizzle layout [ks / 8][nb][8] (bf16), from
+// byte src of its stream on.
+struct WPass {
+  int n0, nb, k, ks;
+  unsigned src;
+};
+
+// The streamed kernels' plan (`wgmma_plan`): tiles of 64 rows, each
+// holding groups of nsp rows (ns rounded up to 16: padding rows past ns) or
+// one part of a group of more than 64 rows; every width padded to 128
+// (zero weights and biases: those columns are 0 and add exact zeros); the
+// passes in the order a block runs them, the first npf (layers 1-3) read
+// from the forward's stream pf, the rest from the backward's pb; shared
+// memory as byte offsets: the ring at 0, its mbarriers, a1, a2, then aux
+// (the forward's pool partials, or the backward's dz3 hit bits and its
+// groups' maxima and g / cnt); layer 1's input lands over a2 and aux (at
+// a2), which it outlives. The biases (b1, b2, b3 at the padded widths) sit after the
+// mbarriers.
+struct WPlan {
+  int groups, ns, cf, c3, k1;
+  int c1p, c2p, c3p;             // the biases' lengths
+  int c1q, c2q, c3q, k1q;        // the widths padded to 128
+  int nsp, gpt, parts, tiles;    // a group's rows in a tile, groups a tile, tiles a group
+  int splits, stages;            // blocks a tile (splitting layer 3's passes), ring stages
+  int n1, n2, n3, n4, npf, npass;  // passes of layers 1, 2, 3, dz2 W2^T, those
+                                   // from pf, all
+  int lp;                        // the forward's pool partials' row
+  unsigned bias, a1, a2, aux, smem;
+  WPass pass[kMaxPasses];
+};
+
+// passes over N output columns, 256 or 128 wide (at most 64 accumulators a
+// thread), largest first, in slabs of 32 KB; false past kMaxPasses
+bool add_passes(WPlan& p, unsigned& src, int N, int K) {
+  for (int n0 = 0; n0 < N;) {
+    const int nb = N - n0 >= 256 ? 256 : 128;
+    const int ks = 16384 / nb;
+    if (p.npass == kMaxPasses) return false;
+    p.pass[p.npass++] = WPass{n0, nb, K, ks, src};
+    src += (unsigned)((K + ks - 1) / ks * ks) * nb * 2;
+    n0 += nb;
+  }
+  return true;
+}
+
+// The plan of a direction's streamed kernel, false where it does not fit:
+// the backward's dz2 takes c2 padded to at most 512 and c3 to 1024 (a
+// warp's lanes hold a row's hit bits), and both hold a1, a2 (or layer 1's input)
+// in shared memory beside two ring stages at least. The forward splits
+// layer 3's passes over up to `sms` / tiles blocks a tile.
+bool wgmma_plan(WPlan& p, int groups, int ns, int cf, int c1, int c2, int c3, bool bwd,
+                int sms) {
+  p = WPlan{};
+  p.groups = groups, p.ns = ns, p.cf = cf, p.c3 = c3, p.k1 = 16 + cf;
+  p.c1p = pad16(c1), p.c2p = pad16(c2), p.c3p = pad16(c3);
+  p.c1q = pad128(c1), p.c2q = pad128(c2), p.c3q = pad128(c3), p.k1q = pad128(p.k1);
+  if (bwd && (p.c2q > 512 || p.c3q > 1024)) return false;
+  if (ns > kWRows) {
+    p.parts = (ns + kWRows - 1) / kWRows, p.gpt = 1, p.nsp = kWRows;
+    p.tiles = groups * p.parts;
+  } else {
+    p.parts = 1, p.nsp = pad16(ns), p.gpt = kWRows / p.nsp;
+    p.tiles = (groups + p.gpt - 1) / p.gpt;
+  }
+  unsigned src = 0;
+  bool ok = add_passes(p, src, p.c1q, p.k1);
+  p.n1 = p.npass;
+  ok = ok && add_passes(p, src, p.c2q, p.c1q);
+  p.n2 = p.npass - p.n1;
+  ok = ok && add_passes(p, src, p.c3q, p.c2q);
+  p.n3 = p.npass - p.n1 - p.n2;
+  p.npf = p.npass;
+  if (bwd) {  // dz2 = dz3 W3^T by hits (`w_dz2`), then from pb:
+    src = 0;
+    const int before = p.npass;
+    ok = ok && add_passes(p, src, p.c1q, p.c2q);  // dz1 = dz2 W2^T
+    p.n4 = p.npass - before;
+    ok = ok && add_passes(p, src, p.k1q, p.c1q);  // dgx, dgf = dz1 W1^T
+  }
+  if (!ok) return false;
+  const unsigned a1 = kWRows * (p.c1q + 8) * 2, a2 = kWRows * (p.c2q + 8) * 2;
+  unsigned aux;
+  if (bwd) {
+    aux = kWRows * p.c3q / 8 + 2u * p.gpt * p.c3q * 4;
+  } else {
+    for (int i = p.npass - p.n3; i < p.npass; ++i) p.lp = std::max(p.lp, p.pass[i].nb / 2);
+    aux = 2u * 4 * p.lp * 8;
+  }
+  const unsigned x = kWRows * (unsigned)cf * 2, rest = std::max(a2 + aux, x);
+  const unsigned bias = (p.c1q + p.c2q + p.c3q) * 4;
+  for (int st = 4; st >= 2 && !p.stages; --st) {
+    const size_t total = (size_t)st * kWStage + kWBars + bias + a1 + rest;
+    if (total > geoa3::kSmemMax) continue;
+    p.stages = st;
+    p.bias = st * kWStage + kWBars, p.a1 = p.bias + bias, p.a2 = p.a1 + a1;
+    p.aux = p.a2 + a2, p.smem = (unsigned)total;
+  }
+  if (!p.stages) return false;
+  p.splits = bwd ? 1 : std::max(1, std::min(p.n3, sms / p.tiles));
+  return true;
+}
+
+// the row of the grouped inputs at row r of tile t, or -1 (a padding row)
+__device__ __forceinline__ long long w_row(const WPlan& p, int t, int r) {
+  if (p.parts > 1) {
+    const int slot = (t % p.parts) * kWRows + r;
+    return slot < p.ns ? (long long)(t / p.parts) * p.ns + slot : -1;
+  }
+  const int gi = r / p.nsp, slot = r - gi * p.nsp, g = t * p.gpt + gi;
+  return gi < p.gpt && slot < p.ns && g < p.groups ? (long long)g * p.ns + slot : -1;
+}
+
+// the tile's groups (1 where a group is split)
+__device__ __forceinline__ int w_groups(const WPlan& p, int t) {
+  return p.parts > 1 ? 1 : min(p.gpt, p.groups - t * p.gpt);
+}
+
+// The ring's feed, run by warpgroup 0 beside its products, its state in
+// shared memory (no other warp holds registers for it): the block's passes
+// are [0, a), then b on, n in all, read from src[0] (pf, the first npf) or
+// src[1] (pb); the next slab to copy is slab `slab`, of the block's j-th
+// pass from its k row k0.
+struct WFeed {
+  const char* src[2];
+  int a, b, n;
+  int j, k0, slab;
+};
+
+struct WRing {
+  char* base;
+  uint64_t* full;   // a slab has landed
+  uint64_t* empty;  // its products have retired: the stage is free
+  uint64_t* xin;    // layer 1's input has landed
+  WFeed* feed;
+  int stages;
+};
+
+// the mbarriers after the ring: full[stages], empty[stages], xin, then the
+// feed's state at the ninth 8-byte slot (past 4 stages' barriers)
+__device__ __forceinline__ WRing ring_of(char* base, const WPlan& p) {
+  uint64_t* bars = reinterpret_cast<uint64_t*>(base + (size_t)p.stages * kWStage);
+  return WRing{base, bars, bars + p.stages, bars + 2 * p.stages,
+               reinterpret_cast<WFeed*>(bars + 9), p.stages};
+}
+static_assert(9 * 8 + sizeof(WFeed) <= kWBars, "the feed's state past the barriers");
+
+// warpgroup 0: the block's slabs below `upto` bulk-copied into the ring,
+// one copy a slab (thread 0), each once the slab before it in its stage is
+// released. Run by the whole warpgroup, so that no wgmma-related code lies
+// on a path ptxas takes for divergent (it serializes the wgmmas: C7520).
+__device__ __forceinline__ void w_feed(const WPlan& p, const WRing& rg, int upto) {
+  WFeed f = *rg.feed;
+  if (f.j >= f.n || f.slab >= upto) return;
+  while (f.j < f.n && f.slab < upto) {
+    const int i = f.j < f.a ? f.j : f.b + (f.j - f.a);
+    const WPass& ps = p.pass[i];
+    const unsigned sb = (unsigned)ps.ks * ps.nb * 2;
+    const int st = f.slab % p.stages;
+    if (f.slab >= p.stages) mbar_wait(&rg.empty[st], ((f.slab / p.stages) & 1) ^ 1);
+    if (threadIdx.x == 0) {
+      mbar_expect_tx(&rg.full[st], sb);
+      bulk_copy(rg.base + (size_t)st * kWStage,
+                f.src[i < p.npf ? 0 : 1] + ps.src + (size_t)(f.k0 / ps.ks) * sb, sb,
+                &rg.full[st]);
+    }
+    ++f.slab;
+    f.k0 += ps.ks;
+    if (f.k0 >= ps.k) f.k0 = 0, ++f.j;
+  }
+  named_bar_sync(4, 128);  // every thread of the warpgroup has read the state
+  if (threadIdx.x == 0) {
+    rg.feed->j = f.j;
+    rg.feed->k0 = f.k0;
+    rg.feed->slab = f.slab;
+  }
+  named_bar_sync(4, 128);
+}
+
+// A streamed block's start: the ring's barriers initialised, then warp 0
+// bulk-copies the tile's layer-1 input (the features of its rows: one copy
+// a group, or a split group's part) to X [64][cf] on xin, and warpgroup 0
+// the first slabs; returns the thread's warp (a value ptxas knows to be warp-uniform:
+// a wgmma under a branch it takes for divergent is serialized)
+__device__ __forceinline__ int w_start(const WPlan& p, const WRing& rg, const WFeed& f, int t,
+                                       const uint16_t* gf, uint16_t* X) {
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < rg.stages; ++s) {
+      mbar_init(rg.full + s, 1);
+      mbar_init(rg.empty + s, 8);  // the consumer warps
+    }
+    mbar_init(rg.xin, 1);
+    mbar_fence_init();
+    *rg.feed = f;
+  }
+  __syncthreads();
+  const int warp = __shfl_sync(GEOA3_FULL_MASK, (int)threadIdx.x >> 5, 0);
+  if (warp == 0) {  // the layer-1 input
+    const int lane = threadIdx.x & 31, ng = w_groups(p, t);
+    // lane gi: group gi's rows (a split group's part: its valid rows)
+    const long long r0 = w_row(p, t, lane * p.nsp);
+    int rows = 0;
+    if (lane < ng && p.cf) rows = p.parts > 1 ? min(kWRows, p.ns - (t % p.parts) * kWRows) : p.ns;
+    unsigned total = rows * p.cf * 2;
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) total += __shfl_xor_sync(GEOA3_FULL_MASK, total, o);
+    if (lane == 0) {
+      if (total)
+        mbar_expect_tx(rg.xin, total);
+      else
+        mbar_arrive(rg.xin);
+    }
+    __syncwarp();
+    if (rows)
+      bulk_copy(X + (size_t)lane * p.nsp * p.cf, gf + r0 * p.cf, (unsigned)rows * p.cf * 2,
+                rg.xin);
+  }
+  if (warp < 4) w_feed(p, rg, p.stages);
+  return warp;
+}
+
+// A consumer thread's two rows of the tile (16 w + lane / 4, and 8 on):
+// their rows of the grouped inputs (-1: padding) and groups in the tile
+struct WRows {
+  long long row[2];
+  int gi[2];
+};
+
+__device__ __forceinline__ WRows w_rows(const WPlan& p, int t) {
+  const int r0 = 16 * ((threadIdx.x >> 5) & 3) + ((threadIdx.x & 31) >> 2);
+  WRows w;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    w.row[h] = w_row(p, t, r0 + 8 * h);
+    w.gi[h] = p.parts > 1 || w.row[h] < 0 ? 0 : (r0 + 8 * h) / p.nsp;
+  }
+  return w;
+}
+
+// Shared-memory loads and stores that the compiler keeps in program order:
+// an epilogue's operand loads are not hoisted ahead of its stores, which
+// would hold every entry's operands in registers beside the accumulators.
+#ifndef GEOA3_EMU
+__device__ __forceinline__ float2 lds_f2(const void* p) {
+  float2 v;
+  asm volatile("ld.shared.v2.f32 {%0, %1}, [%2];\n" : "=f"(v.x), "=f"(v.y) : "r"(smem_addr(p)));
+  return v;
+}
+__device__ __forceinline__ uint32_t lds_u32(const void* p) {
+  uint32_t v;
+  asm volatile("ld.shared.b32 %0, [%1];\n" : "=r"(v) : "r"(smem_addr(p)));
+  return v;
+}
+__device__ __forceinline__ void sts_u32(void* p, uint32_t v) {
+  asm volatile("st.shared.b32 [%0], %1;\n" ::"r"(smem_addr(p)), "r"(v) : "memory");
+}
+#else
+inline float2 lds_f2(const void* p) {
+  float2 v;
+  memcpy(&v, p, 8);
+  return v;
+}
+inline uint32_t lds_u32(const void* p) {
+  uint32_t v;
+  memcpy(&v, p, 4);
+  return v;
+}
+inline void sts_u32(void* p, uint32_t v) { memcpy(p, &v, 4); }
+#endif
+
+// the biases into shared memory (b1, b2, b3 at the padded widths, zero past
+// their lengths), by the consumers, visible after their next barrier
+__device__ __forceinline__ void w_biases(const WPlan& p, float* B, const float* b1,
+                                         const float* b2, const float* b3) {
+  for (int o = threadIdx.x; o < p.c1q + p.c2q + p.c3q; o += kWThreads) {
+    const int c2 = o - p.c1q, c3 = c2 - p.c2q;
+    B[o] = c2 < 0 ? (o < p.c1p ? b1[o] : 0.0f)
+                  : c3 < 0 ? (c2 < p.c2p ? b2[c2] : 0.0f) : (c3 < p.c3p ? b3[c3] : 0.0f);
+  }
+}
+
+// A's fragment of k-step k (16 columns from k) for the warp's 16 rows: from
+// a bf16 matrix in shared memory (row r at r ld), by ldmatrix
+struct AFromSmem {
+  const uint16_t* A;
+  int ld;
+  __device__ __forceinline__ void operator()(uint32_t (&a)[4], int k) const {
+    const int lane = threadIdx.x & 31, w = (threadIdx.x >> 5) & 3;
+    ldmatrix_x4(a, A + (size_t)(16 * w + (lane & 15)) * ld + k + (lane >> 4) * 8);
+  }
+};
+
+// layer 1's input: k-step 0 the coordinates (x, zeros past them: built in
+// registers from gx), the others the features from X [64][cf]
+struct AFromInput {
+  const uint16_t* X;
+  int cf;
+  uint32_t x[4];
+  __device__ __forceinline__ void operator()(uint32_t (&a)[4], int k) const {
+    if (k == 0) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) a[e] = x[e];
+      return;
+    }
+    const int lane = threadIdx.x & 31, w = (threadIdx.x >> 5) & 3;
+    ldmatrix_x4(a, X + (size_t)(16 * w + (lane & 15)) * cf + (k - 16) + (lane >> 4) * 8);
+  }
+};
+
+__device__ __forceinline__ AFromInput x_fragment(const uint16_t* gx, const uint16_t* X,
+                                                 int cf, const WRows& rw) {
+  const int q = threadIdx.x & 3;
+  AFromInput f{X, cf, {0u, 0u, 0u, 0u}};
+#pragma unroll
+  for (int h = 0; h < 2; ++h)
+    if (rw.row[h] >= 0 && q < 2) {
+      const uint16_t* px = gx + rw.row[h] * 3;
+      f.x[h] = q == 0 ? px[0] | (static_cast<uint32_t>(px[1]) << 16) : px[2];
+    }
+  return f;
+}
+
+// acc (the tile's 64 rows x this warpgroup's NP columns of the pass: wg NP
+// on) = A @ the pass's weights, over its 32 KB slabs in the ring (16384 /
+// (2 NP) k rows each): a slab's k-steps issued in groups of at most 4 (A's
+// fragments for a group in registers), each retired before the next, the
+// slab's stage released after its last, the chain from 0 (where fresh) k
+// ascending. Warpgroup 0 keeps the ring fed `stages` slabs ahead.
+template <int NP, class ALoad, int kSteps = NP == 256 ? 2 : 4>  // k-steps a group
+__device__ __forceinline__ void w_product(float (&acc)[NP / 2], const WPlan& p, const WRing& rg,
+                                          int& slab, const WPass& ps, int wg,
+                                          const ALoad& aload, bool fresh) {
+  const int lane = threadIdx.x & 31;
+  const unsigned lbo = (unsigned)ps.nb * 16;
+  for (int k0 = 0; k0 < ps.k; k0 += ps.ks, ++slab) {
+    if (wg == 0) w_feed(p, rg, slab + p.stages);
+    const int st = slab % p.stages;
+    mbar_wait(&rg.full[st], (slab / p.stages) & 1);
+#ifndef GEOA3_GMLP_STREAM_ONLY  // a timing variant: the weight stream alone
+    const unsigned w0 = smem_addr(rg.base + (size_t)st * kWStage) + (unsigned)wg * (NP / 8) * 128;
+    const int kend = min(ps.ks, ps.k - k0);
+    for (int kk = 0; kk < kend; kk += 16 * kSteps) {
+      const int steps = min(kSteps, (kend - kk) / 16);
+      uint32_t a[kSteps][4];
+#pragma unroll
+      for (int s = 0; s < kSteps; ++s)
+        if (s < steps) aload(a[s], k0 + kk + 16 * s);
+      wgmma_fence();
+#pragma unroll
+      for (int s = 0; s < kSteps; ++s)
+        if (s < steps)
+          wgmma_bf16<NP>(acc, a[s], gmma_desc(w0 + (kk / 8 + 2 * s) * lbo, lbo, 128),
+                         fresh && k0 + kk == 0 && s == 0 ? 0 : 1);
+      wgmma_commit();
+      wgmma_wait<0>();
+#pragma unroll
+      for (int e = 0; e < NP / 2; ++e) fence_operand(acc[e]);
+    }
+#else
+    (void)lbo, (void)aload, (void)fresh, (void)wg;
+#endif
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&rg.empty[st]);
+  }
+}
+
+// f(tile row, column, value, value at the next column) for each pair of
+// this thread's accumulators of a warpgroup's NP columns from c0
+template <int NP, class F>
+__device__ __forceinline__ void w_each(float (&acc)[NP / 2], int c0, const F& f) {
+  const int lane = threadIdx.x & 31, w = (threadIdx.x >> 5) & 3;
+  const int g = lane >> 2, q = lane & 3;
+#pragma unroll
+  for (int j = 0; j < NP / 8; ++j)
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+      f(16 * w + g + 8 * h, c0 + 8 * j + 2 * q, acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1]);
+}
+
+// a pairwise epilogue over a pass
+template <class F>
+struct Entries {
+  F f;
+  template <int NP>
+  __device__ __forceinline__ void apply(float (&acc)[NP / 2], int c0) const {
+    w_each<NP>(acc, c0, f);
+  }
+};
+
+// a1 or a2: bf16(relu(acc + bias)) (the biases in shared memory)
+struct ReluQ {
+  uint16_t* dst;
+  int ld;
+  const float* bias;
+  __device__ __forceinline__ void operator()(int rr, int c, float v0, float v1) const {
+    const float2 b = lds_f2(bias + c);
+    sts_u32(dst + (size_t)rr * ld + c,
+            cvt_rn_bf16x2(fmaxf(__fadd_rn(v0, b.x), 0.0f), fmaxf(__fadd_rn(v1, b.y), 0.0f)));
+  }
+};
+
+// in place: bf16(acc) where the ReLU mask (the bf16 activation there) is
+// nonzero, else 0 (MaskedInto in program order)
+struct MaskedQ {
+  uint16_t* act;
+  int ld;
+  __device__ __forceinline__ void operator()(int rr, int c, float v0, float v1) const {
+    uint16_t* p = act + (size_t)rr * ld + c;
+    const uint32_t on = lds_u32(p);
+    sts_u32(p, cvt_rn_bf16x2((on & 0x7fffu) ? v0 : 0.0f, (on & 0x7fff0000u) ? v1 : 0.0f));
+  }
+};
+
+// The backward's layer 3 again: z3 > 0 and tied at its group's maximum (P,
+// -1 past c3) marks a hit of dz3, a bit of H [64][c3q / 32], whose value
+// bf16(g / cnt) depends on its (group, column) alone (`w_dz2`)
+struct HitQ {
+  uint32_t* H;
+  const float *b3, *P;
+  int c3q;
+  WRows rw;
+  __device__ __forceinline__ void operator()(int rr, int c, float v0, float v1) const {
+    const int h = (rr >> 3) & 1;
+    const float2 b = lds_f2(b3 + c), pm = lds_f2(P + rw.gi[h] * c3q + c);
+    const float a0 = fmaxf(__fadd_rn(v0, b.x), 0.0f), a1 = fmaxf(__fadd_rn(v1, b.y), 0.0f);
+    const bool in = rw.row[h] >= 0;
+    const unsigned bits = (in && a0 > 0.0f && a0 == pm.x ? 1u << (c & 31) : 0u) |
+                          (in && a1 > 0.0f && a1 == pm.y ? 2u << (c & 31) : 0u);
+    if (bits) atomicOr(H + (size_t)rr * (c3q / 32) + (c >> 5), bits);
+  }
+};
+
+// dz2 = bf16(dz3 W3^T) where a2 > 0, over a2, from dz3's hits. A warp
+// takes tasks k = warp, warp + 8, ..: row k / halves, columns from (k %
+// halves) 256, 8 a lane. It walks the row's hits c ascending (a lane holds a
+// word of the row's hit bits; the warp visits the nonzero ones by ballot),
+// kNB at a time: their W3^T rows loaded at once (512 contiguous bytes a warp
+// and hit, through L2), then bf16(g / cnt)[c] W3^T[c][n] summed one fmaf a
+// term from 0 (the dense chain's order: the terms it skips add exactly 0).
+constexpr int kNB = 16;
+
+__device__ __forceinline__ void w_dz2(const WPlan& p, const uint32_t* H, const float* Q,
+                                      const uint16_t* w3t, uint16_t* A2) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int words = p.c3q / 32, halves = p.c2q > 256 ? 2 : 1;
+  for (int k = warp; k < kWRows * halves; k += kWThreads / 32) {
+    const int r = k / halves, n0 = (k % halves) * 256 + 8 * lane;
+    const int gi = p.parts > 1 ? 0 : min(r / p.nsp, p.gpt - 1);
+    const uint32_t mine = lane < words ? H[(size_t)r * words + lane] : 0u;
+    uint32_t nz = __ballot_sync(GEOA3_FULL_MASK, mine != 0u), bits = 0u;
+    int wd = 0;
+    float d[8];
+#pragma unroll
+    for (int e = 0; e < 8; ++e) d[e] = 0.0f;
+    for (bool more = nz != 0u; more;) {
+      int c[kNB];
+#pragma unroll
+      for (int i = 0; i < kNB; ++i) {  // the next kNB hits (-1 past the last)
+        if (bits == 0u && nz != 0u) {
+          wd = __ffs(nz) - 1;
+          nz &= nz - 1u;
+          bits = __shfl_sync(GEOA3_FULL_MASK, mine, wd);
+        }
+        c[i] = bits != 0u ? wd * 32 + __ffs(bits) - 1 : -1;
+        bits &= bits - 1u;
+      }
+      uint4 u[kNB];
+#pragma unroll
+      for (int i = 0; i < kNB; ++i)
+        u[i] = c[i] >= 0 && n0 < p.c2p
+                   ? __ldg(reinterpret_cast<const uint4*>(w3t + (size_t)c[i] * p.c2p + n0))
+                   : make_uint4(0u, 0u, 0u, 0u);
+#pragma unroll
+      for (int i = 0; i < kNB; ++i) {
+        if (c[i] < 0) break;
+        const float v = round_bf16(Q[gi * p.c3q + c[i]]);
+        const uint32_t w[4] = {u[i].x, u[i].y, u[i].z, u[i].w};
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          d[2 * e] = fmaf(v, __uint_as_float(w[e] << 16), d[2 * e]);
+          d[2 * e + 1] = fmaf(v, __uint_as_float(w[e] & 0xffff0000u), d[2 * e + 1]);
+        }
+      }
+      more = c[kNB - 1] >= 0 && (bits != 0u || nz != 0u);
+    }
+    if (n0 >= p.c2q) continue;
+    uint16_t* a = A2 + (size_t)r * (p.c2q + 8) + n0;
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const uint32_t on = lds_u32(a + 2 * e);
+      sts_u32(a + 2 * e, cvt_rn_bf16x2((on & 0x7fffu) ? d[2 * e] : 0.0f,
+                                       (on & 0x7fff0000u) ? d[2 * e + 1] : 0.0f));
+    }
+  }
+}
+
+// dgx (columns 0-2) and dgf (columns 16 .. 16 + cf) of the tile's rows
+struct DgOut {
+  float *dgx, *dgf;
+  int cf;
+  WRows rw;
+  __device__ __forceinline__ void operator()(int rr, int c, float v0, float v1) const {
+    const long long row = rw.row[(rr >> 3) & 1];
+    if (row < 0) return;
+    if (c >= 16 && c < 16 + cf) {
+      *reinterpret_cast<float2*>(dgf + row * cf + c - 16) = make_float2(v0, v1);
+    } else if (c < 3) {
+      dgx[row * 3 + c] = v0;
+      if (c + 1 < 3) dgx[row * 3 + c + 1] = v1;
+    }
+  }
+};
+
+// The forward's layer 3 over a pass: relu(z3 + b3), -1 on padding rows;
+// each column's maximum and ties over each warp's 16 rows (of one group),
+// merged over the 8 lanes that hold the column (`lanes_pool`) into the
+// warpgroup's partials pm / pc [4][lp]; after the warpgroup's barrier a
+// thread a (group, column) merges its group's warps in order into pooled /
+// cnt, or a split group's part into pmax / pcnt (`gmlp_bf16_fwd_finish`
+// merges the parts).
+struct WPool {
+  const WPlan* p;
+  float* pm;
+  int* pc;
+  const float* b3;
+  WRows rw;
+  int t, wg;
+  float *pooled, *pmax;
+  int *cnt, *pcnt;
+
+  template <int NP>
+  __device__ __forceinline__ void apply(float (&acc)[NP / 2], int c0) const {
+    const int lane = threadIdx.x & 31, w = (threadIdx.x >> 5) & 3, q = lane & 3;
+    const int lp = p->lp;
+    const bool in0 = rw.row[0] >= 0, in1 = rw.row[1] >= 0;
+#pragma unroll
+    for (int cc = 0; cc < NP / 64; ++cc) {
+      float m[16];
+      int k[16];
+#pragma unroll
+      for (int jj = 0; jj < 8; ++jj) {
+        const int j = 8 * cc + jj;
+        const float2 b2 = lds_f2(b3 + c0 + 8 * j + 2 * q);
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const float b = e ? b2.y : b2.x;
+          const float v0 = in0 ? fmaxf(__fadd_rn(acc[4 * j + e], b), 0.0f) : -1.0f;
+          const float v1 = in1 ? fmaxf(__fadd_rn(acc[4 * j + 2 + e], b), 0.0f) : -1.0f;
+          const float mx = fmaxf(v0, v1);
+          m[2 * jj + e] = mx;
+          k[2 * jj + e] = (v0 == mx) + (v1 == mx);
+        }
+      }
+      int idx = 0, dup = 0;
+      lanes_pool<16, 4>(m, k, lane, idx, dup);
+#pragma unroll
+      for (int i = 0; i < pool_left(16); ++i) {
+        const int e = idx + i, c = 64 * cc + (e >> 1) * 8 + 2 * q + (e & 1);
+        pm[w * lp + c] = m[i];
+        pc[w * lp + c] = k[i];
+      }
+    }
+    named_bar_sync(2 + wg, 128);  // the warps' partials are in
+    const int ng = p->parts > 1 ? 1 : min(p->gpt, p->groups - t * p->gpt);
+    const int segs = p->parts > 1 ? 4 : p->nsp / 16;
+    for (int o = threadIdx.x & 127; o < ng * NP; o += 128) {
+      const int gi = o / NP, cl = o - gi * NP, c = c0 + cl;
+      if (c >= p->c3) continue;
+      float mx = -1.0f;
+      int kk = 0;
+      for (int s = gi * segs; s < (gi + 1) * segs; ++s)
+        merge_max(mx, kk, pm[s * lp + cl], pc[s * lp + cl]);
+      if (p->parts > 1) {
+        const size_t at = (size_t)t * p->c3 + c;  // (group, part) = tile t
+        pmax[at] = mx;
+        pcnt[at] = kk;
+      } else {
+        const size_t at = ((size_t)t * p->gpt + gi) * p->c3 + c;
+        pooled[at] = mx;
+        cnt[at] = kk;
+      }
+    }
+    named_bar_sync(2 + wg, 128);  // the partials are read: the next pass may write
+  }
+};
+
+// the pass's product at its width (nb = 2 NP) and its epilogue
+template <class ALoad, class Epi>
+__device__ __forceinline__ void w_pass(const WPlan& p, const WRing& rg, int& slab,
+                                       const WPass& ps, int wg, const ALoad& aload,
+                                       const Epi& epi) {
+  if (ps.nb == 256) {
+    float acc[64];
+    w_product<128>(acc, p, rg, slab, ps, wg, aload, true);
+    epi.template apply<128>(acc, ps.n0 + wg * 128);
+  } else {
+    float acc[32];
+    w_product<64>(acc, p, rg, slab, ps, wg, aload, true);
+    epi.template apply<64>(acc, ps.n0 + wg * 64);
+  }
+}
+
+// layer 1 of the tile into a1 (bf16 rows of the padded width + 8), passes
+// [0, n1), once its input has landed
+__device__ __forceinline__ void w_layer1(const WPlan& p, const WRing& rg, int& slab,
+                                         int wg, const AFromInput& ain, uint16_t* A1,
+                                         const float* B1) {
+  if (p.cf) mbar_wait(rg.xin, 0);
+  for (int i = 0; i < p.n1; ++i)
+    w_pass(p, rg, slab, p.pass[i], wg, ain, Entries<ReluQ>{{A1, p.c1q + 8, B1}});
+  named_bar_sync(1, 256);  // a1 is whole; the input is read
+}
+
+// layer 2 of the tile into a2, passes [n1, n1 + n2)
+__device__ __forceinline__ void w_layer2(const WPlan& p, const WRing& rg, int& slab,
+                                         int wg, uint16_t* A1, uint16_t* A2, const float* B2) {
+  for (int i = p.n1; i < p.n1 + p.n2; ++i)
+    w_pass(p, rg, slab, p.pass[i], wg, AFromSmem{A1, p.c1q + 8},
+           Entries<ReluQ>{{A2, p.c2q + 8, B2}});
+  named_bar_sync(1, 256);  // a2 is whole
+}
+
+__global__ void __launch_bounds__(kWThreads, 1)
+gmlp_bf16_fwd_wgmma(const uint16_t* __restrict__ gx, const uint16_t* __restrict__ gf,
+                    const char* __restrict__ pf, const float* __restrict__ b1,
+                    const float* __restrict__ b2, const float* __restrict__ b3,
+                    const __grid_constant__ WPlan p, float* __restrict__ pooled,
+                    int* __restrict__ cnt, float* __restrict__ pmax, int* __restrict__ pcnt) {
+  extern __shared__ __align__(16) float smem[];
+  char* base = reinterpret_cast<char*>(smem);
+  const WRing rg = ring_of(base, p);
+  const int t = blockIdx.x / p.splits, h = blockIdx.x % p.splits;
+  const int l3 = p.n1 + p.n2;
+  const int lo = l3 + h * p.n3 / p.splits, hi = l3 + (h + 1) * p.n3 / p.splits;
+  uint16_t* A1 = reinterpret_cast<uint16_t*>(base + p.a1);
+  uint16_t* A2 = reinterpret_cast<uint16_t*>(base + p.a2);
+  const WFeed f{{pf, nullptr}, l3, lo, l3 + hi - lo, 0, 0, 0};
+  const int warp = w_start(p, rg, f, t, gf, A2);
+  const int wg = warp >> 2;
+  const WRows rw = w_rows(p, t);
+  float* B = reinterpret_cast<float*>(base + p.bias);
+  w_biases(p, B, b1, b2, b3);
+  named_bar_sync(1, 256);  // the biases are in
+  float* pm = reinterpret_cast<float*>(base + p.aux) + (size_t)wg * 8 * p.lp;
+  int slab = 0;
+  w_layer1(p, rg, slab, wg, x_fragment(gx, A2, p.cf, rw), A1, B);
+  w_layer2(p, rg, slab, wg, A1, A2, B + p.c1q);
+  const WPool pool{&p, pm, reinterpret_cast<int*>(pm + 4 * p.lp), B + p.c1q + p.c2q, rw, t,
+                   wg, pooled, pmax, cnt, pcnt};
+  for (int i = lo; i < hi; ++i)
+    w_pass(p, rg, slab, p.pass[i], wg, AFromSmem{A2, p.c2q + 8}, pool);
+}
+
+__global__ void __launch_bounds__(kWThreads, 1)
+gmlp_bf16_bwd_wgmma(const uint16_t* __restrict__ gx, const uint16_t* __restrict__ gf,
+                    const char* __restrict__ pf, const char* __restrict__ pb,
+                    const uint16_t* __restrict__ w3t, const float* __restrict__ b1,
+                    const float* __restrict__ b2, const float* __restrict__ b3,
+                    const float* __restrict__ pooled, const int* __restrict__ cnt,
+                    const float* __restrict__ gout, const __grid_constant__ WPlan p,
+                    float* __restrict__ dgx, float* __restrict__ dgf) {
+  extern __shared__ __align__(16) float smem[];
+  char* base = reinterpret_cast<char*>(smem);
+  const WRing rg = ring_of(base, p);
+  const int t = blockIdx.x;
+  uint16_t* A1 = reinterpret_cast<uint16_t*>(base + p.a1);
+  uint16_t* A2 = reinterpret_cast<uint16_t*>(base + p.a2);
+  uint32_t* H = reinterpret_cast<uint32_t*>(base + p.aux);
+  float* P = reinterpret_cast<float*>(H + kWRows * p.c3q / 32);
+  float* Q = P + (size_t)p.gpt * p.c3q;
+  const WFeed f{{pf, pb}, p.npass, p.npass, p.npass, 0, 0, 0};
+  const int warp = w_start(p, rg, f, t, gf, A2);
+  const int wg = warp >> 2;
+  const WRows rw = w_rows(p, t);
+  float* B = reinterpret_cast<float*>(base + p.bias);
+  w_biases(p, B, b1, b2, b3);
+  named_bar_sync(1, 256);  // the biases are in
+  int slab = 0;
+  w_layer1(p, rg, slab, wg, x_fragment(gx, A2, p.cf, rw), A1, B);
+  {  // over the input: no hits yet, the tile's groups' maxima and g / cnt
+    const int ng = w_groups(p, t);
+    const size_t g0 = p.parts > 1 ? (size_t)t / p.parts : (size_t)t * p.gpt;
+    for (int o = threadIdx.x; o < kWRows * p.c3q / 32; o += kWThreads) H[o] = 0u;
+    for (int o = threadIdx.x; o < p.gpt * p.c3q; o += kWThreads) {
+      const int gi = o / p.c3q, c = o - gi * p.c3q;
+      const bool ok = gi < ng && c < p.c3;
+      const size_t at = (g0 + gi) * p.c3 + c;
+      P[o] = ok ? pooled[at] : -1.0f;
+      Q[o] = ok ? gout[at] / (float)cnt[at] : 0.0f;
+    }
+  }
+  w_layer2(p, rg, slab, wg, A1, A2, B + p.c1q);  // (its barrier: H, P and Q are in)
+  int ip = p.n1 + p.n2;
+  for (; ip < p.npf; ++ip)  // layer 3 again: dz3's hits
+    w_pass(p, rg, slab, p.pass[ip], wg, AFromSmem{A2, p.c2q + 8},
+           Entries<HitQ>{{H, B + p.c1q + p.c2q, P, p.c3q, rw}});
+  named_bar_sync(1, 256);  // every hit is marked; no product reads a2 now
+  w_dz2(p, H, Q, w3t, A2);
+  named_bar_sync(1, 256);
+  for (int i = 0; i < p.n4; ++i, ++ip)  // dz1 over a1, masked by it
+    w_pass(p, rg, slab, p.pass[ip], wg, AFromSmem{A2, p.c2q + 8},
+           Entries<MaskedQ>{{A1, p.c1q + 8}});
+  named_bar_sync(1, 256);
+  for (; ip < p.npass; ++ip)
+    w_pass(p, rg, slab, p.pass[ip], wg, AFromSmem{A1, p.c1q + 8},
+           Entries<DgOut>{{dgx, dgf, p.cf, rw}});
+}
+
+cudaError_t launch_w_fwd(const WPlan& p, const void* gx, const void* gf, const void* pf,
+                         const float* b1, const float* b2, const float* b3, float* pooled,
+                         int* cnt, float* pmax, int* pcnt, cudaStream_t st) {
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      gmlp_bf16_fwd_wgmma, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)geoa3::kSmemMax);
+  if (attr != cudaSuccess) return attr;
+  gmlp_bf16_fwd_wgmma<<<p.tiles * p.splits, kWThreads, p.smem, st>>>(
+      static_cast<const uint16_t*>(gx), static_cast<const uint16_t*>(gf),
+      static_cast<const char*>(pf), b1, b2, b3, p, pooled, cnt, pmax, pcnt);
+  return cudaGetLastError();
+}
+
+cudaError_t launch_w_bwd(const WPlan& p, const void* gx, const void* gf, const void* pf,
+                         const void* pb, const void* w3t, const float* b1, const float* b2,
+                         const float* b3, const float* pooled, const int* cnt, const float* g,
+                         float* dgx, float* dgf, cudaStream_t st) {
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      gmlp_bf16_bwd_wgmma, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)geoa3::kSmemMax);
+  if (attr != cudaSuccess) return attr;
+  gmlp_bf16_bwd_wgmma<<<p.tiles, kWThreads, p.smem, st>>>(
+      static_cast<const uint16_t*>(gx), static_cast<const uint16_t*>(gf),
+      static_cast<const char*>(pf), static_cast<const char*>(pb),
+      static_cast<const uint16_t*>(w3t), b1, b2, b3, pooled, cnt, g, p, dgx, dgf);
+  return cudaGetLastError();
+}
+
 // a direction's plan as its C entry picks it: the resident kernel where
-// res_plan fits, else the staged one
+// res_plan fits, else the streamed one where wgmma_plan does, else the
+// staged one
+enum Kind { kResident, kStreamed, kStaged };
+
 struct Plan {
   Shape s;
   Res r;
-  bool resident;
+  WPlan w;
+  Kind kind;
+  int parts() const { return kind == kStreamed ? w.parts : s.parts; }
+  int tiles() const { return kind == kStreamed ? w.tiles : s.tiles; }
 };
 
 bool plan_of(Plan& p, int groups, int ns, int cf, int c1, int c2, int c3, bool bwd) {
-  p.resident = res_plan(p.s, p.r, groups, ns, cf, c1, c2, c3, bwd);
-  return p.resident || make_shape(p.s, groups, ns, cf, c1, c2, c3, bwd);
+  p.kind = kResident;
+  if (res_plan(p.s, p.r, groups, ns, cf, c1, c2, c3, bwd)) return true;
+  p.kind = kStreamed;
+  if (wgmma_plan(p.w, groups, ns, cf, c1, c2, c3, bwd, res_sms())) return true;
+  p.kind = kStaged;
+  return make_shape(p.s, groups, ns, cf, c1, c2, c3, bwd);
 }
 
 template <int BM>
@@ -1419,30 +2218,35 @@ cudaError_t launch_bwd(const Shape& s, const void* gx, const void* gf, const voi
 
 // gx [groups, ns, 3] bf16, gf [groups, ns, cf] bf16 (or null; cf % 16 == 0,
 // 16-byte aligned), w1 [16 + cf, c1p], w2 [c1p, c2p], w3 [c2p, c3p] bf16
-// and b_i [c_ip] float32, zero-padded (c_ip: c_i rounded up to 16) ->
+// and b_i [c_ip] float32, zero-padded (c_ip: c_i rounded up to 16), pf the
+// streamed kernel's weights (`wgmma_plan`'s forward passes, packed) ->
 // pooled, cnt [groups, c3]. scratch: 2 groups parts c3 ints where a group
 // is split (ns above the tile's rows), else unused. One launch (and the
-// finishing kernel's where a group is split): the resident kernel where its
-// plan fits, else the staged one.
+// finishing kernel's where a group is split): the resident kernel where
+// its plan fits, else the streamed one where its plan does, else the staged
+// one.
 extern "C" int geoa3_group_mlp_fwd_bf16(const void* gx, const void* gf, const void* w1,
                                         const float* b1, const void* w2,
                                         const float* b2, const void* w3,
-                                        const float* b3, int groups, int ns, int cf,
-                                        int c1, int c2, int c3, float* pooled,
-                                        int* cnt, void* scratch, void* stream) {
+                                        const float* b3, const void* pf, int groups,
+                                        int ns, int cf, int c1, int c2, int c3,
+                                        float* pooled, int* cnt, void* scratch,
+                                        void* stream) {
   Plan p;
   if (cf % 16 || !plan_of(p, groups, ns, cf, c1, c2, c3, false))
     return (int)cudaErrorInvalidValue;
   const Shape& s = p.s;
-  if (s.tiles == 0) return 0;
-  if (s.parts > 1 && scratch == nullptr) return (int)cudaErrorInvalidValue;
+  const int parts = p.parts();
+  if (p.tiles() == 0) return 0;
+  if (parts > 1 && scratch == nullptr) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  float* pmax = s.parts > 1 ? static_cast<float*>(scratch) : nullptr;
-  int* pcnt = s.parts > 1 ? reinterpret_cast<int*>(pmax + (size_t)groups * s.parts * c3)
-                          : nullptr;
+  float* pmax = parts > 1 ? static_cast<float*>(scratch) : nullptr;
+  int* pcnt = parts > 1 ? reinterpret_cast<int*>(pmax + (size_t)groups * parts * c3) : nullptr;
   cudaError_t e;
-  if (p.resident) {
+  if (p.kind == kResident) {
     e = launch_res_fwd(s, p.r, gx, gf, w1, b1, w2, b2, w3, b3, pooled, cnt, pmax, pcnt, st);
+  } else if (p.kind == kStreamed) {
+    e = launch_w_fwd(p.w, gx, gf, pf, b1, b2, b3, pooled, cnt, pmax, pcnt, st);
   } else {
     switch (s.rows) {
       case 128: e = launch_fwd<128>(s, gx, gf, w1, b1, w2, b2, w3, b3, pooled, cnt, pmax, pcnt, st); break;
@@ -1451,38 +2255,44 @@ extern "C" int geoa3_group_mlp_fwd_bf16(const void* gx, const void* gf, const vo
       default: e = launch_fwd<16>(s, gx, gf, w1, b1, w2, b2, w3, b3, pooled, cnt, pmax, pcnt, st); break;
     }
   }
-  if (e != cudaSuccess || s.parts == 1) return (int)e;
+  if (e != cudaSuccess || parts == 1) return (int)e;
   const size_t n = (size_t)groups * c3;
   gmlp_bf16_fwd_finish<<<(unsigned)((n + 255) / 256), 256, 0, st>>>(
-      pmax, pcnt, groups, s.parts, c3, pooled, cnt);
+      pmax, pcnt, groups, parts, c3, pooled, cnt);
   return (int)cudaGetLastError();
 }
 
 // The cotangents of geoa3_group_mlp_fwd_bf16's inputs for the pooled
 // cotangent g [groups, c3] float32, given its pooled and cnt -> dgx
 // [groups, ns, 3] and dgf [groups, ns, cf] (or null; 16-byte aligned)
-// float32. w1t, w2t,
-// w3t: the padded weights transposed (read by the staged kernel only).
-// One launch: the resident kernel where its plan fits, else the staged one.
+// float32. w1t, w2t, w3t: the padded weights transposed (read by the staged
+// kernel only); pf, pb: the streamed kernel's weights (`wgmma_plan`'s
+// backward passes, packed: the first npf from pf, the rest from pb). One
+// launch: the resident kernel where its plan fits, else the streamed one
+// where its plan does, else the staged one.
 extern "C" int geoa3_group_mlp_bwd_bf16(const void* gx, const void* gf, const void* w1,
                                         const float* b1, const void* w2,
                                         const float* b2, const void* w3,
                                         const float* b3, const void* w1t,
-                                        const void* w2t, const void* w3t,
-                                        const float* pooled, const int* cnt,
-                                        const float* g, int groups, int ns, int cf,
-                                        int c1, int c2, int c3, float* dgx,
-                                        float* dgf, void* stream) {
+                                        const void* w2t, const void* w3t, const void* pf,
+                                        const void* pb, const float* pooled,
+                                        const int* cnt, const float* g, int groups,
+                                        int ns, int cf, int c1, int c2, int c3,
+                                        float* dgx, float* dgf, void* stream) {
   Plan p;
   if (cf % 16 || reinterpret_cast<uintptr_t>(dgf) % 16 ||
       !plan_of(p, groups, ns, cf, c1, c2, c3, true))
     return (int)cudaErrorInvalidValue;
   const Shape& s = p.s;
-  if (s.tiles == 0) return 0;
+  if (p.tiles() == 0) return 0;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (p.resident)
+  if (p.kind == kResident)
     return (int)launch_res_bwd(s, p.r, gx, gf, w1, b1, w2, b2, w3, b3, pooled, cnt, g, dgx,
                                dgf, st);
+  if (p.kind == kStreamed) {
+    return (int)launch_w_bwd(p.w, gx, gf, pf, pb, w3t, b1, b2, b3, pooled, cnt, g, dgx, dgf,
+                             st);
+  }
   switch (s.rows) {
     case 128: return (int)launch_bwd<128>(s, gx, gf, w1, b1, w2, b2, w3, b3, w1t, w2t, w3t, pooled, cnt, g, dgx, dgf, st);
     case 64: return (int)launch_bwd<64>(s, gx, gf, w1, b1, w2, b2, w3, b3, w1t, w2t, w3t, pooled, cnt, g, dgx, dgf, st);

@@ -91,17 +91,17 @@ SIGNATURES = {
         _I, _I, _I, _I, _I, _I, _VP, _VP, _VP,
     ],
     # gx, gf (or null), w1, b1, w2, b2, w3, b3 (padded bf16 weights, float32
-    # biases), groups, ns, cf, c1, c2, c3, pooled, cnt, scratch (or null
-    # where no group is split), stream
+    # biases), pf (the streamed kernel's packed weights), groups, ns, cf, c1,
+    # c2, c3, pooled, cnt, scratch (or null where no group is split), stream
     "geoa3_group_mlp_fwd_bf16": [
-        _VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _I, _I, _I, _I, _I, _I, _VP,
+        _VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _I, _I, _I, _I, _I, _I, _VP,
         _VP, _VP, _VP,
     ],
-    # gx, gf (or null), w1, b1, w2, b2, w3, b3, w1t, w2t, w3t, pooled, cnt,
-    # gout, groups, ns, cf, c1, c2, c3, dgx, dgf (or null), stream
+    # gx, gf (or null), w1, b1, w2, b2, w3, b3, w1t, w2t, w3t, pf, pb, pooled,
+    # cnt, gout, groups, ns, cf, c1, c2, c3, dgx, dgf (or null), stream
     "geoa3_group_mlp_bwd_bf16": [
-        _VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP,
-        _I, _I, _I, _I, _I, _I, _VP, _VP, _VP,
+        _VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP,
+        _VP, _I, _I, _I, _I, _I, _I, _VP, _VP, _VP,
     ],
     # cloud, b, n, k, mask, stream
     "geoa3_kappa_selmask": [_VP, _I, _I, _I, _VP, _VP],

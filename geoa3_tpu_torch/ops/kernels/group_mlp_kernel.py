@@ -203,6 +203,20 @@ class TilePlan(NamedTuple):
     smem: int
 
 
+class Bf16Plan(NamedTuple):
+    """A bf16 kernel's plan as its C entry picks it: tile rows, parts a
+    group is split into, the weights' stages (0 for the resident kernels,
+    the ring's 32 KB stages for the streamed ones, 32 k rows a stage for
+    the staged ones), shared memory (bytes) and the kernel: "resident",
+    "wgmma" (streamed) or "tiles" (staged)."""
+
+    rows: int
+    parts: int
+    depth: int
+    smem: int
+    kind: str
+
+
 @lru_cache(maxsize=256)
 def tile_plan(ns: int, cf: int, widths, bwd: bool) -> TilePlan:
     """The forward's (bwd False) or the backward's plan, as csrc/group_mlp.cu
@@ -384,10 +398,74 @@ group_mlp_bwd.launches = 0
 # tile heights largest first
 _BF16_KS, _BF16_NCH = 32, 128
 _BF16_ROWS = (128, 64, 32, 16)
+# its streamed kernels: a tile's rows, a ring stage's bytes, the mbarriers,
+# the passes a plan may hold
+_W_ROWS, _W_STAGE, _W_BARS, _W_MAX_PASSES = 64, 32768, 128, 48
 
 
 def _pad16(c: int) -> int:
     return (c + 15) // 16 * 16
+
+
+def _pad128(c: int) -> int:
+    return (c + 127) // 128 * 128
+
+
+class WPass(NamedTuple):
+    """A pass of the streamed kernels: output columns [n0, n0 + nb) of a
+    product over k rows of `src` (a weight of `FoldedMLPBf16`), its weights
+    streamed as slabs of ks rows."""
+
+    src: str
+    n0: int
+    nb: int
+    k: int
+    ks: int
+
+
+def _w_passes(src: str, n: int, k: int) -> list:
+    """Passes over n output columns, 256 or 128 wide, largest first, in
+    slabs of 32 KB (csrc/group_mlp_bf16.cu `add_passes`)."""
+    out, n0 = [], 0
+    while n0 < n:
+        nb = 256 if n - n0 >= 256 else 128
+        out.append(WPass(src, n0, nb, k, 16384 // nb))
+        n0 += nb
+    return out
+
+
+def bf16_wgmma_passes(cf: int, widths, bwd: bool):
+    """The streamed kernels' passes in the order a block runs them
+    (csrc/group_mlp_bf16.cu `wgmma_plan`): (those read from the forward's
+    stream: layers 1, 2 and 3; those from the backward's: W2^T, then W1^T,
+    after dz2 = dz3 W3^T by dz3's hits), or None where the backward's dz2
+    (its columns padded to 128) is wider than 512 or dz3 than 1024."""
+    c1q, c2q, c3q = (_pad128(c) for c in widths)
+    k1 = 16 + cf
+    if bwd and (c2q > 512 or c3q > 1024):
+        return None
+    pf = (_w_passes("kw1", c1q, k1) + _w_passes("kw2", c2q, c1q)
+          + _w_passes("kw3", c3q, c2q))
+    if not bwd:
+        return pf, []
+    return pf, _w_passes("kw2t", c1q, c2q) + _w_passes("kw1t", _pad128(k1), c1q)
+
+
+def _pack_passes(p, passes) -> torch.Tensor:
+    """The passes' weights as the streamed kernels read them, one after
+    another: each pass's first k rows (zero past the weight and up to a
+    multiple of ks) and columns n0 .. n0 + nb (zero past the weight), in
+    wgmma's K-major no-swizzle layout [k / 8][nb][8] (bf16)."""
+    out = []
+    for ps in passes:
+        m = getattr(p, ps.src)
+        kp = -(-ps.k // ps.ks) * ps.ks
+        block = m.new_zeros(kp, ps.nb)
+        rr = min(m.shape[0], ps.k)
+        cc = max(0, min(m.shape[1] - ps.n0, ps.nb))
+        block[:rr, :cc] = m[:rr, ps.n0:ps.n0 + cc]
+        out.append(block.view(kp // 8, 8, ps.nb).transpose(1, 2).reshape(-1))
+    return torch.cat(out) if out else torch.zeros(0, dtype=torch.bfloat16)
 
 
 class FoldedMLPBf16(NamedTuple):
@@ -396,8 +474,15 @@ class FoldedMLPBf16(NamedTuple):
     them), and the kernels' copies: kw1 [16 + cf, c1p] (rows 0-2 the
     coordinates', 3-15 zero, then the features'), kw2 [c1p, c2p], kw3
     [c2p, c3p] in bf16 with every width zero-padded to a multiple of 16,
-    their transposes kw1t, kw2t, kw3t for the backward, and kb_i [c_ip]
-    float32 (bf16 values, zero-padded)."""
+    their transposes kw1t, kw2t, kw3t for the backward, kb_i [c_ip]
+    float32 (bf16 values, zero-padded), and the streamed kernels' weights
+    packed in the order they read them (`bf16_wgmma_passes`): kpf the
+    forward's (whose first passes the backward reads too), kpb the rest of
+    the backward's (empty where it has none). Every MLP is packed: the fold
+    does not know ns, which with the widths decides whether a call's plan
+    is the streamed one (`bf16_plan`), and the packed copies of the
+    victims' SA1 and SA2 MLPs, which the resident kernels serve, take a few
+    hundred KB."""
 
     w1: torch.Tensor
     b1: torch.Tensor
@@ -414,6 +499,8 @@ class FoldedMLPBf16(NamedTuple):
     kw1t: torch.Tensor
     kw2t: torch.Tensor
     kw3t: torch.Tensor
+    kpf: torch.Tensor
+    kpb: torch.Tensor
 
 
 def fold_mlp_bf16(w1, b1, w2, b2, w3, b3) -> FoldedMLPBf16:
@@ -436,9 +523,13 @@ def fold_mlp_bf16(w1, b1, w2, b2, w3, b3) -> FoldedMLPBf16:
         out[:b.shape[0]] = b.float()
         return out
 
-    return FoldedMLPBf16(*ws, kw1, bias(ws[1], c1p), kw2, bias(ws[3], c2p), kw3,
-                         bias(ws[5], c3p), kw1.t().contiguous(), kw2.t().contiguous(),
-                         kw3.t().contiguous())
+    p = FoldedMLPBf16(*ws, kw1, bias(ws[1], c1p), kw2, bias(ws[3], c2p), kw3,
+                      bias(ws[5], c3p), kw1.t().contiguous(), kw2.t().contiguous(),
+                      kw3.t().contiguous(), None, None)
+    pf, _ = bf16_wgmma_passes(c0 - 3, (c1, c2, c3), False)
+    bwd = bf16_wgmma_passes(c0 - 3, (c1, c2, c3), True)
+    return p._replace(kpf=_pack_passes(p, pf).to(kw1.device),
+                      kpb=_pack_passes(p, bwd[1] if bwd else []).to(kw1.device))
 
 
 def _bf16(t: torch.Tensor) -> torch.Tensor:
@@ -507,6 +598,10 @@ def _check_bf16(gx, gf, p: FoldedMLPBf16):
     shapes = {"kw1": (16 + cf, c1p), "kb1": (c1p,), "kw2": (c1p, c2p), "kb2": (c2p,),
               "kw3": (c2p, c3p), "kb3": (c3p,), "kw1t": (c1p, 16 + cf),
               "kw2t": (c2p, c1p), "kw3t": (c3p, c2p)}
+    pf, pb = bf16_wgmma_passes(cf, (c1, c2, c3), False)[0], (
+        bf16_wgmma_passes(cf, (c1, c2, c3), True) or ((), ()))[1]
+    shapes["kpf"] = (sum(-(-ps.k // ps.ks) * ps.ks * ps.nb for ps in pf),)
+    shapes["kpb"] = (sum(-(-ps.k // ps.ks) * ps.ks * ps.nb for ps in pb),)
     for name, shape in shapes.items():
         t = getattr(p, name)
         _build.check_cuda(t, name, torch.float32 if name.startswith("kb")
@@ -570,28 +665,87 @@ def bf16_resident_fwd_bytes(ns: int, cf: int, widths, rows: int) -> int:
     return sum(_pad16(b) for b in regions)
 
 
+def bf16_wgmma_plan(ns: int, cf: int, widths, bwd: bool) -> Optional[Bf16Plan]:
+    """The streamed kernel's plan (csrc/group_mlp_bf16.cu `wgmma_plan`), or
+    None where it does not fit: 64-row tiles (a group of more rows split
+    into ceil(ns / 64) parts, whose maxima the forward merges in a finishing
+    kernel), the ring's stages (depth: 4, 3 or 2 of 32 KB, the most that
+    fit) and the shared memory: the ring and its mbarriers, a1 and a2 (bf16
+    rows of the width padded to 128, + 8), then the forward's pool partials
+    (two warpgroups' [4][lp] maxima and counts, lp half the widest layer-3
+    pass) or the backward's dz3 hit bits ([64][c3 padded to 128] bits) and
+    its tile's groups' maxima and g / cnt ([groups a tile][c3 padded to
+    128] float32 each);
+    layer 1's input ([64][cf] bf16) lands over a2 and what follows, which
+    grow where it needs more; the biases (float32, the padded widths) after
+    the mbarriers. Past 48 passes, none."""
+    passes = bf16_wgmma_passes(cf, widths, bwd)
+    if passes is None or len(passes[0]) + len(passes[1]) > _W_MAX_PASSES:
+        return None
+    c1q, c2q, c3q = (_pad128(c) for c in widths)
+    gpt = 1 if ns > _W_ROWS else _W_ROWS // _pad16(ns)
+    if bwd:
+        aux = _W_ROWS * c3q // 8 + 2 * gpt * c3q * 4
+    else:
+        lp = max(ps.nb // 2 for ps in passes[0] if ps.src == "kw3")
+        aux = 2 * 4 * lp * 8
+    rest = (_W_BARS + (c1q + c2q + c3q) * 4 + _W_ROWS * (c1q + 8) * 2
+            + max(_W_ROWS * (c2q + 8) * 2 + aux, _W_ROWS * cf * 2))
+    for stages in (4, 3, 2):
+        if stages * _W_STAGE + rest <= _SMEM_MAX:
+            return Bf16Plan(_W_ROWS, -(-ns // _W_ROWS) if ns > _W_ROWS else 1, stages,
+                            stages * _W_STAGE + rest, "wgmma")
+    return None
+
+
+def bf16_wgmma_grid(groups: int, ns: int, cf: int, widths, bwd: bool, sms: int) -> int:
+    """The streamed kernel's blocks: one a tile, and the forward splits
+    layer 3's passes over up to sms / tiles blocks a tile."""
+    tiles = (groups * -(-ns // _W_ROWS) if ns > _W_ROWS
+             else -(-groups // (_W_ROWS // _pad16(ns))))
+    if bwd:
+        return tiles
+    l3 = sum(ps.src == "kw3" for ps in bf16_wgmma_passes(cf, widths, False)[0])
+    return tiles * max(1, min(l3, sms // tiles))
+
+
+def bf16_kernel(ns: int, cf: int, widths, bwd: bool) -> str:
+    """The device kernel a direction's C entry runs at this shape:
+    gmlp_bf16_{fwd,bwd}_resident, _wgmma (streamed) or _tiles (staged)."""
+    kind = bf16_plan(ns, cf, tuple(widths), bwd).kind
+    return f"gmlp_bf16_{'bwd' if bwd else 'fwd'}_{kind}"
+
+
 @lru_cache(maxsize=256)
-def bf16_plan(ns: int, cf: int, widths, bwd: bool) -> TilePlan:
-    """A bf16 kernel's plan as its C entry picks it: the largest of 128, 64
+def bf16_plan(ns: int, cf: int, widths, bwd: bool) -> Bf16Plan:
+    """A bf16 kernel's plan as its C entry picks it. The kernel with
+    resident weights where its rule finds a height (the largest of 128, 64
     and 32 rows whose block leaves room for two an SM, else the largest of
-    128 .. 16 that fits one; a group of more rows than the tile is split
-    into ceil(ns / rows) parts (the forward merges their maxima in a
-    finishing kernel). Each direction takes its kernel with resident
-    weights where that rule finds a height for it (`bf16_resident_bytes`,
-    `bf16_resident_fwd_bytes`; depth 0: no weight stages), else the staged
-    one (`bf16_smem_bytes`), which streams layer 1's input in slices, so cf
-    sets it no limit. Raises where no height fits (widths past ~2000)."""
+    128 .. 16 that fits one; `bf16_resident_bytes`,
+    `bf16_resident_fwd_bytes`; depth 0: no weight stages); else the
+    streamed one where it fits (`bf16_wgmma_plan`; depth: its ring's
+    stages); else the staged one (`bf16_smem_bytes`, depth 32), which
+    streams layer 1's input in slices, so cf sets it no limit. A group of
+    more rows than the tile is split into ceil(ns / rows) parts (the
+    forward merges their maxima in a finishing kernel). Raises where no
+    height fits (widths past ~2000)."""
     widths = tuple(widths)
     resident = bf16_resident_bytes if bwd else bf16_resident_fwd_bytes
-    fits = ((0, lambda rows: resident(ns, cf, widths, rows)),
-            (_BF16_KS, lambda rows: bf16_smem_bytes(widths, rows, bwd)))
-    for depth, need in fits:
+    staged = False
+    for need in (lambda rows: resident(ns, cf, widths, rows),
+                 lambda rows: bf16_smem_bytes(widths, rows, bwd)):
         for limit, heights in ((_SMEM_HALF, _BF16_ROWS[:-1]), (_SMEM_MAX, _BF16_ROWS)):
             for rows in heights:
                 smem = need(rows)
                 if smem <= limit:
-                    return TilePlan(rows, (ns + rows - 1) // rows if ns > rows else 1,
-                                    depth, 0, smem)
+                    return Bf16Plan(rows, (ns + rows - 1) // rows if ns > rows else 1,
+                                    _BF16_KS if staged else 0, smem,
+                                    "tiles" if staged else "resident")
+        if not staged:
+            plan = bf16_wgmma_plan(ns, cf, widths, bwd)
+            if plan is not None:
+                return plan
+        staged = True
     raise ValueError(
         f"the bf16 group_mlp {'backward' if bwd else 'forward'}'s 16-row tile "
         f"needs {bf16_smem_bytes(widths, 16, bwd)} bytes of shared memory for "
@@ -611,7 +765,7 @@ def group_mlp_fwd_bf16(gx, gf, p: FoldedMLPBf16):
     scratch = (torch.empty(2 * groups * parts * c3, dtype=torch.int32,
                            device=gx.device) if parts > 1 else None)
     _build.launch("geoa3_group_mlp_fwd_bf16", gx, gf, p.kw1, p.kb1, p.kw2, p.kb2,
-                  p.kw3, p.kb3, groups, ns, cf, c1, c2, c3, pooled, cnt, scratch)
+                  p.kw3, p.kb3, p.kpf, groups, ns, cf, c1, c2, c3, pooled, cnt, scratch)
     group_mlp_fwd_bf16.launches += 1
     return pooled, cnt
 
@@ -629,8 +783,8 @@ def group_mlp_bwd_bf16(g, gx, gf, p: FoldedMLPBf16, pooled, cnt):
     dgf = (torch.empty(b, m, ns, cf, dtype=torch.float32, device=gx.device)
            if gf is not None else None)
     _build.launch("geoa3_group_mlp_bwd_bf16", gx, gf, p.kw1, p.kb1, p.kw2, p.kb2,
-                  p.kw3, p.kb3, p.kw1t, p.kw2t, p.kw3t, pooled, cnt, g, groups, ns,
-                  cf, c1, c2, c3, dgx, dgf)
+                  p.kw3, p.kb3, p.kw1t, p.kw2t, p.kw3t, p.kpf, p.kpb, pooled, cnt, g,
+                  groups, ns, cf, c1, c2, c3, dgx, dgf)
     group_mlp_bwd_bf16.launches += 1
     return dgx, dgf
 

@@ -41,8 +41,8 @@ from geoa3_tpu_torch.workload import (
 # kernel-name pattern -> group
 _GROUPS = [
     (re.compile(r"pool_fwd_bf16_kernel"), "pool_fwd_bf16 (port)"),
-    (re.compile(r"gmlp_bf16_fwd_(tiles|finish|resident)"), "group_mlp_fwd_bf16 (port)"),
-    (re.compile(r"gmlp_bf16_bwd_(tiles|resident)"), "group_mlp_bwd_bf16 (port)"),
+    (re.compile(r"gmlp_bf16_fwd_(tiles|finish|resident|wgmma)"), "group_mlp_fwd_bf16 (port)"),
+    (re.compile(r"gmlp_bf16_bwd_(tiles|resident|wgmma)"), "group_mlp_bwd_bf16 (port)"),
     (re.compile(r"pool_bwd_bf16_kernel"), "pool_bwd_bf16 (port)"),
     (re.compile(r"pool_fwd_kernel"), "pool_fwd (port)"),
     (re.compile(r"pool_bwd_kernel"), "pool_bwd (port)"),

@@ -54,6 +54,7 @@
 #define __restrict__
 #define __shared__
 #define __align__(x)
+#define __grid_constant__
 
 using std::max;
 using std::min;
@@ -348,7 +349,8 @@ inline void mma_m16n8k16_bf16(float (&d)[4], const uint32_t (&a)[4],
 }
 
 // wgmma.mma_async.sync.aligned.m64nNk16.f32.bf16.bf16 with A from
-// registers and B from shared memory (wgmma_m64n64k16_bf16): each of the
+// registers and B from shared memory (wgmma_m64n64k16_bf16, and
+// wgmma_bf16<N> at N = 64, 128 and 256): each of the
 // warpgroup's 128 threads queues the op with its A fragment and its
 // accumulators (by address), wgmma_commit closes a group, and
 // wgmma_wait<K> runs the oldest groups until at most K remain, every thread
@@ -431,6 +433,12 @@ inline void emu_wgmma_run(const EmuWgmma& op) {
 inline void wgmma_m64n64k16_bf16(float (&d)[32], const uint32_t (&a)[4],
                                  uint64_t desc, int scale_d) {
   g_wg_open.push_back({d, a, desc, 64, scale_d != 0});
+}
+// m64nNk16 (csrc/wgmma.cuh's wgmma_bf16<N>, N = 64, 128 or 256): the same
+// op N columns wide
+template <int N>
+void wgmma_bf16(float (&d)[N / 2], const uint32_t (&a)[4], uint64_t desc, int scale_d) {
+  g_wg_open.push_back({d, a, desc, N, scale_d != 0});
 }
 inline void wgmma_fence() {}
 inline void wgmma_commit() {

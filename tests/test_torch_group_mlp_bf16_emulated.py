@@ -3,30 +3,40 @@ group_mlp_bf16.cu, row 16 in the bf16 victims' mode), compiled with g++
 against tests/cuda_emu/cuda_runtime.h and run on the CPU
 (tests/cuda_emu/group_mlp_bf16.cpp).
 
-The header's ldmatrix and mma.sync m16n8k16 stand-ins keep the PTX ISA's
-fragment layouts and sum each output's 16 products k ascending, one fmaf a
-term: so each emulated layer is one float32 chain over its (padded) input
-channels from 0, then + bias, which an oracle here repeats exactly, through
-the bf16 roundings of a1, a2 and the cotangents. The forward's maxima and
-tie counts and the backward's dgx and dgf are held bit-equal to that
-oracle, and the maxima also within one bf16 step of the plain version
-(`group_mlp_fwd_bf16_plain`, whose float32 sums run in another order). The
-forward and the backward run their kernels with resident weights wherever
-their plans fit (the staged ones at the GroupAll widths), on persistent
-blocks for the case's SM count; every bulk copy must read inside one input
-tensor. The cases: the victims' shapes at a few groups (SSG SA1, SA2 and
-GroupAll, MSG SA1's three scales and GroupAll at cf = 640), groups split
-over tiles (GroupAll, ns = 200, and SA2's widths at the shared-memory limit
-with ns = 300 in five parts on one block) with rows tied across the parts,
-more tiles than persistent blocks with a ragged last tile, groups off the
-m16 tiles (ns = 24 and 33: the forward's pool by rows), tiles whose rows or
-group values do not start and end on 16-byte lines, widths past the
-resident plan, widths that are not multiples of 16, and duplicated rows
-that tie inside one m16 tile and across the units of a group. Outputs
-start as NaN or -1 and the program fails on a write past one; each plan
-(tile rows, parts, weight stages, shared memory, tiles, persistent blocks)
-must be the one `group_mlp_kernel.bf16_plan` predicts, also at the
-victims' full shapes.
+The header's ldmatrix, mma.sync m16n8k16 and wgmma m64nNk16 stand-ins keep
+the PTX ISA's fragment and canonical layouts and sum each output's 16
+products k ascending, one fmaf a term: so each emulated layer is one float32
+chain over its (padded) input channels from 0, then + bias, which an oracle
+here repeats exactly, through the bf16 roundings of a1, a2 and the
+cotangents. The forward's maxima and tie counts and the backward's dgx and
+dgf are held bit-equal to that oracle, and the maxima also within one bf16
+step of the plain version (`group_mlp_fwd_bf16_plain`, whose float32 sums
+run in another order). Each direction runs the kernel its plan picks: the
+one with resident weights wherever they fit beside a tile (on persistent
+blocks for the case's SM count), else the streamed one (wgmma, the weights
+bulk-copied slab by slab from `fold_mlp_bf16`'s packed streams; the
+GroupAll widths up to cf = 976), else the staged one (where a1, a2 and layer
+1's whole input of 64 rows do not fit beside two 32 KB stages, and in the
+backward where the padded c2 passes 512 or c3 1024: `STAGED` and `KERNEL`
+name those shapes); every bulk copy must read inside one input tensor. The cases: the victims' shapes at a few
+groups (SSG SA1, SA2 and GroupAll, MSG SA1's three scales and GroupAll at
+cf = 640, the GroupAll ones on 132 SMs, so that the forward splits layer 3
+over two blocks a tile as on the H100), groups split over tiles (GroupAll;
+ns = 100, whose second 64-row tile is ragged; ns = 200; and SA2's widths at
+the shared-memory limit with ns = 300 in five parts on one block) with rows
+tied across the parts, groups of 48 rows whose ties cross the streamed
+forward's 16-row warp segments, more tiles than persistent blocks with a
+ragged last tile, groups off the m16 tiles (ns = 24 and 33: the resident
+forward's pool by rows), tiles whose rows or group values do not start and
+end on 16-byte lines, widths past the resident plan (streamed, up to the
+widest the streamed plan takes) and past the streamed plan (staged: widths
+of 1024, and GroupAll at cf = 1024 in four 32-row parts, one ragged, whose
+maxima tie across the parts and are merged by the finishing kernel), widths
+that are not multiples of 16, and duplicated rows that tie inside one m16
+tile and across the units of a group. Outputs start as NaN or -1 and the
+program fails on a write past one; each plan (tile rows, parts, weight
+stages, shared memory, tiles, blocks) must be the one
+`group_mlp_kernel.bf16_plan` predicts, also at the victims' full shapes.
 
 The emulation checks the kernels' indices, fragment layouts, staging and
 barriers, not the tensor cores' rounding nor speed: `chip_smoke.py` holds
@@ -52,18 +62,30 @@ CASES = {
     "SSG SA1 (one group a tile)": (3, 64, 0, (64, 64, 128), (1, 9, 40), 1),
     "SSG SA2 (cf=128)": (2, 64, 128, (128, 128, 256), (1, 2), 1),
     "SSG GroupAll (cf=256, split over tiles, ties across the parts)":
-        (1, 128, 256, (256, 512, 1024), (1, 31, 32, 63, 64, 127), 1),
+        (1, 128, 256, (256, 512, 1024), (1, 31, 32, 63, 64, 127), 132),
     "MSG SA1 ns=16 (groups a tile, a ragged last tile)":
         (13, 16, 0, (32, 32, 64), (3,), 1),
     "MSG SA1 ns=32": (5, 32, 0, (64, 64, 128), (31,), 1),
     "MSG SA1 ns=128 (a 96-column layer)": (2, 128, 0, (64, 96, 128), (5, 127), 1),
-    "MSG GroupAll cf=640": (1, 128, 640, (256, 512, 1024), (1, 64, 100), 1),
+    "MSG GroupAll cf=640": (1, 128, 640, (256, 512, 1024), (1, 64, 100), 132),
+    "GroupAll widths, ns=100 (a ragged 64-row tile), ties across the 64-row parts":
+        (1, 100, 256, (256, 512, 1024), (1, 15, 16, 63, 64, 99), 132),
+    "GroupAll widths, ns=48 (48-row groups, 16 padding rows a tile), ties across "
+    "the 16-row warp segments": (3, 48, 0, (256, 512, 1024), (15, 16, 31, 32, 47), 1),
+    "widths 512/512/1024 at cf=128 (the widest the streamed plan takes)":
+        (1, 64, 128, (512, 512, 1024), (1, 63), 132),
+    "widths 1024 (past the streamed plan: staged)": (1, 16, 0, (1024, 1024, 1024), (3,), 1),
+    "GroupAll widths at cf=1024, ns=100 (past the streamed plan's whole input: staged, "
+    "32-row parts, one ragged), ties across the parts":
+        (1, 100, 1024, (256, 512, 1024), (1, 31, 32, 63, 64, 99), 1),
     "widths 24/40/36, ns=24, cf=16": (5, 24, 16, (24, 40, 36), (5, 23), 1),
     "ns=200 split in two, cf=32": (2, 200, 32, (32, 32, 64), (0, 127, 128, 199), 1),
     "5 tiles on 4 persistent blocks (2 SMs), a ragged last tile":
         (37, 16, 0, (32, 32, 64), (7,), 2),
     "SA2 widths at the shared-memory limit, ns=300 in 5 parts on one block":
         (2, 300, 128, (128, 128, 256), (0, 63, 64, 299), 1),
+    # past the resident plan: the staged kernels took it when the case was
+    # named, the streamed ones do now (`STREAMED`); the name is the test's id
     "widths 128/256/512 at cf=128 (past the resident plan: staged)":
         (1, 32, 128, (128, 256, 512), (1, 31), 1),
     "ns=33, c3=37 (gx, group values and dgx off 16-byte lines: read and "
@@ -72,10 +94,18 @@ CASES = {
     "last tile": (23, 24, 0, (32, 32, 64), (3, 23), 1),
 }
 
-# the cases whose kernels are the staged ones (weights past the plan)
-STAGED = {"SSG GroupAll (cf=256, split over tiles, ties across the parts)",
-          "MSG GroupAll cf=640",
-          "widths 128/256/512 at cf=128 (past the resident plan: staged)"}
+# the cases whose kernels are the streamed ones (weights past the resident
+# plan), and those past the streamed plan too (the staged ones)
+STREAMED = {"SSG GroupAll (cf=256, split over tiles, ties across the parts)",
+            "MSG GroupAll cf=640",
+            "GroupAll widths, ns=100 (a ragged 64-row tile), ties across the 64-row parts",
+            "GroupAll widths, ns=48 (48-row groups, 16 padding rows a tile), ties across "
+            "the 16-row warp segments",
+            "widths 512/512/1024 at cf=128 (the widest the streamed plan takes)",
+            "widths 128/256/512 at cf=128 (past the resident plan: staged)"}
+STAGED = {"widths 1024 (past the streamed plan: staged)",
+          "GroupAll widths at cf=1024, ns=100 (past the streamed plan's whole input: "
+          "staged, 32-row parts, one ragged), ties across the parts"}
 
 # the victims' full shapes (groups at b = 32), planned only
 PLANS = {
@@ -87,7 +117,23 @@ PLANS = {
     "MSG SA1 ns=128": (16384, 128, 0, (64, 96, 128)),
     "MSG GroupAll": (32, 128, 640, (256, 512, 1024)),
     "widths 1024, cf=4096": (32, 128, 4096, (1024, 1024, 1024)),
+    "GroupAll widths, cf=1024": (32, 128, 1024, (256, 512, 1024)),
+    "widths 256/1024/1024, cf=128": (32, 128, 128, (256, 1024, 1024)),
+    "widths 256/512/2048, cf=256": (32, 128, 256, (256, 512, 2048)),
 }
+
+# the device kernels (forward, backward) each full shape's plan picks: the
+# resident weights serve every victim shape but GroupAll's, the streamed
+# kernels GroupAll; the staged ones every shape past the streamed plan:
+# where a1 and a2 of 64 rows (widths padded to 128) and layer 1's whole
+# input [64][cf] do not fit beside two 32 KB stages (widths of 1024; c1 +
+# c2 past about 1280; GroupAll's widths at cf >= 992), and in the backward
+# also where c2 (padded to 128) passes 512 or c3 1024
+KERNEL = {"SSG GroupAll": ("wgmma", "wgmma"), "MSG GroupAll": ("wgmma", "wgmma"),
+          "widths 1024, cf=4096": ("tiles", "tiles"),
+          "GroupAll widths, cf=1024": ("tiles", "tiles"),
+          "widths 256/1024/1024, cf=128": ("tiles", "tiles"),
+          "widths 256/512/2048, cf=256": ("wgmma", "tiles")}
 
 
 @pytest.fixture(scope="module")
@@ -142,7 +188,8 @@ def _run(emulated, case):
     gx, gf, p, g = _inputs(case)
     bits = lambda t: t.contiguous().view(torch.int16).numpy().tobytes()  # noqa: E731
     blob = [bits(gx), bits(gf) if gf is not None else b""]
-    for name in ("kw1", "kb1", "kw2", "kb2", "kw3", "kb3", "kw1t", "kw2t", "kw3t"):
+    for name in ("kw1", "kb1", "kw2", "kb2", "kw3", "kb3", "kw1t", "kw2t", "kw3t", "kpf",
+                 "kpb"):
         t = getattr(p, name)
         blob.append(t.numpy().tobytes() if t.dtype == torch.float32 else bits(t))
     blob.append(g.numpy().tobytes())
@@ -150,7 +197,8 @@ def _run(emulated, case):
     src, dst = build / f"in_{tag}.bin", build / f"out_{tag}.bin"
     src.write_bytes(b"".join(blob))
     res = subprocess.run([str(exe), str(src), str(dst), str(groups), str(ns),
-                          str(cf), str(c1), str(c2), str(c3), str(sms)],
+                          str(cf), str(c1), str(c2), str(c3), str(p.kpf.numel()),
+                          str(p.kpb.numel()), str(sms)],
                          capture_output=True, text=True, timeout=600)
     assert res.returncode == 0, res.stdout + res.stderr
     raw = dst.read_bytes()
@@ -232,6 +280,11 @@ def _plan(out, which):
         out).groups()))
 
 
+def _kind(out, which):
+    """The kernel a printed plan runs: resident, wgmma or tiles."""
+    return re.search(which + r" rows=.* kind=(\w+)", out).group(1)
+
+
 @pytest.mark.parametrize("case", sorted(CASES))
 def test_plans_match_the_wrapper(emulated, case):
     groups, ns, cf, widths, _, sms = CASES[case]
@@ -241,7 +294,15 @@ def test_plans_match_the_wrapper(emulated, case):
         plan = gk.bf16_plan(ns, cf, widths, which == "bwd")
         assert (rows, parts, smem, depth) == (plan.rows, plan.parts, plan.smem,
                                               plan.depth), out
-        assert (depth > 0) == (case in STAGED), out
+        assert _kind(out, which) == plan.kind, out
+        assert (plan.kind == "wgmma") == (0 < depth < 32) == (case in STREAMED), out
+        assert (plan.kind == "tiles") == (depth == 32) == (case in STAGED), out
+        if 0 < depth < 32:  # 64-row tiles, groups on 16-row segments
+            assert tiles == (groups * parts if parts > 1
+                             else -(-groups // (64 // (-(-ns // 16) * 16))))
+            assert grid == gk.bf16_wgmma_grid(groups, ns, cf, widths, which == "bwd",
+                                              sms), out
+            continue
         assert tiles == (groups * parts if parts > 1 else -(-groups // (rows // ns)))
         if depth == 0:  # persistent: as many blocks as 1-2 an SM, at most one a tile
             assert grid == min(tiles, sms * (2 if smem <= 113 * 1024 else 1)), out
@@ -256,11 +317,11 @@ def test_full_shapes_plan_as_the_wrapper(emulated, shape):
     res = subprocess.run([str(exe), "plan", "-", str(groups), str(ns), str(cf),
                           *map(str, widths)], capture_output=True, text=True, timeout=60)
     assert res.returncode == 0, res.stdout + res.stderr
-    for which in ("fwd", "bwd"):
+    for which, kind in zip(("fwd", "bwd"), KERNEL.get(shape, ("resident", "resident"))):
         rows, parts, smem, depth = _plan(res.stdout, which)[:4]
         plan = gk.bf16_plan(ns, cf, widths, which == "bwd")
         assert (rows, parts, smem, depth) == (plan.rows, plan.parts, plan.smem,
                                               plan.depth) and smem <= 232448, res.stdout
-        # the resident weights serve every victim shape but GroupAll's
-        assert (depth == 0) == ("GroupAll" not in shape and "1024" not in shape), \
-            res.stdout
+        assert _kind(res.stdout, which) == plan.kind == kind, res.stdout
+        assert gk.bf16_kernel(ns, cf, widths, which == "bwd") == (
+            f"gmlp_bf16_{which}_{kind}"), res.stdout

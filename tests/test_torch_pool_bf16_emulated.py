@@ -23,7 +23,8 @@ program fails on a write past one; the forward's plan at the path's and the
 widest admitted shapes equals `pool_matmul_kernel.bf16_plan`, and no shape
 the mma.sync design admitted is refused. The wgmma stand-in alone is held
 against numpy on the operands as the kernel lays them out
-(tests/cuda_emu/wgmma.cpp).
+(tests/cuda_emu/wgmma.cpp), at N = 64 and at the 128 and 256 that the
+grouped MLP's streamed kernels also issue.
 
 The emulation checks the kernels' indices, layouts, barriers, ballots and
 atomics, not the tensor cores' rounding (no CPU oracle reproduces it) nor
@@ -151,26 +152,41 @@ def _run(emulated, case):
     return out
 
 
+def _wgmma_case(build, k, n):
+    """The stand-in's D [64, n] for W [k, 128] and x [n, k] of a seed, and
+    numpy's: each output one float32 sum of exact bf16 products from 0, k
+    ascending."""
+    rng = np.random.RandomState(k + n)
+    w = torch.from_numpy(rng.randn(k, 128).astype(np.float32)).to(torch.bfloat16)
+    x = torch.from_numpy(rng.randn(n, k).astype(np.float32)).to(torch.bfloat16)
+    src, dst = build / f"wgmma_{k}_{n}.bin", build / f"wgmma_{k}_{n}.out"
+    src.write_bytes(w.view(torch.int16).numpy().tobytes() + x.view(torch.int16).numpy().tobytes())
+    res = subprocess.run([str(build / "wgmma"), str(src), str(dst), str(k), str(n)],
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stdout + res.stderr
+    got = np.frombuffer(dst.read_bytes(), np.float32).reshape(64, n)
+    wf, xf = w.float().numpy()[:, 64:], x.float().numpy()
+    want = np.zeros((64, n), np.float32)
+    for kk in range(k):
+        want = want + wf[kk][:, None] * xf[:, kk][None, :]
+    return got, want
+
+
 @pytest.mark.parametrize("k", [16, 48, 128])
 def test_wgmma_stand_in_matches_numpy(emulated, k):
     """The header's wgmma (A from registers, B by a K-major descriptor) on
     the operands as the kernel lays them out (W^T's fragments from its
     staged weights, x^T as its operand buffer), against numpy: each output
     one float32 sum of exact bf16 products from 0, k ascending."""
-    _, build, _ = emulated
-    rng = np.random.RandomState(k)
-    w = torch.from_numpy(rng.randn(k, 128).astype(np.float32)).to(torch.bfloat16)
-    x = torch.from_numpy(rng.randn(64, k).astype(np.float32)).to(torch.bfloat16)
-    src, dst = build / f"wgmma_{k}.bin", build / f"wgmma_{k}.out"
-    src.write_bytes(w.view(torch.int16).numpy().tobytes() + x.view(torch.int16).numpy().tobytes())
-    res = subprocess.run([str(build / "wgmma"), str(src), str(dst), str(k)],
-                         capture_output=True, text=True, timeout=120)
-    assert res.returncode == 0, res.stdout + res.stderr
-    got = np.frombuffer(dst.read_bytes(), np.float32).reshape(64, 64)
-    wf, xf = w.float().numpy()[:, 64:], x.float().numpy()
-    want = np.zeros((64, 64), np.float32)
-    for kk in range(k):
-        want = want + wf[kk][:, None] * xf[:, kk][None, :]
+    got, want = _wgmma_case(emulated[1], k, 64)
+    assert np.array_equal(got, want), np.abs(got - want).max()
+
+
+@pytest.mark.parametrize("n", [128, 256])
+def test_wgmma_stand_in_wider_n(emulated, n):
+    """wgmma_bf16<N> at the other widths the grouped MLP's streamed kernels
+    issue (csrc/group_mlp_bf16.cu), on the same operands N points wide."""
+    got, want = _wgmma_case(emulated[1], 48, n)
     assert np.array_equal(got, want), np.abs(got - want).max()
 
 
