@@ -36,8 +36,10 @@ Needs one CUDA card, nvcc and this repository around the script. Phases:
      shapes and at GroupAll with 1536 features (its staged kernels); the
      single-pass bf16 pools of the bf16 victim at its three
      pool shapes (taps 3 on float32 x, taps 1 on bf16 and on float32 x), at
-     a ragged n = 1000 and on runs of duplicated rows that send columns
-     down the backward's recompute), with the tolerance stated, and time
+     a ragged n = 1000, on runs of duplicated rows that send columns
+     down the backward's recompute and on one critical point that wins
+     most columns; two calls of the backward give the same bits, and its
+     entries by row are printed), with the tolerance stated, and time
      both (CUDA events, warm,
      median of 20), plus one PyTorch library call where one computes the same
      function, and for the whole-scale kernel the split pair it stands in for.
@@ -145,7 +147,8 @@ Needs one CUDA card, nvcc and this repository around the script. Phases:
      launch counts read from the code (three single-pass bf16 pool
      launches forward and three backward a step, three float32 pools a
      step for the judge), its ms/step beside the float32 attack's in turns,
-     the twin's logits and input gradient card vs CPU, and the attack CLI
+     the twin's logits and input gradient card vs CPU, the pool
+     backward's entries by row in one attack step, and the attack CLI
      with --victim_dtype bfloat16 on phase 5's 40 clouds and victim
      (build/chip_smoke/bf16/);
   14. print one JSON line listing the kernels, then the result line.
@@ -921,7 +924,8 @@ def pool_bf16_inputs(torch, taps: int, xdt: str, gen, b: int = B, n: int = N):
 
 
 def pool_bf16_hold(torch, pk, label, x, w3, bias, w3t, gen) -> dict:
-    """pool_fwd_bf16 and pool_bwd_bf16 against their plain versions: pooled
+    """pool_fwd_bf16 and pool_bwd_bf16 against their plain versions (and
+    the backward against itself: two calls give the same bits): pooled
     within 2e-5 of max |z| (the tensor cores' float32 sums against cuBLAS's,
     of the same exact bf16 products); tie counts and rows equal to
     `pool_ties_bf16_plain`'s on the columns whose maximum stands clear of
@@ -960,6 +964,12 @@ def pool_bf16_hold(torch, pk, label, x, w3, bias, w3t, gen) -> dict:
     dx = pk.pool_bwd_bf16(gcot.contiguous(), x, w3, w3t, bias, pooled, cnt, rows)
     if dx.dtype != x.dtype:
         _fail(f"pool_bwd_bf16[{label}] returned {dx.dtype} for {x.dtype} x")
+    # the gather sums in a fixed order: a second call gives the same bits
+    again = pk.pool_bwd_bf16(gcot.contiguous(), x, w3, w3t, bias, pooled, cnt, rows)
+    bits = torch.int16 if dx.dtype == torch.bfloat16 else torch.int32
+    differ = int((dx.view(bits) != again.view(bits)).sum())
+    if differ:
+        _fail(f"pool_bwd_bf16[{label}]: {differ} dx elements differ between two calls")
     dx_err = (dx.double() - dx_p).abs().max().item()
     # a bf16 x takes its dx in bf16: one bf16 step at the largest entry
     rel = 2.0 ** -8 if x.dtype == torch.bfloat16 else 1e-5
@@ -969,7 +979,7 @@ def pool_bf16_hold(torch, pk, label, x, w3, bias, w3t, gen) -> dict:
           f"columns ({int((cnt_p[held] > 1).sum())} tied, "
           f"{int((cnt[held] > pk.MAX_TIES).sum())} past {pk.MAX_TIES} rows: the "
           f"backward's recompute); dx err / max |dx| "
-          f"{dx_err / dx_p.abs().max().item():.3e}")
+          f"{dx_err / dx_p.abs().max().item():.3e}, bit-identical in two calls")
     return dict(err=err, dx_err=dx_err, pooled=pooled, cnt=cnt, rows=rows,
                 recomputed=int((cnt[held] > pk.MAX_TIES).sum()))
 
@@ -998,6 +1008,7 @@ def pool_bf16_times(torch, pk, x, w3, bias, w3t, gen, pooled, cnt, rows) -> dict
             return torch.matmul(xb, w0)
     g_all = torch.randn(b_, COUT, device="cuda", generator=gen)
     tied_rows = int(cnt.sum().item())
+    bwd_flops = 2.0 * tied_rows * taps * CIN
     return dict(
         ms=time_ms(lambda: pk.pool_fwd_bf16(x, w3, bias)),
         ten=ten_ms(lambda: pk.pool_fwd_bf16(x, w3, bias)),
@@ -1009,18 +1020,57 @@ def pool_bf16_times(torch, pk, x, w3, bias, w3t, gen, pooled, cnt, rows) -> dict
         bwd_ten=ten_ms(lambda: pk.pool_bwd_bf16(g_all, x, w3, w3t, bias, pooled, cnt, rows)),
         bwd_plain_ms=time_ms(lambda: pk.pool_bwd_bf16_plain(g_all, x, w3, bias, pooled),
                              iters=5),
-        # g, cnt, rows and w3t read once, dx written as float32
-        bwd_bound=bound_ms(nbytes(g_all, cnt, rows, w3t) + 4 * x.numel(),
-                           2.0 * tied_rows * taps * CIN),
+        # g, cnt, rows and w3t read once, dx written once in x's type (the
+        # formula before the gather wrote float32 dx: `bwd_bound_f32dx`)
+        bwd_bound=bound_ms(nbytes(g_all, cnt, rows, w3t) + x.element_size() * x.numel(),
+                           bwd_flops),
+        bwd_bound_f32dx=bound_ms(nbytes(g_all, cnt, rows, w3t) + 4 * x.numel(), bwd_flops),
+        entries=tile_entries(torch, pk, x, w3, bias, g_all, pooled, cnt, rows),
     )
+
+
+def tile_entries(torch, pk, x, w3, bias, g, pooled, cnt, rows, tile: int = 128) -> dict:
+    """The bf16 backward's entries (a tied z row of a column with a
+    cotangent, at each tap) by dx row: the most on one row and on one
+    `tile`-row tile (the gather's block), and the rows with any entry. Ties
+    past MAX_TIES come from `affine_bf16_plain`'s z (cuBLAS's sums, which
+    may part identical rows the tensor cores tie)."""
+    b_, n_, _ = x.shape
+    taps = w3.shape[0]
+    cout = cnt.shape[1]
+    tied = torch.zeros(b_, n_, cout, dtype=torch.bool, device=x.device)
+    s_ = torch.arange(pk.MAX_TIES, device=x.device)
+    bi, ci, si = torch.nonzero((s_ < cnt[..., None]) & (cnt[..., None] <= pk.MAX_TIES),
+                               as_tuple=True)
+    tied[bi, rows[bi, ci, si].long(), ci] = True
+    many = cnt > pk.MAX_TIES
+    if bool(many.any()):
+        z = pk.affine_bf16_plain(x, w3, bias)
+        tied |= (z == pooled[:, None]) & many[:, None, :]
+    per_p = (tied & (g != 0)[:, None, :]).sum(2)  # [b, n] for one tap
+    per_r = per_p.clone()
+    if taps == 3:  # dx row r gets z row r + 1 through tap 0, r - 1 through tap 2
+        per_r[:, :-1] += per_p[:, 1:]
+        per_r[:, 1:] += per_p[:, :-1]
+    pad = (-n_) % tile
+    per_t = torch.nn.functional.pad(per_r, (0, pad)).view(b_, -1, tile).sum(2)
+    return dict(row_max=int(per_r.max()), tile_max=int(per_t.max()),
+                rows_any=int((per_r > 0).sum()), rows=per_r.numel(),
+                total=int(per_r.sum()))
+
+
+def entries_text(e: dict) -> str:
+    return (f"most on a row {e['row_max']}, on a 128-row tile {e['tile_max']}, rows "
+            f"with any {e['rows_any']}/{e['rows']}, in all {e['total']}")
 
 
 def pool_bf16_checks(torch, pk, gen) -> dict:
     """Phase 2's single-pass bf16 pool kernels: held (`pool_bf16_hold`) and
-    timed at the bf16 victim's three pool shapes, then held at a ragged
-    n = 1000 and on runs of duplicated rows (more than four ties: the
-    backward's recompute, which must find the forward's ties: identical
-    rows give identical z)."""
+    timed at the bf16 victim's three pool shapes (with the backward's entries
+    by row), then held at a ragged n = 1000, on runs of duplicated rows (more
+    than four ties: the backward's recompute, which must find the forward's
+    ties: identical rows give identical z) and on one critical point that
+    wins most columns of its cloud."""
     out = {}
     for label, taps, xdt in BF16_POOLS:
         x, w3, bias, w3t = pool_bf16_inputs(torch, taps, xdt, gen)
@@ -1034,7 +1084,11 @@ def pool_bf16_checks(torch, pk, gen) -> dict:
               f"library_ms={r_['library_ms']:.4f} (ten {r_['lib_ten']:.4f}) "
               f"bound_ms={r_['bound'][0]:.4f}; pool_bwd_bf16 ms={r_['bwd_ms']:.4f} "
               f"ten={r_['bwd_ten']:.4f} plain_ms={r_['bwd_plain_ms']:.4f} "
-              f"bound_ms={r_['bwd_bound'][0]:.4f}")
+              f"bound_ms={r_['bwd_bound'][0]:.4f}"
+              + (f" (with dx as float32, the formula before the gather: "
+                 f"{r_['bwd_bound_f32dx'][0]:.4f})" if x.dtype == torch.bfloat16 else ""))
+        print(f"  pool_bwd_bf16[{label}] entries (g as timed): "
+              f"{entries_text(r_['entries'])}")
     for label, taps, xdt, n_, runs in (
             ("conv5 taps=3, float32 x, n=1000", 3, "float32", 1000, ()),
             ("conv5 taps=3, float32 x, duplicated rows", 3, "float32", N,
@@ -1045,13 +1099,26 @@ def pool_bf16_checks(torch, pk, gen) -> dict:
             ("feature T-Net taps=1, float32 x, duplicated rows across a stage", 1,
              "float32", N, ((1, 60, 10), (5, 1020, 4))),
             ("conv5 taps=3, float32 x, duplicated rows across a stage", 3, "float32",
-             N, ((2, 60, 10), (4, 956, 8)))):
+             N, ((2, 60, 10), (4, 956, 8))),
+            # row 100 of cloud 0 scaled 8x wins most columns: hundreds of
+            # entries on each of rows 99-101, split across the gather's warps
+            ("conv5 taps=3, float32 x, a critical point", 3, "float32", N, "critical")):
         x, w3, bias, w3t = pool_bf16_inputs(torch, taps, xdt, gen, n=n_)
+        if runs == "critical":
+            x[0, 100] *= 8.0
+            runs = ()
         for b_, r0, length in runs:  # rows in a warp, across warps, across stages
             x[b_, r0:r0 + length] = 3.0 * x[b_, r0]
         h = pool_bf16_hold(torch, pk, label, x, w3, bias, w3t, gen)
         if runs and not h["recomputed"]:
             _fail(f"pool_bf16[{label}]: no column took the backward's recompute")
+        if "critical" in label:
+            e = tile_entries(torch, pk, x, w3, bias, torch.ones_like(h["pooled"]),
+                             h["pooled"], h["cnt"], h["rows"])
+            print(f"  pool_bwd_bf16[{label}] entries (every g nonzero): {entries_text(e)}")
+            if e["row_max"] < 200:
+                _fail(f"pool_bf16[{label}]: the critical point holds {e['row_max']} "
+                      "entries on a row, not hundreds")
     return out
 
 
@@ -1079,15 +1146,18 @@ def pool_times_phase(torch) -> dict:
             f32_ten=ten_ms(lambda: pk.pool_fwd(x32, w32, bias)),
             f32_bound=bound_ms(nbytes(x32, w32, bias, pooled, cnt, rows), flops),
             f32_bwd_ten=ten_ms(lambda: pk.pool_bwd(g_all, x32, w32, w32t, bias,
-                                                   pooled, cnt, rows)))
+                                                   pooled, cnt, rows)),
+            # g, cnt, rows and w3t read once, dx written once (float32)
+            f32_bwd_bound=bound_ms(nbytes(g_all, cnt, rows, w32t) + 4 * x.numel(),
+                                   2.0 * int(cnt.sum()) * taps * CIN))
         if hasattr(pk, "pool_fwd_bf16"):
             pb, cb, rb = pk.pool_fwd_bf16(x, w3, bias)
             r_.update({f"bf16_{k}": v for k, v in pool_bf16_times(
                 torch, pk, x, w3, bias, w3t, gen, pb, cb, rb).items()})
         out[label] = r_
         print(f"  {label}: " + " ".join(
-            f"{k}={v[0] if isinstance(v, tuple) else v:.4f}" for k, v in r_.items()),
-            flush=True)
+            f"{k}={v[0] if isinstance(v, tuple) else v:.4f}" for k, v in r_.items()
+            if not isinstance(v, dict)), flush=True)
     return out
 
 
@@ -4576,6 +4646,34 @@ def bf16_cpu_agreement(torch) -> dict:
     return dict(logits_err=lerr, grad_err=gerr)
 
 
+def bf16_step_entries(torch, step) -> list:
+    """The bf16 backward's entries (`tile_entries`) at the three pools of
+    the first step of a bf16 attack: `step` runs with the pool's autograd
+    backward wrapped to record them from its saved tensors (the kernel and
+    its launch count untouched)."""
+    from geoa3_tpu_torch.ops.kernels import pool_matmul_kernel as pk
+
+    fn = pk._PoolAffineMaxBf16
+    seen, backward = [], fn.backward
+
+    def record(ctx, g):
+        if len(seen) < 3:
+            x, w3, _, bias, pooled, cnt, rows = ctx.saved_tensors
+            seen.append(dict(taps=w3.shape[0], dtype=str(x.dtype).split(".")[-1],
+                             **tile_entries(torch, pk, x, w3, bias, g.contiguous(), pooled,
+                                            cnt, rows)))
+        return backward(ctx, g)
+
+    fn.backward = staticmethod(record)
+    try:
+        step()
+    finally:
+        fn.backward = staticmethod(backward)
+    if len(seen) != 3:
+        _fail(f"a bf16 attack step ran {len(seen)} pool backwards, not 3")
+    return seen
+
+
 def bf16_victim_phase(torch, paths) -> dict:
     """Phase 13: the bf16 PointNet victim (`--victim_dtype bfloat16`) at
     full width: the health check at the run's shape, the default attack 1 x
@@ -4627,6 +4725,9 @@ def bf16_victim_phase(torch, paths) -> dict:
           f"ms/step bf16 {times['bf16']} float32 {times['float32']} (in turns: "
           "bf16, f32, f32, bf16; CUDA events); launches as read from the code")
     agreement = bf16_cpu_agreement(torch)
+    entries = bf16_step_entries(torch, lambda: run(main_path_config(1, 10), 0, True))
+    print("  pool_bwd_bf16 entries in a bf16 attack step: " + "; ".join(
+        f"taps={e['taps']}, {e['dtype']} x: {entries_text(e)}" for e in entries))
 
     root = REPO / "build" / "chip_smoke"
     per_class, cli_steps = 4, 20
@@ -4663,7 +4764,8 @@ def bf16_victim_phase(torch, paths) -> dict:
           f"1x{cli_steps} steps, {len(mats)} saved ({rate:.2f}%), {secs:.1f} s, "
           "launches as read from the code (the health check's included)")
     return dict(ms_per_step=times, success=int(res.success.sum()),
-                cpu_agreement=agreement, cli_saved=len(mats), cli_seconds=secs)
+                cpu_agreement=agreement, cli_saved=len(mats), cli_seconds=secs,
+                step_entries=entries)
 
 
 # ---------------------------------------------------------------- phase 14

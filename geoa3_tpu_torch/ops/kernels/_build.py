@@ -125,7 +125,7 @@ SIGNATURES = {
         _VP, _VP, _VP, _I, _I, _I, _I, _I, _I, _VP, _VP, _VP, _VP,
     ],
     # w3t, pooled_g, cnt, rows, x, bias, pooled, w3, B, n, cin, cout, taps,
-    # x_bf16, dx (zeroed by the entry), stream
+    # x_bf16, dx (x's type, written once), stream
     "geoa3_pool_bwd_bf16": [
         _VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _I, _I, _I, _I, _I, _I, _VP,
         _VP,

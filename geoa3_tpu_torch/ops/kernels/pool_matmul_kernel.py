@@ -23,8 +23,8 @@ runs the TPU kernel's single-pass mode (`f32_exact=False`) instead:
 `pool_fwd_bf16` / `pool_bwd_bf16` (csrc/pool_matmul_bf16.cu) on the tensor
 cores. x (bf16 or float32) and w3 are rounded to bf16, the products are
 exact and the sums float32; the backward rounds the cotangent g / cnt to
-bf16 before its product with w3, and returns dx in x's type. Bound:
-operations at 989 TFLOP/s of bf16. The forward is warp-specialised and
+bf16 before its product with w3, and returns dx in x's type. The
+forward's bound: operations at 989 TFLOP/s of bf16. It is warp-specialised and
 swaps the operands (z^T = W^T x^T): each consumer warp keeps its channels'
 weights in registers (wgmma's A), the producer warpgroup bulk-copies
 (TMA) the cloud's 64-point tiles and writes them as bf16 (float32 x
@@ -32,8 +32,13 @@ rounded by cvt.rn) in wgmma's K-major layout (B), two or four consumer
 warpgroups of 64 channels run wgmma on each tile, then find each
 channel's maximum, tie count and first `MAX_TIES` tied rows in registers,
 with no block-wide barrier past the weights (`bf16_plan` mirrors the
-plan); the backward's recompute of a column with more ties replays the
-chain with mma.sync on the same operands.
+plan). The backward is a gather over dx's rows: a block takes a cloud's
+128-row tile, bulk-copies g, cnt and rows, lists the tile's (row, column,
+tap) entries of tied rows with a cotangent (a column with more ties
+recomputed over the tile by the forward's chain on mma.sync), sorts them by
+row, splits them evenly over its warps and writes each row once in x's type,
+with no memset, atomics or cast. Bound: bytes (dx in x's type, g, cnt, rows
+and w3t once).
 """
 
 from __future__ import annotations
@@ -270,19 +275,25 @@ def pool_fwd_bf16(x, w3, bias):
 
 def pool_bwd_bf16(g, x, w3, w3t, bias, pooled, cnt, rows):
     """CUDA kernel: the input cotangent of `pool_fwd_bf16` for the pooled
-    cotangent g [B, cout] -> dx [B, n, cin] in x's type (summed in float32).
-    w3t is w3 as [taps, cout, cin] bf16."""
+    cotangent g [B, cout] -> dx [B, n, cin] in x's type, written once by the
+    kernel (float32 sums in a fixed order, so the same bits every run). w3t
+    is w3 as [taps, cout, cin] bf16."""
     B, n, cin, cout, taps = _check_bf16(x, w3, bias)
     _build.check_cuda(w3t, "w3t", torch.bfloat16, (taps, cout, cin))
     _build.check_cuda(g, "g", torch.float32, (B, cout))
     _build.check_cuda(pooled, "pooled", torch.float32, (B, cout))
     _build.check_cuda(cnt, "cnt", torch.int32, (B, cout))
     _build.check_cuda(rows, "rows", torch.int32, (B, cout, MAX_TIES))
-    dx = torch.empty(B, n, cin, dtype=torch.float32, device=x.device)
+    if rows.data_ptr() % 16 or cnt.data_ptr() % 16 or w3t.data_ptr() % 8:
+        raise ValueError("the bf16 pool backward copies cnt and rows in 16-byte and "
+                         "reads w3t in 8-byte pieces: they must start on such a boundary")
+    if g.data_ptr() % 16:  # the kernel bulk-copies g: an aligned copy of it
+        g = g.clone()
+    dx = torch.empty(B, n, cin, dtype=x.dtype, device=x.device)
     _build.launch("geoa3_pool_bwd_bf16", w3t, g, cnt, rows, x, bias, pooled,
                   w3, B, n, cin, cout, taps, int(x.dtype == torch.bfloat16), dx)
     pool_bwd_bf16.launches += 1
-    return dx.to(x.dtype)
+    return dx
 
 
 class _PoolAffineMaxBf16(torch.autograd.Function):

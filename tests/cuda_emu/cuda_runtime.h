@@ -9,7 +9,7 @@
 // emu_launch of the blocks one after another, since g++ cannot parse the
 // launch syntax (a grid may be a dim3 of x and y blocks). Timing and the
 // memory model are not emulated; the index arithmetic, the barriers'
-// placement, the shuffles, ballots and redux reductions, the atomics (under
+// placement, the shuffles, ballots, matches and redux reductions, the atomics (under
 // one lock) and the floating-point operations are (fmaf is the C library's,
 // exact). The 1D bulk copy (TMA) is a synchronous copy that checks its
 // alignment, stays inside the launch's dynamic shared memory and, where a
@@ -50,6 +50,7 @@
 #define __device__
 #define __host__
 #define __forceinline__ inline
+#define __noinline__
 #define __launch_bounds__(...)
 #define __restrict__
 #define __shared__
@@ -73,6 +74,10 @@ struct float4 {
 inline float4 make_float4(float a, float b, float c, float d) {
   return {a, b, c, d};
 }
+struct uint2 {
+  unsigned x, y;
+};
+inline uint2 make_uint2(unsigned a, unsigned b) { return {a, b}; }
 struct uint4 {
   unsigned x, y, z, w;
 };
@@ -82,6 +87,7 @@ inline uint4 make_uint4(unsigned a, unsigned b, unsigned c, unsigned d) {
 struct int4 {
   int x, y, z, w;
 };
+inline int4 make_int4(int a, int b, int c, int d) { return {a, b, c, d}; }
 struct dim3 {
   unsigned x = 0, y = 0, z = 0;
   dim3() = default;
@@ -145,6 +151,12 @@ inline float2 atomicAdd(float2* p, float2 v) {
   *p = {old.x + v.x, old.y + v.y};
   return old;
 }
+inline int atomicAdd(int* p, int v) {
+  std::lock_guard<std::mutex> hold(g_atomic_mu);
+  const int old = *p;
+  *p = old + v;
+  return old;
+}
 inline float4 atomicAdd(float4* p, float4 v) {
   std::lock_guard<std::mutex> hold(g_atomic_mu);
   const float4 old = *p;
@@ -200,6 +212,17 @@ inline unsigned __ballot_sync(unsigned, bool pred) {
   g_warp_barrier[t / 32]->arrive_and_wait();
   unsigned m = 0;
   for (int l = 0; l < 32; ++l) m |= (unsigned)g_lanes[(t & ~31) + l] << l;
+  g_warp_barrier[t / 32]->arrive_and_wait();
+  return m;
+}
+
+// every lane of the warp must call it: the lanes whose v equals this lane's
+inline unsigned __match_any_sync(unsigned, int v) {
+  const int t = threadIdx.x;
+  g_lanes[t] = (uint64_t)(uint32_t)v;
+  g_warp_barrier[t / 32]->arrive_and_wait();
+  unsigned m = 0;
+  for (int l = 0; l < 32; ++l) m |= (g_lanes[(t & ~31) + l] == g_lanes[t] ? 1u : 0u) << l;
   g_warp_barrier[t / 32]->arrive_and_wait();
   return m;
 }

@@ -5,17 +5,19 @@
 //   pool_bf16 in.bin out.bin B n cin cout taps x_bf16
 //   pool_bf16 plan - B n cin cout taps x_bf16   (prints the forward's
 //                                               plan only: consumer
-//                                               warpgroups, shared memory)
+//                                               warpgroups, shared memory;
+//                                               and the backward's tile:
+//                                               rows, warps, entries kept)
 //
 // in.bin holds x [B, n, cin] (bf16 as uint16 where x_bf16 is 1, else
 // float32), w3 [taps, cin, cout] (bf16 as uint16), bias [cout] and the
 // pooled cotangent g [B, cout] (float32). The program runs
 // geoa3_pool_fwd_bf16, then geoa3_pool_bwd_bf16 on its outputs (w3t made
 // here), and writes pooled [B, cout] (float32), cnt [B, cout] and rows
-// [B, cout, 4] (int32), then dx [B, n, cin] (float32). The outputs start as
-// NaN (or -1), so an element left unwritten shows, and the 16 guard values
-// past each must stay as they were. Exits 1 if an entry refused the call or
-// wrote past an output.
+// [B, cout, 4] (int32), then dx [B, n, cin] in x's type. The outputs start
+// as NaN (or -1), so an element left unwritten shows (dx has no memset),
+// and the 16 guard values past each must stay as they were. Exits 1 if an
+// entry refused the call or wrote past an output.
 #include "pool_matmul_bf16_emu.cpp"  // the kernel source, rewritten by the test
 
 #include <string>
@@ -29,14 +31,14 @@ template <class T>
 T* guarded(size_t count, T fill) {
   T* p = new T[count + kGuard];
   for (size_t i = 0; i < count; ++i) p[i] = fill;
-  for (size_t i = count; i < count + kGuard; ++i) memcpy(&p[i], &kGuardBits, 4);
+  for (size_t i = count; i < count + kGuard; ++i) memcpy(&p[i], &kGuardBits, sizeof(T));
   return p;
 }
 
 template <class T>
 bool intact(const T* p, size_t count, const char* what) {
   for (size_t i = count; i < count + kGuard; ++i)
-    if (memcmp(&p[i], &kGuardBits, 4) != 0) {
+    if (memcmp(&p[i], &kGuardBits, sizeof(T)) != 0) {
       printf("wrote past %s's end at [%zu]\n", what, i);
       return false;
     }
@@ -52,6 +54,8 @@ int main(int argc, char** argv) {
   if (std::string(argv[1]) == "plan") {
     const FwdPlan p = pool_bf16_plan(cin, cout, taps, x_bf16 ? 2 : 4);
     printf("nwg=%d smem=%zu\n", p.nwg, p.smem);
+    printf("bwd rows=%d warps=%d cap=%d smem=%zu\n", kBwdRows, kBwdWarps, kBwdCap,
+           sizeof(BwdSmem));
     return 0;
   }
   const size_t nx = (size_t)B * n * cin, nw = (size_t)taps * cin * cout;
@@ -74,7 +78,8 @@ int main(int argc, char** argv) {
   float* pooled = guarded<float>(no, NAN);
   int* cnt = guarded<int>(no, -1);
   int* rows = guarded<int>(no * 4, -1);
-  float* dx = guarded<float>(nx, NAN);
+  const size_t dxb = x_bf16 ? 2 : 4;  // dx in x's type, NaN to start
+  void* dx = x_bf16 ? (void*)guarded<uint16_t>(nx, 0x7fc0) : (void*)guarded<float>(nx, NAN);
   int err = geoa3_pool_fwd_bf16(x.data(), w3.data(), bias.data(), B, n, cin,
                                 cout, taps, x_bf16, pooled, cnt, rows, nullptr);
   if (err != 0) {
@@ -89,11 +94,13 @@ int main(int argc, char** argv) {
     return 1;
   }
   if (!intact(pooled, no, "pooled") || !intact(cnt, no, "cnt") ||
-      !intact(rows, no * 4, "rows") || !intact(dx, nx, "dx"))
+      !intact(rows, no * 4, "rows") ||
+      !(x_bf16 ? intact(static_cast<uint16_t*>(dx), nx, "dx")
+               : intact(static_cast<float*>(dx), nx, "dx")))
     return 1;
   FILE* out = fopen(argv[2], "wb");
   if (!out || fwrite(pooled, 4, no, out) != no || fwrite(cnt, 4, no, out) != no ||
-      fwrite(rows, 4, no * 4, out) != no * 4 || fwrite(dx, 4, nx, out) != nx)
+      fwrite(rows, 4, no * 4, out) != no * 4 || fwrite(dx, dxb, nx, out) != nx)
     return 2;
   fclose(out);
   return 0;

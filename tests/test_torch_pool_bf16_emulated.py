@@ -9,25 +9,40 @@ asynchronous: an op reads its operands when its group retires) and the
 backward's mma.sync. So the emulated forward is one float32 chain over (tap,
 k) from 0, then + bias, which a numpy oracle repeats exactly. The forward's
 whole output (maximum, tie count, first four tied rows) is held bit-equal to
-the oracle's; the backward within 1e-5 of the largest |dx| of a float64
-backward through the oracle's ties, with the cotangent g / cnt rounded to
-bf16 (the atomics sum in another order). The cases: conv5's taps 3 on
-float32 x, taps 1 on bf16 and float32 x, one and two blocks a cloud, a cout
-of 384 (a 256-channel block and a 128-channel one), ragged and one-warp
-clouds and n ragged at the 64-point tile, the path's cin of 128 at both taps
-and block widths (the weights kept in registers) beside narrower ones
-(reloaded each step), and runs of duplicated rows (more than four ties: the
-backward's recompute path) within a warp, across the warps of a tile and
-across 64-point tiles at both taps. The outputs start as NaN or -1 and the
-program fails on a write past one; the forward's plan at the path's and the
-widest admitted shapes equals `pool_matmul_kernel.bf16_plan`, and no shape
-the mma.sync design admitted is refused. The wgmma stand-in alone is held
+the oracle's. The backward (a gather over dx's rows) is held bit-equal, in
+x's type, to a torch float32 oracle that sums in its stated order: each
+tile's entries (row, column, tap) of tied rows with a cotangent, sorted by
+row (then column, tap), split into as many equal chunks as the block has
+warps (the program prints the tile's rows, its warps and the entries it
+keeps); a row's run in a chunk summed from 0, its runs added in chunk order
+from 0, each product bf16(g / cnt) * w3 exact; and those float32 sums
+(which the kernel writes, or rounds to bf16 for bf16 x) are held within
+1e-5 of the largest |dx| of a float64 backward through the oracle's ties.
+The cases:
+conv5's taps 3 on float32 x, taps 1 on bf16 and float32 x, one and two
+blocks a cloud, a cout of 384 (a 256-channel block and a 128-channel one)
+and of 1280 (two passes of the backward's column scan), a cin of 144 (two
+128-channel slices), ragged and one-warp clouds, n = 1, n ragged at the
+64-point tile, the path's cin of 128 at both taps and block widths (the
+weights kept in registers) beside narrower ones (reloaded each step), runs
+of duplicated rows (more than four ties: the recompute) within a warp,
+across the warps of a tile and across 64-point tiles at both taps, one
+critical point winning most columns (hundreds of entries on a row, split
+across the backward's warps), critical points at rows 0 and n - 1 at taps 3
+and duplicated runs at both ends (the halo, the recompute's window past the
+cloud), half the columns with g = 0, and a cloud of identical rows (a
+tile with more entries than it keeps: the walk of the columns again). The
+outputs start as NaN or -1, dx with no memset, and the program fails on a
+write past one; the forward's plan at the path's and the widest admitted
+shapes equals `pool_matmul_kernel.bf16_plan`, no shape the mma.sync design
+admitted is refused, and the backward's entry refuses no shape the entry
+before it took. The wgmma stand-in alone is held
 against numpy on the operands as the kernel lays them out
 (tests/cuda_emu/wgmma.cpp), at N = 64 and at the 128 and 256 that the
 grouped MLP's streamed kernels also issue.
 
-The emulation checks the kernels' indices, layouts, barriers, ballots and
-atomics, not the tensor cores' rounding (no CPU oracle reproduces it) nor
+The emulation checks the kernels' indices, layouts, barriers, ballots,
+matches and atomics, not the tensor cores' rounding (no CPU oracle reproduces it) nor
 speed: `chip_smoke.py` holds the kernels against their plain versions on the
 card.
 """
@@ -46,7 +61,9 @@ from geoa3_tpu_torch.ops.kernels import pool_matmul_kernel as pk
 from tests.test_torch_group_mlp_emulated import CSRC, EMU, _rewrite
 
 # label -> (B, n, cin, cout, taps, x is bf16, duplicated runs: (cloud,
-# first row, length))
+# first row, length), and what else the inputs hold: "critical" (row 40 of
+# cloud 0 scaled 8x), "ends" (rows 0 and n - 1 scaled 4x), "half_g" (half
+# the columns without a cotangent), "same" (every row of cloud 0 alike))
 CASES = {
     "conv5 taps 3, float32 x, n=200 (two tiles, ragged)": (2, 200, 32, 128, 3, 0, ()),
     "taps 1, bf16 x, two blocks a cloud": (2, 150, 48, 256, 1, 1, ()),
@@ -54,14 +71,30 @@ CASES = {
     "the path's cin=128, taps 3": (1, 130, 128, 128, 3, 0, ()),
     "n=7 (one partial warp), taps 3": (2, 7, 16, 128, 3, 0, ()),
     "duplicated rows in a warp and across warps, taps 3": (2, 90, 32, 128, 3, 0, ((0, 10, 7), (1, 29, 6))),
-    "duplicated rows across tiles, bf16 x, taps 1": (1, 260, 32, 128, 1, 1, ((0, 124, 9),)),
+    "duplicated rows across 128-row tiles, bf16 x, taps 1": (1, 260, 32, 128, 1, 1, ((0, 124, 9),)),
     "taps 1, cout=384 (a 256-channel block and a 128-channel block)": (2, 90, 32, 384, 1, 1, ()),
     "n=100 ragged at the 64-row tile, taps 1, float32 x": (2, 100, 48, 256, 1, 0, ()),
     "duplicated rows across a 64-row stage, taps 1": (1, 150, 32, 256, 1, 1, ((0, 60, 10),)),
     "duplicated rows across a 64-row stage, taps 3": (2, 140, 32, 128, 3, 0, ((1, 60, 10),)),
     "float32 x, taps 1, cin=128, cout=256": (1, 80, 128, 256, 1, 0, ()),
     "bf16 x, taps 1, cin=128, cout=128 (two warpgroups)": (1, 70, 128, 128, 1, 1, ()),
+    "a critical point winning most columns, taps 3": (1, 100, 32, 512, 3, 0, (), "critical"),
+    "critical points at rows 0 and n-1, taps 3, bf16 x": (2, 99, 32, 256, 3, 1, (), "ends"),
+    "duplicated rows at both ends of the cloud, taps 3": (1, 140, 16, 128, 3, 0, ((0, 0, 10), (0, 130, 10))),
+    "half the columns without a cotangent, taps 3": (2, 120, 32, 256, 3, 0, (), "half_g"),
+    "duplicated rows across a 128-row tile, bf16 x, taps 3": (1, 200, 32, 128, 3, 1, ((0, 122, 12),)),
+    "duplicated rows across tiles of 64 and 128 rows, taps 3": (1, 140, 32, 128, 3, 0, ((0, 58, 12), (0, 125, 6))),
+    "every row alike (more entries than a tile keeps), taps 3": (1, 150, 16, 128, 3, 0, (), "same"),
+    "cout=1280 (two passes of the column scan), taps 3": (1, 200, 16, 1280, 3, 0, ()),
+    "cin=144 (two 128-channel slices), bf16 x, taps 1": (1, 80, 144, 128, 1, 1, ()),
+    "n=1, taps 3": (2, 1, 16, 128, 3, 0, ()),
 }
+
+
+def _case(case):
+    """(B, n, cin, cout, taps, x is bf16, duplicated runs, extra)."""
+    spec = CASES[case]
+    return spec + ("",) * (8 - len(spec))
 
 
 @pytest.fixture(scope="module")
@@ -89,11 +122,18 @@ def emulated(tmp_path_factory):
 def _inputs(case):
     """x, w3 (bf16), bias (bf16 values in float32), g; the duplicated runs
     repeat 3x their first row, so they hold the maximum of many columns."""
-    B, n, cin, cout, taps, x_bf16, dups = CASES[case]
+    B, n, cin, cout, taps, x_bf16, dups, extra = _case(case)
     rng = np.random.RandomState(len(case))
     x = torch.from_numpy(np.maximum(rng.randn(B, n, cin), 0).astype(np.float32))
     for b, r0, length in dups:
         x[b, r0:r0 + length] = 3.0 * x[b, r0]
+    if extra == "critical":
+        x[0, 40] *= 8.0
+    elif extra == "ends":
+        x[:, 0] *= 4.0
+        x[:, n - 1] *= 4.0
+    elif extra == "same":
+        x[0] = x[0, :1]
     if x_bf16:
         x = x.to(torch.bfloat16)
     w3 = torch.from_numpy((rng.randn(taps, cin, cout) / np.sqrt(taps * cin))
@@ -102,6 +142,8 @@ def _inputs(case):
         torch.bfloat16).float()
     g = torch.from_numpy(rng.randn(B, cout).astype(np.float32))
     g[:, ::7] = 0.0  # columns without a cotangent
+    if extra == "half_g":
+        g = torch.relu(g)  # as after the victim's ReLU
     return x, w3, bias, g
 
 
@@ -128,7 +170,7 @@ def _run(emulated, case):
     exe, build, cache = emulated
     if case in cache:
         return cache[case]
-    B, n, cin, cout, taps, x_bf16, _ = CASES[case]
+    B, n, cin, cout, taps, x_bf16 = _case(case)[:6]
     x, w3, bias, g = _inputs(case)
     tag = re.sub(r"\W+", "_", case)
     src, dst = build / f"in_{tag}.bin", build / f"out_{tag}.bin"
@@ -141,13 +183,15 @@ def _run(emulated, case):
     assert res.returncode == 0, res.stdout + res.stderr
     raw = dst.read_bytes()
     no, nx = B * cout, B * n * cin
-    f = np.frombuffer(raw, np.float32)
-    i = np.frombuffer(raw, np.int32)
-    assert f.size == no * 6 + nx
+    f = np.frombuffer(raw[:24 * no], np.float32)
+    i = np.frombuffer(raw[:24 * no], np.int32)
+    dxb = np.frombuffer(raw[24 * no:], np.int16 if x_bf16 else np.float32)
+    assert dxb.size == nx
+    dx = torch.from_numpy(dxb.reshape(B, n, cin).copy())
     out = (torch.from_numpy(f[:no].reshape(B, cout).copy()),
            torch.from_numpy(i[no:2 * no].reshape(B, cout).copy()),
            torch.from_numpy(i[2 * no:6 * no].reshape(B, cout, pk.MAX_TIES).copy()),
-           torch.from_numpy(f[6 * no:].reshape(B, n, cin).copy()))
+           dx.view(torch.bfloat16) if x_bf16 else dx)
     cache[case] = out
     return out
 
@@ -197,14 +241,73 @@ def test_forward_source_matches_the_oracle(emulated, case):
     want = pk.max_ties(_oracle_z(x, w3, bias))
     for got, ref, what in zip((pooled, cnt, rows), want, ("pooled", "cnt", "rows")):
         assert torch.equal(got, ref), f"{what}: {(got != ref).sum().item()} entries differ"
-    if CASES[case][6]:
+    if CASES[case][6] or _case(case)[7] == "same":
         assert (cnt > pk.MAX_TIES).any()  # the recompute path is taken
+
+
+def _bwd_tile(emulated):
+    """(rows a tile, warps, entries a tile keeps) of the backward, as the
+    emulated source prints them."""
+    res = subprocess.run([str(emulated[0]), "plan", "-", "1", "1", "16", "128", "1", "0"],
+                         capture_output=True, text=True, timeout=60)
+    assert res.returncode == 0, res.stdout + res.stderr
+    m = re.search(r"bwd rows=(\d+) warps=(\d+) cap=(\d+)", res.stdout)
+    return tuple(map(int, m.groups()))
+
+
+def _oracle_dx(x, w3, bias, g, tile, warps):
+    """dx in float32, summed in the kernel's stated order, through the
+    oracle's ties, and per tile (entries, chunk, most entries on a row)."""
+    B, n, cin = x.shape
+    taps, _, cout = w3.shape
+    z = _oracle_z(x, w3, bias)
+    eq = z == z.amax(1, keepdim=True)
+    coef = (g / eq.sum(1).float()).to(torch.bfloat16).float()
+    tied = eq & (g != 0)[:, None, :]
+    wt = w3.float().permute(0, 2, 1)  # w3t
+    shift = [t - 1 for t in range(taps)] if taps == 3 else [0]
+    dx = torch.zeros(B, n, cin)
+    stats = []
+    for b in range(B):
+        ties = {c: torch.nonzero(tied[b, :, c]).flatten().tolist()
+                for c in torch.nonzero(tied[b].any(0)).flatten().tolist()}
+        for r0 in range(0, n, tile):
+            rv = min(tile, n - r0)
+            ent = [(p + shift[t] - r0, c, t) for c, ps in ties.items()
+                   for t in range(taps) for p in ps if 0 <= p + shift[t] - r0 < rv]
+            ent.sort(key=lambda e: e[0])  # stable: (column, tap) within a row
+            chunk = -(-len(ent) // warps)
+            per_row = {}
+            for pos, (i, c, t) in enumerate(ent):
+                per_row.setdefault(i, []).append((pos, c, t))
+            for i, run in per_row.items():
+                total, part = torch.zeros(cin), torch.zeros(cin)
+                for pos, c, t in run:
+                    if pos != run[0][0] and pos % chunk == 0:
+                        total, part = total + part, torch.zeros(cin)
+                    part = part + coef[b, c] * wt[t, c]
+                dx[b, r0 + i] = total + part
+            stats.append((len(ent), chunk, max((len(r) for r in per_row.values()), default=0)))
+    return dx, stats
 
 
 @pytest.mark.parametrize("case", sorted(CASES))
 def test_backward_source_matches_the_oracle(emulated, case):
     x, w3, bias, g = _inputs(case)
     _, _, _, dx = _run(emulated, case)
+    assert dx.dtype == x.dtype
+    tile, warps, cap = _bwd_tile(emulated)
+    sums, stats = _oracle_dx(x, w3, bias, g, tile, warps)
+    bits = torch.int16 if x.dtype == torch.bfloat16 else torch.int32
+    differ = dx.view(bits) != sums.to(x.dtype).view(bits)
+    assert not differ.any(), f"{int(differ.sum())} of {dx.numel()} dx elements differ"
+    extra = _case(case)[7]
+    if extra == "critical":  # a row's entries split across the warps
+        assert any(most > chunk for _, chunk, most in stats), stats
+    if extra == "same":  # a tile past the entries it keeps
+        assert any(e > cap for e, _, _ in stats), stats
+    else:
+        assert all(e <= cap for e, _, _ in stats), stats
     taps = w3.shape[0]
     z = _oracle_z(x, w3, bias).double()
     eq = z == z.amax(1, keepdim=True)
@@ -217,7 +320,9 @@ def test_backward_source_matches_the_oracle(emulated, case):
         want = m @ w[1].T
         want[:, :-1] += m[:, 1:] @ w[0].T
         want[:, 1:] += m[:, :-1] @ w[2].T
-    err = (dx.double() - want).abs().max().item()
+    # the float32 sums the kernel writes (for bf16 x, the ones it rounds:
+    # bit-equal above) within 1e-5 of the largest |dx| of float64's
+    err = (sums.double() - want).abs().max().item()
     assert err <= 1e-5 * want.abs().max().item(), err
 
 
@@ -243,6 +348,22 @@ def test_shared_memory_plan_matches_the_wrapper(emulated, shape):
     plan = tuple(map(int, m.groups()))
     assert plan == pk.bf16_plan(cin, cout, taps, xbytes)
     assert plan[0] == nwg and plan[1] <= pk.SMEM_MAX
+
+
+def test_the_backward_refuses_no_shape_its_entry_took(emulated):
+    """The entry before the gather launched any cin % 16 == 0, cout % 128
+    == 0, n, taps 1 or 3 and x type; the gather's tile is one fixed plan
+    (shared memory independent of the shape) that fits a block, and the
+    emulated entry runs the extremes the victims' pools leave out: a cout
+    of 1280, a cin past 128, n = 1 (the cases above)."""
+    res = subprocess.run([str(emulated[0]), "plan", "-", "1", "1", "16", "128", "3", "0"],
+                         capture_output=True, text=True, timeout=60)
+    assert res.returncode == 0, res.stdout + res.stderr
+    smem = int(re.search(r"bwd .* smem=(\d+)", res.stdout).group(1))
+    assert 0 < smem <= pk.SMEM_MAX
+    for case in ("cout=1280 (two passes of the column scan), taps 3",
+                 "cin=144 (two 128-channel slices), bf16 x, taps 1", "n=1, taps 3"):
+        _run(emulated, case)  # the entry accepted it and wrote every element
 
 
 def test_the_plan_admits_every_shape_the_mma_sync_plan_did():
