@@ -842,12 +842,20 @@ def kernel_checks(torch) -> list[dict]:
         dx = pk.pool_bwd(gcot.contiguous(), x2, w3, w3t, bias, pooled2, cnt2, rows2)
         check(f"pool_bwd[taps={taps}]", (dx - dx_p).abs().max().item(),
               1e-5 * dx_p.abs().max().item(), "dx")
+        # the gather sums in a fixed order: a second call gives the same bits
+        again = pk.pool_bwd(gcot.contiguous(), x2, w3, w3t, bias, pooled2, cnt2, rows2)
+        differ = int((dx.view(torch.int32) != again.view(torch.int32)).sum())
+        if differ:
+            _fail(f"pool_bwd[taps={taps}]: {differ} dx elements differ between two calls")
         print(f"  pool_bwd[taps={taps}]: {int((cnt2 > 4).sum())} columns with "
               f"more than 4 tied rows, {int(gap_ok.sum())}/{B * COUT} columns "
-              f"with a cotangent")
+              f"with a cotangent; bit-identical in two calls; entries "
+              f"{entries_text(tile_entries(torch, pk, x2, w3, bias, gcot, pooled2, cnt2, rows2))}")
         # timed on the tie-free input, as the main path's activations are:
         # the run of duplicates sends columns down the recompute path
         g_all = torch.randn(B, COUT, device="cuda", generator=gen)
+        print(f"  pool_bwd[taps={taps}] entries (g as timed): "
+              f"{entries_text(tile_entries(torch, pk, x, w3, bias, g_all, pooled, cnt, rows))}")
         tied_rows = int(cnt.sum().item())
         xr = x.clone().requires_grad_(True)
         pool_rows[taps]["bwd"] = dict(
@@ -1030,11 +1038,12 @@ def pool_bf16_times(torch, pk, x, w3, bias, w3t, gen, pooled, cnt, rows) -> dict
 
 
 def tile_entries(torch, pk, x, w3, bias, g, pooled, cnt, rows, tile: int = 128) -> dict:
-    """The bf16 backward's entries (a tied z row of a column with a
+    """The pool backward's entries (a tied z row of a column with a
     cotangent, at each tap) by dx row: the most on one row and on one
     `tile`-row tile (the gather's block), and the rows with any entry. Ties
-    past MAX_TIES come from `affine_bf16_plain`'s z (cuBLAS's sums, which
-    may part identical rows the tensor cores tie)."""
+    past MAX_TIES come from the plain z of w3's precision
+    (`affine_bf16_plain` or `affine_plain`: cuBLAS's sums, which may part
+    identical rows the kernels' forwards tie)."""
     b_, n_, _ = x.shape
     taps = w3.shape[0]
     cout = cnt.shape[1]
@@ -1045,7 +1054,8 @@ def tile_entries(torch, pk, x, w3, bias, g, pooled, cnt, rows, tile: int = 128) 
     tied[bi, rows[bi, ci, si].long(), ci] = True
     many = cnt > pk.MAX_TIES
     if bool(many.any()):
-        z = pk.affine_bf16_plain(x, w3, bias)
+        affine = pk.affine_bf16_plain if w3.dtype == torch.bfloat16 else pk.affine_plain
+        z = affine(x, w3, bias)
         tied |= (z == pooled[:, None]) & many[:, None, :]
     per_p = (tied & (g != 0)[:, None, :]).sum(2)  # [b, n] for one tap
     per_r = per_p.clone()
@@ -1126,8 +1136,10 @@ def pool_times_phase(torch) -> dict:
     """`--times 6`: rows 6 and 7 in both precisions at the bf16 victim's
     three pool shapes (the float32 kernels on the same x in float32 and w3
     lifted to float32), one call and ten back to back, with the plain
-    versions and bounds, checking nothing. A checkout without the bf16
-    kernels (`--tree`) times the float32 ones only."""
+    versions and bounds, checking nothing; the float32 backward also ten
+    back to back on x with a run of duplicated rows (`f32_bwd_dup_ten`). A
+    checkout without the bf16 kernels (`--tree`) times the float32 ones
+    only."""
     from geoa3_tpu_torch.ops.kernels import _build, pool_matmul_kernel as pk
 
     print(f"pool kernel times of {CODE}")
@@ -1139,14 +1151,23 @@ def pool_times_phase(torch) -> dict:
         x32, w32 = x.float(), w3.float().contiguous()
         w32t = w32.transpose(1, 2).contiguous()
         pooled, cnt, rows = pk.pool_fwd(x32, w32, bias)
+        xd = x32.clone()
+        xd[0, 100:110] = 3.0 * xd[0, 100]
+        dup = pk.pool_fwd(xd, w32, bias)
         g_all = torch.randn(B, COUT, device="cuda", generator=gen)
         flops = 2.0 * B * N * CIN * COUT * taps
         r_ = dict(
             f32_ms=time_ms(lambda: pk.pool_fwd(x32, w32, bias)),
             f32_ten=ten_ms(lambda: pk.pool_fwd(x32, w32, bias)),
             f32_bound=bound_ms(nbytes(x32, w32, bias, pooled, cnt, rows), flops),
+            f32_bwd_ms=time_ms(lambda: pk.pool_bwd(g_all, x32, w32, w32t, bias,
+                                                   pooled, cnt, rows)),
             f32_bwd_ten=ten_ms(lambda: pk.pool_bwd(g_all, x32, w32, w32t, bias,
                                                    pooled, cnt, rows)),
+            # with phase 2's run of ten duplicated rows in cloud 0: its
+            # columns past MAX_TIES ties take the recompute
+            f32_bwd_dup_ten=ten_ms(lambda: pk.pool_bwd(g_all, xd, w32, w32t, bias,
+                                                       *dup)),
             # g, cnt, rows and w3t read once, dx written once (float32)
             f32_bwd_bound=bound_ms(nbytes(g_all, cnt, rows, w32t) + 4 * x.numel(),
                                    2.0 * int(cnt.sum()) * taps * CIN))

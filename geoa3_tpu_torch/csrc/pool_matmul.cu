@@ -39,12 +39,16 @@
 //    tile's result: a larger maximum replaces it, an equal one adds its count
 //    and appends its rows; a tile whose maximum is below the state's skips
 //    the ballots. The result equals a serial scan of the rows.
-// The backward then needs no second product: a warp per column adds
-// g/cnt * w3[t,:,c] into dx at the recorded rows (atomicAdd; sums vary in the
-// last bits from run to run). A column with more than kMaxTies ties
-// recomputes its z row by row with the forward's exact arithmetic, so it
-// finds the same ties.
-#include "common.cuh"
+// The backward then needs no second product: it is csrc/pool_gather.cuh's
+// gather over dx's rows, pool_bwd_gather<GatherF32, TAPS>, shared with the
+// bf16 pool: each dx row sums g/cnt * w3t[t,c,:] (float32 coefficient, each
+// product rounded on its own) over its entries (column c, tap t) in a fixed
+// order and is written once, so dx needs no memset and holds the same bits
+// from run to run. A column with more than kMaxTies ties recomputes its z
+// over the block's rows with the forward's exact chain (`tied_rows32`), so it
+// finds the same ties. Bound on the H100: bytes, dx written once (16.8 MB at
+// [32, 1024, 128]) plus g, cnt, the recorded rows and w3t read once.
+#include "pool_gather.cuh"  // kMaxTies, the backward; mma_bf16.cuh's cp.async
 
 #include <math.h>
 
@@ -56,29 +60,7 @@ constexpr int BK = 16;   // weight rows per pipeline stage
 constexpr int kStages = 4;
 constexpr int kSlabRows = BM + 2;  // one halo row above and below (taps 3)
 constexpr int kThreads = 256;
-constexpr int kMaxTies = 4;
-constexpr int kBwdWarps = 8;
 constexpr int kSmemMax = 232448;  // a block's opt-in shared memory, H100
-
-__device__ __forceinline__ int tap_shift(int taps, int t) {
-  return taps == 3 ? t - 1 : 0;
-}
-
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem,
-                                           int src_bytes) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
-               "l"(gmem), "r"(src_bytes));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
 
 __device__ __forceinline__ float lane_of(const float4& v, int q) {
   return q == 0 ? v.x : q == 1 ? v.y : q == 2 ? v.z : v.w;
@@ -138,7 +120,7 @@ pool_fwd_kernel(const float* __restrict__ x, const float* __restrict__ w3,
 #pragma unroll
     for (int q = tid; q < BK * BN / 4; q += kThreads) {
       const int kk = q / (BN / 4), cc = (q % (BN / 4)) * 4;
-      cp_async16(dst + kk * BN + cc, src + (size_t)kk * cout + cc, 16);
+      cp_async16z(dst + kk * BN + cc, src + (size_t)kk * cout + cc, 16);
     }
   };
   auto load_x = [&](int p0) {
@@ -147,8 +129,8 @@ pool_fwd_kernel(const float* __restrict__ x, const float* __restrict__ w3,
       const int r = q / per_row, k = (q - r * per_row) * 4;
       const int p = p0 - halo + r;
       const bool ok = p >= 0 && p < n;
-      cp_async16(Xs + r * ldx + k, ok ? X + (size_t)p * cin + k : X,
-                 ok ? 16 : 0);
+      cp_async16z(Xs + r * ldx + k, ok ? X + (size_t)p * cin + k : X,
+                  ok ? 16 : 0);
     }
   };
 
@@ -273,61 +255,65 @@ pool_fwd_kernel(const float* __restrict__ x, const float* __restrict__ w3,
   }
 }
 
-__global__ void pool_bwd_kernel(const float* __restrict__ w3t,
-                                const float* __restrict__ g,
-                                const int* __restrict__ cnt,
-                                const int* __restrict__ rows,
-                                const float* __restrict__ x,
-                                const float* __restrict__ bias,
-                                const float* __restrict__ pooled,
-                                const float* __restrict__ w3, int n, int cin,
-                                int cout, int taps, float* __restrict__ dx) {
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int b = blockIdx.y;
-  const int c = blockIdx.x * kBwdWarps + warp;
-  if (c >= cout) return;
-  const size_t o = (size_t)b * cout + c;
-  const float gv = g[o];
-  if (gv == 0.0f) return;
-  const int ct = cnt[o];
-  const float coef = gv / (float)ct;
-  float* DX = dx + (size_t)b * n * cin;
+// The forward's chain for column c at window rows p0 .. p0 + nrows - 1
+// (nrows <= 32), one lane a row: fmaf over (tap, k) ascending from 0 with
+// zero rows outside the cloud, then __fadd_rn of the bias, exactly as
+// pool_fwd_kernel computes z. Bit j is set where row p0 + j lies in the
+// cloud and its z equals zmax; every lane gets the same bits. Column c's
+// weights come from w3t's contiguous rows t cout + c (w3's column c, the
+// same values). Not inlined: the common path keeps its registers.
+__device__ __noinline__ uint32_t tied_rows32(const float* X, const float* w3t, int n, int cin,
+                                             int cout, int taps, int c, int p0, int nrows,
+                                             float bc, float zmax, int lane) {
+  const int p = p0 + lane;
+  float acc = 0.0f;
+  for (int t = 0; t < taps; ++t) {
+    const int pr = p + tap_shift(taps, t);
+    const bool in = pr >= 0 && pr < n;
+    const float* xr = X + (size_t)(in ? pr : 0) * cin;
+    const float* wr = w3t + ((size_t)t * cout + c) * cin;
+    for (int k = 0; k < cin; k += 4) {
+      const float4 xv = in ? *reinterpret_cast<const float4*>(xr + k)
+                           : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+      const float4 wv = __ldg(reinterpret_cast<const float4*>(wr + k));
+      acc = fmaf(xv.x, wv.x, acc);
+      acc = fmaf(xv.y, wv.y, acc);
+      acc = fmaf(xv.z, wv.z, acc);
+      acc = fmaf(xv.w, wv.w, acc);
+    }
+  }
+  return __ballot_sync(GEOA3_FULL_MASK,
+                       lane < nrows && p >= 0 && p < n && __fadd_rn(acc, bc) == zmax);
+}
 
-  if (ct <= kMaxTies) {
-    for (int q = 0; q < ct; ++q) {
-      const int p = rows[o * kMaxTies + q];
-      for (int t = 0; t < taps; ++t) {
-        const int row = p + tap_shift(taps, t);
-        if (row < 0 || row >= n) continue;
-        const float* wr = w3t + ((size_t)t * cout + c) * cin;
-        for (int k = lane; k < cin; k += 32)
-          atomicAdd(DX + (size_t)row * cin + k, coef * wr[k]);
-      }
-    }
-    return;
+// The gather's precision policy (csrc/pool_gather.cuh) in float32: w3t's
+// four channels as one float4, the coefficient g / cnt in float32, dx
+// float32, the tied rows of a window found again by tied_rows32.
+struct GatherF32 {
+  using X = float;
+  using W = float;
+  using W4 = float4;
+  __device__ static float coef(float g, int ct) { return g / (float)ct; }
+  __device__ static float4 widen(float4 w) { return w; }
+  __device__ static uint32_t tied_rows(const float* X, const float*, const float* w3t, int n,
+                                       int cin, int cout, int taps, int c, int p0, int nrows,
+                                       float bc, float zmax, int lane) {
+    return tied_rows32(X, w3t, n, cin, cout, taps, c, p0, nrows, bc, zmax, lane);
   }
-  // more ties than were recorded: find them again, one row per lane
-  const float* X = x + (size_t)b * n * cin;
-  const float zmax = pooled[o];
-  const float bc = bias[c];
-  for (int p = lane; p < n; p += 32) {
-    float acc = 0.0f;
-    for (int t = 0; t < taps; ++t) {
-      const int pr = p + tap_shift(taps, t);
-      for (int k = 0; k < cin; ++k) {
-        const float xv = (pr >= 0 && pr < n) ? X[(size_t)pr * cin + k] : 0.0f;
-        acc = fmaf(xv, w3[((size_t)t * cin + k) * cout + c], acc);
-      }
-    }
-    if (__fadd_rn(acc, bc) != zmax) continue;
-    for (int t = 0; t < taps; ++t) {
-      const int row = p + tap_shift(taps, t);
-      if (row < 0 || row >= n) continue;
-      const float* wr = w3t + ((size_t)t * cout + c) * cin;
-      for (int k = 0; k < cin; ++k)
-        atomicAdd(DX + (size_t)row * cin + k, coef * wr[k]);
-    }
-  }
+};
+
+template <int TAPS>
+cudaError_t launch_bwd(const float* w3t, const float* g, const int* cnt, const int* rows,
+                       const float* x, const float* bias, const float* pooled, const float* w3,
+                       int B, int n, int cin, int cout, float* dx, cudaStream_t s) {
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      pool_bwd_gather<GatherF32, TAPS>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)sizeof(BwdSmem));
+  if (attr != cudaSuccess) return attr;
+  dim3 grid((n + kBwdRows - 1) / kBwdRows, B);
+  pool_bwd_gather<GatherF32, TAPS><<<grid, kBwdThreads, sizeof(BwdSmem), s>>>(
+      w3t, g, cnt, rows, x, bias, pooled, w3, n, cin, cout, dx);
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -346,14 +332,25 @@ extern "C" int geoa3_pool_fwd(const float* x, const float* w3,
   return (int)cudaGetLastError();
 }
 
+// The input cotangent of geoa3_pool_fwd for the pooled cotangent g
+// [B, cout] -> dx [B, n, cin], every element written once (no memset). w3t
+// is w3 as [taps, cout, cin]; g, cnt, rows, x, w3t and dx 16-byte aligned
+// (bulk copies and float4 loads). cin % 16 == 0, cout % 128 == 0, taps 1 or
+// 3: every shape geoa3_pool_fwd takes.
 extern "C" int geoa3_pool_bwd(const float* w3t, const float* g, const int* cnt,
                               const int* rows, const float* x,
                               const float* bias, const float* pooled,
                               const float* w3, int B, int n, int cin, int cout,
                               int taps, float* dx, void* stream) {
-  dim3 grid((cout + kBwdWarps - 1) / kBwdWarps, B);
-  pool_bwd_kernel<<<grid, kBwdWarps * 32, 0,
-                    static_cast<cudaStream_t>(stream)>>>(
-      w3t, g, cnt, rows, x, bias, pooled, w3, n, cin, cout, taps, dx);
-  return (int)cudaGetLastError();
+  if (cin % 16 != 0 || cout % 128 != 0 || (taps != 1 && taps != 3) ||
+      reinterpret_cast<uintptr_t>(g) % 16 || reinterpret_cast<uintptr_t>(cnt) % 16 ||
+      reinterpret_cast<uintptr_t>(rows) % 16 || reinterpret_cast<uintptr_t>(x) % 16 ||
+      reinterpret_cast<uintptr_t>(w3t) % 16 || reinterpret_cast<uintptr_t>(dx) % 16)
+    return (int)cudaErrorInvalidValue;
+  if (B == 0 || n == 0) return (int)cudaSuccess;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return (int)(taps == 3 ? launch_bwd<3>(w3t, g, cnt, rows, x, bias, pooled, w3, B, n, cin,
+                                         cout, dx, s)
+                         : launch_bwd<1>(w3t, g, cnt, rows, x, bias, pooled, w3, B, n, cin,
+                                         cout, dx, s));
 }

@@ -2,7 +2,8 @@
 
 Replaces geoa3_tpu/ops/pallas/pool_matmul_kernel.py:_fwd_kernel and
 _bwd_kernel (`pool_affine_max` with one global segment), which PointNet's
-three global pools run in eval mode. Source: csrc/pool_matmul.cu.
+three global pools run in eval mode. Sources: csrc/pool_matmul.cu and the
+backward's csrc/pool_gather.cuh.
 
 Bound on the H100: operations (25.8 GFLOP of float32 for the kernel-3 conv5
 pool at [32, 1024, 128] -> 1024, 8.6 for each 1x1 T-Net pool). The forward
@@ -12,11 +13,18 @@ a thread, the tile's x rows staged once in shared memory for every tap and
 the weights streamed through a four-stage cp.async ring. Its epilogue takes
 the max over points in registers (shuffles and ballots), so the [b, n, 1024]
 activation never reaches device memory, and records each column's tie count
-and first `MAX_TIES` tied rows (ascending, 0 past the count); the backward
-adds g/cnt * w3[t, :, c] at those rows (shifted by tap) and needs no second
-product. Each output is one fmaf chain from 0 in (tap, k) order plus the
-bias, which the backward's recompute of a column with more ties repeats. The
-TPU kernel runs split-bf16 products; this one stays float32 like the victim.
+and first `MAX_TIES` tied rows (ascending, 0 past the count). The backward
+needs no second product: it is the gather over dx's rows of
+csrc/pool_gather.cuh, shared with the bf16 mode below. A block takes a
+cloud's 128-row tile, lists its (row, column, tap) entries of tied rows with
+a cotangent, sorts them by row, splits them evenly over its warps and writes
+each dx row once as the sum of g/cnt * w3[t, :, c] (float32, each product
+rounded on its own, in a fixed order), with no memset and no atomics, so dx
+holds the same bits every run. Each forward output is one fmaf chain from 0
+in (tap, k) order plus the bias, which the backward's recompute of a column
+with more ties repeats (`tied_rows32`). Bound: bytes (dx written once, g,
+cnt, rows and w3t read once). The TPU kernel runs split-bf16 products; this
+one stays float32 like the victim.
 
 The bf16 victim (`models.registry.make_eval_fn(..., dtype=torch.bfloat16)`)
 runs the TPU kernel's single-pass mode (`f32_exact=False`) instead:
@@ -47,7 +55,7 @@ import torch
 
 from geoa3_tpu_torch.ops.kernels import _build
 
-MAX_TIES = 4  # kMaxTies in csrc/pool_matmul.cu
+MAX_TIES = 4  # kMaxTies in csrc/pool_gather.cuh
 BLOCK_COUT = 128  # BN in csrc/pool_matmul.cu
 BLOCK_CIN = 16  # BK in csrc/pool_matmul.cu
 # the x slab (130 rows of cin + 4 floats) beside the weight ring and the
@@ -133,15 +141,21 @@ def pool_fwd(x, w3, bias):
 
 def pool_bwd(g, x, w3, w3t, bias, pooled, cnt, rows):
     """CUDA kernel: the input cotangent of `pool_fwd` for the pooled
-    cotangent g [B, cout] -> dx [B, n, cin]. w3t is w3 laid out as
-    [taps, cout, cin], so that a column's weights are one row."""
+    cotangent g [B, cout] -> dx [B, n, cin], written once by the kernel
+    (float32 sums in a fixed order, so the same bits every run). w3t is w3
+    laid out as [taps, cout, cin], so that a column's weights are one row."""
     B, n, cin, cout, taps = _check(x, w3, bias)
     _build.check_cuda(w3t, "w3t", torch.float32, (taps, cout, cin))
     _build.check_cuda(g, "g", torch.float32, (B, cout))
     _build.check_cuda(pooled, "pooled", torch.float32, (B, cout))
     _build.check_cuda(cnt, "cnt", torch.int32, (B, cout))
     _build.check_cuda(rows, "rows", torch.int32, (B, cout, MAX_TIES))
-    dx = torch.zeros(B, n, cin, dtype=torch.float32, device=x.device)
+    if rows.data_ptr() % 16 or cnt.data_ptr() % 16 or w3t.data_ptr() % 16:
+        raise ValueError("the pool backward copies cnt and rows and reads w3t in 16-byte "
+                         "pieces: they must start on a 16-byte boundary")
+    if g.data_ptr() % 16:  # the kernel bulk-copies g: an aligned copy of it
+        g = g.clone()
+    dx = torch.empty(B, n, cin, dtype=torch.float32, device=x.device)
     _build.launch("geoa3_pool_bwd", w3t, g, cnt, rows, x, bias, pooled, w3,
                   B, n, cin, cout, taps, dx)
     pool_bwd.launches += 1

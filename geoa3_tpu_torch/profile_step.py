@@ -43,9 +43,9 @@ _GROUPS = [
     (re.compile(r"pool_fwd_bf16_kernel"), "pool_fwd_bf16 (port)"),
     (re.compile(r"gmlp_bf16_fwd_(tiles|finish|resident|wgmma)"), "group_mlp_fwd_bf16 (port)"),
     (re.compile(r"gmlp_bf16_bwd_(tiles|resident|wgmma)"), "group_mlp_bwd_bf16 (port)"),
-    (re.compile(r"pool_bwd_bf16_gather"), "pool_bwd_bf16 (port)"),
+    (re.compile(r"pool_bwd_gather.*GatherBf16"), "pool_bwd_bf16 (port)"),
     (re.compile(r"pool_fwd_kernel"), "pool_fwd (port)"),
-    (re.compile(r"pool_bwd_kernel"), "pool_bwd (port)"),
+    (re.compile(r"pool_bwd_gather.*GatherF32"), "pool_bwd (port)"),
     (re.compile(r"nn1_(tile|finish)_kernel"), "nn1_payload (port)"),
     (re.compile(r"curv_term_kernel"), "curv_term (port)"),
     (re.compile(r"kappa_select_kernel"), "kappa select (port)"),

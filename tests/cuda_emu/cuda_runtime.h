@@ -9,14 +9,14 @@
 // emu_launch of the blocks one after another, since g++ cannot parse the
 // launch syntax (a grid may be a dim3 of x and y blocks). Timing and the
 // memory model are not emulated; the index arithmetic, the barriers'
-// placement, the shuffles, ballots, matches and redux reductions, the atomics (under
-// one lock) and the floating-point operations are (fmaf is the C library's,
-// exact). The 1D bulk copy (TMA) is a synchronous copy that checks its
-// alignment, stays inside the launch's dynamic shared memory and, where a
-// test program sets g_bulk_lo / g_bulk_hi or g_bulk_ranges, reads nothing
-// outside them; mbarriers
-// count arrivals and bytes under one lock, and a wait sleeps until its phase
-// has completed.
+// placement, the shuffles, ballots (of a warp or a half-warp), matches and
+// redux reductions, the atomics (under one lock) and the floating-point
+// operations are (fmaf is the C library's, exact). The 1D bulk copy (TMA)
+// is a synchronous copy that checks its alignment, stays inside the
+// launch's dynamic shared memory and, where a test program sets g_bulk_lo /
+// g_bulk_hi or g_bulk_ranges, reads nothing outside them; mbarriers count
+// arrivals and bytes under one lock, and a wait sleeps until its phase has
+// completed.
 // ldmatrix, mma.sync m16n8k16 bf16 and the bf16 conversions are stand-ins
 // with the PTX ISA's fragment layouts: they check the fragments' indices,
 // not the tensor cores' rounding (the mma sums its terms k ascending).
@@ -205,14 +205,28 @@ T __shfl_up_sync(unsigned, T v, unsigned delta, int width = 32) {
   return emu_shfl_from(v, (lane & (width - 1)) < (int)delta ? lane : lane - (int)delta);
 }
 
-// every lane of the warp must call it
-inline unsigned __ballot_sync(unsigned, bool pred) {
+// every lane of the warp must call it, or, with the mask of one half-warp
+// (0x0000ffff, 0xffff0000: the float32 pool's tie scan), every lane of that
+// half, whatever the other half does meanwhile
+inline std::barrier<>* g_half_barrier[64];
+inline unsigned __ballot_sync(unsigned mask, bool pred) {
   const int t = threadIdx.x;
+  std::barrier<>* bar = g_warp_barrier[t / 32];
+  int lo = t & ~31, hi = lo + 32;
+  if (mask != ~0u) {
+    if (mask != 0xffffu << (t & 16)) {
+      fprintf(stderr, "__ballot_sync: mask %08x is neither the warp nor lane %d's half\n",
+              mask, t & 31);
+      std::abort();
+    }
+    bar = g_half_barrier[t / 16];
+    lo = t & ~15, hi = lo + 16;
+  }
   g_lanes[t] = pred ? 1u : 0u;
-  g_warp_barrier[t / 32]->arrive_and_wait();
+  bar->arrive_and_wait();
   unsigned m = 0;
-  for (int l = 0; l < 32; ++l) m |= (unsigned)g_lanes[(t & ~31) + l] << l;
-  g_warp_barrier[t / 32]->arrive_and_wait();
+  for (int l = lo; l < hi; ++l) m |= (unsigned)g_lanes[l] << (l & 31);
+  bar->arrive_and_wait();
   return m;
 }
 
@@ -622,6 +636,8 @@ void emu_launch(Config cfg, const std::function<void()>& kernel) {
     std::vector<std::barrier<>*> warps;
     for (unsigned w = 0; w < (threads + 31) / 32; ++w)
       warps.push_back(g_warp_barrier[w] = new std::barrier<>(32));
+    for (unsigned h = 0; h < (threads + 15) / 16; ++h)
+      warps.push_back(g_half_barrier[h] = new std::barrier<>(16));
     for (unsigned w = 0; w < threads / 128; ++w)
       warps.push_back(g_wg_barrier[w] = new std::barrier<>(128));
     std::vector<std::thread> ts;
