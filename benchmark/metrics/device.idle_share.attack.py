@@ -1,0 +1,6 @@
+"""Share of the traced attack window in which no device operation ran."""
+from benchmark.layers import idle_share
+
+
+def read(ctx):
+    return idle_share(ctx, "attack")
